@@ -1,0 +1,34 @@
+"""Env-knob parsing (copy of elasticdl_tpu/common/env_utils.py, trimmed
+to the numeric knobs the serving path reads)."""
+
+import os
+
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+
+logger = _logger_factory("elasticdl_tpu_torch.common.env_utils")
+
+
+def env_int(name, default):
+    """int(os.environ[name]) with ``default`` for unset/empty; a
+    non-numeric value logs a warning and falls back."""
+    raw = os.environ.get(name, "")
+    if not raw:
+        return int(default)
+    try:
+        return int(raw)
+    except ValueError:
+        logger.warning("ignoring non-numeric %s=%r", name, raw)
+        return int(default)
+
+
+def env_float(name, default):
+    raw = os.environ.get(name, "")
+    if not raw:
+        return float(default)
+    try:
+        return float(raw)
+    except ValueError:
+        logger.warning("ignoring non-numeric %s=%r", name, raw)
+        return float(default)

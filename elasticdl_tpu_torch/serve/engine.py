@@ -1,0 +1,185 @@
+"""Model-version lifecycle: load, watch, warm, atomically swap (port of
+elasticdl_tpu/serve/engine.py, single-pod dense mode).
+
+The engine owns the active ``ServingModel`` reference. A watcher thread
+polls the export's signature (``EDL_SERVE_WATCH_SECS``); when it
+changes, the replacement version is built and WARMED in the background
+while the active version keeps serving, then swapped in with one
+reference assignment. A batch that already entered ``_run_batch`` holds
+its own model reference, so in-flight requests finish on the version
+that admitted them.
+
+Not ported yet: the PS-backed embedding cache and the router-directed
+(fleet) mode.
+"""
+
+import threading
+import time
+
+from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.serve.batcher import MicroBatcher, _env_num
+from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
+
+logger = _logger_factory("elasticdl_tpu_torch.serve.engine")
+
+WATCH_SECS_ENV = "EDL_SERVE_WATCH_SECS"
+
+
+class ServingEngine:
+    def __init__(self, model_zoo, export_dir, model_def="", model_params="",
+                 compute_dtype=None, max_batch=None, max_delay_ms=None,
+                 queue_depth=None, deadline_ms=None, watch_secs=None,
+                 device="cuda"):
+        self.model_zoo = model_zoo
+        self.export_dir = export_dir
+        self.device = resolve_device(device)
+        self._compute_dtype = compute_dtype
+        self.spec = get_model_spec(
+            model_zoo, model_def=model_def, model_params=model_params
+        )
+        if watch_secs is None:
+            watch_secs = _env_num(WATCH_SECS_ENV, 2.0, float)
+        self._watch_secs = float(watch_secs)
+        self._model = None          # the active ServingModel
+        self._swap_lock = threading.Lock()  # guards the stamp CAS only
+        self._template = None       # (features, rows) of a recent batch
+        self._stopped = threading.Event()
+        self.swaps = 0
+        self.batcher = MicroBatcher(
+            self._run_batch,
+            max_batch=max_batch,
+            max_delay_ms=max_delay_ms,
+            queue_depth=queue_depth,
+            default_deadline_ms=deadline_ms,
+        )
+        self._watcher = threading.Thread(
+            target=self._watch_loop, name="edl-serve-watcher", daemon=True
+        )
+
+    # ------------------------------------------------------------------
+    def start(self, block=False):
+        """Try the initial load, then start the export watcher. With
+        ``block`` the call waits for a loadable export (tests);
+        otherwise the role stays unloaded (predict answers
+        FAILED_PRECONDITION) until the watcher sees one."""
+        while True:
+            try:
+                self._load_and_swap()
+            except FileNotFoundError:
+                if not block:
+                    logger.info(
+                        "no export at %s yet; serving unready until one "
+                        "appears", self.export_dir,
+                    )
+                    break
+                time.sleep(0.2)
+                continue
+            break
+        self._watcher.start()
+        return self
+
+    @property
+    def loaded(self):
+        return self._model is not None
+
+    @property
+    def model(self):
+        return self._model
+
+    def model_info(self):
+        model = self._model
+        return {
+            "loaded": model is not None,
+            "step": model.step if model is not None else -1,
+            "stamp": model.stamp if model is not None else "",
+            "model_zoo": str(self.model_zoo),
+            "max_batch": self.batcher.max_batch,
+        }
+
+    # ------------------------------------------------------------------
+    def _build(self):
+        return ServingModel(
+            self.spec,
+            self.export_dir,
+            max_batch=self.batcher.max_batch,
+            compute_dtype=self._compute_dtype,
+            device=self.device,
+        )
+
+    def _load_and_swap(self):
+        # build + warm OUTSIDE the swap lock: the lock guards only the
+        # stamp compare-and-swap; a load that loses the race to the
+        # same stamp drops its replacement
+        previous = self._model
+        replacement = self._build()
+        if previous is not None and replacement.stamp == previous.stamp:
+            return False
+        template = self._template
+        if template is not None:
+            try:
+                replacement.warm(template[0], template[1])
+            except Exception:
+                logger.exception(
+                    "warm-up of export %s failed; swapping cold",
+                    replacement.stamp,
+                )
+        with self._swap_lock:
+            previous = self._model
+            if previous is not None and replacement.stamp == previous.stamp:
+                return False
+            self._model = replacement
+        if previous is not None:
+            self.swaps += 1
+            logger.info(
+                "model version swapped: step %d -> %d (%s)",
+                previous.step, replacement.step, replacement.stamp,
+            )
+        else:
+            logger.info(
+                "model loaded: step %d (%s) on %s",
+                replacement.step, replacement.stamp, self.device,
+            )
+        return True
+
+    def _watch_loop(self):
+        while not self._stopped.wait(self._watch_secs):
+            try:
+                signature = export_signature(self.export_dir)
+                model = self._model
+                if signature is None:
+                    continue
+                if model is not None and signature == model.stamp:
+                    continue
+                self._load_and_swap()
+            except Exception:
+                # a torn mid-write export fails here and succeeds on a
+                # later tick; the active version keeps serving
+                logger.exception("export watch tick failed")
+
+    # ------------------------------------------------------------------
+    def _run_batch(self, features, rows):
+        model = self._model  # one read: in-flight batches keep theirs
+        if model is None:
+            raise RuntimeError("no model loaded")
+        if self._template is None:
+            self._template = (features, rows)
+        outputs = model.predict(features, rows)
+        return outputs, model.step, model.stamp
+
+    def predict(self, features, rows, deadline_secs=None):
+        """The servicer's entry: admission -> batch -> forward."""
+        return self.batcher.submit(features, rows, deadline_secs)
+
+    # ------------------------------------------------------------------
+    def drain(self, timeout=30.0):
+        """SIGTERM: stop admitting, flush the queue, stop the watcher.
+        Returns the flushed-request count."""
+        self._stopped.set()
+        flushed = self.batcher.drain(timeout=timeout)
+        if self._watcher.is_alive():
+            self._watcher.join(timeout=self._watch_secs + 1.0)
+        return flushed
