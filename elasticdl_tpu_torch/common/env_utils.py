@@ -1,5 +1,5 @@
 """Env-knob parsing (copy of elasticdl_tpu/common/env_utils.py, trimmed
-to the numeric knobs the serving path reads)."""
+to the knobs the serving and training paths read)."""
 
 import os
 
@@ -32,3 +32,7 @@ def env_float(name, default):
     except ValueError:
         logger.warning("ignoring non-numeric %s=%r", name, raw)
         return float(default)
+
+
+def env_str(name, default=""):
+    return os.environ.get(name, default)

@@ -2,12 +2,22 @@
 elasticdl_tpu/models/registry.py).
 
 A model-zoo module exports the JAX package's contract names with torch
-types: ``custom_model()`` -> an ``nn.Module`` whose ``forward(features)``
-maps a batch to outputs, and ``params_from_flax(flat)`` -> its
-state_dict from the export bundle's flat flax names (the bundle format
-both packages share). That is all serving reads;
-the training contract (``loss``, ``optimizer``, ``dataset_fn``, ...)
-joins with the training slice.
+types:
+
+- ``custom_model()`` -> an ``nn.Module`` whose ``forward(features)``
+  maps a batch to outputs
+- ``params_from_flax(flat)`` -> its state_dict from the export bundle's
+  flat flax names (port addition: the bundle format both packages share)
+- ``loss(labels, predictions)`` -> per-sample loss vector (torch)
+- ``optimizer()`` -> a ``train.optimizers.GradientTransformation``
+- ``dataset_fn(dataset, mode, metadata)`` -> maps a pipeline.Dataset of
+  raw records to a Dataset of (features, label) examples
+- ``eval_metrics_fn()`` -> {name: train.metrics.Metric} (optional)
+- ``sparse_embedding_specs()`` -> host-PS tables (optional; a model
+  with them does not train on the port yet)
+
+Serving reads only the first two, so a serving-only module may leave
+out the training names; the trainers raise when one is missing.
 """
 
 import ast
@@ -19,12 +29,29 @@ import sys
 
 
 class ModelSpec:
-    def __init__(self, custom_model, params_from_flax, module=None):
+    def __init__(self, custom_model, params_from_flax, loss=None,
+                 optimizer=None, dataset_fn=None, eval_metrics_fn=None,
+                 sparse_embedding_specs=None, module=None):
         self.custom_model = custom_model
         # {flax name: array} -> state_dict (port addition: exports carry
         # the JAX package's flat flax names)
         self.params_from_flax = params_from_flax
+        self.loss = loss
+        self.optimizer = optimizer
+        self.dataset_fn = dataset_fn
+        self.eval_metrics_fn = eval_metrics_fn or (lambda: {})
+        self.sparse_embedding_specs = sparse_embedding_specs
         self.module = module
+
+    def require_training(self):
+        """Raise unless the module exports the training contract."""
+        missing = [name for name in ("loss", "optimizer", "dataset_fn")
+                   if getattr(self, name) is None]
+        if missing:
+            raise ValueError(
+                "Model module %s does not define required %s for training"
+                % (getattr(self.module, "__name__", self.module), missing)
+            )
 
 
 def parse_params_string(params: str) -> dict:
@@ -119,8 +146,14 @@ def get_model_spec(module_path_or_name, model_def="",
         custom_model = functools.partial(
             custom_model, **parse_params_string(model_params)
         )
+    optional = lambda name: _resolve(module, name, required=False)
     return ModelSpec(
         custom_model=custom_model,
         params_from_flax=_resolve(module, "params_from_flax"),
+        loss=optional("loss"),
+        optimizer=optional("optimizer"),
+        dataset_fn=optional("dataset_fn"),
+        eval_metrics_fn=optional("eval_metrics_fn"),
+        sparse_embedding_specs=optional("sparse_embedding_specs"),
         module=module,
     )

@@ -1,10 +1,10 @@
-"""Decoder-only transformer LM (port of elasticdl_tpu/models/transformer.py,
-the serving forward).
+"""Decoder-only transformer LM (port of elasticdl_tpu/models/transformer.py:
+the model and the model-zoo contract).
 
 Pre-LayerNorm blocks, tanh-approximate GELU MLP, rotary position
 embeddings, untied LM head, no biases -- the flax model's function, as
 ``nn.Module``s. Attention goes through ``ops.attention`` and so through
-the K4 flash kernel on the card.
+the flash kernels on the card: K4 forward, K5 and K6 backward.
 
 Numerics kept from flax: LayerNorm epsilon is 1e-6 (torch's default is
 1e-5), ``nn.gelu`` is the tanh approximation, and rotary angles are
@@ -26,7 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from elasticdl_tpu_torch.data.example import decode_example
 from elasticdl_tpu_torch.ops.attention import dot_product_attention
+from elasticdl_tpu_torch.train import metrics
+from elasticdl_tpu_torch.train.losses import sparse_softmax_cross_entropy
+from elasticdl_tpu_torch.train.optimizers import create_optimizer
 
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -111,6 +115,11 @@ class TransformerLM(nn.Module):
             x = block(x)
         return self.lm_head(self.ln_f(x))
 
+    def flax_params(self, state):
+        """``{name: tensor}`` in this module's names -> the export's flat
+        flax names (train/export.py reads it)."""
+        return params_to_flax(state, self.num_heads)
+
 
 # ---------------------------------------------------------------------------
 # flax names <-> state_dict
@@ -191,7 +200,7 @@ def params_to_flax(state_dict, num_heads):
 
 
 # ---------------------------------------------------------------------------
-# Model-zoo contract (serving slice: the model and its weight mapping)
+# Model-zoo contract
 # ---------------------------------------------------------------------------
 
 
@@ -207,3 +216,29 @@ def custom_model(vocab_size=32000, num_layers=12, num_heads=12,
         embed_dim=embed_dim,
         attention_impl=attention_impl,
     )
+
+
+def loss(labels, predictions):
+    """Next-token prediction: logits at t predict the token at t+1.
+    Returns a per-sample vector (the trainer applies the batch mask)."""
+    logits = predictions[:, :-1]
+    targets = labels[:, 1:]
+    per_token = sparse_softmax_cross_entropy(targets, logits)
+    return per_token.mean(dim=-1)
+
+
+def optimizer():
+    return create_optimizer("AdamW", learning_rate=3e-4, weight_decay=0.01)
+
+
+def dataset_fn(dataset, mode=None, metadata=None):
+    def parse(payload):
+        tokens = decode_example(payload)["tokens"].astype(np.int32)
+        # LM: the sequence is both input and label (the shift is in loss)
+        return tokens, tokens
+
+    return dataset.map(parse)
+
+
+def eval_metrics_fn():
+    return {"accuracy": metrics.Accuracy()}

@@ -60,6 +60,23 @@ KERNELS = {
             ),
         },
     ),
+    "flash_bwd": (
+        "flash_bwd.cu",
+        {
+            "edl_flash_bwd_dq": (
+                # q, k, v, do, lse, delta, dq, bh, seq, head_dim, is_bf16,
+                # causal, sm_scale, stream
+                [_VP] * 7 + [_INT] * 5 + [_FLOAT, _VP],
+                _INT,
+            ),
+            "edl_flash_bwd_dkv": (
+                # q, k, v, do, lse, delta, dk, dv, bh, seq, head_dim,
+                # is_bf16, causal, sm_scale, stream
+                [_VP] * 8 + [_INT] * 5 + [_FLOAT, _VP],
+                _INT,
+            ),
+        },
+    ),
 }
 
 _lock = threading.Lock()

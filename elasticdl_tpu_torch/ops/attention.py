@@ -4,9 +4,10 @@ elsewhere.
 Port of elasticdl_tpu/ops/attention.py. ``dot_product_attention`` is
 the op model code calls:
 
-- ``"flash"`` -- ops/flash_attention.py: the K4 kernel for CUDA
-                 tensors (which raises on a dtype or head_dim it does
-                 not take), its plain version for CPU tensors
+- ``"flash"`` -- ops/flash_attention.py ``FlashAttention``: the K4
+                 kernel forward and the K5/K6 kernels backward for CUDA
+                 tensors (which raise on a dtype or head_dim they do
+                 not take), their plain versions for CPU tensors
 - ``"xla"``   -- the plain softmax attention below (name kept from the
                  JAX package); taken only when asked for by name
 - ``"auto"``  -- ``"flash"``
@@ -35,20 +36,12 @@ def xla_attention(q, k, v, causal=False, sm_scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
-def _flash_bhsd(q, k, v, causal, sm_scale):
-    batch, heads, seq, head_dim = q.shape
-    merge = lambda t: t.reshape(batch * heads, seq, head_dim).contiguous()
-    o, _ = _flash.flash_attention_fwd(
-        merge(q), merge(k), merge(v), causal=causal, sm_scale=sm_scale
-    )
-    return o.reshape(batch, heads, seq, head_dim)
-
-
 def dot_product_attention(q, k, v, causal=False, sm_scale=None,
                           impl="auto"):
     """Attention on (batch, heads, seq, dim) tensors."""
     if impl in ("auto", "flash"):
-        return _flash_bhsd(q, k, v, causal, sm_scale)
+        return _flash.flash_attention(q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
     if impl == "xla":
         return xla_attention(q, k, v, causal=causal, sm_scale=sm_scale)
     raise ValueError("unknown attention impl %r" % (impl,))

@@ -25,6 +25,7 @@ from elasticdl_tpu_torch.common.log_utils import (
 )
 from elasticdl_tpu_torch.common.tensor_utils import as_tensor
 from elasticdl_tpu_torch.train.export import load_exported
+from elasticdl_tpu_torch.train.train_state import resolve_dtype
 
 logger = _logger_factory("elasticdl_tpu_torch.serve.model")
 
@@ -51,17 +52,6 @@ def export_signature(path):
     except (OSError, ValueError):
         return None
     return "%d:%d:%d" % (step, npz_stat.st_mtime_ns, manifest_stat.st_mtime_ns)
-
-
-def resolve_dtype(dtype):
-    """A torch floating dtype from a name ('bfloat16', 'float32', ...);
-    None and torch dtypes pass through."""
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    resolved = getattr(torch, str(dtype), None)
-    if not isinstance(resolved, torch.dtype) or not resolved.is_floating_point:
-        raise ValueError("compute dtype %r is not a torch float type" % dtype)
-    return resolved
 
 
 class ServingModel:

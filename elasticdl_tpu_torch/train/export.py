@@ -35,6 +35,27 @@ def export_state_dict(params, path, step=0):
     return path
 
 
+def export_train_state(state, path):
+    """Write a ``TrainState``'s params as an export bundle at its step.
+    The params go out under the export's flax names through the
+    model's ``flax_params`` (``state.to_flax``), so a state trained on
+    the port serves on either package. Models with mutable state
+    (buffers) are not exported yet: the bundle has no mapping for
+    their names."""
+    if state.model_state:
+        raise NotImplementedError(
+            "export of a model with buffers %s is not ported yet"
+            % sorted(state.model_state)
+        )
+    params = state.params
+    if state.to_flax is not None:
+        params = state.to_flax(params)
+    else:
+        params = {name: t.detach().float().cpu().numpy()
+                  for name, t in params.items()}
+    return export_state_dict(params, path, step=int(state.step))
+
+
 def load_exported(path):
     """Returns (params, model_state, step); params and model_state are
     flat {name: ndarray} dicts with the ``params/`` and

@@ -115,3 +115,33 @@ def test_serve_role_defaults_to_cuda_and_raises_without_a_card(tmp_path):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         ServeRole(args)
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card(
+        tmp_path):
+    """The training slice's modules are among those imported with JAX
+    blocked above, and its entry points (LocalExecutor, TorchTrainer)
+    default to the card and refuse to run without one."""
+    modules = _port_modules()
+    for name in ("train.local_executor", "worker.trainer", "train.step_fns",
+                 "train.optimizers", "train.health", "data.readers",
+                 "data.example", "train.metrics"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    import inspect
+
+    from elasticdl_tpu_torch.models import transformer
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    for entry in (LocalExecutor, TorchTrainer):
+        default = inspect.signature(entry).parameters["device"].default
+        assert default == "cuda", entry
+    with pytest.raises(RuntimeError, match="cuda"):
+        LocalExecutor("elasticdl_tpu_torch.models.transformer",
+                      training_data=str(tmp_path))
+    model = transformer.TransformerLM(vocab_size=8, num_layers=1,
+                                      num_heads=1, embed_dim=64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchTrainer(model, transformer.loss, transformer.optimizer())
