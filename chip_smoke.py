@@ -10,7 +10,8 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
 
 1. build -- every hand-written kernel, one nvcc per source, all started
    together, from the checkout's sources (K4, ops/csrc/flash_fwd.cu;
-   K5 and K6, ops/csrc/flash_bwd.cu), with ptxas's report per entry;
+   K5 and K6, ops/csrc/flash_bwd.cu; K1-K3, ops/csrc/embedding_tier.cu),
+   with ptxas's report per entry;
 2. kernels -- K4 against its plain PyTorch version on the card at the
    serving and training shape and at five more (fp32, non-causal,
    head_dim 128, ragged S = 1000), each under the tolerance printed
@@ -23,7 +24,15 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    timed alone beside its own plain version, and the backward of
    ``scaled_dot_product_attention`` (the yardstick for K5 + K6
    together);
-4. serve -- zoo-width TransformerLM weights (vocab 32000, 12 layers, 12
+4. tier kernels -- K1 (gather-merge), K2 (set rows) and K3
+   (scatter-apply), ops/csrc/embedding_tier.cu, against their plain
+   versions at deepfm's deployment shapes for both tables (d 8 and 1):
+   K1 and K2 bit for bit, K3 for each of sgd, momentum, nesterov,
+   adagrad and adam within the tolerance printed with it; each timed
+   with CUDA events (L2 flushed) beside its plain version, its bound
+   and a library yardstick (K1 index_select + torch.where, K2
+   index_copy_, K3 none);
+5. serve -- zoo-width TransformerLM weights (vocab 32000, 12 layers, 12
    heads, d 768) made with numpy from a seed and written as an export
    bundle; the port's ServeRole on a free port (``--device cuda
    --compute_dtype bfloat16 --max_batch 8``); 8 concurrent one-row
@@ -32,7 +41,7 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    bit; the answers agree with the same model forced to plain attention
    within a stated bf16 tolerance; the K4 launch count over the served
    burst is 12 (one per layer) for every batch formed. Then a drain;
-5. train -- the zoo TransformerLM at full width and depth trained by
+6. train -- the zoo TransformerLM at full width and depth trained by
    ``LocalExecutor`` (bf16 compute, fp32 masters, AdamW, minibatch 8,
    S = 1024) over RecordIO token records made with numpy from a seed.
    Checks: every loss is finite; every step launches 12 K4, 12 K5 and
@@ -43,7 +52,19 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    the exported state serves through ``ServingModel`` with the
    trainer's ``eval_step`` outputs. Then the device time of a step,
    tokens/s, the model-FLOP share of the card's bf16 peak and a
-   ``torch.profiler`` breakdown of one step.
+   ``torch.profiler`` breakdown of one step;
+7. sparse train -- DeepFM through the port's ``SparseTrainer`` with
+   the device tier at bench.py's deployment configuration (39 fields,
+   batch 512, id capacity 8192, Zipf(1.2) ids, in-process numpy store
+   and tier both adam lr 0.001, tier capacity 65536). Checks: a tier
+   that never promotes is bit-exact with the tier off; the card agrees
+   with the CPU over the first steps (loss, touched store rows, tier
+   rows); 110 steps with finite losses, K1-K3 launches per step as the
+   path requires and a warm hit rate above 0; the loss falls on a
+   repeated batch; a 4096-row tier evicts and, after ``close()``,
+   holds every resident row bit-equal to the store's. Then steps/s,
+   examples/s and a profiled step (device busy, idle share, K1-K3
+   share).
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -189,20 +210,25 @@ def worst_row_error(got, ref, dim):
 KERNEL_WORK = {"fwd": (2, 4, 1), "dq": (3, 5, 2), "dkv": (4, 6, 2)}
 
 
+def roofline(nbytes, flops, dtype="float32"):
+    """(bound_ms, bound_by): the larger of ``nbytes`` over the memory
+    rate and ``flops`` over the peak rate for ``dtype``."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(bh, seq, dim, dtype, causal, kernel="fwd"):
-    """(bound_ms, bound_by) of one launch of ``kernel``: the larger of
-    its bytes (each input read once, each output written once) over the
-    memory rate and its operations (2 * dim per kept (q, k) pair and
-    product; causal keeps seq * (seq + 1) / 2 pairs) over the peak rate
-    for its type."""
+    """(bound_ms, bound_by) of one launch of ``kernel``: its bytes (each
+    input read once, each output written once) and its operations (2 *
+    dim per kept (q, k) pair and product; causal keeps seq * (seq + 1) /
+    2 pairs) on the roofline."""
     products, tensors, stats = KERNEL_WORK[kernel]
     elem = 2 if dtype == "bfloat16" else 4
     pairs = seq * (seq + 1) // 2 if causal else seq * seq
     flops = 2.0 * products * bh * dim * pairs
     nbytes = tensors * bh * seq * dim * elem + stats * 4.0 * bh * seq
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, flops, dtype)
 
 
 def kernel_phase(torch, flash):
@@ -342,6 +368,599 @@ def bwd_kernel_phase(torch, flash):
         results[name] = record
         del q, k, v, do, o, lse, dq, dk, dv, delta, q4, k4, v4, sdpa, do4, args
     return results
+
+
+# device-tier kernels K1-K3 at deepfm's deployment shapes (bench.py:65-78,
+# 106-129): tier capacity 65536 + 1 scratch row; the combined buffer is
+# the id capacity min(512 * 39, 8192) = 8192 rows, of which a Zipf(1.2)
+# batch fills about 5100 unique ids; a staging chunk is launched at its
+# real length, which the main run's resident rows over its insert chunks
+# put at about 540 (118k rows in 218 chunks): 512 promotions and 512
+# victims here
+TIER_ROWS = 65536 + 1
+TIER_CAPACITY_IDS = 8192
+TIER_UNIQUE = 5100
+TIER_HIT_SHARE = 0.6
+TIER_STAGED = 512
+TIER_DIMS = (("deepfm_emb", 8), ("deepfm_linear", 1))
+TIER_OPTS = ("sgd", "momentum", "nesterov", "adagrad", "adam")
+# K3 against its plain version on every row but the scratch row: the
+# kernel rounds each operation once in the plain version's order (no FMA
+# contraction), so only adam's powf(beta, t) may differ from torch's pow
+# by an fp32 ulp; a few ulps on the row: relative 2e-6, absolute 1e-7
+K3_RTOL, K3_ATOL = 2e-6, 1e-7
+# fp32 operations per element of K3, per optimizer (adam adds two powf
+# a row): far under the bytes, so the bound is the memory's
+K3_FLOPS = {"sgd": 2, "momentum": 4, "nesterov": 6, "adagrad": 6, "adam": 16}
+
+
+def tier_inputs(torch, np, rng, dim, opt_type, device="cuda"):
+    """A random tier state of TIER_ROWS rows and the slot arrays of one
+    step: the combined buffer's slots (unique hits, misses -1, padding
+    -1), a staging chunk's insert and evict slots (unique) and the
+    inserted rows."""
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    scratch = TIER_ROWS - 1
+    state = tier.init_table_state(TIER_ROWS, dim, opt_type, device=device)
+    state["rows"].copy_(torch.from_numpy(
+        rng.standard_normal((TIER_ROWS, dim), dtype=np.float32) * 0.01))
+    for key in state:
+        if key.startswith("slot"):
+            state[key].copy_(torch.from_numpy(
+                rng.random((TIER_ROWS, dim), dtype=np.float32) * 1e-4))
+    state["steps"].copy_(torch.from_numpy(
+        rng.integers(0, 100, TIER_ROWS).astype(np.int32)))
+    perm = rng.permutation(scratch).astype(np.int32)
+    slots = np.full(TIER_CAPACITY_IDS, -1, np.int32)
+    hits = int(TIER_UNIQUE * TIER_HIT_SHARE)
+    slots[:TIER_UNIQUE][rng.permutation(TIER_UNIQUE)[:hits]] = perm[:hits]
+    arrays = {
+        "slots": slots, "ins": perm[hits:hits + TIER_STAGED],
+        "evict": perm[hits + TIER_STAGED:hits + 2 * TIER_STAGED],
+        "miss": rng.standard_normal((TIER_CAPACITY_IDS, dim),
+                                    dtype=np.float32),
+        "ins_rows": rng.standard_normal((TIER_STAGED, dim),
+                                        dtype=np.float32),
+        "grads": rng.standard_normal((TIER_CAPACITY_IDS, dim),
+                                     dtype=np.float32) * 1e-3,
+    }
+    return state, {k: torch.from_numpy(v).to(device)
+                   for k, v in arrays.items()}
+
+
+def tier_kernel_phase(torch, np, tier):
+    """K1, K2 and K3 against their plain versions on the card at
+    deepfm's shapes, for both tables (d 8 and 1) and, for K3, every
+    optimizer: K1 and K2 bit for bit, K3 within K3_RTOL/K3_ATOL on
+    every row but scratch. Each kernel is timed alone (CUDA events, L2
+    flushed before each launch) beside its plain version, its bound
+    from this run's inputs and a library yardstick: K1
+    ``index_select`` + ``torch.where`` (two calls), K2 ``index_copy_``,
+    K3 none. Returns {kernel: {table: record}}."""
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    results = {"gather": {}, "set_rows": {}, "scatter_apply": {}}
+    scratch = TIER_ROWS - 1
+    for table, dim in TIER_DIMS:
+        state, t = tier_inputs(torch, np, rng, dim, "adam")
+        rows = state["rows"]
+        slots, miss = t["slots"], t["miss"]
+        hits = int((slots >= 0).sum())
+        # K1: the combined buffer and the eviction read
+        got = tier.gather_merge(rows, slots, miss)
+        got_ev = tier.gather_merge(rows, t["evict"])
+        torch.cuda.synchronize()
+        want = tier.gather_merge_reference(rows, slots, miss)
+        want_ev = tier.gather_merge_reference(rows, t["evict"])
+        exact = torch.equal(got, want) and torch.equal(got_ev, want_ev)
+        err = max((got - want).abs().max().item(),
+                  (got_ev - want_ev).abs().max().item())
+        long_slots = slots.long()
+        hit_mask = (slots >= 0)[:, None]
+        safe = torch.where(slots >= 0, long_slots, 0)
+        n = slots.shape[0]
+        record = {
+            "table": table, "shape": [n, dim], "table_rows": TIER_ROWS,
+            "hits": hits, "bit_exact": exact, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: tier.gather_merge(rows, slots, miss),
+                          flush),
+            "plain_ms": time_ms(torch, lambda: tier.gather_merge_reference(
+                rows, slots, miss), flush),
+            "library_ms": time_ms(torch, lambda: torch.where(
+                hit_mask, rows.index_select(0, safe), miss), flush),
+            "library_calls": "index_select + torch.where (two calls)",
+        }
+        # slots, the rows read (a hit from the table, a miss from the
+        # miss buffer) and the rows written
+        record["bound_ms"], record["bound_by"] = roofline(
+            4 * n + 2 * 4 * n * dim, 0)
+        log(json.dumps({"tier_kernel": "K1 gather_merge", **record}))
+        results["gather"][table] = record
+        if not exact:
+            raise SystemExit("K1 disagrees with its plain version (%s)"
+                             % table)
+
+        # K2: the staged rows and the zero reset of a slot buffer, the
+        # whole table compared (the chunk holds no scratch slot)
+        ins, ins_rows = t["ins"], t["ins_rows"]
+        exact, err = True, 0.0
+        for values in (ins_rows, None):
+            got, want = rows.clone(), rows.clone()
+            tier.set_rows(got, ins, values)
+            tier.set_rows_reference(want, ins, values)
+            torch.cuda.synchronize()
+            exact = exact and torch.equal(got, want)
+            err = max(err, (got - want).abs().max().item())
+        target = rows.clone()
+        ins_long = ins.long()
+        record = {
+            "table": table, "shape": [int(ins.shape[0]), dim],
+            "bit_exact": exact, "max_abs_err": err,
+            "ms": time_ms(torch, lambda: tier.set_rows(target, ins, ins_rows),
+                          flush),
+            "plain_ms": time_ms(torch, lambda: tier.set_rows_reference(
+                target, ins, ins_rows), flush),
+            "library_ms": time_ms(torch, lambda: target.index_copy_(
+                0, ins_long, ins_rows), flush),
+            "library_calls": "index_copy_",
+        }
+        # slots and rows read, the rows written
+        n = ins.shape[0]
+        record["bound_ms"], record["bound_by"] = roofline(
+            4 * n + 2 * 4 * n * dim, 0)
+        log(json.dumps({"tier_kernel": "K2 set_rows", **record}))
+        results["set_rows"][table] = record
+        if not exact:
+            raise SystemExit("K2 disagrees with its plain version (%s)"
+                             % table)
+        del target, got, want
+
+        # K3: every optimizer on the combined buffer's gradients
+        per_opt = {}
+        for opt_type in TIER_OPTS:
+            base, t = tier_inputs(torch, np, rng, dim, opt_type)
+            slots, grads = t["slots"], t["grads"]
+            got = {k: v.clone() for k, v in base.items()}
+            want = {k: v.clone() for k, v in base.items()}
+            args = (opt_type, 0.001, 0.9, 0.9, 0.999, 1e-8)
+            tier.scatter_apply(got, slots, grads, *args)
+            tier.scatter_apply_reference(want, slots, grads, *args)
+            torch.cuda.synchronize()
+            err, ok = 0.0, torch.equal(got["steps"][:scratch],
+                                        want["steps"][:scratch])
+            for key in got:
+                if key == "steps":
+                    continue
+                a, b = got[key][:scratch], want[key][:scratch]
+                err = max(err, (a - b).abs().max().item())
+                ok = ok and bool(((a - b).abs()
+                                  <= K3_ATOL + K3_RTOL * b.abs()).all())
+            work = {k: v.clone() for k, v in base.items()}
+            n = slots.shape[0]
+            targets = int((slots >= 0).sum()) + 1  # hits + the scratch row
+            buffers = 1 + tier.TIER_OPT_SLOTS[opt_type]
+            record = {
+                "table": table, "opt": opt_type, "shape": [n, dim],
+                "max_abs_err": err, "rtol": K3_RTOL, "atol": K3_ATOL,
+                "ok": ok,
+                "ms": time_ms(torch, lambda: tier.scatter_apply(
+                    work, slots, grads, *args), flush),
+                "plain_ms": time_ms(torch, lambda: tier.scatter_apply_reference(
+                    work, slots, grads, *args), flush),
+                "library_ms": None,
+            }
+            # grads and slots read once; per target row its weights and
+            # slot buffers read and written, its step count read and
+            # written
+            record["bound_ms"], record["bound_by"] = roofline(
+                4 * n * dim + 4 * n + targets * (2 * 4 * dim * buffers + 8),
+                K3_FLOPS[opt_type] * n * dim)
+            log(json.dumps({"tier_kernel": "K3 scatter_apply", **record}))
+            per_opt[opt_type] = record
+            if not ok:
+                raise SystemExit("K3 (%s, %s) disagrees with its plain "
+                                 "version" % (opt_type, table))
+            del base, got, want, work
+        results["scatter_apply"][table] = per_opt
+        del state
+    return results
+
+
+# sparse train phase: DeepFM through SparseTrainer at the deployment
+# configuration of bench.py:65-78,106-129 (39 fields, batch 512, id
+# capacity min(512 * 39, 8192), ids Zipf(1.2) % 1e6 from numpy seed 0,
+# adam lr 0.001 on the PS and the tier)
+SPARSE_BATCH = 512
+SPARSE_FIELDS = 39
+SPARSE_VOCAB = 1_000_000
+SPARSE_STEPS = 110
+SPARSE_TIER = dict(capacity=65536, promote_hits=2, ttl=4096,
+                   stage_budget=2048, opt_type="adam",
+                   opt_args={"lr": 0.001}, writeback_steps=256)
+SPARSE_SMALL_CAPACITY = 4096
+SPARSE_SMALL_STEPS = 8
+# card against CPU over the first steps, same batches, same seed: fp32
+# throughout (TF32 off), so the two differ in summation order only
+# (cuBLAS against the CPU's BLAS, the index backward's scatter-add).
+# Adam near its eps divides such noise by eps (the dense slice's
+# finding), so this run sets eps 1e-3 on the dense params, the PS and
+# the tier: an update then moves by at most the gradient's own noise.
+# The loss to 1e-5 relative; the touched store rows and the tier's
+# rows to 1e-5 relative, 1e-6 absolute (their init scale is 1e-3; a
+# wrong optimizer step moves a row by about lr = 1e-3).
+SPARSE_AGREE_STEPS = 3
+SPARSE_AGREE_EPS = 1e-3
+SPARSE_LOSS_RTOL = 1e-5
+SPARSE_ROW_RTOL, SPARSE_ROW_ATOL = 1e-5, 1e-6
+SPARSE_NEVER_STEPS = 3
+SPARSE_REPEAT_STEPS = 5
+
+
+def ctr_batches(np, n, batch=SPARSE_BATCH, fields=SPARSE_FIELDS,
+                vocab=SPARSE_VOCAB, seed=SEED):
+    """bench.py's Zipfian CTR batches: ids Zipf(1.2) % vocab, random
+    labels, all rows real."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        ids = (rng.zipf(1.2, size=(batch, fields)) % vocab).astype(np.int64)
+        out.append({
+            "features": {"ids": ids},
+            "labels": rng.randint(0, 2, batch).astype(np.float32),
+            "_mask": np.ones(batch, np.float32),
+        })
+    return out
+
+
+def sparse_trainer(device, batch, fields, tier=None, eps=None):
+    """DeepFM's SparseTrainer over an in-process numpy store (adam lr
+    0.001, as bench.py's PS), seed 0; ``tier`` a dict of
+    DeviceTierConfig knobs or None; ``eps`` overrides adam's epsilon on
+    the dense params, the PS and the tier."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+
+    eps_args = {} if eps is None else {"epsilon": eps}
+    config = False
+    if tier is not None:
+        knobs = dict(tier)
+        knobs["opt_args"] = {**knobs["opt_args"], **eps_args}
+        config = DeviceTierConfig(**knobs)
+    return SparseTrainer(
+        model=deepfm.custom_model(),
+        loss_fn=deepfm.loss,
+        optimizer=create_optimizer("Adam", learning_rate=0.001, **eps_args),
+        specs=deepfm.sparse_embedding_specs(
+            num_features=fields, batch_size=batch,
+            capacity=min(batch * fields, deepfm.MAX_ID_CAPACITY)),
+        ps_client=LocalPSClient(seed=SEED, opt_type="adam", lr=0.001,
+                                **eps_args),
+        seed=SEED,
+        device_tier=config,
+        device=device,
+    )
+
+
+def tier_counts(tier):
+    return (tier.GATHER_LAUNCHES, tier.SET_ROWS_LAUNCHES,
+            tier.SCATTER_APPLY_LAUNCHES)
+
+
+def reset_tier_launches(tier):
+    tier.GATHER_LAUNCHES = tier.SET_ROWS_LAUNCHES = 0
+    tier.SCATTER_APPLY_LAUNCHES = 0
+
+
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
+                 fields=SPARSE_FIELDS, vocab=SPARSE_VOCAB, steps=SPARSE_STEPS,
+                 tier_knobs=None, small_capacity=SPARSE_SMALL_CAPACITY):
+    """DeepFM through the port's SparseTrainer with the device tier, and
+    its checks (each printed; any failure raises SystemExit): the
+    never-promote tier bit-exact with the tier off; the card against
+    the CPU over the first steps; the main run's finite losses, K1-K3
+    launches per step against the path's formula and a warm hit rate
+    above 0; a small tier's evictions and flush parity; the loss
+    falling on one repeated batch. Returns what the kernels line and
+    the timing need."""
+    knobs = dict(SPARSE_TIER if tier_knobs is None else tier_knobs)
+    device = torch.device(device)
+    # the main run's batches, the repeated batch, and fresh ones for the
+    # profiled step and the host split
+    batches = ctr_batches(np, steps + 3, batch, fields, vocab)
+    tables = ("deepfm_emb", "deepfm_linear")
+    slot_buffers = tier.TIER_OPT_SLOTS[knobs["opt_type"]]
+
+    # 1. an engaged tier that never promotes is the tier-off path
+    never = dict(knobs, promote_hits=10 ** 9)
+    losses = {}
+    for name, tier_cfg in (("off", None), ("never", never)):
+        trainer = sparse_trainer(device, batch, fields, tier=tier_cfg)
+        state, run = None, []
+        for b in batches[:SPARSE_NEVER_STEPS]:
+            state, loss = trainer.train_step(state, b)
+            run.append(float(loss))
+        losses[name] = run
+        trainer.close()
+        del trainer, state
+    record = {"sparse": "never_promote_vs_tier_off", "losses_off":
+              losses["off"], "losses_never": losses["never"],
+              "bit_exact": losses["off"] == losses["never"]}
+    log(json.dumps(record))
+    if not record["bit_exact"]:
+        raise SystemExit("a never-promoting tier changed the losses")
+
+    # 2. the card against the CPU on the same batches (plain versions)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        trainer = sparse_trainer(dev, batch, fields, tier=knobs,
+                                 eps=SPARSE_AGREE_EPS)
+        state, run = None, []
+        for b in batches[:SPARSE_AGREE_STEPS]:
+            state, loss = trainer.train_step(state, b)
+            run.append(float(loss))
+        touched = np.unique(np.concatenate(
+            [b["features"]["ids"].ravel()
+             for b in batches[:SPARSE_AGREE_STEPS]]))
+        store = trainer.preparer._ps.store
+        runs.append({
+            "losses": run,
+            "store": {t: store.lookup(t, touched) for t in tables},
+            "tier": {t: trainer.device_tier.table_rows(t) for t in tables},
+            "stats": trainer.device_tier.stats(),
+        })
+        trainer.close()
+        del trainer, state
+    card, cpu = runs
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(card["losses"], cpu["losses"]))
+    row_err, rows_ok = 0.0, card["stats"] == cpu["stats"]
+    for t in tables:
+        pairs = [(card["store"][t], cpu["store"][t]),
+                 (card["tier"][t][1], cpu["tier"][t][1])]
+        rows_ok = rows_ok and np.array_equal(card["tier"][t][0],
+                                             cpu["tier"][t][0])
+        for got, want in pairs:
+            if got.shape != want.shape:
+                rows_ok = False
+                continue
+            diff = np.abs(got.astype(np.float64) - want)
+            row_err = max(row_err, float(diff.max()) if diff.size else 0.0)
+            rows_ok = rows_ok and bool((diff <= SPARSE_ROW_ATOL
+                                        + SPARSE_ROW_RTOL
+                                        * np.abs(want)).all())
+    record = {"sparse": "card_vs_cpu", "steps": SPARSE_AGREE_STEPS,
+              "losses": card["losses"], "cpu_losses": cpu["losses"],
+              "loss_rel_err": loss_err, "tol_loss_rel": SPARSE_LOSS_RTOL,
+              "row_max_abs_err": row_err, "tol_row_rel": SPARSE_ROW_RTOL,
+              "tol_row_abs": SPARSE_ROW_ATOL, "rows_ok": rows_ok,
+              "adam_eps": SPARSE_AGREE_EPS,
+              "resident": {t: int(card["tier"][t][0].size) for t in tables}}
+    log(json.dumps(record))
+    if not (loss_err <= SPARSE_LOSS_RTOL and rows_ok):
+        raise SystemExit("the card disagrees with the CPU on the sparse "
+                         "path")
+    del runs, card, cpu
+
+    # 3. the main run: the deployment configuration over distinct batches
+    trainer = sparse_trainer(device, batch, fields, tier=knobs)
+    dtier = trainer.device_tier
+    state, main_losses, step_s, bad_steps = None, [], [], []
+    half_stats = None
+    reset_tier_launches(tier)  # the sparse path's count starts here
+    for i, b in enumerate(batches[:steps]):
+        before = tier_counts(tier)
+        stats0 = dtier.stats()
+        t0 = time.monotonic()
+        state, loss = trainer.train_step(state, b)
+        main_losses.append(float(loss))
+        step_s.append(time.monotonic() - t0)
+        stats1 = dtier.stats()
+        d_k1, d_k2, d_k3 = (a - c for a, c in zip(tier_counts(tier), before))
+        gather_only = (stats1["gather_only_combines"]
+                       - stats0["gather_only_combines"])
+        # per staging chunk: K1 for the combined buffer, K1 for the
+        # victims if it has any, K2 for the rows and each slot buffer if
+        # it has promotions
+        chunks, inserts, evicts = (
+            stats1[k] - stats0[k]
+            for k in ("staged_chunks", "insert_chunks", "evict_chunks"))
+        want = (gather_only + chunks + evicts, (1 + slot_buffers) * inserts,
+                len(tables))
+        if (d_k1, d_k2, d_k3) != want:
+            bad_steps.append([i, [d_k1, d_k2, d_k3], list(want)])
+        if i + 1 == steps // 2:
+            half_stats = dtier.stats()
+    sync(torch, device)
+    launches = dict(zip(("gather", "set_rows", "scatter_apply"),
+                        tier_counts(tier)))
+    end_stats = dtier.stats()
+    warm_lookups = (end_stats["hits"] + end_stats["misses"]
+                    - half_stats["hits"] - half_stats["misses"])
+    warm_hit_rate = (end_stats["hits"] - half_stats["hits"]) / max(
+        warm_lookups, 1)
+    warm = step_s[10:] or step_s
+    main_record = {
+        "sparse": "main_run", "steps": len(main_losses), "batch": batch,
+        "fields": fields, "tier": knobs, "launches": launches,
+        "launches_per_step": {k: v / len(main_losses)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": bad_steps[:5],
+        "losses_first_last": [main_losses[0], main_losses[-1]],
+        "all_finite": bool(np.isfinite(main_losses).all()),
+        "warm_hit_rate": warm_hit_rate, "tier_stats": end_stats,
+        "steps_per_s": len(warm) / sum(warm),
+        "examples_per_s": batch * len(warm) / sum(warm),
+        "step_ms_host_median": float(np.median(warm)) * 1e3,
+    }
+    log(json.dumps(main_record))
+    if not main_record["all_finite"] or len(main_losses) != steps:
+        raise SystemExit("sparse losses: %s" % main_losses)
+    if bad_steps or min(launches.values()) <= 0:
+        raise SystemExit("K1-K3 launches do not follow the path: %s"
+                         % bad_steps[:5])
+    if not warm_hit_rate > 0:
+        raise SystemExit("the tier served no hit once warm")
+
+    # 4. the loss falls on one repeated batch
+    repeated = []
+    for _ in range(SPARSE_REPEAT_STEPS):
+        state, loss = trainer.train_step(state, batches[steps])
+        repeated.append(float(loss))
+    log(json.dumps({"sparse": "repeated_batch", "losses": repeated}))
+    if not repeated[-1] < repeated[0]:
+        raise SystemExit("the sparse loss did not fall on a repeated batch")
+
+    # 5. a small tier: evictions, then flush parity after close()
+    small = sparse_trainer(device, batch, fields,
+                           tier=dict(knobs, capacity=small_capacity))
+    small_state = None
+    for b in batches[:SPARSE_SMALL_STEPS]:
+        small_state, _ = small.train_step(small_state, b)
+    small.close()
+    store = small.preparer._ps.store
+    parity, resident = True, {}
+    for t in tables:
+        ids, rows = small.device_tier.table_rows(t)
+        resident[t] = int(ids.size)
+        parity = parity and ids.size > 0 and np.array_equal(
+            rows, store.lookup(t, ids))
+    small_stats = small.device_tier.stats()
+    record = {"sparse": "small_tier_flush_parity",
+              "capacity": small_capacity, "steps": SPARSE_SMALL_STEPS,
+              "evictions": small_stats["evictions"], "resident": resident,
+              "bit_exact": parity, "tier_stats": small_stats}
+    log(json.dumps(record))
+    if not (small_stats["evictions"] > 0 and parity):
+        raise SystemExit("small tier: no evictions or flush parity broken")
+    del small, small_state
+    return {"trainer": trainer, "state": state, "batch": batches[steps + 1],
+            "split_batch": batches[steps + 2], "launches": launches,
+            "steps": len(main_losses), "main": main_record}
+
+
+# the profiler's demangled names of K1-K3 (ops/csrc/embedding_tier.cu),
+# matched from the start: torch's own gathers (e.g.
+# at::native::vectorized_gather_kernel) contain "gather_kernel" too
+TIER_PROFILE_PREFIX = {
+    "k1": "void (anonymous namespace)::gather_kernel<",
+    "k2": "void (anonymous namespace)::set_rows_kernel<",
+    "k3": "void (anonymous namespace)::scatter_apply_kernel<",
+}
+
+
+def sparse_timing(torch, tier, sparse):
+    """One step on a fresh batch (as the main run's: misses pulled and
+    pushed, promotions staged) under torch.profiler: its wall time
+    beside the device-busy time (the host/device split: the card idles
+    while the host prepares, pulls and pushes), the device's idle share
+    and the K1-K3 share of device-busy time, with each kernel's profiled
+    launches held against its launch counter over the step. Returns the
+    state after the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, state, batch = sparse["trainer"], sparse["state"], sparse["batch"]
+    torch.cuda.synchronize()
+    before = tier_counts(tier)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, _ = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    counted = dict(zip(("k1", "k2", "k3"),
+                       (a - b for a, b in zip(tier_counts(tier), before))))
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        total_us = getattr(evt, "device_time_total", None)
+        if total_us is None:
+            total_us = evt.cuda_time_total
+        kernels[evt.key] = (total_us / 1e3, evt.count)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    k_ms, k_launches = {}, {}
+    for k, prefix in TIER_PROFILE_PREFIX.items():
+        rows = [v for key, v in kernels.items() if key.startswith(prefix)]
+        k_ms[k] = sum(ms for ms, _ in rows)
+        k_launches[k] = sum(n for _, n in rows)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    record = {"profile": "sparse_train_step", "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+              "counted_launches": counted}
+    if busy_ms > 0:
+        record.update({
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "k1_k3_ms": sum(k_ms.values()), **{k + "_ms": v
+                                                for k, v in k_ms.items()},
+            "profiled_launches": k_launches,
+            "k1_k3_share_of_busy": sum(k_ms.values()) / busy_ms,
+            "top": [[key[:90], ms, n] for key, (ms, n) in top],
+        })
+    log(json.dumps(record))
+    if busy_ms > 0 and k_launches != counted:
+        raise SystemExit("the profiled K1-K3 launches %s are not the "
+                         "counted ones %s" % (k_launches, counted))
+    return state
+
+
+def sparse_host_split(torch, trainer, state, batch):
+    """One more step on a fresh batch, timed stage by stage through the
+    trainer's own calls (each wrapped with a timer that waits for the
+    card at its end): ``prepare`` (unique ids, tier lookup and
+    admission, and the PS ``pull`` of the misses, shown on its own
+    too), ``combine`` (the miss rows to the card, K1/K2), ``step``
+    (forward, backward, dense update), ``apply_extract`` (K3, the miss
+    gradients to the host) and ``push`` (the PS optimizer step)."""
+    stages = (("prepare", trainer.preparer, "prepare"),
+              ("pull", trainer.preparer._embedding, "pull_tables"),
+              ("combine", trainer, "_tier_combine"),
+              ("step", trainer, "_train_step"),
+              ("apply_extract", trainer, "_tier_apply_extract"),
+              ("push", trainer.preparer, "push_gradients"))
+    stage_ms = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            sync(torch, trainer.device)
+            stage_ms[name] = stage_ms.get(name, 0.0) + (
+                time.monotonic() - t0) * 1e3
+            return out
+        return run
+
+    saved = [(owner, attr, owner.__dict__.get(attr))
+             for _, owner, attr in stages]
+    for name, owner, attr in stages:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    try:
+        sync(torch, trainer.device)
+        t0 = time.monotonic()
+        state, _ = trainer.train_step(state, batch)
+        sync(torch, trainer.device)
+        wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        for owner, attr, own in saved:
+            if own is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, own)
+    top = ("prepare", "combine", "step", "apply_extract", "push")
+    record = {"profile": "sparse_host_split", "wall_ms": wall_ms,
+              "stage_ms": stage_ms,
+              "other_ms": wall_ms - sum(stage_ms.get(k, 0.0) for k in top)}
+    log(json.dumps(record))
+    return state
 
 
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
@@ -818,6 +1437,30 @@ def kernel_entry(name, source, replaces, launches, case, kind):
     return entry
 
 
+TIER_SOURCE = "elasticdl_tpu_torch/ops/csrc/embedding_tier.cu"
+
+
+def tier_kernel_entry(name, replaces, kind, tier_cases, sparse):
+    """One device-tier kernel's record of the kernels line: times at
+    the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
+    optimizer), launches from the sparse train path's main run, and the
+    deepfm_linear (d 1) time beside."""
+    emb = tier_cases[kind]["deepfm_emb"]
+    lin = tier_cases[kind]["deepfm_linear"]
+    if kind == "scatter_apply":
+        emb, lin = emb["adam"], lin["adam"]
+    launches = sparse["launches"][kind]
+    return {
+        "name": name, "route": "cuda", "source": TIER_SOURCE,
+        "replaces": replaces, "launches": launches,
+        "launches_per_step": launches / sparse["steps"],
+        "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
+        "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
+        "bound_by": emb["bound_by"], "library_ms": emb["library_ms"],
+        "shape": emb["shape"], "ms_linear_d1": lin["ms"],
+    }
+
+
 def main():
     import torch
 
@@ -829,6 +1472,7 @@ def main():
 
     sys.path.insert(0, HERE)
     from elasticdl_tpu_torch.ops import _build
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -847,6 +1491,7 @@ def main():
 
     cases = kernel_phase(torch, flash)
     bwd_cases = bwd_kernel_phase(torch, flash)
+    tier_cases = tier_kernel_phase(torch, np, tier)
 
     workdir = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -860,6 +1505,14 @@ def main():
         torch.cuda.empty_cache()
         train = train_phase(torch, np, flash, workdir)
         train_timing(torch, train)
+        del train["trainer"], train["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        sparse = sparse_phase(torch, np, tier)
+        state = sparse_timing(torch, tier, sparse)
+        sparse_host_split(torch, sparse["trainer"], state,
+                          sparse["split_batch"])
+        sparse["trainer"].close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -881,6 +1534,15 @@ def main():
         kernel_entry("flash_attention_bwd_dkv", bwd_source,
                      "elasticdl_tpu/ops/flash_attention.py:293",
                      launches["dkv"], bwd_cases[main_case], "dkv"),
+        tier_kernel_entry("embedding_tier_gather",
+                          "elasticdl_tpu/ops/embedding_tier.py:163",
+                          "gather", tier_cases, sparse),
+        tier_kernel_entry("embedding_tier_set_rows",
+                          "elasticdl_tpu/ops/embedding_tier.py:197",
+                          "set_rows", tier_cases, sparse),
+        tier_kernel_entry("embedding_tier_scatter_apply",
+                          "elasticdl_tpu/ops/embedding_tier.py:253",
+                          "scatter_apply", tier_cases, sparse),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ types:
   raw records to a Dataset of (features, label) examples
 - ``eval_metrics_fn()`` -> {name: train.metrics.Metric} (optional)
 - ``sparse_embedding_specs()`` -> host-PS tables (optional; a model
-  with them does not train on the port yet)
+  with them trains through ``train.sparse.SparseTrainer``)
 
 Serving reads only the first two, so a serving-only module may leave
 out the training names; the trainers raise when one is missing.

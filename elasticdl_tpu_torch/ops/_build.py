@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+Each source under ``ops/csrc/`` (flash attention K4-K6, the device
+tier's K1-K3) is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds). Builds happen
 at first use, from the package's own sources only, into
@@ -73,6 +74,23 @@ KERNELS = {
                 # q, k, v, do, lse, delta, dk, dv, bh, seq, head_dim,
                 # is_bf16, causal, sm_scale, stream
                 [_VP] * 8 + [_INT] * 5 + [_FLOAT, _VP],
+                _INT,
+            ),
+        },
+    ),
+    "embedding_tier": (
+        "embedding_tier.cu",
+        {
+            # K1: table, slots, miss (or None), out, n, dim, table_rows,
+            # stream
+            "edl_tier_gather": ([_VP] * 4 + [_INT] * 3 + [_VP], _INT),
+            # K2: table, slots, rows (or None), n, dim, table_rows, stream
+            "edl_tier_set_rows": ([_VP] * 3 + [_INT] * 3 + [_VP], _INT),
+            # K3: grads, slots, rows, slot0, slot1, steps, n, dim,
+            # table_rows, opt, lr, momentum, beta1, 1 - beta1, beta2,
+            # 1 - beta2, eps, stream
+            "edl_tier_scatter_apply": (
+                [_VP] * 6 + [_INT] * 4 + [_FLOAT] * 7 + [_VP],
                 _INT,
             ),
         },

@@ -1,13 +1,15 @@
 """Run the model-zoo contract locally, no master or cluster (port of
-elasticdl_tpu/train/local_executor.py, the dense branch).
+elasticdl_tpu/train/local_executor.py).
 
 ``LocalExecutor`` reads RecordIO data through the module's
 ``dataset_fn``, batches it with padding masks and trains, evaluates or
-predicts through ``TorchTrainer`` on ``device`` (``cuda`` unless the
-caller asks for the CPU). The weights are initialised from ``seed``.
-Models with sparse embedding specs need the PS and the device tier,
-which are not ported yet; the JAX executor's trace, events, profiler
-and HTTP endpoints wait for the observability port.
+predicts on ``device`` (``cuda`` unless the caller asks for the CPU).
+A dense model trains through ``TorchTrainer``. A model with sparse
+embedding specs (DeepFM) trains through ``SparseTrainer`` over an
+in-process embedding store (``LocalPSClient``), with the device tier
+when ``EDL_DEVICE_TIER`` turns it on. The weights are initialised from
+``seed``. The JAX executor's trace, events, profiler and HTTP endpoints
+wait for the observability port.
 """
 
 import numpy as np
@@ -25,7 +27,9 @@ from elasticdl_tpu_torch.data.pipeline import (
 from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+from elasticdl_tpu_torch.ps.local_client import LocalPSClient
 from elasticdl_tpu_torch.train.metrics import EvaluationMetrics
+from elasticdl_tpu_torch.train.sparse import SparseTrainer
 from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 
 logger = _logger_factory("elasticdl_tpu_torch.train.local_executor")
@@ -52,12 +56,6 @@ class LocalExecutor:
             model_params=model_params,
         )
         self.spec.require_training()
-        if self.spec.sparse_embedding_specs:
-            raise NotImplementedError(
-                "model %s has sparse embedding specs: the sparse CTR path "
-                "(PS client, device tier, K1-K3) is not ported yet "
-                "(ROADMAP Queue 1 item 5)" % (model_zoo_module,)
-            )
         self._minibatch_size = minibatch_size
         self._num_epochs = num_epochs
         reader_params = data_reader_params or {}
@@ -76,13 +74,28 @@ class LocalExecutor:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = self.spec.custom_model()
-        self.trainer = TorchTrainer(
-            model=model,
-            loss_fn=self.spec.loss,
-            optimizer=self.spec.optimizer(),
-            compute_dtype=compute_dtype,
-            device=self.device,
-        )
+        if self.spec.sparse_embedding_specs:
+            # sparse model locally: in-process embedding store, no gRPC
+            self.trainer = SparseTrainer(
+                model=model,
+                loss_fn=self.spec.loss,
+                optimizer=self.spec.optimizer(),
+                specs=self.spec.sparse_embedding_specs(
+                    batch_size=minibatch_size
+                ),
+                ps_client=LocalPSClient(seed=seed),
+                compute_dtype=compute_dtype,
+                seed=seed,
+                device=self.device,
+            )
+        else:
+            self.trainer = TorchTrainer(
+                model=model,
+                loss_fn=self.spec.loss,
+                optimizer=self.spec.optimizer(),
+                compute_dtype=compute_dtype,
+                device=self.device,
+            )
         self.state = None
 
     # ------------------------------------------------------------------

@@ -87,7 +87,9 @@ def guard_nonfinite_state(old_state, new_state, nonfinite):
     )
 
 
-def _apply_model(model, params, model_state, features):
+def apply_model(model, params, model_state, features):
+    """The model's outputs at ``params`` and ``model_state`` (a
+    functional call: the module's own tensors are not read)."""
     return functional_call(model, {**params, **model_state}, (features,))
 
 
@@ -114,8 +116,8 @@ def make_loss_and_grads(model, loss_fn, compute_dtype=None,
         if compute_dtype is not None:
             compute_params = cast_floating(leaves, compute_dtype)
             compute_features = cast_floating(features, compute_dtype)
-        outputs = _apply_model(model, compute_params, model_state,
-                               compute_features)
+        outputs = apply_model(model, compute_params, model_state,
+                              compute_features)
         per_sample = loss_fn(labels, outputs).float()
         # multi-dim per-sample losses average over their trailing dims
         per_sample = per_sample.reshape(mask.shape[0], -1).mean(dim=1)
@@ -167,6 +169,18 @@ def make_loss_and_grads(model, loss_fn, compute_dtype=None,
     return loss_and_grads
 
 
+def apply_update(tx, state, grads):
+    """One optimizer step of ``grads`` ({name: fp32 tensor}) on the
+    state's params, in place; returns the state with its step advanced
+    (the dense and the sparse train steps share it)."""
+    with torch.no_grad():
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        for name, p in state.params.items():
+            p.add_(updates[name])
+    return dataclasses.replace(state, step=state.step + 1,
+                               opt_state=opt_state)
+
+
 def make_train_step(model, loss_fn, tx, compute_dtype=None,
                     grad_accum_steps=1, health=False,
                     guard_nonfinite=False):
@@ -181,23 +195,14 @@ def make_train_step(model, loss_fn, tx, compute_dtype=None,
         model, loss_fn, compute_dtype, grad_accum_steps
     )
 
-    def apply_update(state, grads):
-        with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state,
-                                           state.params)
-            for name, p in state.params.items():
-                p.add_(updates[name])
-        return dataclasses.replace(state, step=state.step + 1,
-                                   opt_state=opt_state)
-
     def train_step(state, batch):
         loss, grads = loss_and_grads(state, batch)
         if not health:
-            return apply_update(state, grads), loss
+            return apply_update(tx, state, grads), loss
         scalars = health_scalars(loss, global_grad_norm(grads))
         if guard_nonfinite and bool(scalars["nonfinite"]):
             return state, loss, scalars
-        return apply_update(state, grads), loss, scalars
+        return apply_update(tx, state, grads), loss, scalars
 
     return train_step
 
@@ -211,6 +216,6 @@ def make_eval_step(model, compute_dtype=None):
             params = cast_floating(params, compute_dtype)
             features = cast_floating(features, compute_dtype)
         with torch.no_grad():
-            return _apply_model(model, params, state.model_state, features)
+            return apply_model(model, params, state.model_state, features)
 
     return eval_step

@@ -178,3 +178,190 @@ def test_auto_dispatch_launches_the_kernel_on_the_card(card):
         attention.dot_product_attention(q96, q96, q96, causal=True)
     attention.dot_product_attention(q96, q96, q96, causal=True, impl="xla")
     assert flash.LAUNCHES == before + 1
+
+
+# ---------------------------------------------------------------------------
+# device-tier kernels K1 (gather-merge), K2 (set rows), K3 (scatter-apply)
+# ---------------------------------------------------------------------------
+
+TIER_DIMS = [1, 8, 13, 64]
+TIER_OPTS = ["sgd", "momentum", "nesterov", "adagrad", "adam"]
+
+
+def _tier_case(card, dim, rows=1025, n=300, seed=0, opt_type="adam"):
+    """A random tier state on the card and n slots: unique hits with
+    every fourth slot a miss (-1)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    rng = np.random.RandomState(seed)
+    state = tier.init_table_state(rows, dim, opt_type, device=card)
+    state["rows"].copy_(torch.from_numpy(rng.randn(rows, dim).astype(
+        np.float32)))
+    for key in state:
+        if key.startswith("slot"):
+            state[key].copy_(torch.from_numpy(
+                rng.rand(rows, dim).astype(np.float32)))
+    state["steps"].copy_(torch.from_numpy(
+        rng.randint(0, 5, rows).astype(np.int32)))
+    slots = rng.permutation(rows - 1)[:n].astype(np.int32)
+    slots[::4] = -1
+    return state, torch.from_numpy(slots).to(card), rng
+
+
+@pytest.mark.parametrize("dim", TIER_DIMS)
+def test_tier_gather_matches_plain_version(card, dim):
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, slots, rng = _tier_case(card, dim)
+    miss = torch.from_numpy(rng.randn(slots.shape[0], dim).astype(
+        "float32")).to(card)
+    before = tier.GATHER_LAUNCHES
+    got = tier.gather_merge(state["rows"], slots, miss)
+    zeros_miss = tier.gather_merge(state["rows"], slots)
+    torch.cuda.synchronize()
+    assert tier.GATHER_LAUNCHES == before + 2
+    # K1 moves data: bit for bit
+    assert torch.equal(got, tier.gather_merge_reference(
+        state["rows"], slots, miss))
+    assert torch.equal(zeros_miss, tier.gather_merge_reference(
+        state["rows"], slots))
+    # a column view is not contiguous: refused, not copied behind the back
+    with pytest.raises(ValueError):
+        tier.gather_merge(state["rows"], slots, torch.empty(
+            slots.shape[0], dim + 1, device=card)[:, :dim])
+
+
+@pytest.mark.parametrize("dim", TIER_DIMS)
+def test_tier_set_rows_matches_plain_version(card, dim):
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, slots, rng = _tier_case(card, dim)
+    scratch = state["rows"].shape[0] - 1
+    slots = torch.where(slots < 0, scratch, slots).to(torch.int32)
+    rows = torch.from_numpy(rng.randn(slots.shape[0], dim).astype(
+        "float32")).to(card)
+    for values in (rows, None):
+        got, want = state["rows"].clone(), state["rows"].clone()
+        before = tier.SET_ROWS_LAUNCHES
+        assert tier.set_rows(got, slots, values) is got
+        tier.set_rows_reference(want, slots, values)
+        torch.cuda.synchronize()
+        assert tier.SET_ROWS_LAUNCHES == before + 1
+        # every row but the scratch row, whose racing writes are benign
+        assert torch.equal(got[:scratch], want[:scratch])
+
+
+# K3 against its plain version: every row but scratch. Each operation
+# rounds once in the same order on both sides (the kernel's _rn
+# intrinsics forbid FMA contraction; sqrt and division are IEEE), so
+# sgd, momentum, nesterov and adagrad agree bit for bit; adam's
+# bias correction 1 - pow(beta, t) may differ by an fp32 ulp between
+# the device's powf and torch's pow, which moves the row by a few ulps:
+# relative 2e-6 on a value (absolute 1e-7 where it is near zero).
+K3_RTOL, K3_ATOL = 2e-6, 1e-7
+
+
+@pytest.mark.parametrize("opt_type", TIER_OPTS)
+@pytest.mark.parametrize("dim", TIER_DIMS)
+def test_tier_scatter_apply_matches_plain_version(card, dim, opt_type):
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, slots, rng = _tier_case(card, dim, opt_type=opt_type)
+    scratch = state["rows"].shape[0] - 1
+    grads = torch.from_numpy(rng.randn(slots.shape[0], dim).astype(
+        "float32")).to(card)
+    got = {k: v.clone() for k, v in state.items()}
+    want = {k: v.clone() for k, v in state.items()}
+    before = tier.SCATTER_APPLY_LAUNCHES
+    for _ in range(3):  # step counts carry from one launch to the next
+        tier.scatter_apply(got, slots, grads, opt_type, 0.05, 0.9, 0.9,
+                           0.999, 1e-8)
+        tier.scatter_apply_reference(want, slots, grads, opt_type, 0.05,
+                                     0.9, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert tier.SCATTER_APPLY_LAUNCHES == before + 3
+    assert torch.equal(got["steps"][:scratch], want["steps"][:scratch])
+    for key in got:
+        if key == "steps":
+            continue
+        if opt_type == "adam":
+            torch.testing.assert_close(got[key][:scratch],
+                                       want[key][:scratch],
+                                       rtol=K3_RTOL, atol=K3_ATOL)
+        else:
+            assert torch.equal(got[key][:scratch], want[key][:scratch]), key
+
+
+def test_tier_kernels_refuse_what_they_do_not_take(card):
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, slots, _ = _tier_case(card, 8)
+    with pytest.raises(ValueError):  # int64 slots
+        tier.gather_merge(state["rows"], slots.long())
+    with pytest.raises(ValueError):  # fp16 table
+        tier.set_rows(state["rows"].half(), slots)
+    grads = torch.zeros(slots.shape[0], 8, device=card)
+    with pytest.raises(ValueError):  # adam state handed to momentum
+        tier.scatter_apply(state, slots, grads, "momentum", 0.1, 0.9, 0.9,
+                           0.999, 1e-8)
+
+
+def test_sparse_trainer_tier_step_launches_the_kernels(card):
+    """A short tier-on DeepFM run on the card (4 fields, batch 32,
+    vocab 1000, tier capacity 256): every step launches K3 once per
+    table, and K1/K2 as its combines require (K1 once for a table with
+    nothing staged; per staging chunk, K1 once for the combined buffer
+    and once more to read victims out if it has any, and K2 three
+    times, adam's rows and two slot buffers, if it has promotions);
+    losses are finite and the flush leaves every resident row in the
+    store bit for bit."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+
+    trainer = SparseTrainer(
+        deepfm.custom_model(), deepfm.loss, deepfm.optimizer(),
+        deepfm.sparse_embedding_specs(num_features=4, batch_size=32),
+        LocalPSClient(seed=0, opt_type="adam", lr=0.01), seed=0,
+        device_tier=DeviceTierConfig(capacity=256, promote_hits=2, ttl=100,
+                                     stage_budget=64, opt_type="adam",
+                                     opt_args={"lr": 0.01},
+                                     writeback_steps=0),
+        device="cuda",
+    )
+    rng = np.random.RandomState(0)
+    state = None
+    for _ in range(6):
+        ids = rng.zipf(1.6, size=(32, 4)) % 1000
+        batch = {"features": {"ids": ids.astype(np.int64)},
+                 "labels": (ids.sum(1) % 2).astype(np.float32),
+                 "_mask": np.ones(32, np.float32)}
+        before = (tier.GATHER_LAUNCHES, tier.SET_ROWS_LAUNCHES,
+                  tier.SCATTER_APPLY_LAUNCHES)
+        stats0 = trainer.device_tier.stats()
+        state, loss = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        stats1 = trainer.device_tier.stats()
+        gather_only = (stats1["gather_only_combines"]
+                       - stats0["gather_only_combines"])
+        chunks, inserts, evicts = (
+            stats1[k] - stats0[k]
+            for k in ("staged_chunks", "insert_chunks", "evict_chunks"))
+        assert (tier.GATHER_LAUNCHES - before[0],
+                tier.SET_ROWS_LAUNCHES - before[1],
+                tier.SCATTER_APPLY_LAUNCHES - before[2]) == (
+                    gather_only + chunks + evicts, 3 * inserts, 2)
+        assert bool(torch.isfinite(loss))
+    assert trainer.device_tier.stats()["hits"] > 0
+    trainer.close()
+    store = trainer.preparer._ps.store
+    for table in ("deepfm_emb", "deepfm_linear"):
+        ids, rows = trainer.device_tier.table_rows(table)
+        assert ids.size > 0
+        np.testing.assert_array_equal(rows, store.lookup(table, ids))

@@ -145,3 +145,41 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card(
                                       num_heads=1, embed_dim=64)
     with pytest.raises(RuntimeError, match="cuda"):
         TorchTrainer(model, transformer.loss, transformer.optimizer())
+
+
+def test_sparse_slice_modules_isolated_and_entry_points_default_to_cuda(
+        tmp_path):
+    """The sparse slice's modules are among those imported with JAX
+    blocked above, and its entry points (LocalExecutor on DeepFM,
+    SparseTrainer) default to the card and refuse to run without one."""
+    modules = _port_modules()
+    for name in ("ps", "ps.embedding_store", "ps.local_client",
+                 "embedding", "embedding.client", "ops.embedding_tier",
+                 "train.device_tier", "train.sparse", "models.deepfm"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    import inspect
+
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+
+    from elasticdl_tpu_torch.train.device_tier import (
+        DeviceEmbeddingTier,
+        DeviceTierConfig,
+    )
+
+    for entry in (SparseTrainer, DeviceEmbeddingTier):
+        assert inspect.signature(entry).parameters["device"].default == (
+            "cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceEmbeddingTier(deepfm.sparse_embedding_specs(), LocalPSClient(),
+                            DeviceTierConfig(capacity=4))
+    with pytest.raises(RuntimeError, match="cuda"):
+        LocalExecutor("elasticdl_tpu_torch.models.deepfm",
+                      training_data=str(tmp_path))
+    with pytest.raises(RuntimeError, match="cuda"):
+        SparseTrainer(deepfm.custom_model(), deepfm.loss, deepfm.optimizer(),
+                      deepfm.sparse_embedding_specs(), LocalPSClient())

@@ -155,21 +155,26 @@ def test_the_zoo_contract_matches_jax():
 
 
 def test_sparse_models_and_missing_contract_raise(tmp_path):
+    """A module with sparse embedding specs trains through the sparse
+    trainer over an in-process store; a module without the training
+    contract raises."""
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+
     zoo = tmp_path / "zoo"
     zoo.mkdir()
     (zoo / "sparse_lm.py").write_text(
-        "from elasticdl_tpu_torch.models.transformer import *\n"
-        "def sparse_embedding_specs(batch_size=None):\n"
-        "    return ['table']\n"
+        "from elasticdl_tpu_torch.models.deepfm import *\n"
     )
     (zoo / "serving_only.py").write_text(
         "from elasticdl_tpu_torch.models.transformer import (\n"
         "    custom_model, params_from_flax)\n"
     )
     data = _write_tokens(str(tmp_path / "train"), n_files=1, per_file=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        LocalExecutor(str(zoo / "sparse_lm.py"), training_data=data,
-                      device="cpu")
+    executor = LocalExecutor(str(zoo / "sparse_lm.py"), training_data=data,
+                             device="cpu")
+    assert isinstance(executor.trainer, SparseTrainer)
+    assert isinstance(executor.trainer.preparer._ps, LocalPSClient)
     with pytest.raises(ValueError, match="loss"):
         LocalExecutor(str(zoo / "serving_only.py"), training_data=data,
                       device="cpu")
