@@ -231,13 +231,33 @@ def bound(bh, seq, dim, dtype, causal, kernel="fwd"):
     return roofline(nbytes, flops, dtype)
 
 
-def kernel_phase(torch, flash):
+def raw_launch(torch, fn, *args):
+    """A no-argument launcher of the C function ``fn`` of a built kernel
+    library on the current stream: no wrapper checks, no launch count."""
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(*args, stream):
+            raise SystemExit("raw %s launch failed" % fn.__name__)
+
+    return launch
+
+
+def kernel_phase(torch, flash, cases=CASES, baselines=True):
+    """K4 against its plain version at every case, and a raw launch of
+    the built library's ``edl_flash_fwd`` on the same inputs bit-equal
+    to the wrapper's. K4 is timed by that raw call (no wrapper, not
+    counted) with the wrapper's time beside it; ``baselines`` adds the
+    plain version's and scaled_dot_product_attention's times."""
     import torch.nn.functional as F
 
+    from elasticdl_tpu_torch.ops import _build
+
+    lib = _build.load("flash_fwd")
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for name, bh, seq, dim, dtype_name, causal in CASES:
+    for name, bh, seq, dim, dtype_name, causal in cases:
         dtype = getattr(torch, dtype_name)
         q, k, v = (
             torch.randn(bh, seq, dim, device="cuda", generator=gen).to(dtype)
@@ -245,7 +265,14 @@ def kernel_phase(torch, flash):
         )
         scale = 1.0 / dim ** 0.5
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+        o_raw, lse_raw = torch.empty_like(o), torch.empty_like(lse)
+        raw = raw_launch(torch, lib.edl_flash_fwd, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), o_raw.data_ptr(), lse_raw.data_ptr(),
+                         bh, seq, dim, int(dtype == torch.bfloat16),
+                         int(causal), scale)
+        raw()
         torch.cuda.synchronize()
+        bit_equal = torch.equal(o, o_raw) and torch.equal(lse, lse_raw)
         ro, rlse = flash.flash_attention_fwd_reference(q, k, v, causal, scale)
         err_o = (o.float() - ro.float()).abs().max().item()
         err_lse = (lse - rlse).abs().max().item()
@@ -256,28 +283,42 @@ def kernel_phase(torch, flash):
             and bool(torch.isfinite(o.float()).all())
             and bool(((o.float() - ro.float()).abs()
                       <= tol + tol * ro.float().abs()).all())
-            and err_lse <= LSE_TOL
+            and err_lse <= LSE_TOL and bit_equal
         )
-        ms = time_ms(torch, lambda: flash.flash_attention_fwd(
-            q, k, v, causal=causal), flush)
-        plain_ms = time_ms(torch, lambda: flash.flash_attention_fwd_reference(
-            q, k, v, causal, scale), flush)
-        q4, k4, v4 = (t.view(1, bh, seq, dim) for t in (q, k, v))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=causal, scale=scale), flush)
-        bound_ms, bound_by = bound(bh, seq, dim, dtype_name, causal)
         record = {
             "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
             "causal": causal, "max_abs_err": err_o,
             "max_abs_err_lse": err_lse, "tol_o": tol, "tol_lse": LSE_TOL,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok,
+            "launches_bit_equal": bit_equal,
         }
-        log(json.dumps(record))
         if not ok:
+            log(json.dumps(dict(record, ok=False)))
             raise SystemExit("kernel phase failed at case %s" % name)
+        record["ms"] = time_ms(torch, raw, flush)
+        record["wrapper_ms"] = time_ms(torch, lambda: flash.flash_attention_fwd(
+            q, k, v, causal=causal), flush)
+        # host time of one raw call (ctypes, the bf16 path's three tensor
+        # map encodings, the launch), enqueued back to back
+        t0 = time.perf_counter()
+        for _ in range(100):
+            raw()
+        record["host_us_per_raw_call"] = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+        if baselines:
+            record["plain_ms"] = time_ms(
+                torch, lambda: flash.flash_attention_fwd_reference(
+                    q, k, v, causal, scale), flush)
+            q4, k4, v4 = (t.view(1, bh, seq, dim) for t in (q, k, v))
+            record["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal, scale=scale), flush)
+            del q4, k4, v4
+        record["bound_ms"], record["bound_by"] = bound(
+            bh, seq, dim, dtype_name, causal)
+        record["ok"] = ok
+        log(json.dumps(record))
         results[name] = record
-        del q, k, v, o, lse, ro, rlse
+        del q, k, v, o, lse, o_raw, lse_raw, ro, rlse
     return results
 
 
@@ -295,7 +336,6 @@ def bwd_kernel_phase(torch, flash):
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    stream = torch.cuda.current_stream().cuda_stream
     for name, bh, seq, dim, dtype_name, causal in CASES:
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (
@@ -326,15 +366,12 @@ def bwd_kernel_phase(torch, flash):
                   scale)
         inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr())
-
-        def launch(fn, *outs):
-            if fn(*inputs, *(t.data_ptr() for t in outs), *common, stream):
-                raise SystemExit("raw %s launch failed at case %s"
-                                 % (fn.__name__, name))
-
-        dq_ms = time_ms(torch, lambda: launch(lib.edl_flash_bwd_dq, dq), flush)
-        dkv_ms = time_ms(
-            torch, lambda: launch(lib.edl_flash_bwd_dkv, dk, dv), flush)
+        dq_ms = time_ms(torch, raw_launch(
+            torch, lib.edl_flash_bwd_dq, *inputs, dq.data_ptr(), *common),
+            flush)
+        dkv_ms = time_ms(torch, raw_launch(
+            torch, lib.edl_flash_bwd_dkv, *inputs, dk.data_ptr(),
+            dv.data_ptr(), *common), flush)
         args = (q, k, v, o, lse, do, causal, scale)
         dq_plain_ms = time_ms(
             torch, lambda: flash.flash_attention_bwd_dq_reference(*args),
@@ -434,10 +471,14 @@ def tier_kernel_phase(torch, np, tier):
     deepfm's shapes, for both tables (d 8 and 1) and, for K3, every
     optimizer: K1 and K2 bit for bit, K3 within K3_RTOL/K3_ATOL on
     every row but scratch. Each kernel is timed alone (CUDA events, L2
-    flushed before each launch) beside its plain version, its bound
-    from this run's inputs and a library yardstick: K1
-    ``index_select`` + ``torch.where`` (two calls), K2 ``index_copy_``,
-    K3 none. Returns {kernel: {table: record}}."""
+    flushed before each launch) by a raw call of the built library (no
+    wrapper, not counted), with the wrapper's time beside it, its plain
+    version, its bound from this run's inputs and a library yardstick:
+    K1 ``index_select`` + ``torch.where`` (two calls), K2
+    ``index_copy_``, K3 none. Returns {kernel: {table: record}}."""
+    from elasticdl_tpu_torch.ops import _build
+
+    lib = _build.load("embedding_tier")
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(SEED + 3)
     results = {"gather": {}, "set_rows": {}, "scatter_apply": {}}
@@ -460,11 +501,19 @@ def tier_kernel_phase(torch, np, tier):
         hit_mask = (slots >= 0)[:, None]
         safe = torch.where(slots >= 0, long_slots, 0)
         n = slots.shape[0]
+        out = torch.empty_like(got)
+        raw = raw_launch(torch, lib.edl_tier_gather, rows.data_ptr(),
+                         slots.data_ptr(), miss.data_ptr(), out.data_ptr(),
+                         n, dim, TIER_ROWS)
+        raw()
+        torch.cuda.synchronize()
+        exact = exact and torch.equal(out, got)
         record = {
             "table": table, "shape": [n, dim], "table_rows": TIER_ROWS,
             "hits": hits, "bit_exact": exact, "max_abs_err": err,
-            "ms": time_ms(torch, lambda: tier.gather_merge(rows, slots, miss),
-                          flush),
+            "ms": time_ms(torch, raw, flush),
+            "wrapper_ms": time_ms(
+                torch, lambda: tier.gather_merge(rows, slots, miss), flush),
             "plain_ms": time_ms(torch, lambda: tier.gather_merge_reference(
                 rows, slots, miss), flush),
             "library_ms": time_ms(torch, lambda: torch.where(
@@ -494,11 +543,19 @@ def tier_kernel_phase(torch, np, tier):
             err = max(err, (got - want).abs().max().item())
         target = rows.clone()
         ins_long = ins.long()
+        raw = raw_launch(torch, lib.edl_tier_set_rows, target.data_ptr(),
+                         ins.data_ptr(), ins_rows.data_ptr(),
+                         int(ins.shape[0]), dim, TIER_ROWS)
+        raw()
+        want = tier.set_rows_reference(rows.clone(), ins, ins_rows)
+        torch.cuda.synchronize()
+        exact = exact and torch.equal(target, want)
         record = {
             "table": table, "shape": [int(ins.shape[0]), dim],
             "bit_exact": exact, "max_abs_err": err,
-            "ms": time_ms(torch, lambda: tier.set_rows(target, ins, ins_rows),
-                          flush),
+            "ms": time_ms(torch, raw, flush),
+            "wrapper_ms": time_ms(
+                torch, lambda: tier.set_rows(target, ins, ins_rows), flush),
             "plain_ms": time_ms(torch, lambda: tier.set_rows_reference(
                 target, ins, ins_rows), flush),
             "library_ms": time_ms(torch, lambda: target.index_copy_(
@@ -540,11 +597,23 @@ def tier_kernel_phase(torch, np, tier):
             n = slots.shape[0]
             targets = int((slots >= 0).sum()) + 1  # hits + the scratch row
             buffers = 1 + tier.TIER_OPT_SLOTS[opt_type]
+            slot_ptrs = [work[key].data_ptr() for key in sorted(work)
+                         if key.startswith("slot")]
+            slot_ptrs += [None] * (2 - len(slot_ptrs))
+            # the wrapper's arguments: 1 - beta rounded once to fp32
+            raw = raw_launch(
+                torch, lib.edl_tier_scatter_apply, grads.data_ptr(),
+                slots.data_ptr(), work["rows"].data_ptr(), *slot_ptrs,
+                work["steps"].data_ptr(), n, dim, TIER_ROWS,
+                tier._OPT_CODES[opt_type], 0.001, 0.9, 0.9,
+                float(np.float32(1.0 - 0.9)), 0.999,
+                float(np.float32(1.0 - 0.999)), 1e-8)
             record = {
                 "table": table, "opt": opt_type, "shape": [n, dim],
                 "max_abs_err": err, "rtol": K3_RTOL, "atol": K3_ATOL,
                 "ok": ok,
-                "ms": time_ms(torch, lambda: tier.scatter_apply(
+                "ms": time_ms(torch, raw, flush),
+                "wrapper_ms": time_ms(torch, lambda: tier.scatter_apply(
                     work, slots, grads, *args), flush),
                 "plain_ms": time_ms(torch, lambda: tier.scatter_apply_reference(
                     work, slots, grads, *args), flush),
@@ -1410,6 +1479,110 @@ def train_timing(torch, train):
     }))
 
 
+K4_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu"
+# faults planted in a copy of K4's source by ``--mutations``: (name,
+# ((source text, its replacement), ...)); kernel_phase must fail on each
+K4_MUTATIONS = (
+    ("skip_diagonal_tile", (
+        ("return causal ? q_last / kBlockN + 1 :",
+         "return causal ? max(q_last / kBlockN, 1) :"),)),
+    ("no_output_correction", (
+        ("acc_o[i] *= corr[(i >> 1) & 1];", "acc_o[i] *= 1.f;"),)),
+    ("wrong_ring_stage", (
+        ("const uint32_t k_src = k_s + stage * L::kTileBytes;",
+         "const uint32_t k_src = k_s + ((stage + 1) % kStages) "
+         "* L::kTileBytes;"),)),
+)
+# K4's persistent tile loop (one CTA per SM walks the work tiles,
+# longest first) against one CTA per work tile, launched longest first or
+# head by head (each head's query tiles in order)
+K4_ONE_TILE_PER_CTA = (
+    ("const int grid = n_work < sms ? n_work : sms;",
+     "const int grid = n_work;"),)
+K4_SCHEDULES = {
+    "persistent": (),
+    "one_tile_per_cta": K4_ONE_TILE_PER_CTA,
+    "one_tile_per_cta_head_major": K4_ONE_TILE_PER_CTA + (
+        ("  bh = t % bh_count;\n  q0 = (m_tiles - 1 - t / bh_count) * kBlockM;",
+         "  bh = t / m_tiles;\n  q0 = (t % m_tiles) * kBlockM;"),),
+}
+# a child run of kernel_phase in a copy: every case ("check") or the
+# main case alone ("time")
+K4_CHILD = (
+    "import sys, torch, chip_smoke\n"
+    "from elasticdl_tpu_torch.ops import flash_attention as flash\n"
+    "cases = chip_smoke.CASES[:1] if sys.argv[1] == 'time' "
+    "else chip_smoke.CASES\n"
+    "chip_smoke.kernel_phase(torch, flash, cases, baselines=False)\n"
+)
+
+
+def k4_copy(name, edits):
+    """The port and this script copied under build/mut_<name>, with
+    ``edits`` applied to K4's source (each text found exactly once); the
+    copy builds its own library (the name carries the source's hash)."""
+    root = os.path.join(HERE, "build", "mut_" + name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for name_ in ("chip_smoke.py", "pyproject.toml"):
+        shutil.copy(os.path.join(HERE, name_), root)
+    shutil.copytree(os.path.join(HERE, "elasticdl_tpu_torch"),
+                    os.path.join(root, "elasticdl_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(root, K4_SOURCE)
+    with open(path) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit("%s: %r is not in K4's source exactly once"
+                             % (name, old))
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return root
+
+
+def k4_child(root, mode):
+    return subprocess.run([sys.executable, "-c", K4_CHILD, mode], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+
+
+def mutation_phase():
+    """Plant each of K4_MUTATIONS in its own copy and require
+    kernel_phase to fail there; then time K4 at the main case under each
+    of K4_SCHEDULES, in turns (A B C C B A)."""
+    copies = {name: k4_copy(name, edits) for name, edits in K4_MUTATIONS}
+    schedules = {name: k4_copy(name, edits)
+                 for name, edits in K4_SCHEDULES.items()}
+    builds = [subprocess.Popen(
+        [sys.executable, "-c", "from elasticdl_tpu_torch.ops import _build; "
+         "_build.build(['flash_fwd'])"], cwd=root)
+        for root in [*copies.values(), *schedules.values()]]
+    if any(proc.wait() for proc in builds):
+        raise SystemExit("a K4 copy did not build")
+    missed = []
+    for name, root in copies.items():
+        proc = k4_child(root, "check")
+        lines = (proc.stdout + proc.stderr).strip().splitlines()
+        log(json.dumps({"mutation": name, "caught": proc.returncode != 0,
+                        "rc": proc.returncode,
+                        "last_line": lines[-1][:300] if lines else ""}))
+        if proc.returncode == 0:
+            missed.append(name)
+    times = {key: [] for key in schedules}
+    for key in [*schedules, *reversed(schedules)]:
+        proc = k4_child(schedules[key], "time")
+        records = [json.loads(line) for line in proc.stdout.splitlines()
+                   if line.startswith('{"case"')]
+        if proc.returncode or not records:
+            raise SystemExit("K4 (%s) failed:\n%s"
+                             % (key, proc.stdout + proc.stderr))
+        times[key].append(records[-1]["ms"])
+    log(json.dumps({"k4_schedule_ms": times, "case": CASES[0][0]}))
+    if missed:
+        raise SystemExit("planted K4 faults not caught: %s" % missed)
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -1431,6 +1604,8 @@ def kernel_entry(name, source, replaces, launches, case, kind):
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }
+    if kind == "fwd":
+        entry["wrapper_ms"] = case["wrapper_ms"]
     if kind == "dkv":
         entry["ms_k5_k6"] = case["dq_ms"] + case["dkv_ms"]
         entry["library_ms_k5_k6"] = case["library_ms_dq_dk_dv"]
@@ -1455,13 +1630,14 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse):
         "replaces": replaces, "launches": launches,
         "launches_per_step": launches / sparse["steps"],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
+        "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
         "bound_by": emb["bound_by"], "library_ms": emb["library_ms"],
         "shape": emb["shape"], "ms_linear_d1": lin["ms"],
     }
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
@@ -1480,6 +1656,13 @@ def main():
     smi = nvidia_smi_line()
     log("card: %s (%d visible); torch %s, CUDA %s" % (
         smi, torch.cuda.device_count(), torch.__version__, torch.version.cuda))
+    if argv == ["--mutations"]:
+        mutation_phase()
+        log(smi)
+        return 0
+    if argv:
+        print("usage: chip_smoke.py [--mutations]", file=sys.stderr)
+        return 2
 
     build_s = _build.build()
     log(json.dumps({"phase": "build", "seconds": build_s}))
@@ -1521,7 +1704,7 @@ def main():
     launches = train["launches"]
     main_case = "serve_bf16_causal"  # the served and the trained shape
     fwd = kernel_entry(
-        "flash_attention_fwd", "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu",
+        "flash_attention_fwd", K4_SOURCE,
         "elasticdl_tpu/ops/flash_attention.py:66", launches["fwd"],
         cases[main_case], "fwd")
     fwd["launches_serve"] = serve_launches
@@ -1554,4 +1737,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -39,7 +39,11 @@ def _qkv(card, bh, seq, dim, dtype, seed=0):
     ]
 
 
-@pytest.mark.parametrize("seq", [1, 63, 200, 256])
+# S across the bf16 kernel's 128-row query and key tiles (127, 128, 129)
+# and several turns of its K/V ring (3 stages of 128 keys at d 64, 2 at
+# d 128: 640, 1000 and 2048 wrap it), ragged and not
+@pytest.mark.parametrize("seq", [1, 63, 127, 128, 129, 200, 256, 640, 1000,
+                                 2048])
 @pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -56,10 +60,29 @@ def test_flash_fwd_matches_plain_version(card, dtype, causal, dim, seq):
     torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=1e-5)
 
 
-def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
-    q, k, v = _qkv(card, 2, 64, 96, torch.bfloat16)  # head_dim 96
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_bf16_launches_are_bit_equal(card, causal, dim):
+    """No atomics and no split over keys: two launches on the same
+    inputs give the same bits (the serve phase holds served answers
+    bit-equal to predict on this)."""
+    q, k, v = _qkv(card, 12, 1000, dim, torch.bfloat16, seed=3)
+    o1, lse1 = flash.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = flash.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
+
+
+@pytest.mark.parametrize("dim", [32, 96, 256])
+def test_flash_fwd_refuses_other_bf16_head_dims(card, dim):
+    q, k, v = _qkv(card, 2, 64, dim, torch.bfloat16)
+    before = flash.LAUNCHES
     with pytest.raises(ValueError):
-        flash.flash_attention_fwd(q, k, v)
+        flash.flash_attention_fwd(q, k, v, causal=True)
+    assert flash.LAUNCHES == before
+
+
+def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
     q, k, v = _qkv(card, 2, 64, 64, torch.float16)
     with pytest.raises(ValueError):
         flash.flash_attention_fwd(q, k, v)
