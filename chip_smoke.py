@@ -20,10 +20,11 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    it) with CUDA events, L2 flushed before every launch;
 3. backward kernels -- K5 (dq) and K6 (dk, dv) against
    ``flash_attention_bwd_reference`` at the same six shapes, row by row
-   (each row's error relative to that row's size), with each kernel
-   timed alone beside its own plain version, and the backward of
-   ``scaled_dot_product_attention`` (the yardstick for K5 + K6
-   together);
+   (each row's error relative to that row's size), raw launches on the
+   same inputs bit-equal to the wrapper's, each kernel timed alone
+   beside its own plain version, the wrapper (delta and both kernels)
+   and the backward of ``scaled_dot_product_attention`` (the yardstick
+   for K5 + K6 together);
 4. tier kernels -- K1 (gather-merge), K2 (set rows) and K3
    (scatter-apply), ops/csrc/embedding_tier.cu, against their plain
    versions at deepfm's deployment shapes for both tables (d 8 and 1):
@@ -68,6 +69,11 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --mutations`` plants each fault of
+``K4_MUTATIONS`` and ``BWD_MUTATIONS`` in its own copy of the port under
+build/ and requires the kernel phase to fail there, then times K4's
+schedules (``K4_SCHEDULES``) in turns.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -322,10 +328,13 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
     return results
 
 
-def bwd_kernel_phase(torch, flash):
-    """K5 and K6 against the plain backward at every case; each kernel
-    timed alone (raw launches of the built library, not counted) beside
-    its own plain version, and the backward of
+def bwd_kernel_phase(torch, flash, timing=True):
+    """K5 and K6 against the plain backward at every case, and raw
+    launches of the built library's C functions on the same inputs
+    bit-equal to the wrapper's; with ``timing``, each kernel timed
+    alone by those raw launches (not counted) beside the wrapper
+    ``flash_attention_bwd`` (checks, delta, K5 and K6: the only wrapper
+    either kernel has), its own plain version, and the backward of
     scaled_dot_product_attention, which computes dq, dk and dv together
     (no PyTorch call computes K5's or K6's part alone)."""
     import torch.nn.functional as F
@@ -366,26 +375,18 @@ def bwd_kernel_phase(torch, flash):
                   scale)
         inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr())
-        dq_ms = time_ms(torch, raw_launch(
-            torch, lib.edl_flash_bwd_dq, *inputs, dq.data_ptr(), *common),
-            flush)
-        dkv_ms = time_ms(torch, raw_launch(
-            torch, lib.edl_flash_bwd_dkv, *inputs, dk.data_ptr(),
-            dv.data_ptr(), *common), flush)
-        args = (q, k, v, o, lse, do, causal, scale)
-        dq_plain_ms = time_ms(
-            torch, lambda: flash.flash_attention_bwd_dq_reference(*args),
-            flush, iters=5)
-        dkv_plain_ms = time_ms(
-            torch, lambda: flash.flash_attention_bwd_dkv_reference(*args),
-            flush, iters=5)
-        q4, k4, v4 = (t.view(1, bh, seq, dim).detach().requires_grad_()
-                      for t in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
-                                              scale=scale)
-        do4 = do.view(1, bh, seq, dim)
-        library_ms = time_ms(torch, lambda: torch.autograd.grad(
-            sdpa, (q4, k4, v4), do4, retain_graph=True), flush)
+        raw_out = [torch.empty_like(q) for _ in range(3)]
+        raw_dq = raw_launch(torch, lib.edl_flash_bwd_dq, *inputs,
+                            raw_out[0].data_ptr(), *common)
+        raw_dkv = raw_launch(torch, lib.edl_flash_bwd_dkv, *inputs,
+                             raw_out[1].data_ptr(), raw_out[2].data_ptr(),
+                             *common)
+        raw_dq()
+        raw_dkv()
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b)
+                        for a, b in zip(raw_out, (dq, dk, dv)))
+        oks.append(bit_equal)
         record = {
             "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
             "causal": causal,
@@ -393,17 +394,43 @@ def bwd_kernel_phase(torch, flash):
             "tol_row_rel": rtol, "row_floor": GRAD_FLOOR * dim ** 0.5,
             "median_row_norm": row_norms,
             "tol_abs": GRAD_F32_ATOL if dtype_name == "float32" else None,
-            "dq_ms": dq_ms, "dkv_ms": dkv_ms, "dq_plain_ms": dq_plain_ms,
-            "dkv_plain_ms": dkv_plain_ms, "library_ms_dq_dk_dv": library_ms,
+            "launches_bit_equal": bit_equal,
             "dq_bound": bound(bh, seq, dim, dtype_name, causal, "dq"),
             "dkv_bound": bound(bh, seq, dim, dtype_name, causal, "dkv"),
             "ok": all(oks),
         }
-        log(json.dumps(record))
         if not record["ok"]:
+            log(json.dumps(record))
             raise SystemExit("backward kernel phase failed at case %s" % name)
+        if not timing:
+            log(json.dumps(record))
+            results[name] = record
+            del q, k, v, do, o, lse, dq, dk, dv, delta, raw_out
+            continue
+        record["dq_ms"] = time_ms(torch, raw_dq, flush)
+        record["dkv_ms"] = time_ms(torch, raw_dkv, flush)
+        record["wrapper_ms_dq_dk_dv"] = time_ms(
+            torch, lambda: flash.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal=causal), flush)
+        args = (q, k, v, o, lse, do, causal, scale)
+        record["dq_plain_ms"] = time_ms(
+            torch, lambda: flash.flash_attention_bwd_dq_reference(*args),
+            flush, iters=5)
+        record["dkv_plain_ms"] = time_ms(
+            torch, lambda: flash.flash_attention_bwd_dkv_reference(*args),
+            flush, iters=5)
+        q4, k4, v4 = (t.view(1, bh, seq, dim).detach().requires_grad_()
+                      for t in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
+        do4 = do.view(1, bh, seq, dim)
+        record["library_ms_dq_dk_dv"] = time_ms(
+            torch, lambda: torch.autograd.grad(
+                sdpa, (q4, k4, v4), do4, retain_graph=True), flush)
+        log(json.dumps(record))
         results[name] = record
-        del q, k, v, do, o, lse, dq, dk, dv, delta, q4, k4, v4, sdpa, do4, args
+        del q, k, v, do, o, lse, dq, dk, dv, delta, raw_out, q4, k4, v4
+        del sdpa, do4, args
     return results
 
 
@@ -1506,21 +1533,57 @@ K4_SCHEDULES = {
         ("  bh = t % bh_count;\n  q0 = (m_tiles - 1 - t / bh_count) * kBlockM;",
          "  bh = t / m_tiles;\n  q0 = (t % m_tiles) * kBlockM;"),),
 }
-# a child run of kernel_phase in a copy: every case ("check") or the
-# main case alone ("time")
-K4_CHILD = (
+
+BWD_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_bwd.cu"
+# faults planted in a copy of K5/K6's source: bwd_kernel_phase must fail
+# on each (K6's query mask matters only where a query tile is ragged:
+# the S = 1000 cases)
+BWD_MUTATIONS = (
+    ("k5_skip_diagonal_tile", (
+        ("return causal ? q_last / kN + 1 :",
+         "return causal ? max(q_last / kN, 1) :"),)),
+    ("k5_no_delta", (
+        ("ds[e] = p * (acc_dp[j + e] - delta_r[h]) * scale;",
+         "ds[e] = p * acc_dp[j + e] * scale;"),)),
+    ("k6_no_query_mask_past_s", (
+        ("if (q_pos >= seq || (causal && k_pos > q_pos)) s = kNegInf;",
+         "if (causal && k_pos > q_pos) s = kNegInf;"),)),
+    ("k6_q_wrong_ring_stage", (
+        ("const uint32_t q_src = q_s + stage * L::kTileBytes;",
+         "const uint32_t q_src = q_s + ((stage + 1) % kStages) "
+         "* L::kTileBytes;"),)),
+)
+# a child run in a copy: K4's kernel_phase at every case ("check") or
+# the main case alone ("time"), or bwd_kernel_phase's checks at every
+# case ("bwd")
+MUTATION_CHILD = (
     "import sys, torch, chip_smoke\n"
     "from elasticdl_tpu_torch.ops import flash_attention as flash\n"
-    "cases = chip_smoke.CASES[:1] if sys.argv[1] == 'time' "
+    "if sys.argv[1] == 'bwd':\n"
+    "    chip_smoke.bwd_kernel_phase(torch, flash, timing=False)\n"
+    "else:\n"
+    "    cases = chip_smoke.CASES[:1] if sys.argv[1] == 'time' "
     "else chip_smoke.CASES\n"
-    "chip_smoke.kernel_phase(torch, flash, cases, baselines=False)\n"
+    "    chip_smoke.kernel_phase(torch, flash, cases, baselines=False)\n"
 )
 
 
-def k4_copy(name, edits):
+def apply_edits(text, edits, name):
+    """``text`` with each (old, new) of ``edits`` replaced; raises unless
+    every old text occurs exactly once."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit("%s: %r is not in the source exactly once"
+                             % (name, old))
+        text = text.replace(old, new)
+    return text
+
+
+def kernel_copy(name, source, edits):
     """The port and this script copied under build/mut_<name>, with
-    ``edits`` applied to K4's source (each text found exactly once); the
-    copy builds its own library (the name carries the source's hash)."""
+    ``edits`` applied to the kernel source ``source`` (a path from the
+    checkout's root); the copy builds its own library (the name carries
+    the source's hash)."""
     root = os.path.join(HERE, "build", "mut_" + name)
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1529,40 +1592,45 @@ def k4_copy(name, edits):
     shutil.copytree(os.path.join(HERE, "elasticdl_tpu_torch"),
                     os.path.join(root, "elasticdl_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(root, K4_SOURCE)
+    path = os.path.join(root, source)
     with open(path) as f:
-        text = f.read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit("%s: %r is not in K4's source exactly once"
-                             % (name, old))
-        text = text.replace(old, new)
+        text = apply_edits(f.read(), edits, name)
     with open(path, "w") as f:
         f.write(text)
     return root
 
 
-def k4_child(root, mode):
-    return subprocess.run([sys.executable, "-c", K4_CHILD, mode], cwd=root,
-                          capture_output=True, text=True, timeout=900)
+def mutation_child(root, mode):
+    return subprocess.run([sys.executable, "-c", MUTATION_CHILD, mode],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=900)
 
 
 def mutation_phase():
-    """Plant each of K4_MUTATIONS in its own copy and require
-    kernel_phase to fail there; then time K4 at the main case under each
-    of K4_SCHEDULES, in turns (A B C C B A)."""
-    copies = {name: k4_copy(name, edits) for name, edits in K4_MUTATIONS}
-    schedules = {name: k4_copy(name, edits)
+    """Plant each of K4_MUTATIONS and BWD_MUTATIONS in its own copy and
+    require kernel_phase (K4) or bwd_kernel_phase (K5, K6) to fail
+    there; then time K4 at the main case under each of K4_SCHEDULES, in
+    turns (A B C C B A)."""
+    # copy name -> (root, the child's mode); the backward's phase runs
+    # K4 too, so its copies build both flash sources
+    copies = {name: (kernel_copy(name, K4_SOURCE, edits), "check")
+              for name, edits in K4_MUTATIONS}
+    copies.update({name: (kernel_copy(name, BWD_SOURCE, edits), "bwd")
+                   for name, edits in BWD_MUTATIONS})
+    schedules = {name: kernel_copy(name, K4_SOURCE, edits)
                  for name, edits in K4_SCHEDULES.items()}
+    targets = [(root, ["flash_fwd", "flash_bwd"] if mode == "bwd"
+                else ["flash_fwd"]) for root, mode in copies.values()]
+    targets += [(root, ["flash_fwd"]) for root in schedules.values()]
     builds = [subprocess.Popen(
         [sys.executable, "-c", "from elasticdl_tpu_torch.ops import _build; "
-         "_build.build(['flash_fwd'])"], cwd=root)
-        for root in [*copies.values(), *schedules.values()]]
+         "_build.build(%r)" % kernels], cwd=root)
+        for root, kernels in targets]
     if any(proc.wait() for proc in builds):
-        raise SystemExit("a K4 copy did not build")
+        raise SystemExit("a mutated copy did not build")
     missed = []
-    for name, root in copies.items():
-        proc = k4_child(root, "check")
+    for name, (root, mode) in copies.items():
+        proc = mutation_child(root, mode)
         lines = (proc.stdout + proc.stderr).strip().splitlines()
         log(json.dumps({"mutation": name, "caught": proc.returncode != 0,
                         "rc": proc.returncode,
@@ -1571,7 +1639,7 @@ def mutation_phase():
             missed.append(name)
     times = {key: [] for key in schedules}
     for key in [*schedules, *reversed(schedules)]:
-        proc = k4_child(schedules[key], "time")
+        proc = mutation_child(schedules[key], "time")
         records = [json.loads(line) for line in proc.stdout.splitlines()
                    if line.startswith('{"case"')]
         if proc.returncode or not records:
@@ -1580,32 +1648,33 @@ def mutation_phase():
         times[key].append(records[-1]["ms"])
     log(json.dumps({"k4_schedule_ms": times, "case": CASES[0][0]}))
     if missed:
-        raise SystemExit("planted K4 faults not caught: %s" % missed)
+        raise SystemExit("planted faults not caught: %s" % missed)
 
 
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
     backward of scaled_dot_product_attention, which computes what both
-    compute, stands once, on K6's record, beside the two kernels' sum."""
+    compute, stands once, on K6's record, beside the two kernels' sum.
+    Their wrapper_ms is one call of flash_attention_bwd, the one wrapper
+    that launches them both (checks, delta, K5 and K6)."""
     if kind == "fwd":
         err, ms, plain_ms = case["max_abs_err"], case["ms"], case["plain_ms"]
         bound_ms, bound_by = case["bound_ms"], case["bound_by"]
-        library_ms = case["library_ms"]
+        library_ms, wrapper_ms = case["library_ms"], case["wrapper_ms"]
     else:
         grads = ("dq",) if kind == "dq" else ("dk", "dv")
         err = max(case["max_abs_err"][g] for g in grads)
         ms, plain_ms = case["%s_ms" % kind], case["%s_plain_ms" % kind]
         bound_ms, bound_by = case["%s_bound" % kind]
-        library_ms = None
+        library_ms, wrapper_ms = None, case["wrapper_ms_dq_dk_dv"]
     entry = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
+        "wrapper_ms": wrapper_ms,
     }
-    if kind == "fwd":
-        entry["wrapper_ms"] = case["wrapper_ms"]
     if kind == "dkv":
         entry["ms_k5_k6"] = case["dq_ms"] + case["dkv_ms"]
         entry["library_ms_k5_k6"] = case["library_ms_dq_dk_dv"]
@@ -1708,13 +1777,12 @@ def main(argv):
         "elasticdl_tpu/ops/flash_attention.py:66", launches["fwd"],
         cases[main_case], "fwd")
     fwd["launches_serve"] = serve_launches
-    bwd_source = "elasticdl_tpu_torch/ops/csrc/flash_bwd.cu"
     log(json.dumps({"kernels": [
         fwd,
-        kernel_entry("flash_attention_bwd_dq", bwd_source,
+        kernel_entry("flash_attention_bwd_dq", BWD_SOURCE,
                      "elasticdl_tpu/ops/flash_attention.py:229",
                      launches["dq"], bwd_cases[main_case], "dq"),
-        kernel_entry("flash_attention_bwd_dkv", bwd_source,
+        kernel_entry("flash_attention_bwd_dkv", BWD_SOURCE,
                      "elasticdl_tpu/ops/flash_attention.py:293",
                      launches["dkv"], bwd_cases[main_case], "dkv"),
         tier_kernel_entry("embedding_tier_gather",

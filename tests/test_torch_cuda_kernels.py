@@ -92,7 +92,11 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
         flash.flash_attention_fwd(strided, k[..., :64], v[..., :64])
 
 
-@pytest.mark.parametrize("seq", [1, 63, 200, 256])
+# S across the bf16 kernels' tiles (128 owned rows; streamed tiles of 128
+# rows at d 64 and 64 at d 128: 127, 128, 129) and several turns of
+# their 3-stage rings (640, 1000, 2048), ragged and not
+@pytest.mark.parametrize("seq", [1, 63, 127, 128, 129, 200, 256, 640, 1000,
+                                 2048])
 @pytest.mark.parametrize("dim", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -114,6 +118,36 @@ def test_flash_bwd_matches_plain_version(card, dtype, causal, dim, seq):
         assert err <= chip_smoke.GRAD_ROW_RTOL[str(dtype)[6:]], (name, err)
         if dtype == torch.float32:
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _bwd_inputs(card, bh, seq, dim, causal, seed):
+    q, k, v = _qkv(card, bh, seq, dim, torch.bfloat16, seed=seed)
+    (do,) = _qkv(card, bh, seq, dim, torch.bfloat16, seed=seed + 1)[:1]
+    o, lse = flash.flash_attention_fwd_reference(q, k, v, causal=causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_bf16_launches_are_bit_equal(card, causal, dim):
+    """Each gradient row has one owner and no atomics: two launches of K5
+    and K6 on the same inputs give the same bits (ragged S, several
+    turns of the rings)."""
+    args = _bwd_inputs(card, 12, 1000, dim, causal, seed=3)
+    first = flash.flash_attention_bwd(*args, causal=causal)
+    second = flash.flash_attention_bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dim", [32, 96, 256])
+def test_flash_bwd_refuses_other_bf16_head_dims(card, dim):
+    args = _bwd_inputs(card, 2, 64, dim, True, seed=0)
+    before = (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    with pytest.raises(ValueError):
+        flash.flash_attention_bwd(*args, causal=True)
+    assert (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == before
 
 
 def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
