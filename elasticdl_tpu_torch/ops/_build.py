@@ -84,8 +84,9 @@ KERNELS = {
             # K1: table, slots, miss (or None), out, n, dim, table_rows,
             # stream
             "edl_tier_gather": ([_VP] * 4 + [_INT] * 3 + [_VP], _INT),
-            # K2: table, slots, rows (or None), n, dim, table_rows, stream
-            "edl_tier_set_rows": ([_VP] * 3 + [_INT] * 3 + [_VP], _INT),
+            # K2: rows, slot0, slot1, steps (each buffer but rows may be
+            # None), slots, ins_rows (or None), n, dim, table_rows, stream
+            "edl_tier_insert_rows": ([_VP] * 6 + [_INT] * 3 + [_VP], _INT),
             # K3: grads, slots, rows, slot0, slot1, steps, n, dim,
             # table_rows, opt, lr, momentum, beta1, 1 - beta1, beta2,
             # 1 - beta2, eps, stream

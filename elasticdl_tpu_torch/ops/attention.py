@@ -4,13 +4,20 @@ elsewhere.
 Port of elasticdl_tpu/ops/attention.py. ``dot_product_attention`` is
 the op model code calls:
 
-- ``"flash"`` -- ops/flash_attention.py ``FlashAttention``: the K4
-                 kernel forward and the K5/K6 kernels backward for CUDA
-                 tensors (which raise on a dtype or head_dim they do
-                 not take), their plain versions for CPU tensors
-- ``"xla"``   -- the plain softmax attention below (name kept from the
-                 JAX package); taken only when asked for by name
-- ``"auto"``  -- ``"flash"``
+- ``"flash"``  -- ops/flash_attention.py ``FlashAttention``: the K4
+                  kernel forward and the K5/K6 kernels backward for CUDA
+                  tensors (which raise on a dtype or head_dim they do
+                  not take), their plain versions for CPU tensors
+- ``"pallas"`` -- the JAX package's name for its kernel path: the same
+                  as ``"flash"``, so model code written against the
+                  reference (``TransformerLM(attention_impl="pallas")``)
+                  runs unchanged
+- ``"xla"``    -- the plain softmax attention below (name kept from the
+                  JAX package); taken only when asked for by name
+- ``"auto"``   -- ``"flash"``
+
+The reference's ``"ring"`` and ``"ulysses"`` (sequence parallelism over
+a mesh) are not ported yet and raise, as any other name does.
 """
 
 import math
@@ -39,7 +46,7 @@ def xla_attention(q, k, v, causal=False, sm_scale=None):
 def dot_product_attention(q, k, v, causal=False, sm_scale=None,
                           impl="auto"):
     """Attention on (batch, heads, seq, dim) tensors."""
-    if impl in ("auto", "flash"):
+    if impl in ("auto", "flash", "pallas"):
         return _flash.flash_attention(q, k, v, causal=causal,
                                       sm_scale=sm_scale)
     if impl == "xla":

@@ -1,52 +1,76 @@
 // Device-tier embedding kernels for Hopper, sm_90a: K1 gather-merge, K2
-// set rows, K3 scatter-apply.
+// insert rows, K3 scatter-apply.
 //
 // Replace the three Pallas kernels of elasticdl_tpu/ops/embedding_tier.py:
-// - K1 edl_tier_gather    <- _pallas_gather (one grid step per row there):
+// - K1 edl_tier_gather      <- _pallas_gather (one grid step per row there):
 //   out[i] = table[slots[i]] if slots[i] >= 0 else miss[i] (zeros when no
 //   miss buffer is given: the eviction read and gather_rows).
-// - K2 edl_tier_set_rows  <- _pallas_set_rows: table[slots[i]] = rows[i]
-//   in place (zeros when no rows are given: the optimizer-slot reset of a
-//   staged promotion).
+// - K2 edl_tier_insert_rows <- every _pallas_set_rows call of
+//   _pallas_insert_gather and its XLA step reset (embedding_tier.py:
+//   239-248): for each staged slot s = slots[i] of a chunk, in ONE
+//   launch, the weights' row s = rows[i] (zeros when no rows are given),
+//   each optimizer slot buffer's row s = 0 and the int32 step count s =
+//   0. The slot buffers and the steps may be null, so with all three null
+//   it is the plain one-buffer set (set_rows).
 // - K3 edl_tier_scatter_apply <- _pallas_scatter_apply: one sparse
 //   optimizer step (sgd, momentum, nesterov, adagrad, adam) per gradient
-//   row, in place on the weights, the slot buffers and the per-row step
-//   counts, at target = slots[i] >= 0 ? slots[i] : scratch (the table's
-//   last row).
+//   row whose slot is a resident row, in place on the weights, the slot
+//   buffers and the per-row step counts.
 //
 // Uniqueness contract (embedding_tier.py module docstring): slots are
-// unique per launch except the scratch row, which may repeat. Its
-// contents are garbage by contract, so racing writes to it are benign.
-// A slot at or past the table's end is never read or written: K1 treats
-// it as a miss, K2 skips it, K3 sends it to the scratch row.
+// unique per launch except the scratch row (the table's last), which may
+// repeat; its contents are garbage by contract. A slot at or past the
+// table's end is never read or written: K1 treats it as a miss, K2 skips
+// it. K3 on the card leaves the scratch row alone: a slot < 0 (a miss or
+// padding) or at or past table_rows - 1 returns before touching any
+// buffer. The reference and the plain version send misses to the scratch
+// row, which nothing reads, so nothing that anyone reads differs.
 //
 // Bound at deepfm's deployment shapes (bench.py: 39 fields, batch 512, id
 // capacity 8192, tier capacity 65536 + 1 scratch row, d = 8 for
 // deepfm_emb and 1 for deepfm_linear, adam): every kernel moves bytes and
 // does a handful of flops per byte, so memory bounds it. K1 on the
 // combined buffer moves 8192 slots + 8192 read rows + 8192 written rows =
-// 0.55 MB at d = 8, 0.16 us at 3.35 TB/s; K2 on a 2048-row staging chunk
-// 0.14 MB, 0.04 us; K3 (adam) reads the gradient and reads and writes
-// weights, m, v and the step count of 8192 rows, 1.9 MB, 0.56 us. A launch
-// costs a few microseconds on its own, so at these sizes the launch, not
-// the bytes, sets the time.
+// 0.55 MB at d = 8, 0.16 us at 3.35 TB/s; K2 on a 512-row staging chunk
+// reads the slots and rows and writes the weights, m, v and the step
+// counts, 0.07 MB, 0.02 us; K3 (adam) reads 8192 slots and, for about
+// 3060 hits, the gradient and the weights, m, v and step count, and
+// writes the last four, 0.74 MB, 0.22 us.
 //
-// Design (a first, right kernel): the rows are narrow, so no block or
-// warp is spent on one row. K1 and K2 map one thread to one (row, 16-byte
-// chunk) pair with float4 loads when d % 4 == 0 and every pointer is
-// 16-byte aligned, else to one (row, element) pair; neighbouring threads
-// touch neighbouring chunks of a row, then the next row. K3 maps one
-// thread to one row and loops over the row's chunks: that thread alone
-// reads the row's step count, increments it, uses it for the bias
-// correction of every element of the row and writes it back. Rows are
-// unique (scratch aside), so for any d no other thread reads or writes
-// that count, and nothing ever sees it half-updated; the scratch row's
-// count is garbage like its values. K3's arithmetic uses the
-// round-to-nearest intrinsics (__fmul_rn, __fadd_rn, ...), which the
-// compiler never contracts into an FMA, in the order of the plain version
-// (embedding_tier.py: scatter_apply_reference), so every optimizer but
-// adam matches it bit for bit; adam's powf(beta, t) may differ from the
-// host's pow by an ulp.
+// Design: a launch costs a few microseconds on its own, so at these sizes
+// the launch and the chain of dependent loads inside it, not the bytes,
+// set the time. So:
+// - K2 inserts a staging chunk into the whole table state in one launch
+//   (one launch per buffer and a torch index put for the step counts
+//   would be five kernels under adam).
+// - K2 and K3 give each row a group of lanes inside one warp, one lane
+//   per 16-byte chunk of the row (float4, when d % 4 == 0 and every
+//   pointer is 16-byte aligned), else per element; the group is the chunk
+//   count rounded up to a power of two, at most 32 (spare lanes idle; past
+//   32 chunks a lane loops). The group's first lane loads the slot once
+//   and broadcasts it with __shfl_sync; every lane of the warp reaches
+//   that shuffle before any returns.
+// - K3's first lane alone reads the row's step count, computes t = steps
+//   + 1 and adam's two bias corrections once, broadcasts the corrections
+//   and then stores t. Rows are unique, so no other thread touches that
+//   count.
+// - K3 issues a lane's loads ahead of its arithmetic: the gradient before
+//   the slot has arrived, the weights and slot buffers while the first
+//   lane reads the step count. Slots and gradients (and K2's rows) come
+//   through the read-only path (__ldg).
+// - A K3 miss leaves at once. Sent to the scratch row, as the reference
+//   sends it, every miss of a step (about 5100 of 8192 slots at deepfm's
+//   shapes) would read-modify-write one address: thousands of updates
+//   serialised in L2, for a row that nothing reads.
+// - K2 and K3 size their blocks so that a launch of 8192 rows spreads
+//   over about 128 blocks (128 threads at d 8, 64 at d 1) on the card's
+//   132 SMs. K1 keeps one thread per (row, chunk) in blocks of 256.
+//
+// K3's arithmetic uses the round-to-nearest intrinsics (__fmul_rn,
+// __fadd_rn, ...), which the compiler never contracts into an FMA, in the
+// order of the plain version (embedding_tier.py: scatter_apply_reference),
+// so every optimizer but adam matches it bit for bit; adam's powf(beta, t)
+// may differ from the host's pow by an ulp.
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc takes
 // seconds): each function launches on the given stream, does not
@@ -59,7 +83,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // K1's block
+constexpr unsigned kFullWarp = 0xffffffffu;
+// K2 and K3: blocks of 64 to 256 threads, as many as fill the SMs
+constexpr int kSms = 132;  // H100 SXM
+constexpr int kMinThreads = 64;
+constexpr int kMaxThreads = 256;
 
 enum Opt { kSgd = 0, kMomentum = 1, kNesterov = 2, kAdagrad = 3, kAdam = 4 };
 
@@ -110,24 +139,48 @@ __global__ void gather_kernel(const float* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
-// K2: set rows
+// K2: insert rows
 // ---------------------------------------------------------------------------
 
+// Thread i serves lane i % group of row i / group (group = 1 << log2_group,
+// dividing 32, so a row's lanes share a warp). Threads past the last row
+// still reach the slot broadcast, then leave.
 template <int VEC>
-__global__ void set_rows_kernel(float* __restrict__ table,
-                                const int* __restrict__ slots,
-                                const float* __restrict__ rows,
-                                long long items, int chunks, int table_rows) {
+__global__ void insert_rows_kernel(float* __restrict__ rows,
+                                   float* __restrict__ slot0,
+                                   float* __restrict__ slot1,
+                                   int* __restrict__ steps,
+                                   const int* __restrict__ slots,
+                                   const float* __restrict__ src, int n,
+                                   int chunks, int log2_group,
+                                   int table_rows) {
   using C = Chunk<VEC>;
   using T = typename C::T;
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= items) return;
-  const long long row = i / chunks;
-  const int c = (int)(i - row * chunks);
-  const int s = slots[row];
-  if (s < 0 || s >= table_rows) return;
-  const T v = rows != nullptr ? reinterpret_cast<const T*>(rows)[i] : C::zero();
-  reinterpret_cast<T*>(table)[(long long)s * chunks + c] = v;
+  const long long row = i >> log2_group;
+  const int group = 1 << log2_group;
+  const int lane = (int)(i & (group - 1));
+  const bool live = row < n;
+  const T* src_t = reinterpret_cast<const T*>(src);
+  // the staged values do not depend on the slot: their load goes first
+  T first = C::zero();
+  if (live && src != nullptr && lane < chunks) {
+    first = __ldg(src_t + row * chunks + lane);
+  }
+  int s = -1;
+  if (live && lane == 0) s = __ldg(slots + row);
+  s = __shfl_sync(kFullWarp, s, 0, group);
+  if (!live || s < 0 || s >= table_rows) return;
+  if (lane == 0 && steps != nullptr) steps[s] = 0;
+  const long long base = (long long)s * chunks;
+  for (int c = lane; c < chunks; c += group) {
+    T v = first;
+    if (c != lane) v = src != nullptr ? __ldg(src_t + row * chunks + c)
+                                      : C::zero();
+    reinterpret_cast<T*>(rows)[base + c] = v;
+    if (slot0 != nullptr) reinterpret_cast<T*>(slot0)[base + c] = C::zero();
+    if (slot1 != nullptr) reinterpret_cast<T*>(slot1)[base + c] = C::zero();
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -179,6 +232,9 @@ __device__ __forceinline__ void apply_chunk(float4 g, float4& w, float4& m,
   apply_one<OPT>(g.w, w.w, m.w, v.w, bc1, bc2, h);
 }
 
+// Lanes as in insert_rows_kernel. The lanes of a hit row go on past the
+// slot broadcast (``live``, from a ballot of the whole warp); a miss's
+// lanes leave there, so its bias-correction shuffle names only hit rows.
 template <int OPT, int VEC>
 __global__ void scatter_apply_kernel(const float* __restrict__ grads,
                                      const int* __restrict__ slots,
@@ -186,43 +242,68 @@ __global__ void scatter_apply_kernel(const float* __restrict__ grads,
                                      float* __restrict__ slot0,
                                      float* __restrict__ slot1,
                                      int* __restrict__ steps, int n,
-                                     int chunks, int table_rows, Hyper h) {
+                                     int chunks, int log2_group,
+                                     int table_rows, Hyper h) {
   using C = Chunk<VEC>;
   using T = typename C::T;
   constexpr bool kUsesM = OPT != kSgd;  // slot0: momentum, accumulator, m
   constexpr bool kUsesV = OPT == kAdam;  // slot1: adam's v
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const int s = slots[r];
-  const int target = (s >= 0 && s < table_rows) ? s : table_rows - 1;
-  // this thread owns the target row: the only reader and writer of its
-  // step count (see the note at the top of the file)
-  const int t = steps[target] + 1;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long row = i >> log2_group;
+  const int group = 1 << log2_group;
+  const int lane = (int)(i & (group - 1));
+  const T* g_row = reinterpret_cast<const T*>(grads) + row * chunks;
+  // the gradient does not depend on the slot: its load goes first
+  T g0 = C::zero();
+  if (row < n && lane < chunks) g0 = __ldg(g_row + lane);
+  int s = -1;
+  if (row < n && lane == 0) s = __ldg(slots + row);
+  s = __shfl_sync(kFullWarp, s, 0, group);
+  const bool hit = s >= 0 && s < table_rows - 1;
+  const unsigned live = __ballot_sync(kFullWarp, row < n && hit);
+  if (row >= n || !hit) return;
+  T* w_row = reinterpret_cast<T*>(rows) + (long long)s * chunks;
+  T* m_row =
+      kUsesM ? reinterpret_cast<T*>(slot0) + (long long)s * chunks : nullptr;
+  T* v_row =
+      kUsesV ? reinterpret_cast<T*>(slot1) + (long long)s * chunks : nullptr;
+  // this lane's first chunk, loaded while the first lane reads the count
+  T w0 = C::zero(), m0 = C::zero(), v0 = C::zero();
+  if (lane < chunks) {
+    w0 = w_row[lane];
+    if (kUsesM) m0 = m_row[lane];
+    if (kUsesV) v0 = v_row[lane];
+  }
+  // the first lane owns the row's step count (see the note at the top)
+  int t = 0;
+  float c1 = 1.0f, c2 = 1.0f;
+  if (lane == 0) {
+    t = steps[s] + 1;
+    if (OPT == kAdam) {
+      const float tf = (float)t;
+      c1 = __fsub_rn(1.0f, powf(h.beta1, tf));
+      c2 = __fsub_rn(1.0f, powf(h.beta2, tf));
+    }
+  }
   float bc1 = 1.0f, bc2 = 1.0f;
   if (OPT == kAdam) {
-    const float tf = (float)t;
-    bc1 = __fsub_rn(1.0f, powf(h.beta1, tf));
-    bc2 = __fsub_rn(1.0f, powf(h.beta2, tf));
+    bc1 = __shfl_sync(live, c1, 0, group);
+    bc2 = __shfl_sync(live, c2, 0, group);
   }
-  const T* g_row = reinterpret_cast<const T*>(grads) + (long long)r * chunks;
-  T* w_row = reinterpret_cast<T*>(rows) + (long long)target * chunks;
-  T* m_row = kUsesM
-                 ? reinterpret_cast<T*>(slot0) + (long long)target * chunks
-                 : nullptr;
-  T* v_row = kUsesV
-                 ? reinterpret_cast<T*>(slot1) + (long long)target * chunks
-                 : nullptr;
-  for (int c = 0; c < chunks; ++c) {
-    const T g = g_row[c];
-    T w = w_row[c];
-    T m = kUsesM ? m_row[c] : C::zero();
-    T v = kUsesV ? v_row[c] : C::zero();
+  if (lane == 0) steps[s] = t;
+  for (int c = lane; c < chunks; c += group) {
+    T g = g0, w = w0, m = m0, v = v0;
+    if (c != lane) {
+      g = __ldg(g_row + c);
+      w = w_row[c];
+      if (kUsesM) m = m_row[c];
+      if (kUsesV) v = v_row[c];
+    }
     apply_chunk<OPT>(g, w, m, v, bc1, bc2, h);
     w_row[c] = w;
     if (kUsesM) m_row[c] = m;
     if (kUsesV) v_row[c] = v;
   }
-  steps[target] = t;
 }
 
 bool aligned16(const void* p) {
@@ -233,6 +314,29 @@ unsigned int blocks_for(long long items) {
   return (unsigned int)((items + kThreads - 1) / kThreads);
 }
 
+// log2 of a row's lane group: its chunk count rounded up to a power of
+// two, at most a warp
+int group_log2(int chunks) {
+  int log2 = 0;
+  while (log2 < 5 && (1 << log2) < chunks) ++log2;
+  return log2;
+}
+
+struct RowGrid {
+  unsigned int blocks, threads;
+};
+
+// n rows of 1 << log2_group lanes each, in whole warps
+RowGrid row_grid(int n, int log2_group) {
+  const long long items = (long long)n << log2_group;
+  long long threads = (items + kSms - 1) / kSms;
+  threads = (threads + 31) / 32 * 32;
+  if (threads < kMinThreads) threads = kMinThreads;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  return {(unsigned int)((items + threads - 1) / threads),
+          (unsigned int)threads};
+}
+
 template <int OPT>
 cudaError_t launch_apply(const float* grads, const int* slots, float* rows,
                          float* slot0, float* slot1, int* steps, int n,
@@ -240,12 +344,17 @@ cudaError_t launch_apply(const float* grads, const int* slots, float* rows,
                          cudaStream_t stream) {
   const bool vec = dim % 4 == 0 && aligned16(grads) && aligned16(rows) &&
                    aligned16(slot0) && aligned16(slot1);
+  const int chunks = vec ? dim / 4 : dim;
+  const int lg = group_log2(chunks);
+  const RowGrid g = row_grid(n, lg);
   if (vec) {
-    scatter_apply_kernel<OPT, 4><<<blocks_for(n), kThreads, 0, stream>>>(
-        grads, slots, rows, slot0, slot1, steps, n, dim / 4, table_rows, h);
+    scatter_apply_kernel<OPT, 4><<<g.blocks, g.threads, 0, stream>>>(
+        grads, slots, rows, slot0, slot1, steps, n, chunks, lg, table_rows,
+        h);
   } else {
-    scatter_apply_kernel<OPT, 1><<<blocks_for(n), kThreads, 0, stream>>>(
-        grads, slots, rows, slot0, slot1, steps, n, dim, table_rows, h);
+    scatter_apply_kernel<OPT, 1><<<g.blocks, g.threads, 0, stream>>>(
+        grads, slots, rows, slot0, slot1, steps, n, chunks, lg, table_rows,
+        h);
   }
   return cudaGetLastError();
 }
@@ -278,30 +387,39 @@ int edl_tier_gather(const void* table, const void* slots, const void* miss,
   return (int)cudaGetLastError();
 }
 
-// K2: table [table_rows, dim] at slots [n] = rows [n, dim] (zeros when rows
-// is null), in place.
-int edl_tier_set_rows(void* table, const void* slots, const void* rows,
-                      int n, int dim, int table_rows, void* stream) {
+// K2: at slots [n], in place: rows [table_rows, dim] = ins_rows [n, dim]
+// (zeros when ins_rows is null), slot0 and slot1 [table_rows, dim] = 0 and
+// steps [table_rows] (int32) = 0; slot0, slot1 and steps may each be null
+// (not written).
+int edl_tier_insert_rows(void* rows, void* slot0, void* slot1, void* steps,
+                         const void* slots, const void* ins_rows, int n,
+                         int dim, int table_rows, void* stream) {
   if (n <= 0 || dim <= 0 || table_rows <= 0) return cudaErrorInvalidValue;
-  const bool vec = dim % 4 == 0 && aligned16(table) && aligned16(rows);
+  const bool vec = dim % 4 == 0 && aligned16(rows) && aligned16(slot0) &&
+                   aligned16(slot1) && aligned16(ins_rows);
   const int chunks = vec ? dim / 4 : dim;
-  const long long items = (long long)n * chunks;
+  const int lg = group_log2(chunks);
+  const RowGrid g = row_grid(n, lg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* t = static_cast<float*>(table);
+  float* w = static_cast<float*>(rows);
+  float* m = static_cast<float*>(slot0);
+  float* v = static_cast<float*>(slot1);
+  int* st = static_cast<int*>(steps);
   const int* sl = static_cast<const int*>(slots);
-  const float* r = static_cast<const float*>(rows);
+  const float* src = static_cast<const float*>(ins_rows);
   if (vec) {
-    set_rows_kernel<4><<<blocks_for(items), kThreads, 0, s>>>(
-        t, sl, r, items, chunks, table_rows);
+    insert_rows_kernel<4><<<g.blocks, g.threads, 0, s>>>(
+        w, m, v, st, sl, src, n, chunks, lg, table_rows);
   } else {
-    set_rows_kernel<1><<<blocks_for(items), kThreads, 0, s>>>(
-        t, sl, r, items, chunks, table_rows);
+    insert_rows_kernel<1><<<g.blocks, g.threads, 0, s>>>(
+        w, m, v, st, sl, src, n, chunks, lg, table_rows);
   }
   return (int)cudaGetLastError();
 }
 
 // K3: one optimizer step of grads [n, dim] into rows / slot0 / slot1
-// [table_rows, dim] and steps [table_rows] (int32) at slots [n], in place.
+// [table_rows, dim] and steps [table_rows] (int32) at slots [n], in place;
+// a slot < 0 or >= table_rows - 1 (the scratch row) is skipped.
 // opt: 0 sgd, 1 momentum, 2 nesterov, 3 adagrad (slot0), 4 adam (slot0 =
 // m, slot1 = v). one_minus_beta* are 1 - beta* rounded once to fp32 on the
 // host, as the plain version's (1.0 - beta) * g takes them.

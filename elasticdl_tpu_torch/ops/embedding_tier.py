@@ -1,4 +1,4 @@
-"""Device-tier embedding kernels (K1 gather-merge, K2 set rows, K3
+"""Device-tier embedding kernels (K1 gather-merge, K2 insert rows, K3
 scatter-apply): their wrappers, their plain PyTorch versions and the
 fused ops built on them.
 
@@ -10,12 +10,11 @@ whose last row is a scratch slot that absorbs writes addressed
 
 - ``fused_insert_gather``: once per staging chunk of a table, read the
   eviction victims' current values out (K1), write the staged
-  promotions into their slots and reset their optimizer state (K2 for
-  the weights and for every slot buffer, a torch index assignment for
-  the int32 step counts), then gather the step's full row buffer by
-  merging resident hits with the PS-pulled miss rows (K1). In that
-  order, on one stream: an insert may reuse a victim's slot, and a
-  promotion is a hit from its first step.
+  promotions into their slots and reset their optimizer slot buffers
+  and step counts (K2, one launch for the whole table state), then
+  gather the step's full row buffer by merging resident hits with the
+  PS-pulled miss rows (K1). In that order, on one stream: an insert may
+  reuse a victim's slot, and a promotion is a hit from its first step.
 - ``fused_scatter_apply``: the sparse optimizer step applied to the
   resident slots from the step's row gradients (K3); no hit row's
   gradient leaves the card. The math mirrors the PS store's
@@ -28,8 +27,9 @@ The kernels are CUDA C++ in ``ops/csrc/embedding_tier.cu``, built for
 ``sm_90a`` at first use (ops/_build.py). Each wrapper launches its
 kernel for CUDA tensors and raises on what the kernel does not take; it
 runs the plain version (a port of the reference's jnp functions) only
-for CPU tensors. ``GATHER_LAUNCHES`` (K1), ``SET_ROWS_LAUNCHES`` (K2)
-and ``SCATTER_APPLY_LAUNCHES`` (K3) count kernel launches.
+for CPU tensors. ``GATHER_LAUNCHES`` (K1), ``SET_ROWS_LAUNCHES`` (K2:
+``insert_rows`` and the one-buffer ``set_rows``) and
+``SCATTER_APPLY_LAUNCHES`` (K3) count kernel launches.
 
 The reference rebinds donated JAX arrays after every op; the port
 updates the state's tensors IN PLACE (no copy of a 65537-row table a
@@ -39,7 +39,8 @@ copy first (``gather_rows`` returns one).
 Uniqueness contract: ``slots`` entries are unique per call except the
 scratch row, which may repeat: every op writes the scratch row with
 set semantics, so duplicate writes race benignly into a row nothing
-reads.
+reads. K3 on the card does not write it at all (a miss touches
+nothing); its plain version sends misses there, as the reference does.
 """
 
 import threading
@@ -113,11 +114,28 @@ def set_rows_reference(table, slots, rows=None):
     return table
 
 
+def insert_rows_reference(state, slots, rows):
+    """K2's plain version, in place: the reference's insert of staged
+    promotions (``_jnp_insert_gather``'s three ``.at[].set``): at every
+    slot inside the table, the weights' row = ``rows[i]``, each slot
+    buffer's row = 0 and the step count = 0; slots outside the table
+    are skipped. Returns ``state``."""
+    slots = slots.long()
+    valid = (slots >= 0) & (slots < state["rows"].shape[0])
+    target = slots[valid]
+    state["rows"][target] = rows[valid]
+    for key in _slot_keys(state):
+        state[key][target] = 0.0
+    state["steps"][target] = 0
+    return state
+
+
 def scatter_apply_reference(state, slots, grads, opt_type, lr, momentum,
                             beta1, beta2, epsilon):
     """K3's plain version, in place: the reference's
-    ``_jnp_scatter_apply`` (misses, slot -1, go to the scratch row;
-    fp32 bias corrections ``1 - beta ** t``)."""
+    ``_jnp_scatter_apply`` (misses, slot -1, go to the scratch row,
+    which the kernel leaves alone; fp32 bias corrections ``1 - beta **
+    t``)."""
     rows = state["rows"]
     scratch = rows.shape[0] - 1
     slots = slots.long()
@@ -232,35 +250,87 @@ def gather_merge(table, slots, miss_rows=None):
     return out
 
 
+def _check_state(name, state):
+    """Raise unless the state's slot buffers match its rows (contiguous
+    fp32 ``[R, dim]`` on one device) and its steps are contiguous int32
+    ``[R]`` there; returns the slot buffers' keys."""
+    rows = state["rows"]
+    keys = _slot_keys(state)
+    if len(keys) > 2:
+        raise ValueError("%s: at most two slot buffers, the state has %s"
+                         % (name, keys))
+    for key in keys:
+        if (state[key].shape != rows.shape or state[key].dtype != rows.dtype
+                or state[key].device != rows.device
+                or not state[key].is_contiguous()):
+            raise ValueError("%s: %s must match rows" % (name, key))
+    steps = state["steps"]
+    if (steps.dtype != torch.int32 or tuple(steps.shape) != (rows.shape[0],)
+            or steps.device != rows.device or not steps.is_contiguous()):
+        raise ValueError("%s: steps must be contiguous int32 [%d]"
+                         % (name, rows.shape[0]))
+    return keys
+
+
+def _insert(name, table, slot_bufs, steps, slots, rows):
+    """Launch K2 on CUDA tensors already checked: ``table`` at ``slots``
+    = ``rows`` (zeros when None), each of ``slot_bufs`` (0-2) zeroed and
+    ``steps`` (or None) reset there."""
+    lib = _lib(name, table.device)
+    n, dim = slots.shape[0], table.shape[1]
+    if n == 0:
+        return
+    ptrs = [b.data_ptr() for b in slot_bufs] + [None] * (2 - len(slot_bufs))
+    with torch.cuda.device(table.device):
+        err = lib.edl_tier_insert_rows(
+            table.data_ptr(), ptrs[0], ptrs[1],
+            None if steps is None else steps.data_ptr(), slots.data_ptr(),
+            None if rows is None else rows.data_ptr(),
+            n, dim, table.shape[0], _stream(table.device),
+        )
+    _raise_on(err, name, (n, dim))
+    _count("SET_ROWS_LAUNCHES")
+
+
 def set_rows(table, slots, rows=None):
-    """K2: ``table[slots[i]] = rows[i]`` (zeros when None) in place;
-    returns ``table``. Slots outside the table are skipped.
+    """K2 on one buffer: ``table[slots[i]] = rows[i]`` (zeros when None)
+    in place; returns ``table``. Slots outside the table are skipped.
 
     CUDA tensors launch the kernel (as ``gather_merge`` takes them);
     CPU tensors run ``set_rows_reference``."""
     if table.device.type == "cpu":
         return set_rows_reference(table, slots, rows)
     _check("set_rows", table, slots, rows)
-    lib = _lib("set_rows", table.device)
-    n, dim = slots.shape[0], table.shape[1]
-    if n == 0:
-        return table
-    with torch.cuda.device(table.device):
-        err = lib.edl_tier_set_rows(
-            table.data_ptr(), slots.data_ptr(),
-            None if rows is None else rows.data_ptr(),
-            n, dim, table.shape[0], _stream(table.device),
-        )
-    _raise_on(err, "set_rows", (n, dim))
-    _count("SET_ROWS_LAUNCHES")
+    _insert("set_rows", table, (), None, slots, rows)
     return table
+
+
+def insert_rows(state, slots, rows):
+    """K2: insert staged rows into the whole table state in one launch,
+    in place: at every slot inside the table, the weights' row =
+    ``rows[i]``, each slot buffer's row = 0 and the step count = 0.
+    Returns ``state``.
+
+    CUDA tensors launch the kernel (the state as ``scatter_apply`` takes
+    it, int32 slots, fp32 ``[n, dim]`` rows; anything else raises); CPU
+    tensors run ``insert_rows_reference``."""
+    table = state["rows"]
+    if table.device.type == "cpu":
+        return insert_rows_reference(state, slots, rows)
+    _check("insert_rows", table, slots, rows)
+    keys = _check_state("insert_rows", state)
+    _insert("insert_rows", table, [state[k] for k in keys], state["steps"],
+            slots, rows)
+    return state
 
 
 def scatter_apply(state, slots, grads, opt_type, lr, momentum, beta1,
                   beta2, epsilon):
     """K3: one ``opt_type`` step of ``grads [n, dim]`` into the state's
-    rows, slot buffers and int32 step counts at ``slots`` (misses, slot
-    -1, at the scratch row), in place; returns ``state``.
+    rows, slot buffers and int32 step counts at ``slots``, in place;
+    returns ``state``. A miss (slot -1) touches nothing on the card;
+    the plain version sends it to the scratch row, as the reference
+    does, which nothing reads.
 
     CUDA tensors launch the kernel (the state's buffers contiguous fp32
     ``[R, dim]`` and int32 ``[R]``, grads contiguous fp32; anything
@@ -272,21 +342,11 @@ def scatter_apply(state, slots, grads, opt_type, lr, momentum, beta1,
         return scatter_apply_reference(state, slots, grads, opt_type, lr,
                                        momentum, beta1, beta2, epsilon)
     _check("scatter_apply", rows, slots, grads, "grads")
-    keys = _slot_keys(state)
+    keys = _check_state("scatter_apply", state)
     if len(keys) != TIER_OPT_SLOTS[opt_type]:
         raise ValueError("scatter_apply: %s needs %d slot buffers, the "
                          "state has %s" % (opt_type,
                                            TIER_OPT_SLOTS[opt_type], keys))
-    for key in keys:
-        if (state[key].shape != rows.shape or state[key].dtype != rows.dtype
-                or state[key].device != rows.device
-                or not state[key].is_contiguous()):
-            raise ValueError("scatter_apply: %s must match rows" % key)
-    steps = state["steps"]
-    if (steps.dtype != torch.int32 or tuple(steps.shape) != (rows.shape[0],)
-            or steps.device != rows.device or not steps.is_contiguous()):
-        raise ValueError("scatter_apply: steps must be contiguous int32 "
-                         "[%d]" % rows.shape[0])
     lib = _lib("scatter_apply", rows.device)
     n, dim = slots.shape[0], rows.shape[1]
     if n == 0:
@@ -297,7 +357,7 @@ def scatter_apply(state, slots, grads, opt_type, lr, momentum, beta1,
     with torch.cuda.device(rows.device):
         err = lib.edl_tier_scatter_apply(
             grads.data_ptr(), slots.data_ptr(), rows.data_ptr(),
-            slot_ptrs[0], slot_ptrs[1], steps.data_ptr(),
+            slot_ptrs[0], slot_ptrs[1], state["steps"].data_ptr(),
             n, dim, rows.shape[0], _OPT_CODES[opt_type],
             float(lr), float(momentum), float(beta1),
             float(np.float32(1.0 - beta1)), float(beta2),
@@ -322,13 +382,7 @@ def fused_insert_gather(state, ins_slots, ins_rows, evict_slots, slots,
     first step). ``ins_slots``/``evict_slots`` may be empty (no launch)
     or padded with the scratch slot; ``slots`` pads misses with -1."""
     evicted = gather_merge(state["rows"], evict_slots)
-    set_rows(state["rows"], ins_slots, ins_rows)
-    for key in _slot_keys(state):
-        set_rows(state[key], ins_slots)
-    # the int32 step reset stays a torch index assignment, as the
-    # reference keeps it on an XLA scatter (an [n] set is no kernel's
-    # worth)
-    state["steps"][ins_slots.long()] = 0
+    insert_rows(state, ins_slots, ins_rows)
     combined = gather_merge(state["rows"], slots, miss_rows)
     return state, combined, evicted
 
@@ -337,7 +391,8 @@ def fused_scatter_apply(state, slots, grads, opt_type="sgd", lr=0.01,
                         momentum=0.9, beta1=0.9, beta2=0.999,
                         epsilon=1e-8):
     """Apply one step's row gradients to the resident slots in place
-    (misses fall into the scratch row); returns ``state``."""
+    (``scatter_apply``; a miss changes no row anyone reads); returns
+    ``state``."""
     return scatter_apply(state, slots, grads, opt_type, lr, momentum,
                          beta1, beta2, epsilon)
 

@@ -20,6 +20,10 @@ TABLES = (
        for name, edits in chip_smoke.K4_SCHEDULES.items() if edits]
     + [("BWD_MUTATIONS", name, chip_smoke.BWD_SOURCE, edits)
        for name, edits in chip_smoke.BWD_MUTATIONS]
+    + [("TIER_MUTATIONS", name, chip_smoke.TIER_SOURCE, edits)
+       for name, edits in chip_smoke.TIER_MUTATIONS]
+    + [("K3_VARIANTS", name, chip_smoke.TIER_SOURCE, edits)
+       for name, edits in chip_smoke.K3_VARIANTS.items() if edits]
 )
 
 

@@ -238,7 +238,7 @@ def test_auto_dispatch_launches_the_kernel_on_the_card(card):
 
 
 # ---------------------------------------------------------------------------
-# device-tier kernels K1 (gather-merge), K2 (set rows), K3 (scatter-apply)
+# device-tier kernels K1 (gather-merge), K2 (insert rows), K3 (scatter-apply)
 # ---------------------------------------------------------------------------
 
 TIER_DIMS = [1, 8, 13, 64]
@@ -310,6 +310,34 @@ def test_tier_set_rows_matches_plain_version(card, dim):
         assert torch.equal(got[:scratch], want[:scratch])
 
 
+@pytest.mark.parametrize("opt_type", TIER_OPTS)
+@pytest.mark.parametrize("dim", TIER_DIMS)
+def test_tier_insert_rows_matches_plain_version(card, dim, opt_type):
+    """K2 inserts a chunk into the whole table state (weights, every
+    slot buffer, the step counts) in one counted launch, bit for bit
+    with its plain version on every row but scratch (the chunk is
+    padded with it, and its racing writes are benign)."""
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, slots, rng = _tier_case(card, dim, opt_type=opt_type)
+    scratch = state["rows"].shape[0] - 1
+    slots = torch.where(slots < 0, scratch, slots).to(torch.int32)
+    rows = torch.from_numpy(rng.randn(slots.shape[0], dim).astype(
+        "float32")).to(card)
+    got = {k: v.clone() for k, v in state.items()}
+    want = {k: v.clone() for k, v in state.items()}
+    before = tier.SET_ROWS_LAUNCHES
+    assert tier.insert_rows(got, slots, rows) is got
+    tier.insert_rows_reference(want, slots, rows)
+    torch.cuda.synchronize()
+    assert tier.SET_ROWS_LAUNCHES == before + 1
+    for key in want:
+        assert torch.equal(got[key][:scratch], want[key][:scratch]), key
+    # an empty chunk launches nothing
+    tier.insert_rows(got, slots[:0], rows[:0])
+    assert tier.SET_ROWS_LAUNCHES == before + 1
+
+
 # K3 against its plain version: every row but scratch. Each operation
 # rounds once in the same order on both sides (the kernel's _rn
 # intrinsics forbid FMA contraction; sqrt and division are IEEE), so
@@ -351,6 +379,53 @@ def test_tier_scatter_apply_matches_plain_version(card, dim, opt_type):
             assert torch.equal(got[key][:scratch], want[key][:scratch]), key
 
 
+def _k3_mix_slots(rows, n, kind, rng):
+    """n slots: unique hits, all misses (-1), or hits with every third a
+    miss; the hits leave some rows between them untouched."""
+    import numpy as np
+
+    if kind == "all_misses":
+        return np.full(n, -1, np.int32)
+    slots = rng.permutation(rows - 1)[:n].astype(np.int32)
+    if kind == "mix":
+        slots[::3] = -1
+    return slots
+
+
+@pytest.mark.parametrize("kind", ["all_hits", "all_misses", "mix"])
+@pytest.mark.parametrize("opt_type", TIER_OPTS)
+@pytest.mark.parametrize("dim", [1, 4, 8, 12])
+def test_tier_scatter_apply_hits_and_misses(card, dim, opt_type, kind):
+    """K3 on all hits, all misses and a mix: every row but scratch as the
+    plain version leaves it, every row no hit names unchanged (a miss
+    touches nothing), and the scratch row, where the plain version sends
+    misses, left alone on the card."""
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    state, _, rng = _tier_case(card, dim, rows=600, opt_type=opt_type)
+    scratch = state["rows"].shape[0] - 1
+    slots_np = _k3_mix_slots(600, 257, kind, rng)
+    slots = torch.from_numpy(slots_np).to(card)
+    grads = torch.from_numpy(rng.randn(257, dim).astype("float32")).to(card)
+    got = {k: v.clone() for k, v in state.items()}
+    want = {k: v.clone() for k, v in state.items()}
+    tier.scatter_apply(got, slots, grads, opt_type, 0.05, 0.9, 0.9, 0.999,
+                       1e-8)
+    tier.scatter_apply_reference(want, slots, grads, opt_type, 0.05, 0.9,
+                                 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    untouched = torch.ones(scratch + 1, dtype=torch.bool, device=card)
+    untouched[torch.from_numpy(slots_np[slots_np >= 0]).long().to(card)] = 0
+    for key in got:
+        if opt_type == "adam" and key != "steps":
+            torch.testing.assert_close(got[key][:scratch],
+                                       want[key][:scratch],
+                                       rtol=K3_RTOL, atol=K3_ATOL)
+        else:
+            assert torch.equal(got[key][:scratch], want[key][:scratch]), key
+        assert torch.equal(got[key][untouched], state[key][untouched]), key
+
+
 def test_tier_kernels_refuse_what_they_do_not_take(card):
     from elasticdl_tpu_torch.ops import embedding_tier as tier
 
@@ -363,6 +438,9 @@ def test_tier_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError):  # adam state handed to momentum
         tier.scatter_apply(state, slots, grads, "momentum", 0.1, 0.9, 0.9,
                            0.999, 1e-8)
+    with pytest.raises(ValueError):  # int64 steps
+        tier.insert_rows(dict(state, steps=state["steps"].long()), slots,
+                         grads)
 
 
 def test_sparse_trainer_tier_step_launches_the_kernels(card):
@@ -370,10 +448,9 @@ def test_sparse_trainer_tier_step_launches_the_kernels(card):
     vocab 1000, tier capacity 256): every step launches K3 once per
     table, and K1/K2 as its combines require (K1 once for a table with
     nothing staged; per staging chunk, K1 once for the combined buffer
-    and once more to read victims out if it has any, and K2 three
-    times, adam's rows and two slot buffers, if it has promotions);
-    losses are finite and the flush leaves every resident row in the
-    store bit for bit."""
+    and once more to read victims out if it has any, and K2 once, the
+    whole table state, if it has promotions); losses are finite and the
+    flush leaves every resident row in the store bit for bit."""
     import numpy as np
 
     from elasticdl_tpu_torch.models import deepfm
@@ -413,7 +490,7 @@ def test_sparse_trainer_tier_step_launches_the_kernels(card):
         assert (tier.GATHER_LAUNCHES - before[0],
                 tier.SET_ROWS_LAUNCHES - before[1],
                 tier.SCATTER_APPLY_LAUNCHES - before[2]) == (
-                    gather_only + chunks + evicts, 3 * inserts, 2)
+                    gather_only + chunks + evicts, inserts, 2)
         assert bool(torch.isfinite(loss))
     assert trainer.device_tier.stats()["hits"] > 0
     trainer.close()

@@ -1,4 +1,4 @@
-"""The port's device-tier ops (K1 gather-merge, K2 set rows, K3
+"""The port's device-tier ops (K1 gather-merge, K2 insert rows, K3
 scatter-apply) against the JAX package's, on the CPU.
 
 On CPU tensors each wrapper runs its kernel's plain version; these
@@ -92,6 +92,57 @@ def test_insert_gather_matches_reference(kernel, dim, interpret):
         np.testing.assert_array_equal(
             got_state[key].numpy()[:SCRATCH], _np(want_state[key])[:SCRATCH],
             err_msg=key)
+
+
+@pytest.mark.parametrize("dim", [1, 8])
+@pytest.mark.parametrize("opt_type", OPTS)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_insert_rows_matches_reference(kernel, opt_type, dim, interpret):
+    """K2's plain version inserts a staging chunk into the whole table
+    state as the reference's insert-gather does (weights, every slot
+    buffer and the step counts), bit for bit on every row but scratch."""
+    rng = np.random.RandomState(3)
+    ref, port = _rand_state(rng, dim, opt_type)
+    ins = np.array([6, SCRATCH, 2, 4], np.int32)   # padded with scratch
+    ins_rows = rng.rand(4, dim).astype(np.float32)
+    evict = np.array([6, 1], np.int32)
+    slots = np.array([0, -1, 2], np.int32)
+    miss = rng.rand(3, dim).astype(np.float32)
+    want, _, _ = ref_ops.fused_insert_gather(
+        ref, *(jnp.asarray(a) for a in (ins, ins_rows, evict, slots, miss)),
+        kernel=kernel,
+    )
+    before = tier.SET_ROWS_LAUNCHES
+    assert tier.insert_rows(port, torch.from_numpy(ins),
+                            torch.from_numpy(ins_rows)) is port
+    # the CPU path runs the plain version: no kernel launched
+    assert tier.SET_ROWS_LAUNCHES == before
+    assert sorted(port) == sorted(want)
+    for key in want:
+        np.testing.assert_array_equal(
+            port[key].numpy()[:SCRATCH], _np(want[key])[:SCRATCH],
+            err_msg=key)
+    # the inserted slots really changed: weights, zeroed state
+    np.testing.assert_array_equal(port["rows"].numpy()[[6, 2, 4]],
+                                  ins_rows[[0, 2, 3]])
+    assert port["steps"].numpy()[[6, 2, 4]].tolist() == [0, 0, 0]
+
+
+def test_insert_rows_skips_slots_outside_the_table():
+    """As K2 on the card: a negative slot or one past the table's end is
+    skipped in every buffer."""
+    state = tier.init_table_state(4, 2, "adam")
+    for key in ("rows", "slot0", "slot1"):
+        state[key].fill_(7.0)
+    state["steps"].fill_(5)
+    tier.insert_rows(state, torch.tensor([-1, 1, 4], dtype=torch.int32),
+                     torch.ones(3, 2))
+    np.testing.assert_array_equal(state["rows"].numpy(),
+                                  [[7, 7], [1, 1], [7, 7], [7, 7]])
+    for key in ("slot0", "slot1"):
+        np.testing.assert_array_equal(state[key].numpy()[:, 0],
+                                      [7, 0, 7, 7])
+    assert state["steps"].tolist() == [5, 0, 5, 5]
 
 
 @pytest.mark.parametrize("opt_type", OPTS)
@@ -198,3 +249,6 @@ def test_cuda_wrappers_refuse_other_devices():
         tier.gather_merge(table, slots)
     with pytest.raises(ValueError, match="device"):
         tier.set_rows(table, slots)
+    with pytest.raises(ValueError, match="device"):
+        tier.insert_rows(tier.init_table_state(4, 3, "adam", device="meta"),
+                         slots, torch.zeros(2, 3, device="meta"))

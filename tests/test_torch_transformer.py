@@ -7,6 +7,8 @@ and under a bf16 compute dtype. The weight mapping round-trips through
 ``params_to_flax`` and the export bundle both ways.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,6 +81,44 @@ def test_logits_match_jax_bf16_compute(jax_lm):
     diff = np.abs(got.float().numpy() - expected)
     assert diff.max() <= BF16_ATOL, diff.max()
     assert diff.mean() <= BF16_MEAN_ATOL, diff.mean()
+
+
+def test_pallas_name_runs_the_flash_path(jax_lm, monkeypatch):
+    """``attention_impl="pallas"``, the reference's name for its kernel
+    path, runs the port's flash path: the same logits as ``"flash"`` bit
+    for bit, and the reference's own "pallas" model (its Pallas kernel
+    in interpret mode, as the reference's tests run it on the CPU)
+    within FP32_ATOL."""
+    from elasticdl_tpu.models import transformer as jax_transformer
+
+    monkeypatch.setattr(
+        jax_transformer, "dot_product_attention",
+        functools.partial(jax_transformer.dot_product_attention,
+                          interpret=True))
+    _, params, tokens = jax_lm
+    expected = np.asarray(JaxLM(**WIDTHS, attention_impl="pallas").apply(
+        {"params": params}, jnp.asarray(tokens)))
+    flat = jax_export._flatten(jax.device_get(params))
+    logits = {}
+    for impl in ("pallas", "flash"):
+        model = port.TransformerLM(**WIDTHS, attention_impl=impl)
+        model.load_state_dict(port.params_from_flax(flat), strict=True)
+        with torch.inference_mode():
+            logits[impl] = model.eval()(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_array_equal(logits["pallas"], logits["flash"])
+    np.testing.assert_allclose(logits["pallas"], expected, atol=FP32_ATOL,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses", "triton"])
+def test_unknown_attention_impl_raises(impl):
+    """The reference's sequence-parallel names are not ported yet, and
+    a name neither package knows is refused: each raises, never falls
+    back to another path."""
+    model = port.TransformerLM(vocab_size=64, num_layers=1, num_heads=2,
+                               embed_dim=64, attention_impl=impl)
+    with pytest.raises(ValueError, match="attention impl"):
+        model(torch.zeros((1, 8), dtype=torch.int64))
 
 
 @pytest.mark.parametrize("seq_axis", [1, 2])
