@@ -11,7 +11,9 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
 1. build -- every hand-written kernel, one nvcc per source, all started
    together, from the checkout's sources (K4, ops/csrc/flash_fwd.cu;
    K5 and K6, ops/csrc/flash_bwd.cu; K1-K3, ops/csrc/embedding_tier.cu),
-   with ptxas's report per entry;
+   with ptxas's report per entry; beside them a copy of K1-K3's source
+   under build/ with programmatic dependent launch off (the serial
+   chain of phase 4);
 2. kernels -- K4 against its plain PyTorch version on the card at the
    serving and training shape and at five more (fp32, non-causal,
    head_dim 128, ragged S = 1000), each under the tolerance printed
@@ -35,7 +37,13 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    the kernel leaves alone; each timed with CUDA events (L2 flushed)
    beside its plain version, its bound and a library yardstick (K1
    index_select + torch.where, K2 index_copy_ + index_fill_ x 3, K3
-   none), K3 also on all hits beside the real mix;
+   none), K3 also on all hits beside the real mix; K1 also by the
+   profiler; then the staging chunk's chain (K1 victims -> K2 insert ->
+   K1 combined, the last two programmatic dependent launches) with
+   every insert reusing a victim's slot, 200 runs at each width, each
+   bit-equal to the plain versions applied in order; and the chain's
+   device span with programmatic dependent launch against the serial
+   copy's, in turns, by CUDA events and by the profiler;
 5. serve -- zoo-width TransformerLM weights (vocab 32000, 12 layers, 12
    heads, d 768) made with numpy from a seed and written as an export
    bundle; the port's ServeRole on a free port (``--device cuda
@@ -59,16 +67,20 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    ``torch.profiler`` breakdown of one step;
 7. sparse train -- DeepFM through the port's ``SparseTrainer`` with
    the device tier at bench.py's deployment configuration (39 fields,
-   batch 512, id capacity 8192, Zipf(1.2) ids, in-process numpy store
-   and tier both adam lr 0.001, tier capacity 65536). Checks: a tier
-   that never promotes is bit-exact with the tier off; the card agrees
-   with the CPU over the first steps (loss, touched store rows, tier
-   rows); 110 steps with finite losses, K1-K3 launches per step as the
-   path requires and a warm hit rate above 0; the loss falls on a
-   repeated batch; a 4096-row tier evicts and, after ``close()``,
-   holds every resident row bit-equal to the store's. Then steps/s,
-   examples/s and a profiled step (device busy, idle share, K1-K3
-   share).
+   batch 512, id capacity 8192, Zipf(1.2) ids, the in-process store
+   ``LocalPSClient`` builds -- the native C++ store, ps/embedding_store.py
+   -- and the tier, both adam lr 0.001, tier capacity 65536). Checks:
+   the store is a ``NativeEmbeddingStore`` (its class and library
+   printed); a tier that never promotes is bit-exact with the tier off;
+   the card agrees with the CPU over the first steps on the same store
+   class (loss, touched store rows, tier rows); 110 steps with finite
+   losses, K1-K3 launches per step as the path requires and a warm hit
+   rate above 0; the loss falls on a repeated batch; a 4096-row tier
+   evicts and, after ``close()``, holds every resident row bit-equal to
+   the store's. Then steps/s, examples/s, the host stage split of each
+   store (medians over 10 fresh steps, the native trainer and a numpy
+   one that replayed the same steps, in turns) and a profiled step
+   (device busy, idle share, K1-K3 share).
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -600,8 +612,9 @@ def tier_kernel_phase(torch, np, tier, timing=True):
     beside it, its plain version, its bound from this run's inputs and
     a library yardstick: K1 ``index_select`` + ``torch.where`` (two
     calls), K2 ``index_copy_`` + three ``index_fill_`` (four calls), K3
-    none; K3 (adam, d 8) also on as many slots all hits. Returns
-    {kernel: {table: record}}."""
+    none; K3 (adam, d 8) also on as many slots all hits; K1 also by the
+    profiler (``device_ms``). Then ``chain_check`` at both widths.
+    Returns {kernel: {table: record}} and {"chain": {table: record}}."""
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load("embedding_tier")
@@ -637,7 +650,7 @@ def tier_kernel_phase(torch, np, tier, timing=True):
         out = torch.empty_like(got)
         raw = raw_launch(torch, lib.edl_tier_gather, rows.data_ptr(),
                          slots.data_ptr(), miss.data_ptr(), out.data_ptr(),
-                         n, dim, TIER_ROWS)
+                         n, dim, TIER_ROWS, 0)
         raw()
         torch.cuda.synchronize()
         exact = exact and torch.equal(out, got)
@@ -652,6 +665,9 @@ def tier_kernel_phase(torch, np, tier, timing=True):
                                                            miss),
               library_ms=lambda: torch.where(
                   hit_mask, rows.index_select(0, safe), miss))
+        if timing:
+            record["device_ms"] = kernel_device_ms(
+                torch, raw, TIER_PROFILE_PREFIX["k1"], flush)
         # slots, the rows read (a hit from the table, a miss from the
         # miss buffer) and the rows written
         record["bound_ms"], record["bound_by"] = roofline(
@@ -677,7 +693,7 @@ def tier_kernel_phase(torch, np, tier, timing=True):
                          work["rows"].data_ptr(), work["slot0"].data_ptr(),
                          work["slot1"].data_ptr(), work["steps"].data_ptr(),
                          ins.data_ptr(), ins_rows.data_ptr(), n, dim,
-                         TIER_ROWS)
+                         TIER_ROWS, 0)
         raw()
         torch.cuda.synchronize()
         exact = all(torch.equal(got[k], want[k]) and torch.equal(work[k],
@@ -767,6 +783,208 @@ def tier_kernel_phase(torch, np, tier, timing=True):
             del base, got, want, work
         results["scatter_apply"][table] = per_opt
         del state
+    results["chain"] = {table: chain_check(torch, np, tier, dim)
+                        for table, dim in TIER_DIMS}
+    return results
+
+
+# the staging chunk's chain on the card, K1 (victims' rows) -> K2 (the
+# insert) -> K1 (the combined buffer), the second and third launched as
+# programmatic dependents of the one before. Each run is queued behind a
+# sleeping kernel (torch.cuda._sleep, about 0.5 ms at the card's clock),
+# so that its launches meet on the card as they would behind a busy
+# stream, not one by one behind the host.
+CHAIN_REPS = 200
+CHAIN_SLEEP_CYCLES = 1_000_000
+CHAIN_TIMING_REPS = 100
+# the serial chain: the same source with the launch attribute off, built
+# in a copy under build/ and timed against the checkout's, in turns
+K1_CHAIN_VARIANTS = {
+    "pdl": (),
+    "serial": (("  attr[0].val.programmaticStreamSerializationAllowed = "
+                "pdl ? 1 : 0;\n",
+                "  attr[0].val.programmaticStreamSerializationAllowed = 0;"
+                "\n"),),
+}
+
+
+def chain_inputs(torch, np, rng, dim, device="cuda"):
+    """tier_inputs' adam state and arrays for one staging chunk whose
+    inserts reuse every victim's slot (in another order) and whose
+    promoted rows are hits of the combined buffer: the case where the
+    chain's order decides every value."""
+    state, t = tier_inputs(torch, np, rng, dim, "adam", device)
+    evict = t["evict"].cpu().numpy()
+    slots = t["slots"].cpu().numpy()
+    ins = evict[rng.permutation(evict.size)]
+    slots[TIER_UNIQUE:TIER_UNIQUE + ins.size] = ins
+    t["ins"] = torch.from_numpy(ins).to(device)
+    t["slots"] = torch.from_numpy(slots).to(device)
+    return state, t
+
+
+def chain_check(torch, np, tier, dim, reps=CHAIN_REPS, device="cuda"):
+    """``fused_insert_gather`` on chain_inputs, ``reps`` times from the
+    same state, each run queued behind a sleep: the victims' rows, the
+    combined buffer and every buffer of the state must equal the plain
+    versions applied in order (gather_merge_reference,
+    insert_rows_reference, gather_merge_reference), bit for bit, in
+    every run. Logs how many runs disagreed, then raises if any did."""
+    rng = np.random.default_rng(SEED + 5)
+    state, t = chain_inputs(torch, np, rng, dim, device)
+    want = {k: v.clone() for k, v in state.items()}
+    want_ev = tier.gather_merge_reference(want["rows"], t["evict"])
+    tier.insert_rows_reference(want, t["ins"], t["ins_rows"])
+    want_comb = tier.gather_merge_reference(want["rows"], t["slots"],
+                                            t["miss"])
+    work = {k: v.clone() for k, v in state.items()}
+    bad = []
+    for rep in range(reps):
+        torch.cuda._sleep(CHAIN_SLEEP_CYCLES)
+        for key in work:
+            work[key].copy_(state[key])
+        _, comb, ev = tier.fused_insert_gather(
+            work, t["ins"], t["ins_rows"], t["evict"], t["slots"], t["miss"])
+        wrong = [name for name, got, ref in (
+            ("evicted", ev, want_ev), ("combined", comb, want_comb),
+            *((k, work[k], want[k]) for k in want))
+            if not torch.equal(got, ref)]
+        if wrong:
+            bad.append([rep, wrong])
+    record = {"tier_chain": "K1 -> K2 -> K1, inserts into the victims' "
+              "slots", "dim": dim, "reps": reps, "mismatches": len(bad),
+              "first_mismatches": bad[:5], "staged": TIER_STAGED,
+              "combined": int(t["slots"].shape[0])}
+    log(json.dumps(record))
+    if bad:
+        raise SystemExit("the chain disagrees with the plain versions in "
+                         "%d of %d runs (d %d)" % (len(bad), reps, dim))
+    return record
+
+
+def chain_launcher(torch, lib, state, t):
+    """One chunk chain by raw calls of ``lib``'s C functions (no
+    wrapper, not counted): K1 on the victims (plain launch), K2 and K1
+    on the combined buffer as programmatic dependents (pdl 1; a library
+    built with the attribute off ignores it)."""
+    rows = state["rows"]
+    n_ev, dim = int(t["evict"].shape[0]), rows.shape[1]
+    out_ev = torch.empty((n_ev, dim), device=rows.device)
+    out = torch.empty((int(t["slots"].shape[0]), dim), device=rows.device)
+    calls = (
+        (lib.edl_tier_gather, rows.data_ptr(), t["evict"].data_ptr(), None,
+         out_ev.data_ptr(), n_ev, dim, rows.shape[0], 0),
+        (lib.edl_tier_insert_rows, rows.data_ptr(), state["slot0"].data_ptr(),
+         state["slot1"].data_ptr(), state["steps"].data_ptr(),
+         t["ins"].data_ptr(), t["ins_rows"].data_ptr(),
+         int(t["ins"].shape[0]), dim, rows.shape[0], 1),
+        (lib.edl_tier_gather, rows.data_ptr(), t["slots"].data_ptr(),
+         t["miss"].data_ptr(), out.data_ptr(), int(t["slots"].shape[0]),
+         dim, rows.shape[0], 1),
+    )
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        for fn, *args in calls:
+            if fn(*args, stream):
+                raise SystemExit("raw chain launch failed (%s)"
+                                 % fn.__name__)
+
+    run.buffers = (out_ev, out)  # kept alive with the launcher
+    return run
+
+
+def chain_span(torch, run, reps=CHAIN_TIMING_REPS):
+    """Device times of ``reps`` chains, each queued behind a sleep ->
+    {"span_ms": median by CUDA events from the chain's first launch to
+    its last kernel's end, "profiler": per-kernel durations and the
+    span from the first K1's start to the last K1's end, read from a
+    torch.profiler trace (None unless it holds every chain's three
+    kernels in order), "profiler_kernels": how many it holds}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(CHAIN_SLEEP_CYCLES)
+        start.record()
+        run()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    span_ms = sorted(s.elapsed_time(e) for s, e in spans)[reps // 2]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda._sleep(CHAIN_SLEEP_CYCLES)
+            run()
+        torch.cuda.synchronize()
+    path = os.path.join(HERE, "build", "chain_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    names = (TIER_PROFILE_PREFIX["k1"], TIER_PROFILE_PREFIX["k2"])
+    kernels = sorted((e for e in events if e.get("ph") == "X"
+                      and str(e.get("name", "")).startswith(names)),
+                     key=lambda e: float(e["ts"]))
+    out = {"span_ms": span_ms, "profiler": None,
+           "profiler_kernels": len(kernels)}
+    chains = [kernels[i:i + 3] for i in range(0, len(kernels), 3)]
+    if len(kernels) != 3 * reps or any(
+            not c[1]["name"].startswith(names[1]) for c in chains):
+        return out
+
+    def median(values):
+        return sorted(values)[len(values) // 2]
+
+    def end(e):
+        return float(e["ts"]) + float(e["dur"])
+
+    out["profiler"] = {
+        "span_ms": median([(end(c[2]) - float(c[0]["ts"])) / 1e3
+                           for c in chains]),
+        "k1_evict_ms": median([float(c[0]["dur"]) / 1e3 for c in chains]),
+        "k2_ms": median([float(c[1]["dur"]) / 1e3 for c in chains]),
+        "k1_combined_ms": median([float(c[2]["dur"]) / 1e3 for c in chains]),
+        # a start before the previous kernel's end is the overlap PDL buys
+        "k2_start_after_k1_end_ms": median(
+            [(float(c[1]["ts"]) - end(c[0])) / 1e3 for c in chains]),
+        "k1_start_after_k2_end_ms": median(
+            [(float(c[2]["ts"]) - end(c[1])) / 1e3 for c in chains]),
+    }
+    return out
+
+
+def chain_timing(torch, np, tier, serial_lib):
+    """The chunk chain at deepfm's shapes (512-row chunk, 8192 slots,
+    adam; d 8 and d 1) with programmatic dependent launch (the
+    checkout's library) against the serial chain (``serial_lib``, built
+    from K1_CHAIN_VARIANTS["serial"]), in turns (pdl, serial, serial,
+    pdl), by ``chain_span``; with the wrapper ``fused_insert_gather``
+    timed by events beside it (host-bound: Python between launches)."""
+    from elasticdl_tpu_torch.ops import _build
+
+    libs = {"pdl": _build.load("embedding_tier"), "serial": serial_lib}
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    results = {}
+    for table, dim in TIER_DIMS:
+        state, t = chain_inputs(torch, np, np.random.default_rng(SEED + 6),
+                                dim)
+        record = {"table": table, "dim": dim, "staged": TIER_STAGED,
+                  "combined": int(t["slots"].shape[0]),
+                  "pdl": [], "serial": []}
+        for key in ("pdl", "serial", "serial", "pdl"):
+            record[key].append(chain_span(
+                torch, chain_launcher(torch, libs[key], state, t)))
+        record["wrapper_ms"] = time_ms(
+            torch, lambda: tier.fused_insert_gather(
+                state, t["ins"], t["ins_rows"], t["evict"], t["slots"],
+                t["miss"]), flush)
+        log(json.dumps({"tier_chain_timing": record}))
+        results[table] = record
     return results
 
 
@@ -798,6 +1016,8 @@ SPARSE_LOSS_RTOL = 1e-5
 SPARSE_ROW_RTOL, SPARSE_ROW_ATOL = 1e-5, 1e-6
 SPARSE_NEVER_STEPS = 3
 SPARSE_REPEAT_STEPS = 5
+# the host stage split: medians over this many fresh steps, per store
+SPARSE_SPLIT_STEPS = 10
 
 
 def ctr_batches(np, n, batch=SPARSE_BATCH, fields=SPARSE_FIELDS,
@@ -816,12 +1036,16 @@ def ctr_batches(np, n, batch=SPARSE_BATCH, fields=SPARSE_FIELDS,
     return out
 
 
-def sparse_trainer(device, batch, fields, tier=None, eps=None):
-    """DeepFM's SparseTrainer over an in-process numpy store (adam lr
-    0.001, as bench.py's PS), seed 0; ``tier`` a dict of
-    DeviceTierConfig knobs or None; ``eps`` overrides adam's epsilon on
-    the dense params, the PS and the tier."""
+def sparse_trainer(device, batch, fields, tier=None, eps=None,
+                   numpy_store=False):
+    """DeepFM's SparseTrainer over an in-process store (adam lr 0.001,
+    as bench.py's PS), seed 0: the store ``LocalPSClient`` picks (the
+    native one, through ``create_store``) or, with ``numpy_store``, a
+    ``NumpyEmbeddingStore``; ``tier`` a dict of DeviceTierConfig knobs
+    or None; ``eps`` overrides adam's epsilon on the dense params, the
+    PS and the tier."""
     from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.ps.embedding_store import NumpyEmbeddingStore
     from elasticdl_tpu_torch.ps.local_client import LocalPSClient
     from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
     from elasticdl_tpu_torch.train.optimizers import create_optimizer
@@ -833,6 +1057,13 @@ def sparse_trainer(device, batch, fields, tier=None, eps=None):
         knobs = dict(tier)
         knobs["opt_args"] = {**knobs["opt_args"], **eps_args}
         config = DeviceTierConfig(**knobs)
+    if numpy_store:
+        store = NumpyEmbeddingStore(seed=SEED)
+        store.set_optimizer("adam", lr=0.001, **eps_args)
+        client = LocalPSClient(store=store)
+    else:
+        client = LocalPSClient(seed=SEED, opt_type="adam", lr=0.001,
+                               **eps_args)
     return SparseTrainer(
         model=deepfm.custom_model(),
         loss_fn=deepfm.loss,
@@ -840,12 +1071,18 @@ def sparse_trainer(device, batch, fields, tier=None, eps=None):
         specs=deepfm.sparse_embedding_specs(
             num_features=fields, batch_size=batch,
             capacity=min(batch * fields, deepfm.MAX_ID_CAPACITY)),
-        ps_client=LocalPSClient(seed=SEED, opt_type="adam", lr=0.001,
-                                **eps_args),
+        ps_client=client,
         seed=SEED,
         device_tier=config,
         device=device,
     )
+
+
+def store_record(trainer):
+    """Which store ``trainer`` trains on: its class and its library."""
+    store = trainer.preparer._ps.store
+    return {"store": type(store).__name__,
+            "library": getattr(store, "library_path", None)}
 
 
 def tier_counts(tier):
@@ -877,9 +1114,9 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
     knobs = dict(SPARSE_TIER if tier_knobs is None else tier_knobs)
     device = torch.device(device)
     # the main run's batches, the repeated batch, and fresh ones for the
-    # host split and the profiled step (and up to two more, see
-    # sparse_timing)
-    batches = ctr_batches(np, steps + 5, batch, fields, vocab)
+    # profiled step (up to three, see sparse_timing) and the host split
+    batches = ctr_batches(np, steps + 4 + SPARSE_SPLIT_STEPS, batch, fields,
+                          vocab)
     tables = ("deepfm_emb", "deepfm_linear")
 
     # 1. an engaged tier that never promotes is the tier-off path
@@ -915,19 +1152,22 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
              for b in batches[:SPARSE_AGREE_STEPS]]))
         store = trainer.preparer._ps.store
         runs.append({
-            "losses": run,
-            "store": {t: store.lookup(t, touched) for t in tables},
+            "losses": run, "store": store_record(trainer),
+            "rows": {t: store.lookup(t, touched) for t in tables},
             "tier": {t: trainer.device_tier.table_rows(t) for t in tables},
             "stats": trainer.device_tier.stats(),
         })
         trainer.close()
         del trainer, state
     card, cpu = runs
+    if card["store"] != cpu["store"]:
+        raise SystemExit("card and CPU trained on other stores: %s, %s"
+                         % (card["store"], cpu["store"]))
     loss_err = max(abs(a - b) / abs(b)
                    for a, b in zip(card["losses"], cpu["losses"]))
     row_err, rows_ok = 0.0, card["stats"] == cpu["stats"]
     for t in tables:
-        pairs = [(card["store"][t], cpu["store"][t]),
+        pairs = [(card["rows"][t], cpu["rows"][t]),
                  (card["tier"][t][1], cpu["tier"][t][1])]
         rows_ok = rows_ok and np.array_equal(card["tier"][t][0],
                                              cpu["tier"][t][0])
@@ -945,7 +1185,7 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
               "loss_rel_err": loss_err, "tol_loss_rel": SPARSE_LOSS_RTOL,
               "row_max_abs_err": row_err, "tol_row_rel": SPARSE_ROW_RTOL,
               "tol_row_abs": SPARSE_ROW_ATOL, "rows_ok": rows_ok,
-              "adam_eps": SPARSE_AGREE_EPS,
+              "adam_eps": SPARSE_AGREE_EPS, **card["store"],
               "resident": {t: int(card["tier"][t][0].size) for t in tables}}
     log(json.dumps(record))
     if not (loss_err <= SPARSE_LOSS_RTOL and rows_ok):
@@ -953,8 +1193,15 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
                          "path")
     del runs, card, cpu
 
-    # 3. the main run: the deployment configuration over distinct batches
+    # 3. the main run: the deployment configuration over distinct batches,
+    # on the store a user gets (the native one; create_store's fallback
+    # to numpy fails the run here)
     trainer = sparse_trainer(device, batch, fields, tier=knobs)
+    used = store_record(trainer)
+    log(json.dumps({"sparse": "main_run_store", **used}))
+    if used["store"] != "NativeEmbeddingStore":
+        raise SystemExit("the sparse path trains on %s, not the native "
+                         "store" % used["store"])
     dtier = trainer.device_tier
     state, main_losses, step_s, bad_steps = None, [], [], []
     half_stats = None
@@ -1001,7 +1248,7 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
         "warm_hit_rate": warm_hit_rate, "tier_stats": end_stats,
         "steps_per_s": len(warm) / sum(warm),
         "examples_per_s": batch * len(warm) / sum(warm),
-        "step_ms_host_median": float(np.median(warm)) * 1e3,
+        "step_ms_host_median": float(np.median(warm)) * 1e3, **used,
     }
     log(json.dumps(main_record))
     if not main_record["all_finite"] or len(main_losses) != steps:
@@ -1045,9 +1292,12 @@ def sparse_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
         raise SystemExit("small tier: no evictions or flush parity broken")
     del small, small_state
     return {"trainer": trainer, "state": state,
-            "profile_batches": [batches[steps + 1], *batches[steps + 3:]],
-            "split_batch": batches[steps + 2], "launches": launches,
-            "steps": len(main_losses), "main": main_record}
+            "replay_batches": batches[:steps] + [batches[steps]]
+            * SPARSE_REPEAT_STEPS,
+            "profile_batches": batches[steps + 1:steps + 4],
+            "split_batches": batches[steps + 4:], "launches": launches,
+            "steps": len(main_losses), "main": main_record,
+            "knobs": knobs, "batch": batch, "fields": fields}
 
 
 # the profiler's demangled names of K1-K3 (ops/csrc/embedding_tier.cu),
@@ -1065,14 +1315,16 @@ def profile_step(torch, tier, trainer, state, batch):
     profiled): its wall time beside the device-busy time, the idle
     share, the K1-K3 share of busy time, and each of K1-K3's launches by
     its counter and by the profiler (None when the profiler sees no
-    device time)."""
+    device time). The profiler traces the card alone: with CPU activity
+    on as well, some processes lost the record of one tier kernel (a K1,
+    or a K2) in every profiled step, while the card-only traces of the
+    chain in the same processes held every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     before = tier_counts(tier)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         state, _ = trainer.train_step(state, batch)
         torch.cuda.synchronize()
@@ -1133,54 +1385,114 @@ def sparse_timing(torch, tier, sparse):
                      "ones %s" % (profiled, counted))
 
 
-def sparse_host_split(torch, trainer, state, batch):
-    """One more step on a fresh batch, timed stage by stage through the
-    trainer's own calls (each wrapped with a timer that waits for the
-    card at its end): ``prepare`` (unique ids, tier lookup and
-    admission, and the PS ``pull`` of the misses, shown on its own
+SPLIT_TOP = ("prepare", "combine", "step", "apply_extract", "push")
+
+
+def _split_stages(trainer):
+    """(stage, owner, attribute) of the trainer's own calls that
+    ``sparse_host_split`` times: ``prepare`` (unique ids, tier lookup
+    and admission, and the PS ``pull`` of the misses, shown on its own
     too), ``combine`` (the miss rows to the card, K1/K2), ``step``
     (forward, backward, dense update), ``apply_extract`` (K3, the miss
     gradients to the host) and ``push`` (the PS optimizer step)."""
-    stages = (("prepare", trainer.preparer, "prepare"),
-              ("pull", trainer.preparer._embedding, "pull_tables"),
-              ("combine", trainer, "_tier_combine"),
-              ("step", trainer, "_train_step"),
-              ("apply_extract", trainer, "_tier_apply_extract"),
-              ("push", trainer.preparer, "push_gradients"))
-    stage_ms = {}
+    return (("prepare", trainer.preparer, "prepare"),
+            ("pull", trainer.preparer._embedding, "pull_tables"),
+            ("combine", trainer, "_tier_combine"),
+            ("step", trainer, "_train_step"),
+            ("apply_extract", trainer, "_tier_apply_extract"),
+            ("push", trainer.preparer, "push_gradients"))
 
-    def timed(name, fn):
+
+def sparse_host_split(torch, runs, batches):
+    """One step of each trainer of ``runs`` ({label: [trainer, state]})
+    on each of ``batches`` (fresh ones), in turns (the order flips from
+    batch to batch), timed stage by stage through the trainer's own
+    calls (``_split_stages``; each wrapped with a timer that waits for
+    the card at its end). Updates the states in ``runs``; logs and
+    returns {label: record} with each stage's median over the steps
+    and the steps' wall times."""
+    import numpy as np
+
+    steps = {label: [] for label in runs}  # label -> [{stage: ms}, ...]
+    current = {}
+
+    def timed(label, name, fn):
         def run(*args, **kwargs):
             t0 = time.monotonic()
             out = fn(*args, **kwargs)
-            sync(torch, trainer.device)
-            stage_ms[name] = stage_ms.get(name, 0.0) + (
-                time.monotonic() - t0) * 1e3
+            sync(torch, runs[label][0].device)
+            stage = current[label]
+            stage[name] = stage.get(name, 0.0) + (time.monotonic() - t0) * 1e3
             return out
         return run
 
-    saved = [(owner, attr, owner.__dict__.get(attr))
-             for _, owner, attr in stages]
-    for name, owner, attr in stages:
-        setattr(owner, attr, timed(name, getattr(owner, attr)))
+    saved = []
+    for label, (trainer, _) in runs.items():
+        for name, owner, attr in _split_stages(trainer):
+            saved.append((owner, attr, owner.__dict__.get(attr)))
+            setattr(owner, attr, timed(label, name, getattr(owner, attr)))
+    walls = {label: [] for label in runs}
     try:
-        sync(torch, trainer.device)
-        t0 = time.monotonic()
-        state, _ = trainer.train_step(state, batch)
-        sync(torch, trainer.device)
-        wall_ms = (time.monotonic() - t0) * 1e3
+        order = list(runs)
+        for i, batch in enumerate(batches):
+            for label in order if i % 2 == 0 else order[::-1]:
+                trainer, state = runs[label]
+                current[label] = {}
+                sync(torch, trainer.device)
+                t0 = time.monotonic()
+                runs[label][1], _ = trainer.train_step(state, batch)
+                sync(torch, trainer.device)
+                walls[label].append((time.monotonic() - t0) * 1e3)
+                steps[label].append(current[label])
     finally:
         for owner, attr, own in saved:
             if own is None:
                 delattr(owner, attr)
             else:
                 setattr(owner, attr, own)
-    top = ("prepare", "combine", "step", "apply_extract", "push")
-    record = {"profile": "sparse_host_split", "wall_ms": wall_ms,
-              "stage_ms": stage_ms,
-              "other_ms": wall_ms - sum(stage_ms.get(k, 0.0) for k in top)}
-    log(json.dumps(record))
-    return state
+
+    def median(values):
+        return float(np.median(values))
+
+    records = {}
+    for label, per_step in steps.items():
+        names = sorted({k for step in per_step for k in step})
+        records[label] = {
+            "profile": "sparse_host_split", "store": label,
+            "steps": len(per_step),
+            "wall_ms_median": median(walls[label]),
+            "wall_ms": walls[label],
+            "stage_ms_median": {k: median([step.get(k, 0.0)
+                                           for step in per_step])
+                                for k in names},
+            "other_ms_median": median([
+                wall - sum(step.get(k, 0.0) for k in SPLIT_TOP)
+                for wall, step in zip(walls[label], per_step)]),
+        }
+        log(json.dumps(records[label]))
+    return records
+
+
+def store_splits(torch, sparse):
+    """The host stage split for each store on this card, in one run:
+    the main run's trainer (the native store) and a trainer on the numpy
+    store that first replays the main run's steps and the repeated
+    batch (the same id stream, so the same tier state), timed in turns
+    over the same SPARSE_SPLIT_STEPS fresh batches (``sparse_host_split``).
+    Updates ``sparse["state"]``; returns the records by store."""
+    main = sparse["trainer"]
+    numpy_trainer = sparse_trainer(main.device, sparse["batch"],
+                                   sparse["fields"], tier=sparse["knobs"],
+                                   numpy_store=True)
+    state = None
+    for batch in sparse["replay_batches"]:
+        state, _ = numpy_trainer.train_step(state, batch)
+    runs = {store_record(main)["store"]: [main, sparse["state"]],
+            store_record(numpy_trainer)["store"]: [numpy_trainer, state]}
+    records = sparse_host_split(torch, runs, sparse["split_batches"])
+    sparse["state"] = runs[store_record(main)["store"]][1]
+    numpy_trainer.close()
+    return records
 
 
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
@@ -1679,6 +1991,12 @@ BWD_MUTATIONS = (
 )
 TIER_SOURCE = "elasticdl_tpu_torch/ops/csrc/embedding_tier.cu"
 K3_HIT = "const bool hit = s >= 0 && s < table_rows - 1;"
+K1_IN_TABLE = "  const bool in_table = s >= 0 && s < table_rows;\n"
+K1_TABLE_LOAD = "      v = __ldcg(table_row + c);\n"
+K1_RACE = "k1_table_read_before_wait"
+# the race's child runs: each is one tier_kernel_phase (its chain check
+# makes CHAIN_REPS runs of the chain at each width)
+K1_RACE_RUNS = 3
 # faults planted in a copy of K1-K3's source: tier_kernel_phase's checks
 # must fail on each (K3's count fault shows where a row has two lanes or
 # more: d 8, not d 1)
@@ -1704,6 +2022,24 @@ TIER_MUTATIONS = (
     ("k3_miss_to_slot_0", (
         (K3_HIT, "if (s < 0 || s >= table_rows - 1) s = 0;\n"
                  "  const bool hit = true;"),)),
+    ("k1_miss_reads_slot_0", (
+        (K1_IN_TABLE, "  if (s < 0 || s >= table_rows) s = 0;\n"
+                      "  const bool in_table = true;\n"),)),
+    ("k1_lane_reads_wrong_chunk", (
+        (K1_TABLE_LOAD, "      v = __ldcg(table_row + (c + 1) % chunks);\n"),)),
+    # a race: K1 of the combined buffer may read a row before K2 of the
+    # chain has written it; tier_kernel_phase's chain check counts the
+    # runs that saw it
+    (K1_RACE, (
+        ("  wait_for_previous_grid();\n  if (!live) return;\n" + K1_IN_TABLE,
+         "  if (!live) return;\n" + K1_IN_TABLE
+         + "  T early = C::zero();\n"
+         "  if (in_table && lane < chunks)\n"
+         "    early = __ldcg(reinterpret_cast<const T*>(table) +\n"
+         "                   (long long)s * chunks + lane);\n"
+         "  wait_for_previous_grid();\n"),
+        (K1_TABLE_LOAD, "      v = c == lane ? early : __ldcg(table_row + c);"
+                        "\n"))),
 )
 # K3 as it is (a miss returns at once) against K3 sending every miss to
 # the scratch row, as the reference does: timed in turns on the real mix
@@ -1777,9 +2113,11 @@ def mutation_child(root, mode):
 def mutation_phase():
     """Plant each of K4_MUTATIONS, BWD_MUTATIONS and TIER_MUTATIONS in
     its own copy and require kernel_phase (K4), bwd_kernel_phase (K5,
-    K6) or tier_kernel_phase (K1-K3) to fail there; then time K4 at the
-    main case under each of K4_SCHEDULES, in turns (A B C C B A), and K3
-    under each of K3_VARIANTS (A B B A)."""
+    K6) or tier_kernel_phase (K1-K3) to fail there. K1_RACE is a race:
+    its copy runs K1_RACE_RUNS times, each run's chain mismatches are
+    logged, and it counts as missed only if no run caught it. Then time
+    K4 at the main case under each of K4_SCHEDULES, in turns (A B C C B
+    A), and K3 under each of K3_VARIANTS (A B B A)."""
     # copy name -> (root, the child's mode); the backward's phase runs
     # K4 too, so its copies build both flash sources
     copies = {name: (kernel_copy(name, K4_SOURCE, edits), "check")
@@ -1803,15 +2141,27 @@ def mutation_phase():
         for root, kernels in targets]
     if any(proc.wait() for proc in builds):
         raise SystemExit("a mutated copy did not build")
-    missed = []
+    missed, race = [], []
     for name, (root, mode) in copies.items():
-        proc = mutation_child(root, mode)
-        lines = (proc.stdout + proc.stderr).strip().splitlines()
-        log(json.dumps({"mutation": name, "caught": proc.returncode != 0,
-                        "rc": proc.returncode,
-                        "last_line": lines[-1][:300] if lines else ""}))
-        if proc.returncode == 0:
-            missed.append(name)
+        for _ in range(K1_RACE_RUNS if name == K1_RACE else 1):
+            proc = mutation_child(root, mode)
+            lines = (proc.stdout + proc.stderr).strip().splitlines()
+            chain = [json.loads(line) for line in proc.stdout.splitlines()
+                     if line.startswith('{"tier_chain"')]
+            log(json.dumps({
+                "mutation": name, "caught": proc.returncode != 0,
+                "rc": proc.returncode,
+                "chain_mismatches": [[r["dim"], r["mismatches"], r["reps"]]
+                                     for r in chain],
+                "last_line": lines[-1][:300] if lines else ""}))
+            if name == K1_RACE:
+                race.append(proc.returncode != 0)
+            elif proc.returncode == 0:
+                missed.append(name)
+    log(json.dumps({"race": K1_RACE, "runs_caught": sum(race),
+                    "runs": len(race)}))
+    if not any(race):
+        missed.append(K1_RACE)
     times = {key: [] for key in schedules}
     for key in [*schedules, *reversed(schedules)]:
         proc = mutation_child(schedules[key], "time")
@@ -1887,11 +2237,22 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse):
         "bound_by": emb["bound_by"], "library_ms": emb["library_ms"],
         "shape": emb["shape"], "ms_linear_d1": lin["ms"],
     }
-    for key in ("library_calls", "real_mix_ms",
+    for key in ("library_calls", "real_mix_ms", "device_ms",
                 "all_hits_ms", "real_mix_device_ms", "all_hits_device_ms",
                 "real_mix_hits", "all_hits_hits"):
         if key in emb:
             entry[key] = emb[key]
+    if kind == "gather":
+        # the staging chunk's chain (K1 -> K2 -> K1) at d 8: median
+        # device span by events and by the profiler, with programmatic
+        # dependent launch and serial, in turns
+        chain = tier_cases["chain_timing"]["deepfm_emb"]
+        for key in ("pdl", "serial"):
+            entry["chain_%s_span_ms" % key] = [r["span_ms"]
+                                               for r in chain[key]]
+            entry["chain_%s_profiled_span_ms" % key] = [
+                (r["profiler"] or {}).get("span_ms") for r in chain[key]]
+        entry["chain_wrapper_ms"] = chain["wrapper_ms"]
     return entry
 
 
@@ -1922,7 +2283,15 @@ def main(argv):
         print("usage: chip_smoke.py [--mutations]", file=sys.stderr)
         return 2
 
+    # the serial chain's copy builds beside the checkout's kernels
+    serial_root = kernel_copy("k1_chain_serial", TIER_SOURCE,
+                              K1_CHAIN_VARIANTS["serial"])
+    serial_build = subprocess.Popen(
+        [sys.executable, "-c", "from elasticdl_tpu_torch.ops import _build; "
+         "_build.build(['embedding_tier'])"], cwd=serial_root)
     build_s = _build.build()
+    if serial_build.wait():
+        raise SystemExit("the serial chain's copy did not build")
     log(json.dumps({"phase": "build", "seconds": build_s}))
     # ptxas's report per kernel entry: registers, shared memory, spills
     for name, text in _build.build_logs.items():
@@ -1933,6 +2302,10 @@ def main(argv):
     cases = kernel_phase(torch, flash)
     bwd_cases = bwd_kernel_phase(torch, flash)
     tier_cases = tier_kernel_phase(torch, np, tier)
+    serial_lib = _build.bind(_build.library_path(
+        "embedding_tier", os.path.join(serial_root, TIER_SOURCE),
+        os.path.join(serial_root, "build", "edl_kernels")), "embedding_tier")
+    tier_cases["chain_timing"] = chain_timing(torch, np, tier, serial_lib)
 
     workdir = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -1950,9 +2323,8 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
         sparse = sparse_phase(torch, np, tier)
-        state = sparse_timing(torch, tier, sparse)
-        sparse_host_split(torch, sparse["trainer"], state,
-                          sparse["split_batch"])
+        store_splits(torch, sparse)
+        sparse_timing(torch, tier, sparse)
         sparse["trainer"].close()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -27,18 +27,20 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
 
-def _build_dir():
+def build_dir(name):
+    """``<checkout>/build/edl_<name>`` (git-ignored) when the package
+    lies in a checkout, else ``~/.cache/elasticdl_tpu_torch/<name>``."""
     root = os.path.dirname(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     )
     if os.path.exists(os.path.join(root, "pyproject.toml")):
-        return os.path.join(root, "build", "edl_kernels")
+        return os.path.join(root, "build", "edl_" + name)
     return os.path.join(
-        os.path.expanduser("~"), ".cache", "elasticdl_tpu_torch", "kernels"
+        os.path.expanduser("~"), ".cache", "elasticdl_tpu_torch", name
     )
 
 
-BUILD_DIR = _build_dir()
+BUILD_DIR = build_dir("kernels")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,11 +84,12 @@ KERNELS = {
         "embedding_tier.cu",
         {
             # K1: table, slots, miss (or None), out, n, dim, table_rows,
-            # stream
-            "edl_tier_gather": ([_VP] * 4 + [_INT] * 3 + [_VP], _INT),
+            # pdl, stream
+            "edl_tier_gather": ([_VP] * 4 + [_INT] * 4 + [_VP], _INT),
             # K2: rows, slot0, slot1, steps (each buffer but rows may be
-            # None), slots, ins_rows (or None), n, dim, table_rows, stream
-            "edl_tier_insert_rows": ([_VP] * 6 + [_INT] * 3 + [_VP], _INT),
+            # None), slots, ins_rows (or None), n, dim, table_rows, pdl,
+            # stream
+            "edl_tier_insert_rows": ([_VP] * 6 + [_INT] * 4 + [_VP], _INT),
             # K3: grads, slots, rows, slot0, slot1, steps, n, dim,
             # table_rows, opt, lr, momentum, beta1, 1 - beta1, beta2,
             # 1 - beta2, eps, stream
@@ -118,14 +121,18 @@ def _nvcc():
     )
 
 
-def library_path(name):
-    source = os.path.join(_CSRC, KERNELS[name][0])
+def library_path(name, source=None, build_dir=None):
+    """Where kernel ``name``'s library is built: under ``build_dir``
+    (BUILD_DIR), named by a hash of ``source`` (the package's own source
+    of the kernel) and the flags."""
+    source = source or os.path.join(_CSRC, KERNELS[name][0])
     digest = hashlib.sha256()
     with open(source, "rb") as f:
         digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(
-        BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16])
+        build_dir or BUILD_DIR,
+        "lib%s-%s.so" % (name, digest.hexdigest()[:16]),
     )
 
 
@@ -166,6 +173,17 @@ def build(names=None):
     return time.monotonic() - start
 
 
+def bind(path, name):
+    """The library at ``path`` loaded with ctypes, its C functions typed
+    as kernel ``name``'s."""
+    lib = ctypes.CDLL(path)
+    for fn_name, (argtypes, restype) in KERNELS[name][1].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def load(name):
     """The ctypes library of kernel ``name``, built on first use."""
     lib = _loaded.get(name)
@@ -175,10 +193,5 @@ def load(name):
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(library_path(name))
-            for fn_name, (argtypes, restype) in KERNELS[name][1].items():
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _loaded[name] = lib
+            lib = _loaded[name] = bind(library_path(name), name)
     return lib

@@ -38,18 +38,22 @@
 // writes the last four, 0.74 MB, 0.22 us.
 //
 // Design: a launch costs a few microseconds on its own, so at these sizes
-// the launch and the chain of dependent loads inside it, not the bytes,
-// set the time. So:
+// the launch, the chain of launches and the chain of dependent loads
+// inside each, not the bytes, set the time. So:
 // - K2 inserts a staging chunk into the whole table state in one launch
 //   (one launch per buffer and a torch index put for the step counts
 //   would be five kernels under adam).
-// - K2 and K3 give each row a group of lanes inside one warp, one lane
+// - K1, K2 and K3 give each row a group of lanes inside one warp, one lane
 //   per 16-byte chunk of the row (float4, when d % 4 == 0 and every
 //   pointer is 16-byte aligned), else per element; the group is the chunk
 //   count rounded up to a power of two, at most 32 (spare lanes idle; past
-//   32 chunks a lane loops). The group's first lane loads the slot once
-//   and broadcasts it with __shfl_sync; every lane of the warp reaches
-//   that shuffle before any returns.
+//   32 chunks a lane loops). In K2 and K3 the group's first lane loads
+//   the slot once and broadcasts it with __shfl_sync; every lane of the
+//   warp reaches that shuffle before any returns. In K1 every lane loads
+//   the slot itself (the warp's slots arrive in one transaction).
+// - K1 issues a lane's slot and miss-chunk loads together: a miss row
+//   never needs the slot, so it does not wait for it. A miss never reads
+//   the table, and a hit never stores the miss value.
 // - K3's first lane alone reads the row's step count, computes t = steps
 //   + 1 and adam's two bias corrections once, broadcasts the corrections
 //   and then stores t. Rows are unique, so no other thread touches that
@@ -62,9 +66,24 @@
 //   sends it, every miss of a step (about 5100 of 8192 slots at deepfm's
 //   shapes) would read-modify-write one address: thousands of updates
 //   serialised in L2, for a row that nothing reads.
-// - K2 and K3 size their blocks so that a launch of 8192 rows spreads
+// - All three size their blocks so that a launch of 8192 rows spreads
 //   over about 128 blocks (128 threads at d 8, 64 at d 1) on the card's
-//   132 SMs. K1 keeps one thread per (row, chunk) in blocks of 256.
+//   132 SMs (K1 had blocks of 256 threads: 64 blocks at d 8).
+// - Each staging chunk runs K1 (the victims' rows) -> K2 (the insert) ->
+//   K1 (the combined buffer) on one stream, each waiting on the one
+//   before. The wrapper (fused_insert_gather) launches the second and
+//   third with programmatic dependent launch (launch(), pdl = 1): K1 and
+//   K2 call launch_dependents() first thing, so the next kernel's blocks
+//   start while this one's last blocks finish, and load the host-copied
+//   slots, miss rows and staged rows before wait_for_previous_grid().
+//   They read the tier state and store anything only after it: the table
+//   is what K2 writes, and the caching allocator may hand a buffer an
+//   earlier kernel still reads to the next output. The first kernel of a
+//   chain launches without the attribute, so it waits, as any launch
+//   does, for everything before it; what the host copied before it is
+//   then visible to the rest of the chain. K1 reads the table at L2
+//   (__ldcg), so no line an SM cached before the wait can be stale.
+//   K3 follows the dense step's torch kernels and launches plainly.
 //
 // K3's arithmetic uses the round-to-nearest intrinsics (__fmul_rn,
 // __fadd_rn, ...), which the compiler never contracts into an FMA, in the
@@ -74,8 +93,8 @@
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc takes
 // seconds): each function launches on the given stream, does not
-// synchronise, and returns cudaGetLastError() (cudaErrorInvalidValue for
-// arguments it refuses).
+// synchronise, and returns the launch's error or cudaGetLastError()
+// (cudaErrorInvalidValue for arguments it refuses).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -83,9 +102,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K1's block
 constexpr unsigned kFullWarp = 0xffffffffu;
-// K2 and K3: blocks of 64 to 256 threads, as many as fill the SMs
+// blocks of 64 to 256 threads, as many as fill the SMs
 constexpr int kSms = 132;  // H100 SXM
 constexpr int kMinThreads = 64;
 constexpr int kMaxThreads = 256;
@@ -109,33 +127,71 @@ struct Chunk<4> {
   static __device__ T zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
 };
 
+// Programmatic dependent launch (PDL). A kernel launched with the
+// programmatic-stream-serialization attribute may start while the kernel
+// before it in the stream is still running, once every block of that one
+// has called launch_dependents() or exited. wait_for_previous_grid()
+// blocks until the previous grid has finished and its stores are visible;
+// in a kernel launched without the attribute it returns at once.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_previous_grid() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // K1: gather-merge
 // ---------------------------------------------------------------------------
 
+// Thread i serves lane i % group of row i / group, as in K2 and K3. Every
+// lane loads its row's slot itself (one transaction for the warp's rows)
+// and its first miss chunk beside it, both before the dependency wait:
+// they were written before the chain's first kernel started, so no
+// kernel still running writes them. The table (K2 of the chain may still
+// be writing it) is read, and out (the allocator may hand it a buffer an
+// earlier kernel of the chain still reads) is written, only after it.
 template <int VEC>
 __global__ void gather_kernel(const float* __restrict__ table,
                               const int* __restrict__ slots,
                               const float* __restrict__ miss,
-                              float* __restrict__ out, long long items,
-                              int chunks, int table_rows) {
+                              float* __restrict__ out, int n, int chunks,
+                              int log2_group, int table_rows) {
   using C = Chunk<VEC>;
   using T = typename C::T;
+  launch_dependents();
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= items) return;
-  const long long row = i / chunks;
-  const int c = (int)(i - row * chunks);
-  const int s = slots[row];
-  T v;
-  // only the value returned is read: a miss never touches the table
-  if (s >= 0 && s < table_rows) {
-    v = reinterpret_cast<const T*>(table)[(long long)s * chunks + c];
-  } else if (miss != nullptr) {
-    v = reinterpret_cast<const T*>(miss)[i];
-  } else {
-    v = C::zero();
+  const long long row = i >> log2_group;
+  const int group = 1 << log2_group;
+  const int lane = (int)(i & (group - 1));
+  const bool live = row < n;
+  const T* miss_row = reinterpret_cast<const T*>(miss) + row * chunks;
+  int s = -1;
+  T first = C::zero();
+  if (live) {
+    s = __ldg(slots + row);
+    if (miss != nullptr && lane < chunks) first = __ldg(miss_row + lane);
   }
-  reinterpret_cast<T*>(out)[i] = v;
+  wait_for_previous_grid();
+  if (!live) return;
+  const bool in_table = s >= 0 && s < table_rows;
+  const T* table_row =
+      reinterpret_cast<const T*>(table) + (long long)s * chunks;
+  T* out_row = reinterpret_cast<T*>(out) + row * chunks;
+  // a hit reads the table (at L2: __ldcg) and never stores the miss
+  // value; a miss never reads the table
+  for (int c = lane; c < chunks; c += group) {
+    T v;
+    if (in_table) {
+      v = __ldcg(table_row + c);
+    } else if (c == lane) {
+      v = first;
+    } else {
+      v = miss != nullptr ? __ldg(miss_row + c) : C::zero();
+    }
+    out_row[c] = v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -156,6 +212,7 @@ __global__ void insert_rows_kernel(float* __restrict__ rows,
                                    int table_rows) {
   using C = Chunk<VEC>;
   using T = typename C::T;
+  launch_dependents();
   const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   const long long row = i >> log2_group;
   const int group = 1 << log2_group;
@@ -170,6 +227,9 @@ __global__ void insert_rows_kernel(float* __restrict__ rows,
   int s = -1;
   if (live && lane == 0) s = __ldg(slots + row);
   s = __shfl_sync(kFullWarp, s, 0, group);
+  // the slots and staged rows above are host copies made before the
+  // chain; the table state is written only after the previous kernel
+  wait_for_previous_grid();
   if (!live || s < 0 || s >= table_rows) return;
   if (lane == 0 && steps != nullptr) steps[s] = 0;
   const long long base = (long long)s * chunks;
@@ -310,10 +370,6 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-unsigned int blocks_for(long long items) {
-  return (unsigned int)((items + kThreads - 1) / kThreads);
-}
-
 // log2 of a row's lane group: its chunk count rounded up to a power of
 // two, at most a warp
 int group_log2(int chunks) {
@@ -335,6 +391,26 @@ RowGrid row_grid(int n, int log2_group) {
   if (threads > kMaxThreads) threads = kMaxThreads;
   return {(unsigned int)((items + threads - 1) / threads),
           (unsigned int)threads};
+}
+
+// Launch kernel on (g, stream); with pdl, under programmatic stream
+// serialization: it may start before the previous kernel in the stream
+// ends, so its loads before wait_for_previous_grid() must not read what
+// that kernel writes.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), RowGrid g, int pdl,
+                   cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(g.blocks);
+  config.blockDim = dim3(g.threads);
+  config.dynamicSmemBytes = 0;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
 }
 
 template <int OPT>
@@ -364,36 +440,39 @@ cudaError_t launch_apply(const float* grads, const int* slots, float* rows,
 extern "C" {
 
 // K1: out [n, dim] = table [table_rows, dim] at slots [n], or miss [n, dim]
-// (zeros when miss is null) where the slot is negative.
+// (zeros when miss is null) where the slot is negative. pdl != 0 launches
+// it as the dependent of the previous kernel in the stream (see launch):
+// slots and miss must then be written before that kernel started.
 int edl_tier_gather(const void* table, const void* slots, const void* miss,
-                    void* out, int n, int dim, int table_rows, void* stream) {
+                    void* out, int n, int dim, int table_rows, int pdl,
+                    void* stream) {
   if (n <= 0 || dim <= 0 || table_rows <= 0) return cudaErrorInvalidValue;
   const bool vec = dim % 4 == 0 && aligned16(table) && aligned16(miss) &&
                    aligned16(out);
   const int chunks = vec ? dim / 4 : dim;
-  const long long items = (long long)n * chunks;
+  const int lg = group_log2(chunks);
+  const RowGrid g = row_grid(n, lg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
   const int* sl = static_cast<const int*>(slots);
   const float* mi = static_cast<const float*>(miss);
   float* o = static_cast<float*>(out);
-  if (vec) {
-    gather_kernel<4><<<blocks_for(items), kThreads, 0, s>>>(
-        t, sl, mi, o, items, chunks, table_rows);
-  } else {
-    gather_kernel<1><<<blocks_for(items), kThreads, 0, s>>>(
-        t, sl, mi, o, items, chunks, table_rows);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      vec ? launch(gather_kernel<4>, g, pdl, s, t, sl, mi, o, n, chunks, lg,
+                   table_rows)
+          : launch(gather_kernel<1>, g, pdl, s, t, sl, mi, o, n, chunks, lg,
+                   table_rows);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K2: at slots [n], in place: rows [table_rows, dim] = ins_rows [n, dim]
 // (zeros when ins_rows is null), slot0 and slot1 [table_rows, dim] = 0 and
 // steps [table_rows] (int32) = 0; slot0, slot1 and steps may each be null
-// (not written).
+// (not written). pdl as for K1: slots and ins_rows written before the
+// previous kernel started.
 int edl_tier_insert_rows(void* rows, void* slot0, void* slot1, void* steps,
                          const void* slots, const void* ins_rows, int n,
-                         int dim, int table_rows, void* stream) {
+                         int dim, int table_rows, int pdl, void* stream) {
   if (n <= 0 || dim <= 0 || table_rows <= 0) return cudaErrorInvalidValue;
   const bool vec = dim % 4 == 0 && aligned16(rows) && aligned16(slot0) &&
                    aligned16(slot1) && aligned16(ins_rows);
@@ -407,14 +486,12 @@ int edl_tier_insert_rows(void* rows, void* slot0, void* slot1, void* steps,
   int* st = static_cast<int*>(steps);
   const int* sl = static_cast<const int*>(slots);
   const float* src = static_cast<const float*>(ins_rows);
-  if (vec) {
-    insert_rows_kernel<4><<<g.blocks, g.threads, 0, s>>>(
-        w, m, v, st, sl, src, n, chunks, lg, table_rows);
-  } else {
-    insert_rows_kernel<1><<<g.blocks, g.threads, 0, s>>>(
-        w, m, v, st, sl, src, n, chunks, lg, table_rows);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      vec ? launch(insert_rows_kernel<4>, g, pdl, s, w, m, v, st, sl, src, n,
+                   chunks, lg, table_rows)
+          : launch(insert_rows_kernel<1>, g, pdl, s, w, m, v, st, sl, src, n,
+                   chunks, lg, table_rows);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K3: one optimizer step of grads [n, dim] into rows / slot0 / slot1

@@ -15,6 +15,9 @@ whose last row is a scratch slot that absorbs writes addressed
   gather the step's full row buffer by merging resident hits with the
   PS-pulled miss rows (K1). In that order, on one stream: an insert may
   reuse a victim's slot, and a promotion is a hit from its first step.
+  On the card the second and third launch are programmatic dependent
+  launches: each may start before the one before it ends, and waits
+  for it before touching the tier state.
 - ``fused_scatter_apply``: the sparse optimizer step applied to the
   resident slots from the step's row gradients (K3); no hit row's
   gradient leaves the card. The math mirrors the PS store's
@@ -231,23 +234,32 @@ def gather_merge(table, slots, miss_rows=None):
     CUDA tensors launch the kernel (fp32 contiguous table and miss rows,
     contiguous int32 slots; anything else raises); CPU tensors run
     ``gather_merge_reference``."""
+    return _gather_merge(table, slots, miss_rows, pdl=False)[0]
+
+
+def _gather_merge(table, slots, miss_rows, pdl):
+    """``gather_merge`` -> (out, whether K1 was launched). ``pdl``
+    launches K1 as the programmatic dependent of the previous kernel in
+    the stream (embedding_tier.cu: launch): ``slots`` and ``miss_rows``
+    must have been written before that kernel started."""
     if table.device.type == "cpu":
-        return gather_merge_reference(table, slots, miss_rows)
+        return gather_merge_reference(table, slots, miss_rows), False
     _check("gather_merge", table, slots, miss_rows, "miss_rows")
     lib = _lib("gather_merge", table.device)
     n, dim = slots.shape[0], table.shape[1]
     out = torch.empty((n, dim), dtype=table.dtype, device=table.device)
     if n == 0:
-        return out
+        return out, False
     with torch.cuda.device(table.device):
         err = lib.edl_tier_gather(
             table.data_ptr(), slots.data_ptr(),
             None if miss_rows is None else miss_rows.data_ptr(),
-            out.data_ptr(), n, dim, table.shape[0], _stream(table.device),
+            out.data_ptr(), n, dim, table.shape[0], int(pdl),
+            _stream(table.device),
         )
     _raise_on(err, "gather_merge", (n, dim))
     _count("GATHER_LAUNCHES")
-    return out
+    return out, True
 
 
 def _check_state(name, state):
@@ -272,24 +284,26 @@ def _check_state(name, state):
     return keys
 
 
-def _insert(name, table, slot_bufs, steps, slots, rows):
+def _insert(name, table, slot_bufs, steps, slots, rows, pdl=False):
     """Launch K2 on CUDA tensors already checked: ``table`` at ``slots``
     = ``rows`` (zeros when None), each of ``slot_bufs`` (0-2) zeroed and
-    ``steps`` (or None) reset there."""
+    ``steps`` (or None) reset there; ``pdl`` as in ``_gather_merge``.
+    Returns whether it launched."""
     lib = _lib(name, table.device)
     n, dim = slots.shape[0], table.shape[1]
     if n == 0:
-        return
+        return False
     ptrs = [b.data_ptr() for b in slot_bufs] + [None] * (2 - len(slot_bufs))
     with torch.cuda.device(table.device):
         err = lib.edl_tier_insert_rows(
             table.data_ptr(), ptrs[0], ptrs[1],
             None if steps is None else steps.data_ptr(), slots.data_ptr(),
             None if rows is None else rows.data_ptr(),
-            n, dim, table.shape[0], _stream(table.device),
+            n, dim, table.shape[0], int(pdl), _stream(table.device),
         )
     _raise_on(err, name, (n, dim))
     _count("SET_ROWS_LAUNCHES")
+    return True
 
 
 def set_rows(table, slots, rows=None):
@@ -314,14 +328,21 @@ def insert_rows(state, slots, rows):
     CUDA tensors launch the kernel (the state as ``scatter_apply`` takes
     it, int32 slots, fp32 ``[n, dim]`` rows; anything else raises); CPU
     tensors run ``insert_rows_reference``."""
+    _insert_rows(state, slots, rows, pdl=False)
+    return state
+
+
+def _insert_rows(state, slots, rows, pdl):
+    """``insert_rows`` -> whether K2 was launched; ``pdl`` as in
+    ``_gather_merge``."""
     table = state["rows"]
     if table.device.type == "cpu":
-        return insert_rows_reference(state, slots, rows)
+        insert_rows_reference(state, slots, rows)
+        return False
     _check("insert_rows", table, slots, rows)
     keys = _check_state("insert_rows", state)
-    _insert("insert_rows", table, [state[k] for k in keys], state["steps"],
-            slots, rows)
-    return state
+    return _insert("insert_rows", table, [state[k] for k in keys],
+                   state["steps"], slots, rows, pdl)
 
 
 def scatter_apply(state, slots, grads, opt_type, lr, momentum, beta1,
@@ -380,10 +401,18 @@ def fused_insert_gather(state, ins_slots, ins_rows, evict_slots, slots,
     (an insert may reuse a victim's slot this very step), and the
     combined buffer is gathered AFTER (a promotion is a hit from its
     first step). ``ins_slots``/``evict_slots`` may be empty (no launch)
-    or padded with the scratch slot; ``slots`` pads misses with -1."""
-    evicted = gather_merge(state["rows"], evict_slots)
-    insert_rows(state, ins_slots, ins_rows)
-    combined = gather_merge(state["rows"], slots, miss_rows)
+    or padded with the scratch slot; ``slots`` pads misses with -1.
+
+    On the card the three launches form one chain: the first launches
+    plainly, each later one as the programmatic dependent of the one
+    before (embedding_tier.cu: launch), so every slot array and row
+    argument must already be written when the call is made (the tier
+    copies them from the host first)."""
+    evicted, chained = _gather_merge(state["rows"], evict_slots, None,
+                                     pdl=False)
+    chained = _insert_rows(state, ins_slots, ins_rows, pdl=chained) or \
+        chained
+    combined, _ = _gather_merge(state["rows"], slots, miss_rows, pdl=chained)
     return state, combined, evicted
 
 

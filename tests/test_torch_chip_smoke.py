@@ -24,6 +24,8 @@ TABLES = (
        for name, edits in chip_smoke.TIER_MUTATIONS]
     + [("K3_VARIANTS", name, chip_smoke.TIER_SOURCE, edits)
        for name, edits in chip_smoke.K3_VARIANTS.items() if edits]
+    + [("K1_CHAIN_VARIANTS", name, chip_smoke.TIER_SOURCE, edits)
+       for name, edits in chip_smoke.K1_CHAIN_VARIANTS.items() if edits]
 )
 
 
@@ -59,3 +61,21 @@ def test_flash_bounds_at_the_train_shape(kernel, want_ms):
     ms, by = chip_smoke.bound(96, 1024, 64, "bfloat16", True, kernel)
     assert round(ms, 4) == want_ms
     assert by == ("bytes" if kernel == "fwd" else "operations")
+
+
+def test_k1_faults_and_the_race_are_planted():
+    """--mutations plants K1's three faults (a miss reading slot 0, a
+    lane reading the wrong chunk, the table read before the dependency
+    wait) and counts the last, a race, over K1_RACE_RUNS runs."""
+    names = [name for name, _ in chip_smoke.TIER_MUTATIONS]
+    for name in ("k1_miss_reads_slot_0", "k1_lane_reads_wrong_chunk",
+                 chip_smoke.K1_RACE):
+        assert names.count(name) == 1, name
+    assert chip_smoke.K1_RACE_RUNS >= 2
+
+
+def test_k1_bound_at_deepfm_shape():
+    """K1's bound on the combined buffer (8192 slots, d 8): the slots,
+    one row read and one written per slot, over the memory rate."""
+    ms, by = chip_smoke.roofline(4 * 8192 + 2 * 4 * 8192 * 8, 0)
+    assert round(ms, 6) == 0.000166 and by == "bytes"

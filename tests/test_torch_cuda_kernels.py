@@ -290,6 +290,73 @@ def test_tier_gather_matches_plain_version(card, dim):
             slots.shape[0], dim + 1, device=card)[:, :dim])
 
 
+def _k1_slots(rows, n, kind, rng):
+    """n slots into a table of ``rows`` rows: unique hits, all misses, or
+    a mix of hits, misses (-1) and slots at and past the table's end (the
+    last row, a hit; ``rows`` and beyond, misses)."""
+    import numpy as np
+
+    if kind == "all_misses":
+        return np.full(n, -1, np.int32)
+    slots = rng.randint(0, rows, n).astype(np.int32)
+    if kind == "all_hits":
+        return slots
+    slots[::3] = -1
+    slots[1::7] = rows - 1
+    slots[2::7] = rows
+    slots[3::11] = rows + 1000
+    return slots
+
+
+@pytest.mark.parametrize("kind", ["all_hits", "all_misses", "mix"])
+@pytest.mark.parametrize("n", [1, 1000, 8192 + 37])
+@pytest.mark.parametrize("dim", [1, 4, 8, 12, 64])
+def test_tier_gather_rows_lanes_and_edges(card, dim, n, kind):
+    """K1 bit for bit with its plain version for one row, a count that
+    fills no whole block and more than deepfm's 8192, all hits, all
+    misses and a mix with slots at and past the table's end, with miss
+    rows and with none (zeros); two launches bit-equal; one counted
+    launch per call."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    rng = np.random.RandomState(dim * 7 + n)
+    rows = 1025
+    table = torch.from_numpy(rng.randn(rows, dim).astype(np.float32)).to(
+        card)
+    slots = torch.from_numpy(_k1_slots(rows, n, kind, rng)).to(card)
+    miss = torch.from_numpy(rng.randn(n, dim).astype(np.float32)).to(card)
+    for miss_rows in (miss, None):
+        before = tier.GATHER_LAUNCHES
+        got = tier.gather_merge(table, slots, miss_rows)
+        again = tier.gather_merge(table, slots, miss_rows)
+        torch.cuda.synchronize()
+        assert tier.GATHER_LAUNCHES == before + 2
+        assert torch.equal(got, tier.gather_merge_reference(table, slots,
+                                                            miss_rows))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dim", [1, 8])
+def test_tier_chain_reuses_victim_slots_in_order(card, dim):
+    """The staging chunk's chain (K1 victims -> K2 insert -> K1 combined,
+    the last two programmatic dependents) with every insert reusing a
+    victim's slot, 100 runs each queued behind a sleep so the launches
+    meet on the card: the victims' old rows, the inserted rows in the
+    combined buffer and every state buffer equal the plain versions
+    applied in order, bit for bit, in every run."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    before = (tier.GATHER_LAUNCHES, tier.SET_ROWS_LAUNCHES)
+    record = chip_smoke.chain_check(torch, np, tier, dim, reps=100)
+    assert record["mismatches"] == 0
+    assert (tier.GATHER_LAUNCHES - before[0],
+            tier.SET_ROWS_LAUNCHES - before[1]) == (200, 100)
+
+
 @pytest.mark.parametrize("dim", TIER_DIMS)
 def test_tier_set_rows_matches_plain_version(card, dim):
     from elasticdl_tpu_torch.ops import embedding_tier as tier

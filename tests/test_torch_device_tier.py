@@ -26,6 +26,7 @@ from tests.test_torch_sparse import (
     STATE_RTOL,
     VOCAB,
     make_batches,
+    port_client,
     ref_client,
     tier_configs,
     trainer_pair,
@@ -44,7 +45,7 @@ def tier_pair(**overrides):
     """A reference and a port DeviceEmbeddingTier over one table "t"
     (dim 4) of their own LocalPSClient, numpy store seed 0."""
     ref_config, port_config = tier_configs(**overrides)
-    clients = (ref_client(seed=0), LocalPSClient(seed=0))
+    clients = (ref_client(seed=0), port_client(seed=0))
     for client in clients:
         client.push_embedding_table_infos([("t", 4, "0.05")])
     tiers = (

@@ -25,7 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the host's cores under other files' timing-sensitive tests
 torch.set_num_threads(1)
 
-_BLOCKER = r'''
+_BLOCK = r'''
 import importlib, importlib.abc, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
            "elasticdl_tpu")
@@ -39,6 +39,8 @@ class _Block(importlib.abc.MetaPathFinder):
 for name in [m for m in sys.modules if _blocked(m)]:
     del sys.modules[name]
 sys.meta_path.insert(0, _Block())
+'''
+_BLOCKER = _BLOCK + r'''
 for name in sys.argv[1:]:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if _blocked(m))
@@ -183,3 +185,32 @@ def test_sparse_slice_modules_isolated_and_entry_points_default_to_cuda(
     with pytest.raises(RuntimeError, match="cuda"):
         SparseTrainer(deepfm.custom_model(), deepfm.loss, deepfm.optimizer(),
                       deepfm.sparse_embedding_specs(), LocalPSClient())
+
+
+def test_native_store_builds_and_trains_with_jax_blocked():
+    """The native store module and its build (make, g++) need nothing of
+    JAX or the JAX package: with them blocked, create_store gives the
+    native store, built from the port's own source (never the JAX
+    package's native/ directory), and a push moves a looked-up row."""
+    code = _BLOCK + r'''
+import numpy as np
+from elasticdl_tpu_torch.ps import embedding_store as s
+store = s.create_store(seed=0)
+assert isinstance(store, s.NativeEmbeddingStore), type(store)
+assert store.library_path.startswith(s.STORE_BUILD_DIR)
+assert s.NATIVE_DIR.endswith("elasticdl_tpu_torch/native")
+store.set_optimizer("sgd", lr=0.5)
+store.create_table("t", 2, initializer="zeros")
+store.push_gradients("t", [3], np.ones((1, 2), np.float32))
+assert store.lookup("t", [3]).tolist() == [[-0.5, -0.5]]
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("native ok")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "native ok"

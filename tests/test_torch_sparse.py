@@ -5,9 +5,11 @@ dense gradients, row gradients) from the same dense params, carried
 across by ``params_from_flax``; (c) the PS table state and the device
 tier's state after several steps; (d) ``LocalExecutor`` on DeepFM end
 to end. Small sizes (4 fields, batch 32, vocab 1000, tier capacity
-256), inputs made with numpy from a seed. Both sides use the numpy
-store: the reference's native store draws its lazy rows from another
-random stream (mt19937), so only the numpy stores agree bit for bit.
+256), inputs made with numpy from a seed. Both sides name their store:
+numpy against numpy, or native against native (the two C++ stores are
+one source and one seed). A native store draws its lazy rows from
+another random stream (mt19937) than a numpy store, so across the two
+kinds only deterministic initializers agree bit for bit.
 """
 
 import jax
@@ -73,11 +75,27 @@ def make_batches(n, seed=0, zipf=1.6, vocab=VOCAB, offset=0):
     return out
 
 
-def ref_client(seed=0, opt_type="adam", **opt_args):
-    """The reference's in-process client over its NUMPY store."""
-    store = ref_store.create_store(seed=seed, prefer_native=False)
-    store.set_optimizer(opt_type, **opt_args)
-    return RefLocalPSClient(store=store)
+def ref_client(seed=0, opt_type="adam", store="numpy", **opt_args):
+    """The reference's in-process client over its numpy (or native)
+    store."""
+    cls = (ref_store.NumpyEmbeddingStore if store == "numpy"
+           else ref_store.NativeEmbeddingStore)
+    ps_store = cls(seed=seed)
+    ps_store.set_optimizer(opt_type, **opt_args)
+    return RefLocalPSClient(store=ps_store)
+
+
+def port_client(seed=0, opt_type="adam", store="numpy", **opt_args):
+    """The port's in-process client over its numpy store, or (``store=
+    "native"``) as a user builds it: ``create_store``'s choice, which
+    must be the native store here."""
+    if store == "native":
+        client = LocalPSClient(seed=seed, opt_type=opt_type, **opt_args)
+        assert isinstance(client.store, port_store.NativeEmbeddingStore)
+        return client
+    ps_store = port_store.NumpyEmbeddingStore(seed=seed)
+    ps_store.set_optimizer(opt_type, **opt_args)
+    return LocalPSClient(store=ps_store)
 
 
 def tier_configs(**overrides):
@@ -92,12 +110,13 @@ def tier_configs(**overrides):
 
 
 def trainer_pair(first_batch, tier=None, eps=None, lr=0.01, seed=0,
-                 **trainer_kwargs):
+                 store="numpy", **trainer_kwargs):
     """A reference and a port SparseTrainer on DeepFM (4 fields), the
     port's dense params carried across from the reference's state on
-    ``first_batch``, both with the PS adam at ``lr`` (and ``eps``);
-    ``tier`` is a (reference, port) config pair or None. Returns
-    (ref_trainer, port_trainer, ref_state, port_state)."""
+    ``first_batch``, both with the PS adam at ``lr`` (and ``eps``) on
+    their ``store`` ("numpy" or "native"); ``tier`` is a (reference,
+    port) config pair or None. Returns (ref_trainer, port_trainer,
+    ref_state, port_state)."""
     ps_args = {"lr": lr}
     dense_args = {"learning_rate": 0.001}
     if eps is not None:
@@ -109,7 +128,7 @@ def trainer_pair(first_batch, tier=None, eps=None, lr=0.01, seed=0,
         optimizer=ref_opt.create_optimizer("Adam", **dense_args),
         specs=ref_deepfm.sparse_embedding_specs(
             num_features=FIELDS, batch_size=BATCH),
-        ps_client=ref_client(seed=seed, **ps_args),
+        ps_client=ref_client(seed=seed, store=store, **ps_args),
         seed=seed,
         device_tier=False if tier is None else tier[0],
         health=False,
@@ -125,7 +144,7 @@ def trainer_pair(first_batch, tier=None, eps=None, lr=0.01, seed=0,
         optimizer=port_opt.create_optimizer("Adam", **dense_args),
         specs=deepfm.sparse_embedding_specs(
             num_features=FIELDS, batch_size=BATCH),
-        ps_client=LocalPSClient(seed=seed, opt_type="adam", **ps_args),
+        ps_client=port_client(seed=seed, store=store, **ps_args),
         seed=seed,
         device_tier=False if tier is None else tier[1],
         health=False,
@@ -195,11 +214,24 @@ def test_local_client_matches_reference(wire, monkeypatch):
     """LocalPSClient: table registration from wire initializer strings,
     pulls and deduplicated pushes (with EDL_WIRE_DTYPE's rounding,
     which the port applies through torch) and the tier's raw-row
-    writeback land the reference's state bit for bit."""
+    writeback land the reference's state bit for bit (numpy stores)."""
+    _local_clients_agree(wire, "numpy", monkeypatch)
+
+
+@pytest.mark.parametrize("wire", ["", "float16", "bfloat16"])
+def test_local_client_on_native_store_matches_reference(wire, monkeypatch):
+    """The same on the native stores: the port's LocalPSClient as a user
+    builds it (create_store's native store) against the reference's
+    client over its native store, bit for bit under the uniform and
+    normal initializers too (one C++ source, one seed)."""
+    _local_clients_agree(wire, "native", monkeypatch)
+
+
+def _local_clients_agree(wire, store, monkeypatch):
     monkeypatch.setenv("EDL_WIRE_DTYPE", wire)
     rng = np.random.RandomState(11)
-    clients = [ref_client(seed=1, opt_type="adam", lr=0.02),
-               LocalPSClient(seed=1, opt_type="adam", lr=0.02)]
+    clients = [ref_client(seed=1, opt_type="adam", store=store, lr=0.02),
+               port_client(seed=1, opt_type="adam", store=store, lr=0.02)]
     infos = [("e", 4, "0.05"), ("w", 1, "zeros"), ("n", 2, "normal:0.3")]
     pulled = []
     for client in clients:
