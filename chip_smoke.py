@@ -80,7 +80,29 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    the store's. Then steps/s, examples/s, the host stage split of each
    store (medians over 10 fresh steps, the native trainer and a numpy
    one that replayed the same steps, in turns) and a profiled step
-   (device busy, idle share, K1-K3 share).
+   (device busy, idle share, K1-K3 share);
+8. stream -- bench.py's deepfm ladder (bench.py:83-180) through the
+   port against fresh pairs of the port's own PS processes, started as
+   ``python -m elasticdl_tpu_torch.ps.server`` with bench.py's flags
+   (two shards, adam lr 0.001, sync with grads_to_wait 1, the native
+   store; all pairs started together, each checked to serve the native
+   store in sync mode, all stopped by SIGTERM and waited on at the
+   end): sequential ``train_step`` (no cache, no tier),
+   ``train_stream(push_interval=2)`` with ``cache_staleness`` 8, and
+   the same with the tier, 110 steps each over gRPC (``PSClient``).
+   Checks: every loss finite; no push rejected; the tier rung's K1-K3
+   launches per step follow phase 7's formula (counted from 0 at the
+   rung's start); after ``close()`` every resident tier row equals its
+   row pulled back over gRPC; on disjoint-id batches
+   ``train_stream(push_interval=1)`` on the card agrees with
+   ``train_step`` on the card, each over its own PS pair, within the
+   sparse phase's tolerances. For each rung: steps/s and examples/s
+   over steps 11-110, Timing's medians (``sparse_pull`` is the part of
+   the lookahead prepare left on the critical path) beside each call's
+   own time on its thread (prepare, the PS pull in it, the push RPC);
+   the ladder's order (printed, not gated); one profiled pipelined tier
+   step (device busy, idle share, and the gaps between the K1/K2
+   launches of a staging chunk's chain).
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -1393,13 +1415,14 @@ def _split_stages(trainer):
     ``sparse_host_split`` times: ``prepare`` (unique ids, tier lookup
     and admission, and the PS ``pull`` of the misses, shown on its own
     too), ``combine`` (the miss rows to the card, K1/K2), ``step``
-    (forward, backward, dense update), ``apply_extract`` (K3, the miss
-    gradients to the host) and ``push`` (the PS optimizer step)."""
+    (forward, backward, dense update), ``apply_extract`` (``_fold``:
+    the wait for the row gradients' host copy, K3, the push gradients
+    copied out) and ``push`` (the PS optimizer step)."""
     return (("prepare", trainer.preparer, "prepare"),
             ("pull", trainer.preparer._embedding, "pull_tables"),
             ("combine", trainer, "_tier_combine"),
             ("step", trainer, "_train_step"),
-            ("apply_extract", trainer, "_tier_apply_extract"),
+            ("apply_extract", trainer, "_fold"),
             ("push", trainer.preparer, "push_gradients"))
 
 
@@ -1493,6 +1516,498 @@ def store_splits(torch, sparse):
     sparse["state"] = runs[store_record(main)["store"]][1]
     numpy_trainer.close()
     return records
+
+
+# phase 8, stream: bench.py's deepfm ladder (bench.py:83-180) through the
+# port, against two PS processes of the port started with bench.py's
+# flags (sync, grads_to_wait 1, the native store, adam lr 0.001)
+STREAM_PS_FLAGS = ("--num_ps_pods", "2", "--opt_type", "adam",
+                   "--opt_args", "lr=0.001")
+STREAM_PUSH_INTERVAL = 2
+STREAM_CACHE_STALENESS = 8
+# rates over steps 11-110, as bench.py's warmup 10 + 100 steps
+STREAM_WARMUP = 10
+STREAM_PS_WAIT_S = 180
+# train_stream(push_interval=1) against train_step on disjoint-id
+# batches: both on the card, both over a gRPC PS pair, adam eps 1e-3 on
+# the dense params and the PS (SPARSE_AGREE_EPS): they differ only in
+# the card's summation order, so the losses agree to SPARSE_LOSS_RTOL
+# and the touched PS rows to SPARSE_ROW_RTOL / SPARSE_ROW_ATOL
+STREAM_AGREE_STEPS = 5
+STREAM_AGREE_VOCAB = 4096  # ids of batch k lie in [k * V, (k + 1) * V)
+# extra batches after the tier rung's timed steps: the profiled window
+STREAM_PROFILE_STEPS = 2
+STREAM_LADDER = ("sequential", "pipelined", "pipelined_tier")
+
+
+def start_ps_pairs(n_pairs, logdir, started, extra=()):
+    """``n_pairs`` pairs of ``python -m elasticdl_tpu_torch.ps.server``
+    (ps_id 0 and 1 of 2) on free ports, all started together, each
+    logging to its own file. Each pair (procs, addrs, logs) goes into
+    ``started`` as it starts, so the caller's finally stops
+    (``stop_ps``) every process even if a later start fails; returns
+    this call's pairs."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+
+    os.makedirs(logdir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    pairs = []
+    for pair in range(n_pairs):
+        procs, addrs, logs = [], [], []
+        pairs.append((procs, addrs, logs))
+        started.append((procs, addrs, logs))
+        for ps_id in range(2):
+            port = find_free_port()
+            log_path = os.path.join(logdir, "ps-%d-%d.log" % (pair, ps_id))
+            with open(log_path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "elasticdl_tpu_torch.ps.server",
+                     "--ps_id", str(ps_id), "--port", str(port),
+                     *STREAM_PS_FLAGS, *extra],
+                    cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT))
+            addrs.append("localhost:%d" % port)
+            logs.append(log_path)
+    return pairs
+
+
+def wait_ps_ready(pairs):
+    """Wait until every PS logs that it serves (the line names its store
+    and its mode); a PS that exits or does not come up in
+    STREAM_PS_WAIT_S fails the phase. Returns each PS's serving line."""
+    deadline = time.monotonic() + STREAM_PS_WAIT_S
+    lines = []
+    for procs, addrs, logs in pairs:
+        for proc, addr, path in zip(procs, addrs, logs):
+            want = "serving on :%s " % addr.rsplit(":", 1)[1]
+            while True:
+                with open(path) as f:
+                    found = [ln for ln in f if want in ln]
+                if found:
+                    lines.append(found[0].strip())
+                    break
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    with open(path) as f:
+                        tail = f.read()[-2000:]
+                    raise SystemExit("PS %s did not come up (exit %s):\n%s"
+                                     % (addr, proc.poll(), tail))
+                time.sleep(0.1)
+    return lines
+
+
+def stop_ps(pairs):
+    """SIGTERM every PS (the drain), wait; kill what does not exit."""
+    procs = [p for ps, _, _ in pairs for p in ps]
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+    codes = []
+    for proc in procs:
+        try:
+            codes.append(proc.wait(timeout=20))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes.append(proc.wait())
+    return codes
+
+
+def stream_trainer(device, addrs, batch, fields, tier=None,
+                   cache_staleness=0, eps=None):
+    """bench.py's deepfm SparseTrainer over a PSClient of ``addrs``:
+    deepfm.optimizer() (adam lr 0.001) on the dense params, the id
+    capacity min(batch * fields, MAX_ID_CAPACITY), seed 0; ``tier`` a
+    dict of DeviceTierConfig knobs or None; ``eps`` adam's epsilon on
+    the dense params and the tier."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+
+    config = False
+    if tier is not None:
+        config = DeviceTierConfig(**tier)
+    optimizer = (deepfm.optimizer() if eps is None else
+                 create_optimizer("Adam", learning_rate=0.001, epsilon=eps))
+    return SparseTrainer(
+        model=deepfm.custom_model(),
+        loss_fn=deepfm.loss,
+        optimizer=optimizer,
+        specs=deepfm.sparse_embedding_specs(
+            num_features=fields, batch_size=batch,
+            capacity=min(batch * fields, deepfm.MAX_ID_CAPACITY)),
+        ps_client=PSClient(addrs),
+        seed=SEED,
+        cache_staleness=cache_staleness,
+        device_tier=config,
+        device=device,
+    )
+
+
+def disjoint_batches(np, n, batch, fields, vocab=STREAM_AGREE_VOCAB,
+                     seed=SEED):
+    """Batch k draws ids from [k * vocab, (k + 1) * vocab): consecutive
+    batches share no row, so one push of staleness changes no value."""
+    rng = np.random.RandomState(seed)
+    return [{
+        "features": {"ids": (k * vocab + rng.randint(
+            0, vocab, size=(batch, fields))).astype(np.int64)},
+        "labels": rng.randint(0, 2, batch).astype(np.float32),
+        "_mask": np.ones(batch, np.float32),
+    } for k in range(n)]
+
+
+def stream_agreement(torch, np, device, pairs, batch, fields):
+    """train_stream(push_interval=1) on the card against train_step on
+    the card, each over its own fresh gRPC PS pair, on disjoint-id
+    batches: the losses within SPARSE_LOSS_RTOL, the touched PS rows
+    (pulled back over gRPC) within SPARSE_ROW_RTOL / SPARSE_ROW_ATOL."""
+    batches = disjoint_batches(np, STREAM_AGREE_STEPS, batch, fields)
+    touched = np.unique(np.concatenate(
+        [b["features"]["ids"].ravel() for b in batches]))
+    runs = {}
+    for mode, (_, addrs, _) in zip(("train_step", "train_stream"), pairs):
+        trainer = stream_trainer(device, addrs, batch, fields,
+                                 eps=SPARSE_AGREE_EPS)
+        state, losses = None, []
+        if mode == "train_step":
+            for b in batches:
+                state, loss = trainer.train_step(state, b)
+                losses.append(loss)
+        else:
+            for state, loss, _ in trainer.train_stream(None, batches,
+                                                       push_interval=1):
+                losses.append(loss)
+        trainer.close()
+        client = trainer.preparer._ps
+        runs[mode] = {
+            "losses": [float(x) for x in losses],
+            "rows": client.pull_embedding_batch(
+                {"deepfm_emb": touched, "deepfm_linear": touched}),
+            "rejections": trainer.push_rejections,
+        }
+        client.close()
+        del trainer, state
+    step, stream = runs["train_step"], runs["train_stream"]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(stream["losses"], step["losses"]))
+    row_err, rows_ok = 0.0, True
+    for table, want in step["rows"].items():
+        got = stream["rows"][table]
+        diff = np.abs(got.astype(np.float64) - want)
+        row_err = max(row_err, float(diff.max()))
+        rows_ok = rows_ok and bool(
+            (diff <= SPARSE_ROW_ATOL + SPARSE_ROW_RTOL * np.abs(want)).all())
+    record = {"stream": "train_stream_vs_train_step", "device": str(device),
+              "steps": STREAM_AGREE_STEPS, "push_interval": 1,
+              "losses_train_step": step["losses"],
+              "losses_train_stream": stream["losses"],
+              "loss_rel_err": loss_err, "tol_loss_rel": SPARSE_LOSS_RTOL,
+              "rows": int(touched.size), "row_max_abs_err": row_err,
+              "tol_row_rel": SPARSE_ROW_RTOL, "tol_row_abs": SPARSE_ROW_ATOL,
+              "adam_eps": SPARSE_AGREE_EPS,
+              "rejections": [step["rejections"], stream["rejections"]]}
+    log(json.dumps(record))
+    if not (loss_err <= SPARSE_LOSS_RTOL and rows_ok
+            and record["rejections"] == [0, 0]):
+        raise SystemExit("train_stream disagrees with train_step over the "
+                         "gRPC PS")
+    return record
+
+
+def stream_window_profile(torch, trace_path, run_window):
+    """Profile ``run_window()`` (one pipelined tier step, from a yield
+    to the next step's end) with CUDA activity only: wall time, device
+    busy time and the idle share, and the gaps between consecutive tier
+    kernels of one chunk's chain (K1 victims -> K2 -> K1 combined; a
+    negative gap is a launch that started before its predecessor
+    ended)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run_window()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    busy_ms = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            total_us = getattr(evt, "device_time_total", None)
+            busy_ms += (evt.cuda_time_total if total_us is None
+                        else total_us) / 1e3
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    names = {TIER_PROFILE_PREFIX["k1"]: "K1", TIER_PROFILE_PREFIX["k2"]: "K2"}
+    kernels = sorted(
+        ((float(e["ts"]), float(e["dur"]), label) for e in events
+         if e.get("ph") == "X" for prefix, label in names.items()
+         if str(e.get("name", "")).startswith(prefix)),
+        key=lambda k: k[0])
+    gaps = {"K1->K2": [], "K2->K1": []}
+    for (ts0, dur0, a), (ts1, _, b) in zip(kernels, kernels[1:]):
+        key = "%s->%s" % (a, b)
+        if key in gaps:
+            gaps[key].append((ts1 - (ts0 + dur0)) / 1e3)
+    record = {"profile": "pipelined_tier_step", "wall_ms": wall_ms,
+              "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+              "tier_kernels": [label for _, _, label in kernels],
+              "chain_gaps_ms": gaps,
+              "chain_launches_overlap": (any(g < 0 for v in gaps.values()
+                                             for g in v)
+                                         if any(gaps.values()) else
+                                         "no chain in the window")}
+    if busy_ms > 0:
+        record["idle_share"] = max(0.0, 1.0 - busy_ms / wall_ms)
+    return record
+
+
+def stream_rung(torch, np, tier, name, trainer, batches, profile_path=None,
+                instrument=True):
+    """One rung of the ladder: ``sequential`` (train_step) or a
+    pipelined one (train_stream, push_interval 2). Steps/s and
+    examples/s over steps 11-110 (a sync at the 10th step's loss and at
+    the 110th's) and every loss. With ``instrument`` also Timing's
+    medians over the same steps (Timing syncs the card at every step),
+    each wrapped call's own time, on the tier rung the K1-K3 launches
+    per step against sparse_phase's formula (counted from 0 at the
+    rung's start) and, over the extra batches after step 110, one
+    profiled pipelined step; without it the trainer runs as bench.py
+    runs it (EDL_TIMING unset, nothing wrapped), for the rates."""
+    from elasticdl_tpu_torch.common.timing_utils import Timing
+
+    trainer.timing = Timing(enabled=instrument)
+    steps = len(batches) - (STREAM_PROFILE_STEPS if profile_path else 0)
+    dtier = trainer.device_tier
+    losses, bad_steps, record = [], [], {}
+    # each call's own wall time on whatever thread runs it: the
+    # preparer's prepare (the lookahead thread under train_stream), the
+    # pull inside it (the HotRowCache's split and put, one per table,
+    # inside that) and the PS push RPC (the push thread)
+    calls_ms = {"prepare": [], "pull": [], "push_rpc": [], "cache_split": [],
+                "cache_put": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            calls_ms[name].append((time.monotonic() - t0) * 1e3)
+            return out
+        return run
+
+    preparer = trainer.preparer
+    if instrument:
+        preparer.prepare = timed("prepare", preparer.prepare)
+        preparer._embedding.pull_tables = timed(
+            "pull", preparer._embedding.pull_tables)
+        preparer._ps.push_gradients = timed("push_rpc",
+                                            preparer._ps.push_gradients)
+        if preparer.cache is not None:
+            preparer.cache.split = timed("cache_split", preparer.cache.split)
+            preparer.cache.put = timed("cache_put", preparer.cache.put)
+    reset_tier_launches(tier)
+    before, stats0 = tier_counts(tier), dtier.stats() if dtier else None
+    marks = {}
+
+    def on_step(i, loss):
+        nonlocal before, stats0
+        losses.append(loss)
+        if i + 1 == STREAM_WARMUP:
+            float(loss)
+            if instrument:
+                trainer.timing.report("%s warmup" % name)  # logs and resets
+            for values in calls_ms.values():
+                values.clear()
+            marks["t0"] = time.monotonic()
+        if i + 1 == steps:
+            float(loss)
+            marks["t1"] = time.monotonic()
+            marks["timing"] = trainer.timing.summary()
+            marks["calls"] = {k: (float(np.median(v)), len(v))
+                              for k, v in calls_ms.items() if v}
+        if dtier is None or i >= steps or not instrument:
+            return
+        # per window (the previous yield to this one): K3 twice for the
+        # previous step's fold, then K1/K2 as this step's combine
+        # requires
+        counts, stats1 = tier_counts(tier), dtier.stats()
+        d_k1, d_k2, d_k3 = (a - c for a, c in zip(counts, before))
+        gather_only, chunks, inserts, evicts = (
+            stats1[k] - stats0[k]
+            for k in ("gather_only_combines", "staged_chunks",
+                      "insert_chunks", "evict_chunks"))
+        want = (gather_only + chunks + evicts, inserts, 2 if i else 0)
+        if (d_k1, d_k2, d_k3) != want:
+            bad_steps.append([i, [d_k1, d_k2, d_k3], list(want)])
+        before, stats0 = counts, stats1
+
+    if name == "sequential":
+        state = None
+        for i, b in enumerate(batches):
+            state, loss = trainer.train_step(state, b)
+            on_step(i, loss)
+    else:
+        stream = trainer.train_stream(None, batches,
+                                      push_interval=STREAM_PUSH_INTERVAL)
+        for i, (state, loss, _) in enumerate(stream):
+            on_step(i, loss)
+            if profile_path and i == steps:
+                # the window from this yield to the end of the next step
+                record["profile"] = stream_window_profile(
+                    torch, profile_path,
+                    lambda: float(next(stream)[1]))
+                losses.append(None)  # consumed inside the window
+                break
+        for state, loss, _ in stream:  # nothing left: runs the teardown
+            losses.append(loss)
+    launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                        tier_counts(tier)))
+    sync(torch, trainer.device)
+    elapsed = marks["t1"] - marks["t0"]
+    timed = steps - STREAM_WARMUP
+    host_losses = [float(x) for x in losses if x is not None]
+    record.update({
+        "stream": "rung", "rung": name, "instrumented": instrument,
+        "steps": steps, "timed_steps": timed,
+        "batch": len(batches[0]["labels"]),
+        "steps_per_s": timed / elapsed,
+        "examples_per_s": timed * len(batches[0]["labels"]) / elapsed,
+        "losses_first_last": [host_losses[0], host_losses[-1]],
+        "all_finite": bool(np.isfinite(host_losses).all()),
+        "push_rejections": trainer.push_rejections,
+        "cache_hit_rate": (trainer.preparer.cache.hit_rate()
+                           if trainer.preparer.cache else None),
+    })
+    if instrument:
+        record.update({
+            "timing_medians_ms": {k: v["median_ms"]
+                                  for k, v in marks["timing"].items()},
+            "timing_counts": {k: v["count"]
+                              for k, v in marks["timing"].items()},
+            # medians of each call's own wall time over the timed steps
+            "call_ms_median": {k: v[0] for k, v in marks["calls"].items()},
+            "call_counts": {k: v[1] for k, v in marks["calls"].items()},
+        })
+    if dtier is not None and instrument:
+        record.update({"launches": launches,
+                       # every batch driven, the profiled ones too
+                       "launches_per_step": {k: v / len(batches)
+                                             for k, v in launches.items()},
+                       "launch_formula_mismatches": bad_steps[:5],
+                       "tier_stats": dtier.stats()})
+    return record
+
+
+def stream_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
+                 fields=SPARSE_FIELDS, vocab=SPARSE_VOCAB, steps=SPARSE_STEPS,
+                 tier_knobs=None):
+    """Phase 8: bench.py's deepfm ladder on this card through the port,
+    against fresh pairs of the port's PS processes (bench.py's flags):
+    sequential train_step (no cache, no tier), train_stream with
+    push_interval 2 and cache_staleness 8, and the same with the tier.
+    Each rung runs twice, each time on its own fresh PS pair: a plain
+    pass as bench.py runs it (the rates) and an instrumented pass
+    (Timing, the wrapped calls, the launch formula, the profiled step).
+    Checks (each printed; a failure raises SystemExit): every PS serves
+    from the native store in sync mode; every loss finite; no push
+    rejected; the tier rung's K1-K3 launches per step follow the
+    formula; after close() every resident tier row equals its row
+    pulled back over gRPC; train_stream(push_interval=1) agrees with
+    train_step on disjoint ids. Returns the rung records (the plain
+    pass's, with the instrumented one under ``instrumented``) and the
+    instrumented tier rung's launches."""
+    knobs = dict(SPARSE_TIER if tier_knobs is None else tier_knobs)
+    device = torch.device(device)
+    batches = ctr_batches(np, steps + STREAM_PROFILE_STEPS, batch, fields,
+                          vocab)
+    logdir = os.path.join(HERE, "build", "chip_smoke_ps")
+    shutil.rmtree(logdir, ignore_errors=True)
+    t0 = time.monotonic()
+    started = []
+    try:
+        # two passes of three rungs, then train_step and train_stream for
+        # the agreement
+        pairs = start_ps_pairs(2 * len(STREAM_LADDER), logdir, started)
+        agree_pairs = start_ps_pairs(
+            2, os.path.join(logdir, "agree"), started,
+            extra=("--opt_args", "lr=0.001;epsilon=%g" % SPARSE_AGREE_EPS))
+        lines = wait_ps_ready(pairs + agree_pairs)
+        log(json.dumps({"stream": "ps_ready", "processes": len(lines),
+                        "seconds": time.monotonic() - t0,
+                        "flags": list(STREAM_PS_FLAGS), "lines": lines[:2]}))
+        if not all("(NativeEmbeddingStore store, sync, grads_to_wait 1)"
+                   in ln for ln in lines):
+            raise SystemExit("a PS does not serve the native store in sync "
+                             "mode: %s" % lines)
+        agreement = stream_agreement(torch, np, device, agree_pairs, batch,
+                                     fields)
+        records = {}
+        passes = [(name, instrument) for name in STREAM_LADDER
+                  for instrument in (False, True)]
+        for (name, instrument), (_, addrs, _) in zip(passes, pairs):
+            trainer = stream_trainer(
+                device, addrs, batch, fields,
+                tier=knobs if name == "pipelined_tier" else None,
+                cache_staleness=(0 if name == "sequential"
+                                 else STREAM_CACHE_STALENESS))
+            profile_path = (os.path.join(HERE, "build", "stream_trace.json")
+                            if name == "pipelined_tier" and instrument
+                            and device.type == "cuda" else None)
+            record = stream_rung(
+                torch, np, tier, name, trainer,
+                batches if profile_path else batches[:steps], profile_path,
+                instrument=instrument)
+            trainer.close()  # the tier's final writeback, before the PS go
+            client = trainer.preparer._ps
+            if trainer.device_tier is not None:
+                parity, resident = True, {}
+                for table in ("deepfm_emb", "deepfm_linear"):
+                    ids, rows = trainer.device_tier.table_rows(table)
+                    resident[table] = int(ids.size)
+                    pulled = client.pull_embedding_batch({table: ids})
+                    parity = parity and ids.size > 0 and np.array_equal(
+                        rows, pulled[table])
+                record["flush_parity"] = {"bit_exact": parity,
+                                          "resident": resident}
+            client.close()
+            log(json.dumps(record))
+            if instrument:
+                records[name]["instrumented"] = record
+            else:
+                records[name] = record
+            del trainer
+            if not record["all_finite"]:
+                raise SystemExit("%s: a loss is not finite" % name)
+            if record["push_rejections"]:
+                raise SystemExit("%s: a push was rejected" % name)
+            if name == "pipelined_tier":
+                if instrument and (record["launch_formula_mismatches"]
+                                   or min(record["launches"].values()) <= 0):
+                    raise SystemExit("stream K1-K3 launches do not follow "
+                                     "the path: %s"
+                                     % record["launch_formula_mismatches"])
+                if not record["flush_parity"]["bit_exact"]:
+                    raise SystemExit("a resident tier row differs from its "
+                                     "row on the PS after close()")
+    finally:
+        codes = stop_ps(started)
+    order = sorted(STREAM_LADDER, key=lambda n: -records[n]["steps_per_s"])
+    log(json.dumps({"stream": "ladder",
+                    "steps_per_s": {n: records[n]["steps_per_s"]
+                                    for n in STREAM_LADDER},
+                    "steps_per_s_instrumented": {
+                        n: records[n]["instrumented"]["steps_per_s"]
+                        for n in STREAM_LADDER},
+                    "order_fastest_first": order,
+                    "bench_order": list(STREAM_LADDER[::-1]),
+                    "ps_exit_codes": codes}))
+    if any(codes):
+        raise SystemExit("a PS did not exit 0 on SIGTERM: %s" % codes)
+    tier_rung = records["pipelined_tier"]["instrumented"]
+    return {"records": records, "agreement": agreement,
+            "launches": tier_rung["launches"], "steps": tier_rung["steps"]}
 
 
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
@@ -2110,6 +2625,80 @@ def mutation_child(root, mode):
                           timeout=900)
 
 
+# the A/B of phase 7 across two checkouts, each running its own
+# sparse_phase and store_splits in a child process, in the order parent,
+# change, change, parent: python3 chip_smoke.py --sparse-ab <parent>
+SPARSE_AB_CHILD = (
+    "import sys\n"
+    "import numpy as np\n"
+    "import torch\n"
+    "sys.path.insert(0, '.')\n"
+    "import chip_smoke as cs\n"
+    "from elasticdl_tpu_torch.ops import _build\n"
+    "from elasticdl_tpu_torch.ops import embedding_tier as tier\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "_build.build(['embedding_tier'])\n"
+    "sparse = cs.sparse_phase(torch, np, tier)\n"
+    "cs.store_splits(torch, sparse)\n"
+    "sparse['trainer'].close()\n"
+)
+
+
+def sparse_ab(parent):
+    """Phase 7's main-run rate (110 steps, the tier on, the in-process
+    native store) and its host stage split on the native store, for the
+    checkout at ``parent`` and this one, in turns; logs each run and the
+    medians by checkout."""
+    import numpy as np
+
+    parent = os.path.abspath(parent)
+    if not os.path.exists(os.path.join(parent, "chip_smoke.py")):
+        raise SystemExit("no chip_smoke.py in %s" % parent)
+    runs = []
+    for label, root in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", SPARSE_AB_CHILD],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode:
+            raise SystemExit("the %s run failed:\n%s" % (
+                label, (out.stdout + out.stderr)[-3000:]))
+        main = split = None
+        for line in out.stdout.splitlines():
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if not isinstance(rec, dict):
+                continue
+            if rec.get("sparse") == "main_run":
+                main = rec
+            elif (rec.get("profile") == "sparse_host_split"
+                  and rec.get("store") == "NativeEmbeddingStore"):
+                split = rec
+        run = {"sparse_ab": label, "root": root,
+               "steps_per_s": main["steps_per_s"],
+               "step_ms_host_median": main["step_ms_host_median"],
+               "split_wall_ms_median": split["wall_ms_median"],
+               "split_stage_ms_median": split["stage_ms_median"],
+               "split_other_ms_median": split["other_ms_median"]}
+        log(json.dumps(run))
+        runs.append(run)
+    summary = {}
+    for label in ("parent", "change"):
+        mine = [r for r in runs if r["sparse_ab"] == label]
+        stages = sorted({k for r in mine for k in r["split_stage_ms_median"]})
+        summary[label] = {
+            "steps_per_s": [r["steps_per_s"] for r in mine],
+            "split_wall_ms_median": float(np.median(
+                [r["split_wall_ms_median"] for r in mine])),
+            "split_stage_ms_median": {k: float(np.median(
+                [r["split_stage_ms_median"].get(k, 0.0) for r in mine]))
+                for k in stages}}
+    log(json.dumps({"sparse_ab": "summary", **summary}))
+
+
 def mutation_phase():
     """Plant each of K4_MUTATIONS, BWD_MUTATIONS and TIER_MUTATIONS in
     its own copy and require kernel_phase (K4), bwd_kernel_phase (K5,
@@ -2217,10 +2806,11 @@ def kernel_entry(name, source, replaces, launches, case, kind):
     return entry
 
 
-def tier_kernel_entry(name, replaces, kind, tier_cases, sparse):
+def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
-    optimizer), launches from the sparse train path's main run, and the
+    optimizer), launches from the sparse train path's main run (and,
+    beside them, from the stream phase's tier rung), and the
     deepfm_linear (d 1) time beside; K3's all-hits times too."""
     emb = tier_cases[kind]["deepfm_emb"]
     lin = tier_cases[kind]["deepfm_linear"]
@@ -2231,6 +2821,7 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse):
         "name": name, "route": "cuda", "source": TIER_SOURCE,
         "replaces": replaces, "launches": launches,
         "launches_per_step": launches / sparse["steps"],
+        "launches_stream": stream["launches"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -2279,8 +2870,13 @@ def main(argv):
         mutation_phase()
         log(smi)
         return 0
+    if len(argv) == 2 and argv[0] == "--sparse-ab":
+        sparse_ab(argv[1])
+        log(nvidia_smi_line())
+        return 0
     if argv:
-        print("usage: chip_smoke.py [--mutations]", file=sys.stderr)
+        print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT]",
+              file=sys.stderr)
         return 2
 
     # the serial chain's copy builds beside the checkout's kernels
@@ -2326,6 +2922,10 @@ def main(argv):
         store_splits(torch, sparse)
         sparse_timing(torch, tier, sparse)
         sparse["trainer"].close()
+        del sparse["trainer"], sparse["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        stream = stream_phase(torch, np, tier)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2348,13 +2948,13 @@ def main(argv):
                      launches["dkv"], bwd_cases[main_case], "dkv"),
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
-                          "gather", tier_cases, sparse),
+                          "gather", tier_cases, sparse, stream),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
-                          "insert_rows", tier_cases, sparse),
+                          "insert_rows", tier_cases, sparse, stream),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
-                          "scatter_apply", tier_cases, sparse),
+                          "scatter_apply", tier_cases, sparse, stream),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

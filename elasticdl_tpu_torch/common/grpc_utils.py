@@ -1,12 +1,23 @@
-"""gRPC channel/server helpers (port of elasticdl_tpu/common/grpc_utils.py,
-trimmed to build_server, build_channel and find_free_port)."""
+"""gRPC channel/server helpers and the shared jittered retry policy
+(port of elasticdl_tpu/common/grpc_utils.py, without the trace-context
+propagation and fault-injection interceptors)."""
 
+import os
+import random
 import socket
+import time
 from concurrent import futures
 
 import grpc
 
+from elasticdl_tpu_torch.common import overload
 from elasticdl_tpu_torch.common.constants import GRPC
+from elasticdl_tpu_torch.common.env_utils import env_str
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+
+logger = _logger_factory("elasticdl_tpu_torch.common.grpc_utils")
 
 _CHANNEL_OPTIONS = [
     ("grpc.max_send_message_length", GRPC.MAX_SEND_MESSAGE_LENGTH),
@@ -16,12 +27,206 @@ _CHANNEL_OPTIONS = [
     ("grpc.max_reconnect_backoff_ms", 10000),
 ]
 
+# connection-shaped failures worth retrying: the peer is relaunching
+# (UNAVAILABLE) or wedged past its deadline; anything else (bad
+# request, server logic error) surfaces at once
+RETRYABLE_CODES = (
+    grpc.StatusCode.UNAVAILABLE,
+    grpc.StatusCode.DEADLINE_EXCEEDED,
+)
+
+
+def _await_reconnect(channel, timeout_secs):
+    """Drive the channel's reconnection for up to ``timeout_secs``;
+    True when it went READY.
+
+    Load-bearing: a fail-fast RPC against a TRANSIENT_FAILURE channel
+    fails at once without scheduling a new connection attempt, so a
+    retry loop that only sleeps can burn its whole budget while the
+    relaunched peer is serving. ``channel_ready_future`` subscribes a
+    watcher that does schedule attempts and unsubscribes when done.
+    """
+    future = grpc.channel_ready_future(channel)
+    try:
+        future.result(timeout=timeout_secs)
+        return True
+    except grpc.FutureTimeoutError:
+        return False
+    finally:
+        future.cancel()
+
+
+def retry_call(fn, what, budget_secs, retryable=RETRYABLE_CODES,
+               base_delay=0.5, max_delay=10.0, rng=None, channel=None,
+               target=None, fail_fast_when_open=False):
+    """Call ``fn`` with FULL-JITTER exponential backoff on retryable
+    gRPC errors, up to ``budget_secs`` of wall clock.
+
+    Each backoff is uniform in [0, ceiling), the ceiling doubling per
+    attempt up to ``max_delay``: workers that all hit one relaunching
+    PS must not retry in lockstep. ``rng`` (tests) replaces the module
+    RNG. With ``channel`` the backoff drives the channel's reconnection
+    (``_await_reconnect``) instead of only sleeping.
+
+    With ``target`` (the peer's address) the overload machinery
+    engages (common/overload.py):
+
+    - ``budget_secs`` is capped by the thread's deadline budget, and the
+      loop runs inside that budget;
+    - a RESOURCE_EXHAUSTED with the server's ``edl-retry-after-ms`` hint
+      is retried at the server's pace: the hint seeds the wait, full
+      jitter rides on top, consecutive pushbacks double it (at most 8x);
+    - each retry spends a per-target retry-budget token; an empty
+      bucket raises ``RetryBudgetExhausted``;
+    - the per-(target, method class) circuit breaker paces attempts:
+      open = wait out the probe window inside the budget, or raise
+      ``CircuitOpenError`` at once with ``fail_fast_when_open`` (pulls
+      with a degraded fallback). Pushback does not feed the breaker.
+    """
+    jitter = (rng or random).uniform
+    budget_secs = overload.rpc_timeout(budget_secs)
+    deadline = time.monotonic() + budget_secs
+    breaker = (
+        overload.breaker_for(target, overload.method_class(what))
+        if target is not None else None
+    )
+    retry_budget = (
+        overload.retry_budget_for(target) if target is not None else None
+    )
+    ceiling = base_delay
+    pushback_streak = 0
+    with overload.budget(budget_secs):
+        while True:
+            if breaker is not None:
+                wait = breaker.admit_delay()
+                if wait > 0:
+                    if fail_fast_when_open or (
+                        time.monotonic() + wait > deadline
+                    ):
+                        raise overload.CircuitOpenError(
+                            breaker.target, breaker.kind
+                        )
+                    time.sleep(wait)
+                    continue
+            try:
+                result = fn()
+            except grpc.RpcError as e:
+                code = e.code() if hasattr(e, "code") else None
+                pushback = overload.retry_after_hint(e)
+                if breaker is not None and code in RETRYABLE_CODES:
+                    breaker.record_failure()
+                if pushback is not None and (
+                    code == grpc.StatusCode.RESOURCE_EXHAUSTED
+                ):
+                    # the server's hint seeds the pacing, with full
+                    # jitter on top and doubling on consecutive
+                    # pushbacks: waiters polling at the bare hint in
+                    # lockstep race each freed slot and mostly miss
+                    delay = (
+                        pushback * (1.0 + jitter(0.0, 1.0))
+                        * (1 << min(pushback_streak, 3))
+                    )
+                    pushback_streak += 1
+                else:
+                    pushback = None
+                    pushback_streak = 0
+                    delay = jitter(0.0, ceiling)
+                    if code not in retryable:
+                        raise
+                if time.monotonic() + delay > deadline:
+                    raise
+                if retry_budget is not None and not retry_budget.spend():
+                    logger.warning(
+                        "%s: retry budget for %s exhausted; failing "
+                        "fast", what, target,
+                    )
+                    raise overload.RetryBudgetExhausted(target, code) from e
+                if pushback is not None:
+                    overload.note_pushback_wait(target)
+                    logger.warning(
+                        "%s pushed back by %s; retrying in %.2fs",
+                        what, target or "peer", delay,
+                    )
+                    time.sleep(delay)
+                    continue
+                logger.warning(
+                    "%s unavailable (%s); retrying in %.2fs", what, code,
+                    delay,
+                )
+                if channel is not None:
+                    if _await_reconnect(channel, delay):
+                        # peer is back: a small residual jitter keeps a
+                        # fleet whose ready-futures completed together
+                        # from arriving in unison
+                        time.sleep(jitter(0.0, min(0.25, delay)))
+                else:
+                    time.sleep(delay)
+                ceiling = min(ceiling * 2, max_delay)
+            else:
+                if breaker is not None:
+                    breaker.record_success()
+                if retry_budget is not None:
+                    retry_budget.record_success()
+                return result
+
+
+# Local transport: under EDL_PS_UDS_DIR a PS also binds a unix-domain
+# socket named by its TCP port, and a client building a channel to a
+# LOCAL host:port prefers that socket when it exists (TCP stays the
+# fallback: knob unset, socket absent, or a remote host).
+UDS_DIR_ENV = "EDL_PS_UDS_DIR"
+
+
+def uds_socket_path(port, uds_dir=None):
+    """The socket path a PS serving on ``port`` binds under
+    EDL_PS_UDS_DIR, or None when the knob is unset."""
+    directory = uds_dir or env_str(UDS_DIR_ENV, "")
+    if not directory:
+        return None
+    return os.path.join(
+        os.path.abspath(directory), "edl-ps-%d.sock" % int(port)
+    )
+
+
+def _is_local_host(host):
+    host = host.strip("[]")
+    if host in ("localhost", "127.0.0.1", "::1", ""):
+        return True
+    try:
+        return host == socket.gethostname()
+    except OSError:
+        return False
+
+
+def maybe_uds_addr(addr):
+    """``host:port`` -> ``unix:<path>`` when EDL_PS_UDS_DIR names a live
+    socket for that port and the host is this machine, else None.
+    Checked at channel-build time only: afterwards the channel owns the
+    path, so a same-path PS relaunch reconnects without a rebuild."""
+    host, _, port = addr.rpartition(":")
+    if not port.isdigit() or not _is_local_host(host):
+        return None
+    path = uds_socket_path(int(port))
+    if path and os.path.exists(path):
+        return "unix:" + path
+    return None
+
 
 def build_channel(addr: str) -> grpc.Channel:
-    return grpc.insecure_channel(addr, options=_CHANNEL_OPTIONS)
+    """An insecure channel to ``addr`` (its local socket when there is
+    one), with the deadline-budget interceptor unless
+    EDL_DEADLINE_BUDGET=0."""
+    uds = maybe_uds_addr(addr)
+    if uds is not None:
+        logger.info("channel to %s riding the local socket %s", addr, uds)
+        addr = uds
+    channel = grpc.insecure_channel(addr, options=_CHANNEL_OPTIONS)
+    return overload.intercept_budget_channel(channel)
 
 
 def build_server(max_workers: int = 64) -> grpc.Server:
+    """A gRPC server whose handlers adopt a caller's deadline budget
+    (unless EDL_DEADLINE_BUDGET=0)."""
     return grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),
         # so_reuseport=0: one process per port. With SO_REUSEPORT a
@@ -29,6 +234,7 @@ def build_server(max_workers: int = 64) -> grpc.Server:
         # (and black-holing) a share of incoming connections after a
         # same-port relaunch binds.
         options=_CHANNEL_OPTIONS + [("grpc.so_reuseport", 0)],
+        interceptors=overload.server_budget_interceptors(),
     )
 
 

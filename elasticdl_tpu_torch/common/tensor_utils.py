@@ -1,18 +1,24 @@
 """numpy/torch <-> TensorBlob conversion, IndexedSlices helpers and the
 wire-dtype knob.
 
-Port of elasticdl_tpu/common/tensor_utils.py (ndarray_to_blob,
-blob_to_ndarray, deduplicate_indexed_slices, normalize_id_tables,
+Port of elasticdl_tpu/common/tensor_utils.py (ndarray_to_blob with its
+wire down-cast, blob_to_ndarray, the packed-id codec, the IndexedSlices
+(de)serializers, deduplicate_indexed_slices, normalize_id_tables,
 wire_dtype) plus torch-tensor variants. The wire stays
 interchangeable with the JAX package: a blob carries the dtype NAME
 ("float32", "int32", "bfloat16", ...) beside its dims and raw
-little-endian bytes.
+little-endian bytes, and ids travel as a packed little-endian int64
+blob (``ids_blob``) or, from and to old peers, as the repeated ``ids``
+field.
 
 bfloat16 has no numpy dtype here (the JAX package resolves it through
 ``ml_dtypes``, which ships with JAX). The port encodes and decodes it
 through torch instead: ``t.view(torch.int16)`` gives the raw bytes, and
 ``torch.frombuffer(..., dtype=torch.bfloat16)`` reads them back, bit for
-bit what ``ml_dtypes.bfloat16`` writes.
+bit what ``ml_dtypes.bfloat16`` writes. A received reduced-precision
+float payload is decoded straight to float32 (``blob_to_f32``): bf16 to
+fp32 is exact (the 16 bits shifted up), and every consumer of a payload
+(the PS's fp32 master rows, the worker's row buffers) works in fp32.
 
 ``EDL_WIRE_DTYPE`` (float32, bfloat16, float16) names the dtype float32
 payloads round to on the wire; ``wire_round_trip`` applies that rounding
@@ -26,6 +32,10 @@ from elasticdl_tpu_torch.common.env_utils import env_str
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 
 _BF16 = "bfloat16"
+
+# little-endian int64: the one id encoding ids_blob ever carries,
+# regardless of host byte order
+_IDS_WIRE_DTYPE = np.dtype("<i8")
 
 WIRE_DTYPE_ENV = "EDL_WIRE_DTYPE"
 
@@ -52,18 +62,41 @@ def _fill(blob, dtype_name, shape, content):
     return blob
 
 
-def ndarray_to_blob(array, blob=None) -> pb.TensorBlob:
+def _downcast_for_wire(array, dtype):
+    """``(array, wire dtype name)``: a float32 payload cast to the wire
+    ``dtype`` (a torch dtype from ``wire_dtype()``), round to nearest
+    even as ``astype`` does; bfloat16 comes back as its raw 16-bit
+    patterns (numpy has no bfloat16 here). Anything else (ids, int
+    features, already-reduced payloads) passes through with name
+    None."""
+    if dtype is None or array.dtype != np.float32:
+        return array, None
+    if dtype == torch.float16:
+        return array.astype(np.float16), "float16"
+    if not array.flags.writeable:  # torch takes only writable memory
+        array = array.copy()
+    bits = torch.from_numpy(np.ascontiguousarray(array)).to(torch.bfloat16)
+    return bits.view(torch.int16).numpy(), _BF16
+
+
+def ndarray_to_blob(array, blob=None, wire_dtype=None) -> pb.TensorBlob:
+    """``wire_dtype``: optional reduced-precision torch dtype for
+    float32 payloads (callers pass ``wire_dtype()`` on the paths that
+    opt in: gradient pushes and pulled rows)."""
     array = np.asarray(array)
     if array.dtype == object:
         # object arrays of python strings: fixed-width unicode has a
         # raw layout
         array = array.astype(str)
-    # unicode/bytes need dtype.str ("<U7"); everything else, including
-    # an ml_dtypes bfloat16 array handed in by a caller, dtype.name
-    name = (
-        array.dtype.str if array.dtype.kind in ("U", "S")
-        else array.dtype.name
-    )
+    array, name = _downcast_for_wire(array, wire_dtype)
+    if name is None:
+        # unicode/bytes need dtype.str ("<U7"); everything else,
+        # including an ml_dtypes bfloat16 array handed in by a caller,
+        # dtype.name
+        name = (
+            array.dtype.str if array.dtype.kind in ("U", "S")
+            else array.dtype.name
+        )
     return _fill(blob, name, array.shape, array.tobytes())
 
 
@@ -76,6 +109,76 @@ def blob_to_ndarray(blob: pb.TensorBlob) -> np.ndarray:
         )
     array = np.frombuffer(blob.content, dtype=np.dtype(blob.dtype))
     return array.reshape(tuple(blob.dims))
+
+
+def blob_to_f32(blob: pb.TensorBlob) -> np.ndarray:
+    """A float payload blob as a float32 array: fp32 as a zero-copy
+    view, bfloat16 (its bits shifted into the high half, exact) and
+    float16 upcast. Other dtypes are not payloads and raise."""
+    if blob.dtype == _BF16:
+        bits = np.frombuffer(blob.content, dtype="<u2").astype(np.uint32)
+        return (bits << 16).view(np.float32).reshape(tuple(blob.dims))
+    array = blob_to_ndarray(blob)
+    if array.dtype.kind != "f":
+        raise TypeError("%s blob is not a float payload" % blob.dtype)
+    if array.dtype != np.float32:
+        return array.astype(np.float32)
+    return array
+
+
+def pack_ids(ids) -> bytes:
+    """int64 ids -> packed little-endian bytes (the ids_blob wire
+    encoding)."""
+    return np.ascontiguousarray(ids, dtype=_IDS_WIRE_DTYPE).tobytes()
+
+
+def unpack_ids(message) -> np.ndarray:
+    """ids from any message carrying the ids/ids_blob field pair
+    (IndexedSlicesProto, PullEmbeddingVectorsRequest). Packed wins when
+    present; legacy repeated ids from an old peer still decode."""
+    if message.ids_blob:
+        ids = np.frombuffer(message.ids_blob, dtype=_IDS_WIRE_DTYPE)
+        return ids.astype(np.int64, copy=False)
+    return np.asarray(message.ids, dtype=np.int64)
+
+
+def serialize_indexed_slices(values, ids, slices=None, wire_dtype=None,
+                             packed=True) -> pb.IndexedSlicesProto:
+    """values: (n, dim) rows; ids: int64 row ids. ``packed=False``
+    writes the legacy repeated field instead of ids_blob, for peers
+    from before the packed encoding (a packed-only push against one
+    would apply nothing)."""
+    if slices is None:
+        slices = pb.IndexedSlicesProto()
+    ndarray_to_blob(values, slices.concat_tensors, wire_dtype=wire_dtype)
+    del slices.ids[:]
+    if packed:
+        slices.ids_blob = pack_ids(ids)
+    else:
+        slices.ids_blob = b""
+        slices.ids.extend(np.asarray(ids, dtype=np.int64).tolist())
+    return slices
+
+
+def deserialize_indexed_slices(slices: pb.IndexedSlicesProto):
+    """``(values, ids)`` of an IndexedSlicesProto. A reduced-precision
+    float payload comes back as float32 (``blob_to_f32``); the
+    reference returns it at its wire dtype and upcasts at the caller,
+    which gives the same values."""
+    blob = slices.concat_tensors
+    if blob.dtype in (_BF16, "float16"):
+        values = blob_to_f32(blob)
+    else:
+        values = blob_to_ndarray(blob)
+    return values, unpack_ids(slices)
+
+
+def merge_indexed_slices(values_a, ids_a, values_b, ids_b):
+    """Concatenate two IndexedSlices (no dedup)."""
+    return (
+        np.concatenate([values_a, values_b], axis=0),
+        np.concatenate([ids_a, ids_b], axis=0),
+    )
 
 
 def as_tensor(value):
@@ -120,6 +223,15 @@ def wire_dtype():
             "float16)" % (WIRE_DTYPE_ENV, value)
         )
     return _WIRE_DTYPES[key]
+
+
+def wire_dtype_name():
+    """The wire dtype's TensorBlob name ("bfloat16", "float16"), or
+    None for fp32."""
+    dtype = wire_dtype()
+    if dtype is None:
+        return None
+    return _BF16 if dtype == torch.bfloat16 else "float16"
 
 
 def wire_round_trip(values):

@@ -1,0 +1,94 @@
+"""Opt-in wall-clock accounting per phase (port of
+elasticdl_tpu/common/timing_utils.py's ``Timing``, without its metrics
+bridge and JAX profiler hooks).
+
+``Timing`` accumulates seconds per named phase (the sparse trainer's
+``sparse_pull``, ``sparse_push`` and ``batch_process``) when
+``EDL_TIMING`` is set or ``enabled=True``; otherwise every call is a
+no-op and nothing is measured. ``end_record_sync`` waits for the card
+(``torch.cuda.synchronize``) before it stops the clock, so a phase that
+launched asynchronous device work is charged its real duration. The
+port keeps each phase's samples too, so ``summary()`` gives medians.
+"""
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.env_utils import env_str
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+
+logger = _logger_factory("elasticdl_tpu_torch.common.timing_utils")
+
+# the phase whose duration is "the step"
+STEP_PHASE = "batch_process"
+
+
+def _sync(result):
+    """Wait for the card when ``result`` is a tensor on it."""
+    if isinstance(result, torch.Tensor) and result.is_cuda:
+        torch.cuda.synchronize(result.device)
+
+
+class Timing:
+    def __init__(self, enabled=None):
+        if enabled is None:
+            enabled = env_str("EDL_TIMING", "") not in ("", "0")
+        self._enabled = bool(enabled)
+        self._samples = {}  # phase -> [seconds, ...] since the last report
+
+    @property
+    def enabled(self):
+        return self._enabled
+
+    def start(self):
+        return time.monotonic() if self._enabled else 0.0
+
+    def end_record(self, phase, start):
+        if not self._enabled:
+            return
+        self._samples.setdefault(phase, []).append(time.monotonic() - start)
+
+    def end_record_sync(self, phase, start, result=None):
+        """Wait for the card (when ``result`` is a CUDA tensor) before
+        recording."""
+        if not self._enabled:
+            return
+        _sync(result)
+        self.end_record(phase, start)
+
+    @contextlib.contextmanager
+    def timeit(self, phase, sync_result=None):
+        """Time a block; ``sync_result=lambda: x`` waits for the card
+        on tensor ``x`` before the clock stops."""
+        start = self.start()
+        try:
+            yield
+        finally:
+            if self._enabled and sync_result is not None:
+                _sync(sync_result())
+            self.end_record(phase, start)
+
+    def summary(self):
+        """{phase: {"seconds": total, "count": n, "median_ms": median}}
+        over the samples since the last report."""
+        return {
+            phase: {
+                "seconds": round(float(sum(samples)), 4),
+                "count": len(samples),
+                "median_ms": float(np.median(samples)) * 1e3,
+            }
+            for phase, samples in sorted(self._samples.items())
+        }
+
+    def report(self, context=""):
+        """Log the summary and reset it."""
+        if not self._enabled or not self._samples:
+            return
+        logger.info("Timing%s: %s",
+                    " (%s)" % context if context else "", self.summary())
+        self._samples.clear()

@@ -1,4 +1,7 @@
-"""Embedding pull stack shared by training and serving (the cache and
-its degraded fill are not ported yet)."""
+"""Embedding pull stack shared by training and serving: the PS pull
+client and its bounded-staleness hot-row cache."""
 
-from elasticdl_tpu_torch.embedding.client import EmbeddingClient  # noqa: F401
+from elasticdl_tpu_torch.embedding.client import (  # noqa: F401
+    EmbeddingClient,
+    HotRowCache,
+)

@@ -1,7 +1,8 @@
-"""gRPC bindings for the ``elasticdl_tpu.Serve`` service.
+"""gRPC bindings for the ``elasticdl_tpu.Pserver`` and
+``elasticdl_tpu.Serve`` services.
 
-Port of elasticdl_tpu/proto/services.py, trimmed to the serving surface.
-The service and method names are the JAX package's, and
+Port of elasticdl_tpu/proto/services.py, trimmed to the PS and serving
+surfaces. The service and method names are the JAX package's, and
 ``elasticdl_tpu_pb2`` is a verbatim copy of its generated module, so a
 client of either package talks to a server of either package.
 """
@@ -10,38 +11,76 @@ import grpc
 
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 
+_PSERVER_SERVICE = "elasticdl_tpu.Pserver"
 _SERVE_SERVICE = "elasticdl_tpu.Serve"
 
 # method name -> (request class, response class)
+_PSERVER_METHODS = {
+    "push_model": (pb.Model, pb.Empty),
+    "push_embedding_table_infos": (pb.Model, pb.Empty),
+    "pull_dense_parameters": (
+        pb.PullDenseParametersRequest,
+        pb.PullDenseParametersResponse,
+    ),
+    "pull_embedding_vectors": (pb.PullEmbeddingVectorsRequest, pb.TensorBlob),
+    # fused multi-table pull: every table's ids for this shard ride one
+    # RPC (ids-only IndexedSlicesProto in, per-table row blobs out)
+    "pull_embedding_batch": (pb.BatchedSlices, pb.PullEmbeddingBatchResponse),
+    "push_gradients": (pb.PushGradientsRequest, pb.PushGradientsResponse),
+    # device-tier writeback: raw row VALUES overwriting the store (no
+    # optimizer math, no version bump), in the Model message
+    "push_embedding_rows": (pb.Model, pb.PushGradientsResponse),
+}
+
 _SERVE_METHODS = {
     "predict": (pb.PredictRequest, pb.PredictResponse),
     "model_info": (pb.Empty, pb.ModelInfoResponse),
 }
 
 
-class ServeStub:
-    def __init__(self, channel):
-        for name, (req_cls, resp_cls) in _SERVE_METHODS.items():
+class _Stub:
+    """Unary-unary callables for each method of a service."""
+
+    def __init__(self, channel, service_name, methods):
+        for name, (req_cls, resp_cls) in methods.items():
             setattr(
                 self,
                 name,
                 channel.unary_unary(
-                    "/%s/%s" % (_SERVE_SERVICE, name),
+                    "/%s/%s" % (service_name, name),
                     request_serializer=req_cls.SerializeToString,
                     response_deserializer=resp_cls.FromString,
                 ),
             )
 
 
-def add_serve_servicer_to_server(servicer, server):
+class PserverStub(_Stub):
+    def __init__(self, channel):
+        super().__init__(channel, _PSERVER_SERVICE, _PSERVER_METHODS)
+
+
+class ServeStub(_Stub):
+    def __init__(self, channel):
+        super().__init__(channel, _SERVE_SERVICE, _SERVE_METHODS)
+
+
+def _add_service(server, servicer, service_name, methods):
     handlers = {
         name: grpc.unary_unary_rpc_method_handler(
             getattr(servicer, name),
             request_deserializer=req_cls.FromString,
             response_serializer=resp_cls.SerializeToString,
         )
-        for name, (req_cls, resp_cls) in _SERVE_METHODS.items()
+        for name, (req_cls, resp_cls) in methods.items()
     }
     server.add_generic_rpc_handlers(
-        (grpc.method_handlers_generic_handler(_SERVE_SERVICE, handlers),)
+        (grpc.method_handlers_generic_handler(service_name, handlers),)
     )
+
+
+def add_pserver_servicer_to_server(servicer, server):
+    _add_service(server, servicer, _PSERVER_SERVICE, _PSERVER_METHODS)
+
+
+def add_serve_servicer_to_server(servicer, server):
+    _add_service(server, servicer, _SERVE_SERVICE, _SERVE_METHODS)

@@ -1,3 +1,3 @@
-"""Parameter-server side of the sparse path: the host embedding store
-and the in-process client over it (the gRPC servicer, server and
-remote client are not ported yet)."""
+"""Parameter-server side of the sparse path: the host embedding stores,
+the gRPC servicer and server process over them, and the in-process
+client."""

@@ -29,9 +29,16 @@ zeros initializers. ``create_store`` returns the native store unless it
 cannot be built or loaded; then it logs why and returns the numpy store
 (a PS must not crash mid-job).
 
-Not ported yet: the native store's wire-blob, dirty-row and drop entry
-points and both stores' incremental-checkpoint bookkeeping (dirty and
-dead id sets).
+The native store also binds the wire-blob entry points the PS
+servicer's fast path calls (``lookup_blob``, ``push_gradients_blob``,
+``import_blob``): one GIL-released call decodes a TensorBlob payload
+(fp32, bf16 or fp16), dedups and applies it, or looks rows up and casts
+them to the wire dtype. The numpy store has no such entry points; the
+servicer serves it through ``lookup``/``push_gradients``/
+``import_table`` with the same values.
+
+Not ported yet: the dirty-row and drop entry points and both stores'
+incremental-checkpoint bookkeeping (dirty and dead id sets).
 """
 
 import ctypes
@@ -58,6 +65,12 @@ OPT_SLOT_COUNTS = {
     "sgd": 0, "momentum": 1, "nesterov": 1,
     "adagrad": 1, "adam": 2, "amsgrad": 3,
 }
+
+# TensorBlob wire dtype name -> WireDtype code of native/embedding_store.cc;
+# the only payload dtypes the blob entry points take. BLOB_ITEMSIZE gives
+# every size check its bytes per element.
+BLOB_DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+BLOB_ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 # row initializer kinds (the reference's InitKind codes; "zeros" is
 # constant 0)
@@ -188,6 +201,12 @@ _NATIVE_FUNCTIONS = {
                                  _INT),
     "edl_store_import": ([_VP, _CHAR, _I64P, _F32P, _I64, _INT, _INT],
                          _INT),
+    # the wire-blob entry points: (ids, n, payload, dtype code, ...)
+    "edl_store_apply_blob": ([_VP, _CHAR, _I64P, _I64, _VP, _INT, _F64,
+                              _INT], _INT),
+    "edl_store_lookup_cast": ([_VP, _CHAR, _I64P, _I64, _VP, _INT], _INT),
+    "edl_store_import_blob": ([_VP, _CHAR, _I64P, _I64, _VP, _INT, _INT,
+                               _INT], _INT),
     "edl_store_table_size": ([_VP, _CHAR], _I64),
     "edl_store_table_slots": ([_VP, _CHAR], _INT),
     "edl_store_version": ([_VP], _I64),
@@ -351,6 +370,76 @@ class NativeEmbeddingStore:
         rc = self._lib.edl_store_import(self._handle, name.encode(),
                                         _i64_ptr(ids), _f32_ptr(values),
                                         ids.size, 0, 0)
+        if rc != 0:
+            raise KeyError(name)
+
+    def lookup_blob(self, name, ids, wire_dtype_name=None):
+        """Batched lookup emitted at the wire dtype: one GIL-released
+        call does lazy init, gather and the (bf16/fp16) down-cast, round
+        to nearest even. Returns ``(payload bytes, dtype name)``."""
+        if name not in self._dims:
+            raise KeyError(name)
+        dtype_name = wire_dtype_name or "float32"
+        code = BLOB_DTYPE_CODES[dtype_name]
+        ids = _as_i64(ids)
+        out = np.empty(ids.size * self._dims[name] * BLOB_ITEMSIZE[dtype_name],
+                       dtype=np.uint8)
+        rc = self._lib.edl_store_lookup_cast(
+            self._handle, name.encode(), _i64_ptr(ids), ids.size,
+            out.ctypes.data_as(_VP), code,
+        )
+        if rc != 0:
+            raise KeyError(name)
+        return out.tobytes(), dtype_name
+
+    def _blob_buffer(self, what, name, ids, content, dtype_name):
+        """(dtype code, payload as uint8) after checking its size
+        against ``ids`` and the table's dim."""
+        if name not in self._dims:
+            raise KeyError(name)
+        code = BLOB_DTYPE_CODES[dtype_name]
+        buf = np.frombuffer(content, dtype=np.uint8)
+        expected = ids.size * self._dims[name] * BLOB_ITEMSIZE[dtype_name]
+        if buf.size != expected:
+            raise ValueError(
+                "%s: %d payload bytes for %d ids of table %r (want %d)"
+                % (what, buf.size, ids.size, name, expected)
+            )
+        return code, buf
+
+    def push_gradients_blob(self, name, ids, content, dtype_name,
+                            lr_scale=1.0, dedup=True):
+        """Decode (with the fp32 upcast), dedup and apply one table's
+        pushed payload in one GIL-released call: ``ids`` int64 (a
+        read-only view of a request's ids_blob will do), ``content`` the
+        TensorBlob bytes at ``dtype_name`` ([n, dim] row-major). With
+        ``dedup`` the segment sum is ``deduplicate_indexed_slices``'s,
+        bit for bit."""
+        ids = _as_i64(ids)
+        code, buf = self._blob_buffer("push_gradients_blob", name, ids,
+                                      content, dtype_name)
+        rc = self._lib.edl_store_apply_blob(
+            self._handle, name.encode(), _i64_ptr(ids), ids.size,
+            buf.ctypes.data_as(_VP), code, lr_scale, 1 if dedup else 0,
+        )
+        if rc == -2:
+            raise ValueError("unsupported blob dtype %r" % dtype_name)
+        if rc != 0:
+            raise KeyError(name)
+
+    def import_blob(self, name, ids, content, dtype_name):
+        """Raw row import straight from wire bytes (device-tier
+        writebacks): the payload upcast into the fp32 rows, last write
+        wins on duplicate ids, in one GIL-released call."""
+        ids = _as_i64(ids)
+        code, buf = self._blob_buffer("import_blob", name, ids, content,
+                                      dtype_name)
+        rc = self._lib.edl_store_import_blob(
+            self._handle, name.encode(), _i64_ptr(ids), ids.size,
+            buf.ctypes.data_as(_VP), code, 0, 0,
+        )
+        if rc == -2:
+            raise ValueError("unsupported blob dtype %r" % dtype_name)
         if rc != 0:
             raise KeyError(name)
 

@@ -21,6 +21,7 @@ from elasticdl_tpu_torch.ps.embedding_store import (
     create_store,
     parse_initializer,
 )
+from elasticdl_tpu_torch.worker.ps_client import PushResult
 
 
 class LocalPSClient:
@@ -61,15 +62,26 @@ class LocalPSClient:
                 name, ids, np.asarray(values, dtype=np.float32)
             )
 
-    def push_gradients(self, grads_by_table, model_version=0):
-        """Apply at once (one in-process store, so every push is
-        accepted); ``model_version`` is the worker's and is not checked."""
-        del model_version
+    @property
+    def ps_num(self):
+        return 1
+
+    def push_gradients(self, grads_by_table, model_version=0, lr_scale=0.0,
+                       only_shards=None, force_empty=False,
+                       round_scoped=False):
+        """Apply at once: one in-process store, so every push is
+        accepted. ``lr_scale`` multiplies the store optimizer's learning
+        rate (0 = no scaling, as on the wire); ``model_version`` and the
+        sync-pairing arguments (``only_shards``, ``force_empty``,
+        ``round_scoped``) are taken for the PSClient surface and have
+        nothing to pair here."""
+        del model_version, only_shards, force_empty, round_scoped
+        lr_scale = lr_scale if lr_scale > 0 else 1.0
         for name, (values, ids) in grads_by_table.items():
             values, ids = deduplicate_indexed_slices(
                 np.asarray(values), np.asarray(ids, dtype=np.int64)
             )
             values = wire_round_trip(np.asarray(values, dtype=np.float32))
-            self.store.push_gradients(name, ids, values)
+            self.store.push_gradients(name, ids, values, lr_scale=lr_scale)
         self.store.bump_version()
-        return True, self.store.version
+        return PushResult(True, self.store.version)

@@ -1,0 +1,203 @@
+"""Parameter server process (port of elasticdl_tpu/ps/server.py).
+
+Serves the Pserver gRPC service over one shard's embedding store (the
+native store unless ``--use_native_store 0`` or it cannot be built)
+until it is stopped. The PS runs on the host: it touches no card, in
+this package as in the reference, which runs it with
+``JAX_PLATFORMS=cpu``.
+
+    python -m elasticdl_tpu_torch.ps.server --ps_id 0 --num_ps_pods 2 \\
+        --port 50002 --opt_type adam --opt_args lr=0.001
+
+SIGTERM drains: the server stops taking RPCs, a buffered partial sync
+round is applied (``PserverServicer.graceful_stop``) and the process
+exits 0.
+
+Not ported (ROADMAP): ``--master_addr`` (the PS polling the master and
+exiting when it is gone), the checkpoint flags and auto-restore, the
+lifecycle sweep, ``--metrics_port`` and the events journal.
+"""
+
+import argparse
+import os
+import signal
+import sys
+import time
+
+from elasticdl_tpu_torch.common.args import add_bool_argument
+from elasticdl_tpu_torch.common.grpc_utils import build_server, uds_socket_path
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.proto.services import add_pserver_servicer_to_server
+from elasticdl_tpu_torch.ps.embedding_store import create_store
+from elasticdl_tpu_torch.ps.servicer import PserverServicer
+from elasticdl_tpu_torch.train.optimizers import parse_opt_args
+
+logger = _logger_factory("elasticdl_tpu_torch.ps.server")
+
+
+def parse_ps_args(argv=None):
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch ps")
+    parser.add_argument("--ps_id", type=int, default=0)
+    parser.add_argument("--num_ps_pods", type=int, default=1)
+    parser.add_argument("--port", type=int, default=50002)
+    parser.add_argument("--opt_type", default="sgd")
+    parser.add_argument(
+        "--opt_args", default="", help="k=v;k=v (e.g. lr=0.01;momentum=0.9)"
+    )
+    parser.add_argument("--use_native_store", type=int, default=1)
+    parser.add_argument("--seed", type=int, default=0)
+    # sync-SGD controls
+    add_bool_argument(parser, "--use_async", default=0)
+    parser.add_argument("--grads_to_wait", type=int, default=1)
+    parser.add_argument("--sync_version_tolerance", type=int, default=0)
+    # async-mode staleness LR modulation lr /= max(1, version_diff)
+    add_bool_argument(parser, "--lr_staleness_modulation", default=0)
+    # benchmarking knob: sleep this long at the top of every RPC handler
+    # to emulate worker<->PS network RTT (a localhost PS measures ~0)
+    parser.add_argument("--inject_rpc_delay_ms", type=float, default=0.0)
+    return parser.parse_args(argv)
+
+
+class _DelayedServicer:
+    """Wraps a servicer so every RPC handler sleeps ``delay_ms`` first:
+    an injectable stand-in for worker<->PS network latency."""
+
+    def __init__(self, servicer, delay_ms):
+        self._servicer = servicer
+        self._delay = delay_ms / 1e3
+
+    def __getattr__(self, name):
+        attr = getattr(self._servicer, name)
+        if not callable(attr) or name.startswith("_"):
+            return attr
+        delay = self._delay
+
+        def delayed(*args, **kwargs):
+            time.sleep(delay)
+            return attr(*args, **kwargs)
+
+        return delayed
+
+
+class ParameterServer:
+    def __init__(self, args):
+        self.args = args
+        # SIGTERM arrival marker: the handler only sets it; run() polls
+        # it and drains (_finish_term)
+        self._term_flag = False
+        self.store = create_store(
+            seed=args.seed + args.ps_id,
+            prefer_native=bool(args.use_native_store),
+        )
+        opt_args = {
+            k: float(v) for k, v in parse_opt_args(args.opt_args).items()
+        }
+        self.store.set_optimizer(args.opt_type, **opt_args)
+        self.servicer = PserverServicer(
+            self.store,
+            ps_id=args.ps_id,
+            use_async=bool(args.use_async),
+            grads_to_wait=args.grads_to_wait,
+            sync_version_tolerance=args.sync_version_tolerance,
+            staleness_modulation=bool(args.lr_staleness_modulation),
+        )
+        self.server = None
+        self._uds_path = None
+
+    def prepare(self):
+        self.server = build_server()
+        servicer = self.servicer
+        if self.args.inject_rpc_delay_ms:
+            servicer = _DelayedServicer(servicer,
+                                        self.args.inject_rpc_delay_ms)
+            logger.info("Injecting %.1f ms per-RPC delay",
+                        self.args.inject_rpc_delay_ms)
+        add_pserver_servicer_to_server(servicer, self.server)
+        self.server.add_insecure_port("[::]:%d" % self.args.port)
+        # local transport: under EDL_PS_UDS_DIR also serve on a unix
+        # socket named by this TCP port; a stale socket of a SIGKILLed
+        # predecessor is unlinked first
+        self._uds_path = uds_socket_path(self.args.port)
+        if self._uds_path is not None:
+            try:
+                os.makedirs(os.path.dirname(self._uds_path), exist_ok=True)
+                try:
+                    os.unlink(self._uds_path)
+                except FileNotFoundError:
+                    pass
+                if self.server.add_insecure_port("unix:" + self._uds_path):
+                    logger.info("PS %d also serving on %s", self.args.ps_id,
+                                self._uds_path)
+                else:
+                    logger.warning("could not bind %s; serving TCP only",
+                                   self._uds_path)
+                    self._uds_path = None
+            except OSError as e:
+                logger.warning("UDS bind failed (%s); serving TCP only", e)
+                self._uds_path = None
+        self.server.start()
+        self._install_sigterm_stop()
+        logger.info("PS %d/%d serving on :%d (%s store, %s)",
+                    self.args.ps_id, self.args.num_ps_pods, self.args.port,
+                    type(self.store).__name__,
+                    "async" if self.args.use_async else
+                    "sync, grads_to_wait %d" % self.args.grads_to_wait)
+        return self
+
+    def _cleanup_uds(self):
+        """Unlink this PS's unix socket on an orderly stop: a later
+        channel to a reused local port would otherwise ride the dead
+        socket."""
+        path, self._uds_path = self._uds_path, None
+        if path is None:
+            return
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+    def _install_sigterm_stop(self):
+        def _on_term(signum, frame):
+            # flag only: run() drains between waits, with no servicer
+            # lock held by this thread
+            self._term_flag = True
+
+        try:
+            signal.signal(signal.SIGTERM, _on_term)
+        except ValueError:
+            # not the main thread (embedded use): no SIGTERM drain
+            logger.warning("not on main thread; PS SIGTERM drain not "
+                           "installed")
+
+    def _finish_term(self):
+        """The SIGTERM drain: stop taking RPCs (in-flight handlers
+        finish), apply a buffered partial round, exit 0."""
+        try:
+            self.server.stop(grace=1.0).wait()
+        except Exception:
+            logger.exception("server stop at SIGTERM failed")
+        self._cleanup_uds()
+        self.servicer.graceful_stop()
+        logger.info("PS %d stopped on SIGTERM", self.args.ps_id)
+        return 0
+
+    def run(self, poll_secs=0.5):
+        """Serve until SIGTERM (drained, 0) or until the server is
+        stopped otherwise (0). grpc's wait_for_termination(timeout)
+        returns True on timeout (still serving)."""
+        while self.server.wait_for_termination(timeout=poll_secs):
+            if self._term_flag:
+                return self._finish_term()
+        self._cleanup_uds()
+        return 0
+
+
+def main(argv=None):
+    args = parse_ps_args(argv)
+    return ParameterServer(args).prepare().run()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -79,3 +79,72 @@ def test_k1_bound_at_deepfm_shape():
     one row read and one written per slot, over the memory rate."""
     ms, by = chip_smoke.roofline(4 * 8192 + 2 * 4 * 8192 * 8, 0)
     assert round(ms, 6) == 0.000166 and by == "bytes"
+
+
+def _bench_deepfm_calls():
+    """The calls of bench.py's deepfm_run, parsed from its source:
+    {callee name: [ast.Call, ...]}."""
+    import ast
+
+    with open(os.path.join(chip_smoke.HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    run = next(node for node in ast.walk(tree)
+               if isinstance(node, ast.FunctionDef)
+               and node.name == "deepfm_run")
+    calls = {}
+    for node in ast.walk(run):
+        if isinstance(node, ast.Call):
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else getattr(
+                func, "id", None)
+            calls.setdefault(name, []).append(node)
+    return calls
+
+
+def test_stream_phase_runs_bench_deepfm_configuration():
+    """Phase 8 (stream) drives bench.py's deepfm ladder as bench.py
+    configures it: train_stream(push_interval=2), cache_staleness 8 on
+    the pipelined rungs, the tier config of bench.py's DeviceTierConfig,
+    and two PS processes with adam lr 0.001 in sync mode (no
+    --use_async) on the native store (no --use_native_store)."""
+    import ast
+
+    calls = _bench_deepfm_calls()
+    (stream_call,) = calls["train_stream"]
+    push_interval = {k.arg: ast.literal_eval(k.value)
+                     for k in stream_call.keywords}["push_interval"]
+    assert chip_smoke.STREAM_PUSH_INTERVAL == push_interval == 2
+    (trainer_call,) = calls["SparseTrainer"]
+    staleness = next(k.value for k in trainer_call.keywords
+                     if k.arg == "cache_staleness")
+    assert isinstance(staleness, ast.IfExp)  # 8 if pipelined else 0
+    assert chip_smoke.STREAM_CACHE_STALENESS == ast.literal_eval(
+        staleness.body) == 8
+    assert ast.literal_eval(staleness.orelse) == 0
+    (tier_call,) = calls["DeviceTierConfig"]
+    bench_tier = {k.arg: ast.literal_eval(k.value) for k in tier_call.keywords}
+    assert chip_smoke.SPARSE_TIER == bench_tier
+    (popen,) = calls["Popen"]
+    argv = [ast.literal_eval(e) for e in popen.args[0].elts
+            if isinstance(e, ast.Constant)]
+    flags = list(chip_smoke.STREAM_PS_FLAGS)
+    for flag in ("--num_ps_pods", "--opt_type", "--opt_args"):
+        assert flags[flags.index(flag) + 1] == argv[argv.index(flag) + 1]
+    assert flags[flags.index("--num_ps_pods") + 1] == "2"
+    assert flags[flags.index("--opt_args") + 1] == "lr=0.001"
+    assert flags[flags.index("--opt_type") + 1] == "adam"
+    for absent in ("--use_async", "--use_native_store", "--grads_to_wait"):
+        assert absent not in argv and absent not in flags
+    with open(os.path.join(chip_smoke.HERE, "bench.py")) as f:
+        tree = ast.parse(f.read())
+    run = next(node for node in ast.walk(tree)
+               if isinstance(node, ast.FunctionDef)
+               and node.name == "deepfm_run")
+    names = [a.arg for a in run.args.args]
+    defaults = dict(zip(names[-len(run.args.defaults):],
+                        (ast.literal_eval(d) for d in run.args.defaults)))
+    assert chip_smoke.STREAM_WARMUP == defaults["warmup"] == 10
+    assert chip_smoke.SPARSE_STEPS == defaults["warmup"] + defaults["steps"]
+    assert chip_smoke.SPARSE_BATCH == defaults["batch_size"] == 512
+    assert chip_smoke.STREAM_LADDER == ("sequential", "pipelined",
+                                        "pipelined_tier")

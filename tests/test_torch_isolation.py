@@ -214,3 +214,76 @@ print("native ok")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "native ok"
+
+
+def test_stream_slice_modules_isolated_and_ps_server_runs_with_jax_blocked():
+    """The stream slice's modules (the gRPC PS, its client, the
+    overload discipline, the cache, Timing) are among those imported
+    with JAX blocked above; ``python -m elasticdl_tpu_torch.ps.server``
+    serves a pull and drains on SIGTERM (exit 0) with JAX blocked; and
+    SparseTrainer, now with the stream, still defaults to the card."""
+    import inspect
+    import signal
+    import time
+
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+
+    modules = _port_modules()
+    for name in ("common.args", "common.overload", "common.grpc_utils",
+                 "common.timing_utils", "common.tensor_utils",
+                 "proto.services", "ps.servicer", "ps.server",
+                 "worker.ps_client", "embedding.client"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    assert inspect.signature(SparseTrainer).parameters["device"].default == (
+        "cuda")
+    port = find_free_port()
+    code = _BLOCK + r'''
+import runpy
+sys.argv = ["ps", "--port", "%d", "--num_ps_pods", "2", "--opt_type", "adam",
+            "--opt_args", "lr=0.001"]
+try:
+    runpy.run_module("elasticdl_tpu_torch.ps.server", run_name="__main__")
+    status = None
+except SystemExit as stop:
+    status = stop.code
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("exit", status)
+''' % port
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            try:  # a fresh client per probe
+                client = PSClient(["localhost:%d" % port])
+                client.push_embedding_table_infos([("t", 2, "zeros")])
+                break
+            except Exception:
+                assert proc.poll() is None, proc.communicate()
+                assert time.monotonic() < deadline
+                time.sleep(0.2)
+        rows = client.pull_embedding_batch({"t": np.arange(3)})["t"]
+        assert rows.shape == (3, 2) and not rows.any()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert out.strip() == "exit 0", (out, err)
+    if torch.cuda.is_available():
+        return
+    from elasticdl_tpu_torch.models import deepfm
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        SparseTrainer(deepfm.custom_model(), deepfm.loss, deepfm.optimizer(),
+                      deepfm.sparse_embedding_specs(),
+                      PSClient(["localhost:%d" % port]), cache_staleness=8)

@@ -244,8 +244,10 @@ def _local_clients_agree(wire, store, monkeypatch):
         for client in clients:
             pulled.append(client.pull_embedding_batch(
                 {"e": ids, "w": ids, "n": ids[:4], "empty": []}))
-            accepted, _ = client.push_gradients(
-                {name: (grads[name], ids) for name, _, _ in infos})
+            # the reference answers (accepted, version), the port a
+            # PushResult (accepted, version, rejected_shards)
+            accepted = client.push_gradients(
+                {name: (grads[name], ids) for name, _, _ in infos})[0]
             assert accepted
             client.push_embedding_rows({"e": (ids[:3], rows)})
     for ref_pull, port_pull in zip(pulled[::2], pulled[1::2]):
