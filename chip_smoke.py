@@ -102,7 +102,27 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    own time on its thread (prepare, the PS pull in it, the push RPC);
    the ladder's order (printed, not gated); one profiled pipelined tier
    step (device busy, idle share, and the gaps between the K1/K2
-   launches of a staging chunk's chain).
+   launches of a staging chunk's chain);
+9. job -- DeepFM as an elastic job through the port's own control
+   plane: RecordIO files made with numpy from seeds (196,608 training
+   records in 4 shards, 24 tasks of 8192 records = 16 steps of 512;
+   16,384 validation records; phase 7's 39 fields and Zipf(1.2) ids,
+   the label a planted linear signal); the port's ``Master`` in this
+   process (liveness timeout 10 s, evaluation every 160 worker
+   versions); two ``python -m elasticdl_tpu_torch.ps.server`` with
+   phase 8's flags, async (two tier workers push concurrently) and
+   ``--master_addr``; worker 1 as ``python -m
+   elasticdl_tpu_torch.worker.main --device cuda``; worker 0 a
+   ``Worker`` in this process; both sequential with the tier on
+   (``EDL_DEVICE_TIER=1``, phase 7's knobs). Once worker 1 has
+   reported a task and holds another it gets SIGKILL. Checks: the
+   master's run returns 0 and the job did not fail; a task was
+   recovered from worker 1; the done training records add up to the
+   dataset; worker 0's K1-K3 launches follow phase 7's per-step
+   formula in every step; the final evaluation's AUC is at least 0.70;
+   both PS exit 0 on their own within 30 s of the master's stop. It
+   prints the job's wall time, examples/s, the time from the kill to
+   the requeue and worker 0's steps/s.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -1540,17 +1560,18 @@ STREAM_PROFILE_STEPS = 2
 STREAM_LADDER = ("sequential", "pipelined", "pipelined_tier")
 
 
-def start_ps_pairs(n_pairs, logdir, started, extra=()):
+def start_ps_pairs(n_pairs, logdir, started, extra=(), env=None):
     """``n_pairs`` pairs of ``python -m elasticdl_tpu_torch.ps.server``
     (ps_id 0 and 1 of 2) on free ports, all started together, each
-    logging to its own file. Each pair (procs, addrs, logs) goes into
+    logging to its own file, in ``env`` (this process's environment by
+    default). Each pair (procs, addrs, logs) goes into
     ``started`` as it starts, so the caller's finally stops
     (``stop_ps``) every process even if a later start fails; returns
     this call's pairs."""
     from elasticdl_tpu_torch.common.grpc_utils import find_free_port
 
     os.makedirs(logdir, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=HERE)
+    env = dict(os.environ if env is None else env, PYTHONPATH=HERE)
     pairs = []
     for pair in range(n_pairs):
         procs, addrs, logs = [], [], []
@@ -2008,6 +2029,413 @@ def stream_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
     tier_rung = records["pipelined_tier"]["instrumented"]
     return {"records": records, "agreement": agreement,
             "launches": tier_rung["launches"], "steps": tier_rung["steps"]}
+
+
+# phase 9, job: the elastic DeepFM job through the port's own master,
+# worker and master-aware PS, at bench.py's deepfm configuration (39
+# fields, batch 512, ids Zipf(1.2) % 1e6, adam lr 0.001 on the dense
+# params, the PS and the tier, the tier on): 24 tasks of 8192 records
+# (16 steps of 512), one epoch, and one worker killed mid-job
+JOB_FILES = 4
+JOB_RECORDS = 196_608          # 24 tasks of JOB_PER_TASK
+JOB_VALID = 16_384
+JOB_PER_TASK = 8192
+JOB_TASK_TIMEOUT_S = 10.0      # the master's liveness timeout
+JOB_REPORT_VERSION_STEPS = 16
+# the step-based evaluation trigger: worker 0 reports its version every
+# 16 steps and takes about 360 of the 384 steps, so passes run at its
+# versions 160 and 320; the last is the job's final evaluation
+JOB_EVAL_STEPS = 160
+JOB_AUC_FLOOR = 0.70
+# the planted signal's weights, fixed and independent of every file's
+# seed (tests/test_utils.py create_ctr_recordio plants the same kind)
+JOB_SIGNAL_SEED = 12345
+JOB_PS_GONE_WAIT_S = 30
+JOB_WAIT_S = 300
+# both workers' tier and id capacity: phase 7's knobs, by environment
+# as a user sets them for worker processes
+JOB_WORKER_ENV = {
+    "EDL_DEVICE_TIER": "1",
+    "EDL_DEVICE_TIER_ROWS": str(SPARSE_TIER["capacity"]),
+    "EDL_DEVICE_TIER_PROMOTE": str(SPARSE_TIER["promote_hits"]),
+    "EDL_DEVICE_TIER_TTL": str(SPARSE_TIER["ttl"]),
+    "EDL_DEVICE_TIER_STAGE": str(SPARSE_TIER["stage_budget"]),
+    "EDL_DEVICE_TIER_OPT": SPARSE_TIER["opt_type"],
+    "EDL_DEVICE_TIER_OPT_ARGS": "lr=%g" % SPARSE_TIER["opt_args"]["lr"],
+    "EDL_DEVICE_TIER_WRITEBACK": str(SPARSE_TIER["writeback_steps"]),
+    "EDL_SPARSE_ID_CAPACITY": "8192",
+}
+
+
+def job_data(np, workdir, records=JOB_RECORDS, valid=JOB_VALID,
+             files=JOB_FILES, fields=SPARSE_FIELDS, vocab=SPARSE_VOCAB):
+    """Training files (``files`` shards) and one validation file of
+    DeepFM Examples: ids Zipf(1.2) % vocab over ``fields`` fields, the
+    label a planted linear signal, label = 1 if sum(w[ids]) / sqrt(F)
+    + 0.1 * noise > 0 with w ~ 2 N(0, 1) drawn from JOB_SIGNAL_SEED.
+    Each file draws from its own numpy seed. Returns the two
+    directories."""
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.data.example import encode_example
+
+    t0 = time.monotonic()
+    weights = np.random.RandomState(JOB_SIGNAL_SEED).randn(vocab) * 2
+    dirs = (os.path.join(workdir, "train"), os.path.join(workdir, "valid"))
+    plan = [(dirs[0], k, records // files) for k in range(files)]
+    plan.append((dirs[1], files, valid))
+    for directory, k, n in plan:
+        os.makedirs(directory, exist_ok=True)
+        rng = np.random.RandomState(SEED + 1 + k)
+        ids = (rng.zipf(1.2, size=(n, fields)) % vocab).astype(np.int64)
+        score = weights[ids].sum(axis=1) / np.sqrt(fields)
+        labels = (score + 0.1 * rng.randn(n) > 0).astype(np.int64)
+        recordio.write_records(
+            os.path.join(directory, "part-%d.rec" % k),
+            [encode_example({"ids": row, "label": label})
+             for row, label in zip(ids, labels)])
+    log(json.dumps({"job": "data", "records": records, "valid": valid,
+                    "seconds": time.monotonic() - t0}))
+    return dirs
+
+
+JOB_DATA_CHILD = "import numpy, chip_smoke; chip_smoke.job_data(numpy, %r)"
+
+
+def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
+              valid=JOB_VALID, per_task=JOB_PER_TASK, batch=SPARSE_BATCH,
+              fields=SPARSE_FIELDS, eval_steps=JOB_EVAL_STEPS,
+              report_version_steps=JOB_REPORT_VERSION_STEPS,
+              task_timeout_s=JOB_TASK_TIMEOUT_S, worker_env=None,
+              data_written=False):
+    """Phase 9: DeepFM as an elastic job over the files ``job_data``
+    writes under ``workdir`` (already there with ``data_written``: the
+    script writes them in a child process during the build). The
+    port's master in this
+    process (``Master``, ``prepare``, ``run`` on a thread); two PS
+    processes (``python -m elasticdl_tpu_torch.ps.server``, phase 8's
+    flags, async, ``--master_addr``); worker 1 as ``python -m
+    elasticdl_tpu_torch.worker.main``; worker 0 a ``Worker`` in this
+    process, whose K1-K3 launches are counted. Both workers run the
+    sequential loop with the tier on. Once worker 1 has reported a task
+    and holds another it is SIGKILLed. Checks (each printed; a failure
+    raises SystemExit): the master's run returns 0 and the job did not
+    fail; at least one task was recovered from worker 1; the done
+    training records add up to the dataset; worker 0's K1-K3 launches
+    follow phase 7's per-step formula in every step; the final
+    evaluation's AUC is at least JOB_AUC_FLOOR; both PS exit 0 on their
+    own within JOB_PS_GONE_WAIT_S of the master's stop."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    if data_written:
+        train_dir, valid_dir = (os.path.join(workdir, "train"),
+                                os.path.join(workdir, "valid"))
+    else:
+        train_dir, valid_dir = job_data(np, workdir, records, valid,
+                                        fields=fields)
+    master = Master(zoo, training_data=train_dir, validation_data=valid_dir,
+                    records_per_task=per_task, num_epochs=1,
+                    port=find_free_port(), eval_steps=eval_steps,
+                    task_timeout_secs=task_timeout_s, seed=SEED)
+    dispatcher = master.task_dispatcher
+    addr = "localhost:%d" % master._port
+    # the dispatcher's view, recorded as the servicer drives it: the
+    # training ranges done (with their worker), worker 1's recovery
+    done, recovered, first = [], [], {}
+    report, recover, get = (dispatcher.report, dispatcher.recover_tasks,
+                            dispatcher.get)
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        doing = dispatcher.doing_tasks().get(task_id)
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if (success and task is not None and doing is not None
+                and doing[0] == worker_id and task.type == pb.TRAINING):
+            done.append((worker_id, task.shard_name, task.start, task.end,
+                         time.monotonic()))
+        return ok, task
+
+    def on_recover(worker_id):
+        held = [t for t, (w, _) in dispatcher.doing_tasks().items()
+                if w == worker_id]
+        if held:
+            recovered.append((worker_id, held, time.monotonic()))
+        recover(worker_id)
+
+    def on_get(worker_id, task_type=None):
+        task = get(worker_id, task_type)
+        if task is not None:
+            first.setdefault("dispatch", time.monotonic())
+        return task
+
+    dispatcher.report, dispatcher.recover_tasks = on_report, on_recover
+    dispatcher.get = on_get
+    logdir = os.path.join(HERE, "build", "chip_smoke_job")
+    shutil.rmtree(logdir, ignore_errors=True)
+    os.makedirs(logdir)
+    env = dict(os.environ, PYTHONPATH=HERE, EDL_PS_MASTER_GONE_SECS="2")
+    saved_env = {k: os.environ.get(k) for k in worker_env}
+    started, result, ps_codes = [], {}, []
+    runner = worker1 = None
+    try:
+        job_t0 = time.monotonic()
+        master.prepare()
+        master_thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.5)),
+            daemon=True)
+        master_thread.start()
+        # PS and worker 1 start together; worker 1's PS client retries
+        # until its shards serve
+        (procs, ps_addrs, ps_logs), = start_ps_pairs(
+            1, logdir, started, extra=("--use_async", "1", "--master_addr",
+                                       addr), env=env)
+        w1_log = os.path.join(logdir, "worker-1.log")
+        with open(w1_log, "w") as out:
+            worker1 = subprocess.Popen(
+                [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+                 "--model_zoo", zoo, "--training_data", train_dir,
+                 "--minibatch_size", str(batch), "--master_addr", addr,
+                 "--worker_id", "1", "--ps_addrs", ",".join(ps_addrs),
+                 "--report_version_steps", str(report_version_steps),
+                 "--device", device.type],
+                cwd=HERE, env=dict(env, **worker_env), stdout=out,
+                stderr=subprocess.STDOUT)
+        lines = wait_ps_ready([(procs, ps_addrs, ps_logs)])
+        log(json.dumps({"job": "ps_ready", "lines": lines,
+                        "seconds": time.monotonic() - job_t0}))
+        if not all("(NativeEmbeddingStore store, async)" in ln
+                   for ln in lines):
+            raise SystemExit("a job PS does not serve the native store "
+                             "async: %s" % lines)
+
+        def holds(worker_id):
+            return any(w == worker_id
+                       for w, _ in dispatcher.doing_tasks().values())
+
+        deadline = time.monotonic() + JOB_WAIT_S
+        while not holds(1):
+            if worker1.poll() is not None or time.monotonic() > deadline:
+                with open(w1_log) as f:
+                    raise SystemExit("worker 1 took no task (exit %s):\n%s"
+                                     % (worker1.poll(), f.read()[-3000:]))
+            time.sleep(0.05)
+        w1_first_task_s = time.monotonic() - job_t0
+        # worker 0, in this process: its tier's launches are counted
+        os.environ.update(worker_env)
+        client = MasterClient(addr, worker_id=0)
+        client.reset_worker()
+        worker0 = Worker(client, zoo, RecordIODataReader(data_dir=train_dir),
+                         minibatch_size=batch,
+                         report_version_steps=report_version_steps,
+                         wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                         device=device)
+        trainer = worker0.trainer
+        dtier = trainer.device_tier
+        if dtier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        steps, bad_steps, gaps = [], [], []
+        # each call's own wall time (the prepare with its PS pull, the
+        # push RPC) and the host reads of resident rows (one K1 each:
+        # the periodic writeback every 256 tier steps)
+        calls_ms, reads = {"prepare": [], "push_rpc": []}, [0]
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                c0 = time.monotonic()
+                out = fn(*args, **kwargs)
+                calls_ms[name].append((time.monotonic() - c0) * 1e3)
+                return out
+            return run
+
+        def counted_read(fn):
+            def run(*args):
+                reads[0] += 1
+                return fn(*args)
+            return run
+
+        trainer.preparer.prepare = timed("prepare", trainer.preparer.prepare)
+        trainer.preparer._ps.push_gradients = timed(
+            "push_rpc", trainer.preparer._ps.push_gradients)
+        dtier._read_rows = counted_read(dtier._read_rows)
+        train_step, last_end = trainer.train_step, [None]
+
+        def counted_step(state, b):
+            before, stats0 = tier_counts(tier), dtier.stats()
+            reads0, prepares0 = reads[0], len(calls_ms["prepare"])
+            s0 = time.monotonic()
+            if last_end[0] is not None:
+                # the worker loop between steps: the next batch, the
+                # record report, the version report
+                gaps.append(s0 - last_end[0])
+            state, loss = train_step(state, b)
+            last_end[0] = time.monotonic()
+            stats1 = dtier.stats()
+            steps.append((last_end[0] - s0, float(loss),
+                          sum(calls_ms["prepare"][prepares0:]),
+                          stats1["evict_chunks"] > stats0["evict_chunks"]))
+            d_k1, d_k2, d_k3 = (a - c for a, c in
+                                zip(tier_counts(tier), before))
+            gather_only, chunks, inserts, evicts = (
+                stats1[k] - stats0[k]
+                for k in ("gather_only_combines", "staged_chunks",
+                          "insert_chunks", "evict_chunks"))
+            want = (gather_only + chunks + evicts + reads[0] - reads0,
+                    inserts, 2)
+            if (d_k1, d_k2, d_k3) != want:
+                bad_steps.append([len(steps) - 1, [d_k1, d_k2, d_k3],
+                                  list(want)])
+            return state, loss
+
+        trainer.train_step = counted_step
+        reset_tier_launches(tier)  # the job's count starts here
+        runner = threading.Thread(target=worker0.run, daemon=True)
+        runner.start()
+        kill_t = None
+        while kill_t is None:
+            if any(w == 1 for w, *_ in done) and holds(1):
+                worker1.kill()
+                kill_t = time.monotonic()
+            elif (worker1.poll() is not None
+                  or time.monotonic() > deadline or not runner.is_alive()):
+                with open(w1_log) as f:
+                    raise SystemExit(
+                        "worker 1 never held a task after reporting one "
+                        "(exit %s):\n%s" % (worker1.poll(),
+                                            f.read()[-3000:]))
+            time.sleep(0.02)
+        held_at_kill = [t for t, (w, _) in dispatcher.doing_tasks().items()
+                        if w == 1]
+        worker1_rc = worker1.wait(timeout=30)
+        master_thread.join(timeout=JOB_WAIT_S)
+        if master_thread.is_alive():
+            raise SystemExit("the job did not finish in %d s" % JOB_WAIT_S)
+        stopped_t = time.monotonic()
+        job_s = stopped_t - job_t0
+        runner.join(timeout=60)
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        for proc in procs:
+            try:
+                ps_codes.append(proc.wait(
+                    timeout=max(0.0, stopped_t + JOB_PS_GONE_WAIT_S
+                                - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                ps_codes.append(None)
+        ps_exit_s = time.monotonic() - stopped_t
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        if worker1 is not None and worker1.poll() is None:
+            worker1.kill()
+            worker1.wait()
+        for procs_, _, _ in started:
+            for proc in procs_:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        master.stop()
+    summaries = master.evaluation_service.completed_summaries
+    done_records = sum(end - start for _, _, start, end, _ in done)
+    by_worker = {w: sum(1 for d in done if d[0] == w) for w in (0, 1)}
+    recovered_w1 = [r for r in recovered if r[0] == 1]
+    kill_to_requeue = (recovered_w1[0][2] - kill_t if recovered_w1
+                       else None)
+    train_window = (max(d[4] for d in done) - first["dispatch"]
+                    if done else None)
+    warm = [s[0] for s in steps[10:]] or [s[0] for s in steps]
+    losses = [s[1] for s in steps]
+    # the step and its prepare, split by whether the step's staging
+    # chunks evicted (a full tier writes the victims back to the PS, and
+    # a later prepare whose misses include them waits for that)
+    split = {}
+    for evicting in (False, True):
+        chosen = [s for s in steps[10:] if s[3] == evicting]
+        split["evicting" if evicting else "not_evicting"] = {
+            "steps": len(chosen),
+            "step_ms_median": (float(np.median([c[0] for c in chosen]))
+                               * 1e3 if chosen else None),
+            "prepare_ms_median": (float(np.median([c[2] for c in chosen]))
+                                  if chosen else None)}
+    final = summaries[-1] if summaries else (None, {})
+    record = {
+        "job": "result", "master_rc": result.get("rc"),
+        "job_failed": dispatcher.job_failed(),
+        "job_wall_s": job_s,
+        "examples_per_s_job": records / job_s,
+        "examples_per_s_training_window": (records / train_window
+                                           if train_window else None),
+        "training_window_s": train_window,
+        "worker1_first_task_s": w1_first_task_s,
+        "kill_to_requeue_s": kill_to_requeue,
+        "task_timeout_s": task_timeout_s,
+        "worker1_rc": worker1_rc, "worker1_held_at_kill": held_at_kill,
+        "recovered_from_worker1": [r[1] for r in recovered_w1],
+        "tasks_done_by_worker": by_worker,
+        "done_training_records": done_records, "dataset_records": records,
+        "worker0_steps": len(steps), "worker0_version": worker0.model_version,
+        "worker0_steps_per_s": len(warm) / sum(warm) if warm else None,
+        "worker0_examples_per_s": (batch * len(warm) / sum(warm)
+                                   if warm else None),
+        "worker0_step_ms_host_median": (float(np.median(warm)) * 1e3
+                                        if warm else None),
+        "worker0_losses_first_last": ([losses[0], losses[-1]] if losses
+                                      else None),
+        # medians: the prepare (PS pull inside) and the push RPC of a
+        # train step, and the loop's gap between two steps
+        "worker0_call_ms_median": {k: float(np.median(v))
+                                   for k, v in calls_ms.items() if v},
+        "worker0_gap_ms_median": (float(np.median(gaps)) * 1e3 if gaps
+                                  else None),
+        "worker0_split_by_eviction": split,
+        "worker0_row_reads": reads[0],
+        "all_finite": bool(np.isfinite(losses).all()) if losses else False,
+        "launches": launches,
+        "launches_per_step": {k: v / max(len(steps), 1)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": bad_steps[:5],
+        "tier_stats": dtier.stats(),
+        "evaluations": [[v, s] for v, s in summaries],
+        "final_auc": final[1].get("auc"), "auc_floor": JOB_AUC_FLOOR,
+        "ps_exit_codes": ps_codes, "ps_exit_after_master_s": ps_exit_s,
+    }
+    log(json.dumps(record))
+    failures = []
+    if result.get("rc") != 0 or dispatcher.job_failed():
+        failures.append("master rc %s, job failed %s" % (
+            result.get("rc"), dispatcher.job_failed()))
+    if worker1_rc != -9:
+        failures.append("worker 1 exited %s, not by SIGKILL" % worker1_rc)
+    if not recovered_w1:
+        failures.append("no task was recovered from worker 1")
+    if done_records != records:
+        failures.append("done training records %d != %d"
+                        % (done_records, records))
+    if not record["all_finite"] or runner.is_alive():
+        failures.append("worker 0: losses finite %s, still running %s"
+                        % (record["all_finite"], runner.is_alive()))
+    if bad_steps or min(launches.values()) <= 0:
+        failures.append("worker 0's K1-K3 launches do not follow the "
+                        "path: %s" % bad_steps[:5])
+    if final[1].get("auc") is None or not final[1]["auc"] >= JOB_AUC_FLOOR:
+        failures.append("final AUC %s < %s" % (final[1].get("auc"),
+                                                JOB_AUC_FLOOR))
+    if ps_codes != [0, 0] or ps_exit_s > JOB_PS_GONE_WAIT_S:
+        failures.append("PS exit codes %s after %.1f s" % (ps_codes,
+                                                           ps_exit_s))
+    if failures:
+        raise SystemExit("job phase: " + "; ".join(failures))
+    record.pop("tier_stats")
+    return record
 
 
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
@@ -2806,12 +3234,14 @@ def kernel_entry(name, source, replaces, launches, case, kind):
     return entry
 
 
-def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream):
+def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
+                      job):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
     optimizer), launches from the sparse train path's main run (and,
-    beside them, from the stream phase's tier rung), and the
-    deepfm_linear (d 1) time beside; K3's all-hits times too."""
+    beside them, from the stream phase's tier rung and from worker 0 of
+    the job phase), and the deepfm_linear (d 1) time beside; K3's
+    all-hits times too."""
     emb = tier_cases[kind]["deepfm_emb"]
     lin = tier_cases[kind]["deepfm_linear"]
     if kind == "scatter_apply":
@@ -2822,6 +3252,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream):
         "replaces": replaces, "launches": launches,
         "launches_per_step": launches / sparse["steps"],
         "launches_stream": stream["launches"][kind],
+        "launches_job": job["launches"][kind],
+        "launches_per_step_job": job["launches_per_step"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -2857,10 +3289,6 @@ def main(argv):
     import numpy as np
 
     sys.path.insert(0, HERE)
-    from elasticdl_tpu_torch.ops import _build
-    from elasticdl_tpu_torch.ops import embedding_tier as tier
-    from elasticdl_tpu_torch.ops import flash_attention as flash
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -2878,6 +3306,26 @@ def main(argv):
         print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT]",
               file=sys.stderr)
         return 2
+
+    # phase 9's data is written by a child process during the build
+    job_dir = os.path.join(HERE, "build", "chip_smoke_jobdata")
+    shutil.rmtree(job_dir, ignore_errors=True)
+    data_proc = subprocess.Popen([sys.executable, "-c",
+                                  JOB_DATA_CHILD % job_dir], cwd=HERE)
+    try:
+        return run_phases(torch, np, job_dir, data_proc)
+    finally:
+        if data_proc.poll() is None:
+            data_proc.kill()
+            data_proc.wait()
+        shutil.rmtree(job_dir, ignore_errors=True)
+
+
+def run_phases(torch, np, job_dir, data_proc):
+    """Phases 1-9 and the last lines (see the module docstring)."""
+    from elasticdl_tpu_torch.ops import _build
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+    from elasticdl_tpu_torch.ops import flash_attention as flash
 
     # the serial chain's copy builds beside the checkout's kernels
     serial_root = kernel_copy("k1_chain_serial", TIER_SOURCE,
@@ -2926,6 +3374,10 @@ def main(argv):
         gc.collect()
         torch.cuda.empty_cache()
         stream = stream_phase(torch, np, tier)
+        if data_proc.wait():
+            raise SystemExit("the job's data was not written (exit %d)"
+                             % data_proc.returncode)
+        job = job_phase(torch, np, tier, job_dir, data_written=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2948,13 +3400,13 @@ def main(argv):
                      launches["dkv"], bwd_cases[main_case], "dkv"),
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
-                          "gather", tier_cases, sparse, stream),
+                          "gather", tier_cases, sparse, stream, job),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
-                          "insert_rows", tier_cases, sparse, stream),
+                          "insert_rows", tier_cases, sparse, stream, job),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
-                          "scatter_apply", tier_cases, sparse, stream),
+                          "scatter_apply", tier_cases, sparse, stream, job),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,99 @@
-"""Boolean command-line flags (port of elasticdl_tpu/common/args.py,
-trimmed to ``bool_flag`` and ``add_bool_argument``; the PS server's own
-flags live in ``ps/server.py:parse_ps_args``)."""
+"""Command-line flags of the master and the worker, and the boolean
+flag helpers (port of elasticdl_tpu/common/args.py).
+
+The flags are the JAX package's, trimmed to the features the port has:
+the checkpoint, multi-host, mesh, pod-spec, metrics, prediction and
+symbol-override flags wait with their features (ROADMAP). The worker adds ``--device``
+(``cuda`` unless the caller asks for the CPU). The PS server's own
+flags live in ``ps/server.py:parse_ps_args``.
+"""
 
 import argparse
+
+LOG_LOSS_STEPS_DEFAULT = 100
+
+
+def _add_common(parser):
+    parser.add_argument(
+        "--model_zoo",
+        required=True,
+        help="Model module: dotted import path or file path",
+    )
+    parser.add_argument("--training_data", default="")
+    parser.add_argument("--validation_data", default="")
+    parser.add_argument("--minibatch_size", type=int, default=32)
+    parser.add_argument(
+        "--data_reader_params",
+        default="",
+        help="k=v;k=v parameters for the data reader",
+    )
+    parser.add_argument(
+        "--compute_dtype",
+        default="",
+        help="Computation dtype of the step (e.g. bfloat16); params "
+        "stay float32",
+    )
+    # --model_def picks the module (and optionally the model factory)
+    # inside a model-zoo directory; --model_params is k=v;k=v kwargs
+    # for custom_model
+    parser.add_argument("--model_def", default="")
+    parser.add_argument("--model_params", default="")
+
+
+def parse_master_args(argv=None):
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch master")
+    _add_common(parser)
+    parser.add_argument("--port", type=int, default=50001)
+    parser.add_argument("--records_per_task", type=int, default=1024)
+    # alternative task sizing: records_per_task =
+    # minibatch_size * num_minibatches_per_task
+    parser.add_argument(
+        "--num_minibatches_per_task", type=int, default=0
+    )
+    parser.add_argument("--num_epochs", type=int, default=1)
+    parser.add_argument("--evaluation_steps", type=int, default=0)
+    parser.add_argument("--evaluation_throttle_secs", type=int, default=0)
+    parser.add_argument("--evaluation_start_delay_secs", type=int, default=0)
+    # liveness timeout: a worker silent this long is presumed dead and
+    # its tasks requeue
+    parser.add_argument("--task_timeout_secs", type=float, default=30.0)
+    return parser.parse_args(argv)
+
+
+def parse_worker_args(argv=None):
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch worker")
+    _add_common(parser)
+    parser.add_argument("--master_addr", required=True)
+    parser.add_argument("--worker_id", type=int, required=True)
+    parser.add_argument(
+        "--ps_addrs",
+        default="",
+        help="comma-separated PS addresses for sparse embedding models",
+    )
+    parser.add_argument(
+        "--mode",
+        default="training",
+        choices=["training", "evaluation"],
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device to train on (cuda, cuda:N or cpu); cuda "
+        "without a card raises",
+    )
+    parser.add_argument("--report_version_steps", type=int, default=10)
+    # log the training loss every N batches
+    parser.add_argument(
+        "--log_loss_steps", type=int, default=LOG_LOSS_STEPS_DEFAULT
+    )
+    # split each batch into k microbatches with one optimizer update
+    # (dense models)
+    parser.add_argument("--grad_accum_steps", type=int, default=1)
+    # pipelined sparse training: overlap batch N+1's PS pull with batch
+    # N's device step; optional hot-row reuse and push accumulation
+    parser.add_argument("--sparse_pipeline", type=int, default=0)
+    parser.add_argument("--sparse_cache_staleness", type=int, default=0)
+    parser.add_argument("--sparse_push_interval", type=int, default=1)
+    return parser.parse_args(argv)
 
 
 def bool_flag(value):

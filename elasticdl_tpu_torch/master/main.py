@@ -1,0 +1,44 @@
+"""Master process entry point (port of elasticdl_tpu/master/main.py).
+
+Usage: python -m elasticdl_tpu_torch.master.main --model_zoo=... \
+    --training_data=... [--validation_data=...] [--port=50001]
+
+The master runs on the host and exits 0 when the job finished, 1 when
+it failed.
+"""
+
+import sys
+
+from elasticdl_tpu_torch.common.args import parse_master_args
+from elasticdl_tpu_torch.master.master import Master
+from elasticdl_tpu_torch.models.registry import parse_params_string
+
+
+def main(argv=None):
+    args = parse_master_args(argv)
+    records_per_task = args.records_per_task
+    if args.num_minibatches_per_task > 0:
+        records_per_task = (
+            args.minibatch_size * args.num_minibatches_per_task
+        )
+    master = Master(
+        model_zoo_module=args.model_zoo,
+        training_data=args.training_data,
+        validation_data=args.validation_data,
+        records_per_task=records_per_task,
+        num_epochs=args.num_epochs,
+        port=args.port,
+        eval_steps=args.evaluation_steps,
+        eval_throttle_secs=args.evaluation_throttle_secs,
+        eval_start_delay_secs=args.evaluation_start_delay_secs,
+        data_reader_params=parse_params_string(args.data_reader_params),
+        task_timeout_secs=args.task_timeout_secs,
+        model_def=args.model_def,
+        model_params=args.model_params,
+    )
+    master.prepare()
+    return master.run()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

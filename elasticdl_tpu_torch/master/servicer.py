@@ -1,0 +1,206 @@
+"""gRPC Master service implementation (port of
+elasticdl_tpu/master/servicer.py).
+
+``get_task`` (WAIT when the queue is temporarily empty), the task
+report (a ``"requeue:"`` hand-back is uncounted), the evaluation
+metrics and model-version reports, ``reset_worker`` (the master-assigned
+relaunch epoch a worker stamps on its pushes) and ``get_comm_info``
+(the mesh epoch, master/rendezvous.py). Every RPC from a worker is a
+liveness sighting, which the task monitor reads.
+
+Not ported (ROADMAP): the fleet monitor and its telemetry, the state
+journal, the drain manager and ``deregister_worker``.
+"""
+
+import threading
+import time
+
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+logger = _logger_factory("elasticdl_tpu_torch.master.servicer")
+
+
+class MasterServicer:
+    def __init__(
+        self,
+        task_dispatcher,
+        evaluation_service=None,
+        rendezvous=None,
+        auto_join_mesh=True,
+    ):
+        self._task_dispatcher = task_dispatcher
+        self._evaluation_service = evaluation_service
+        self._rendezvous = rendezvous
+        # membership = live workers: a worker's first get_comm_info
+        # joins its host to the mesh
+        self._auto_join_mesh = auto_join_mesh
+        self._lock = threading.Lock()
+        # worker_id -> last RPC timestamp: the liveness signal of the
+        # timeout scanner
+        self._worker_liveness = {}
+        # worker_id -> host (from get_comm_info); lets the task monitor
+        # evict a dead worker's host from the mesh rendezvous
+        self._worker_hosts = {}
+        # workers that have been answered "job over" (Master.run waits
+        # for every live worker to hear it before the server stops)
+        self._told_job_over = set()
+        # worker_id -> reset_worker count: the logical relaunch epoch a
+        # worker stamps onto its gradient pushes as its incarnation,
+        # monotonic per worker_id so the sync PS can order a relaunch
+        # after its dead predecessor without trusting host clocks
+        self._worker_restarts = {}
+        # the epoch base re-anchors monotonicity across master restarts:
+        # the master's own clock at startup, far above relaunch counts
+        self._restart_epoch_base = int(time.time())
+        # restart detector stamped on responses (Task / CommInfo /
+        # ResetWorkerResponse): it moves across master restarts, so
+        # reconnecting workers re-register
+        self._master_epoch = self._restart_epoch_base
+
+    # ------------------------------------------------------------------
+    def _touch(self, worker_id):
+        with self._lock:
+            # monotonic max: extend_liveness may have credited a future
+            # horizon; an ordinary ping must not pull the clock back
+            self._worker_liveness[worker_id] = max(
+                time.time(), self._worker_liveness.get(worker_id, 0.0)
+            )
+
+    def worker_liveness(self):
+        with self._lock:
+            return dict(self._worker_liveness)
+
+    def forget_worker(self, worker_id):
+        with self._lock:
+            self._worker_liveness.pop(worker_id, None)
+            self._worker_hosts.pop(worker_id, None)
+
+    def extend_liveness(self, worker_ids, horizon):
+        """Credit workers with liveness up to a future ``horizon`` (the
+        task monitor's allowance on a mesh-epoch bump, when every member
+        goes dark for its relaunch). _touch is monotonic, so stray pings
+        cannot shorten the allowance."""
+        with self._lock:
+            for worker_id in worker_ids:
+                self._worker_liveness[worker_id] = max(
+                    self._worker_liveness.get(worker_id, 0.0), horizon
+                )
+
+    def workers_not_told_job_over(self):
+        """Live workers (ids >= 0; a PS polls with a negative id) that
+        have not been answered "job over" yet."""
+        with self._lock:
+            return sorted(w for w in self._worker_liveness
+                          if w >= 0 and w not in self._told_job_over)
+
+    def mesh_worker_ids(self):
+        """Workers registered as mesh members (sent a worker_host)."""
+        with self._lock:
+            return list(self._worker_hosts)
+
+    def worker_host(self, worker_id):
+        with self._lock:
+            return self._worker_hosts.get(worker_id)
+
+    # ------------------------------------------------------------------
+    # RPC handlers (also callable in-process without gRPC)
+
+    def get_task(self, request, context=None):
+        self._touch(request.worker_id)
+        task_type = request.task_type if request.task_type else None
+        task = self._task_dispatcher.get(request.worker_id, task_type)
+        if task is not None:
+            # constant per process: stamping the shared record's proto
+            # is idempotent
+            task.master_epoch = self._master_epoch
+            return task
+        if (
+            self._task_dispatcher.finished()
+            or self._task_dispatcher.job_failed()
+        ):
+            # default Task (task_id=0, type=TRAINING): the job is over
+            # (success or terminal failure) and the worker should exit
+            with self._lock:
+                self._told_job_over.add(request.worker_id)
+            return pb.Task(master_epoch=self._master_epoch)
+        # queue temporarily empty (between epochs, during an eval pass):
+        # the worker waits and polls again
+        return pb.Task(type=pb.WAIT, master_epoch=self._master_epoch)
+
+    def reset_worker(self, request, context=None):
+        """A freshly (re)launched worker declares itself: anything still
+        assigned to its id belongs to a dead predecessor, so it requeues
+        uncounted now instead of waiting out the task timeout (the
+        successor reuses the id and heartbeats at once).
+
+        Returns this worker_id's relaunch epoch (base + 1, base + 2,
+        ...): the worker's push incarnation."""
+        self._touch(request.worker_id)
+        with self._lock:
+            count = self._worker_restarts.get(request.worker_id, 0) + 1
+            self._worker_restarts[request.worker_id] = count
+            epoch = self._restart_epoch_base + count
+        self._task_dispatcher.recover_tasks(request.worker_id)
+        return pb.ResetWorkerResponse(
+            restart_count=epoch, master_epoch=self._master_epoch
+        )
+
+    def report_task_result(self, request, context=None):
+        self._touch(request.worker_id)
+        success = not request.err_message
+        # "requeue:" prefix = lifecycle hand-back: requeue WITHOUT
+        # charging the task's retry cap
+        count_failure = not request.err_message.startswith("requeue:")
+        if not success:
+            log = logger.info if not count_failure else logger.warning
+            log(
+                "Task %s failed: %s", request.task_id, request.err_message
+            )
+        self._task_dispatcher.report(
+            request.task_id, success, worker_id=request.worker_id,
+            count_failure=count_failure,
+        )
+        return pb.Empty()
+
+    def report_evaluation_metrics(self, request, context=None):
+        self._touch(request.worker_id)
+        if self._evaluation_service is not None:
+            self._evaluation_service.report_evaluation_metrics(
+                request.model_outputs, request.labels
+            )
+        return pb.Empty()
+
+    def report_version(self, request, context=None):
+        if self._evaluation_service is not None:
+            self._evaluation_service.add_evaluation_task_if_needed(
+                request.model_version
+            )
+        return pb.Empty()
+
+    def get_comm_info(self, request, context=None):
+        self._touch(request.worker_id)
+        if self._rendezvous is None:
+            return pb.CommInfo(
+                rank=0, world_size=1, mesh_epoch=0,
+                master_epoch=self._master_epoch,
+            )
+        if request.worker_host:
+            with self._lock:
+                self._worker_hosts[request.worker_id] = request.worker_host
+            if self._auto_join_mesh:
+                self._rendezvous.add_worker_host(
+                    request.worker_host, reason="worker_join"
+                )
+        rank, size, epoch, coordinator = self._rendezvous.get_comm_info(
+            request.worker_host
+        )
+        return pb.CommInfo(
+            rank=rank,
+            world_size=size,
+            mesh_epoch=epoch,
+            coordinator_addr=coordinator,
+            master_epoch=self._master_epoch,
+        )

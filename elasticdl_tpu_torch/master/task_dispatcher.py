@@ -1,0 +1,327 @@
+"""Dynamic data sharding: the elasticity core (port of
+elasticdl_tpu/master/task_dispatcher.py).
+
+The unit of elasticity is the *task*, a ``(shard_name, start, end)``
+record range, not the worker. Workers are stateless consumers of this
+master-held queue, so a worker dying mid-task is recovered by requeueing
+the task ranges it held.
+
+Not ported (ROADMAP): the state journal a relaunched master replays,
+the stream windows, prediction tasks and the deferred train-end task.
+"""
+
+import random
+import threading
+import time
+
+from elasticdl_tpu_torch.common.constants import MAX_TASK_RETRIES
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+logger = _logger_factory("elasticdl_tpu_torch.master.task_dispatcher")
+
+
+class _TaskRecord:
+    """Internal task bookkeeping wrapper around the proto Task."""
+
+    __slots__ = ("task", "retry_count")
+
+    def __init__(self, task):
+        self.task = task
+        self.retry_count = 0
+
+
+class TaskDispatcher:
+    """Master-side work queue over record ranges of data shards.
+
+    Shards are ``{shard_name: (start, num_records)}`` dicts (what
+    ``AbstractDataReader.create_shards`` returns). Training tasks are
+    created one epoch at a time and shuffled; the next epoch's tasks are
+    created lazily when the queue drains, so a worker that joins late
+    always finds work without the master materializing the whole job.
+    """
+
+    def __init__(
+        self,
+        training_shards,
+        evaluation_shards=None,
+        records_per_task=1024,
+        num_epochs=1,
+        max_task_retries=MAX_TASK_RETRIES,
+        shuffle=True,
+        seed=None,
+    ):
+        self._lock = threading.Lock()
+        self._training_shards = dict(training_shards or {})
+        self._evaluation_shards = dict(evaluation_shards or {})
+        self._records_per_task = records_per_task
+        self._max_task_retries = max_task_retries
+        self._shuffle = shuffle
+        self._rng = random.Random(seed)
+        # epochs only apply to training; an eval-only job must not leave
+        # a phantom epoch that keeps finished() False forever
+        self._epochs_left = num_epochs if self._training_shards else 0
+        self._next_task_id = 1
+        # task_id -> _TaskRecord for every task queued or handed out
+        self._records = {}
+        self._todo = []  # task ids, FIFO
+        self._eval_todo = []
+        # task_id -> (worker_id, start_time)
+        self._doing = {}
+        # worker_id -> set of task_ids (inverse of _doing)
+        self._worker_doing = {}
+        self._task_completed_callbacks = []
+        self._job_failed = False
+        # rolling task-duration samples for the timeout scanner
+        self._task_durations = []
+        # task type -> successfully completed count
+        self._done_counts = {}
+        if self._training_shards:
+            self._create_training_epoch_locked()
+
+    # ------------------------------------------------------------------
+    # task creation
+
+    def _slice_shards(self, shards):
+        """Yield (shard_name, start, end) ranges of records_per_task."""
+        for name, (start, num_records) in shards.items():
+            end = start + num_records
+            for lo in range(start, end, self._records_per_task):
+                yield name, lo, min(lo + self._records_per_task, end)
+
+    def _create_tasks_locked(self, task_type, shards, model_version=-1):
+        ids = []
+        for name, lo, hi in self._slice_shards(shards):
+            task = pb.Task(
+                task_id=self._next_task_id,
+                type=task_type,
+                shard_name=name,
+                start=lo,
+                end=hi,
+                model_version=model_version,
+            )
+            self._records[task.task_id] = _TaskRecord(task)
+            ids.append(task.task_id)
+            self._next_task_id += 1
+        return ids
+
+    def _create_training_epoch_locked(self):
+        if self._epochs_left <= 0:
+            return
+        self._epochs_left -= 1
+        ids = self._create_tasks_locked(pb.TRAINING, self._training_shards)
+        if self._shuffle:
+            self._rng.shuffle(ids)
+        self._todo.extend(ids)
+        logger.info(
+            "Created %d training tasks (epochs left: %d)",
+            len(ids),
+            self._epochs_left,
+        )
+
+    def create_evaluation_tasks(self, model_version=-1):
+        """Queue one pass of evaluation tasks (used by EvaluationService)."""
+        with self._lock:
+            ids = self._create_tasks_locked(
+                pb.EVALUATION, self._evaluation_shards, model_version
+            )
+            self._eval_todo.extend(ids)
+            return len(ids)
+
+    # ------------------------------------------------------------------
+    # queue operations
+
+    def get(self, worker_id, task_type=None):
+        """Pop the next task for a worker; None when nothing is available.
+
+        Evaluation tasks take priority so eval jobs finish promptly while
+        training continues. When the training queue drains and epochs
+        remain, the next epoch is created lazily.
+        """
+        with self._lock:
+            if task_type == pb.EVALUATION:
+                queue = self._eval_todo
+            else:
+                queue = self._eval_todo if self._eval_todo else self._todo
+                if not queue and self._epochs_left > 0:
+                    self._create_training_epoch_locked()
+                    queue = self._todo
+            if not queue:
+                return None
+            task_id = queue.pop(0)
+            self._doing[task_id] = (worker_id, time.time())
+            self._worker_doing.setdefault(worker_id, set()).add(task_id)
+            return self._records[task_id].task
+
+    def report(self, task_id, success, worker_id=None, count_failure=True):
+        """Mark a task done or failed; failed tasks requeue up to the cap.
+
+        ``count_failure=False`` requeues without charging the retry cap:
+        a lifecycle hand-back (a stream closed under a worker) or a dead
+        worker's recovery is not evidence against the TASK.
+
+        ``worker_id``, when given, must match the task's current
+        assignee; otherwise the report is stale (the task was recovered
+        from a presumed-dead worker and reassigned) and is ignored so it
+        cannot clobber the new assignee's run.
+
+        Returns (evaluation_task_completed, task) so the caller can feed
+        the evaluation service.
+        """
+        completed_callbacks = []
+        result = (False, None)
+        with self._lock:
+            record = self._records.get(task_id)
+            if record is None:
+                logger.warning("Unknown task id reported: %s", task_id)
+                return False, None
+            doing = self._doing.get(task_id)
+            if doing is None or (
+                worker_id is not None and doing[0] != worker_id
+            ):
+                # stale report: the task was already recovered (and
+                # maybe reassigned) or reported twice; the current
+                # assignment stays the single source of truth
+                logger.warning(
+                    "Stale report for task %s from worker %s; ignored",
+                    task_id,
+                    worker_id,
+                )
+                return False, record.task
+            self._doing.pop(task_id, None)
+            assignee, start_time = doing
+            self._worker_doing.get(assignee, set()).discard(task_id)
+
+            task = record.task
+            if success:
+                if task.type == pb.TRAINING:
+                    self._task_durations.append(time.time() - start_time)
+                    del self._task_durations[:-64]
+                del self._records[task_id]
+                self._done_counts[task.type] = (
+                    self._done_counts.get(task.type, 0) + 1
+                )
+                if (
+                    not self._todo
+                    and not self._doing_training_locked()
+                    and self._epochs_left > 0
+                ):
+                    self._create_training_epoch_locked()
+                completed_callbacks = list(self._task_completed_callbacks)
+                result = (task.type == pb.EVALUATION, task)
+            else:
+                if count_failure:
+                    record.retry_count += 1
+                result = (False, task)
+                if record.retry_count > self._max_task_retries:
+                    logger.error(
+                        "Task %s failed %d times; marking job failed",
+                        task_id,
+                        record.retry_count,
+                    )
+                    self._job_failed = True
+                else:
+                    queue = (
+                        self._eval_todo
+                        if task.type == pb.EVALUATION
+                        else self._todo
+                    )
+                    queue.append(task_id)
+        # completion callbacks run outside the lock: they may call back
+        # into the dispatcher (the evaluation service queueing tasks)
+        for cb in completed_callbacks:
+            cb(result[1])
+        return result
+
+    def _doing_training_locked(self):
+        return any(
+            self._records[tid].task.type == pb.TRAINING for tid in self._doing
+        )
+
+    def recover_tasks(self, worker_id):
+        """Requeue every in-flight task of a dead worker, uncounted:
+        what makes worker death a non-event."""
+        with self._lock:
+            task_ids = list(self._worker_doing.get(worker_id, set()))
+        for task_id in task_ids:
+            self.report(
+                task_id, success=False, worker_id=worker_id,
+                count_failure=False,
+            )
+        with self._lock:
+            self._worker_doing.pop(worker_id, None)
+        if task_ids:
+            logger.info(
+                "Recovered %d tasks from worker %s", len(task_ids), worker_id
+            )
+
+    # ------------------------------------------------------------------
+    # introspection
+
+    def finished(self):
+        """All work done successfully. A job that failed past the retry
+        cap is never 'finished': check job_failed() for that exit."""
+        with self._lock:
+            return (
+                not self._job_failed
+                and not self._todo
+                and not self._eval_todo
+                and not self._doing
+                and self._epochs_left <= 0
+            )
+
+    def job_failed(self):
+        with self._lock:
+            return self._job_failed
+
+    def add_task_completed_callback(self, callback):
+        with self._lock:
+            self._task_completed_callbacks.append(callback)
+
+    def doing_tasks(self):
+        """Snapshot of {task_id: (worker_id, start_time)}."""
+        with self._lock:
+            return dict(self._doing)
+
+    def avg_task_duration(self, default=300.0, min_samples=20):
+        """Rolling mean task duration; ``default`` until enough samples
+        (the timeout scanner's 3x-slower-than-average threshold)."""
+        with self._lock:
+            if len(self._task_durations) < min_samples:
+                return default
+            return sum(self._task_durations) / len(self._task_durations)
+
+    def stats(self):
+        """Queue-state snapshot: {"pending": {type name: n}, "doing":
+        {type name: n}, "done": {type name: n}, "queue_depth":
+        {"training": n, "evaluation": n}, "epochs_left": n}. Type names
+        are lowercase proto enum names ("training", "evaluation")."""
+        with self._lock:
+            pending = {}
+            for task_id in self._todo + self._eval_todo:
+                name = pb.TaskType.Name(
+                    self._records[task_id].task.type
+                ).lower()
+                pending[name] = pending.get(name, 0) + 1
+            doing = {}
+            for task_id in self._doing:
+                name = pb.TaskType.Name(
+                    self._records[task_id].task.type
+                ).lower()
+                doing[name] = doing.get(name, 0) + 1
+            done = {
+                pb.TaskType.Name(t).lower(): n
+                for t, n in self._done_counts.items()
+            }
+            return {
+                "pending": pending,
+                "doing": doing,
+                "done": done,
+                "queue_depth": {
+                    "training": len(self._todo),
+                    "evaluation": len(self._eval_todo),
+                },
+                "epochs_left": self._epochs_left,
+            }

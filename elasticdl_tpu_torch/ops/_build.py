@@ -10,13 +10,17 @@ outside a checkout builds into ``~/.cache/elasticdl_tpu_torch/kernels/``
 instead, since site-packages is often read-only and shared. The
 library name carries a hash of the source and the flags, so an edited
 source is rebuilt and never confused with a stale library. ``build()`` starts one
-``nvcc`` per source, all at once, and waits for them together.
+``nvcc`` per source, all at once, and waits for them together, under
+an ``flock`` on ``<build dir>/.lock``: processes started together (a
+worker and its siblings) build each library once, the later ones
+finding it built when the lock comes free.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no ``nvcc`` and no card.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -144,33 +148,41 @@ def build(names=None):
     start = time.monotonic()
     with _lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        pending = []
-        for name in names:
-            target = library_path(name)
-            if os.path.exists(target):
-                continue
-            # build to a private name, then rename: a concurrent loader
-            # never sees a half-written library
-            tmp = "%s.%d.tmp" % (target, os.getpid())
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(_CSRC, KERNELS[name][0])]
-            proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )
-            pending.append((name, target, tmp, proc))
-        failures = []
-        for name, target, tmp, proc in pending:
-            output, _ = proc.communicate()
-            build_logs[name] = output
-            if proc.returncode != 0:
-                failures.append("%s (rc %d):\n%s" % (
-                    name, proc.returncode, output))
-                continue
-            os.replace(tmp, target)
-        if failures:
-            raise RuntimeError("nvcc failed for " + "\n".join(failures))
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+            # across processes: whoever holds the lock builds; the rest
+            # wait, then find the libraries there
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            _build_locked(names)
     return time.monotonic() - start
+
+
+def _build_locked(names):
+    pending = []
+    for name in names:
+        target = library_path(name)
+        if os.path.exists(target):
+            continue
+        # build to a private name, then rename: a loader never sees a
+        # half-written library
+        tmp = "%s.%d.tmp" % (target, os.getpid())
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(_CSRC, KERNELS[name][0])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        pending.append((name, target, tmp, proc))
+    failures = []
+    for name, target, tmp, proc in pending:
+        output, _ = proc.communicate()
+        build_logs[name] = output
+        if proc.returncode != 0:
+            failures.append("%s (rc %d):\n%s" % (
+                name, proc.returncode, output))
+            continue
+        os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("nvcc failed for " + "\n".join(failures))
 
 
 def bind(path, name):

@@ -1,8 +1,9 @@
-"""gRPC bindings for the ``elasticdl_tpu.Pserver`` and
-``elasticdl_tpu.Serve`` services.
+"""gRPC bindings for the ``elasticdl_tpu.Master``,
+``elasticdl_tpu.Pserver`` and ``elasticdl_tpu.Serve`` services.
 
-Port of elasticdl_tpu/proto/services.py, trimmed to the PS and serving
-surfaces. The service and method names are the JAX package's, and
+Port of elasticdl_tpu/proto/services.py, trimmed to the master, PS and
+serving surfaces (the master without ``deregister_worker``: the drain
+waits in the ROADMAP). The service and method names are the JAX package's, and
 ``elasticdl_tpu_pb2`` is a verbatim copy of its generated module, so a
 client of either package talks to a server of either package.
 """
@@ -11,10 +12,22 @@ import grpc
 
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 
+_MASTER_SERVICE = "elasticdl_tpu.Master"
 _PSERVER_SERVICE = "elasticdl_tpu.Pserver"
 _SERVE_SERVICE = "elasticdl_tpu.Serve"
 
 # method name -> (request class, response class)
+_MASTER_METHODS = {
+    "get_task": (pb.GetTaskRequest, pb.Task),
+    "report_task_result": (pb.ReportTaskResultRequest, pb.Empty),
+    "report_evaluation_metrics": (pb.ReportEvaluationMetricsRequest, pb.Empty),
+    "report_version": (pb.ReportVersionRequest, pb.Empty),
+    "get_comm_info": (pb.GetCommInfoRequest, pb.CommInfo),
+    # fresh-incarnation declaration: requeue everything still assigned
+    # to this worker_id and answer its master-assigned relaunch epoch,
+    # the incarnation the worker stamps on its gradient pushes
+    "reset_worker": (pb.GetTaskRequest, pb.ResetWorkerResponse),
+}
 _PSERVER_METHODS = {
     "push_model": (pb.Model, pb.Empty),
     "push_embedding_table_infos": (pb.Model, pb.Empty),
@@ -54,6 +67,11 @@ class _Stub:
             )
 
 
+class MasterStub(_Stub):
+    def __init__(self, channel):
+        super().__init__(channel, _MASTER_SERVICE, _MASTER_METHODS)
+
+
 class PserverStub(_Stub):
     def __init__(self, channel):
         super().__init__(channel, _PSERVER_SERVICE, _PSERVER_METHODS)
@@ -76,6 +94,10 @@ def _add_service(server, servicer, service_name, methods):
     server.add_generic_rpc_handlers(
         (grpc.method_handlers_generic_handler(service_name, handlers),)
     )
+
+
+def add_master_servicer_to_server(servicer, server):
+    _add_service(server, servicer, _MASTER_SERVICE, _MASTER_METHODS)
 
 
 def add_pserver_servicer_to_server(servicer, server):

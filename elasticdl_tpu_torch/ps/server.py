@@ -1,21 +1,27 @@
 """Parameter server process (port of elasticdl_tpu/ps/server.py).
 
 Serves the Pserver gRPC service over one shard's embedding store (the
-native store unless ``--use_native_store 0`` or it cannot be built)
-until it is stopped. The PS runs on the host: it touches no card, in
-this package as in the reference, which runs it with
-``JAX_PLATFORMS=cpu``.
+native store unless ``--use_native_store 0`` or it cannot be built).
+The PS runs on the host: it touches no card, in this package as in the
+reference, which runs it with ``JAX_PLATFORMS=cpu``.
 
     python -m elasticdl_tpu_torch.ps.server --ps_id 0 --num_ps_pods 2 \\
-        --port 50002 --opt_type adam --opt_args lr=0.001
+        --port 50002 --opt_type adam --opt_args lr=0.001 \\
+        [--master_addr host:port]
+
+With ``--master_addr`` the PS follows the master: it polls
+``get_comm_info`` every 5 seconds (at most half the grace), and once
+the master has not answered for ``EDL_PS_MASTER_GONE_SECS`` (90, long
+enough to ride out a master relaunch) it stops serving and exits 0.
+Without it, it serves until it is stopped.
 
 SIGTERM drains: the server stops taking RPCs, a buffered partial sync
 round is applied (``PserverServicer.graceful_stop``) and the process
 exits 0.
 
-Not ported (ROADMAP): ``--master_addr`` (the PS polling the master and
-exiting when it is gone), the checkpoint flags and auto-restore, the
-lifecycle sweep, ``--metrics_port`` and the events journal.
+Not ported (ROADMAP): the checkpoint flags and auto-restore, the
+version reports to the master, the lifecycle sweep,
+``--metrics_port`` and the events journal.
 """
 
 import argparse
@@ -25,6 +31,7 @@ import sys
 import time
 
 from elasticdl_tpu_torch.common.args import add_bool_argument
+from elasticdl_tpu_torch.common.env_utils import env_float
 from elasticdl_tpu_torch.common.grpc_utils import build_server, uds_socket_path
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
@@ -42,6 +49,7 @@ def parse_ps_args(argv=None):
     parser.add_argument("--ps_id", type=int, default=0)
     parser.add_argument("--num_ps_pods", type=int, default=1)
     parser.add_argument("--port", type=int, default=50002)
+    parser.add_argument("--master_addr", default="")
     parser.add_argument("--opt_type", default="sgd")
     parser.add_argument(
         "--opt_args", default="", help="k=v;k=v (e.g. lr=0.01;momentum=0.9)"
@@ -103,6 +111,15 @@ class ParameterServer:
             sync_version_tolerance=args.sync_version_tolerance,
             staleness_modulation=bool(args.lr_staleness_modulation),
         )
+        self._master_client = None
+        if args.master_addr:
+            from elasticdl_tpu_torch.worker.master_client import MasterClient
+
+            # a negative id: the master never waits for a PS, and a PS
+            # joins no mesh
+            self._master_client = MasterClient(
+                args.master_addr, worker_id=-(args.ps_id + 1)
+            )
         self.server = None
         self._uds_path = None
 
@@ -184,12 +201,36 @@ class ParameterServer:
         return 0
 
     def run(self, poll_secs=0.5):
-        """Serve until SIGTERM (drained, 0) or until the server is
-        stopped otherwise (0). grpc's wait_for_termination(timeout)
-        returns True on timeout (still serving)."""
+        """Serve until SIGTERM (drained, 0), until the master is gone
+        (0), or until the server is stopped otherwise (0). grpc's
+        wait_for_termination(timeout) returns True on timeout (still
+        serving)."""
+        gone_secs = env_float("EDL_PS_MASTER_GONE_SECS", 90.0)
+        # at least two polls inside the grace
+        master_poll_secs = min(5.0, gone_secs / 2)
+        gone_since = None
+        next_poll = time.monotonic() + master_poll_secs
         while self.server.wait_for_termination(timeout=poll_secs):
             if self._term_flag:
                 return self._finish_term()
+            if self._master_client is None or time.monotonic() < next_poll:
+                continue
+            polled_at = time.monotonic()
+            info = self._master_client.get_comm_info()
+            next_poll = time.monotonic() + master_poll_secs
+            if info.mesh_epoch >= 0:
+                gone_since = None
+                continue
+            # gone since the first unanswered poll began (the failed
+            # call itself retries for seconds)
+            if gone_since is None:
+                gone_since = polled_at
+            if time.monotonic() - gone_since >= gone_secs:
+                logger.info("Master gone; PS %d exiting", self.args.ps_id)
+                self.server.stop(grace=1.0).wait()
+                break
+        if self._master_client is not None:
+            self._master_client.close()
         self._cleanup_uds()
         return 0
 

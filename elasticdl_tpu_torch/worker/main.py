@@ -1,0 +1,67 @@
+"""Worker process entry point (port of elasticdl_tpu/worker/main.py).
+
+Usage: python -m elasticdl_tpu_torch.worker.main --master_addr=... \
+    --worker_id=0 --model_zoo=... --training_data=... \
+    [--ps_addrs=host:port,host:port] [--device cuda|cpu]
+
+Trains on ``cuda`` unless ``--device cpu`` is given; with ``cuda`` and
+no card it raises rather than fall back. Exits 0 when the master says
+the job is over, 1 on a health-sentinel halt.
+"""
+
+import sys
+
+from elasticdl_tpu_torch.common.args import parse_worker_args
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.data.readers import create_data_reader
+from elasticdl_tpu_torch.models.registry import parse_params_string
+from elasticdl_tpu_torch.train.health import HealthSentinelError
+from elasticdl_tpu_torch.worker.master_client import MasterClient
+from elasticdl_tpu_torch.worker.worker import Worker
+
+logger = _logger_factory("elasticdl_tpu_torch.worker.main")
+
+
+def main(argv=None):
+    args = parse_worker_args(argv)
+    master_client = MasterClient(args.master_addr, worker_id=args.worker_id)
+    # fresh incarnation: flush any task a dead predecessor with this
+    # worker_id still holds; the answer is this worker_id's relaunch
+    # epoch, the push incarnation the sync PS orders relaunches by
+    master_client.reset_worker()
+    reader = create_data_reader(
+        args.training_data or args.validation_data,
+        **parse_params_string(args.data_reader_params),
+    )
+    worker = Worker(
+        master_client,
+        args.model_zoo,
+        reader,
+        minibatch_size=args.minibatch_size,
+        mode=args.mode,
+        compute_dtype=args.compute_dtype or None,
+        report_version_steps=args.report_version_steps,
+        grad_accum_steps=args.grad_accum_steps,
+        ps_addrs=args.ps_addrs or None,
+        sparse_pipeline=bool(args.sparse_pipeline),
+        sparse_cache_staleness=args.sparse_cache_staleness,
+        sparse_push_interval=args.sparse_push_interval,
+        model_def=args.model_def,
+        model_params=args.model_params,
+        log_loss_steps=args.log_loss_steps,
+        device=args.device,
+    )
+    try:
+        worker.run()
+    except HealthSentinelError as e:
+        # the task was already reported failed (requeued once); exit
+        # nonzero so the failure is loud
+        logger.error("health sentinel halt: %s", e)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -287,3 +287,26 @@ print("exit", status)
         SparseTrainer(deepfm.custom_model(), deepfm.loss, deepfm.optimizer(),
                       deepfm.sparse_embedding_specs(),
                       PSClient(["localhost:%d" % port]), cache_staleness=8)
+
+
+def test_job_slice_modules_isolated_and_the_worker_defaults_to_cuda():
+    """The job slice's modules (the master, the worker, the worker's
+    master client, the PS's master poll) are among those imported with
+    JAX blocked above; the worker's entry point and ``Worker`` default
+    to the card, while the master and the PS take no device."""
+    import inspect
+
+    from elasticdl_tpu_torch.common.args import parse_worker_args
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    modules = _port_modules()
+    for name in ("master.task_dispatcher", "master.evaluation_service",
+                 "master.rendezvous", "master.servicer",
+                 "master.task_monitor", "master.master", "master.main",
+                 "worker.master_client", "worker.task_data_service",
+                 "worker.worker", "worker.main", "ps.server"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    assert inspect.signature(Worker).parameters["device"].default == "cuda"
+    args = parse_worker_args(["--model_zoo", "m", "--master_addr", "a:1",
+                              "--worker_id", "0"])
+    assert args.device == "cuda"
