@@ -122,7 +122,29 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    formula in every step; the final evaluation's AUC is at least 0.70;
    both PS exit 0 on their own within 30 s of the master's stop. It
    prints the job's wall time, examples/s, the time from the kill to
-   the requeue and worker 0's steps/s.
+   the requeue and worker 0's steps/s;
+10. PS restart -- phase 9's job over two of its four training files
+   (98,304 records, 12 tasks, 192 steps) with worker 0 alone, in this
+   process, its K1-K3 launches counted; two PS processes with phase
+   9's flags plus one ``--checkpoint_dir`` (the reference's pod manager
+   gives every PS of a job the same one) and ``--checkpoint_steps 16``.
+   Inside worker 0's push, once the newest complete checkpoint chain
+   holds a full base and 2 deltas and PS 1 is 10 versions past it, PS 1
+   gets SIGKILL and is relaunched with the same id, port and flags (no
+   ``--checkpoint_dir_for_init``). Checks: the relaunch logs the
+   restored version (at least 1 and at least the chain's); worker 0's
+   PS client saw shard 1's stamp change and resynced once; the tier's
+   restart flush wrote rows back through one K1 per table and the
+   relaunched PS serves them bit for bit; phase 7's formula, with a K1
+   per host read of resident rows, in every step; master rc 0 with
+   every training record done once; final AUC at least 0.70; worker
+   0's version for shard 1 equals PS 1's store version at its exit;
+   both PS exit 0 on their own, each with its last checkpoint file
+   whole at its last cadence version. It prints, with the card's name
+   and power limit, the saves by kind (seconds, rows), the restore's
+   seconds and rows, the kill to serving and to the first accepted
+   push, the versions lost, the rows flushed, worker 0's steps/s before
+   and after the kill and the job's wall time.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -138,6 +160,7 @@ Imports nothing of JAX or of the JAX package.
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1352,21 +1375,45 @@ TIER_PROFILE_PREFIX = {
 }
 
 
+# spin kernels that open a profiled session (profiler_warmup)
+PROFILER_WARMUP_KERNELS = 16
+PROFILER_WARMUP_CYCLES = 10_000
+# torch.cuda._sleep's kernel (at::cuda::...::spin_kernel), by substring
+PROFILER_WARMUP_NAME = "spin_kernel"
+
+
+def profiler_warmup(torch):
+    """Open a torch.profiler session with PROFILER_WARMUP_KERNELS spin
+    kernels and a sync, before what it measures. In some processes the
+    profiler drops the first few device records of every session: on
+    the H100 a phase-7 step lost its first two copies and its first K1
+    in every session of such a process, and a session opened with
+    device work and a sync lost that work's records and held every
+    tier kernel (chain_span's sessions open with a sleep and never lost
+    one). The spin kernels are what is lost then; none is a tier
+    kernel, and nothing the step runs is named like them."""
+    for _ in range(PROFILER_WARMUP_KERNELS):
+        torch.cuda._sleep(PROFILER_WARMUP_CYCLES)
+    torch.cuda.synchronize()
+
+
 def profile_step(torch, tier, trainer, state, batch):
     """One train step under torch.profiler -> (state, record, counted,
     profiled): its wall time beside the device-busy time, the idle
     share, the K1-K3 share of busy time, and each of K1-K3's launches by
     its counter and by the profiler (None when the profiler sees no
-    device time). The profiler traces the card alone: with CPU activity
-    on as well, some processes lost the record of one tier kernel (a K1,
-    or a K2) in every profiled step, while the card-only traces of the
-    chain in the same processes held every kernel."""
+    device time). The profiler traces the card alone (with CPU activity
+    on as well, more records were lost), and the session opens with
+    ``profiler_warmup``; ``warmup_kernels_kept`` says how many of its
+    spin kernels the profiler held (fewer than launched: this process
+    drops a session's first records)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    before = tier_counts(tier)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
+        before = tier_counts(tier)
         t0 = time.monotonic()
         state, _ = trainer.train_step(state, batch)
         torch.cuda.synchronize()
@@ -1381,6 +1428,8 @@ def profile_step(torch, tier, trainer, state, batch):
         if total_us is None:
             total_us = evt.cuda_time_total
         kernels[evt.key] = (total_us / 1e3, evt.count)
+    warmup = {key: kernels.pop(key) for key in list(kernels)
+              if PROFILER_WARMUP_NAME in key}
     busy_ms = sum(ms for ms, _ in kernels.values())
     k_ms, k_launches = {}, {}
     for k, prefix in TIER_PROFILE_PREFIX.items():
@@ -1390,7 +1439,9 @@ def profile_step(torch, tier, trainer, state, batch):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
     record = {"profile": "sparse_train_step", "wall_ms": wall_ms,
               "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
-              "counted_launches": counted}
+              "counted_launches": counted,
+              "warmup_kernels_kept": [sum(n for _, n in warmup.values()),
+                                      PROFILER_WARMUP_KERNELS]}
     if busy_ms <= 0:
         return state, record, counted, None
     record.update({
@@ -1409,9 +1460,7 @@ def sparse_timing(torch, tier, sparse):
     pushed, promotions staged) profiled (``profile_step``), each of
     K1-K3's profiled launches held against its launch counter over the
     step. A profiled launch more than counted fails at once. Fewer can
-    be the profiler's loss (on a loaded host CUPTI has dropped a K2
-    launch and the copy beside it from a step whose counters and
-    results were right): then another fresh step is profiled, up to
+    be the profiler's loss: then another fresh step is profiled, up to
     len(sparse["profile_batches"]), and one must match. Returns the
     state after the steps."""
     state = sparse["state"]
@@ -1580,15 +1629,21 @@ def start_ps_pairs(n_pairs, logdir, started, extra=(), env=None):
         for ps_id in range(2):
             port = find_free_port()
             log_path = os.path.join(logdir, "ps-%d-%d.log" % (pair, ps_id))
-            with open(log_path, "w") as out:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "elasticdl_tpu_torch.ps.server",
-                     "--ps_id", str(ps_id), "--port", str(port),
-                     *STREAM_PS_FLAGS, *extra],
-                    cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT))
+            procs.append(start_ps(ps_id, port, log_path, extra, env))
             addrs.append("localhost:%d" % port)
             logs.append(log_path)
     return pairs
+
+
+def start_ps(ps_id, port, log_path, extra, env):
+    """One ``python -m elasticdl_tpu_torch.ps.server`` (shard ``ps_id``
+    of 2, STREAM_PS_FLAGS and ``extra``) logging to ``log_path``."""
+    with open(log_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.ps.server",
+             "--ps_id", str(ps_id), "--port", str(port), *STREAM_PS_FLAGS,
+             *extra],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT)
 
 
 def wait_ps_ready(pairs):
@@ -1741,19 +1796,22 @@ def stream_window_profile(torch, trace_path, run_window):
     busy time and the idle share, and the gaps between consecutive tier
     kernels of one chunk's chain (K1 victims -> K2 -> K1 combined; a
     negative gap is a launch that started before its predecessor
-    ended)."""
+    ended). The session opens with ``profiler_warmup``, which the
+    times leave out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
         t0 = time.monotonic()
         run_window()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     busy_ms = 0.0
     for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
+        if (evt.device_type == DeviceType.CUDA
+                and PROFILER_WARMUP_NAME not in evt.key):
             total_us = getattr(evt, "device_time_total", None)
             busy_ms += (evt.cuda_time_total if total_us is None
                         else total_us) / 1e3
@@ -2098,6 +2156,72 @@ def job_data(np, workdir, records=JOB_RECORDS, valid=JOB_VALID,
     return dirs
 
 
+def count_worker_steps(tier, trainer):
+    """Instrument an in-process worker's ``trainer`` (device tier on):
+    each train step's host time, loss, prepare time (its PS pull
+    inside), whether it evicted, and its end on the host clock; each
+    step's K1-K3 launches held against phase 7's formula, with one more
+    K1 for each host read of resident rows (``_read_rows``: the periodic
+    writeback every 256 tier steps, the PS-restart flush); the push
+    RPC's own time and the loop's gap between steps. Returns the dict
+    the wrappers fill: ``steps`` [(s, loss, prepare ms, evicted, end)],
+    ``bad_steps`` [[step, launches, formula]], ``gaps``, ``calls_ms``
+    and ``reads`` (a one-element count)."""
+    dtier = trainer.device_tier
+    rec = {"steps": [], "bad_steps": [], "gaps": [],
+           "calls_ms": {"prepare": [], "push_rpc": []}, "reads": [0]}
+    calls_ms, reads = rec["calls_ms"], rec["reads"]
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            c0 = time.monotonic()
+            out = fn(*args, **kwargs)
+            calls_ms[name].append((time.monotonic() - c0) * 1e3)
+            return out
+        return run
+
+    def counted_read(fn):
+        def run(*args):
+            reads[0] += 1
+            return fn(*args)
+        return run
+
+    trainer.preparer.prepare = timed("prepare", trainer.preparer.prepare)
+    trainer.preparer._ps.push_gradients = timed(
+        "push_rpc", trainer.preparer._ps.push_gradients)
+    dtier._read_rows = counted_read(dtier._read_rows)
+    train_step, last_end = trainer.train_step, [None]
+
+    def counted_step(state, b):
+        before, stats0 = tier_counts(tier), dtier.stats()
+        reads0, prepares0 = reads[0], len(calls_ms["prepare"])
+        s0 = time.monotonic()
+        if last_end[0] is not None:
+            # the worker loop between steps: the next batch, the record
+            # report, the version report
+            rec["gaps"].append(s0 - last_end[0])
+        state, loss = train_step(state, b)
+        last_end[0] = time.monotonic()
+        stats1 = dtier.stats()
+        rec["steps"].append((last_end[0] - s0, float(loss),
+                             sum(calls_ms["prepare"][prepares0:]),
+                             stats1["evict_chunks"] > stats0["evict_chunks"],
+                             last_end[0]))
+        d_k1, d_k2, d_k3 = (a - c for a, c in zip(tier_counts(tier), before))
+        gather_only, chunks, inserts, evicts = (
+            stats1[k] - stats0[k]
+            for k in ("gather_only_combines", "staged_chunks",
+                      "insert_chunks", "evict_chunks"))
+        want = (gather_only + chunks + evicts + reads[0] - reads0, inserts, 2)
+        if (d_k1, d_k2, d_k3) != want:
+            rec["bad_steps"].append([len(rec["steps"]) - 1,
+                                     [d_k1, d_k2, d_k3], list(want)])
+        return state, loss
+
+    trainer.train_step = counted_step
+    return rec
+
+
 JOB_DATA_CHILD = "import numpy, chip_smoke; chip_smoke.job_data(numpy, %r)"
 
 
@@ -2240,60 +2364,10 @@ def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
         dtier = trainer.device_tier
         if dtier is None:
             raise SystemExit("worker 0 runs without the device tier")
-        steps, bad_steps, gaps = [], [], []
-        # each call's own wall time (the prepare with its PS pull, the
-        # push RPC) and the host reads of resident rows (one K1 each:
-        # the periodic writeback every 256 tier steps)
-        calls_ms, reads = {"prepare": [], "push_rpc": []}, [0]
-
-        def timed(name, fn):
-            def run(*args, **kwargs):
-                c0 = time.monotonic()
-                out = fn(*args, **kwargs)
-                calls_ms[name].append((time.monotonic() - c0) * 1e3)
-                return out
-            return run
-
-        def counted_read(fn):
-            def run(*args):
-                reads[0] += 1
-                return fn(*args)
-            return run
-
-        trainer.preparer.prepare = timed("prepare", trainer.preparer.prepare)
-        trainer.preparer._ps.push_gradients = timed(
-            "push_rpc", trainer.preparer._ps.push_gradients)
-        dtier._read_rows = counted_read(dtier._read_rows)
-        train_step, last_end = trainer.train_step, [None]
-
-        def counted_step(state, b):
-            before, stats0 = tier_counts(tier), dtier.stats()
-            reads0, prepares0 = reads[0], len(calls_ms["prepare"])
-            s0 = time.monotonic()
-            if last_end[0] is not None:
-                # the worker loop between steps: the next batch, the
-                # record report, the version report
-                gaps.append(s0 - last_end[0])
-            state, loss = train_step(state, b)
-            last_end[0] = time.monotonic()
-            stats1 = dtier.stats()
-            steps.append((last_end[0] - s0, float(loss),
-                          sum(calls_ms["prepare"][prepares0:]),
-                          stats1["evict_chunks"] > stats0["evict_chunks"]))
-            d_k1, d_k2, d_k3 = (a - c for a, c in
-                                zip(tier_counts(tier), before))
-            gather_only, chunks, inserts, evicts = (
-                stats1[k] - stats0[k]
-                for k in ("gather_only_combines", "staged_chunks",
-                          "insert_chunks", "evict_chunks"))
-            want = (gather_only + chunks + evicts + reads[0] - reads0,
-                    inserts, 2)
-            if (d_k1, d_k2, d_k3) != want:
-                bad_steps.append([len(steps) - 1, [d_k1, d_k2, d_k3],
-                                  list(want)])
-            return state, loss
-
-        trainer.train_step = counted_step
+        counts = count_worker_steps(tier, trainer)
+        steps, bad_steps, gaps = (counts["steps"], counts["bad_steps"],
+                                  counts["gaps"])
+        calls_ms, reads = counts["calls_ms"], counts["reads"]
         reset_tier_launches(tier)  # the job's count starts here
         runner = threading.Thread(target=worker0.run, daemon=True)
         runner.start()
@@ -2435,6 +2509,445 @@ def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
     if failures:
         raise SystemExit("job phase: " + "; ".join(failures))
     record.pop("tier_stats")
+    return record
+
+
+# phase 10: phase 9's job over two of its four training files (12 tasks,
+# 192 steps of 512 for worker 0 alone), both PS checkpointing into one
+# directory every RESTART_CKPT_STEPS versions (the reference's pod
+# manager hands every PS of a job the same --checkpoint_dir); PS 1 is
+# SIGKILLed once the newest complete chain holds a full base and
+# RESTART_MIN_DELTAS deltas and PS 1 is RESTART_MIN_LOST versions past it
+RESTART_FILES = 2
+RESTART_CKPT_STEPS = 16
+RESTART_MIN_DELTAS = 2
+RESTART_MIN_LOST = 10
+RESTART_WARMUP = 10
+_SAVE_RE = re.compile(r"checkpoint (\S+) at version (\d+): (full|delta), "
+                      r"(\d+) rows, (\d+) tombstones, chain (\d+), "
+                      r"([0-9.]+) s")
+_RESTORE_RE = re.compile(r"PS (\d+) auto-restored checkpoint version (\d+) "
+                         r"\((\d+) rows, ([0-9.]+) s\)")
+_EXIT_RE = re.compile(r"exiting at store version (\d+)")
+_SAVED_PATH_RE = re.compile(r"Saved sparse checkpoint (\S+) \(")
+
+
+def newest_chain(saver_cls, ckpt_dir):
+    """(base version, complete deltas, effective version) of the newest
+    complete checkpoint chain in ``ckpt_dir``, or None."""
+    effective = saver_cls.latest_version(ckpt_dir)
+    if effective is None:
+        return None
+    saver = saver_cls(ckpt_dir)
+    for base in sorted((int(d.split("-")[1]) for d in os.listdir(ckpt_dir)
+                        if d.startswith("version-")), reverse=True):
+        vdir = saver._version_dir(base)
+        if saver._complete(vdir):
+            return base, len(saver._delta_chain(vdir)), effective
+    return None
+
+
+class RestartFlushes:
+    """Wraps a device tier's flush after a PS relaunch
+    (``dtier._process_restart``, on the dispatch thread): records the
+    rows it writes back (``rows``: {table: {id: row}}, last write wins)
+    and the host reads of resident rows it makes (``reads``, counted on
+    ``read_count``, the one-element count ``count_worker_steps``
+    keeps), waits for the writebacks to land and pulls the same ids
+    back through ``probe`` (a PSClient): ``served`` {table: rows in
+    ``rows``' order}."""
+
+    def __init__(self, np, dtier, probe, read_count=None):
+        self.rows, self.served, self.reads = {}, {}, 0
+        self._np, self._dtier, self._probe = np, dtier, probe
+        self._read_count = read_count or [0]
+        self._restart = dtier._process_restart
+        dtier._process_restart = self
+
+    def __call__(self):
+        np, dtier = self._np, self._dtier
+        with dtier._lock:
+            pending = any(t.pending_flush is not None
+                          for t in dtier._tables.values())
+        if not pending:
+            return self._restart()
+        reads0, submit = self._read_count[0], dtier._submit_writeback
+
+        def recorded(name, ids, values):
+            self.rows.setdefault(name, {}).update(
+                zip(np.asarray(ids).tolist(), np.array(values)))
+            return submit(name, ids, values)
+
+        dtier._submit_writeback = recorded
+        try:
+            self._restart()
+        finally:
+            del dtier._submit_writeback
+        self.reads += self._read_count[0] - reads0
+        dtier.drain_writebacks()
+        for name, rows in self.rows.items():
+            self.served[name] = self._probe.pull_embedding_vectors(
+                name, np.fromiter(rows, np.int64, len(rows)))
+
+    def mismatched(self):
+        """Tables whose served rows differ from those written back."""
+        np = self._np
+        return [name for name, rows in self.rows.items()
+                if not np.array_equal(self.served.get(name),
+                                      np.stack(list(rows.values())))]
+
+
+def ps_log(path):
+    """What a PS process logged about its checkpoints: its saves
+    [(version, kind, rows, tombstones, chain, seconds)], its restore
+    (version, rows, seconds) or None, the version it exited at (None
+    before it exits) and the last shard file it saved."""
+    with open(path) as f:
+        text = f.read()
+    saves = [(int(m[2]), m[3], int(m[4]), int(m[5]), int(m[6]), float(m[7]))
+             for m in _SAVE_RE.finditer(text)]
+    restore = _RESTORE_RE.search(text)
+    exit_at = _EXIT_RE.search(text)
+    paths = _SAVED_PATH_RE.findall(text)
+    return {"saves": saves,
+            "restore": (int(restore[2]), int(restore[3]), float(restore[4]))
+            if restore else None,
+            "exit_version": int(exit_at[1]) if exit_at else None,
+            "last_file": paths[-1] if paths else None}
+
+
+def verified_save(np, path):
+    """The store version a checkpoint shard file records (a delta's own,
+    a base's directory name) after reading every array in it (the zip's
+    CRC checks), or None when it does not read whole."""
+    try:
+        with np.load(path) as data:
+            for key in data.files:
+                data[key]  # a read: the zip checks its CRC
+            if "__delta_version__" in data.files:
+                return int(data["__delta_version__"])
+    except Exception:  # a torn or missing file: the check fails
+        return None
+    return int(os.path.basename(os.path.dirname(path)).split("-")[1])
+
+
+def ps_restart_phase(torch, np, tier, workdir, device="cuda",
+                     files=RESTART_FILES, per_task=JOB_PER_TASK,
+                     batch=SPARSE_BATCH, eval_steps=JOB_EVAL_STEPS,
+                     report_version_steps=JOB_REPORT_VERSION_STEPS,
+                     task_timeout_s=JOB_TASK_TIMEOUT_S,
+                     ckpt_steps=RESTART_CKPT_STEPS,
+                     min_deltas=RESTART_MIN_DELTAS,
+                     min_lost=RESTART_MIN_LOST, warmup=RESTART_WARMUP,
+                     worker_env=None, card=None):
+    """Phase 10: a SIGKILLed parameter server restores its checkpoint
+    and the job goes on. Phase 9's job (its master in this process, its
+    data under ``workdir``, the first ``files`` training files) with
+    worker 0 alone, in this process, its K1-K3 launches counted; two PS
+    processes with phase 9's flags plus one ``--checkpoint_dir`` and
+    ``--checkpoint_steps ckpt_steps``. Inside worker 0's push, once the
+    newest complete checkpoint chain holds a full base and
+    ``min_deltas`` deltas and PS 1 is ``min_lost`` versions past it, PS
+    1 gets SIGKILL; it is relaunched with the same id, port and flags
+    (no ``--checkpoint_dir_for_init``). Checks (each printed; a failure
+    raises SystemExit): the relaunched PS logs the restored version, at
+    least 1 and at least the newest checkpoint at the kill; worker 0's
+    PS client saw shard 1's stamp change to it and the resync hook fired
+    once; the tier's restart flush wrote back rows through one K1 per
+    table and the relaunched PS serves them bit for bit; phase 7's
+    formula (with a K1 per ``_read_rows``) holds in every step; the
+    master returns 0 with every training record done once; the final
+    AUC is at least JOB_AUC_FLOOR; worker 0's version for shard 1
+    equals PS 1's store version at its exit; both PS exit 0 on their own
+    after the master stops, each with its last checkpoint file whole at
+    its last cadence version. ``card`` is the nvidia-smi line printed
+    with the numbers (the CPU rehearsal passes its own)."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    card = card or nvidia_smi_line()
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    train_dir = os.path.join(workdir, "restart_train")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    records = sum(n for _, n in RecordIODataReader(
+        data_dir=train_dir).create_shards().values())
+    master = Master(zoo, training_data=train_dir,
+                    validation_data=os.path.join(workdir, "valid"),
+                    records_per_task=per_task, num_epochs=1,
+                    port=find_free_port(), eval_steps=eval_steps,
+                    task_timeout_secs=task_timeout_s, seed=SEED)
+    dispatcher = master.task_dispatcher
+    addr = "localhost:%d" % master._port
+    done = []
+    report = dispatcher.report
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if success and task is not None and task.type == pb.TRAINING:
+            done.append((task.shard_name, task.start, task.end))
+        return ok, task
+
+    dispatcher.report = on_report
+    logdir = os.path.join(HERE, "build", "chip_smoke_restart")
+    shutil.rmtree(logdir, ignore_errors=True)
+    ckpt_dir = os.path.join(logdir, "ckpt")
+    os.makedirs(ckpt_dir)
+    env = dict(os.environ, PYTHONPATH=HERE, EDL_PS_MASTER_GONE_SECS="2")
+    extra = ("--use_async", "1", "--master_addr", addr, "--checkpoint_dir",
+             ckpt_dir, "--checkpoint_steps", str(ckpt_steps))
+    saved_env = {k: os.environ.get(k) for k in worker_env}
+    started, result, ps_codes, relaunched = [], {}, [], []
+    kill, killed = {}, threading.Event()
+    resyncs, runner = [], None
+    try:
+        job_t0 = time.monotonic()
+        master.prepare()
+        master_thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.5)),
+            daemon=True)
+        master_thread.start()
+        (procs, ps_addrs, ps_logs), = start_ps_pairs(1, logdir, started,
+                                                      extra=extra, env=env)
+        lines = wait_ps_ready([(procs, ps_addrs, ps_logs)])
+        if not all("(NativeEmbeddingStore store, async)" in ln
+                   for ln in lines):
+            raise SystemExit("a PS does not serve the native store async: "
+                             "%s" % lines)
+        os.environ.update(worker_env)
+        client = MasterClient(addr, worker_id=0)
+        client.reset_worker()
+        worker0 = Worker(client, zoo, RecordIODataReader(data_dir=train_dir),
+                         minibatch_size=batch,
+                         report_version_steps=report_version_steps,
+                         wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                         device=device)
+        trainer = worker0.trainer
+        dtier = trainer.device_tier
+        if dtier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        ps_client = trainer.preparer._ps
+        probe = PSClient(ps_addrs)
+        counts = count_worker_steps(tier, trainer)
+        hook = ps_client.resync_hook
+
+        def counted_hook(shard):
+            resyncs.append((shard, time.monotonic()))
+            hook(shard)
+
+        ps_client.resync_hook = counted_hook
+        push = ps_client.push_gradients
+
+        def should_kill():
+            version = ps_client._shard_versions.get(1, 0)
+            if version < ckpt_steps * (min_deltas + 1) + min_lost:
+                return False
+            chain = newest_chain(SparseCheckpointSaver, ckpt_dir)
+            if (chain is None or chain[1] < min_deltas
+                    or version < chain[2] + min_lost):
+                return False
+            kill.update(version=version, chain=chain)
+            return True
+
+        def push_and_kill(*args, **kwargs):
+            # depth-1 pushes: none is in flight here, so the version
+            # worker 0 last saw from shard 1 is PS 1's own
+            if not killed.is_set() and should_kill():
+                procs[1].kill()
+                procs[1].wait()
+                kill["t"] = time.monotonic()
+                killed.set()
+            out = push(*args, **kwargs)
+            if killed.is_set() and "first_push_t" not in kill:
+                kill["first_push_t"] = time.monotonic()
+                kill["first_push"] = [bool(out[0]), int(out[1])]
+            return out
+
+        ps_client.push_gradients = push_and_kill
+        flushes = RestartFlushes(np, dtier, probe, counts["reads"])
+        reset_tier_launches(tier)  # the phase's count starts here
+        runner = threading.Thread(target=worker0.run, daemon=True)
+        runner.start()
+        deadline = time.monotonic() + JOB_WAIT_S
+        while not killed.wait(0.05):
+            if not runner.is_alive() or time.monotonic() > deadline:
+                raise SystemExit(
+                    "PS 1 was never killed: worker 0 %s, newest chain %s, "
+                    "shard 1 at version %s" % (
+                        "alive" if runner.is_alive() else "done",
+                        newest_chain(SparseCheckpointSaver, ckpt_dir),
+                        ps_client._shard_versions.get(1)))
+        relaunch_log = os.path.join(logdir, "ps-0-1-relaunch.log")
+        relaunched.append(start_ps(1, int(ps_addrs[1].rsplit(":", 1)[1]),
+                                   relaunch_log, extra, env))
+        wait_ps_ready([(relaunched, ps_addrs[1:], [relaunch_log])])
+        serving_s = time.monotonic() - kill["t"]
+        master_thread.join(timeout=JOB_WAIT_S)
+        if master_thread.is_alive():
+            raise SystemExit("the job did not finish in %d s" % JOB_WAIT_S)
+        stopped_t = time.monotonic()
+        job_s = stopped_t - job_t0
+        runner.join(timeout=60)
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        for proc in (procs[0], relaunched[0]):
+            try:
+                ps_codes.append(proc.wait(
+                    timeout=max(0.0, stopped_t + JOB_PS_GONE_WAIT_S
+                                - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                ps_codes.append(None)
+        ps_exit_s = time.monotonic() - stopped_t
+        shard1_version = ps_client._shard_versions.get(1)
+        shard1_stamp = ps_client._shard_restored.get(1)
+        probe.close()
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for proc in relaunched + [p for ps, _, _ in started for p in ps]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        master.stop()
+    logs = [ps_log(ps_logs[0]), ps_log(ps_logs[1]), ps_log(relaunch_log)]
+    restore = logs[2]["restore"]
+    restored = restore[0] if restore else None
+    steps = counts["steps"]
+    losses = [s[1] for s in steps]
+    before = [s[0] for s in steps[warmup:] if s[4] < kill["t"]]
+    after = [s[0] for s in steps if s[4] - s[0] > kill["first_push_t"]]
+    summaries = master.evaluation_service.completed_summaries
+    final = summaries[-1] if summaries else (None, {})
+    saves = logs[0]["saves"] + logs[1]["saves"] + logs[2]["saves"]
+    by_kind = {}
+    for _, kind, rows, _, _, secs in saves:
+        entry = by_kind.setdefault(kind, {"saves": 0, "seconds": [],
+                                          "rows": []})
+        entry["saves"] += 1
+        entry["seconds"].append(secs)
+        entry["rows"].append(rows)
+    flush = {"rows": sum(len(r) for r in flushes.rows.values()),
+             "reads": flushes.reads,
+             "tables": {k: len(r) for k, r in flushes.rows.items()},
+             "mismatched": flushes.mismatched()}
+    drained = []
+    for ps_id, entry in ((0, logs[0]), (1, logs[2])):
+        cadence = (entry["exit_version"] // ckpt_steps * ckpt_steps
+                   if entry["exit_version"] is not None else None)
+        last = (verified_save(np, entry["last_file"])
+                if entry["last_file"] else None)
+        drained.append({"ps": ps_id, "exit_version": entry["exit_version"],
+                        "last_cadence_version": cadence,
+                        "last_file": entry["last_file"],
+                        "last_file_version": last,
+                        "ok": last is not None and last == cadence})
+    record = {
+        "restart": "result", "card": card, "master_rc": result.get("rc"),
+        "job_failed": dispatcher.job_failed(), "job_wall_s": job_s,
+        "dataset_records": records, "files": files,
+        "done_training_records": sum(e - s for _, s, e in done),
+        "done_ranges_repeated": len(done) - len(set(done)),
+        "checkpoint_steps": ckpt_steps,
+        "saves_by_kind": {k: {"saves": v["saves"],
+                              "seconds_median": float(np.median(v["seconds"])),
+                              "seconds_max": max(v["seconds"]),
+                              "rows_median": float(np.median(v["rows"])),
+                              "rows_max": max(v["rows"])}
+                          for k, v in by_kind.items()},
+        "saves": {"ps0": logs[0]["saves"], "ps1_before_kill": logs[1]["saves"],
+                  "ps1_relaunched": logs[2]["saves"]},
+        "chain_at_kill": kill.get("chain"),
+        "version_at_kill": kill.get("version"),
+        "restored_version": restored,
+        "versions_lost": (kill["version"] - restored
+                          if restored is not None else None),
+        "restore_rows": restore[1] if restore else None,
+        "restore_s": restore[2] if restore else None,
+        "kill_to_serving_s": serving_s,
+        "kill_to_first_push_s": kill["first_push_t"] - kill["t"],
+        "first_push_after_kill": kill.get("first_push"),
+        "resyncs": [[s, t - kill["t"]] for s, t in resyncs],
+        "shard1_stamp": shard1_stamp,
+        "tier_flush": flush, "tier_epoch": dtier.epoch,
+        "worker0_steps": len(steps),
+        "worker0_steps_per_s_before_kill": (len(before) / sum(before)
+                                            if before else None),
+        "worker0_steps_per_s_after_restore": (len(after) / sum(after)
+                                              if after else None),
+        "worker0_step_ms_median_before_after": [
+            float(np.median(before)) * 1e3 if before else None,
+            float(np.median(after)) * 1e3 if after else None],
+        "all_finite": bool(np.isfinite(losses).all()) if losses else False,
+        "launches": launches,
+        "launches_per_step": {k: v / max(len(steps), 1)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": counts["bad_steps"][:5],
+        "row_reads": counts["reads"][0],
+        "evaluations": [[v, s] for v, s in summaries],
+        "final_auc": final[1].get("auc"), "auc_floor": JOB_AUC_FLOOR,
+        "shard1_version_worker0": shard1_version,
+        "ps_exit_codes": ps_codes, "ps_exit_after_master_s": ps_exit_s,
+        "checkpoints_drained": drained,
+    }
+    log(json.dumps(record))
+    failures = []
+    if restored is None or restored < 1 or restored < kill["chain"][2]:
+        failures.append("PS 1 restored %s (newest chain at the kill %s)"
+                        % (restored, kill["chain"]))
+    if shard1_stamp != (restored + 1 if restored is not None else None):
+        failures.append("worker 0 holds shard 1's stamp %s, not %s + 1"
+                        % (shard1_stamp, restored))
+    if [s for s, _ in resyncs] != [1]:
+        failures.append("resync hook fired for shards %s, not once for 1"
+                        % [s for s, _ in resyncs])
+    tables = len(dtier._tables)
+    if (flush["rows"] <= 0 or flush["reads"] != tables
+            or len(flush["tables"]) != tables or flush["mismatched"]):
+        failures.append("restart flush: %s (want rows > 0, %d K1 reads, "
+                        "every table's rows served back bit for bit)"
+                        % (flush, tables))
+    if counts["bad_steps"] or min(launches.values()) <= 0:
+        failures.append("worker 0's K1-K3 launches do not follow the "
+                        "path: %s" % counts["bad_steps"][:5])
+    if (result.get("rc") != 0 or dispatcher.job_failed()
+            or record["done_training_records"] != records
+            or record["done_ranges_repeated"]):
+        failures.append("master rc %s, job failed %s, %d of %d records "
+                        "done, %d ranges repeated" % (
+                            result.get("rc"), dispatcher.job_failed(),
+                            record["done_training_records"], records,
+                            record["done_ranges_repeated"]))
+    if not record["all_finite"] or runner.is_alive():
+        failures.append("worker 0: losses finite %s, still running %s"
+                        % (record["all_finite"], runner.is_alive()))
+    if final[1].get("auc") is None or not final[1]["auc"] >= JOB_AUC_FLOOR:
+        failures.append("final AUC %s < %s" % (final[1].get("auc"),
+                                                JOB_AUC_FLOOR))
+    if shard1_version is None or shard1_version != logs[2]["exit_version"]:
+        failures.append("worker 0's version for shard 1 %s != PS 1's %s"
+                        % (shard1_version, logs[2]["exit_version"]))
+    if ps_codes != [0, 0] or ps_exit_s > JOB_PS_GONE_WAIT_S:
+        failures.append("PS exit codes %s after %.1f s" % (ps_codes,
+                                                           ps_exit_s))
+    if not all(d["ok"] for d in drained):
+        failures.append("a checkpoint thread did not drain: %s" % drained)
+    if failures:
+        raise SystemExit("restart phase: " + "; ".join(failures))
     return record
 
 
@@ -3235,13 +3748,14 @@ def kernel_entry(name, source, replaces, launches, case, kind):
 
 
 def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
-                      job):
+                      job, restart):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
     optimizer), launches from the sparse train path's main run (and,
-    beside them, from the stream phase's tier rung and from worker 0 of
-    the job phase), and the deepfm_linear (d 1) time beside; K3's
-    all-hits times too."""
+    beside them, from the stream phase's tier rung, from worker 0 of
+    the job phase and from worker 0 of the PS-restart phase, K1 with
+    the restart flush's reads named), and the deepfm_linear (d 1) time
+    beside; K3's all-hits times too."""
     emb = tier_cases[kind]["deepfm_emb"]
     lin = tier_cases[kind]["deepfm_linear"]
     if kind == "scatter_apply":
@@ -3254,6 +3768,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
         "launches_stream": stream["launches"][kind],
         "launches_job": job["launches"][kind],
         "launches_per_step_job": job["launches_per_step"][kind],
+        "launches_restart": restart["launches"][kind],
+        "launches_per_step_restart": restart["launches_per_step"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -3266,6 +3782,7 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
         if key in emb:
             entry[key] = emb[key]
     if kind == "gather":
+        entry["launches_restart_flush"] = restart["tier_flush"]["reads"]
         # the staging chunk's chain (K1 -> K2 -> K1) at d 8: median
         # device span by events and by the profiler, with programmatic
         # dependent launch and serial, in turns
@@ -3322,7 +3839,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-9 and the last lines (see the module docstring)."""
+    """Phases 1-10 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -3378,6 +3895,7 @@ def run_phases(torch, np, job_dir, data_proc):
             raise SystemExit("the job's data was not written (exit %d)"
                              % data_proc.returncode)
         job = job_phase(torch, np, tier, job_dir, data_written=True)
+        restart = ps_restart_phase(torch, np, tier, job_dir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3400,13 +3918,16 @@ def run_phases(torch, np, job_dir, data_proc):
                      launches["dkv"], bwd_cases[main_case], "dkv"),
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
-                          "gather", tier_cases, sparse, stream, job),
+                          "gather", tier_cases, sparse, stream, job,
+                          restart),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
-                          "insert_rows", tier_cases, sparse, stream, job),
+                          "insert_rows", tier_cases, sparse, stream, job,
+                          restart),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
-                          "scatter_apply", tier_cases, sparse, stream, job),
+                          "scatter_apply", tier_cases, sparse, stream, job,
+                          restart),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -37,8 +37,13 @@ them to the wire dtype. The numpy store has no such entry points; the
 servicer serves it through ``lookup``/``push_gradients``/
 ``import_table`` with the same values.
 
-Not ported yet: the dirty-row and drop entry points and both stores'
-incremental-checkpoint bookkeeping (dirty and dead id sets).
+Both stores keep the incremental-checkpoint bookkeeping that
+``ps/checkpoint.py`` reads: per table, the ids materialised or changed
+since the last dirty export (the dirty set) and the ids dropped since
+then (the dead set, replayed as tombstones). A drop moves an id from
+dirty to dead; a re-materialisation moves it back. ``export_table_dirty``
+snapshots both sets and clears them in one step, rows in ascending id
+order, bit for bit the same from either store.
 """
 
 import ctypes
@@ -213,6 +218,17 @@ _NATIVE_FUNCTIONS = {
     "edl_store_bump_version": ([_VP], None),
     "edl_store_export_full": ([_VP, _CHAR, _I64P, _F32P, _I64P, _I64],
                               _I64),
+    # incremental checkpoints and row drops
+    "edl_store_set_version": ([_VP, _I64], None),
+    "edl_store_export": ([_VP, _CHAR, _I64P, _F32P, _I64], _I64),
+    "edl_store_import_full": ([_VP, _CHAR, _I64P, _F32P, _I64P, _I64, _I64,
+                               _INT, _INT], _INT),
+    "edl_store_drop_rows": ([_VP, _CHAR, _I64P, _I64], _I64),
+    "edl_store_drop_table": ([_VP, _CHAR], _INT),
+    "edl_store_dirty_count": ([_VP, _CHAR], _I64),
+    "edl_store_export_dirty": ([_VP, _CHAR, _I64P, _F32P, _I64P, _I64P,
+                                _I64, _I64, _I64P, _INT], _I64),
+    "edl_store_clear_dirty": ([_VP, _CHAR], _INT),
 }
 
 
@@ -362,14 +378,16 @@ class NativeEmbeddingStore:
         if rc != 0:
             raise KeyError(name)
 
-    def import_table(self, name, ids, values):
-        """Raw row overwrite (device-tier writeback); a row not yet
-        materialised is initialised first, as in the numpy store."""
+    def import_table(self, name, ids, values, shard_id=0, shard_num=0):
+        """Raw row overwrite (device-tier writeback, weights-only
+        restore); a row not yet materialised is initialised first, as in
+        the numpy store. With ``shard_num`` > 0 only ids with id %
+        shard_num == shard_id are kept."""
         ids = _as_i64(ids)
         values = _as_f32(values)
         rc = self._lib.edl_store_import(self._handle, name.encode(),
                                         _i64_ptr(ids), _f32_ptr(values),
-                                        ids.size, 0, 0)
+                                        ids.size, shard_id, shard_num)
         if rc != 0:
             raise KeyError(name)
 
@@ -484,6 +502,111 @@ class NativeEmbeddingStore:
         )
         return ids[:got], rows[:got], steps[:got]
 
+    def table_slots(self, name):
+        n = self._lib.edl_store_table_slots(self._handle, name.encode())
+        if n < 0:
+            raise KeyError(name)
+        return int(n)
+
+    def set_version(self, version):
+        """Re-anchor the version clock (checkpoint auto-restore)."""
+        self._lib.edl_store_set_version(self._handle, int(version))
+
+    def export_table(self, name):
+        """``(ids, weights [n, dim])`` in the hash map's order."""
+        count = self._lib.edl_store_export(self._handle, name.encode(),
+                                           None, None, 0)
+        if count < 0:
+            raise KeyError(name)
+        ids = np.empty((count,), np.int64)
+        values = np.empty((count, self._dims[name]), np.float32)
+        got = self._lib.edl_store_export(self._handle, name.encode(),
+                                         _i64_ptr(ids), _f32_ptr(values),
+                                         count)
+        return ids[:got], values[:got]
+
+    def import_table_full(self, name, ids, rows, steps, shard_id=0,
+                          shard_num=0):
+        """Inverse of ``export_table_full``. Rows of another width (the
+        optimizer changed between save and restore) import their
+        weights only; rows narrower than the table's dim raise."""
+        ids = _as_i64(ids)
+        rows = _as_f32(rows)
+        steps = _as_i64(steps)
+        rc = self._lib.edl_store_import_full(
+            self._handle, name.encode(), _i64_ptr(ids), _f32_ptr(rows),
+            _i64_ptr(steps), ids.size, rows.shape[1] if rows.ndim == 2 else 0,
+            shard_id, shard_num,
+        )
+        if rc == -2:
+            raise ValueError(
+                "import_table_full: rows must be [n, (1+slots)*dim] = "
+                "[n, %d] for table %r"
+                % (self._dims[name] * (1 + self.table_slots(name)), name))
+        if rc != 0:
+            raise KeyError(name)
+
+    def drop_rows(self, name, ids):
+        """Delete rows (weights, slots and step counts), so a re-admitted
+        id starts from the initializer. Absent ids are not an error;
+        returns the number of rows dropped."""
+        ids = _as_i64(ids)
+        dropped = self._lib.edl_store_drop_rows(self._handle, name.encode(),
+                                                _i64_ptr(ids), ids.size)
+        if dropped < 0:
+            raise KeyError(name)
+        return int(dropped)
+
+    def drop_table(self, name):
+        """Drop a whole table (administrative: quiesce its traffic
+        first)."""
+        if self._lib.edl_store_drop_table(self._handle, name.encode()) != 0:
+            raise KeyError(name)
+        self._dims.pop(name, None)
+
+    def dirty_count(self, name):
+        """Rows a dirty export would carry now."""
+        n = self._lib.edl_store_dirty_count(self._handle, name.encode())
+        if n < 0:
+            raise KeyError(name)
+        return int(n)
+
+    def export_table_dirty(self, name, clear=True):
+        """Snapshot-and-clear of the dirty and dead sets in one
+        GIL-released call under the table's lock: ``(ids ascending,
+        rows [n, dim * (1 + slots)], steps, dead ids ascending)``. Rows
+        dirtied between the sizing probe and the fill beyond the slack
+        make the fill return -3, and it probes again."""
+        row_floats = self._dims[name] * (1 + self.table_slots(name))
+        dead_count = ctypes.c_int64(0)
+        while True:
+            count = self._lib.edl_store_export_dirty(
+                self._handle, name.encode(), None, None, None, None, 0, 0,
+                ctypes.byref(dead_count), 0)
+            if count < 0:
+                raise KeyError(name)
+            cap, dead_cap = int(count) + 1024, int(dead_count.value) + 1024
+            ids = np.empty((cap,), np.int64)
+            rows = np.empty((cap, row_floats), np.float32)
+            steps = np.empty((cap,), np.int64)
+            dead = np.empty((dead_cap,), np.int64)
+            got = self._lib.edl_store_export_dirty(
+                self._handle, name.encode(), _i64_ptr(ids), _f32_ptr(rows),
+                _i64_ptr(steps), _i64_ptr(dead), cap, dead_cap,
+                ctypes.byref(dead_count), 1 if clear else 0)
+            if got == -3:
+                continue
+            if got < 0:
+                raise KeyError(name)
+            return (ids[:got], rows[:got], steps[:got],
+                    dead[:int(dead_count.value)])
+
+    def clear_dirty(self, name):
+        """Forget the dirty and dead sets (before a full base export,
+        which carries the complete state)."""
+        if self._lib.edl_store_clear_dirty(self._handle, name.encode()) != 0:
+            raise KeyError(name)
+
 
 class NumpyEmbeddingStore:
     """In-process embedding tables with lazy row init and sparse
@@ -497,6 +620,11 @@ class NumpyEmbeddingStore:
         self._tables = {}  # name -> {id: weight row}
         self._slots = {}  # name -> {id: slot array [slots, dim]}
         self._steps = {}  # name -> {id: step count}
+        # incremental-checkpoint bookkeeping: ids materialised or
+        # changed since the last dirty export, and ids dropped since
+        # then; a subset of the resident ids and its complement
+        self._dirty = {}  # name -> set(id)
+        self._dead = {}  # name -> set(id)
         self._meta = {}  # name -> (dim, init_scale, initializer)
         self._opt = ("sgd", dict(OPTIMIZER_DEFAULTS))
         self._lock = threading.Lock()
@@ -535,6 +663,8 @@ class NumpyEmbeddingStore:
             self._tables[name] = {}
             self._slots[name] = {}
             self._steps[name] = {}
+            self._dirty[name] = set()
+            self._dead[name] = set()
 
     def _table_rng_locked(self, name):
         rng = self._rngs.get(name)
@@ -574,6 +704,9 @@ class NumpyEmbeddingStore:
                 (n_slots, dim), dtype=np.float32
             )
             self._steps[name][id_] = 0
+            # a lazy init is a change the next delta must carry
+            self._dirty[name].add(id_)
+            self._dead[name].discard(id_)
         return table[id_]
 
     def lookup(self, name, ids):
@@ -599,8 +732,10 @@ class NumpyEmbeddingStore:
                 self._apply_unique_locked(name, ids, grads, opt_type,
                                           args, lr)
                 return
+            dirty = self._dirty[name]
             for i, grad in zip(ids, grads):
                 i = int(i)
+                dirty.add(i)
                 w = self._row_locked(name, i)
                 slots = self._slots[name][i]
                 self._steps[name][i] += 1
@@ -637,6 +772,7 @@ class NumpyEmbeddingStore:
         once, scatter back. Caller holds the lock and guarantees the
         ids are unique."""
         id_list = [int(i) for i in ids]
+        self._dirty[name].update(id_list)
         # gather in input order: lazy row init draws from the per-table
         # RNG stream, so creation order must match the per-id path
         rows = [self._row_locked(name, i) for i in id_list]
@@ -690,9 +826,44 @@ class NumpyEmbeddingStore:
         for k, row in enumerate(rows):
             row[:] = w[k]
 
+    def drop_rows(self, name, ids):
+        """Delete rows (weights, slots and step counts), so a re-admitted
+        id starts from the initializer; a dropped id moves from the
+        dirty set to the dead set. Returns the number of rows
+        dropped."""
+        if name not in self._meta:
+            raise KeyError(name)
+        dropped = 0
+        with self._lock:
+            table, dirty, dead = (self._tables[name], self._dirty[name],
+                                  self._dead[name])
+            for i in ids:
+                i = int(i)
+                if table.pop(i, None) is not None:
+                    dropped += 1
+                    dirty.discard(i)
+                    dead.add(i)
+                self._slots[name].pop(i, None)
+                self._steps[name].pop(i, None)
+        return dropped
+
+    def drop_table(self, name):
+        if name not in self._meta:
+            raise KeyError(name)
+        with self._lock:
+            for per_table in (self._meta, self._tables, self._slots,
+                              self._steps, self._dirty, self._dead,
+                              self._rngs):
+                per_table.pop(name, None)
+
     def bump_version(self):
         with self._lock:
             self.version += 1
+
+    def set_version(self, version):
+        """Re-anchor the version clock (checkpoint auto-restore)."""
+        with self._lock:
+            self.version = int(version)
 
     def table_size(self, name):
         with self._lock:
@@ -708,12 +879,34 @@ class NumpyEmbeddingStore:
     def opt_type(self):
         return self._opt[0]
 
-    def import_table(self, name, ids, values):
-        """Raw row overwrite (device-tier writeback); a row not yet
-        materialised is initialised first, as in the reference."""
+    def table_slots(self, name):
+        if name not in self._meta:
+            raise KeyError(name)
+        return OPT_SLOT_COUNTS[self._opt[0]]
+
+    def export_table(self, name):
+        """``(ids, weights [n, dim])`` in creation order."""
         with self._lock:
+            table = self._tables[name]
+            if not table:
+                return (np.empty((0,), np.int64),
+                        np.empty((0, self._meta[name][0]), np.float32))
+            ids = np.fromiter(table.keys(), dtype=np.int64, count=len(table))
+            return ids, np.stack([table[int(i)] for i in ids])
+
+    def import_table(self, name, ids, values, shard_id=0, shard_num=0):
+        """Raw row overwrite (device-tier writeback, weights-only
+        restore); a row not yet materialised is initialised first, as in
+        the reference. With ``shard_num`` > 0 only ids with id %
+        shard_num == shard_id are kept."""
+        with self._lock:
+            dirty = self._dirty[name]
             for i, row in zip(ids, values):
-                self._row_locked(name, int(i))[:] = row
+                i = int(i)
+                if shard_num > 0 and i % shard_num != shard_id:
+                    continue
+                self._row_locked(name, i)[:] = row
+                dirty.add(i)
 
     def export_table_full(self, name):
         """``(ids, rows [n, dim * (1 + slots)], steps)``: each row's
@@ -739,6 +932,73 @@ class NumpyEmbeddingStore:
                 [self._steps[name][int(i)] for i in ids], np.int64
             )
             return ids, rows, steps
+
+    def import_table_full(self, name, ids, rows, steps, shard_id=0,
+                          shard_num=0):
+        """Inverse of ``export_table_full``. Rows of another width (the
+        optimizer changed between save and restore) import their
+        weights only."""
+        dim = self._meta[name][0]
+        slots = self.table_slots(name)
+        rows = np.asarray(rows, np.float32)
+        exact = rows.ndim == 2 and rows.shape[1] == dim * (1 + slots)
+        with self._lock:
+            dirty = self._dirty[name]
+            for idx, i in enumerate(ids):
+                i = int(i)
+                if shard_num > 0 and i % shard_num != shard_id:
+                    continue
+                self._row_locked(name, i)[:] = rows[idx][:dim]
+                dirty.add(i)
+                if exact:
+                    self._slots[name][i][:] = rows[idx][dim:].reshape(
+                        slots, dim)
+                    self._steps[name][i] = int(steps[idx])
+
+    def dirty_count(self, name):
+        """Rows a dirty export would carry now."""
+        if name not in self._meta:
+            raise KeyError(name)
+        with self._lock:
+            return len(self._dirty[name])
+
+    def export_table_dirty(self, name, clear=True):
+        """Snapshot-and-clear of the dirty and dead sets under the store
+        lock: ``(ids ascending, rows [n, dim * (1 + slots)], steps, dead
+        ids ascending)``, bit for bit the native store's export."""
+        if name not in self._meta:
+            raise KeyError(name)
+        with self._lock:
+            dim = self._meta[name][0]
+            row_floats = dim * (1 + self.table_slots(name))
+            dirty = sorted(self._dirty[name])
+            dead = np.asarray(sorted(self._dead[name]), np.int64)
+            if dirty:
+                table, slot_map = self._tables[name], self._slots[name]
+                ids = np.asarray(dirty, np.int64)
+                rows = np.stack([
+                    np.concatenate([table[i]] + list(slot_map[i]))
+                    for i in dirty
+                ]).astype(np.float32, copy=False)
+                steps = np.asarray([self._steps[name][i] for i in dirty],
+                                   np.int64)
+            else:
+                ids = np.empty((0,), np.int64)
+                rows = np.empty((0, row_floats), np.float32)
+                steps = np.empty((0,), np.int64)
+            if clear:
+                self._dirty[name] = set()
+                self._dead[name] = set()
+            return ids, rows, steps, dead
+
+    def clear_dirty(self, name):
+        """Forget the dirty and dead sets (before a full base export,
+        which carries the complete state)."""
+        if name not in self._meta:
+            raise KeyError(name)
+        with self._lock:
+            self._dirty[name] = set()
+            self._dead[name] = set()
 
 
 def create_store(seed=0, prefer_native=True):

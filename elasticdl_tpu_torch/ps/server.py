@@ -7,7 +7,20 @@ reference, which runs it with ``JAX_PLATFORMS=cpu``.
 
     python -m elasticdl_tpu_torch.ps.server --ps_id 0 --num_ps_pods 2 \\
         --port 50002 --opt_type adam --opt_args lr=0.001 \\
-        [--master_addr host:port]
+        [--master_addr host:port] [--checkpoint_dir DIR \\
+        --checkpoint_steps N [--keep_checkpoint_max 3]] \\
+        [--checkpoint_dir_for_init DIR]
+
+Checkpoints (ps/checkpoint.py): with ``--checkpoint_dir`` the PS saves
+its shard every ``--checkpoint_steps`` versions (a full base, then
+deltas of the changed rows), keeping ``--keep_checkpoint_max`` chains.
+At boot it restores by itself: ``--checkpoint_dir_for_init`` if given
+(warm start from another job's directory), else the newest complete
+checkpoint in ``--checkpoint_dir``. The store's version clock is set to
+the restored version, and every push and pull response carries it, so a
+worker sees a relaunched PS and resyncs. A SIGKILLed PS relaunched with
+the same flags therefore loses only the versions after its newest
+checkpoint.
 
 With ``--master_addr`` the PS follows the master: it polls
 ``get_comm_info`` every 5 seconds (at most half the grace), and once
@@ -16,12 +29,14 @@ enough to ride out a master relaunch) it stops serving and exits 0.
 Without it, it serves until it is stopped.
 
 SIGTERM drains: the server stops taking RPCs, a buffered partial sync
-round is applied (``PserverServicer.graceful_stop``) and the process
-exits 0.
+round is applied and a final full checkpoint saved
+(``PserverServicer.graceful_stop``), and the process exits 0. The
+master-gone exit and the end of a masterless run drain the checkpoint
+thread first.
 
-Not ported (ROADMAP): the checkpoint flags and auto-restore, the
-version reports to the master, the lifecycle sweep,
-``--metrics_port`` and the events journal.
+Not ported (ROADMAP): the version reports to the master, the lifecycle
+sweep, the stream checkpoint, ``--metrics_port`` and the events
+journal.
 """
 
 import argparse
@@ -37,6 +52,7 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.proto.services import add_pserver_servicer_to_server
+from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
 from elasticdl_tpu_torch.ps.embedding_store import create_store
 from elasticdl_tpu_torch.ps.servicer import PserverServicer
 from elasticdl_tpu_torch.train.optimizers import parse_opt_args
@@ -54,6 +70,10 @@ def parse_ps_args(argv=None):
     parser.add_argument(
         "--opt_args", default="", help="k=v;k=v (e.g. lr=0.01;momentum=0.9)"
     )
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=int, default=0)
+    parser.add_argument("--keep_checkpoint_max", type=int, default=3)
+    parser.add_argument("--checkpoint_dir_for_init", default="")
     parser.add_argument("--use_native_store", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
     # sync-SGD controls
@@ -103,13 +123,43 @@ class ParameterServer:
             k: float(v) for k, v in parse_opt_args(args.opt_args).items()
         }
         self.store.set_optimizer(args.opt_type, **opt_args)
+        saver = None
+        if args.checkpoint_dir:
+            saver = SparseCheckpointSaver(
+                args.checkpoint_dir, shard_id=args.ps_id,
+                shard_num=args.num_ps_pods,
+                keep_max=args.keep_checkpoint_max)
+        # restore by itself: the explicit init directory wins, else the
+        # newest complete checkpoint of this PS's own directory
+        self.restored_version = None
+        restore_t0 = time.monotonic()
+        if args.checkpoint_dir_for_init:
+            self.restored_version = SparseCheckpointSaver(
+                args.checkpoint_dir_for_init, shard_id=args.ps_id,
+                shard_num=args.num_ps_pods).restore(self.store)
+        elif saver is not None:
+            self.restored_version = saver.restore(self.store)
+        if self.restored_version is not None:
+            # the version clock restarts at the checkpoint, so staleness
+            # checks and the workers' version accounting line up with
+            # the restored state
+            self.store.set_version(self.restored_version)
+            logger.info(
+                "PS %d auto-restored checkpoint version %d (%d rows, "
+                "%.3f s)", args.ps_id, self.restored_version,
+                sum(self.store.table_size(name)
+                    for name in self.store.table_names()),
+                time.monotonic() - restore_t0)
         self.servicer = PserverServicer(
             self.store,
             ps_id=args.ps_id,
+            checkpoint_saver=saver,
+            checkpoint_steps=args.checkpoint_steps,
             use_async=bool(args.use_async),
             grads_to_wait=args.grads_to_wait,
             sync_version_tolerance=args.sync_version_tolerance,
             staleness_modulation=bool(args.lr_staleness_modulation),
+            restored_version=self.restored_version,
         )
         self._master_client = None
         if args.master_addr:
@@ -190,7 +240,8 @@ class ParameterServer:
 
     def _finish_term(self):
         """The SIGTERM drain: stop taking RPCs (in-flight handlers
-        finish), apply a buffered partial round, exit 0."""
+        finish), apply a buffered partial round, save the final full
+        checkpoint, exit 0."""
         try:
             self.server.stop(grace=1.0).wait()
         except Exception:
@@ -226,12 +277,16 @@ class ParameterServer:
             if gone_since is None:
                 gone_since = polled_at
             if time.monotonic() - gone_since >= gone_secs:
-                logger.info("Master gone; PS %d exiting", self.args.ps_id)
                 self.server.stop(grace=1.0).wait()
+                logger.info("Master gone; PS %d exiting at store version "
+                            "%d", self.args.ps_id, self.store.version)
                 break
         if self._master_client is not None:
             self._master_client.close()
         self._cleanup_uds()
+        # an orderly exit: an enqueued save lands before the process
+        # ends, or a relaunch restores without the last pushes
+        self.servicer.finish_checkpoints()
         return 0
 
 

@@ -17,8 +17,17 @@ What it serves, host side:
 - admission control: past ``EDL_PS_MAX_PENDING_APPLIES`` in-flight
   applies an RPC is answered RESOURCE_EXHAUSTED with a retry-after
   hint;
-- ``graceful_stop``, the SIGTERM drain: apply a buffered partial round
-  and refuse later pushes.
+- sparse checkpoints: with a ``checkpoint_saver`` (ps/checkpoint.py),
+  every ``checkpoint_steps``-th version bump requests a save, which a
+  checkpoint thread takes off the push path (``EDL_CKPT_ASYNC=0``: the
+  push handler saves inline); ``finish_checkpoints`` drains that thread
+  on an orderly exit;
+- the boot-restore stamp: a PS that restored checkpoint version ``v``
+  answers pushes and pulls with ``restored_version = v + 1`` (0: it
+  restored nothing), so a worker sees the relaunch;
+- ``graceful_stop``, the SIGTERM drain: apply a buffered partial round,
+  refuse later pushes and save a final full checkpoint, which
+  supersedes any pending delta.
 
 With a native store (one that has ``lookup_blob``,
 ``push_gradients_blob`` and ``import_blob``) a packed payload goes
@@ -26,10 +35,11 @@ through one GIL-released C call per table; anything else (the numpy
 store, legacy repeated ids, another dtype) goes through numpy with the
 same values, bit for bit.
 
-Not ported (ROADMAP): sparse checkpoints and their auto-restore (and so
-the ``restored_version`` stamp, which stays 0), the embedding lifecycle,
-the table-health scan, ``telemetry_blob``, the metrics series and
-events journal, the master's version reports and fault injection.
+Not ported (ROADMAP): the stream checkpoint
+(``maybe_stream_checkpoint``), the checkpoint metrics series and
+events, the embedding lifecycle, the table-health scan,
+``telemetry_blob``, the other metrics series and the events journal,
+the master's version reports and fault injection.
 """
 
 import concurrent.futures
@@ -55,6 +65,7 @@ from elasticdl_tpu_torch.common.tensor_utils import (
     wire_dtype_name,
 )
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+from elasticdl_tpu_torch.ps.checkpoint import AsyncCheckpointer
 from elasticdl_tpu_torch.ps.embedding_store import (
     BLOB_DTYPE_CODES,
     BLOB_ITEMSIZE,
@@ -69,6 +80,9 @@ APPLY_THREADS_ENV = "EDL_PS_APPLY_THREADS"
 # admission control: apply-backlog depth past which push/pull RPCs are
 # answered RESOURCE_EXHAUSTED with a retry-after hint; 0 disables
 MAX_PENDING_APPLIES_ENV = "EDL_PS_MAX_PENDING_APPLIES"
+# 1 (default): a push handler only enqueues a checkpoint request and a
+# checkpoint thread saves; 0: the handler saves inline
+CKPT_ASYNC_ENV = "EDL_CKPT_ASYNC"
 
 # packed-id blobs are little-endian; the native fast paths read them as
 # host int64, so they are only taken on little-endian hosts
@@ -103,11 +117,24 @@ def _blob_fast_path_ok(store, name, slices):
 
 class PserverServicer:
     def __init__(self, store, ps_id=0, staleness_modulation=True,
-                 use_async=True, grads_to_wait=1, sync_version_tolerance=0):
+                 checkpoint_saver=None, checkpoint_steps=0, use_async=True,
+                 grads_to_wait=1, sync_version_tolerance=0,
+                 restored_version=None):
         """``use_async`` defaults to True for the bare constructor;
-        the server entry point passes its flag (default sync)."""
+        the server entry point passes its flag (default sync).
+        ``restored_version`` is the checkpoint version the PS restored
+        at boot (None: none)."""
         self._store = store
         self._ps_id = ps_id
+        # wire encoding of the boot restore: version + 1, 0 = none
+        self._restored_wire = (int(restored_version) + 1
+                               if restored_version is not None else 0)
+        self._checkpoint_saver = checkpoint_saver
+        self._checkpoint_steps = checkpoint_steps
+        self._ckpt_async = None
+        if checkpoint_saver is not None and env_int(CKPT_ASYNC_ENV, 1):
+            self._ckpt_async = AsyncCheckpointer(
+                self._save_checkpoint_now, name="ps-%d-ckpt" % ps_id)
         # a misconfigured EDL_WIRE_DTYPE fails at boot, not per pull
         wire_dtype()
         self._native_store = all(
@@ -182,6 +209,11 @@ class PserverServicer:
                 info.name, info.dim, init_scale=param, initializer=kind
             )
 
+    def _stamp(self, response):
+        """Stamp the boot-restore marker on a push or pull response."""
+        response.restored_version = self._restored_wire
+        return response
+
     def _buffered_count(self):
         # racy read: list lengths are snapshots
         return len(self._round_buffer) + sum(
@@ -190,7 +222,7 @@ class PserverServicer:
 
     # ------------------------------------------------------------------
     def pull_dense_parameters(self, request, context=None):
-        response = pb.PullDenseParametersResponse()
+        response = self._stamp(pb.PullDenseParametersResponse())
         with self._lock:
             response.initialized = self._dense_initialized
             response.version = self._dense_version
@@ -232,7 +264,7 @@ class PserverServicer:
         """Fused multi-table pull: one RPC serves every table's rows for
         this shard, each aligned with its request's id order."""
         self._admit_or_abort(context, "pull_embedding_batch")
-        response = pb.PullEmbeddingBatchResponse()
+        response = self._stamp(pb.PullEmbeddingBatchResponse())
         for name, slices in request.tables.items():
             self._pull_table(name, unpack_ids(slices), response.tables[name])
         return response
@@ -300,10 +332,11 @@ class PserverServicer:
 
     def _push_gradients_admitted(self, request):
         if self._stopped:
-            # the SIGTERM drain flushed the round buffer: an update
-            # admitted now would be acknowledged yet lost
-            return pb.PushGradientsResponse(
-                accepted=False, version=self._store.version)
+            # the SIGTERM drain flushed the round buffer and saves the
+            # final checkpoint: an update admitted now would be
+            # acknowledged yet missing from what the successor restores
+            return self._stamp(pb.PushGradientsResponse(
+                accepted=False, version=self._store.version))
         if not self._use_async:
             return self._push_gradients_sync(request)
         grad_version = request.gradients.version
@@ -316,8 +349,10 @@ class PserverServicer:
         self._apply_tables(request.gradients.embedding_tables.items(),
                            lr_scale)
         self._store.bump_version()
-        return pb.PushGradientsResponse(accepted=True,
-                                        version=self._store.version)
+        version = self._store.version
+        self._maybe_checkpoint(version)
+        return self._stamp(pb.PushGradientsResponse(accepted=True,
+                                                    version=version))
 
     def _apply_tables(self, items, lr_scale):
         """Apply every table's pushed gradients, across the
@@ -357,9 +392,10 @@ class PserverServicer:
         update the tier applied on the card). Existing rows keep their
         optimizer slots; unseen rows materialize fresh."""
         if self._stopped:
-            # SIGTERM drain: refuse, so the client reports the loss
-            return pb.PushGradientsResponse(
-                accepted=False, version=self._store.version)
+            # SIGTERM drain: the final checkpoint would not hold these
+            # rows; refuse, so the client reports the loss
+            return self._stamp(pb.PushGradientsResponse(
+                accepted=False, version=self._store.version))
         for name, slices in request.embedding_tables.items():
             if self._native_store and _blob_fast_path_ok(
                 self._store, name, slices
@@ -373,8 +409,8 @@ class PserverServicer:
                 continue
             values, ids = _deserialize_gradients(slices)
             self._store.import_table(name, ids, values)
-        return pb.PushGradientsResponse(accepted=True,
-                                        version=self._store.version)
+        return self._stamp(pb.PushGradientsResponse(
+            accepted=True, version=self._store.version))
 
     def _push_gradients_sync(self, request):
         """Sync SGD: accumulate grads_to_wait pushes, reject stale ones,
@@ -399,11 +435,11 @@ class PserverServicer:
             if self._stopped:
                 # lost the race against graceful_stop: the buffer this
                 # push would join was already flushed
-                return pb.PushGradientsResponse(accepted=False,
-                                                version=version)
+                return self._stamp(pb.PushGradientsResponse(
+                    accepted=False, version=version))
             if grad_version < version - self._sync_tolerance:
-                return pb.PushGradientsResponse(accepted=False,
-                                                version=version)
+                return self._stamp(pb.PushGradientsResponse(
+                    accepted=False, version=version))
             # lr_scale rides beside the raw grads to the apply (folding
             # it into adam's gradients would be a no-op): the round
             # applies at the mean of its pushes' scales
@@ -434,8 +470,8 @@ class PserverServicer:
                         "dead incarnation %d (a newer incarnation already "
                         "holds this round)", request.worker_id, incarnation,
                     )
-                    return pb.PushGradientsResponse(accepted=True,
-                                                    version=version)
+                    return self._stamp(pb.PushGradientsResponse(
+                        accepted=True, version=version))
                 for entry in same_worker:
                     self._remove_buffered_locked(entry)
                     logger.warning(
@@ -453,20 +489,22 @@ class PserverServicer:
                     group[:] = [e for e in group if e[0] != key]
                 group.append(entry)
                 if len(group) < self._grads_to_wait:
-                    return pb.PushGradientsResponse(accepted=True,
-                                                    version=version)
+                    return self._stamp(pb.PushGradientsResponse(
+                        accepted=True, version=version))
                 del self._round_groups[grad_version]
                 self._apply_round_locked(group)
             else:
                 self._round_buffer.append(entry)
                 if len(self._round_buffer) < self._grads_to_wait:
-                    return pb.PushGradientsResponse(accepted=True,
-                                                    version=version)
+                    return self._stamp(pb.PushGradientsResponse(
+                        accepted=True, version=version))
                 self._apply_round_locked(self._round_buffer)
                 self._round_buffer = []
             self._store.bump_version()
             version = self._store.version
-        return pb.PushGradientsResponse(accepted=True, version=version)
+        self._maybe_checkpoint(version)
+        return self._stamp(pb.PushGradientsResponse(accepted=True,
+                                                    version=version))
 
     def _buffered_entries(self):
         yield from self._round_buffer
@@ -526,9 +564,10 @@ class PserverServicer:
 
     def graceful_stop(self):
         """SIGTERM drain: apply whatever the round buffer holds (an
-        under-filled round applied beats losing its pushes), then refuse
-        every later push. Idempotent; a failed flush does not stop the
-        exit."""
+        under-filled round applied beats losing its pushes), refuse every
+        later push, then save a final full checkpoint so the successor
+        restores the newest state. Idempotent; a failed flush or save
+        does not stop the exit."""
         with self._push_lock:
             if self._stopped:
                 return
@@ -544,3 +583,55 @@ class PserverServicer:
                     self._store.bump_version()
                 except Exception:
                     logger.exception("partial-round flush failed at SIGTERM")
+            version = self._store.version
+        if self._ckpt_async is not None:
+            # abandon what is pending: the final full save below
+            # supersedes every enqueued delta
+            self._ckpt_async.stop(drain=False)
+        if self._checkpoint_saver is not None:
+            try:
+                self._save_checkpoint_now(version, "sparse_final",
+                                          force_full=True)
+                logger.info("final sparse checkpoint saved at version %d",
+                            version)
+            except Exception:  # the exit goes on
+                logger.exception("final sparse checkpoint failed")
+
+    def _save_checkpoint_now(self, version, kind, force_full=False):
+        """One synchronous save, shared by the inline path, the
+        checkpoint thread and the SIGTERM final save; raises on
+        failure."""
+        start = time.monotonic()
+        result = self._checkpoint_saver.save(version, self._store,
+                                             force_full=force_full)
+        logger.info("checkpoint %s at version %d: %s, %d rows, %d "
+                    "tombstones, chain %d, %.3f s", kind, version,
+                    result.kind, result.rows, result.tombstones,
+                    result.chain_len, time.monotonic() - start)
+
+    def _request_checkpoint(self, version, kind):
+        """Trigger a save at ``version``: enqueue it on the checkpoint
+        thread (bursts coalesce into the newest version), or save inline
+        under EDL_CKPT_ASYNC=0. True when enqueued or saved; a failed
+        inline save logs and returns False (it must never fail the push
+        that tripped the cadence)."""
+        if self._ckpt_async is not None:
+            return self._ckpt_async.request(version, kind)
+        try:
+            self._save_checkpoint_now(version, kind)
+            return True
+        except Exception:
+            logger.exception("sparse checkpoint failed")
+            return False
+
+    def finish_checkpoints(self, timeout=30.0):
+        """Drain the checkpoint thread (orderly exits: an enqueued save
+        must land before the process ends)."""
+        if self._ckpt_async is not None:
+            self._ckpt_async.stop(drain=True, timeout=timeout)
+
+    def _maybe_checkpoint(self, version):
+        if (self._checkpoint_saver is not None
+                and self._checkpoint_steps > 0
+                and version % self._checkpoint_steps == 0):
+            self._request_checkpoint(version, "sparse")

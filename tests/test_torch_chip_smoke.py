@@ -148,3 +148,67 @@ def test_stream_phase_runs_bench_deepfm_configuration():
     assert chip_smoke.SPARSE_BATCH == defaults["batch_size"] == 512
     assert chip_smoke.STREAM_LADDER == ("sequential", "pipelined",
                                         "pipelined_tier")
+
+
+@pytest.fixture
+def counting_tier(monkeypatch):
+    """The tier ops' CPU paths, counting a launch wherever the CUDA
+    wrappers would (a non-empty slot array), so the phases' launch
+    formula can be rehearsed here. The public and fused ops look the
+    private ones up on the module at call time."""
+    from elasticdl_tpu_torch.ops import embedding_tier as tier
+
+    gather, insert, scatter = (tier._gather_merge, tier._insert_rows,
+                               tier.scatter_apply)
+
+    def counted_gather(table, slots, miss_rows, pdl):
+        out, _ = gather(table, slots, miss_rows, pdl)
+        tier.GATHER_LAUNCHES += bool(slots.shape[0])
+        return out, bool(slots.shape[0])
+
+    def counted_insert(state, slots, rows, pdl):
+        insert(state, slots, rows, pdl)
+        tier.SET_ROWS_LAUNCHES += bool(slots.shape[0])
+        return bool(slots.shape[0])
+
+    def counted_scatter(state, slots, *args, **kwargs):
+        out = scatter(state, slots, *args, **kwargs)
+        tier.SCATTER_APPLY_LAUNCHES += bool(slots.shape[0])
+        return out
+
+    monkeypatch.setattr(tier, "_gather_merge", counted_gather)
+    monkeypatch.setattr(tier, "_insert_rows", counted_insert)
+    monkeypatch.setattr(tier, "scatter_apply", counted_scatter)
+    return tier
+
+
+def test_ps_restart_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
+    """Phase 10 end to end on the CPU at a small size (8 fields, batch
+    64, 2 of 4 files of 4096 records: 128 steps; a checkpoint every 8
+    versions, the kill 5 past a base and 2 deltas): every check of the
+    phase holds, and the record carries what the card run prints."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    workdir = str(tmp_path)
+    chip_smoke.job_data(np, workdir, records=16384, valid=2048, fields=8)
+    out = chip_smoke.ps_restart_phase(
+        torch, np, counting_tier, workdir, device="cpu", per_task=1024,
+        batch=64, eval_steps=32, report_version_steps=8, task_timeout_s=5.0,
+        ckpt_steps=8, min_lost=5, card="CPU rehearsal, no card",
+        worker_env=dict(chip_smoke.JOB_WORKER_ENV,
+                        EDL_DEVICE_TIER_ROWS="2048",
+                        EDL_DEVICE_TIER_STAGE="256",
+                        EDL_SPARSE_ID_CAPACITY="512"))
+    base, deltas, newest = out["chain_at_kill"]
+    assert deltas >= 2 and out["version_at_kill"] >= newest + 5
+    assert out["restored_version"] >= newest >= 1
+    assert out["shard1_stamp"] == out["restored_version"] + 1
+    assert [shard for shard, _ in out["resyncs"]] == [1]
+    assert out["tier_flush"]["reads"] == 2 and out["tier_flush"]["rows"] > 0
+    assert out["saves_by_kind"]["full"]["saves"] >= 2
+    assert out["saves_by_kind"]["delta"]["saves"] >= 2
+    assert out["ps_exit_codes"] == [0, 0]
+    assert out["launches"]["gather"] > 0 and not out[
+        "launch_formula_mismatches"]

@@ -310,3 +310,46 @@ def test_job_slice_modules_isolated_and_the_worker_defaults_to_cuda():
     args = parse_worker_args(["--model_zoo", "m", "--master_addr", "a:1",
                               "--worker_id", "0"])
     assert args.device == "cuda"
+
+
+def test_checkpoint_module_isolated_and_a_chain_round_trips_with_jax_blocked(
+        tmp_path):
+    """``ps.checkpoint`` is among the modules imported with JAX blocked
+    above, and with JAX and the JAX package blocked it saves a chain (a
+    full base and a delta with a tombstone) from the native store and
+    restores it into the numpy store bit for bit."""
+    assert "elasticdl_tpu_torch.ps.checkpoint" in _port_modules()
+    code = _BLOCK + r'''
+import numpy as np
+from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
+from elasticdl_tpu_torch.ps.embedding_store import (
+    NativeEmbeddingStore, NumpyEmbeddingStore)
+stores = []
+for cls in (NativeEmbeddingStore, NumpyEmbeddingStore):
+    store = cls(seed=0)
+    store.set_optimizer("adam", lr=0.1)
+    store.create_table("t", 3, initializer="zeros")
+    stores.append(store)
+live, restored = stores
+saver = SparseCheckpointSaver(sys.argv[1], compact_every=4)
+live.push_gradients("t", np.arange(6), np.ones((6, 3), np.float32))
+assert saver.save(1, live).kind == "full"
+live.drop_rows("t", np.array([2]))
+live.push_gradients("t", np.arange(3, 6), np.ones((3, 3), np.float32))
+assert saver.save(2, live).tombstones == 1
+assert SparseCheckpointSaver(sys.argv[1]).restore(restored) == 2
+want, got = live.export_table_full("t"), restored.export_table_full("t")
+order_w, order_g = np.argsort(want[0]), np.argsort(got[0])
+for w, g in zip(want, got):
+    assert np.array_equal(w[order_w], g[order_g])
+assert 2 not in got[0]
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("checkpoint ok")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "ckpt")],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "checkpoint ok"
