@@ -144,7 +144,38 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    and power limit, the saves by kind (seconds, rows), the restore's
    seconds and rows, the kill to serving and to the first accepted
    push, the versions lost, the rows flushed, worker 0's steps/s before
-   and after the kill and the job's wall time.
+   and after the kill and the job's wall time;
+11. the job's artifact -- phase 9's job over one of its training files
+   (49,152 records, 6 tasks, 96 steps) with worker 0 alone in this
+   process (``--checkpoint_dir``, ``--checkpoint_steps 32``,
+   ``--keep_checkpoint_max 2``), its K1-K3 launches counted at every
+   step and at every flush barrier; two PS with phase 10's flags (one
+   ``--checkpoint_dir``); the master with ``--output``, evaluating once
+   at the final version. The PS stop on SIGTERM after the job (a final
+   full checkpoint each) and are relaunched with
+   ``--checkpoint_dir_for_init`` on held ports; an evaluation-only job
+   and a prediction-only job (``models/deepfm_predictions.py`` writes
+   the outputs to a file) run together, each a fresh ``worker.main``
+   process restoring ``--checkpoint_dir_for_init`` the dense
+   checkpoints; ``serve.main`` serves the export over the restored PS
+   (``max_batch`` 64) a burst of validation rows, PS 1 is SIGKILLed
+   and relaunched from the same checkpoint and the burst is sent
+   again. Checks: master rc 0 with every record done; one
+   TRAIN_END_CALLBACK task, created after the last training task and
+   done once; the export's step is worker 0's final version; the dense
+   directory holds the two newest multiples of 32, the final version
+   the latest; phase 7's formula at every step and flush barrier, one
+   K1 per tier table at the train-end barrier; both PS save their final
+   checkpoint at one version and the relaunches restore it; the
+   evaluation-only AUC is at least 0.70 and within 1e-6 of the AUC of
+   the prediction job's outputs; every record predicted once; the
+   served answers bit-equal to ``ServingModel.predict`` and within 1e-5
+   of the prediction job's; the cache dropped once for each stamped
+   relaunch the server's PS client saw; the second burst bit-equal to
+   the first. It prints, with the card's name and power limit, the
+   job's wall, the export's and each dense save's seconds and bytes,
+   the restore's seconds, the scoring jobs' walls, served p50/p99 and
+   requests/s, and K1's launches at the barriers.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -2951,6 +2982,669 @@ def ps_restart_phase(torch, np, tier, workdir, device="cuda",
     return record
 
 
+# phase 11: the job's artifact. Phase 9's job over one of its training
+# files (6 tasks, 96 steps of 512), worker 0 alone in this process with
+# dense checkpoints every ARTIFACT_CKPT_STEPS versions (the newest
+# ARTIFACT_KEEP kept), both PS checkpointing into one directory, the
+# master with an export path; then an evaluation-only and a
+# prediction-only job on the restored model, and the server over the
+# export and the restored PS
+ARTIFACT_FILES = 1
+ARTIFACT_CKPT_STEPS = 32
+ARTIFACT_KEEP = 2
+ARTIFACT_SERVE_BATCH = 64
+ARTIFACT_BURST = 512
+ARTIFACT_CLIENTS = 16
+ARTIFACT_PRED_TOL = 1e-5       # served against the prediction job's
+ARTIFACT_AUC_TOL = 1e-6        # eval job's AUC against the predictions'
+ARTIFACT_PRED_ZOO = "elasticdl_tpu_torch.models.deepfm_predictions"
+_FINAL_SAVE_RE = re.compile(r"final sparse checkpoint saved at version "
+                            r"(\d+)")
+_RESUMED_RE = re.compile(r"Resumed from checkpoint at version (\d+) "
+                         r"\(([0-9.]+) s\)")
+
+
+def flush_counts(tier, worker, counts):
+    """Count the device tier's launches at each of ``worker``'s flush
+    barriers, labelled by the boundary that ran it (``checkpoint``:
+    ``_save_checkpoint``; ``train_end``: ``_process_train_end_task``),
+    each held against the formula of the path (K1 once per table with
+    dirty rows read back, through ``_read_rows``, plus the staged
+    chunks' launches as in a step; K2 once per inserting chunk; no K3).
+    ``counts`` is ``count_worker_steps``' record (its ``reads`` counts
+    the row reads). Returns [{label, launches, want, reads, s}] as the
+    barriers run."""
+    dtier = worker.trainer.device_tier
+    flushes, label = [], [None]
+    flush = worker._flush_device_tier
+
+    def counted_flush():
+        before, stats0 = tier_counts(tier), dtier.stats()
+        reads0, t0 = counts["reads"][0], time.monotonic()
+        flush()
+        stats1 = dtier.stats()
+        d = [a - c for a, c in zip(tier_counts(tier), before)]
+        reads = counts["reads"][0] - reads0
+        gather_only, chunks, inserts, evicts = (
+            stats1[k] - stats0[k]
+            for k in ("gather_only_combines", "staged_chunks",
+                      "insert_chunks", "evict_chunks"))
+        flushes.append({"label": label[0], "launches": d,
+                        "want": [gather_only + chunks + evicts + reads,
+                                 inserts, 0],
+                        "reads": reads, "s": time.monotonic() - t0})
+
+    def labelled(name, fn):
+        def run(*args):
+            label[0] = name
+            try:
+                return fn(*args)
+            finally:
+                label[0] = None
+        return run
+
+    worker._flush_device_tier = counted_flush
+    worker._save_checkpoint = labelled("checkpoint", worker._save_checkpoint)
+    worker._process_train_end_task = labelled(
+        "train_end", worker._process_train_end_task)
+    return flushes
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def start_worker_process(log_path, args, env):
+    with open(log_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.worker.main", *args],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT)
+
+
+def read_labels(np, valid_dir):
+    """The validation file's labels, in record order."""
+    from elasticdl_tpu_torch.data.example import decode_example
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+    reader = RecordIODataReader(data_dir=valid_dir)
+    labels, ids = {}, {}
+    for name, (start, count) in reader.create_shards().items():
+        rows = [decode_example(r) for r in reader.read_records(
+            pb.Task(shard_name=name, start=start, end=start + count))]
+        labels[name] = np.array([int(r["label"]) for r in rows])
+        ids[name] = np.stack([np.asarray(r["ids"], np.int64) for r in rows])
+    return labels, ids
+
+
+def serve_burst(np, addr, rows, clients):
+    """``rows`` [n, fields] as n one-row requests from ``clients``
+    threads, each with its own channel; returns (answers [n], latencies
+    s [n], wall s)."""
+    from elasticdl_tpu_torch.serve.client import ServeClient
+
+    n = len(rows)
+    answers, latencies, errors = [None] * n, [None] * n, []
+
+    def run(k):
+        try:
+            with ServeClient(addr) as client:
+                for i in range(k, n, clients):
+                    t0 = time.monotonic()
+                    outputs, _, _ = client.predict(
+                        {"ids": rows[i:i + 1]}, deadline_secs=120)
+                    latencies[i] = time.monotonic() - t0
+                    answers[i] = outputs["output"].numpy()
+        except Exception as e:  # recorded and re-raised below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(k,))
+               for k in range(clients)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if errors or any(a is None for a in answers):
+        raise SystemExit("served requests failed: %s" % errors[:3])
+    return np.concatenate(answers), np.array(latencies), wall
+
+
+def wait_for_line(proc, path, text, what, timeout=STREAM_PS_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(path) as f:
+            content = f.read()
+        if text in content:
+            return content
+        if proc.poll() is not None or time.monotonic() > deadline:
+            raise SystemExit("%s did not come up (exit %s):\n%s"
+                             % (what, proc.poll(), content[-3000:]))
+        time.sleep(0.1)
+
+
+def artifact_phase(torch, np, tier, workdir, device="cuda",
+                   files=ARTIFACT_FILES, per_task=JOB_PER_TASK,
+                   batch=SPARSE_BATCH,
+                   report_version_steps=JOB_REPORT_VERSION_STEPS,
+                   task_timeout_s=JOB_TASK_TIMEOUT_S,
+                   ckpt_steps=ARTIFACT_CKPT_STEPS, keep_max=ARTIFACT_KEEP,
+                   serve_batch=ARTIFACT_SERVE_BATCH, burst=ARTIFACT_BURST,
+                   clients=ARTIFACT_CLIENTS, worker_env=None, card=None):
+    """Phase 11: the job's artifact, from the end of a DeepFM job to its
+    use (the module docstring's steps). Checks (each printed; a failure
+    raises SystemExit): the job's master returns 0 with every training
+    record done, one TRAIN_END_CALLBACK task created after the last
+    training task and completed once, the export's manifest step equal
+    to worker 0's final version, the dense directory holding exactly the
+    ``keep_max`` newest multiples of ``ckpt_steps`` with the final
+    version the latest; worker 0's K1-K3 launches follow phase 7's
+    formula in every step and at every flush barrier, and the train-end
+    barrier read back one K1 per tier table; both PS save a final full
+    checkpoint at one version on SIGTERM and exit 0; the relaunched PS
+    restore it; the evaluation-only job's AUC is at least JOB_AUC_FLOOR
+    and within ARTIFACT_AUC_TOL of the AUC of the prediction-only job's
+    outputs; every validation record is predicted once; the served
+    answers are bit-equal to ``ServingModel.predict`` on the same rows
+    and within ARTIFACT_PRED_TOL of the prediction job's; PS 1,
+    SIGKILLed and relaunched from the same checkpoint, restores the same
+    version, the engine drops its cache once for each relaunch its PS
+    client saw stamped, and the same burst again is answered bit for
+    bit as the first. ``card`` is the nvidia-smi line printed with the
+    numbers (the CPU rehearsal passes its own)."""
+    from elasticdl_tpu_torch.common.grpc_utils import (
+        find_free_port,
+        reserve_port,
+    )
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.models.deepfm_predictions import (
+        PREDICTION_DIR_ENV,
+        read_predictions,
+    )
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
+    from elasticdl_tpu_torch.serve.model import ServingModel
+    from elasticdl_tpu_torch.train import metrics
+    from elasticdl_tpu_torch.train.callbacks import SavedModelExporter
+    from elasticdl_tpu_torch.train.checkpoint import DenseCheckpointManager
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    card = card or nvidia_smi_line()
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    train_dir = os.path.join(workdir, "artifact_train")
+    valid_dir = os.path.join(workdir, "valid")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    records = sum(n for _, n in RecordIODataReader(
+        data_dir=train_dir).create_shards().values())
+    steps_total = -(-records // batch)
+    out = os.path.join(HERE, "build", "chip_smoke_artifact")
+    shutil.rmtree(out, ignore_errors=True)
+    dense_dir, export_dir = (os.path.join(out, "dense"),
+                             os.path.join(out, "export"))
+    ps_ckpt, pred_dir = (os.path.join(out, "ps_ckpt"),
+                         os.path.join(out, "predictions"))
+    os.makedirs(ps_ckpt)
+    # the job's evaluation runs once, at the final version: it pulls (and
+    # so creates on the PS) every validation id, and its lookups leave
+    # tier rows dirty for the train-end barrier
+    master = Master(zoo, training_data=train_dir, validation_data=valid_dir,
+                    records_per_task=per_task, num_epochs=1,
+                    port=find_free_port(), eval_steps=steps_total,
+                    task_timeout_secs=task_timeout_s, seed=SEED,
+                    saved_model_path=export_dir)
+    dispatcher = master.task_dispatcher
+    addr = "localhost:%d" % master._port
+    reports, handed = [], []
+    report, get = dispatcher.report, dispatcher.get
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if success and task is not None:
+            reports.append((task.type, task.task_id, task.shard_name,
+                            task.start, task.end, time.monotonic()))
+        return ok, task
+
+    def on_get(worker_id, task_type=None):
+        task = get(worker_id, task_type)
+        if task is not None:
+            handed.append((task.type, task.task_id, time.monotonic()))
+        return task
+
+    dispatcher.report, dispatcher.get = on_report, on_get
+    env = dict(os.environ, PYTHONPATH=HERE, EDL_PS_MASTER_GONE_SECS="60")
+    saved_env = {k: os.environ.get(k) for k in worker_env}
+    job_extra = ("--use_async", "1", "--master_addr", addr,
+                 "--checkpoint_dir", ps_ckpt, "--checkpoint_steps",
+                 str(ckpt_steps))
+    started, result, procs, reservations = [], {}, [], []
+    runner = None
+    record = {"artifact": "result", "card": card}
+    try:
+        # -- 1. the job ---------------------------------------------------
+        job_t0 = time.monotonic()
+        master.prepare()
+        master_thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.5)),
+            daemon=True)
+        master_thread.start()
+        (job_ps, ps_addrs, ps_logs), = start_ps_pairs(
+            1, os.path.join(out, "job"), started, extra=job_extra, env=env)
+        wait_ps_ready([(job_ps, ps_addrs, ps_logs)])
+        os.environ.update(worker_env)
+        client = MasterClient(addr, worker_id=0)
+        client.reset_worker()
+        worker0 = Worker(client, zoo, RecordIODataReader(data_dir=train_dir),
+                         minibatch_size=batch,
+                         report_version_steps=report_version_steps,
+                         wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                         device=device, checkpoint_dir=dense_dir,
+                         checkpoint_steps=ckpt_steps,
+                         keep_checkpoint_max=keep_max)
+        trainer = worker0.trainer
+        dtier = trainer.device_tier
+        if dtier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        counts = count_worker_steps(tier, trainer)
+        flushes = flush_counts(tier, worker0, counts)
+        saves = []
+        mgr_save = worker0._checkpoint_mgr.save
+
+        def timed_save(version, state):
+            t0 = time.monotonic()
+            mgr_save(version, state)
+            saves.append({"version": int(version),
+                          "s": time.monotonic() - t0,
+                          "bytes": dir_bytes(os.path.join(
+                              dense_dir, str(int(version))))})
+
+        worker0._checkpoint_mgr.save = timed_save
+        exporter, = [cb for cb in worker0._callbacks
+                     if isinstance(cb, SavedModelExporter)]
+        export_rec = {}
+        on_train_end = exporter.on_train_end
+
+        def timed_export(state, extended_config=None):
+            t0 = time.monotonic()
+            on_train_end(state, extended_config)
+            export_rec["s"] = time.monotonic() - t0
+
+        exporter.on_train_end = timed_export
+        reset_tier_launches(tier)  # the phase's count starts here
+        runner = threading.Thread(target=worker0.run, daemon=True)
+        runner.start()
+        master_thread.join(timeout=JOB_WAIT_S)
+        if master_thread.is_alive():
+            raise SystemExit("the job did not finish in %d s" % JOB_WAIT_S)
+        job_s = time.monotonic() - job_t0
+        runner.join(timeout=60)
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        # the PS drain: a final full checkpoint at the store version
+        stop_t0 = time.monotonic()
+        job_ps_codes = stop_ps([(job_ps, ps_addrs, ps_logs)])
+        ps_stop_s = time.monotonic() - stop_t0
+        finals, final_saves = [], []
+        for path in ps_logs:
+            with open(path) as f:
+                match = _FINAL_SAVE_RE.search(f.read())
+            finals.append(int(match[1]) if match else None)
+            final_saves += [s for s in ps_log(path)["saves"]
+                            if s[1] == "full" and match
+                            and s[0] == int(match[1])][-1:]
+        ps_latest = SparseCheckpointSaver.latest_version(ps_ckpt)
+        with open(os.path.join(export_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        dense_versions = sorted(int(d) for d in os.listdir(dense_dir)
+                                if d.isdigit())
+        dense_latest = DenseCheckpointManager(
+            dense_dir, create=False).latest_version()
+        version = worker0.model_version
+        done_training = [r for r in reports if r[0] == pb.TRAINING]
+        train_end = [r for r in reports if r[0] == pb.TRAIN_END_CALLBACK]
+        train_end_handed = [h for h in handed
+                            if h[0] == pb.TRAIN_END_CALLBACK]
+        steps = counts["steps"]
+        losses = [s[1] for s in steps]
+        warm = [s[0] for s in steps[10:]] or [s[0] for s in steps]
+        end_flush = [f for f in flushes if f["label"] == "train_end"]
+        ckpt_flush = [f for f in flushes if f["label"] == "checkpoint"]
+        tables = len(dtier._tables)
+        record.update({
+            "job_wall_s": job_s, "master_rc": result.get("rc"),
+            "job_failed": dispatcher.job_failed(),
+            "dataset_records": records,
+            "done_training_records": sum(r[4] - r[3]
+                                         for r in done_training),
+            "worker0_version": version, "worker0_steps": len(steps),
+            "worker0_steps_per_s": len(warm) / sum(warm) if warm else None,
+            "all_finite": bool(np.isfinite(losses).all()) if losses
+            else False,
+            "train_end_tasks_done": [r[1] for r in train_end],
+            "train_end_tasks_handed": [h[1] for h in train_end_handed],
+            "train_end_after_last_training": bool(
+                train_end_handed and done_training
+                and train_end_handed[0][2] > done_training[-1][5]),
+            "export_step": manifest["step"],
+            "export_s": export_rec.get("s"),
+            "export_bytes": dir_bytes(export_dir),
+            "dense_saves": saves, "dense_versions": dense_versions,
+            "dense_latest": dense_latest,
+            "launches": launches,
+            "launches_per_step": {k: v / max(len(steps), 1)
+                                  for k, v in launches.items()},
+            "launch_formula_mismatches": counts["bad_steps"][:5],
+            "launches_train_end_flush": [f["launches"] for f in end_flush],
+            "launches_checkpoint_flush": [f["launches"]
+                                          for f in ckpt_flush],
+            "flush_s": {"train_end": [f["s"] for f in end_flush],
+                        "checkpoint": [f["s"] for f in ckpt_flush]},
+            "flush_formula_mismatches": [
+                f for f in flushes if f["launches"] != f["want"]],
+            "job_evaluations": [[v, s] for v, s in
+                                master.evaluation_service.completed_summaries],
+            "ps_exit_codes": job_ps_codes, "ps_stop_s": ps_stop_s,
+            "ps_final_versions": finals, "ps_final_saves": final_saves,
+            "ps_latest_version": ps_latest,
+        })
+        failures = []
+        if (result.get("rc") != 0 or dispatcher.job_failed()
+                or record["done_training_records"] != records):
+            failures.append("master rc %s, job failed %s, %d of %d "
+                            "records done" % (
+                                result.get("rc"), dispatcher.job_failed(),
+                                record["done_training_records"], records))
+        if not record["all_finite"] or runner.is_alive():
+            failures.append("worker 0: losses finite %s, still running %s"
+                            % (record["all_finite"], runner.is_alive()))
+        if (len(train_end) != 1 or len(train_end_handed) != 1
+                or not record["train_end_after_last_training"]):
+            failures.append("train-end tasks done %s, handed %s, after the "
+                            "last training task %s" % (
+                                record["train_end_tasks_done"],
+                                record["train_end_tasks_handed"],
+                                record["train_end_after_last_training"]))
+        if manifest["step"] != version:
+            failures.append("export step %s != worker 0's version %d"
+                            % (manifest["step"], version))
+        want_versions = [version - ckpt_steps * k
+                         for k in range(keep_max - 1, -1, -1)]
+        if (version % ckpt_steps or dense_versions != want_versions
+                or dense_latest != version):
+            failures.append("dense checkpoints %s, latest %s (want %s)"
+                            % (dense_versions, dense_latest,
+                               want_versions))
+        if counts["bad_steps"] or min(launches.values()) <= 0:
+            failures.append("worker 0's K1-K3 launches do not follow the "
+                            "path: %s" % counts["bad_steps"][:5])
+        if (record["flush_formula_mismatches"]
+                or len(ckpt_flush) != version // ckpt_steps
+                or len(end_flush) != 1 or end_flush[0]["reads"] != tables
+                or end_flush[0]["launches"][0] != tables):
+            failures.append("flush barriers: %s (want one K1 per tier "
+                            "table at the train end)" % flushes)
+        if (job_ps_codes != [0, 0] or None in finals
+                or len(set(finals)) != 1 or ps_latest != finals[0]):
+            failures.append("job PS exits %s, final saves at %s, latest "
+                            "complete checkpoint %s" % (
+                                job_ps_codes, finals, ps_latest))
+        if failures:
+            log(json.dumps(record))
+            raise SystemExit("artifact phase (job): " + "; ".join(failures))
+
+        # -- 3-5. the restored PS; evaluation, prediction, serving --------
+        reservations = [reserve_port() for _ in range(2)]
+        ports = [port for _, port in reservations]
+        addrs = ["localhost:%d" % port for port in ports]
+        restore_extra = ("--use_async", "1", "--checkpoint_dir_for_init",
+                         ps_ckpt)
+        logs = [os.path.join(out, "ps-%d.log" % i) for i in range(2)]
+        restored_ps = [start_ps(i, ports[i], logs[i], restore_extra, env)
+                       for i in range(2)]
+        procs.extend(restored_ps)
+        serve_port = find_free_port()
+        serve_log = os.path.join(out, "serve.log")
+        with open(serve_log, "w") as sink:
+            serve_proc = subprocess.Popen(
+                [sys.executable, "-m", "elasticdl_tpu_torch.serve.main",
+                 "--model_zoo", zoo, "--export_dir", export_dir,
+                 "--ps_addrs", ",".join(addrs), "--port", str(serve_port),
+                 "--max_batch", str(serve_batch), "--device", device.type,
+                 "--deadline_ms", "600000", "--watch_secs", "3600"],
+                cwd=HERE, env=env, stdout=sink, stderr=subprocess.STDOUT)
+        procs.append(serve_proc)
+        wait_ps_ready([(restored_ps, addrs, logs)])
+        restored_versions = [ps_log(p)["restore"] for p in logs]
+        # the evaluation-only and the prediction-only job run together:
+        # both only read the PS
+        jobs_t0 = time.monotonic()
+        eval_master = Master(zoo, validation_data=valid_dir,
+                             records_per_task=per_task,
+                             port=find_free_port(),
+                             task_timeout_secs=task_timeout_s).prepare()
+        pred_master = Master(ARTIFACT_PRED_ZOO, prediction_data=valid_dir,
+                             records_per_task=per_task,
+                             port=find_free_port(),
+                             task_timeout_secs=task_timeout_s).prepare()
+        pred_done = []
+        pred_report = pred_master.task_dispatcher.report
+
+        def on_pred_report(task_id, success, worker_id=None,
+                           count_failure=True):
+            ok, task = pred_report(task_id, success, worker_id=worker_id,
+                                   count_failure=count_failure)
+            if success and task is not None and task.type == pb.PREDICTION:
+                pred_done.append((task.shard_name, task.start, task.end))
+            return ok, task
+
+        pred_master.task_dispatcher.report = on_pred_report
+        job_results, walls = {}, {}
+
+        def run_master(name, m):
+            job_results[name] = m.run(poll_secs=0.2)
+            walls[name] = time.monotonic() - jobs_t0
+
+        master_threads = [
+            threading.Thread(target=run_master, args=(name, m), daemon=True)
+            for name, m in (("evaluation", eval_master),
+                            ("prediction", pred_master))]
+        for t in master_threads:
+            t.start()
+        # the scoring workers run without the tier (they only read), at
+        # the job's id capacity
+        scoring_env = dict(env, **{PREDICTION_DIR_ENV: pred_dir})
+        if "EDL_SPARSE_ID_CAPACITY" in worker_env:
+            scoring_env["EDL_SPARSE_ID_CAPACITY"] = worker_env[
+                "EDL_SPARSE_ID_CAPACITY"]
+        common = ["--minibatch_size", str(batch), "--worker_id", "0",
+                  "--ps_addrs", ",".join(addrs), "--device", device.type,
+                  "--checkpoint_dir_for_init", dense_dir]
+        eval_log = os.path.join(out, "worker-evaluation.log")
+        pred_log = os.path.join(out, "worker-prediction.log")
+        scorers = [
+            start_worker_process(eval_log, [
+                "--model_zoo", zoo, "--validation_data", valid_dir,
+                "--mode", "evaluation", "--master_addr",
+                "localhost:%d" % eval_master._port, *common], scoring_env),
+            start_worker_process(pred_log, [
+                "--model_zoo", ARTIFACT_PRED_ZOO, "--prediction_data",
+                valid_dir, "--mode", "prediction", "--master_addr",
+                "localhost:%d" % pred_master._port, *common], scoring_env)]
+        procs.extend(scorers)
+        for t in master_threads:
+            t.join(timeout=JOB_WAIT_S)
+        scorer_codes = [p.wait(timeout=60) for p in scorers]
+        resumed = []
+        for path in (eval_log, pred_log):
+            with open(path) as f:
+                match = _RESUMED_RE.search(f.read())
+            resumed.append([int(match[1]), float(match[2])] if match
+                           else None)
+        summaries = eval_master.evaluation_service.completed_summaries
+        eval_auc = summaries[-1][1].get("auc") if summaries else None
+        labels_by_shard, ids_by_shard = read_labels(np, valid_dir)
+        (shard, labels), = labels_by_shard.items()
+        rows_ids = ids_by_shard[shard]
+        predictions = read_predictions(pred_dir)
+        preds = predictions.get(0, np.empty(0, np.float32))
+        by_record = np.full(labels.size, np.nan, np.float32)
+        covered = np.zeros(labels.size, np.int64)
+        offset = 0
+        for _, start, end in pred_done:
+            if offset + end - start <= preds.size:
+                by_record[start:end] = preds[offset:offset + end - start]
+            covered[start:end] += 1
+            offset += end - start
+        auc = metrics.AUC(from_logits=True)
+        auc.update_state(labels, by_record)
+        pred_auc = auc.result() if np.isfinite(by_record).all() else None
+        record.update({
+            "ps_restored": restored_versions,
+            "scoring_jobs_rc": job_results, "scoring_jobs_wall_s": walls,
+            "scoring_workers_rc": scorer_codes,
+            "scoring_resumed_version_s": resumed,
+            "eval_only_auc": eval_auc, "prediction_auc": pred_auc,
+            "auc_floor": JOB_AUC_FLOOR,
+            "predicted_records": int(preds.size),
+            "validation_records": int(labels.size),
+            "predicted_once": bool((covered == 1).all()
+                                   and preds.size == labels.size),
+        })
+        failures = []
+        if any(r is None or r[0] != finals[0] for r in restored_versions):
+            failures.append("restored PS at %s, not %s"
+                            % (restored_versions, finals[0]))
+        if (job_results != {"evaluation": 0, "prediction": 0}
+                or scorer_codes != [0, 0]
+                or any(r is None or r[0] != version for r in resumed)):
+            failures.append("scoring jobs %s, workers %s, resumed %s"
+                            % (job_results, scorer_codes, resumed))
+        if (eval_auc is None or not eval_auc >= JOB_AUC_FLOOR
+                or pred_auc is None
+                or abs(eval_auc - pred_auc) > ARTIFACT_AUC_TOL):
+            failures.append("eval-only AUC %s, from the predictions %s "
+                            "(floor %s, tolerance %s)" % (
+                                eval_auc, pred_auc, JOB_AUC_FLOOR,
+                                ARTIFACT_AUC_TOL))
+        if not record["predicted_once"]:
+            failures.append("predicted %d of %d records, each once: %s"
+                            % (preds.size, labels.size,
+                               record["predicted_once"]))
+        if failures:
+            log(json.dumps(record))
+            raise SystemExit("artifact phase (scoring): "
+                             + "; ".join(failures))
+
+        # -- 5. serving -----------------------------------------------------
+        wait_for_line(serve_proc, serve_log, "serve 0 on :%d" % serve_port,
+                      "the server")
+        serve_addr = "localhost:%d" % serve_port
+        rows = rows_ids[:burst]
+        first, latencies, burst_s = serve_burst(np, serve_addr, rows,
+                                                clients)
+        reference = ServingModel(get_model_spec(zoo), export_dir,
+                                 max_batch=serve_batch,
+                                 ps_client=PSClient(addrs), device=device)
+        direct = np.concatenate([
+            reference.predict({"ids": rows[i:i + serve_batch]},
+                              len(rows[i:i + serve_batch]))["output"].numpy()
+            for i in range(0, len(rows), serve_batch)])
+        reference._preparer._ps.close()
+        kill_t0 = time.monotonic()
+        restored_ps[1].kill()
+        restored_ps[1].wait()
+        relaunch_log = os.path.join(out, "ps-1-relaunch.log")
+        relaunched = start_ps(1, ports[1], relaunch_log, restore_extra, env)
+        procs.append(relaunched)
+        wait_ps_ready([([relaunched], addrs[1:], [relaunch_log])])
+        relaunch_s = time.monotonic() - kill_t0
+        second, latencies2, burst2_s = serve_burst(np, serve_addr, rows,
+                                                   clients)
+        serve_proc.terminate()
+        serve_rc = serve_proc.wait(timeout=60)
+        with open(serve_log) as f:
+            serve_text = f.read()
+        drops = serve_text.count("serving embedding cache dropped")
+        stamped = len(re.findall(r"PS shard \d+ relaunched", serve_text))
+        # each burst's own: the first meets a server that has answered
+        # nothing yet, the second one warm
+        record.update({
+            "serve_requests": 2 * len(rows), "serve_max_batch": serve_batch,
+            "serve_clients": clients,
+            "serve_p50_ms": [float(np.percentile(lat, 50)) * 1e3
+                             for lat in (latencies, latencies2)],
+            "serve_p99_ms": [float(np.percentile(lat, 99)) * 1e3
+                             for lat in (latencies, latencies2)],
+            "serve_requests_per_s": [len(rows) / burst_s,
+                                     len(rows) / burst2_s],
+            "served_equal_direct": bool(np.array_equal(first, direct)),
+            "served_vs_prediction_max_abs": float(
+                np.abs(first - by_record[:len(rows)]).max()),
+            "prediction_tol": ARTIFACT_PRED_TOL,
+            "ps1_relaunch_restored": ps_log(relaunch_log)["restore"],
+            "ps1_kill_to_serving_s": relaunch_s,
+            "serve_stamped_relaunches": stamped,
+            "serve_cache_drops": drops,
+            "second_burst_equal": bool(np.array_equal(first, second)),
+            "serve_rc": serve_rc,
+        })
+        failures = []
+        if not record["served_equal_direct"]:
+            failures.append("served answers differ from "
+                            "ServingModel.predict")
+        if not record["served_vs_prediction_max_abs"] <= ARTIFACT_PRED_TOL:
+            failures.append("served answers differ from the prediction "
+                            "job's by %s" % (
+                                record["served_vs_prediction_max_abs"]))
+        restore = record["ps1_relaunch_restored"]
+        if restore is None or restore[0] != restored_versions[1][0]:
+            failures.append("PS 1's relaunch restored %s, not %s" % (
+                restore, restored_versions[1]))
+        if drops != stamped:
+            failures.append("the engine dropped its cache %d times for %d "
+                            "stamped relaunches" % (drops, stamped))
+        if not record["second_burst_equal"] or serve_rc != 0:
+            failures.append("the burst after the relaunch equal %s, serve "
+                            "exit %s" % (record["second_burst_equal"],
+                                         serve_rc))
+        log(json.dumps(record))
+        if failures:
+            raise SystemExit("artifact phase (serving): "
+                             + "; ".join(failures))
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for proc in procs + [p for ps, _, _ in started for p in ps]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for sock, _ in reservations:
+            sock.close()
+        master.stop()
+        if runner is not None:
+            runner.join(timeout=10)
+    return record
+
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
     """Flax-named fp32 weights: kernels ~ N(0, 1/fan_in), embedding
     ~ N(0, 0.02^2), LayerNorm scale 1 and bias 0."""
@@ -3748,14 +4442,15 @@ def kernel_entry(name, source, replaces, launches, case, kind):
 
 
 def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
-                      job, restart):
+                      job, restart, artifact):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
     optimizer), launches from the sparse train path's main run (and,
     beside them, from the stream phase's tier rung, from worker 0 of
-    the job phase and from worker 0 of the PS-restart phase, K1 with
-    the restart flush's reads named), and the deepfm_linear (d 1) time
-    beside; K3's all-hits times too."""
+    the job phase, of the PS-restart phase and of the artifact phase, K1
+    with the restart flush's reads and the train-end and checkpoint
+    barriers' launches named), and the deepfm_linear (d 1) time beside;
+    K3's all-hits times too."""
     emb = tier_cases[kind]["deepfm_emb"]
     lin = tier_cases[kind]["deepfm_linear"]
     if kind == "scatter_apply":
@@ -3770,6 +4465,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
         "launches_per_step_job": job["launches_per_step"][kind],
         "launches_restart": restart["launches"][kind],
         "launches_per_step_restart": restart["launches_per_step"][kind],
+        "launches_artifact": artifact["launches"][kind],
+        "launches_per_step_artifact": artifact["launches_per_step"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -3783,6 +4480,12 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
             entry[key] = emb[key]
     if kind == "gather":
         entry["launches_restart_flush"] = restart["tier_flush"]["reads"]
+        # K1 at the artifact job's barriers: the train-end task's flush
+        # and each dense checkpoint's, one K1 per table with dirty rows
+        entry["launches_train_end_flush"] = sum(
+            k[0] for k in artifact["launches_train_end_flush"])
+        entry["launches_checkpoint_flush"] = sum(
+            k[0] for k in artifact["launches_checkpoint_flush"])
         # the staging chunk's chain (K1 -> K2 -> K1) at d 8: median
         # device span by events and by the profiler, with programmatic
         # dependent launch and serial, in turns
@@ -3839,10 +4542,18 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-10 and the last lines (see the module docstring)."""
+    """Phases 1-11 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
+
+    # each phase's seconds of command time, printed before the last lines
+    seconds, last = {}, [time.monotonic()]
+
+    def done(name):
+        now = time.monotonic()
+        seconds[name] = now - last[0]
+        last[0] = now
 
     # the serial chain's copy builds beside the checkout's kernels
     serial_root = kernel_copy("k1_chain_serial", TIER_SOURCE,
@@ -3859,6 +4570,7 @@ def run_phases(torch, np, job_dir, data_proc):
         for line in text.splitlines():
             if any(key in line for key in ("Compiling entry", "Used", "spill")):
                 log("ptxas %s: %s" % (name, line.strip()))
+    done("1_build")
 
     cases = kernel_phase(torch, flash)
     bwd_cases = bwd_kernel_phase(torch, flash)
@@ -3867,6 +4579,7 @@ def run_phases(torch, np, job_dir, data_proc):
         "embedding_tier", os.path.join(serial_root, TIER_SOURCE),
         os.path.join(serial_root, "build", "edl_kernels")), "embedding_tier")
     tier_cases["chain_timing"] = chain_timing(torch, np, tier, serial_lib)
+    done("2-4_kernels")
 
     workdir = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3875,11 +4588,13 @@ def run_phases(torch, np, job_dir, data_proc):
         serve_launches, model, plain, tokens = serve_phase(
             torch, np, flash, workdir)
         serve_timing(torch, model, plain, tokens)
+        done("5_serve")
         del model, plain
         gc.collect()
         torch.cuda.empty_cache()
         train = train_phase(torch, np, flash, workdir)
         train_timing(torch, train)
+        done("6_train")
         del train["trainer"], train["state"]
         gc.collect()
         torch.cuda.empty_cache()
@@ -3890,14 +4605,21 @@ def run_phases(torch, np, job_dir, data_proc):
         del sparse["trainer"], sparse["state"]
         gc.collect()
         torch.cuda.empty_cache()
+        done("7_sparse")
         stream = stream_phase(torch, np, tier)
+        done("8_stream")
         if data_proc.wait():
             raise SystemExit("the job's data was not written (exit %d)"
                              % data_proc.returncode)
         job = job_phase(torch, np, tier, job_dir, data_written=True)
+        done("9_job")
         restart = ps_restart_phase(torch, np, tier, job_dir)
+        done("10_restart")
+        artifact = artifact_phase(torch, np, tier, job_dir)
+        done("11_artifact")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    log(json.dumps({"phase_seconds": seconds}))
 
     # launches: the train path's count, the slice's main path (the
     # serve path's K4 count is beside it)
@@ -3919,15 +4641,15 @@ def run_phases(torch, np, job_dir, data_proc):
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
                           "gather", tier_cases, sparse, stream, job,
-                          restart),
+                          restart, artifact),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
                           "insert_rows", tier_cases, sparse, stream, job,
-                          restart),
+                          restart, artifact),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
                           "scatter_apply", tier_cases, sparse, stream, job,
-                          restart),
+                          restart, artifact),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 flag helpers (port of elasticdl_tpu/common/args.py).
 
 The flags are the JAX package's, trimmed to the features the port has:
-the checkpoint, multi-host, mesh, pod-spec, metrics, prediction and
-symbol-override flags wait with their features (ROADMAP). The worker adds ``--device``
+the multi-host, mesh, pod-spec, metrics and symbol-override flags wait
+with their features (ROADMAP). The worker adds ``--device``
 (``cuda`` unless the caller asks for the CPU). The PS server's own
 flags live in ``ps/server.py:parse_ps_args``.
 """
@@ -21,6 +21,7 @@ def _add_common(parser):
     )
     parser.add_argument("--training_data", default="")
     parser.add_argument("--validation_data", default="")
+    parser.add_argument("--prediction_data", default="")
     parser.add_argument("--minibatch_size", type=int, default=32)
     parser.add_argument(
         "--data_reader_params",
@@ -57,6 +58,9 @@ def parse_master_args(argv=None):
     # liveness timeout: a worker silent this long is presumed dead and
     # its tasks requeue
     parser.add_argument("--task_timeout_secs", type=float, default=30.0)
+    parser.add_argument(
+        "--output", default="", help="saved-model export path"
+    )
     return parser.parse_args(argv)
 
 
@@ -73,7 +77,7 @@ def parse_worker_args(argv=None):
     parser.add_argument(
         "--mode",
         default="training",
-        choices=["training", "evaluation"],
+        choices=["training", "evaluation", "prediction"],
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -93,6 +97,17 @@ def parse_worker_args(argv=None):
     parser.add_argument("--sparse_pipeline", type=int, default=0)
     parser.add_argument("--sparse_cache_staleness", type=int, default=0)
     parser.add_argument("--sparse_push_interval", type=int, default=1)
+    # dense checkpoints: every --checkpoint_steps versions into
+    # --checkpoint_dir (the newest --keep_checkpoint_max kept); resume
+    # from --checkpoint_dir_for_init (a restore that finds data but
+    # fails is fatal)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=int, default=0)
+    parser.add_argument("--keep_checkpoint_max", type=int, default=3)
+    parser.add_argument("--checkpoint_dir_for_init", default="")
+    # write each dense checkpoint's file on a background thread (the
+    # next save or the exit joins it)
+    parser.add_argument("--async_checkpoint", type=int, default=0)
     return parser.parse_args(argv)
 
 

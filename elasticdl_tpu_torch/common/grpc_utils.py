@@ -243,3 +243,17 @@ def find_free_port() -> int:
         sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         sock.bind(("localhost", 0))
         return sock.getsockname()[1]
+
+
+def reserve_port():
+    """``(socket, port)``: a free port held by a bound, never-listening
+    SO_REUSEADDR socket. A server of this module (SO_REUSEADDR, no
+    SO_REUSEPORT) still binds and listens on it, while every other
+    ``bind`` to port 0 and every outgoing connection's ephemeral port
+    skips it, so a server relaunched on the same port (a PS after a
+    kill) cannot lose it to another process in between. Close the
+    socket once no relaunch is to come."""
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("localhost", 0))
+    return sock, sock.getsockname()[1]

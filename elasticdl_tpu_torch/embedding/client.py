@@ -209,6 +209,9 @@ class EmbeddingClient:
     def cache(self):
         return self._cache
 
+    def hit_rate(self):
+        return self._cache.hit_rate() if self._cache is not None else 0.0
+
     def advance(self):
         """Tick the cache's logical clock (training: once per prepare)."""
         if self._cache is not None:

@@ -1,10 +1,14 @@
 """Master process entry point (port of elasticdl_tpu/master/main.py).
 
 Usage: python -m elasticdl_tpu_torch.master.main --model_zoo=... \
-    --training_data=... [--validation_data=...] [--port=50001]
+    --training_data=... [--validation_data=...] [--port=50001] \
+    [--output=EXPORT_DIR]
 
-The master runs on the host and exits 0 when the job finished, 1 when
-it failed.
+``--prediction_data`` alone makes a prediction-only job,
+``--validation_data`` alone an evaluation-only one. With ``--output``
+a training job ends with the train-end task: one worker exports the
+model there. The master runs on the host and exits 0 when the job
+finished, 1 when it failed.
 """
 
 import sys
@@ -25,12 +29,14 @@ def main(argv=None):
         model_zoo_module=args.model_zoo,
         training_data=args.training_data,
         validation_data=args.validation_data,
+        prediction_data=args.prediction_data,
         records_per_task=records_per_task,
         num_epochs=args.num_epochs,
         port=args.port,
         eval_steps=args.evaluation_steps,
         eval_throttle_secs=args.evaluation_throttle_secs,
         eval_start_delay_secs=args.evaluation_start_delay_secs,
+        saved_model_path=args.output or None,
         data_reader_params=parse_params_string(args.data_reader_params),
         task_timeout_secs=args.task_timeout_secs,
         model_def=args.model_def,

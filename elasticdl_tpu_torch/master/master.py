@@ -3,12 +3,15 @@ elasticdl_tpu/master/master.py).
 
 Loads the model module, builds the task dispatcher over the readers'
 shards, starts the evaluation service, the gRPC server and the task
-monitor, then polls for completion. The master runs on the host: it
-touches no card.
+monitor, then polls for completion. The job type follows the data
+given: prediction data makes a prediction-only job, validation data
+alone an evaluation-only one. With ``saved_model_path`` (``--output``)
+a training job ends with the train-end task, whose worker exports the
+model there. The master runs on the host: it touches no card.
 
 Not ported (ROADMAP): the pod manager and autoscaler, the fleet
-monitor, the stream feeder, tensorboard, the state journal, the
-train-end export task and the observability endpoints.
+monitor, the stream feeder, tensorboard, the state journal and the
+observability endpoints.
 """
 
 import time
@@ -36,12 +39,14 @@ class Master:
         model_zoo_module,
         training_data=None,
         validation_data=None,
+        prediction_data=None,
         records_per_task=1024,
         num_epochs=1,
         port=50001,
         eval_steps=0,
         eval_throttle_secs=0,
         eval_start_delay_secs=0,
+        saved_model_path=None,
         data_reader_params=None,
         task_timeout_secs=30.0,
         seed=None,
@@ -60,14 +65,21 @@ class Master:
             reader = create_data_reader(origin, **reader_params)
             return reader.create_shards()
 
-        self.job_type = self._infer_job_type(training_data, validation_data)
+        self.job_type = self._infer_job_type(
+            training_data, validation_data, prediction_data
+        )
         self.task_dispatcher = TaskDispatcher(
             training_shards=shards_of(training_data),
             evaluation_shards=shards_of(validation_data),
+            prediction_shards=shards_of(prediction_data),
             records_per_task=records_per_task,
             num_epochs=num_epochs,
             seed=seed,
         )
+        if saved_model_path and self.job_type != JobType.PREDICTION_ONLY:
+            self.task_dispatcher.add_deferred_callback_create_train_end_task(
+                {"saved_model_path": saved_model_path}
+            )
         self.evaluation_service = None
         if validation_data:
             self.evaluation_service = EvaluationService(
@@ -94,7 +106,9 @@ class Master:
         self._server = None
 
     @staticmethod
-    def _infer_job_type(training_data, validation_data):
+    def _infer_job_type(training_data, validation_data, prediction_data):
+        if prediction_data:
+            return JobType.PREDICTION_ONLY
         if training_data and validation_data:
             return JobType.TRAINING_WITH_EVALUATION
         if validation_data:
@@ -107,7 +121,8 @@ class Master:
             self.evaluation_service.start()
         if self.job_type == JobType.EVALUATION_ONLY:
             n = self.task_dispatcher.create_evaluation_tasks(-1)
-            self.evaluation_service.init_eval_only_job(n)
+            if self.evaluation_service is not None:
+                self.evaluation_service.init_eval_only_job(n)
         self._server = build_server()
         add_master_servicer_to_server(self.servicer, self._server)
         self._server.add_insecure_port("[::]:%d" % self._port)

@@ -6,8 +6,14 @@ record range, not the worker. Workers are stateless consumers of this
 master-held queue, so a worker dying mid-task is recovered by requeueing
 the task ranges it held.
 
-Not ported (ROADMAP): the state journal a relaunched master replays,
-the stream windows, prediction tasks and the deferred train-end task.
+A prediction job's tasks are its prediction shards, created once and
+unshuffled. A job with an export path registers the train-end task
+(TRAIN_END_CALLBACK), created once all training is done: one worker
+takes it and runs the train-end callbacks (the export).
+
+Not ported (ROADMAP): the state journal a relaunched master replays
+(the reference's ``_journal_*`` calls around these operations) and the
+stream windows.
 """
 
 import random
@@ -47,6 +53,7 @@ class TaskDispatcher:
         self,
         training_shards,
         evaluation_shards=None,
+        prediction_shards=None,
         records_per_task=1024,
         num_epochs=1,
         max_task_retries=MAX_TASK_RETRIES,
@@ -56,12 +63,14 @@ class TaskDispatcher:
         self._lock = threading.Lock()
         self._training_shards = dict(training_shards or {})
         self._evaluation_shards = dict(evaluation_shards or {})
+        self._prediction_shards = dict(prediction_shards or {})
         self._records_per_task = records_per_task
         self._max_task_retries = max_task_retries
         self._shuffle = shuffle
         self._rng = random.Random(seed)
-        # epochs only apply to training; an eval-only job must not leave
-        # a phantom epoch that keeps finished() False forever
+        # epochs only apply to training; an eval- or predict-only job
+        # must not leave a phantom epoch that keeps finished() False
+        # forever
         self._epochs_left = num_epochs if self._training_shards else 0
         self._next_task_id = 1
         # task_id -> _TaskRecord for every task queued or handed out
@@ -73,12 +82,17 @@ class TaskDispatcher:
         # worker_id -> set of task_ids (inverse of _doing)
         self._worker_doing = {}
         self._task_completed_callbacks = []
+        # the train-end task's creation, run once training is done
+        self._deferred_callbacks = []
         self._job_failed = False
         # rolling task-duration samples for the timeout scanner
         self._task_durations = []
         # task type -> successfully completed count
         self._done_counts = {}
-        if self._training_shards:
+        if self._prediction_shards:
+            self._todo.extend(self._create_tasks_locked(
+                pb.PREDICTION, self._prediction_shards))
+        elif self._training_shards:
             self._create_training_epoch_locked()
 
     # ------------------------------------------------------------------
@@ -129,6 +143,45 @@ class TaskDispatcher:
             )
             self._eval_todo.extend(ids)
             return len(ids)
+
+    def add_deferred_callback_create_train_end_task(self,
+                                                    extended_config=None):
+        """Register the train-end task, created once all training is
+        done. One worker receives it and runs the train-end callbacks
+        (the model export)."""
+
+        # runs through _fire_deferred_locked, under the lock
+        def _create():
+            task = pb.Task(
+                task_id=self._next_task_id,
+                type=pb.TRAIN_END_CALLBACK,
+                shard_name="",
+                start=0,
+                end=0,
+            )
+            for key, value in (extended_config or {}).items():
+                task.extended_config[key] = value
+            self._records[task.task_id] = _TaskRecord(task)
+            self._next_task_id += 1
+            self._todo.append(task.task_id)
+
+        with self._lock:
+            # one train-end task per job: none while one is queued or
+            # done
+            if self._records_have_train_end_locked() or self._done_counts.get(
+                pb.TRAIN_END_CALLBACK, 0
+            ):
+                return
+            self._deferred_callbacks.append(_create)
+
+    def _fire_deferred_locked(self):
+        callbacks, self._deferred_callbacks = self._deferred_callbacks, []
+        for callback in callbacks:
+            callback()
+
+    def fire_deferred_callbacks(self):
+        with self._lock:
+            self._fire_deferred_locked()
 
     # ------------------------------------------------------------------
     # queue operations
@@ -203,12 +256,16 @@ class TaskDispatcher:
                 self._done_counts[task.type] = (
                     self._done_counts.get(task.type, 0) + 1
                 )
-                if (
-                    not self._todo
-                    and not self._doing_training_locked()
-                    and self._epochs_left > 0
-                ):
-                    self._create_training_epoch_locked()
+                if not self._todo and not self._doing_training_locked():
+                    if self._epochs_left > 0:
+                        self._create_training_epoch_locked()
+                    elif (
+                        self._deferred_callbacks
+                        and not self._records_have_train_end_locked()
+                    ):
+                        # the last training task of the last epoch is
+                        # done: the train-end task comes now
+                        self._fire_deferred_locked()
                 completed_callbacks = list(self._task_completed_callbacks)
                 result = (task.type == pb.EVALUATION, task)
             else:
@@ -238,6 +295,12 @@ class TaskDispatcher:
     def _doing_training_locked(self):
         return any(
             self._records[tid].task.type == pb.TRAINING for tid in self._doing
+        )
+
+    def _records_have_train_end_locked(self):
+        return any(
+            r.task.type == pb.TRAIN_END_CALLBACK
+            for r in self._records.values()
         )
 
     def recover_tasks(self, worker_id):
@@ -270,6 +333,8 @@ class TaskDispatcher:
                 and not self._eval_todo
                 and not self._doing
                 and self._epochs_left <= 0
+                # a registered train-end task not created yet
+                and not self._deferred_callbacks
             )
 
     def job_failed(self):

@@ -11,7 +11,10 @@ dense layer is sized by the first batch it sees (``nn.LazyLinear``),
 and ``reset_parameters`` then draws every dense layer as flax's
 ``Dense`` does (lecun-normal kernel, truncated at two standard
 deviations; zero bias). ``params_from_flax`` carries the reference's
-dense params across.
+dense params across, and ``params_to_flax`` (the module's
+``flax_params``) writes them back under the reference's flat flax
+names, so an export or a dense checkpoint of either package loads in
+either.
 """
 
 import math
@@ -92,6 +95,15 @@ class DeepFM(nn.Module):
         logit = linear.reshape(-1, 1) + fm_term + deep_term
         return logit.squeeze(-1)
 
+    def flax_params(self, state):
+        """``{name: tensor}`` in this module's names -> the export's flat
+        flax names (train/export.py and the dense checkpoints read
+        it)."""
+        return params_to_flax(state)
+
+    def params_from_flax(self, flat):
+        return params_from_flax(flat)
+
 
 def custom_model():
     return DeepFM()
@@ -116,6 +128,28 @@ def params_from_flax(flat):
         else:
             raise ValueError("unknown DeepFM parameter %r" % name)
     return state
+
+
+def params_to_flax(state):
+    """state_dict (``dense.<i>.weight`` [out, in], ``dense.<i>.bias``)
+    -> ``{flax name: fp32 ndarray}`` (``Dense_<i>/kernel`` [in, out],
+    ``Dense_<i>/bias``; the export's names without the ``params/``
+    prefix): the inverse of ``params_from_flax``. Every array is a
+    copy."""
+    flat = {}
+    for name, tensor in state.items():
+        parts = name.split(".")
+        if len(parts) != 3 or parts[0] != "dense":
+            raise ValueError("unknown DeepFM parameter %r" % name)
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        if parts[2] == "weight":
+            flat["Dense_%s/kernel" % parts[1]] = np.array(value.T,
+                                                          order="C")
+        elif parts[2] == "bias":
+            flat["Dense_%s/bias" % parts[1]] = np.array(value)
+        else:
+            raise ValueError("unknown DeepFM parameter %r" % name)
+    return flat
 
 
 def loss(labels, predictions):

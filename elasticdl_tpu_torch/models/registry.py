@@ -15,6 +15,11 @@ types:
 - ``eval_metrics_fn()`` -> {name: train.metrics.Metric} (optional)
 - ``sparse_embedding_specs()`` -> host-PS tables (optional; a model
   with them trains through ``train.sparse.SparseTrainer``)
+- ``callbacks()`` -> list of ``train.callbacks.Callback`` (optional;
+  the worker adds a ``SavedModelExporter`` when none is declared)
+- ``PredictionOutputsProcessor`` -> class whose ``process(outputs,
+  worker_id)`` takes each prediction batch's outputs and whose optional
+  ``close()`` runs before the task is reported done (optional)
 
 Serving reads only the first two, so a serving-only module may leave
 out the training names; the trainers raise when one is missing.
@@ -31,7 +36,8 @@ import sys
 class ModelSpec:
     def __init__(self, custom_model, params_from_flax, loss=None,
                  optimizer=None, dataset_fn=None, eval_metrics_fn=None,
-                 sparse_embedding_specs=None, module=None):
+                 sparse_embedding_specs=None, callbacks=None,
+                 prediction_outputs_processor=None, module=None):
         self.custom_model = custom_model
         # {flax name: array} -> state_dict (port addition: exports carry
         # the JAX package's flat flax names)
@@ -41,6 +47,8 @@ class ModelSpec:
         self.dataset_fn = dataset_fn
         self.eval_metrics_fn = eval_metrics_fn or (lambda: {})
         self.sparse_embedding_specs = sparse_embedding_specs
+        self.callbacks = callbacks or (lambda: [])
+        self.prediction_outputs_processor = prediction_outputs_processor
         self.module = module
 
     def require_training(self):
@@ -155,5 +163,7 @@ def get_model_spec(module_path_or_name, model_def="",
         dataset_fn=optional("dataset_fn"),
         eval_metrics_fn=optional("eval_metrics_fn"),
         sparse_embedding_specs=optional("sparse_embedding_specs"),
+        callbacks=optional("callbacks"),
+        prediction_outputs_processor=optional("PredictionOutputsProcessor"),
         module=module,
     )

@@ -120,6 +120,9 @@ class TransformerLM(nn.Module):
         flax names (train/export.py reads it)."""
         return params_to_flax(state, self.num_heads)
 
+    def params_from_flax(self, flat):
+        return params_from_flax(flat)
+
 
 # ---------------------------------------------------------------------------
 # flax names <-> state_dict

@@ -182,7 +182,15 @@ class ParameterServer:
             logger.info("Injecting %.1f ms per-RPC delay",
                         self.args.inject_rpc_delay_ms)
         add_pserver_servicer_to_server(servicer, self.server)
-        self.server.add_insecure_port("[::]:%d" % self.args.port)
+        try:
+            self.server.add_insecure_port("[::]:%d" % self.args.port)
+        except RuntimeError:
+            # a relaunch whose port another process took meanwhile: exit
+            # non-zero now, with the reason, rather than serve nowhere
+            logger.error("PS %d cannot bind port %d (in use by another "
+                         "process); exiting", self.args.ps_id,
+                         self.args.port)
+            raise
         # local transport: under EDL_PS_UDS_DIR also serve on a unix
         # socket named by this TCP port; a stale socket of a SIGKILLed
         # predecessor is unlinked first

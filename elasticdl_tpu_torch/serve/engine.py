@@ -1,7 +1,13 @@
 """Model-version lifecycle: load, watch, warm, atomically swap (port of
-elasticdl_tpu/serve/engine.py, single-pod dense mode).
+elasticdl_tpu/serve/engine.py, single-pod mode).
 
-The engine owns the active ``ServingModel`` reference. A watcher thread
+The engine owns the active ``ServingModel`` reference and, for a model
+with sparse tables served over the PS (``ps_client``), the embedding
+cache every version shares: a ``HotRowCache`` with a wall-clock TTL
+(``cache_ttl_secs``, else ``EDL_SERVE_CACHE_TTL_SECS`` or 2 s; 0 turns
+it off), thread-safe. A PS relaunch (the restored-version stamp changing
+on a pull answer) drops that cache from whatever thread saw it: the
+engine chains ``_on_ps_restart`` onto the PS client's resync hook. A watcher thread
 polls the export's signature (``EDL_SERVE_WATCH_SECS``); when it
 changes, the replacement version is built and WARMED in the background
 while the active version keeps serving, then swapped in with one
@@ -9,8 +15,8 @@ reference assignment. A batch that already entered ``_run_batch`` holds
 its own model reference, so in-flight requests finish on the version
 that admitted them.
 
-Not ported yet: the PS-backed embedding cache and the router-directed
-(fleet) mode.
+Not ported yet: the router-directed (fleet) mode, the metrics and the
+events journal.
 """
 
 import threading
@@ -20,6 +26,7 @@ from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.embedding.client import HotRowCache
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.serve.batcher import MicroBatcher, _env_num
 from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
@@ -27,20 +34,37 @@ from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
 logger = _logger_factory("elasticdl_tpu_torch.serve.engine")
 
 WATCH_SECS_ENV = "EDL_SERVE_WATCH_SECS"
+CACHE_TTL_ENV = "EDL_SERVE_CACHE_TTL_SECS"
 
 
 class ServingEngine:
-    def __init__(self, model_zoo, export_dir, model_def="", model_params="",
-                 compute_dtype=None, max_batch=None, max_delay_ms=None,
-                 queue_depth=None, deadline_ms=None, watch_secs=None,
+    def __init__(self, model_zoo, export_dir, ps_client=None,
+                 model_def="", model_params="", compute_dtype=None,
+                 max_batch=None, max_delay_ms=None, queue_depth=None,
+                 deadline_ms=None, cache_ttl_secs=None,
+                 cache_capacity=1_000_000, watch_secs=None,
                  device="cuda"):
         self.model_zoo = model_zoo
         self.export_dir = export_dir
         self.device = resolve_device(device)
+        self._ps = ps_client
         self._compute_dtype = compute_dtype
         self.spec = get_model_spec(
             model_zoo, model_def=model_def, model_params=model_params
         )
+        if cache_ttl_secs is None:
+            cache_ttl_secs = _env_num(CACHE_TTL_ENV, 2.0, float)
+        self.cache = None
+        if (self.spec.sparse_embedding_specs and ps_client is not None
+                and cache_ttl_secs > 0):
+            # no push thread bounds a served row's age: freshness is
+            # wall-clock; thread-safe for the batcher, the warm-up and
+            # the PS-restart hook
+            self.cache = HotRowCache(capacity=cache_capacity,
+                                     ttl_secs=cache_ttl_secs,
+                                     thread_safe=True)
+        # PS relaunches whose cache drop ran (tests and the smoke read it)
+        self.cache_drops = 0
         if watch_secs is None:
             watch_secs = _env_num(WATCH_SECS_ENV, 2.0, float)
         self._watch_secs = float(watch_secs)
@@ -56,6 +80,9 @@ class ServingEngine:
             queue_depth=queue_depth,
             default_deadline_ms=deadline_ms,
         )
+        # read-only preparers never take the client's hook slot, so one
+        # chain here covers every ServingModel build
+        self._chain_resync_hook()
         self._watcher = threading.Thread(
             target=self._watch_loop, name="edl-serve-watcher", daemon=True
         )
@@ -101,11 +128,38 @@ class ServingEngine:
         }
 
     # ------------------------------------------------------------------
+    def _chain_resync_hook(self):
+        """Wrap the PS client's current resync hook (a co-resident
+        trainer's, or None) so a PS relaunch also drops the shared
+        serving cache at once."""
+        if self._ps is None or not hasattr(self._ps, "resync_hook"):
+            return
+        inner = self._ps.resync_hook
+
+        def chained(shard, _inner=inner):
+            if _inner is not None:
+                _inner(shard)
+            self._on_ps_restart(shard)
+
+        self._ps.resync_hook = chained
+
+    def _on_ps_restart(self, shard):
+        if self.cache is not None:
+            # rows cached from the dead process must serve no request
+            self.cache.clear()
+            self.cache_drops += 1
+            logger.warning(
+                "PS shard %s relaunched; serving embedding cache dropped",
+                shard,
+            )
+
     def _build(self):
         return ServingModel(
             self.spec,
             self.export_dir,
             max_batch=self.batcher.max_batch,
+            ps_client=self._ps,
+            cache=self.cache,
             compute_dtype=self._compute_dtype,
             device=self.device,
         )

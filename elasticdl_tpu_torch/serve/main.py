@@ -1,7 +1,12 @@
 """Serving role entry point (port of elasticdl_tpu/serve/main.py).
 
 Usage: python -m elasticdl_tpu_torch.serve.main --model_zoo=... \
-    --export_dir=/artifacts/model --port=50052 [--device cuda|cpu]
+    --export_dir=/artifacts/model --port=50052 [--device cuda|cpu] \
+    [--ps_addrs=host:port,host:port] [--cache_ttl_secs=2]
+
+A model with sparse embedding tables (DeepFM) serves its export's dense
+params beside the training job's PS, given by ``--ps_addrs``, through a
+row cache of ``--cache_ttl_secs`` that a PS relaunch drops.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with ``cuda`` and no
 card it raises rather than fall back. SIGTERM drains gracefully: stop
@@ -37,6 +42,10 @@ def parse_serve_args(argv=None):
         "hot-swapped with zero request failures)",
     )
     parser.add_argument(
+        "--ps_addrs", default="",
+        help="comma-separated PS addresses for sparse-embedding models",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device to serve on (cuda, cuda:N or cpu); cuda "
         "without a card raises",
@@ -62,6 +71,11 @@ def parse_serve_args(argv=None):
         "(<0 = EDL_SERVE_DEADLINE_MS or 1000)",
     )
     parser.add_argument(
+        "--cache_ttl_secs", type=float, default=-1.0,
+        help="embedding row cache TTL (<0 = EDL_SERVE_CACHE_TTL_SECS "
+        "or 2; 0 disables the cache)",
+    )
+    parser.add_argument(
         "--watch_secs", type=float, default=-1.0,
         help="export watch interval (<0 = EDL_SERVE_WATCH_SECS or 2)",
     )
@@ -73,9 +87,15 @@ class ServeRole:
         from elasticdl_tpu_torch.serve.engine import ServingEngine
 
         self.args = args
+        self.ps_client = None
+        if args.ps_addrs:
+            from elasticdl_tpu_torch.worker.ps_client import PSClient
+
+            self.ps_client = PSClient(args.ps_addrs)
         self.engine = ServingEngine(
             args.model_zoo,
             args.export_dir,
+            ps_client=self.ps_client,
             model_def=args.model_def,
             model_params=args.model_params,
             compute_dtype=args.compute_dtype or None,
@@ -86,6 +106,9 @@ class ServeRole:
             queue_depth=args.queue_depth or None,
             deadline_ms=(
                 args.deadline_ms if args.deadline_ms >= 0 else None
+            ),
+            cache_ttl_secs=(
+                args.cache_ttl_secs if args.cache_ttl_secs >= 0 else None
             ),
             watch_secs=args.watch_secs if args.watch_secs >= 0 else None,
             device=args.device,
@@ -150,6 +173,8 @@ class ServeRole:
         flushed = self.engine.drain()
         if self.server is not None:
             self.server.stop(grace=2.0).wait(timeout=5.0)
+        if self.ps_client is not None:
+            self.ps_client.close()
         logger.info(
             "serve drained (%s): flushed %d, served %d, shed %d",
             reason, flushed, self.engine.batcher.served_total,

@@ -1,5 +1,5 @@
 """One loaded, servable model version (port of
-elasticdl_tpu/serve/model.py, the dense branch).
+elasticdl_tpu/serve/model.py).
 
 A ``ServingModel`` is immutable once built: the export's params loaded
 into the model-zoo module on its device, floating params cast to the
@@ -11,12 +11,18 @@ in, and a served answer equals ``predict`` on the same rows bit for bit.
 Version hot swap builds a NEW ServingModel and swaps the engine's
 reference; in-flight batches finish on the instance that admitted them.
 
-The sparse (PS-backed) branch of the JAX ServingModel is not ported yet.
+A model with sparse embedding tables (DeepFM) serves its export's dense
+params beside the training job's PS: a read-only
+``SparseBatchPreparer`` (the trainer's own unique-id planning and pull
+stack, through the engine's shared cache) swaps the ids for
+(rows, indices) features. The padding rows ride under the row mask, so
+their ids never reach the PS.
 """
 
 import json
 import os
 
+import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
@@ -24,6 +30,7 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.common.tensor_utils import as_tensor
+from elasticdl_tpu_torch.data.pipeline import MASK_KEY
 from elasticdl_tpu_torch.train.export import load_exported
 from elasticdl_tpu_torch.train.train_state import resolve_dtype
 
@@ -58,8 +65,8 @@ class ServingModel:
     """One export, loaded on ``device``, behind a padded-batch
     ``predict``."""
 
-    def __init__(self, spec, export_path, max_batch, compute_dtype=None,
-                 device="cuda"):
+    def __init__(self, spec, export_path, max_batch, ps_client=None,
+                 cache=None, compute_dtype=None, device="cuda"):
         self.spec = spec
         self.export_path = export_path
         self.max_batch = int(max_batch)
@@ -83,6 +90,35 @@ class ServingModel:
         if self.compute_dtype is not None:
             model = model.to(self.compute_dtype)  # floating params only
         self.model = model.to(self.device).eval()
+        self._preparer = None
+        if spec.sparse_embedding_specs:
+            if ps_client is None:
+                raise ValueError(
+                    "model %r declares sparse embedding tables; serving "
+                    "it needs a PS client (--ps_addrs)" % (
+                        getattr(spec.module, "__name__", spec.module),
+                    )
+                )
+            from elasticdl_tpu_torch.train.sparse import SparseBatchPreparer
+
+            # read_only: the training job created the tables; a PS
+            # relaunch drops the engine's cache and registers nothing
+            self._preparer = SparseBatchPreparer(
+                spec.sparse_embedding_specs(batch_size=self.max_batch),
+                ps_client,
+                cache=cache,
+                read_only=True,
+            )
+
+    @property
+    def sparse(self):
+        return self._preparer is not None
+
+    @property
+    def embedding_hit_rate(self):
+        if self._preparer is None:
+            return 0.0
+        return self._preparer._embedding.hit_rate()
 
     # ------------------------------------------------------------------
     def _pad(self, features, rows):
@@ -117,6 +153,18 @@ class ServingModel:
         bare array for single-input models) with ``rows`` real rows;
         returns ``{output name: CPU tensor[rows, ...]}``."""
         padded = self._pad(features, rows)
+        if self._preparer is not None:
+            # the trainer's prepare: unique ids -> cached or pulled rows
+            # and indices; the mask keeps the padding rows' ids out of
+            # the unique set
+            mask = np.zeros((self.max_batch,), np.float32)
+            mask[:rows] = 1.0
+            prepared, _ = self._preparer.prepare({
+                "features": {k: v.numpy() for k, v in padded.items()},
+                MASK_KEY: mask,
+            })
+            padded = {k: as_tensor(v)
+                      for k, v in prepared["features"].items()}
         with torch.inference_mode():
             if isinstance(padded, dict):
                 outputs = self.model(

@@ -156,12 +156,19 @@ class SparseBatchPreparer:
     this step leave the PS push set (their gradients apply on the
     card). All tables' pulls ride one fused pull call, through an
     optional ``HotRowCache``.
+
+    ``read_only=True`` is the serving consumer: it registers no table
+    (the training job created them), never pushes, and leaves the PS
+    client's resync hook alone (the serving engine chains its own cache
+    drop there, ``serve/engine.py``).
     """
 
-    def __init__(self, specs, ps_client, cache=None, device_tier=None):
+    def __init__(self, specs, ps_client, cache=None, device_tier=None,
+                 read_only=False):
         self._specs = list(specs)
         self._ps = ps_client
         self._registered = False
+        self._read_only = bool(read_only)
         if cache is not None and device_tier is not None:
             # The tier supersedes the cache: a cache-stale row must
             # never become a promotion's staged value, because the tier
@@ -179,7 +186,10 @@ class SparseBatchPreparer:
         # set by _on_ps_restart (maybe on the push thread), consumed at
         # the top of prepare() on the pulling thread
         self._cache_dirty = False
-        if hasattr(ps_client, "resync_hook"):
+        # the hook slot has one owner (the last writer): a read-only
+        # preparer must not take it from a co-resident trainer, and the
+        # serving engine drops the shared cache itself
+        if not self._read_only and hasattr(ps_client, "resync_hook"):
             ps_client.resync_hook = self._on_ps_restart
 
     @property
@@ -197,7 +207,8 @@ class SparseBatchPreparer:
         one writer, the pulling thread), and flush-then-invalidate the
         tier."""
         del shard
-        self._registered = False
+        if not self._read_only:
+            self._registered = False
         self._cache_dirty = True
         if self._tier is not None:
             # host maps invalidate NOW (thread-safe); the dirty rows'
@@ -206,6 +217,8 @@ class SparseBatchPreparer:
             self._tier.mark_restart()
 
     def register_tables(self):
+        if self._read_only:
+            return
         if not self._registered:
             self._ps.push_embedding_table_infos(
                 [(s.name, s.dim, _wire_initializer(s)) for s in self._specs]
@@ -342,6 +355,8 @@ class SparseBatchPreparer:
         """Push each table's first n row gradients (host arrays) under
         its pull_info ids; returns ``(accepted, version,
         rejected_shards)``."""
+        if self._read_only:
+            raise RuntimeError("a read-only preparer never pushes")
         grads_by_table = {}
         for name, (unique, n) in pull_info.items():
             if n == 0:

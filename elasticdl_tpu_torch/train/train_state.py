@@ -25,6 +25,11 @@ class TrainState:
     to_flax: Optional[Callable] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # the inverse (the model's ``params_from_flax``): flat flax names ->
+    # state_dict, read by the dense checkpoints' restore
+    from_flax: Optional[Callable] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
 
 def create_train_state(model, tx):
@@ -39,6 +44,7 @@ def create_train_state(model, tx):
         model_state=model_state,
         opt_state=tx.init(params),
         to_flax=getattr(model, "flax_params", None),
+        from_flax=getattr(model, "params_from_flax", None),
     )
 
 

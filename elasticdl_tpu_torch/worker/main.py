@@ -2,11 +2,16 @@
 
 Usage: python -m elasticdl_tpu_torch.worker.main --master_addr=... \
     --worker_id=0 --model_zoo=... --training_data=... \
-    [--ps_addrs=host:port,host:port] [--device cuda|cpu]
+    [--ps_addrs=host:port,host:port] [--device cuda|cpu] \
+    [--checkpoint_dir=DIR --checkpoint_steps=N] \
+    [--checkpoint_dir_for_init=DIR] [--mode training|evaluation|prediction]
 
 Trains on ``cuda`` unless ``--device cpu`` is given; with ``cuda`` and
-no card it raises rather than fall back. Exits 0 when the master says
-the job is over, 1 on a health-sentinel halt.
+no card it raises rather than fall back. ``--mode evaluation`` and
+``--mode prediction`` take only those tasks (an evaluation-only or
+prediction-only job), scoring the model restored from
+``--checkpoint_dir_for_init``. Exits 0 when the master says the job is
+over, 1 on a health-sentinel halt or a failed restore.
 """
 
 import sys
@@ -19,7 +24,7 @@ from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.models.registry import parse_params_string
 from elasticdl_tpu_torch.train.health import HealthSentinelError
 from elasticdl_tpu_torch.worker.master_client import MasterClient
-from elasticdl_tpu_torch.worker.worker import Worker
+from elasticdl_tpu_torch.worker.worker import CheckpointRestoreError, Worker
 
 logger = _logger_factory("elasticdl_tpu_torch.worker.main")
 
@@ -32,7 +37,7 @@ def main(argv=None):
     # epoch, the push incarnation the sync PS orders relaunches by
     master_client.reset_worker()
     reader = create_data_reader(
-        args.training_data or args.validation_data,
+        args.training_data or args.validation_data or args.prediction_data,
         **parse_params_string(args.data_reader_params),
     )
     worker = Worker(
@@ -45,6 +50,11 @@ def main(argv=None):
         report_version_steps=args.report_version_steps,
         grad_accum_steps=args.grad_accum_steps,
         ps_addrs=args.ps_addrs or None,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_steps=args.checkpoint_steps,
+        keep_checkpoint_max=args.keep_checkpoint_max,
+        async_checkpoint=bool(args.async_checkpoint),
+        checkpoint_dir_for_init=args.checkpoint_dir_for_init,
         sparse_pipeline=bool(args.sparse_pipeline),
         sparse_cache_staleness=args.sparse_cache_staleness,
         sparse_push_interval=args.sparse_push_interval,
@@ -59,6 +69,10 @@ def main(argv=None):
         # the task was already reported failed (requeued once); exit
         # nonzero so the failure is loud
         logger.error("health sentinel halt: %s", e)
+        return 1
+    except CheckpointRestoreError as e:
+        # held tasks were handed back; the restore is not retried here
+        logger.error("checkpoint restore failed: %s", e)
         return 1
     return 0
 

@@ -13,13 +13,23 @@ any other model through ``worker.trainer.TorchTrainer``. Both run on
 ``device`` (``cuda`` unless the caller asks for the CPU; no card
 raises).
 
+The job's artifact: the worker saves dense checkpoints every
+``checkpoint_steps`` versions (``train/checkpoint.py``), after the
+in-flight async push lands and the device tier's rows are flushed to
+the PS, so the PS state the checkpoint pairs with carries every update.
+``checkpoint_dir_for_init`` resumes from them on the first batch (a
+restore that finds data but fails is fatal, ``CheckpointRestoreError``;
+``resume_optional`` lets a missing or empty directory mean a fresh
+start). Evaluation and prediction tasks score the restored model; the
+train-end task runs the callbacks (the ``SavedModelExporter`` added
+when the model declares none) behind the same push and tier barriers.
+
 Not ported (ROADMAP): the lockstep multi-host loop, the graceful
-drain, dense checkpoints, prediction tasks, the train-end task with
-its callbacks (a train-end task is handed back failed), stream
-checkpoints, telemetry and trace spans.
+drain, stream checkpoints, telemetry and trace spans.
 """
 
 import contextlib
+import os
 import threading
 import time
 
@@ -39,10 +49,15 @@ from elasticdl_tpu_torch.data.pipeline import (
 )
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+from elasticdl_tpu_torch.train.callbacks import SavedModelExporter
 from elasticdl_tpu_torch.train.health import HealthSentinelError
 from elasticdl_tpu_torch.worker.task_data_service import TaskDataService
 
 logger = _logger_factory("elasticdl_tpu_torch.worker.worker")
+
+
+class CheckpointRestoreError(RuntimeError):
+    """Fatal: --checkpoint_dir_for_init was given but restore failed."""
 
 
 class Worker:
@@ -64,6 +79,12 @@ class Worker:
         trainer_factory=None,
         grad_accum_steps=1,
         ps_addrs=None,
+        checkpoint_dir="",
+        checkpoint_steps=0,
+        keep_checkpoint_max=3,
+        async_checkpoint=False,
+        checkpoint_dir_for_init="",
+        resume_optional=False,
         sparse_pipeline=False,
         sparse_cache_staleness=0,
         sparse_push_interval=1,
@@ -88,6 +109,7 @@ class Worker:
         self._minibatch_size = minibatch_size
         self._mode = mode
         self._report_version_steps = report_version_steps
+        self._wait_sleep_secs = wait_sleep_secs
         self.tds = TaskDataService(
             master_client, data_reader, wait_sleep_secs=wait_sleep_secs
         )
@@ -142,7 +164,52 @@ class Worker:
         )
         self._sparse_push_interval = max(1, sparse_push_interval)
         self.state = None
+        self.stop_training = False
         self._version = 0
+        # dense checkpoints (params, model state, optimizer slots, step);
+        # the restore runs on the first batch, when the state's shapes
+        # are known
+        self._checkpoint_steps = checkpoint_steps
+        self._checkpoint_mgr = None
+        self._init_checkpoint_dir = checkpoint_dir_for_init
+        self._restore_attempted = not checkpoint_dir_for_init
+        # lenient: a missing or empty init directory is a fresh start
+        # (an elastic relaunch pointed at its own directory); an
+        # operator's explicit resume stays strict
+        self._resume_optional = resume_optional
+        if checkpoint_dir and checkpoint_steps:
+            from elasticdl_tpu_torch.train.checkpoint import (
+                DenseCheckpointManager,
+            )
+
+            self._checkpoint_mgr = DenseCheckpointManager(
+                checkpoint_dir, keep_max=keep_checkpoint_max,
+                async_save=async_checkpoint,
+            )
+        if checkpoint_dir and not checkpoint_steps:
+            logger.warning(
+                "--checkpoint_dir=%r given without --checkpoint_steps; "
+                "NO checkpoints will be written", checkpoint_dir,
+            )
+        if self.spec.sparse_embedding_specs and (
+            self._checkpoint_mgr is not None or checkpoint_dir_for_init
+        ):
+            # the worker snapshots the dense state; the PS processes
+            # checkpoint the embedding tables themselves
+            logger.warning(
+                "Sparse model: worker checkpoint flags cover only the "
+                "dense state; pass --checkpoint_dir/--checkpoint_dir_for_"
+                "init to the parameter servers to snapshot/restore "
+                "embedding tables"
+            )
+        self._callbacks = list(self.spec.callbacks() or [])
+        # --output exports every model, not only those declaring an
+        # exporter (the default no-ops without saved_model_path)
+        if not any(isinstance(cb, SavedModelExporter)
+                   for cb in self._callbacks):
+            self._callbacks.append(SavedModelExporter())
+        for cb in self._callbacks:
+            cb.set_worker(self)
         # per-phase wall clock (EDL_TIMING=1)
         self._timing = Timing()
         self._heartbeat_stop = threading.Event()
@@ -176,12 +243,30 @@ class Worker:
         return dataset.batch(self._minibatch_size).prefetch(2)
 
     def _join_trainer_pushes(self):
-        """Depth-1 async-push barrier (train/sparse.py join_pushes) at a
-        stream boundary, so an in-flight push lands or raises here. A
-        no-op for dense trainers."""
+        """Depth-1 async-push barrier (train/sparse.py join_pushes) at
+        the worker's boundaries (checkpoints, stream ends, the train-end
+        export), so an in-flight push lands or raises here. A no-op for
+        dense trainers."""
         join = getattr(self.trainer, "join_pushes", None)
         if join is not None:
             join()
+
+    def _flush_device_tier(self):
+        """Device-tier writeback barrier (train/device_tier.py): the
+        checkpoint and train-end boundaries write the tier's dirty rows
+        back to the PS first, so the PS state those artifacts pair with
+        carries the tier's updates. A no-op for dense trainers and with
+        the tier off."""
+        flush = getattr(self.trainer, "flush_device_tier", None)
+        if flush is not None:
+            flush()
+
+    def _save_checkpoint(self):
+        # a checkpoint claiming version V must not precede V's gradients
+        # and tier rows reaching the PS
+        self._join_trainer_pushes()
+        self._flush_device_tier()
+        self._checkpoint_mgr.save(self._version, self.state)
 
     def _timed_train_step(self, batch):
         t0 = self._timing.start()
@@ -190,9 +275,15 @@ class Worker:
         return loss
 
     def _after_train_batch(self, batch, loss):
-        """Per-batch bookkeeping shared by both loops: version, record
-        accounting, version reports, the loss log."""
+        """Per-batch bookkeeping shared by both loops: version,
+        checkpoint, record accounting, version reports, the loss log,
+        callbacks."""
         self._version += 1
+        if (
+            self._checkpoint_mgr is not None
+            and self._version % self._checkpoint_steps == 0
+        ):
+            self._save_checkpoint()
         with self._timing.timeit("report_record"):
             self.tds.report_record_done(batch_real_count(batch))
         if (
@@ -208,14 +299,23 @@ class Worker:
             logger.info(
                 "step %d loss %.6f", self._version, float(loss)
             )
+        for cb in self._callbacks:
+            cb.on_batch_end(self._version, loss)
 
     def _train_batches_pipelined(self, batches):
         """Drive the sparse trainer's pipelined stream: batch N+1's PS
         pull rides under batch N's step, pushes go out on a background
         thread (train/sparse.py train_stream)."""
+
+        def on_first_batch(batch):
+            if not self._restore_attempted:
+                self._restore_from_checkpoint(batch)
+            return self.state
+
         stream = self.trainer.train_stream(
             self.state,
             batches,
+            on_first_batch=on_first_batch,
             push_interval=self._sparse_push_interval,
         )
         # deterministic close: the stream's finally drains the in-flight
@@ -224,11 +324,32 @@ class Worker:
             for state, loss, batch in stream:
                 self.state = state
                 self._after_train_batch(batch, loss)
+                if self.stop_training:
+                    break
 
     def _train_batches_sequential(self, batches):
         for batch in batches:
+            if not self._restore_attempted:
+                self._restore_from_checkpoint(batch)
             loss = self._timed_train_step(batch)
             self._after_train_batch(batch, loss)
+            if self.stop_training:
+                break
+
+    def _read_template_batch(self):
+        """One batch read straight from the reader's first shard (no
+        master round trip): the restore's template."""
+        shards = self._reader.create_shards()
+        name, (start, count) = next(iter(shards.items()))
+        template_task = pb.Task(
+            shard_name=name,
+            start=start,
+            end=start + min(count, self._minibatch_size),
+            type=pb.TRAINING,
+        )
+        return next(iter(self._batches(
+            self._reader.read_records(template_task), Mode.TRAINING
+        )))
 
     def _run_training_stream(self):
         """Consume one continuous training stream until it pauses."""
@@ -244,6 +365,13 @@ class Worker:
             # here and routes through the same handlers as an in-stream
             # failure (tasks get retried, not lost)
             self._join_trainer_pushes()
+        except CheckpointRestoreError:
+            # fatal for this process: held tasks go back first (a
+            # relaunch under this worker id keeps liveness fresh, so the
+            # master would never recover them)
+            self.tds.report_pending_failed("checkpoint restore failed")
+            self.tds.report_parked_failed("checkpoint restore failed")
+            raise
         except HealthSentinelError as e:
             # EDL_HEALTH_ON_NONFINITE=halt: the task fails loudly (a
             # counted failure), parked work goes back, and the error
@@ -260,12 +388,76 @@ class Worker:
             if trainer_timing is not None:
                 trainer_timing.report("sparse trainer")
 
+    def _restore_from_checkpoint(self, batch):
+        """Resume from --checkpoint_dir_for_init on the first batch: the
+        freshly initialized state is the template the checkpoint loads
+        into. A restore that finds data but fails is fatal
+        (``CheckpointRestoreError`` out of every task handler): training
+        or scoring from random weights after the operator asked for a
+        resume would discard real progress. A pod relaunch is the retry
+        for transient storage errors."""
+        from elasticdl_tpu_torch.train.checkpoint import (
+            DenseCheckpointManager,
+        )
+
+        self.state = self.trainer.ensure_state(self.state, batch)
+        if self._resume_optional and not os.path.isdir(
+            self._init_checkpoint_dir
+        ):
+            # never created: a first launch. Leniency covers only
+            # "nothing saved yet"
+            logger.info("No checkpoint dir %r yet; fresh initialization",
+                        self._init_checkpoint_dir)
+            self._restore_attempted = True
+            return
+        mgr = None
+        t0 = time.monotonic()
+        try:
+            # the constructor too: a missing directory (create=False) is
+            # fatal, not a retryable task failure
+            mgr = DenseCheckpointManager(
+                self._init_checkpoint_dir, keep_max=0, create=False
+            )
+            restored = mgr.restore(template=self.state)
+        except Exception as e:
+            raise CheckpointRestoreError(
+                "restore from --checkpoint_dir_for_init=%r failed: %s"
+                % (self._init_checkpoint_dir, e)
+            ) from e
+        finally:
+            if mgr is not None:
+                mgr.close()
+        if restored is None:
+            if self._resume_optional:
+                logger.info("No checkpoint in %r yet; fresh "
+                            "initialization", self._init_checkpoint_dir)
+                self._restore_attempted = True
+                return
+            raise CheckpointRestoreError(
+                "--checkpoint_dir_for_init=%r holds no restorable "
+                "checkpoint" % self._init_checkpoint_dir
+            )
+        self._restore_attempted = True
+        self.state = restored
+        self._version = int(restored.step)
+        logger.info("Resumed from checkpoint at version %d (%.3f s)",
+                    self._version, time.monotonic() - t0)
+
+    def _ensure_state_restored(self, batch):
+        """ensure_state and the one-time --checkpoint_dir_for_init
+        restore: evaluation and prediction never score random
+        weights."""
+        if not self._restore_attempted:
+            self._restore_from_checkpoint(batch)
+        else:
+            self.state = self.trainer.ensure_state(self.state, batch)
+
     def _process_eval_task(self, task):
         try:
             for batch in self._batches(
                 self.tds.task_record_stream(task), Mode.EVALUATION
             ):
-                self.state = self.trainer.ensure_state(self.state, batch)
+                self._ensure_state_restored(batch)
                 outputs = self.trainer.eval_step(self.state, batch)
                 real = batch_real_count(batch)
                 outputs = normalize_outputs(outputs, real)
@@ -274,23 +466,124 @@ class Worker:
                     task.model_version, outputs, labels
                 )
             self._mc.report_task_result(task.task_id)
+        except CheckpointRestoreError:
+            self._mc.report_task_result(task.task_id, "restore failed")
+            raise
         except Exception as e:
             logger.exception("Evaluation task %s failed", task.task_id)
             self._mc.report_task_result(task.task_id, str(e))
+
+    def _process_prediction_task(self, task):
+        processor_cls = self.spec.prediction_outputs_processor
+        processor = processor_cls() if processor_cls else None
+        try:
+            for batch in self._batches(
+                self.tds.task_record_stream(task), Mode.PREDICTION
+            ):
+                self._ensure_state_restored(batch)
+                outputs = self.trainer.eval_step(self.state, batch)
+                real = batch_real_count(batch)
+                if processor is not None:
+                    processor.process(normalize_outputs(outputs, real),
+                                      self._mc.worker_id)
+            if processor is not None and hasattr(processor, "close"):
+                # buffered writes land before the task is reported done
+                # (a write failure surfaces here and requeues the task)
+                processor.close()
+            self._mc.report_task_result(task.task_id)
+        except CheckpointRestoreError:
+            self._mc.report_task_result(task.task_id, "restore failed")
+            raise
+        except Exception as e:
+            logger.exception("Prediction task %s failed", task.task_id)
+            self._mc.report_task_result(task.task_id, str(e))
+
+    def _process_train_end_task(self, task):
+        # the artifact must carry every pushed gradient and every tier
+        # row update (the export pairs with the PS tables)
+        self._join_trainer_pushes()
+        self._flush_device_tier()
+        wants_export = bool(task.extended_config.get("saved_model_path"))
+        if wants_export and self.state is None:
+            # this worker never trained (relaunched with only the
+            # train-end task left): restore before giving the task up
+            self._try_restore_for_export()
+        if wants_export and self.state is None:
+            # failed, so the dispatcher requeues it for a worker that
+            # trained (a success would end the job without its
+            # artifact); the sleep keeps the refetch from burning the
+            # retry cap in milliseconds
+            self._mc.report_task_result(
+                task.task_id, "no trained state to export"
+            )
+            time.sleep(self._wait_sleep_secs)
+            return
+        export_error = None
+        for cb in self._callbacks:
+            try:
+                cb.on_train_end(self.state, dict(task.extended_config))
+            except Exception as e:
+                logger.exception("train-end callback failed")
+                if isinstance(cb, SavedModelExporter):
+                    export_error = e
+        if export_error is not None:
+            # the export is the job's artifact: a failed exporter fails
+            # the task (bounded by the retry cap)
+            self._mc.report_task_result(
+                task.task_id, "export failed: %s" % export_error
+            )
+            time.sleep(self._wait_sleep_secs)
+            return
+        self._mc.report_task_result(task.task_id)
+
+    def _try_restore_for_export(self):
+        """Best-effort restore for a worker that only saw the train-end
+        task: a template batch from the reader, then the strict
+        checkpoint restore (the lenient default would export fresh
+        weights as if trained)."""
+        if not self._init_checkpoint_dir:
+            return
+        try:
+            batch = self._read_template_batch()
+            previous = self._resume_optional
+            self._resume_optional = False
+            try:
+                self._restore_attempted = False
+                self._restore_from_checkpoint(batch)
+            finally:
+                self._resume_optional = previous
+        except Exception:
+            logger.exception("restore-for-export failed")
+            # a failed restore leaves no state to export
+            self.state = None
 
     def _drain_out_of_band(self):
         while self.tds.out_of_band_tasks:
             task = self.tds.out_of_band_tasks.popleft()
             if task.type == pb.EVALUATION:
                 self._process_eval_task(task)
+            elif task.type == pb.PREDICTION:
+                self._process_prediction_task(task)
             else:
-                # prediction tasks are not ported: a counted failure, so
-                # a job that hands them out fails loudly at the cap
-                logger.error("Unsupported task type %s", task.type)
-                self._mc.report_task_result(
-                    task.task_id, "task type %s is not supported by this "
-                    "worker" % pb.TaskType.Name(task.type)
-                )
+                logger.warning("Unexpected out-of-band task type %s",
+                               task.type)
+                self._mc.report_task_result(task.task_id)
+
+    def _drain_fast(self):
+        """After MaxStepsStopping: take the remaining tasks without
+        training (reported done), the train-end task still run, so the
+        job can finish."""
+        while True:
+            task = self._mc.get_task()
+            if task.task_id == 0:
+                if task.type == pb.WAIT:
+                    time.sleep(0.2)
+                    continue
+                return
+            if task.type == pb.TRAIN_END_CALLBACK:
+                self._process_train_end_task(task)
+            else:
+                self._mc.report_task_result(task.task_id)
 
     # ------------------------------------------------------------------
     def run(self):
@@ -305,22 +598,34 @@ class Worker:
             close = getattr(self.trainer, "close", None)
             if close is not None:
                 close()
+            if self._checkpoint_mgr is not None:
+                # an async save's write lands before the process exits
+                self._checkpoint_mgr.close()
+                self._checkpoint_mgr = None
 
     def _run(self):
         if self._mode == Mode.EVALUATION:
             self._run_task_mode(pb.EVALUATION, self._process_eval_task)
             return
+        if self._mode == Mode.PREDICTION:
+            self._run_task_mode(pb.PREDICTION,
+                                self._process_prediction_task)
+            return
         while True:
             self._run_training_stream()
             self._drain_out_of_band()
             if self.tds.train_end_task is not None:
-                # train-end callbacks are not ported: hand the task back
-                # as a counted failure rather than report an export done
-                logger.error("train-end task received; not supported")
-                self.tds.report_parked_failed(
-                    "train-end callbacks are not supported by this worker"
-                )
+                task = self.tds.train_end_task
+                self.tds.train_end_task = None
+                self._process_train_end_task(task)
                 continue
+            if self.stop_training:
+                # the task the step limit cut short is done too (an
+                # empty message reports success), or the master would
+                # wait on it forever; the stream's producer stops
+                self.tds.report_pending_failed("")
+                self._drain_fast()
+                return
             if self.tds.job_over:
                 logger.info(
                     "Worker %s done at version %d",

@@ -212,3 +212,41 @@ def test_ps_restart_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
     assert out["ps_exit_codes"] == [0, 0]
     assert out["launches"]["gather"] > 0 and not out[
         "launch_formula_mismatches"]
+
+
+def test_artifact_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
+    """Phase 11 end to end on the CPU at a small size (8 fields, batch
+    64, one file of 4096 records: 64 steps; a dense checkpoint every 16
+    versions, 2 kept; a 128-row burst at max_batch 16): every check of
+    the phase holds, and the record carries what the card run
+    prints."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    workdir = str(tmp_path)
+    chip_smoke.job_data(np, workdir, records=16384, valid=2048, fields=8)
+    out = chip_smoke.artifact_phase(
+        torch, np, counting_tier, workdir, device="cpu", per_task=1024,
+        batch=64, report_version_steps=8, task_timeout_s=5.0,
+        ckpt_steps=16, keep_max=2, serve_batch=16, burst=128, clients=8,
+        card="CPU rehearsal, no card",
+        worker_env=dict(chip_smoke.JOB_WORKER_ENV,
+                        EDL_DEVICE_TIER_ROWS="2048",
+                        EDL_DEVICE_TIER_STAGE="256",
+                        EDL_SPARSE_ID_CAPACITY="512"))
+    assert out["master_rc"] == 0 and out["worker0_version"] == 64
+    assert out["export_step"] == 64 and out["dense_versions"] == [48, 64]
+    assert len(out["train_end_tasks_done"]) == 1
+    assert out["launches_train_end_flush"] == [[2, 0, 0]]
+    assert out["launches_checkpoint_flush"] == [[2, 0, 0]] * 4
+    assert not out["launch_formula_mismatches"]
+    assert out["ps_final_versions"] == [64, 64]
+    assert [r[0] for r in out["ps_restored"]] == [64, 64]
+    assert out["eval_only_auc"] >= chip_smoke.JOB_AUC_FLOOR
+    assert out["eval_only_auc"] == pytest.approx(out["prediction_auc"],
+                                                 abs=1e-6)
+    assert out["predicted_once"] and out["predicted_records"] == 2048
+    assert out["served_equal_direct"] and out["second_burst_equal"]
+    assert out["serve_cache_drops"] == out["serve_stamped_relaunches"]
+    assert out["ps1_relaunch_restored"][0] == 64

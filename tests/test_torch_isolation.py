@@ -353,3 +353,35 @@ print("checkpoint ok")
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "checkpoint ok"
+
+
+def test_artifact_slice_modules_isolated_and_entry_points_default_to_cuda(
+        tmp_path):
+    """The artifact slice's modules (callbacks, dense checkpoints, the
+    promoted export, the prediction sink) are among those imported with
+    JAX blocked above, and its entry points (the worker that saves and
+    restores dense checkpoints, the serving engine over the PS) default
+    to the card and refuse to run without one."""
+    modules = _port_modules()
+    for name in ("train.callbacks", "train.checkpoint",
+                 "train.model_handler", "models.deepfm_predictions",
+                 "worker.worker", "serve.engine", "serve.model"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: nothing to refuse")
+    import inspect
+
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.serve.engine import ServingEngine
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    for entry in (Worker, ServingEngine):
+        default = inspect.signature(entry).parameters["device"].default
+        assert default == "cuda", entry
+    with pytest.raises(RuntimeError, match="cuda"):
+        Worker(None, "elasticdl_tpu_torch.models.deepfm", None,
+               checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_steps=4,
+               checkpoint_dir_for_init=str(tmp_path / "init"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine("elasticdl_tpu_torch.models.deepfm",
+                      str(tmp_path / "export"), ps_client=LocalPSClient())

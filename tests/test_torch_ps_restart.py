@@ -21,12 +21,16 @@ served back by the relaunched PS bit for bit, and at the end every
 resident row equals the PS's. (b) A PS driven by a fixed request
 sequence, SIGTERM'd: its final full checkpoint restores, offline and by
 a relaunch, to a store bit-identical to an in-process servicer's that
-took the same requests.
+took the same requests. (c) The relaunch's port: a ``reserve_port``
+socket holds it from the first launch to the end (no other process's
+``bind`` to port 0 can take it in between, while the PS still binds
+it), and a PS whose port is taken exits non-zero, naming the port.
 """
 
 import os
 import re
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -37,7 +41,11 @@ import pytest
 import torch
 
 from chip_smoke import RestartFlushes
-from elasticdl_tpu_torch.common.grpc_utils import build_channel, find_free_port
+from elasticdl_tpu_torch.common.grpc_utils import (
+    build_channel,
+    find_free_port,
+    reserve_port,
+)
 from elasticdl_tpu_torch.common.tensor_utils import (
     pack_ids,
     serialize_indexed_slices,
@@ -132,7 +140,9 @@ def test_ps_sigkill_auto_restore_and_worker_resync(tmp_path, monkeypatch,
         target=lambda: result.setdefault("rc", master.run(poll_secs=0.2)),
         daemon=True)
     master_thread.start()
-    ps_port = find_free_port()
+    # the relaunch binds the same port: held from now on, so no other
+    # test process can take it between the kill and the relaunch
+    reservation, ps_port = reserve_port()
     ckpt_dir = str(tmp_path / "ckpt")
     logs = [str(tmp_path / "ps.log"), str(tmp_path / "ps-relaunch.log")]
     procs = [_spawn_ps(ps_port, ckpt_dir, logs[0])]
@@ -215,6 +225,7 @@ def test_ps_sigkill_auto_restore_and_worker_resync(tmp_path, monkeypatch,
                 proc.wait()
         if runner is not None:
             runner.join(timeout=10)
+        reservation.close()
 
 
 TABLES = (("t", 4, "0.05"), ("w", 1, "zeros"))
@@ -252,7 +263,8 @@ def _requests(seed=0, pushes=7):
 
 @pytest.mark.parametrize("kind", ["numpy", "native"])
 def test_sigterm_ps_restores_its_pre_stop_state_bit_for_bit(tmp_path, kind):
-    port = find_free_port()
+    # held across the SIGTERM and the relaunch on the same port
+    reservation, port = reserve_port()
     ckpt_dir = str(tmp_path / "ckpt")
     logs = [str(tmp_path / "ps.log"), str(tmp_path / "ps-relaunch.log")]
     flags = ("--use_async", "1",
@@ -270,7 +282,11 @@ def test_sigterm_ps_restores_its_pre_stop_state_bit_for_bit(tmp_path, kind):
         for method, request in _requests():
             got = getattr(stub, method)(request, timeout=30)
             want = getattr(replica, method)(request)
-            assert got.SerializeToString() == want.SerializeToString()
+            # deterministic: map fields (a pull answer's tables) in key
+            # order; a map parsed off the wire serializes in an order of
+            # this process's hashing, not the insertion order
+            assert got.SerializeToString(deterministic=True) == (
+                want.SerializeToString(deterministic=True))
         procs[0].send_signal(signal.SIGTERM)
         assert procs[0].wait(timeout=60) == 0
         version = replica_store.version
@@ -311,3 +327,46 @@ def test_sigterm_ps_restores_its_pre_stop_state_bit_for_bit(tmp_path, kind):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        reservation.close()
+
+
+def test_reserved_port_stays_out_of_other_binds_and_the_ps_binds_it(
+        tmp_path):
+    reservation, port = reserve_port()
+    try:
+        squatter = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        with pytest.raises(OSError):
+            squatter.bind(("localhost", port))
+        squatter.close()
+        log_path = str(tmp_path / "ps.log")
+        proc = _spawn_ps(port, str(tmp_path / "ckpt"), log_path)
+        try:
+            _wait_serving(proc, log_path, port)
+            stub = PserverStub(build_channel("localhost:%d" % port))
+            model = pb.Model()
+            model.embedding_table_infos.add(name="t", dim=2,
+                                            initializer="zeros")
+            stub.push_embedding_table_infos(model, timeout=30)
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    finally:
+        reservation.close()
+
+
+def test_ps_on_a_taken_port_exits_nonzero_naming_it(tmp_path):
+    taken = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    taken.bind(("0.0.0.0", 0))
+    taken.listen()
+    port = taken.getsockname()[1]
+    log_path = str(tmp_path / "ps.log")
+    try:
+        proc = _spawn_ps(port, str(tmp_path / "ckpt"), log_path)
+        assert proc.wait(timeout=WAIT_S) != 0
+        with open(log_path) as f:
+            assert "PS 0 cannot bind port %d" % port in f.read()
+    finally:
+        taken.close()
