@@ -175,7 +175,33 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    the first. It prints, with the card's name and power limit, the
    job's wall, the export's and each dense save's seconds and bytes,
    the restore's seconds, the scoring jobs' walls, served p50/p99 and
-   requests/s, and K1's launches at the barriers.
+   requests/s, and K1's launches at the barriers;
+12. the control plane's failures -- phase 9's job over two of its four
+   training files (98,304 records, 12 tasks of 16 steps) with the
+   master a process (``python -m elasticdl_tpu_torch.master.main``,
+   ``EDL_STATE_DIR`` set, ``--output``, its port held across the kill,
+   evaluation every 64 versions); two async PS with ``--master_addr``;
+   worker 1 a ``worker.main`` process and worker 0 in this process, both
+   with the tier on. After worker 1's first report it gets SIGTERM and
+   worker 0 starts: worker 1 finishes its current task, joins its push,
+   flushes its tier (K1) and deregisters. Then, once the journal holds 4 done ops with training
+   mid-epoch, the master gets SIGKILL and is relaunched 1 s later with
+   the same flags; it replays its journal and finishes the job. Checks:
+   the relaunched master exits 0; every task the journal created done
+   exactly once across both lifetimes; two boots; one
+   TRAIN_END_CALLBACK task, done; worker 0 granted an epoch in each
+   lifetime, the second above the first; worker 1 exits 0 within its
+   45 s drain deadline, its ack logged with pushes_joined, tier_flushed
+   and nothing handed back; no requeue with a retry; the drain's K1s
+   by the path's formula; worker 0's launches by phase 7's formula in
+   every step; every completed evaluation's AUC at least 0.70, one at
+   least; the export at worker 0's final version. It prints, with the
+   card's name and power limit, the job's wall, SIGTERM to the ack and
+   to the exit, the drain flush's seconds, rows and K1s, kill to
+   serving and to worker 0's first task from the relaunched master,
+   the replay's seconds and ops, the journal's bytes and ops at the
+   kill, the tasks trained twice and worker 0's steps/s before and
+   after the kill.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -3645,6 +3671,393 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
             runner.join(timeout=10)
     return record
 
+
+# phase 12: phase 9's job over two of its four training files (12 tasks
+# of 16 steps), the master a process journaling its state
+# (EDL_STATE_DIR): worker 1, a process, is SIGTERMed after its first
+# report and drains; then the master is SIGKILLed mid-epoch and
+# relaunched with the same flags, and replays its journal
+CONTROL_FILES = 2
+# the step trigger at worker 0's versions 64, 128, ...; the relaunched
+# master's evaluation service starts afresh, so it fires at worker 0's
+# first version report at or past 63 after the relaunch
+CONTROL_EVAL_STEPS = 64
+CONTROL_MIN_DONE = 4            # done ops in the journal before the kill
+CONTROL_RELAUNCH_GAP_S = 1.0
+CONTROL_PS_GONE_S = 30          # the PS ride out the master's outage
+CONTROL_DRAIN_DEADLINE_S = 45.0  # the worker's EDL_DRAIN_DEADLINE_SECS
+_DRAIN_ACK_RE = re.compile(
+    r"worker (\d+) drained cleanly \((\S+); pushes_joined=(\w+) "
+    r"tier_flushed=(\w+) handed_back=(\d+)\)")
+_DRAIN_FLUSH_RE = re.compile(
+    r"drain tier flush: (\d+) rows written back, (\d+) K1 launches, "
+    r"(\d+) row reads, (\d+) staged chunks, (\d+) evict chunks, (\d+) "
+    r"gather-only combines, ([0-9.]+) s")
+_REPLAY_RE = re.compile(r"\((\d+) journal ops replayed in ([0-9.]+) s\)")
+_EVAL_RE = re.compile(r"Evaluation finished at model version (-?\d+): .*"
+                      r"'auc': (?:np\.float\d+\()?([-0-9.eE+]+)")
+
+
+def journal_ops(path):
+    """The state journal's ops (a torn last line skipped)."""
+    ops = []
+    if os.path.isfile(path):
+        with open(path) as f:
+            for line in f:
+                try:
+                    ops.append(json.loads(line))
+                except ValueError:
+                    pass
+    return ops
+
+
+def control_phase(torch, np, tier, workdir, device="cuda",
+                  files=CONTROL_FILES, per_task=JOB_PER_TASK,
+                  batch=SPARSE_BATCH, eval_steps=CONTROL_EVAL_STEPS,
+                  report_version_steps=JOB_REPORT_VERSION_STEPS,
+                  task_timeout_s=JOB_TASK_TIMEOUT_S,
+                  min_done=CONTROL_MIN_DONE, worker_env=None, card=None):
+    """Phase 12: the control plane's failures in a DeepFM job (the
+    module docstring's steps). The master is ``python -m
+    elasticdl_tpu_torch.master.main`` with ``EDL_STATE_DIR`` and
+    ``--output`` on a held port; two async PS processes with
+    ``--master_addr``; worker 1 a process and worker 0 in this process,
+    both with the tier on. Checks (each printed; a failure raises
+    SystemExit): the relaunched master exits 0; every task the journal
+    created is done exactly once across both lifetimes; two
+    ``master_restarted`` ops and one TRAIN_END_CALLBACK task, done;
+    worker 0 granted an epoch in each lifetime, the second above the
+    first; worker 1 exits 0 within its drain deadline, and the first
+    master logged its ack with pushes_joined, tier_flushed and nothing
+    handed back; no requeue op carries a retry; the drain's flush read
+    K1 by the path's formula (none on the CPU, where no kernel runs);
+    worker 0's K1-K3 launches follow phase 7's formula in every step;
+    every completed evaluation's AUC is at least JOB_AUC_FLOOR and at
+    least one completed; the export's step is worker 0's final version.
+    ``card`` is the nvidia-smi line printed with the numbers (the CPU
+    rehearsal passes its own)."""
+    from elasticdl_tpu_torch.common.grpc_utils import reserve_port
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.state_store import (
+        JOURNAL_NAME,
+        STATE_DIR_ENV,
+    )
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    card = card or nvidia_smi_line()
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    train_dir = os.path.join(workdir, "control_train")
+    valid_dir = os.path.join(workdir, "valid")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    out = os.path.join(HERE, "build", "chip_smoke_control")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    state_dir, export_dir = (os.path.join(out, "state"),
+                             os.path.join(out, "export"))
+    journal = os.path.join(state_dir, JOURNAL_NAME)
+    # held across the kill, so the relaunch finds its port free
+    reservation, port = reserve_port()
+    addr = "localhost:%d" % port
+    env = dict(os.environ, PYTHONPATH=HERE,
+               EDL_PS_MASTER_GONE_SECS=str(CONTROL_PS_GONE_S))
+    master_args = [
+        sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+        "--model_zoo", zoo, "--training_data", train_dir,
+        "--validation_data", valid_dir, "--records_per_task", str(per_task),
+        "--port", str(port), "--evaluation_steps", str(eval_steps),
+        "--task_timeout_secs", str(task_timeout_s), "--output", export_dir]
+    logs = {name: os.path.join(out, name + ".log")
+            for name in ("master-1", "master-2", "worker-1")}
+    procs, started, runner = [], [], None
+    record = {"control": "result", "card": card}
+
+    def start_master(name):
+        """The master, with the same flags and state directory in both
+        lifetimes; returns once it serves."""
+        with open(logs[name], "w") as sink:
+            proc = subprocess.Popen(
+                master_args, cwd=HERE, stdout=sink, stderr=subprocess.STDOUT,
+                env=dict(env, **{STATE_DIR_ENV: state_dir}))
+        procs.append(proc)
+        wait_for_line(proc, logs[name], "Master serving on :%d" % port,
+                      "the master (%s)" % name)
+        return proc
+
+    def read(name):
+        with open(logs[name]) as f:
+            return f.read()
+
+    def journal_view():
+        """task id -> the worker of its last dispatch; the done ops."""
+        ops = journal_ops(journal)
+        dispatched = {op["task"]: op["worker"] for op in ops
+                      if op["op"] == "dispatch"}
+        return dispatched, [op for op in ops if op["op"] == "done"]
+
+    saved_env = {k: os.environ.get(k) for k in worker_env}
+    try:
+        # -- the job: master, PS and worker 1, then worker 0 --------------
+        job_t0 = time.monotonic()
+        master = start_master("master-1")
+        (ps, ps_addrs, ps_logs), = start_ps_pairs(
+            1, os.path.join(out, "ps"), started,
+            extra=("--use_async", "1", "--master_addr", addr), env=env)
+        worker1 = start_worker_process(logs["worker-1"], [
+            "--model_zoo", zoo, "--training_data", train_dir,
+            "--minibatch_size", str(batch), "--master_addr", addr,
+            "--worker_id", "1", "--ps_addrs", ",".join(ps_addrs),
+            "--report_version_steps", str(report_version_steps),
+            "--device", device.type], dict(env, **worker_env))
+        procs.append(worker1)
+        wait_ps_ready([(ps, ps_addrs, ps_logs)])
+        deadline = time.monotonic() + JOB_WAIT_S
+        while 1 not in journal_view()[0].values():
+            if worker1.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit("worker 1 took no task (exit %s):\n%s"
+                                 % (worker1.poll(), read("worker-1")[-3000:]))
+            time.sleep(0.05)
+        os.environ.update(worker_env)
+        client = MasterClient(addr, worker_id=0)
+        client.reset_worker()
+        handed = []  # (time, task id, master epoch) of worker 0's tasks
+        get_task = client.get_task
+
+        def recorded_get_task(task_type=None):
+            task = get_task(task_type)
+            if task.task_id:
+                handed.append((time.monotonic(), task.task_id,
+                               task.master_epoch))
+            return task
+
+        client.get_task = recorded_get_task
+        worker0 = Worker(client, zoo, RecordIODataReader(data_dir=train_dir),
+                         minibatch_size=batch,
+                         report_version_steps=report_version_steps,
+                         wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                         device=device)
+        if worker0.trainer.device_tier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        counts = count_worker_steps(tier, worker0.trainer)
+        runner = threading.Thread(target=worker0.run, daemon=True)
+
+        # -- 1. worker 1, SIGTERMed after its first report, drains --------
+        # (worker 0 starts with the SIGTERM: started earlier, it could
+        # finish the epoch before the drain is acked)
+        while True:
+            dispatched, done = journal_view()
+            if any(dispatched.get(op["task"]) == 1 for op in done):
+                break
+            if worker1.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit("worker 1 reported no task (exit %s):\n%s"
+                                 % (worker1.poll(), read("worker-1")[-3000:]))
+            time.sleep(0.02)
+        worker1.terminate()  # SIGTERM
+        sigterm_t = time.monotonic()
+        reset_tier_launches(tier)  # the phase's count starts here
+        runner.start()
+        ack_t = exit_t = None
+        while ack_t is None or exit_t is None:
+            now = time.monotonic()
+            if ack_t is None and "worker 1 drained cleanly" in read(
+                    "master-1"):
+                ack_t = now
+            if exit_t is None and worker1.poll() is not None:
+                exit_t = now
+            if now - sigterm_t > CONTROL_DRAIN_DEADLINE_S + 10:
+                raise SystemExit("worker 1's drain: acked %s, exit %s:\n%s"
+                                 % (ack_t is not None, worker1.poll(),
+                                    read("worker-1")[-3000:]))
+            time.sleep(0.02)
+
+        # -- 2. the master, SIGKILLed mid-epoch ------------------------------
+        while True:
+            ops = journal_ops(journal)
+            training = [t[0] for op in ops if op["op"] == "tasks_created"
+                        for t in op["tasks"] if t[1] == pb.TRAINING]
+            done = [op for op in ops if op["op"] == "done"]
+            if sum(op["type"] == pb.TRAINING for op in done) >= len(
+                    training):
+                raise SystemExit("the epoch ended before the kill (%d "
+                                 "training tasks)" % len(training))
+            if len(done) >= min_done:
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit("the job stalled before the kill")
+            time.sleep(0.02)
+        master.kill()
+        kill_t = time.monotonic()
+        master.wait()
+        at_kill = journal_ops(journal)
+        record.update({
+            "journal_bytes_at_kill": os.path.getsize(journal),
+            "journal_ops_at_kill": len(at_kill),
+            "done_at_kill": sum(op["op"] == "done" for op in at_kill)})
+
+        # -- 3. relaunched with the same flags, it replays -------------------
+        time.sleep(CONTROL_RELAUNCH_GAP_S)
+        master = start_master("master-2")
+        serving_t = time.monotonic()
+        try:
+            master_rc = master.wait(timeout=JOB_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise SystemExit("the relaunched master did not finish:\n%s"
+                             % read("master-2")[-3000:])
+        job_s = time.monotonic() - job_t0
+        runner.join(timeout=60)
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        ps_codes = stop_ps([(ps, ps_addrs, ps_logs)])
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for proc in procs + [p for pair, _, _ in started for p in pair]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reservation.close()
+        if runner is not None:
+            runner.join(timeout=10)
+
+    # -- what the journal, the logs and worker 0 say ---------------------------
+    ops = journal_ops(journal)
+    created = {t[0]: t[1] for op in ops if op["op"] == "tasks_created"
+               for t in op["tasks"]}
+    done_ids = [op["task"] for op in ops if op["op"] == "done"]
+    training = sorted(t for t, kind in created.items() if kind == pb.TRAINING)
+    train_end = [t for t, kind in created.items()
+                 if kind == pb.TRAIN_END_CALLBACK]
+    dispatches, base, grants = {}, None, []
+    for op in ops:
+        if op["op"] == "dispatch":
+            dispatches.setdefault(op["task"], []).append(op["worker"])
+        elif op["op"] == "epoch_base":
+            base = op["base"]
+        elif op["op"] == "grant" and op["worker"] == 0:
+            grants.append(base + op["count"])  # the epoch granted
+    boots = [op["master_epoch"] for op in ops
+             if op["op"] == "master_restarted"]
+    acks = _DRAIN_ACK_RE.findall(read("master-1"))
+    flush = _DRAIN_FLUSH_RE.search(read("worker-1"))
+    replay = _REPLAY_RE.search(read("master-2"))
+    evaluations = [[int(v), float(auc)] for name in ("master-1", "master-2")
+                   for v, auc in _EVAL_RE.findall(read(name))]
+    manifest = os.path.join(export_dir, "manifest.json")
+    export_step = None
+    if os.path.isfile(manifest):
+        with open(manifest) as f:
+            export_step = json.load(f)["step"]
+    drain = None
+    if flush:
+        rows, k1, reads, chunks, evicts, gather_only = (
+            int(g) for g in flush.groups()[:6])
+        drain = {"rows": rows, "k1_launches": k1, "row_reads": reads,
+                 "staged_chunks": chunks, "evict_chunks": evicts,
+                 "gather_only_combines": gather_only,
+                 "k1_formula": gather_only + chunks + evicts + reads,
+                 "s": float(flush[7])}
+    # worker 0's first task from the relaunched master, and its steps
+    # (end time on the host clock) on either side of the outage
+    relaunched = [h[0] for h in handed if boots and h[2] == boots[-1]]
+    after_t = relaunched[0] if relaunched else None
+    steps = counts["steps"]
+    losses = [s[1] for s in steps]
+    before = [s[0] for s in steps[10:] if s[4] < kill_t]
+    after = [s[0] for s in steps
+             if after_t is not None and s[4] - s[0] > after_t]
+    record.update({
+        "job_wall_s": job_s, "master_rc": master_rc,
+        "worker1_rc": worker1.returncode,
+        "sigterm_to_ack_s": ack_t - sigterm_t,
+        "sigterm_to_exit_s": exit_t - sigterm_t,
+        "drain_acks": acks, "drain_flush": drain,
+        "kill_to_serving_s": serving_t - kill_t,
+        "kill_to_worker0_task_s": (after_t - kill_t if after_t is not None
+                                   else None),
+        "replay_ops": int(replay[1]) if replay else None,
+        "replay_s": float(replay[2]) if replay else None,
+        "tasks_created": len(created), "training_tasks": len(training),
+        "done_ops": len(done_ids),
+        "done_exactly_once": sorted(done_ids) == sorted(created),
+        "tasks_trained_twice": sum(len(dispatches.get(t, [])) > 1
+                                   for t in training),
+        "training_tasks_by_last_worker": {
+            w: sum(dispatches.get(t, [None])[-1] == w for t in training)
+            for w in (0, 1)},
+        "master_boots": boots, "worker0_epochs": grants,
+        "train_end_tasks": train_end,
+        "train_end_done": [t for t in done_ids if t in train_end],
+        "requeue_retries": [op["retries"] for op in ops
+                            if op["op"] == "requeue"],
+        "evaluations": evaluations, "auc_floor": JOB_AUC_FLOOR,
+        "export_step": export_step, "worker0_version": worker0.model_version,
+        "worker0_steps": len(steps),
+        "worker0_steps_per_s_before_kill": (len(before) / sum(before)
+                                            if before else None),
+        "worker0_steps_per_s_after_kill": (len(after) / sum(after)
+                                           if after else None),
+        "all_finite": bool(np.isfinite(losses).all()) if losses else False,
+        "launches": launches,
+        "launches_per_step": {k: v / max(len(steps), 1)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": counts["bad_steps"][:5],
+        "ps_exit_codes": ps_codes,
+    })
+    log(json.dumps(record))
+    failures = []
+    if master_rc != 0:
+        failures.append("the relaunched master exited %s" % master_rc)
+    if not record["done_exactly_once"] or not training:
+        failures.append("%d tasks created, %d done ops, each once: %s"
+                        % (len(created), len(done_ids),
+                           record["done_exactly_once"]))
+    if boots != [1, 2] or len(train_end) != 1 or (
+            record["train_end_done"] != train_end):
+        failures.append("boots %s, train-end tasks %s, done %s"
+                        % (boots, train_end, record["train_end_done"]))
+    if len(grants) != 2 or not grants[1] > grants[0]:
+        failures.append("worker 0's granted epochs %s" % grants)
+    if worker1.returncode != 0 or (
+            record["sigterm_to_exit_s"] > CONTROL_DRAIN_DEADLINE_S):
+        failures.append("worker 1 exited %s, %.1f s after SIGTERM" % (
+            worker1.returncode, record["sigterm_to_exit_s"]))
+    if acks != [("1", "sigterm", "True", "True", "0")]:
+        failures.append("the master's drain acks %s" % acks)
+    if any(record["requeue_retries"]):
+        failures.append("counted retries %s" % record["requeue_retries"])
+    want_k1 = None
+    if drain is not None:
+        want_k1 = drain["k1_formula"] if device.type == "cuda" else 0
+    if drain is None or drain["rows"] <= 0 or drain["row_reads"] < 1 or (
+            drain["k1_launches"] != want_k1):
+        failures.append("the drain's tier flush %s (K1 wanted %s)"
+                        % (drain, want_k1))
+    if counts["bad_steps"] or min(launches.values()) <= 0 or (
+            not record["all_finite"]):
+        failures.append("worker 0's K1-K3 launches do not follow the "
+                        "path, or a loss is not finite: %s"
+                        % counts["bad_steps"][:5])
+    if not evaluations or any(auc < JOB_AUC_FLOOR for _, auc in evaluations):
+        failures.append("evaluations %s (floor %s)"
+                        % (evaluations, JOB_AUC_FLOOR))
+    if export_step != worker0.model_version:
+        failures.append("export step %s, worker 0's version %d"
+                        % (export_step, worker0.model_version))
+    if failures:
+        raise SystemExit("control phase: " + "; ".join(failures))
+    return record
+
+
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
     """Flax-named fp32 weights: kernels ~ N(0, 1/fan_in), embedding
     ~ N(0, 0.02^2), LayerNorm scale 1 and bias 0."""
@@ -4442,15 +4855,16 @@ def kernel_entry(name, source, replaces, launches, case, kind):
 
 
 def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
-                      job, restart, artifact):
+                      job, restart, artifact, control):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
     optimizer), launches from the sparse train path's main run (and,
     beside them, from the stream phase's tier rung, from worker 0 of
-    the job phase, of the PS-restart phase and of the artifact phase, K1
-    with the restart flush's reads and the train-end and checkpoint
-    barriers' launches named), and the deepfm_linear (d 1) time beside;
-    K3's all-hits times too."""
+    the job phase, of the PS-restart phase, of the artifact phase and of
+    the control phase, K1 with the restart flush's reads, the train-end
+    and checkpoint barriers' launches and worker 1's drain flush named),
+    and the deepfm_linear (d 1) time beside; K3's all-hits times
+    too."""
     emb = tier_cases[kind]["deepfm_emb"]
     lin = tier_cases[kind]["deepfm_linear"]
     if kind == "scatter_apply":
@@ -4467,6 +4881,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
         "launches_per_step_restart": restart["launches_per_step"][kind],
         "launches_artifact": artifact["launches"][kind],
         "launches_per_step_artifact": artifact["launches_per_step"][kind],
+        "launches_control": control["launches"][kind],
+        "launches_per_step_control": control["launches_per_step"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -4486,6 +4902,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
             k[0] for k in artifact["launches_train_end_flush"])
         entry["launches_checkpoint_flush"] = sum(
             k[0] for k in artifact["launches_checkpoint_flush"])
+        # K1 at worker 1's drain: its flush of the tier's dirty rows
+        entry["launches_drain_flush"] = control["drain_flush"]["k1_launches"]
         # the staging chunk's chain (K1 -> K2 -> K1) at d 8: median
         # device span by events and by the profiler, with programmatic
         # dependent launch and serial, in turns
@@ -4542,7 +4960,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-11 and the last lines (see the module docstring)."""
+    """Phases 1-12 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -4617,6 +5035,8 @@ def run_phases(torch, np, job_dir, data_proc):
         done("10_restart")
         artifact = artifact_phase(torch, np, tier, job_dir)
         done("11_artifact")
+        control = control_phase(torch, np, tier, job_dir)
+        done("12_control")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -4641,15 +5061,15 @@ def run_phases(torch, np, job_dir, data_proc):
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
                           "gather", tier_cases, sparse, stream, job,
-                          restart, artifact),
+                          restart, artifact, control),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
                           "insert_rows", tier_cases, sparse, stream, job,
-                          restart, artifact),
+                          restart, artifact, control),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
                           "scatter_apply", tier_cases, sparse, stream, job,
-                          restart, artifact),
+                          restart, artifact, control),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

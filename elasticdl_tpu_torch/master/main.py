@@ -9,6 +9,12 @@ Usage: python -m elasticdl_tpu_torch.master.main --model_zoo=... \
 a training job ends with the train-end task: one worker exports the
 model there. The master runs on the host and exits 0 when the job
 finished, 1 when it failed.
+
+With ``EDL_STATE_DIR=DIR`` in its environment the master journals its
+state under DIR. A master that died (SIGKILL, a lost node) is relaunched
+with the same flags and the same ``EDL_STATE_DIR``: it replays the
+journal, its workers re-register when they see its new
+``master_epoch``, and the job finishes with every task done once.
 """
 
 import sys

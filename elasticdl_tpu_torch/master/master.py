@@ -9,9 +9,15 @@ alone an evaluation-only one. With ``saved_model_path`` (``--output``)
 a training job ends with the train-end task, whose worker exports the
 model there. The master runs on the host: it touches no card.
 
-Not ported (ROADMAP): the pod manager and autoscaler, the fleet
-monitor, the stream feeder, tensorboard, the state journal and the
-observability endpoints.
+With ``EDL_STATE_DIR`` set the master journals its state there
+(master/state_store.py): a master relaunched with the same flags and
+directory replays it and finishes the job, every task done once. The
+``DrainManager`` (master/autoscaler.py) serves workers that drain on
+SIGTERM.
+
+Not ported (ROADMAP): the pod manager and the elastic controller, the
+fleet monitor, the stream feeder, tensorboard and the observability
+endpoints.
 """
 
 import time
@@ -22,9 +28,11 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.data.readers import create_data_reader
+from elasticdl_tpu_torch.master.autoscaler import DrainManager
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.rendezvous import MeshRendezvous
 from elasticdl_tpu_torch.master.servicer import MasterServicer
+from elasticdl_tpu_torch.master.state_store import MasterStateJournal
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.master.task_monitor import TaskMonitor
 from elasticdl_tpu_torch.models.registry import get_model_spec
@@ -68,6 +76,14 @@ class Master:
         self.job_type = self._infer_job_type(
             training_data, validation_data, prediction_data
         )
+        # crash recovery (EDL_STATE_DIR): replay the predecessor's
+        # journal, so a relaunched master resumes the job mid-epoch
+        self.state_journal = MasterStateJournal.maybe_create()
+        self._recovered = (
+            self.state_journal.load()
+            if self.state_journal is not None
+            else None
+        )
         self.task_dispatcher = TaskDispatcher(
             training_shards=shards_of(training_data),
             evaluation_shards=shards_of(validation_data),
@@ -75,6 +91,8 @@ class Master:
             records_per_task=records_per_task,
             num_epochs=num_epochs,
             seed=seed,
+            state_journal=self.state_journal,
+            recovered=self._recovered,
         )
         if saved_model_path and self.job_type != JobType.PREDICTION_ONLY:
             self.task_dispatcher.add_deferred_callback_create_train_end_task(
@@ -94,12 +112,30 @@ class Master:
             self.task_dispatcher,
             self.evaluation_service,
             self.rendezvous,
+            state_journal=self.state_journal,
+            recovered=self._recovered,
         )
+        if self.state_journal is not None:
+            # compaction snapshots read the live state from both owners
+            self.state_journal.register_section(
+                "dispatcher", self.task_dispatcher.export_state
+            )
+            self.state_journal.register_section(
+                "workers", self.servicer.export_worker_state
+            )
+        # the deregister RPC and SIGTERM drains need it on any fleet
+        self.drain_manager = DrainManager(
+            self.task_dispatcher,
+            servicer=self.servicer,
+            rendezvous=self.rendezvous,
+        )
+        self.servicer.drain_manager = self.drain_manager
         self.task_monitor = TaskMonitor(
             self.task_dispatcher,
             self.servicer,
             self.rendezvous,
             liveness_timeout_secs=task_timeout_secs,
+            drain_manager=self.drain_manager,
         )
         self._task_timeout_secs = task_timeout_secs
         self._port = port
@@ -125,7 +161,16 @@ class Master:
                 self.evaluation_service.init_eval_only_job(n)
         self._server = build_server()
         add_master_servicer_to_server(self.servicer, self._server)
-        self._server.add_insecure_port("[::]:%d" % self._port)
+        try:
+            bound = self._server.add_insecure_port("[::]:%d" % self._port)
+        except RuntimeError:
+            bound = 0
+        if not bound:
+            # a relaunch whose port another process took meanwhile:
+            # fail now, with the reason, rather than serve nowhere
+            logger.error("Master cannot bind port %d (in use by another "
+                         "process); exiting", self._port)
+            raise RuntimeError("master cannot bind port %d" % self._port)
         self._server.start()
         self.task_monitor.start()
         logger.info("Master serving on :%d", self._port)
@@ -170,3 +215,5 @@ class Master:
         if self._server is not None:
             self._server.stop(grace=1.0).wait()
             self._server = None
+        if self.state_journal is not None:
+            self.state_journal.close()

@@ -8,8 +8,13 @@ relaunch epoch a worker stamps on its pushes) and ``get_comm_info``
 (the mesh epoch, master/rendezvous.py). Every RPC from a worker is a
 liveness sighting, which the task monitor reads.
 
-Not ported (ROADMAP): the fleet monitor and its telemetry, the state
-journal, the drain manager and ``deregister_worker``.
+A draining worker gets ``WAIT(draining=true)`` from ``get_task`` and
+leaves through ``deregister_worker`` (master/autoscaler.py
+``DrainManager``). With a state journal the relaunch-epoch grants and
+their base are journaled, and ``master_epoch`` is the journal's boot
+counter.
+
+Not ported (ROADMAP): the fleet monitor and its telemetry.
 """
 
 import threading
@@ -30,10 +35,16 @@ class MasterServicer:
         evaluation_service=None,
         rendezvous=None,
         auto_join_mesh=True,
+        state_journal=None,
+        recovered=None,
     ):
         self._task_dispatcher = task_dispatcher
         self._evaluation_service = evaluation_service
         self._rendezvous = rendezvous
+        # graceful-drain coordination (master/autoscaler.py), set by the
+        # Master after construction; a bare servicer builds one on the
+        # first deregister_worker
+        self.drain_manager = None
         # membership = live workers: a worker's first get_comm_info
         # joins its host to the mesh
         self._auto_join_mesh = auto_join_mesh
@@ -53,12 +64,34 @@ class MasterServicer:
         # after its dead predecessor without trusting host clocks
         self._worker_restarts = {}
         # the epoch base re-anchors monotonicity across master restarts:
-        # the master's own clock at startup, far above relaunch counts
+        # the master's own clock at startup, far above relaunch counts.
+        # With a state journal the base is persisted, and a relaunched
+        # master re-anchors strictly above its predecessor's, whatever
+        # this node's clock says
+        self._journal = state_journal
         self._restart_epoch_base = int(time.time())
+        if recovered is not None:
+            self._worker_restarts = {
+                int(w): int(c)
+                for w, c in recovered.get("worker_restarts", {}).items()
+            }
+            self._restart_epoch_base = max(
+                self._restart_epoch_base,
+                int(recovered.get("epoch_base", 0)) + 1,
+            )
+        if self._journal is not None:
+            self._journal.append(
+                {"op": "epoch_base", "base": self._restart_epoch_base}
+            )
         # restart detector stamped on responses (Task / CommInfo /
-        # ResetWorkerResponse): it moves across master restarts, so
+        # ResetWorkerResponse): the journal's boot counter, or without
+        # one the startup base; either moves across master restarts, so
         # reconnecting workers re-register
-        self._master_epoch = self._restart_epoch_base
+        self._master_epoch = (
+            state_journal.master_epoch
+            if state_journal is not None
+            else self._restart_epoch_base
+        )
 
     # ------------------------------------------------------------------
     def _touch(self, worker_id):
@@ -110,6 +143,16 @@ class MasterServicer:
 
     def get_task(self, request, context=None):
         self._touch(request.worker_id)
+        if self.drain_manager is not None and (
+            self.drain_manager.is_draining(request.worker_id)
+        ):
+            # drain gate: a draining worker gets no new work;
+            # WAIT(draining=true) tells it to finish its current task,
+            # flush and deregister
+            return pb.Task(
+                type=pb.WAIT, master_epoch=self._master_epoch,
+                draining=True,
+            )
         task_type = request.task_type if request.task_type else None
         task = self._task_dispatcher.get(request.worker_id, task_type)
         if task is not None:
@@ -143,10 +186,36 @@ class MasterServicer:
             count = self._worker_restarts.get(request.worker_id, 0) + 1
             self._worker_restarts[request.worker_id] = count
             epoch = self._restart_epoch_base + count
+        if self._journal is not None:
+            # durable before the worker can stamp it on a push: a
+            # relaunched master that forgot the grant would issue lower
+            # epochs again
+            self._journal.append({
+                "op": "grant", "worker": request.worker_id,
+                "count": count,
+            })
         self._task_dispatcher.recover_tasks(request.worker_id)
         return pb.ResetWorkerResponse(
             restart_count=epoch, master_epoch=self._master_epoch
         )
+
+    def deregister_worker(self, request, context=None):
+        """The graceful-drain ack: the worker finished draining (its
+        current task reported, its async push joined, its device-tier
+        rows flushed) and exits on purpose. It is removed with no
+        counted requeue, whether the master asked for the drain or the
+        worker was SIGTERMed directly."""
+        if self.drain_manager is None:
+            # bare servicer: the ack's bookkeeping is the same either
+            # way, so build the manager on first use
+            from elasticdl_tpu_torch.master.autoscaler import DrainManager
+
+            self.drain_manager = DrainManager(
+                self._task_dispatcher, servicer=self,
+                rendezvous=self._rendezvous,
+            )
+        self.drain_manager.deregister(request)
+        return pb.Empty()
 
     def report_task_result(self, request, context=None):
         self._touch(request.worker_id)
@@ -174,11 +243,24 @@ class MasterServicer:
         return pb.Empty()
 
     def report_version(self, request, context=None):
+        if self._journal is not None:
+            self._journal.append(
+                {"op": "version", "version": request.model_version}
+            )
         if self._evaluation_service is not None:
             self._evaluation_service.add_evaluation_task_if_needed(
                 request.model_version
             )
         return pb.Empty()
+
+    def export_worker_state(self):
+        """Snapshot section for journal compaction: the relaunch-epoch
+        grants and their base (state_store.empty_state keys)."""
+        with self._lock:
+            return {
+                "worker_restarts": dict(self._worker_restarts),
+                "epoch_base": self._restart_epoch_base,
+            }
 
     def get_comm_info(self, request, context=None):
         self._touch(request.worker_id)

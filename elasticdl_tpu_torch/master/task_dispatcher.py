@@ -11,9 +11,14 @@ unshuffled. A job with an export path registers the train-end task
 (TRAIN_END_CALLBACK), created once all training is done: one worker
 takes it and runs the train-end callbacks (the export).
 
-Not ported (ROADMAP): the state journal a relaunched master replays
-(the reference's ``_journal_*`` calls around these operations) and the
-stream windows.
+With a state journal (master/state_store.py) every queue transition is
+journaled write-through, and a relaunched master resumes from the
+replayed state (``recovered``) mid-epoch: in-flight tasks go back to
+the queue, and their pre-restart holder's completion is still accepted
+once.
+
+Not ported (ROADMAP): the stream windows. A replayed state's ``stream``
+section is carried through snapshots unchanged.
 """
 
 import random
@@ -59,8 +64,18 @@ class TaskDispatcher:
         max_task_retries=MAX_TASK_RETRIES,
         shuffle=True,
         seed=None,
+        state_journal=None,
+        recovered=None,
     ):
         self._lock = threading.Lock()
+        # crash recovery (master/state_store.py): ops are decided under
+        # the lock and written after it (the journal does file I/O)
+        self._journal = state_journal
+        self._journal_ops = []
+        # task_id -> pre-restart assignee of a task the replay requeued
+        # out of ``doing``: if that worker survived and finishes, its
+        # success report is accepted (no shard trained twice)
+        self._recovered_assignee = {}
         self._training_shards = dict(training_shards or {})
         self._evaluation_shards = dict(evaluation_shards or {})
         self._prediction_shards = dict(prediction_shards or {})
@@ -89,11 +104,137 @@ class TaskDispatcher:
         self._task_durations = []
         # task type -> successfully completed count
         self._done_counts = {}
-        if self._prediction_shards:
-            self._todo.extend(self._create_tasks_locked(
-                pb.PREDICTION, self._prediction_shards))
+        # the reference's streaming books, carried through snapshots
+        self._stream_state = {"open": False, "pos": 0,
+                              "minted_records": 0, "done_records": 0}
+        if recovered is not None:
+            # authoritative even when empty: a journal that says "all
+            # tasks done" must not be answered with a fresh epoch
+            self._load_recovered_locked(recovered)
+        elif self._prediction_shards:
+            ids = self._create_tasks_locked(
+                pb.PREDICTION, self._prediction_shards)
+            self._todo.extend(ids)
+            self._journal_tasks_locked(ids, "train")
         elif self._training_shards:
             self._create_training_epoch_locked()
+        self._flush_journal()
+
+    # ------------------------------------------------------------------
+    # crash recovery (master/state_store.py)
+
+    def _journal_tasks_locked(self, ids, queue):
+        if self._journal is None or not ids:
+            return
+        self._journal_ops.append({
+            "op": "tasks_created",
+            "queue": queue,
+            "tasks": [
+                [t.task_id, t.type, t.shard_name, t.start, t.end,
+                 t.model_version]
+                for t in (self._records[i].task for i in ids)
+            ],
+            "epochs_left": self._epochs_left,
+        })
+
+    def _flush_journal(self):
+        """Write the ops buffered under the lock; called after release."""
+        if self._journal is None:
+            return
+        with self._lock:
+            ops, self._journal_ops = self._journal_ops, []
+        for op in ops:
+            self._journal.append(op)
+
+    def _load_recovered_locked(self, recovered):
+        """Adopt a replayed state (state_store.load): queued tasks keep
+        their place, in-flight ``doing`` tasks are requeued at the back
+        (their holder may be dead; if it is not, its completion report
+        is still honoured through ``_recovered_assignee``)."""
+        for task_id, fields in recovered["tasks"].items():
+            task_id = int(task_id)
+            record = _TaskRecord(pb.Task(
+                task_id=task_id,
+                type=int(fields[1]),
+                shard_name=fields[2],
+                start=int(fields[3]),
+                end=int(fields[4]),
+                model_version=int(fields[5]),
+            ))
+            record.retry_count = int(
+                recovered.get("retries", {}).get(task_id, 0)
+            )
+            self._records[task_id] = record
+        self._todo = [t for t in recovered["todo"] if t in self._records]
+        self._eval_todo = [
+            t for t in recovered["eval_todo"] if t in self._records
+        ]
+        # at the back, so a still-live holder usually reports done
+        # before the task is dispatched again
+        for task_id, worker in recovered["doing"].items():
+            task_id = int(task_id)
+            if task_id not in self._records:
+                continue
+            record = self._records[task_id]
+            queue = (
+                self._eval_todo
+                if record.task.type == pb.EVALUATION
+                else self._todo
+            )
+            if task_id not in queue:
+                queue.append(task_id)
+            self._recovered_assignee[task_id] = worker
+            self._journal_ops.append({
+                "op": "requeue", "task": task_id,
+                "retries": record.retry_count,
+            })
+        self._epochs_left = int(recovered.get("epochs_left", 0))
+        self._next_task_id = max(
+            int(recovered.get("next_task_id", 1)),
+            max(self._records, default=0) + 1,
+        )
+        self._done_counts = {
+            int(t): int(n)
+            for t, n in recovered.get("done_counts", {}).items()
+        }
+        self._job_failed = bool(recovered.get("job_failed", False))
+        self._stream_state.update(recovered.get("stream") or {})
+        logger.info(
+            "Dispatcher resumed from journal: %d todo, %d eval, "
+            "%d requeued in-flight, epochs left %d",
+            len(self._todo), len(self._eval_todo),
+            len(self._recovered_assignee), self._epochs_left,
+        )
+
+    def export_state(self):
+        """Replay-schema snapshot for journal compaction (the keys of
+        state_store.empty_state this dispatcher owns)."""
+        with self._lock:
+            return {
+                "tasks": {
+                    task_id: [
+                        r.task.task_id, r.task.type, r.task.shard_name,
+                        r.task.start, r.task.end, r.task.model_version,
+                    ]
+                    for task_id, r in self._records.items()
+                },
+                "todo": list(self._todo),
+                "eval_todo": list(self._eval_todo),
+                "doing": {
+                    task_id: worker
+                    for task_id, (worker, _) in self._doing.items()
+                },
+                "retries": {
+                    task_id: r.retry_count
+                    for task_id, r in self._records.items()
+                    if r.retry_count
+                },
+                "done_counts": dict(self._done_counts),
+                "epochs_left": self._epochs_left,
+                "next_task_id": self._next_task_id,
+                "job_failed": self._job_failed,
+                "stream": dict(self._stream_state),
+            }
 
     # ------------------------------------------------------------------
     # task creation
@@ -129,6 +270,7 @@ class TaskDispatcher:
         if self._shuffle:
             self._rng.shuffle(ids)
         self._todo.extend(ids)
+        self._journal_tasks_locked(ids, "train")
         logger.info(
             "Created %d training tasks (epochs left: %d)",
             len(ids),
@@ -142,7 +284,9 @@ class TaskDispatcher:
                 pb.EVALUATION, self._evaluation_shards, model_version
             )
             self._eval_todo.extend(ids)
-            return len(ids)
+            self._journal_tasks_locked(ids, "eval")
+        self._flush_journal()
+        return len(ids)
 
     def add_deferred_callback_create_train_end_task(self,
                                                     extended_config=None):
@@ -164,10 +308,12 @@ class TaskDispatcher:
             self._records[task.task_id] = _TaskRecord(task)
             self._next_task_id += 1
             self._todo.append(task.task_id)
+            self._journal_tasks_locked([task.task_id], "train")
 
         with self._lock:
             # one train-end task per job: none while one is queued or
-            # done
+            # done (a relaunched master's replayed state included, which
+            # would otherwise create a second one at the next drain)
             if self._records_have_train_end_locked() or self._done_counts.get(
                 pb.TRAIN_END_CALLBACK, 0
             ):
@@ -182,6 +328,7 @@ class TaskDispatcher:
     def fire_deferred_callbacks(self):
         with self._lock:
             self._fire_deferred_locked()
+        self._flush_journal()
 
     # ------------------------------------------------------------------
     # queue operations
@@ -202,11 +349,22 @@ class TaskDispatcher:
                     self._create_training_epoch_locked()
                     queue = self._todo
             if not queue:
-                return None
-            task_id = queue.pop(0)
-            self._doing[task_id] = (worker_id, time.time())
-            self._worker_doing.setdefault(worker_id, set()).add(task_id)
-            return self._records[task_id].task
+                task = None
+            else:
+                task_id = queue.pop(0)
+                self._doing[task_id] = (worker_id, time.time())
+                self._worker_doing.setdefault(worker_id, set()).add(task_id)
+                # dispatched again: the pre-restart assignee (if any) is
+                # no longer the task's source of truth
+                self._recovered_assignee.pop(task_id, None)
+                if self._journal is not None:
+                    self._journal_ops.append({
+                        "op": "dispatch", "task": task_id,
+                        "worker": worker_id,
+                    })
+                task = self._records[task_id].task
+        self._flush_journal()
+        return task
 
     def report(self, task_id, success, worker_id=None, count_failure=True):
         """Mark a task done or failed; failed tasks requeue up to the cap.
@@ -231,6 +389,27 @@ class TaskDispatcher:
                 logger.warning("Unknown task id reported: %s", task_id)
                 return False, None
             doing = self._doing.get(task_id)
+            if doing is None and success and worker_id is not None and (
+                self._recovered_assignee.get(task_id) == worker_id
+            ):
+                # the replay requeued this in-flight task, but its
+                # pre-restart assignee survived the restart and finished
+                # it: accept the completion once (another worker
+                # running the shard would train it twice)
+                queue = (
+                    self._eval_todo
+                    if record.task.type == pb.EVALUATION
+                    else self._todo
+                )
+                if task_id in queue:
+                    queue.remove(task_id)
+                    self._recovered_assignee.pop(task_id, None)
+                    doing = (worker_id, None)
+                    logger.info(
+                        "Accepted post-restart completion of task %s "
+                        "from its pre-restart assignee %s",
+                        task_id, worker_id,
+                    )
             if doing is None or (
                 worker_id is not None and doing[0] != worker_id
             ):
@@ -249,13 +428,17 @@ class TaskDispatcher:
 
             task = record.task
             if success:
-                if task.type == pb.TRAINING:
+                if start_time is not None and task.type == pb.TRAINING:
                     self._task_durations.append(time.time() - start_time)
                     del self._task_durations[:-64]
                 del self._records[task_id]
                 self._done_counts[task.type] = (
                     self._done_counts.get(task.type, 0) + 1
                 )
+                if self._journal is not None:
+                    self._journal_ops.append({
+                        "op": "done", "task": task_id, "type": task.type,
+                    })
                 if not self._todo and not self._doing_training_locked():
                     if self._epochs_left > 0:
                         self._create_training_epoch_locked()
@@ -279,6 +462,10 @@ class TaskDispatcher:
                         record.retry_count,
                     )
                     self._job_failed = True
+                    if self._journal is not None:
+                        self._journal_ops.append(
+                            {"op": "job_failed", "task": task_id}
+                        )
                 else:
                     queue = (
                         self._eval_todo
@@ -286,6 +473,12 @@ class TaskDispatcher:
                         else self._todo
                     )
                     queue.append(task_id)
+                    if self._journal is not None:
+                        self._journal_ops.append({
+                            "op": "requeue", "task": task_id,
+                            "retries": record.retry_count,
+                        })
+        self._flush_journal()
         # completion callbacks run outside the lock: they may call back
         # into the dispatcher (the evaluation service queueing tasks)
         for cb in completed_callbacks:

@@ -5,10 +5,11 @@ A worker silent for longer than ``liveness_timeout_secs`` while it holds
 tasks (or while it is a mesh member) is presumed dead, and so is one
 whose task runs 3x slower than the rolling average (floored at the
 liveness timeout); its tasks go back to the queue through
-``recover_tasks``.
+``recover_tasks``. A graceful drain whose deadline passed
+(master/autoscaler.py ``DrainManager.take_expired``) joins the dead.
 
-Not ported (ROADMAP): the fleet monitor's detectors, the drain
-deadlines and the autoscaler tick that ride the same scan.
+Not ported (ROADMAP): the fleet monitor's detectors and the autoscaler
+tick that ride the same scan.
 """
 
 import threading
@@ -33,11 +34,15 @@ class TaskMonitor:
         scan_interval_secs=1.0,
         mesh_restart_grace_secs=30.0,
         mesh_rejoin_timeout_secs=90.0,
+        drain_manager=None,
     ):
         self._dispatcher = task_dispatcher
         self._servicer = servicer
         self._rendezvous = rendezvous
         self._on_worker_dead = on_worker_dead
+        # drain deadlines are enforced on this scan: an expired drain
+        # falls back to mark_worker_dead (requeue-on-death)
+        self._drain_manager = drain_manager
         self._liveness_timeout = liveness_timeout_secs
         # after a membership change every mesh member restarts, and its
         # liveness lapses for the restart: mesh eviction pauses this
@@ -75,6 +80,8 @@ class TaskMonitor:
     def _scan(self):
         now = time.time()
         dead = set()
+        if self._drain_manager is not None:
+            dead.update(self._drain_manager.take_expired(now))
         # liveness: a worker silent for too long while holding tasks OR
         # while a registered mesh member (an idle member that dies must
         # still leave the rendezvous)
@@ -136,6 +143,10 @@ class TaskMonitor:
         rendezvous. Idempotent and self-healing: a worker wrongly
         presumed dead re-registers on its next RPC."""
         host = self._servicer.worker_host(worker_id)
+        if self._drain_manager is not None:
+            # a draining worker evicted for its own reasons must not be
+            # evicted again when its drain deadline later expires
+            self._drain_manager.on_worker_dead(worker_id)
         self._dispatcher.recover_tasks(worker_id)
         self._servicer.forget_worker(worker_id)
         if self._rendezvous is not None and host:

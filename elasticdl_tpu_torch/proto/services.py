@@ -2,8 +2,7 @@
 ``elasticdl_tpu.Pserver`` and ``elasticdl_tpu.Serve`` services.
 
 Port of elasticdl_tpu/proto/services.py, trimmed to the master, PS and
-serving surfaces (the master without ``deregister_worker``: the drain
-waits in the ROADMAP). The service and method names are the JAX package's, and
+serving surfaces. The service and method names are the JAX package's, and
 ``elasticdl_tpu_pb2`` is a verbatim copy of its generated module, so a
 client of either package talks to a server of either package.
 """
@@ -27,6 +26,10 @@ _MASTER_METHODS = {
     # to this worker_id and answer its master-assigned relaunch epoch,
     # the incarnation the worker stamps on its gradient pushes
     "reset_worker": (pb.GetTaskRequest, pb.ResetWorkerResponse),
+    # the graceful-drain ack: a worker that finished draining (task
+    # reported, async push joined, device-tier rows flushed) leaves, and
+    # the master forgets it with no requeue
+    "deregister_worker": (pb.DeregisterWorkerRequest, pb.Empty),
 }
 _PSERVER_METHODS = {
     "push_model": (pb.Model, pb.Empty),

@@ -238,7 +238,8 @@ class DeviceEmbeddingTier:
         # cumulative tallies (stats()): unique-id hits and misses,
         # demotions, the combines that ran the gather-only path, the
         # staging chunks landed and of those the ones with promotions to
-        # insert and with victims to read out
+        # insert and with victims to read out; the host reads of resident
+        # rows (one K1 each) and the rows written back to the PS
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -246,6 +247,8 @@ class DeviceEmbeddingTier:
         self.staged_chunks = 0
         self.insert_chunks = 0
         self.evict_chunks = 0
+        self.row_reads = 0
+        self.written_back_rows = 0
         logger.info(
             "device embedding tier: %d tables x %d rows on %s (%s "
             "optimizer, promote@%d, ttl=%d, writeback every %d steps)",
@@ -261,6 +264,7 @@ class DeviceEmbeddingTier:
     def _read_rows(self, table, slots):
         """Host copy of the resident rows at ``slots`` (K1 on the card),
         taken now, before any later launch can change them."""
+        self.row_reads += 1
         slots = self._to_device(np.asarray(slots, np.int32))
         return tier_ops.gather_rows(table.state, slots).cpu().numpy()
 
@@ -664,6 +668,7 @@ class DeviceEmbeddingTier:
             self._ps.push_embedding_rows, {name: (ids, values)}
         )
         with self._lock:
+            self.written_back_rows += len(ids)
             self._writeback_futures.append(future)
             # ids with a writeback in flight: a later PS pull of the
             # same id must wait (wait_for_writebacks). Refcounted: two
@@ -796,8 +801,9 @@ class DeviceEmbeddingTier:
     def stats(self):
         """Cumulative tallies: unique-id hits and misses, hit rate,
         evictions, occupancy, the combines that took the gather-only
-        path, and the staging chunks landed (those with inserts, those
-        with victims)."""
+        path, the staging chunks landed (those with inserts, those with
+        victims), the host reads of resident rows and the rows written
+        back to the PS."""
         lookups = self.hits + self.misses
         with self._lock:
             resident = sum(
@@ -816,6 +822,8 @@ class DeviceEmbeddingTier:
             "staged_chunks": self.staged_chunks,
             "insert_chunks": self.insert_chunks,
             "evict_chunks": self.evict_chunks,
+            "row_reads": self.row_reads,
+            "written_back_rows": self.written_back_rows,
         }
 
     def table_rows(self, name):

@@ -12,6 +12,12 @@ no card it raises rather than fall back. ``--mode evaluation`` and
 prediction-only job), scoring the model restored from
 ``--checkpoint_dir_for_init``. Exits 0 when the master says the job is
 over, 1 on a health-sentinel halt or a failed restore.
+
+SIGTERM drains: the worker finishes its current task, joins its
+in-flight push, flushes its device tier to the PS, deregisters and
+exits 0 (worker/drain.py), within ``EDL_DRAIN_DEADLINE_SECS`` (45 s; past
+it the process exits 1 and the master requeues its tasks). A SIGTERM
+before the worker exists exits 0 at once.
 """
 
 import sys
@@ -23,6 +29,7 @@ from elasticdl_tpu_torch.common.log_utils import (
 from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.models.registry import parse_params_string
 from elasticdl_tpu_torch.train.health import HealthSentinelError
+from elasticdl_tpu_torch.worker.drain import install_sigterm_drain
 from elasticdl_tpu_torch.worker.master_client import MasterClient
 from elasticdl_tpu_torch.worker.worker import CheckpointRestoreError, Worker
 
@@ -30,6 +37,9 @@ logger = _logger_factory("elasticdl_tpu_torch.worker.main")
 
 
 def main(argv=None):
+    # first: a SIGTERM from here on drains (or, before the worker
+    # exists, exits 0)
+    drain_hook = install_sigterm_drain()
     args = parse_worker_args(argv)
     master_client = MasterClient(args.master_addr, worker_id=args.worker_id)
     # fresh incarnation: flush any task a dead predecessor with this
@@ -63,6 +73,8 @@ def main(argv=None):
         log_loss_steps=args.log_loss_steps,
         device=args.device,
     )
+    # SIGTERM now runs the graceful drain instead of a bare exit
+    drain_hook.bind(worker)
     try:
         worker.run()
     except HealthSentinelError as e:

@@ -180,6 +180,38 @@ class MasterClient:
             self._seen_master_epoch = response.master_epoch
         return self._incarnation
 
+    def deregister_worker(self, reason="", pushes_joined=False,
+                          tier_flushed=False, tasks_reported=0):
+        """The graceful-drain ack: tell the master this worker leaves on
+        purpose, after flushing. True when the master acknowledged;
+        False when the RPC failed (a master without the method answers
+        UNIMPLEMENTED, or the master is gone): the caller exits anyway
+        and the master's liveness and drain-deadline fallback covers the
+        cleanup."""
+        request = pb.DeregisterWorkerRequest(
+            worker_id=self._worker_id,
+            reason=reason,
+            pushes_joined=pushes_joined,
+            tier_flushed=tier_flushed,
+            tasks_reported=tasks_reported,
+        )
+        try:
+            self._stub.deregister_worker(
+                request, timeout=GRPC.DEFAULT_RPC_TIMEOUT_SECS
+            )
+        except grpc.RpcError as e:
+            code = e.code() if hasattr(e, "code") else None
+            if code == grpc.StatusCode.UNIMPLEMENTED:
+                logger.warning(
+                    "master predates deregister_worker; exiting without "
+                    "a drain ack (the liveness fallback will requeue)"
+                )
+            else:
+                logger.warning("deregister_worker failed: %s", code)
+            return False
+        self._registered = False
+        return True
+
     def get_comm_info(self):
         """The heartbeat and the PS's liveness poll. A failure answers
         ``mesh_epoch=-1`` (the master-gone marker)."""

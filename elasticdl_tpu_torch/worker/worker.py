@@ -24,8 +24,16 @@ start). Evaluation and prediction tasks score the restored model; the
 train-end task runs the callbacks (the ``SavedModelExporter`` added
 when the model declares none) behind the same push and tier barriers.
 
-Not ported (ROADMAP): the lockstep multi-host loop, the graceful
-drain, stream checkpoints, telemetry and trace spans.
+The graceful drain: ``begin_drain`` (what the SIGTERM hook of
+worker/drain.py calls) lets the current task finish, then
+``_finish_drain`` joins the in-flight push, flushes the device tier to
+the PS, hands back any task it still holds (uncounted) and sends the
+master ``deregister_worker``. ``EDL_DRAIN_DEADLINE_SECS`` (45 s) bounds
+it: past the deadline the process exits 1 and the master's
+requeue-on-death fallback takes over.
+
+Not ported (ROADMAP): the lockstep multi-host loop, stream
+checkpoints, telemetry and trace spans.
 """
 
 import contextlib
@@ -38,6 +46,7 @@ import torch
 
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.common.env_utils import env_float
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -48,6 +57,7 @@ from elasticdl_tpu_torch.data.pipeline import (
     normalize_outputs,
 )
 from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.ops import embedding_tier as tier_ops
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.train.callbacks import SavedModelExporter
 from elasticdl_tpu_torch.train.health import HealthSentinelError
@@ -58,6 +68,23 @@ logger = _logger_factory("elasticdl_tpu_torch.worker.worker")
 
 class CheckpointRestoreError(RuntimeError):
     """Fatal: --checkpoint_dir_for_init was given but restore failed."""
+
+
+# the device tier's tallies a drain's flush moves (stats() keys)
+_FLUSH_TALLIES = ("written_back_rows", "row_reads", "staged_chunks",
+                  "evict_chunks", "gather_only_combines")
+
+
+def _flush_tallies(trainer):
+    """The device tier's flush tallies and the process's K1 launch
+    count; None without a tier."""
+    tier = getattr(trainer, "device_tier", None)
+    if tier is None:
+        return None
+    stats = tier.stats()
+    tallies = {key: stats[key] for key in _FLUSH_TALLIES}
+    tallies["k1_launches"] = tier_ops.GATHER_LAUNCHES
+    return tallies
 
 
 class Worker:
@@ -214,6 +241,10 @@ class Worker:
         self._timing = Timing()
         self._heartbeat_stop = threading.Event()
         self._heartbeat_thread = None
+        # graceful drain (begin_drain / _finish_drain)
+        self._draining = False
+        self._drain_reason = None
+        self._drain_done = False
 
     def _start_heartbeat(self):
         def beat():
@@ -235,6 +266,108 @@ class Worker:
     @property
     def model_version(self):
         return self._version
+
+    # ------------------------------------------------------------------
+    # graceful drain
+
+    def begin_drain(self, reason="sigterm"):
+        """Request a graceful drain: finish the current task, then flush
+        and deregister instead of fetching more work. Called from the
+        SIGTERM hook (worker/drain.py) on the main thread, it only flips
+        flags and arms the deadline watchdog; the run loop flushes at
+        its next task boundary. Idempotent."""
+        if self._draining:
+            return
+        self._draining = True
+        self._drain_reason = reason
+        # the record stream ends AFTER the current task's records, so
+        # the task completes (reported done, never requeued); the loops
+        # must not see stop_training, which breaks mid-task
+        self.tds.draining = True
+        logger.warning(
+            "Worker %s draining (%s): finishing current task, then "
+            "flush + deregister", self._mc.worker_id, reason,
+        )
+        deadline = env_float("EDL_DRAIN_DEADLINE_SECS", 45.0)
+        # bounds a wedged drain (a PS that stopped answering): past the
+        # deadline the process dies and the master's requeue-on-death
+        # fallback takes over
+        watchdog = threading.Timer(
+            deadline, self._drain_deadline_abort, args=(deadline,)
+        )
+        watchdog.daemon = True
+        watchdog.start()
+
+    def _drain_deadline_abort(self, deadline):
+        if self._drain_done:
+            return
+        logger.error(
+            "drain did not finish within %.0fs; aborting", deadline
+        )
+        os._exit(1)
+
+    def _finish_drain(self):
+        """The drain's tail, at a task boundary: join the in-flight
+        async push, flush dirty device-tier rows to the PS (K1 reads),
+        hand back any task that could not be finished (uncounted; none
+        on the clean path), then send the drain ack. Each step is
+        guarded on its own: a dead PS must not stop the deregister, and
+        a dead master must not stop the exit."""
+        self._draining = True
+        self.tds.draining = True
+        reason = self._drain_reason or "master_drain"
+        joined = flushed = True
+        try:
+            self._join_trainer_pushes()
+        except Exception:
+            joined = False
+            logger.exception("drain: joining in-flight pushes failed")
+        before = _flush_tallies(self.trainer)
+        t0 = time.monotonic()
+        try:
+            self._flush_device_tier()
+        except Exception:
+            flushed = False
+            logger.exception("drain: device-tier flush failed")
+        flush_s = time.monotonic() - t0
+        after = _flush_tallies(self.trainer)
+        handed_back = 0
+        try:
+            # both kinds of hand-back, pending record-stream tasks and
+            # parked out-of-band or train-end tasks, so the ack cannot
+            # call a drain clean while parked work requeued
+            handed_back += self.tds.report_pending_failed(
+                "requeue: draining"
+            )
+            handed_back += self.tds.report_parked_failed(
+                "requeue: draining"
+            )
+        except Exception:
+            logger.exception("drain: task hand-back failed")
+        acked = self._mc.deregister_worker(
+            reason,
+            pushes_joined=joined,
+            tier_flushed=flushed,
+            tasks_reported=handed_back,
+        )
+        self._drain_done = True
+        logger.info(
+            "Worker %s drained at version %d (%s; acked=%s "
+            "pushes_joined=%s tier_flushed=%s handed_back=%d)",
+            self._mc.worker_id, self._version, reason, acked, joined,
+            flushed, handed_back,
+        )
+        if before is not None:
+            delta = {key: after[key] - before[key] for key in after}
+            logger.info(
+                "Worker %s drain tier flush: %d rows written back, %d K1 "
+                "launches, %d row reads, %d staged chunks, %d evict "
+                "chunks, %d gather-only combines, %.4f s",
+                self._mc.worker_id, delta["written_back_rows"],
+                delta["k1_launches"], delta["row_reads"],
+                delta["staged_chunks"], delta["evict_chunks"],
+                delta["gather_only_combines"], flush_s,
+            )
 
     def _batches(self, record_stream, mode):
         dataset = self.spec.dataset_fn(
@@ -572,9 +705,18 @@ class Worker:
     def _drain_fast(self):
         """After MaxStepsStopping: take the remaining tasks without
         training (reported done), the train-end task still run, so the
-        job can finish."""
+        job can finish. A drain ends it: once this worker drains, the
+        master's gate answers WAIT(draining=true) forever, so looping on
+        it would wait for the watchdog; no task is held between
+        iterations, so any point here is a task boundary."""
         while True:
+            if self._draining:
+                self._finish_drain()
+                return
             task = self._mc.get_task()
+            if task.draining:
+                self._finish_drain()
+                return
             if task.task_id == 0:
                 if task.type == pb.WAIT:
                     time.sleep(0.2)
@@ -613,6 +755,11 @@ class Worker:
             return
         while True:
             self._run_training_stream()
+            if self._draining or self.tds.draining:
+                # the stream ended at a task boundary (the current task
+                # reported done): flush and deregister, fetch no more
+                self._finish_drain()
+                return
             self._drain_out_of_band()
             if self.tds.train_end_task is not None:
                 task = self.tds.train_end_task
@@ -636,7 +783,13 @@ class Worker:
 
     def _run_task_mode(self, task_type, process_fn):
         while True:
+            if self._draining:
+                self._finish_drain()
+                return
             task = self._mc.get_task(task_type)
+            if task.draining:
+                self._finish_drain()
+                return
             if task.task_id == 0:
                 if task.type == pb.WAIT:
                     time.sleep(0.2)

@@ -250,3 +250,37 @@ def test_artifact_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
     assert out["served_equal_direct"] and out["second_burst_equal"]
     assert out["serve_cache_drops"] == out["serve_stamped_relaunches"]
     assert out["ps1_relaunch_restored"][0] == 64
+
+
+def test_control_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
+    """Phase 12 end to end on the CPU at a small size (8 fields, batch
+    64, 2 of 4 files of 4096 records: 16 tasks of 8 steps): worker 1, a
+    process, drains on SIGTERM; the master, a process, is SIGKILLed
+    mid-epoch and relaunched; every check of the phase holds, and the
+    record carries what the card run prints."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    workdir = str(tmp_path)
+    chip_smoke.job_data(np, workdir, records=16384, valid=2048, fields=8)
+    out = chip_smoke.control_phase(
+        torch, np, counting_tier, workdir, device="cpu", per_task=512,
+        batch=64, eval_steps=80, report_version_steps=8, task_timeout_s=10.0,
+        card="CPU rehearsal, no card",
+        worker_env=dict(chip_smoke.JOB_WORKER_ENV,
+                        EDL_DEVICE_TIER_ROWS="2048",
+                        EDL_DEVICE_TIER_STAGE="256",
+                        EDL_SPARSE_ID_CAPACITY="512"))
+    assert out["master_rc"] == 0 and out["worker1_rc"] == 0
+    assert out["done_exactly_once"] and out["training_tasks"] == 16
+    assert out["master_boots"] == [1, 2]
+    assert len(out["train_end_done"]) == 1
+    assert out["worker0_epochs"][1] > out["worker0_epochs"][0]
+    assert out["drain_acks"] == [("1", "sigterm", "True", "True", "0")]
+    assert out["drain_flush"]["rows"] > 0
+    assert out["drain_flush"]["k1_launches"] == 0  # no kernel on the CPU
+    assert out["replay_ops"] == out["journal_ops_at_kill"]
+    assert out["export_step"] == out["worker0_version"]
+    assert out["evaluations"] and not out["launch_formula_mismatches"]
+    assert out["launches"]["gather"] > 0

@@ -385,3 +385,40 @@ def test_artifact_slice_modules_isolated_and_entry_points_default_to_cuda(
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine("elasticdl_tpu_torch.models.deepfm",
                       str(tmp_path / "export"), ps_client=LocalPSClient())
+
+
+def test_control_slice_modules_isolated_and_a_journal_replays_with_jax_blocked(
+        tmp_path):
+    """The control slice's modules (the state journal, the drain
+    manager, the worker's SIGTERM hook) are among those imported with
+    JAX blocked above, and with JAX and the JAX package blocked a
+    dispatcher journals a task and a relaunched one replays it: the
+    task in flight goes back to the queue and the boot counter moves."""
+    modules = _port_modules()
+    for name in ("master.state_store", "master.autoscaler", "worker.drain"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+from elasticdl_tpu_torch.master.state_store import MasterStateJournal
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+journal = MasterStateJournal(sys.argv[1])
+assert journal.load() is None
+first = TaskDispatcher({"f": (0, 8)}, records_per_task=4, seed=0,
+                       state_journal=journal)
+held = first.get(0)
+journal.close()
+journal = MasterStateJournal(sys.argv[1])
+second = TaskDispatcher({"f": (0, 8)}, records_per_task=4, seed=0,
+                        state_journal=journal, recovered=journal.load())
+assert journal.master_epoch == 2
+assert second.stats()["queue_depth"]["training"] == 2
+assert held.task_id in [second.get(1).task_id, second.get(1).task_id]
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("journal ok")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "state")],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "journal ok"
