@@ -165,7 +165,8 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    done once; the export's step is worker 0's final version; the dense
    directory holds the two newest multiples of 32, the final version
    the latest; phase 7's formula at every step and flush barrier, one
-   K1 per tier table at the train-end barrier; both PS save their final
+   K1 per tier table dirty at the train-end barrier, and no training
+   task after the train-end task; both PS save their final
    checkpoint at one version and the relaunches restore it; the
    evaluation-only AUC is at least 0.70 and within 1e-6 of the AUC of
    the prediction job's outputs; every record predicted once; the
@@ -201,7 +202,37 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    serving and to worker 0's first task from the relaunched master,
    the replay's seconds and ops, the journal's bytes and ops at the
    kill, the tasks trained twice and worker 0's steps/s before and
-   after the kill.
+   after the kill;
+13. telemetry -- phase 12's job (two files, 12 tasks, evaluation every
+   64 versions) with every role observed: the master a ``master.main``
+   process, two async PS and worker 1 processes, worker 0 in this
+   process (K1-K3 counted), each with ``EDL_METRICS=1``, a metrics
+   port held by ``reserve_port``, ``EDL_EVENTS_DIR`` and
+   ``EDL_TRACE_DIR`` with ``EDL_TRACE_SAMPLE=1``. Worker 1 holding a
+   task gets SIGSTOP for 12 s, then SIGCONT (dead air at 8 s, the
+   master's liveness timeout 20 s, the PS's master poll every 2.5 s:
+   each gap at least 3 s spare; worker 0's task fetches pause
+   meanwhile, so the store cannot run 100 versions past worker 1's
+   stale push); once the master exits, the PS drain on SIGTERM. Checks: ``/alerts`` shows ``dead_air`` for worker 1
+   during the stop and no other alert ever; the master's journal
+   raises and clears it, ``edl_master_alerts_total{alert="dead_air"}``
+   is 1; no task requeued; ``/statusz`` lists both workers with the
+   CUDA allocator's bytes (the card's memory as the limit) and the
+   tier's tallies, and both PS with push and pull rates; each worker's
+   ``/metrics`` after its last step counts the tier's hits and misses
+   its ``stats()`` logged at exit; the PS' gRPC server push counters
+   equal the workers' client counters; one step's trace id reaches the
+   master and a PS; the journal of every role that runs a port main
+   (master, both PS, worker 1) has ``role_start`` and ``role_stop``;
+   every training task done once, the AUC floor, phase 7's formula.
+   Then the serve phase's TransformerLM ``ServeRole`` with a metrics
+   port: ``/readyz`` 503 before the load and 200 after; one warm-up
+   batch of 8 requests, then 64 concurrent requests (8 batches); the
+   served-request counter equal to the requests sent, K4 once a layer
+   a batch, the batcher's and servicer's spans, whose split of each
+   measured request's time (queue wait, batch assembly, forward,
+   reply; medians over the 64) is printed beside worker 0's steps/s against phase 9's, the bytes of
+   each role's trace and journal and the phase's seconds.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -219,6 +250,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -3038,15 +3070,30 @@ def flush_counts(tier, worker, counts):
     dirty rows read back, through ``_read_rows``, plus the staged
     chunks' launches as in a step; K2 once per inserting chunk; no K3).
     ``counts`` is ``count_worker_steps``' record (its ``reads`` counts
-    the row reads). Returns [{label, launches, want, reads, s}] as the
-    barriers run."""
+    the row reads). ``dirty_tables`` is what was dirty at the barrier:
+    the tables holding live dirty rows when the flush's writeback pass
+    began (each costs one row read). Returns [{label, launches, want,
+    reads, dirty_tables, s}] as the barriers run."""
+    import numpy as np
+
     dtier = worker.trainer.device_tier
-    flushes, label = [], [None]
+    flushes, label, dirty_at = [], [None], []
     flush = worker._flush_device_tier
+    flush_dirty = dtier._flush_dirty
+
+    def noted_flush_dirty(wait):
+        with dtier._lock:
+            dirty_at.append(sum(
+                bool((t.slot_id[np.nonzero(t.slot_dirty)[0]] >= 0).any())
+                for t in dtier._tables.values()))
+        return flush_dirty(wait)
+
+    dtier._flush_dirty = noted_flush_dirty
 
     def counted_flush():
         before, stats0 = tier_counts(tier), dtier.stats()
         reads0, t0 = counts["reads"][0], time.monotonic()
+        passes0 = len(dirty_at)
         flush()
         stats1 = dtier.stats()
         d = [a - c for a, c in zip(tier_counts(tier), before)]
@@ -3058,7 +3105,9 @@ def flush_counts(tier, worker, counts):
         flushes.append({"label": label[0], "launches": d,
                         "want": [gather_only + chunks + evicts + reads,
                                  inserts, 0],
-                        "reads": reads, "s": time.monotonic() - t0})
+                        "reads": reads,
+                        "dirty_tables": sum(dirty_at[passes0:]),
+                        "s": time.monotonic() - t0})
 
     def labelled(name, fn):
         def run(*args):
@@ -3158,7 +3207,8 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
                    task_timeout_s=JOB_TASK_TIMEOUT_S,
                    ckpt_steps=ARTIFACT_CKPT_STEPS, keep_max=ARTIFACT_KEEP,
                    serve_batch=ARTIFACT_SERVE_BATCH, burst=ARTIFACT_BURST,
-                   clients=ARTIFACT_CLIENTS, worker_env=None, card=None):
+                   clients=ARTIFACT_CLIENTS, worker_env=None, card=None,
+                   train_end_first=False, out_dir=None):
     """Phase 11: the job's artifact, from the end of a DeepFM job to its
     use (the module docstring's steps). Checks (each printed; a failure
     raises SystemExit): the job's master returns 0 with every training
@@ -3168,7 +3218,10 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
     ``keep_max`` newest multiples of ``ckpt_steps`` with the final
     version the latest; worker 0's K1-K3 launches follow phase 7's
     formula in every step and at every flush barrier, and the train-end
-    barrier read back one K1 per tier table; both PS save a final full
+    barrier read back one K1 per tier table that was dirty at it (the
+    job's evaluation, when it ran first, left both tables dirty; when
+    the train-end task was handed out first, nothing was); no training
+    task was handed out after the train-end task; both PS save a final full
     checkpoint at one version on SIGTERM and exit 0; the relaunched PS
     restore it; the evaluation-only job's AUC is at least JOB_AUC_FLOOR
     and within ARTIFACT_AUC_TOL of the AUC of the prediction-only job's
@@ -3179,7 +3232,15 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
     version, the engine drops its cache once for each relaunch its PS
     client saw stamped, and the same burst again is answered bit for
     bit as the first. ``card`` is the nvidia-smi line printed with the
-    numbers (the CPU rehearsal passes its own)."""
+    numbers (the CPU rehearsal passes its own).
+
+    ``train_end_first`` forces the other order of the job's end: worker
+    0's version report that triggers the evaluation waits until a
+    ``get_task`` (the stream's prefetch) has been answered with the
+    train-end task, so the train-end barrier runs before the evaluation
+    leaves tier rows dirty. ``out_dir`` (default
+    ``build/chip_smoke_artifact``) takes the logs, checkpoints, export
+    and predictions."""
     from elasticdl_tpu_torch.common.grpc_utils import (
         find_free_port,
         reserve_port,
@@ -3215,7 +3276,7 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
     records = sum(n for _, n in RecordIODataReader(
         data_dir=train_dir).create_shards().values())
     steps_total = -(-records // batch)
-    out = os.path.join(HERE, "build", "chip_smoke_artifact")
+    out = out_dir or os.path.join(HERE, "build", "chip_smoke_artifact")
     shutil.rmtree(out, ignore_errors=True)
     dense_dir, export_dir = (os.path.join(out, "dense"),
                              os.path.join(out, "export"))
@@ -3308,6 +3369,22 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
             export_rec["s"] = time.monotonic() - t0
 
         exporter.on_train_end = timed_export
+        forced = {}
+        if train_end_first:
+            report_version = worker0._mc.report_version
+
+            def delayed_report(version):
+                # the report that triggers the evaluation waits for the
+                # prefetch's get_task to be answered with the train end
+                if version >= steps_total and "waited_s" not in forced:
+                    t0 = time.monotonic()
+                    while (time.monotonic() - t0 < JOB_WAIT_S and not any(
+                            h[0] == pb.TRAIN_END_CALLBACK for h in handed)):
+                        time.sleep(0.01)
+                    forced["waited_s"] = time.monotonic() - t0
+                return report_version(version)
+
+            worker0._mc.report_version = delayed_report
         reset_tier_launches(tier)  # the phase's count starts here
         runner = threading.Thread(target=worker0.run, daemon=True)
         runner.start()
@@ -3352,7 +3429,13 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
         warm = [s[0] for s in steps[10:]] or [s[0] for s in steps]
         end_flush = [f for f in flushes if f["label"] == "train_end"]
         ckpt_flush = [f for f in flushes if f["label"] == "checkpoint"]
-        tables = len(dtier._tables)
+        eval_handed = [h for h in handed if h[0] == pb.EVALUATION]
+        order = ("train_end_first" if train_end_handed and (
+            not eval_handed or train_end_handed[0][2] < eval_handed[0][2])
+            else "evaluation_first")
+        training_after_end = [
+            h[1] for h in handed if h[0] == pb.TRAINING
+            and train_end_handed and h[2] > train_end_handed[0][2]]
         record.update({
             "job_wall_s": job_s, "master_rc": result.get("rc"),
             "job_failed": dispatcher.job_failed(),
@@ -3378,6 +3461,10 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
                                   for k, v in launches.items()},
             "launch_formula_mismatches": counts["bad_steps"][:5],
             "launches_train_end_flush": [f["launches"] for f in end_flush],
+            "train_end_flushes": end_flush,
+            "train_end_order": order,
+            "train_end_forced_wait_s": forced.get("waited_s"),
+            "training_handed_after_train_end": training_after_end,
             "launches_checkpoint_flush": [f["launches"]
                                           for f in ckpt_flush],
             "flush_s": {"train_end": [f["s"] for f in end_flush],
@@ -3401,12 +3488,18 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
             failures.append("worker 0: losses finite %s, still running %s"
                             % (record["all_finite"], runner.is_alive()))
         if (len(train_end) != 1 or len(train_end_handed) != 1
-                or not record["train_end_after_last_training"]):
+                or not record["train_end_after_last_training"]
+                or training_after_end):
             failures.append("train-end tasks done %s, handed %s, after the "
-                            "last training task %s" % (
+                            "last training task %s, training tasks handed "
+                            "after it %s" % (
                                 record["train_end_tasks_done"],
                                 record["train_end_tasks_handed"],
-                                record["train_end_after_last_training"]))
+                                record["train_end_after_last_training"],
+                                training_after_end))
+        if train_end_first and order != "train_end_first":
+            failures.append("the forced order did not hold: %s (waited "
+                            "%s s)" % (order, forced.get("waited_s")))
         if manifest["step"] != version:
             failures.append("export step %s != worker 0's version %d"
                             % (manifest["step"], version))
@@ -3420,12 +3513,18 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
         if counts["bad_steps"] or min(launches.values()) <= 0:
             failures.append("worker 0's K1-K3 launches do not follow the "
                             "path: %s" % counts["bad_steps"][:5])
+        # the evaluation before the train end leaves every tier table
+        # dirty; a train end handed out first finds none dirty
+        want_dirty = len(dtier._tables) if order == "evaluation_first" else 0
         if (record["flush_formula_mismatches"]
                 or len(ckpt_flush) != version // ckpt_steps
-                or len(end_flush) != 1 or end_flush[0]["reads"] != tables
-                or end_flush[0]["launches"][0] != tables):
+                or len(end_flush) != 1
+                or end_flush[0]["reads"] != end_flush[0]["dirty_tables"]
+                or end_flush[0]["dirty_tables"] != want_dirty):
             failures.append("flush barriers: %s (want one K1 per tier "
-                            "table at the train end)" % flushes)
+                            "table dirty at the train end, %d tables dirty "
+                            "in the order %s)" % (flushes, want_dirty,
+                                                  order))
         if (job_ps_codes != [0, 0] or None in finals
                 or len(set(finals)) != 1 or ps_latest != finals[0]):
             failures.append("job PS exits %s, final saves at %s, latest "
@@ -4055,6 +4154,901 @@ def control_phase(torch, np, tier, workdir, device="cuda",
                         % (export_step, worker0.model_version))
     if failures:
         raise SystemExit("control phase: " + "; ".join(failures))
+    return record
+
+
+# phase 13: the job's telemetry. Phase 12's job (two of phase 9's
+# training files, 12 tasks of 16 steps) with every role a telemetry
+# source: the master (a process; its fleet monitor behind /statusz and
+# /alerts), two async PS and worker 1 (processes; worker 1's stays up
+# after its main returns until scraped, ``linger_worker``) and worker 0
+# (in this process, its K1-K3 counted), each with a metrics port, the events
+# journal and a trace of every step. Worker 1 is SIGSTOPped for
+# TELEMETRY_STOP_S: the master's dead-air detector must raise on it, and
+# clear once it is SIGCONTed, with no alert on any other role and no
+# task requeued. The times keep TELEMETRY_MARGIN_S spare on each side
+# (``dead_air_margins``); worker 0's task fetches pause while worker 1
+# is stopped, so the store cannot run EDL_VERSION_LAG_MAX versions past
+# worker 1's stale push (which would raise version_lag on a PS).
+TELEMETRY_FILES = 2
+TELEMETRY_EVAL_STEPS = 64
+TELEMETRY_DEAD_AIR_S = 8.0       # EDL_DEAD_AIR_SECS (the default is 15)
+TELEMETRY_STOP_S = 12.0          # worker 1's SIGSTOP
+TELEMETRY_TASK_TIMEOUT_S = 20.0  # the master's liveness timeout
+TELEMETRY_PS_GONE_S = 5.0        # EDL_PS_MASTER_GONE_SECS: a poll each 2.5 s
+TELEMETRY_MARGIN_S = 3.0
+TELEMETRY_SCRAPE_S = 0.1         # the script's scrape of /alerts
+TELEMETRY_SERVE_REQUESTS = 64     # after one warm-up batch, not recorded
+TELEMETRY_SERVE_BATCH = 8
+_TIER_EXIT_RE = re.compile(r"Worker (\d+) tier stats at exit: (\{.*\})")
+
+
+def dead_air_margins(dead_air_s, stop_s, task_timeout_s, ps_gone_s,
+                     heartbeat_s):
+    """The spare seconds of the phase's times: a healthy role's longest
+    silence (the worker's heartbeat, the PS's master poll) under the
+    dead-air window; the stop over the window plus the master's 1 s
+    scan; the liveness timeout over the stop plus the stopped worker's
+    last heartbeat gap (no requeue)."""
+    ps_poll_s = min(5.0, ps_gone_s / 2)
+    return {
+        "healthy_silence_s": max(heartbeat_s, ps_poll_s),
+        "dead_air_over_healthy_s": dead_air_s - max(heartbeat_s, ps_poll_s),
+        "stop_over_dead_air_s": stop_s - dead_air_s - 1.0,
+        "timeout_over_stop_s": task_timeout_s - stop_s - heartbeat_s,
+    }
+
+
+def linger_worker(argv, linger_s=300.0):
+    """``worker.main`` in this process, which then stays up, serving its
+    /metrics, until SIGUSR1 (or ``linger_s``): the scrape after a
+    worker's last step needs the process after its main returned, and
+    a worker's process exits as soon as its job is over."""
+    from elasticdl_tpu_torch.worker import main as worker_main
+
+    released = threading.Event()
+    signal.signal(signal.SIGUSR1, lambda *_: released.set())
+    rc = worker_main.main(argv)
+    print(LINGER_MARK, flush=True)
+    released.wait(timeout=linger_s)
+    return rc
+
+
+LINGER_MARK = "worker main returned; lingering for the last scrape"
+LINGER_WORKER_CHILD = ("import sys, chip_smoke; "
+                       "sys.exit(chip_smoke.linger_worker(sys.argv[1:]))")
+
+
+def read_trace(path):
+    """A role's trace events (the writer's "[" + one JSON per line,
+    comma-terminated, the array left open)."""
+    events = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip().rstrip(",")
+            if line and line not in ("[", "]"):
+                events.append(json.loads(line))
+    return events
+
+
+def read_journal(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def scrape(url, timeout=2.0):
+    """(status, body) of one GET; (None, reason) when it cannot connect."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as reply:
+            return reply.status, reply.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except (OSError, ValueError) as e:
+        return None, repr(e)
+
+
+def series_value(text, name, **labels):
+    """The value of one series of a /metrics body (0.0 when absent)."""
+    want = "%s{%s}" % (name, ",".join('%s="%s"' % kv for kv in
+                                       labels.items())) if labels else name
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(want + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def tier_series(text):
+    """edl_device_tier_hits_total + _misses_total over the tables."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(("edl_device_tier_hits_total{",
+                            "edl_device_tier_misses_total{")):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def serving_split(np, spans, first_batch=0):
+    """Medians (ms) of a served request's time by part, over every
+    request served in a batch numbered ``first_batch`` or later (the
+    batch number each ``serve_predict`` root carries): queue wait (the
+    root's start, the RPC handler's entry, to its batch's assembly),
+    batch assembly, forward, reply (the forward's end to the root's
+    end). Returns (medians, the requests counted)."""
+    batch_spans = {(e["name"], e["args"].get("batch")): e for e in spans
+                   if e["name"] in ("serve_batch_assemble",
+                                    "serve_batch_run")}
+    parts = {"queue_wait": [], "batch_assembly": [], "forward": [],
+             "reply": []}
+    for root in (e for e in spans if e["name"] == "serve_predict"):
+        number = root["args"].get("batch")
+        if number is None or number < first_batch:
+            continue
+        assemble = batch_spans.get(("serve_batch_assemble", number))
+        run = batch_spans.get(("serve_batch_run", number))
+        if assemble is None or run is None:
+            continue
+        parts["queue_wait"].append(assemble["ts"] - root["ts"])
+        parts["batch_assembly"].append(assemble["dur"])
+        parts["forward"].append(run["dur"])
+        parts["reply"].append(root["ts"] + root["dur"]
+                              - run["ts"] - run["dur"])
+    return {k: float(np.median(v)) / 1e3 if v else None
+            for k, v in parts.items()}, len(parts["forward"])
+
+
+def telemetry_phase(torch, np, tier, workdir, device="cuda",
+                    files=TELEMETRY_FILES, per_task=JOB_PER_TASK,
+                    batch=SPARSE_BATCH, eval_steps=TELEMETRY_EVAL_STEPS,
+                    report_version_steps=JOB_REPORT_VERSION_STEPS,
+                    dead_air_s=TELEMETRY_DEAD_AIR_S,
+                    stop_s=TELEMETRY_STOP_S,
+                    task_timeout_s=TELEMETRY_TASK_TIMEOUT_S,
+                    ps_gone_s=TELEMETRY_PS_GONE_S, worker_env=None,
+                    job_steps_per_s=None, card=None, out_dir=None):
+    """Phase 13, the job: DeepFM with every role observed (the block
+    above). Checks (each printed; a failure raises SystemExit): the
+    phase's times keep TELEMETRY_MARGIN_S spare; ``/alerts`` shows
+    ``dead_air`` for worker 1 during its stop and no other alert, ever;
+    the master's journal has ``alert_raised`` then ``alert_cleared``
+    for it and ``edl_master_alerts_total{alert="dead_air"}`` is 1; no
+    task requeued and none presumed dead; ``/statusz`` lists both
+    workers and both PS with their blobs: each worker's bytes in use
+    from the allocator (> 0, the limit the card's total memory; on the
+    CPU 0 bytes and the EDL_HBM_LIMIT_BYTES limit) and its tier's hits
+    and misses, each PS's push and pull rates above 0 in some scrape;
+    each worker's ``/metrics`` taken after its last step counts the
+    tier's hits and misses its ``stats()`` logged at exit; the PS'
+    gRPC server counters count the pushes the workers' client counters
+    sent; one training step's trace id is in worker 0's root span, a
+    master handler span and a PS handler span; the journal of every
+    role that runs a port main (master, both PS, worker 1) has
+    ``role_start`` and ``role_stop`` (worker 0's are this script's
+    own); the master exits 0 with every
+    training task done once; every completed evaluation's AUC at least
+    JOB_AUC_FLOOR; worker 0's K1-K3 launches follow phase 7's formula.
+    ``job_steps_per_s`` is phase 9's worker 0 (telemetry off), printed
+    beside this run's."""
+    from elasticdl_tpu_torch.common import overload
+    from elasticdl_tpu_torch.common.grpc_utils import (
+        find_free_port,
+        reserve_port,
+    )
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.observability import (
+        events,
+        http_server,
+        metrics,
+        trace,
+    )
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    card = card or nvidia_smi_line()
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    margins = dead_air_margins(dead_air_s, stop_s, task_timeout_s,
+                               ps_gone_s, Worker.HEARTBEAT_SECS)
+    record = {"telemetry": "result", "card": card,
+              "dead_air_s": dead_air_s, "stop_s": stop_s,
+              "task_timeout_s": task_timeout_s, "ps_gone_s": ps_gone_s,
+              "heartbeat_s": Worker.HEARTBEAT_SECS, "margins": margins}
+    short = {k: v for k, v in margins.items()
+             if k != "healthy_silence_s" and v < TELEMETRY_MARGIN_S}
+    if short:
+        raise SystemExit("telemetry phase: the times leave less than %s s "
+                         "spare: %s" % (TELEMETRY_MARGIN_S, short))
+    train_dir = os.path.join(workdir, "telemetry_train")
+    valid_dir = os.path.join(workdir, "valid")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    records = sum(n for _, n in RecordIODataReader(
+        data_dir=train_dir).create_shards().values())
+    out = out_dir or os.path.join(HERE, "build", "chip_smoke_telemetry")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    events_dir, trace_dir = (os.path.join(out, "events"),
+                             os.path.join(out, "traces"))
+    # a metrics port for each role, held until the phase ends
+    reservations = {role: reserve_port() for role in (
+        "master", "ps-0", "ps-1", "worker-0", "worker-1")}
+    mport = {role: port for role, (_, port) in reservations.items()}
+    port = find_free_port()
+    addr = "localhost:%d" % port
+    obs_env = {"EDL_METRICS": "1", "EDL_EVENTS_DIR": events_dir,
+               "EDL_TRACE_DIR": trace_dir, "EDL_TRACE_SAMPLE": "1",
+               "EDL_DEAD_AIR_SECS": str(dead_air_s),
+               "EDL_PS_MASTER_GONE_SECS": str(ps_gone_s)}
+    if device.type != "cuda":
+        obs_env["EDL_HBM_LIMIT_BYTES"] = str(1 << 30)
+    env = dict(os.environ, PYTHONPATH=HERE, **obs_env)
+    logs = {name: os.path.join(out, name + ".log")
+            for name in ("master", "ps-0", "ps-1", "worker-1")}
+    procs, runner, http0 = [], None, None
+    polls = {"alerts": [], "statusz": [], "master": []}
+    stop_polling = threading.Event()
+
+    def url(role, path):
+        return "http://localhost:%d%s" % (mport[role], path)
+
+    def poll():
+        """/alerts every TELEMETRY_SCRAPE_S, /statusz and the master's
+        /metrics every fifth time, each with its start time."""
+        n = 0
+        while not stop_polling.is_set():
+            t = time.time()
+            status, body = scrape(url("master", "/alerts"))
+            if status == 200:
+                polls["alerts"].append((t, json.loads(body)))
+            if n % 5 == 0:
+                status, body = scrape(url("master", "/statusz"))
+                if status == 200:
+                    polls["statusz"].append((t, json.loads(body)))
+                status, body = scrape(url("master", "/metrics"))
+                if status == 200:
+                    polls["master"].append((t, body))
+            n += 1
+            stop_polling.wait(TELEMETRY_SCRAPE_S)
+
+    def master_journal():
+        paths = [os.path.join(events_dir, p) for p in os.listdir(events_dir)
+                 if p.startswith("master-") and p.endswith(".ndjson")] if (
+            os.path.isdir(events_dir)) else []
+        return read_journal(paths[0]) if paths else []
+
+    def holds(journal, worker_id):
+        dispatched = {e["task"] for e in journal
+                      if e["event"] == "task_dispatch"
+                      and e["worker"] == worker_id}
+        reported = {e["task"] for e in journal if e["event"] == "task_report"
+                    and e["worker"] == worker_id}
+        return dispatched - reported
+
+    def read_log(name):
+        with open(logs[name]) as f:
+            return f.read()
+
+    saved_env = {k: os.environ.get(k) for k in list(worker_env) + list(
+        obs_env)}
+    gate = threading.Event()
+    gate.set()
+    poller = threading.Thread(target=poll, daemon=True)
+    try:
+        job_t0 = time.monotonic()
+        with open(logs["master"], "w") as sink:
+            master = subprocess.Popen(
+                [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+                 "--model_zoo", zoo, "--training_data", train_dir,
+                 "--validation_data", valid_dir,
+                 "--records_per_task", str(per_task), "--port", str(port),
+                 "--evaluation_steps", str(eval_steps),
+                 "--task_timeout_secs", str(task_timeout_s),
+                 "--metrics_port", str(mport["master"])],
+                cwd=HERE, env=env, stdout=sink, stderr=subprocess.STDOUT)
+        procs.append(master)
+        ps_ports = [find_free_port() for _ in range(2)]
+        ps_addrs = ["localhost:%d" % p for p in ps_ports]
+        ps = [start_ps(i, ps_ports[i], logs["ps-%d" % i],
+                       ("--use_async", "1", "--master_addr", addr,
+                        "--metrics_port", str(mport["ps-%d" % i])), env)
+              for i in range(2)]
+        procs.extend(ps)
+        wait_for_line(master, logs["master"], "Master serving on :%d" % port,
+                      "the master")
+        # worker.main, kept up after it returns until its last scrape
+        with open(logs["worker-1"], "w") as sink:
+            worker1 = subprocess.Popen(
+                [sys.executable, "-c", LINGER_WORKER_CHILD,
+                 "--model_zoo", zoo, "--training_data", train_dir,
+                 "--minibatch_size", str(batch), "--master_addr", addr,
+                 "--worker_id", "1", "--ps_addrs", ",".join(ps_addrs),
+                 "--report_version_steps", str(report_version_steps),
+                 "--device", device.type,
+                 "--metrics_port", str(mport["worker-1"])],
+                cwd=HERE, env=dict(env, **worker_env), stdout=sink,
+                stderr=subprocess.STDOUT)
+        procs.append(worker1)
+        wait_ps_ready([(ps, ps_addrs, [logs["ps-0"], logs["ps-1"]])])
+        poller.start()
+        deadline = time.monotonic() + JOB_WAIT_S
+        while not any(e["event"] == "task_report" and e["worker"] == 1
+                      and e["ok"] for e in master_journal()):
+            if worker1.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit("worker 1 reported no task (exit %s):\n%s"
+                                 % (worker1.poll(),
+                                    read_log("worker-1")[-3000:]))
+            time.sleep(0.05)
+
+        # -- worker 0, in this process, with its own probes ----------------
+        os.environ.update(worker_env)
+        os.environ.update(obs_env)
+        metrics.reset_default_registry()
+        # a worker process starts with no breaker tripped: earlier
+        # phases' PS kills left this process's books with open circuits,
+        # which worker 0's blob would report as fresh (circuit_open)
+        overload._reset_for_tests()
+        events.configure("worker-0")
+        trace.configure("worker-0")
+        http0 = http_server.maybe_start("worker-0",
+                                        cli_port=mport["worker-0"])
+        client = MasterClient(addr, worker_id=0)
+        if http0 is not None:
+            http0.add_readiness_check("master_channel_ready",
+                                      client.channel_ok)
+        client.reset_worker()
+        # worker 0 runs in this script, not worker.main: its role_start
+        # and role_stop are the script's own, outside the journal check
+        events.emit("role_start", worker=0, epoch=client.incarnation or 0)
+        get_task = client.get_task
+
+        def gated_get_task(task_type=None):
+            gate.wait()
+            return get_task(task_type)
+
+        client.get_task = gated_get_task
+        worker0 = Worker(client, zoo, RecordIODataReader(data_dir=train_dir),
+                         minibatch_size=batch,
+                         report_version_steps=report_version_steps,
+                         wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                         device=device)
+        dtier = worker0.trainer.device_tier
+        if dtier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        counts = count_worker_steps(tier, worker0.trainer)
+        reset_tier_launches(tier)  # the phase's count starts here
+        runner = threading.Thread(target=worker0.run, daemon=True)
+        runner.start()
+
+        # -- worker 1 stopped while it holds a task --------------------------
+        while True:
+            journal = master_journal()
+            w0_done = any(e["event"] == "task_report" and e["worker"] == 0
+                          for e in journal)
+            if w0_done and holds(journal, 1):
+                break
+            if worker1.poll() is not None or time.monotonic() > deadline \
+                    or not runner.is_alive():
+                raise SystemExit("no moment with worker 1 holding a task "
+                                 "after worker 0's first report")
+            time.sleep(0.02)
+        gate.clear()
+        worker1.send_signal(signal.SIGSTOP)
+        stop_t = time.time()
+        time.sleep(stop_s)
+        worker1.send_signal(signal.SIGCONT)
+        cont_t = time.time()
+        # worker 0 fetches again once the alert cleared: until it has
+        # been told the job is over, the master keeps serving, so the
+        # clear is always seen
+        while time.time() - cont_t < dead_air_s:
+            if polls["alerts"] and polls["alerts"][-1][0] > cont_t and (
+                    not polls["alerts"][-1][1]):
+                break
+            time.sleep(0.05)
+        gate.set()
+        runner.join(timeout=JOB_WAIT_S)
+        # worker 1's main has returned (its tier stats logged at exit,
+        # role_stop journaled): its last scrape, then its exit
+        wait_for_line(worker1, logs["worker-1"], LINGER_MARK,
+                      "worker 1's end", timeout=JOB_WAIT_S)
+        w1_status, w1_metrics = scrape(url("worker-1", "/metrics"))
+        worker1.send_signal(signal.SIGUSR1)
+        try:
+            worker1_rc = worker1.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise SystemExit("worker 1 did not exit:\n%s"
+                             % read_log("worker-1")[-3000:])
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        # worker 0's last step is behind it: its scrape, its stats
+        w0_stats = dtier.stats()
+        log("Worker 0 tier stats at exit: %s"
+            % json.dumps(w0_stats, sort_keys=True))
+        status, w0_metrics = scrape(url("worker-0", "/metrics"))
+        events.emit("role_stop", worker=0)
+        events.flush()
+        trace.flush()
+        # both workers are done: the PS' counters, before the master's
+        # exit tells them to go
+        ps_metrics = [scrape(url("ps-%d" % i, "/metrics"))[1]
+                      for i in range(2)]
+        try:
+            master_rc = master.wait(timeout=JOB_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise SystemExit("the master did not finish:\n%s"
+                             % read_log("master")[-3000:])
+        job_s = time.monotonic() - job_t0
+        stop_polling.set()
+        poller.join(timeout=10)
+        # the job is over: the PS drain on SIGTERM (role_stop, exit 0)
+        # rather than wait out EDL_PS_MASTER_GONE_SECS
+        for p in ps:
+            p.send_signal(signal.SIGTERM)
+        ps_codes = [p.wait(timeout=60) for p in ps]
+    finally:
+        stop_polling.set()
+        gate.set()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()  # SIGKILL ends a stopped process too
+                proc.wait()
+        if http0 is not None:
+            http0.stop()
+        if runner is not None:
+            runner.join(timeout=10)
+        # the process's journal and trace off again (the knobs are
+        # restored above); the registry back to the environment's
+        events.configure("chip_smoke")
+        trace.configure("chip_smoke")
+        metrics.reset_default_registry()
+        for sock, _ in reservations.values():
+            sock.close()
+
+    # -- what the journals, the traces and the scrapes say -----------------
+    journal = master_journal()
+    alert_polls = polls["alerts"]
+    during = [a for t, a in alert_polls if stop_t + dead_air_s + 1.5 < t
+              < cont_t]
+    seen = sorted({(a["alert"], a.get("role") or str(a.get("worker_id")))
+                   for _, alerts in alert_polls for a in alerts})
+    raised = [e for e in journal if e["event"] == "alert_raised"]
+    cleared = [e for e in journal if e["event"] == "alert_cleared"]
+    dead_air_raised = [e for e in raised if e["alert"] == "dead_air"]
+    master_metrics = polls["master"][-1][1] if polls["master"] else ""
+    alerts_total = {
+        kind: series_value(master_metrics, "edl_master_alerts_total",
+                           alert=kind)
+        for kind in ("dead_air", "straggler", "stuck_round", "version_lag",
+                     "nonfinite_loss", "loss_spike", "grad_explosion",
+                     "hbm_pressure", "ps_overload", "circuit_open")}
+    # every training task done once
+    dispatched = {}
+    for e in journal:
+        if e["event"] == "task_dispatch":
+            dispatched.setdefault(e["task"], e["type"])
+    ok_reports = [e["task"] for e in journal
+                  if e["event"] == "task_report" and e["ok"]]
+    training = sorted(t for t, kind in dispatched.items()
+                      if kind == "training")
+    requeues = [e for e in journal if e["event"] in (
+        "task_requeue", "worker_presumed_dead")]
+    # the fleet view while the job ran
+    statusz = [s for _, s in polls["statusz"]]
+    fleet_roles = sorted({r for s in statusz for r in s.get("fleet", {})})
+    worker_blobs = {}
+    ps_rates = {"ps-0": [0.0, 0.0], "ps-1": [0.0, 0.0]}
+    for snap in statusz:
+        for role, entry in snap.get("fleet", {}).items():
+            if role.startswith("worker-") and "tier_hits" in entry:
+                worker_blobs[role] = entry
+            if role in ps_rates:
+                ps_rates[role][0] = max(ps_rates[role][0],
+                                        entry.get("push_rate", 0.0))
+                ps_rates[role][1] = max(ps_rates[role][1],
+                                        entry.get("pull_rate", 0.0))
+    limit_want = (torch.cuda.mem_get_info()[1] if device.type == "cuda"
+                  else 1 << 30)
+    hbm = {role: [e.get("hbm_bytes_in_use"), e.get("hbm_peak_bytes"),
+                  e.get("hbm_limit_bytes")]
+           for role, e in worker_blobs.items()}
+    # each worker's tier counters after its last step against its stats
+    w1_stats = _TIER_EXIT_RE.search(read_log("worker-1"))
+    w1_stats = json.loads(w1_stats[2]) if w1_stats else None
+    w1_metrics = w1_metrics if w1_status == 200 else None
+    tier_check = {
+        "worker-0": [tier_series(w0_metrics or ""),
+                     w0_stats["hits"] + w0_stats["misses"]],
+        "worker-1": [tier_series(w1_metrics) if w1_metrics else None,
+                     (w1_stats["hits"] + w1_stats["misses"]) if w1_stats
+                     else None],
+    }
+    # pushes: the PS servers' handled counters against the workers'
+    # client counters
+    push = dict(service="Pserver", method="push_gradients", code="OK")
+    server_pushes = [series_value(text or "", "edl_grpc_server_handled_total",
+                                  **push) for text in ps_metrics]
+    client_pushes = [
+        series_value(w0_metrics or "", "edl_grpc_client_handled_total",
+                     **push),
+        series_value(w1_metrics or "", "edl_grpc_client_handled_total",
+                     **push)]
+    # the traces: one training step's trace id in three roles
+    traces, trace_bytes = {}, {}
+    for name in sorted(os.listdir(trace_dir)):
+        role = name.rsplit("-", 1)[0]
+        traces[role] = read_trace(os.path.join(trace_dir, name))
+        trace_bytes[role] = os.path.getsize(os.path.join(trace_dir, name))
+    by_trace = {}
+    for role, spans in traces.items():
+        for e in spans:
+            tid = e.get("args", {}).get("trace_id")
+            if tid:
+                by_trace.setdefault(tid, set()).add((role, e["name"]))
+    roots = {e["args"]["trace_id"] for e in traces.get("worker-0", [])
+             if e.get("name") == "train_batch" and e["args"].get("trace_id")}
+    three = sorted(
+        tid for tid in roots
+        if any(r == "master" and n.startswith("Master/")
+               for r, n in by_trace[tid])
+        and any(r.startswith("ps-") and n.startswith("Pserver/")
+                for r, n in by_trace[tid]))
+    journal_bytes, role_events = {}, {}
+    for name in sorted(os.listdir(events_dir)):
+        if name.endswith(".events.ndjson"):
+            role = name.rsplit("-", 1)[0]
+            path = os.path.join(events_dir, name)
+            journal_bytes[role] = os.path.getsize(path)
+            role_events[role] = [e["event"] for e in read_journal(path)]
+    evaluations = [[int(v), float(auc)]
+                   for v, auc in _EVAL_RE.findall(read_log("master"))]
+    steps = counts["steps"]
+    warm = [s[0] for s in steps[10:]] or [s[0] for s in steps]
+    losses = [s[1] for s in steps]
+    record.update({
+        "job_wall_s": job_s, "master_rc": master_rc,
+        "worker1_rc": worker1_rc, "ps_exit_codes": ps_codes,
+        "stopped_s": cont_t - stop_t,
+        "alerts_seen": seen, "alerts_during_stop": during[-1:] if during
+        else [],
+        "alert_transitions": [(e["event"], e["alert"], e["target"],
+                               e["ts"] - stop_t)
+                              for e in raised + cleared],
+        "dead_air_raised_after_stop_s": (dead_air_raised[0]["ts"] - stop_t
+                                         if dead_air_raised else None),
+        "dead_air_cleared_after_cont_s": next(
+            (e["ts"] - cont_t for e in cleared
+             if e["alert"] == "dead_air"), None),
+        "alerts_total": {k: v for k, v in alerts_total.items() if v},
+        "requeues_or_deaths": requeues,
+        "training_tasks": len(training), "dataset_records": records,
+        "done_ok_reports": len(ok_reports),
+        "done_exactly_once": sorted(t for t in ok_reports
+                                    if t in training) == training,
+        "fleet_roles": fleet_roles,
+        "worker_hbm_in_use_peak_limit": hbm, "hbm_limit_want": limit_want,
+        "worker_tier_hits_misses": {r: [e["tier_hits"], e["tier_misses"]]
+                                    for r, e in worker_blobs.items()},
+        "ps_max_push_pull_rates": ps_rates,
+        "tier_series_vs_stats": tier_check,
+        "worker1_last_scrape_status": w1_status,
+        "server_pushes": server_pushes, "client_pushes": client_pushes,
+        "steps_traced": len(roots), "traces_in_three_roles": len(three),
+        "trace_bytes": trace_bytes, "journal_bytes": journal_bytes,
+        "evaluations": evaluations, "auc_floor": JOB_AUC_FLOOR,
+        "worker0_steps": len(steps), "worker0_version": worker0.model_version,
+        "worker0_steps_per_s": len(warm) / sum(warm) if warm else None,
+        "worker0_steps_per_s_phase9": job_steps_per_s,
+        "all_finite": bool(np.isfinite(losses).all()) if losses else False,
+        "launches": launches,
+        "launches_per_step": {k: v / max(len(steps), 1)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": counts["bad_steps"][:5],
+    })
+    log(json.dumps(record))
+    failures = []
+    if master_rc != 0 or worker1_rc != 0 or ps_codes != [0, 0]:
+        failures.append("exit codes: master %s, worker 1 %s, PS %s"
+                        % (master_rc, worker1_rc, ps_codes))
+    if not during or not all(
+            [(a["alert"], a.get("role")) for a in alerts]
+            == [("dead_air", "worker-1")] for alerts in during):
+        failures.append("/alerts during the stop: %s" % during[-3:])
+    if seen != [("dead_air", "worker-1")]:
+        failures.append("alerts seen over the job: %s" % seen)
+    if ([(e["event"], e["alert"], e["target"]) for e in raised + cleared]
+            != [("alert_raised", "dead_air", "1"),
+                ("alert_cleared", "dead_air", "1")]
+            or not raised[0]["ts"] < cleared[0]["ts"]
+            or record["alerts_total"] != {"dead_air": 1.0}):
+        failures.append("the master's alert transitions %s"
+                        % record["alert_transitions"])
+    if requeues:
+        failures.append("tasks requeued or workers presumed dead: %s"
+                        % requeues[:3])
+    if not record["done_exactly_once"] or not training:
+        failures.append("%d training tasks, done once: %s"
+                        % (len(training), record["done_exactly_once"]))
+    if not {"worker-0", "worker-1", "ps-0", "ps-1"} <= set(fleet_roles) or (
+            set(worker_blobs) != {"worker-0", "worker-1"}):
+        failures.append("/statusz roles %s, worker blobs %s"
+                        % (fleet_roles, sorted(worker_blobs)))
+    for role, (in_use, peak, limit) in hbm.items():
+        if device.type == "cuda" and not (in_use > 0 and peak >= in_use
+                                          and limit == limit_want):
+            failures.append("%s HBM in use %s, peak %s, limit %s (want "
+                            "%s)" % (role, in_use, peak, limit, limit_want))
+        if device.type != "cuda" and not (in_use == 0
+                                          and limit == limit_want):
+            failures.append("%s on the CPU: in use %s, limit %s"
+                            % (role, in_use, limit))
+    for role, entry in worker_blobs.items():
+        if not entry["tier_hits"] + entry["tier_misses"] > 0:
+            failures.append("%s tier hits %s misses %s" % (
+                role, entry["tier_hits"], entry["tier_misses"]))
+    if not all(push_rate > 0 and pull_rate > 0
+               for push_rate, pull_rate in ps_rates.values()):
+        failures.append("PS push/pull rates %s" % ps_rates)
+    for role, (series, stats) in tier_check.items():
+        if series is None or series != stats:
+            failures.append("%s tier series %s, stats at exit %s"
+                            % (role, series, stats))
+    if not sum(client_pushes) > 0 or sum(server_pushes) != sum(
+            client_pushes):
+        failures.append("pushes: PS servers %s, worker clients %s"
+                        % (server_pushes, client_pushes))
+    if not three:
+        failures.append("no training step's trace reached the master and "
+                        "a PS (%d steps traced)" % len(roots))
+    for role in ("master", "ps-0", "ps-1", "worker-1"):
+        kinds = role_events.get(role, [])
+        if "role_start" not in kinds or "role_stop" not in kinds:
+            failures.append("%s's journal: %s" % (role, kinds[:3] + ["..."]
+                                                  + kinds[-3:]))
+    if not evaluations or any(auc < JOB_AUC_FLOOR for _, auc in evaluations):
+        failures.append("evaluations %s (floor %s)"
+                        % (evaluations, JOB_AUC_FLOOR))
+    if counts["bad_steps"] or min(launches.values()) <= 0 or (
+            not record["all_finite"]):
+        failures.append("worker 0's K1-K3 launches do not follow the "
+                        "path, or a loss is not finite: %s"
+                        % counts["bad_steps"][:5])
+    if failures:
+        raise SystemExit("telemetry phase: " + "; ".join(failures))
+    return record
+
+
+def serve_callers(port, seq, vocab, warmup, requests, seed):
+    """The callers of ``telemetry_serve``, in a process of their own:
+    ``warmup`` concurrent requests, "warm" on stdout, then on a line
+    from stdin ``requests`` concurrent requests; prints one JSON line:
+    every answer's (step, shape, finite) in order (None where it
+    failed) and the errors. Each answer is checked where it arrives
+    (64 held answers would be 4 GB at the zoo widths)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.serve.client import ServeClient
+
+    tokens = np.random.default_rng(seed).integers(
+        0, vocab, size=(warmup + requests, seq), dtype=np.int32)
+    answers, errors = [None] * (warmup + requests), []
+
+    def one(i):
+        try:
+            with ServeClient("localhost:%d" % port) as client:
+                outputs, step, _ = client.predict(tokens[i:i + 1],
+                                                  deadline_secs=600)
+            out = outputs["output"]
+            answers[i] = (step, list(out.shape),
+                          bool(torch.isfinite(out.float()).all()))
+        except Exception as e:  # reported to the parent
+            errors.append(repr(e))
+
+    def burst(first, count):
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(first, first + count)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+
+    burst(0, warmup)
+    print("warm", flush=True)
+    sys.stdin.readline()
+    burst(warmup, requests)
+    print(json.dumps({"answers": answers, "errors": errors}), flush=True)
+
+
+SERVE_CALLER_CHILD = ("import chip_smoke; "
+                      "chip_smoke.serve_callers(%d, %d, %d, %d, %d, %d)")
+
+
+def telemetry_serve(torch, np, flash, workdir, device="cuda", widths=None,
+                    seq=1024, requests=TELEMETRY_SERVE_REQUESTS,
+                    export_dir=None, out_dir=None):
+    """Phase 13, serving: the serve phase's TransformerLM ``ServeRole``
+    (K4 in every batch) with a metrics port, the events journal and a
+    trace of every request. One warm-up batch of TELEMETRY_SERVE_BATCH
+    concurrent requests goes first and is left out of the split; then
+    ``requests`` concurrent requests. Checks (a failure raises
+    SystemExit): ``/readyz`` answers 503 before the model loads and 200
+    after, ``/healthz`` 200; every request is answered (finite, the
+    model's shape); ``edl_serve_requests_total{code="OK"}`` equals the
+    requests sent; K4 launched once a layer for every batch of the
+    measured burst; the trace holds a ``serve_predict`` root for every
+    request and the batcher's ``serve_batch_assemble`` and
+    ``serve_batch_run`` spans for every batch, and every measured
+    request's part of the split; the journal has ``role_start``,
+    ``model_loaded``, ``trace_flushed``, ``serve_drained`` and
+    ``role_stop``. Prints the medians of a request's time by part
+    (queue wait, batch assembly, forward, reply) over the measured
+    burst. ``export_dir`` reuses the serve phase's export; without it
+    one is written."""
+    from elasticdl_tpu_torch.common.grpc_utils import (
+        find_free_port,
+        reserve_port,
+    )
+    from elasticdl_tpu_torch.observability import events, metrics, trace
+    from elasticdl_tpu_torch.serve.main import ServeRole, parse_serve_args
+    from elasticdl_tpu_torch.train.export import export_state_dict
+
+    widths = dict(ZOO_WIDTHS if widths is None else widths)
+    model_params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
+    rng = np.random.default_rng(SEED + 13)
+    if export_dir is None:
+        export_dir = os.path.join(workdir, "telemetry_export")
+        export_state_dict(zoo_weights(np, rng, **widths), export_dir, step=1)
+    out = out_dir or os.path.join(HERE, "build", "chip_smoke_telemetry_serve")
+    shutil.rmtree(out, ignore_errors=True)
+    events_dir, trace_dir = (os.path.join(out, "events"),
+                             os.path.join(out, "traces"))
+    obs_env = {"EDL_METRICS": "1", "EDL_EVENTS_DIR": events_dir,
+               "EDL_TRACE_DIR": trace_dir, "EDL_TRACE_SAMPLE": "1"}
+    saved_env = {k: os.environ.get(k) for k in obs_env}
+    reservation, mport = reserve_port()
+    port = find_free_port()
+    base = "http://localhost:%d" % mport
+    role = None
+    record = {"telemetry": "serve", "requests": requests}
+    try:
+        os.environ.update(obs_env)
+        metrics.reset_default_registry()
+        role = ServeRole(parse_serve_args([
+            "--model_zoo", ZOO, "--model_params", model_params,
+            "--export_dir", export_dir, "--port", str(port),
+            "--device", device, "--compute_dtype", "bfloat16",
+            "--max_batch", str(TELEMETRY_SERVE_BATCH),
+            "--max_delay_ms", "200",
+            "--deadline_ms", "600000", "--watch_secs", "3600",
+            "--metrics_port", str(mport)]))
+        role.start_observability()
+        ready_before = scrape(base + "/readyz")[0]
+        health = scrape(base + "/healthz")[0]
+        t0 = time.monotonic()
+        role.prepare()
+        record["load_s"] = time.monotonic() - t0
+        ready_after = scrape(base + "/readyz")[0]
+        vocab = widths["vocab_size"]
+        warmup = TELEMETRY_SERVE_BATCH
+        # the callers are another process, as a server's are: in this
+        # one they would take the server's GIL to deserialize their
+        # answers, and the split would time them. They trace nothing.
+        caller_env = {k: v for k, v in os.environ.items()
+                      if k not in obs_env}
+        caller = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CALLER_CHILD % (
+                port, seq, vocab, warmup, requests, SEED + 13)],
+            cwd=HERE, env=dict(caller_env, PYTHONPATH=HERE),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        try:
+            said = caller.stdout.readline().strip()
+            if said != "warm":
+                raise SystemExit("the callers' warm-up burst: %r" % said)
+            batches_before = role.engine.batcher.batches_total
+            reset_launches(flash)  # the measured burst's count starts here
+            t0 = time.monotonic()
+            caller.stdin.write("go\n")
+            caller.stdin.flush()
+            result = json.loads(caller.stdout.readline() or "{}")
+            record["burst_s"] = time.monotonic() - t0
+            caller.wait(timeout=60)
+        finally:
+            if caller.poll() is None:
+                caller.kill()
+                caller.wait()
+        answers = [tuple(a) if a else None
+                   for a in result.get("answers", [None])]
+        errors = result.get("errors", ["the callers said nothing"])
+        launches = flash.LAUNCHES
+        batches = role.engine.batcher.batches_total - batches_before
+        status, served_metrics = scrape(base + "/metrics")
+        served_ok = series_value(served_metrics or "",
+                                 "edl_serve_requests_total", code="OK")
+    finally:
+        if role is not None:
+            role.drain(reason="smoke_done")
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        events.configure("chip_smoke")
+        trace.configure("chip_smoke")
+        metrics.reset_default_registry()
+        reservation.close()
+    spans = []
+    for name in sorted(os.listdir(trace_dir)):
+        spans += [e for e in read_trace(os.path.join(trace_dir, name))
+                  if e.get("ph") == "X"]
+    names = [e["name"] for e in spans]
+    split, measured = serving_split(np, spans, first_batch=batches_before)
+    kinds = []
+    for name in sorted(os.listdir(events_dir)):
+        if name.endswith(".events.ndjson"):
+            kinds += [e["event"] for e in read_journal(
+                os.path.join(events_dir, name))]
+    record.update({
+        "readyz_before_load": ready_before, "readyz_after_load": ready_after,
+        "healthz": health, "served_ok_counter": served_ok,
+        "batches": batches, "flash_launches": launches,
+        "predict_spans": names.count("serve_predict"),
+        "batch_run_spans": names.count("serve_batch_run"),
+        "batch_assemble_spans": names.count("serve_batch_assemble"),
+        "warmup_requests": warmup, "warmup_batches": batches_before,
+        "split_ms_median": split, "split_requests": measured,
+        "journal": kinds,
+        "trace_bytes": sum(os.path.getsize(os.path.join(trace_dir, n))
+                           for n in os.listdir(trace_dir)),
+    })
+    log(json.dumps(record))
+    failures = []
+    if (ready_before, ready_after, health) != (503, 200, 200):
+        failures.append("/readyz %s before the load and %s after, /healthz "
+                        "%s" % (ready_before, ready_after, health))
+    if errors or any(a is None for a in answers):
+        failures.append("requests failed: %s" % errors[:3])
+    else:
+        for i, (step, shape, finite) in enumerate(answers):
+            if step != 1 or tuple(shape) != (1, seq, vocab) or not finite:
+                failures.append("bad answer %d: %s step %d finite %s"
+                                % (i, shape, step, finite))
+    if served_ok != warmup + requests:
+        failures.append("edl_serve_requests_total{code=\"OK\"} %s, %d sent"
+                        % (served_ok, warmup + requests))
+    if launches <= 0 or launches != widths["num_layers"] * batches:
+        failures.append("K4 launches %d over %d batches" % (launches,
+                                                            batches))
+    all_batches = batches_before + batches
+    if (record["predict_spans"] != warmup + requests
+            or record["batch_run_spans"] != all_batches
+            or record["batch_assemble_spans"] != all_batches
+            or measured != requests):
+        failures.append("spans: %d serve_predict, %d serve_batch_run, %d "
+                        "serve_batch_assemble for %d requests in %d batches, "
+                        "%d of %d measured requests split"
+                        % (record["predict_spans"], record["batch_run_spans"],
+                           record["batch_assemble_spans"], warmup + requests,
+                           all_batches, measured, requests))
+    want = ["role_start", "model_loaded", "trace_flushed", "serve_drained",
+            "role_stop"]
+    if [k for k in kinds if k in want] != want:
+        failures.append("the serve journal %s" % kinds)
+    if failures:
+        raise SystemExit("telemetry phase (serve): " + "; ".join(failures))
+    record["launches"] = launches
     return record
 
 
@@ -4855,13 +5849,14 @@ def kernel_entry(name, source, replaces, launches, case, kind):
 
 
 def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
-                      job, restart, artifact, control):
+                      job, restart, artifact, control, telemetry):
     """One device-tier kernel's record of the kernels line: times at
     the deepfm_emb table's shape (d 8; K3 under adam, the deployment's
     optimizer), launches from the sparse train path's main run (and,
     beside them, from the stream phase's tier rung, from worker 0 of
     the job phase, of the PS-restart phase, of the artifact phase and of
-    the control phase, K1 with the restart flush's reads, the train-end
+    the control phase and of the telemetry phase, K1 with the restart
+    flush's reads, the train-end
     and checkpoint barriers' launches and worker 1's drain flush named),
     and the deepfm_linear (d 1) time beside; K3's all-hits times
     too."""
@@ -4883,6 +5878,8 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
         "launches_per_step_artifact": artifact["launches_per_step"][kind],
         "launches_control": control["launches"][kind],
         "launches_per_step_control": control["launches_per_step"][kind],
+        "launches_telemetry": telemetry["launches"][kind],
+        "launches_per_step_telemetry": telemetry["launches_per_step"][kind],
         "max_abs_err": emb["max_abs_err"], "ms": emb["ms"],
         "wrapper_ms": emb["wrapper_ms"],
         "plain_ms": emb["plain_ms"], "bound_ms": emb["bound_ms"],
@@ -4960,7 +5957,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-12 and the last lines (see the module docstring)."""
+    """Phases 1-13 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -5037,6 +6034,13 @@ def run_phases(torch, np, job_dir, data_proc):
         done("11_artifact")
         control = control_phase(torch, np, tier, job_dir)
         done("12_control")
+        telemetry = telemetry_phase(
+            torch, np, tier, job_dir,
+            job_steps_per_s=job["worker0_steps_per_s"])
+        telemetry["serve"] = telemetry_serve(
+            torch, np, flash, workdir,
+            export_dir=os.path.join(workdir, "export"))
+        done("13_telemetry")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -5050,6 +6054,7 @@ def run_phases(torch, np, job_dir, data_proc):
         "elasticdl_tpu/ops/flash_attention.py:66", launches["fwd"],
         cases[main_case], "fwd")
     fwd["launches_serve"] = serve_launches
+    fwd["launches_serve_telemetry"] = telemetry["serve"]["launches"]
     log(json.dumps({"kernels": [
         fwd,
         kernel_entry("flash_attention_bwd_dq", BWD_SOURCE,
@@ -5061,15 +6066,15 @@ def run_phases(torch, np, job_dir, data_proc):
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
                           "gather", tier_cases, sparse, stream, job,
-                          restart, artifact, control),
+                          restart, artifact, control, telemetry),
         tier_kernel_entry("embedding_tier_insert_rows",
                           "elasticdl_tpu/ops/embedding_tier.py:197",
                           "insert_rows", tier_cases, sparse, stream, job,
-                          restart, artifact, control),
+                          restart, artifact, control, telemetry),
         tier_kernel_entry("embedding_tier_scatter_apply",
                           "elasticdl_tpu/ops/embedding_tier.py:253",
                           "scatter_apply", tier_cases, sparse, stream, job,
-                          restart, artifact, control),
+                          restart, artifact, control, telemetry),
     ]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 flag helpers (port of elasticdl_tpu/common/args.py).
 
 The flags are the JAX package's, trimmed to the features the port has:
-the multi-host, mesh, pod-spec, metrics and symbol-override flags wait
+the multi-host, mesh, pod-spec and symbol-override flags wait
 with their features (ROADMAP). The worker adds ``--device``
 (``cuda`` unless the caller asks for the CPU). The PS server's own
 flags live in ``ps/server.py:parse_ps_args``.
@@ -61,6 +61,9 @@ def parse_master_args(argv=None):
     parser.add_argument(
         "--output", default="", help="saved-model export path"
     )
+    # observability: /metrics + /healthz + /readyz on this port
+    # (0/unset = disabled; falls back to EDL_METRICS_PORT)
+    parser.add_argument("--metrics_port", type=int, default=0)
     return parser.parse_args(argv)
 
 
@@ -108,6 +111,9 @@ def parse_worker_args(argv=None):
     # write each dense checkpoint's file on a background thread (the
     # next save or the exit joins it)
     parser.add_argument("--async_checkpoint", type=int, default=0)
+    # observability: /metrics + /healthz + /readyz on this port
+    # (0/unset = disabled; falls back to EDL_METRICS_PORT)
+    parser.add_argument("--metrics_port", type=int, default=0)
     return parser.parse_args(argv)
 
 

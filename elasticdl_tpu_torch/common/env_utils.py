@@ -36,3 +36,23 @@ def env_float(name, default):
 
 def env_str(name, default=""):
     return os.environ.get(name, default)
+
+
+_TRUTHY = frozenset({"1", "true", "yes", "on"})
+_FALSY = frozenset({"0", "false", "no", "off", ""})
+
+
+def env_bool(name, default=False):
+    """Boolean knob: 1/true/yes/on and 0/false/no/off (case-blind).
+    Unset returns ``default``; an unrecognized value logs a warning and
+    falls back."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return bool(default)
+    low = raw.strip().lower()
+    if low in _TRUTHY:
+        return True
+    if low in _FALSY:
+        return False
+    logger.warning("ignoring non-boolean %s=%r", name, raw)
+    return bool(default)

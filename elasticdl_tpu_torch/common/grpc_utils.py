@@ -1,6 +1,9 @@
 """gRPC channel/server helpers and the shared jittered retry policy
-(port of elasticdl_tpu/common/grpc_utils.py, without the trace-context
-propagation and fault-injection interceptors)."""
+(port of elasticdl_tpu/common/grpc_utils.py, without the
+fault-injection interceptors). Channels carry the trace-context
+interceptor and servers the metrics/trace interceptors when their knobs
+are set; with the knobs unset the call path is the uninstrumented one.
+Under a trace each ``retry_call`` attempt is an ``rpc_attempt`` span."""
 
 import os
 import random
@@ -16,6 +19,7 @@ from elasticdl_tpu_torch.common.env_utils import env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import trace as _trace
 
 logger = _logger_factory("elasticdl_tpu_torch.common.grpc_utils")
 
@@ -94,6 +98,7 @@ def retry_call(fn, what, budget_secs, retryable=RETRYABLE_CODES,
         overload.retry_budget_for(target) if target is not None else None
     )
     ceiling = base_delay
+    attempt = 0
     pushback_streak = 0
     with overload.budget(budget_secs):
         while True:
@@ -108,8 +113,18 @@ def retry_call(fn, what, budget_secs, retryable=RETRYABLE_CODES,
                         )
                     time.sleep(wait)
                     continue
+            attempt += 1
             try:
-                result = fn()
+                # each attempt is its own child span: a retried RPC
+                # shows as sibling spans (the failed ones carry error
+                # and code args), and the parent the server sees is the
+                # attempt that reached it
+                if _trace.enabled():
+                    with _trace.span("rpc_attempt", what=what,
+                                     attempt=attempt):
+                        result = fn()
+                else:
+                    result = fn()
             except grpc.RpcError as e:
                 code = e.code() if hasattr(e, "code") else None
                 pushback = overload.retry_after_hint(e)
@@ -136,6 +151,7 @@ def retry_call(fn, what, budget_secs, retryable=RETRYABLE_CODES,
                 if time.monotonic() + delay > deadline:
                     raise
                 if retry_budget is not None and not retry_budget.spend():
+                    overload.note_budget_exhausted(target)
                     logger.warning(
                         "%s: retry budget for %s exhausted; failing "
                         "fast", what, target,
@@ -215,18 +231,34 @@ def maybe_uds_addr(addr):
 def build_channel(addr: str) -> grpc.Channel:
     """An insecure channel to ``addr`` (its local socket when there is
     one), with the deadline-budget interceptor unless
-    EDL_DEADLINE_BUDGET=0."""
+    EDL_DEADLINE_BUDGET=0, and the trace-context interceptor when
+    EDL_TRACE_DIR is set with a nonzero sample rate (otherwise the
+    identity)."""
     uds = maybe_uds_addr(addr)
     if uds is not None:
         logger.info("channel to %s riding the local socket %s", addr, uds)
         addr = uds
     channel = grpc.insecure_channel(addr, options=_CHANNEL_OPTIONS)
-    return overload.intercept_budget_channel(channel)
+    channel = overload.intercept_budget_channel(channel)
+    from elasticdl_tpu_torch.observability.trace_propagation import (
+        intercept_trace_channel,
+    )
+
+    return intercept_trace_channel(channel)
 
 
 def build_server(max_workers: int = 64) -> grpc.Server:
-    """A gRPC server whose handlers adopt a caller's deadline budget
-    (unless EDL_DEADLINE_BUDGET=0)."""
+    """A gRPC server with the metrics interceptor installed when metrics
+    collection is enabled (observability/grpc_metrics.py; with the
+    knobs unset ``server_interceptors()`` is empty and the call path is
+    the uninstrumented one) and whose handlers adopt a caller's deadline
+    budget (unless EDL_DEADLINE_BUDGET=0)."""
+    from elasticdl_tpu_torch.observability.grpc_metrics import (
+        server_interceptors,
+    )
+
+    interceptors = (tuple(server_interceptors())
+                    + overload.server_budget_interceptors())
     return grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),
         # so_reuseport=0: one process per port. With SO_REUSEPORT a
@@ -234,7 +266,7 @@ def build_server(max_workers: int = 64) -> grpc.Server:
         # (and black-holing) a share of incoming connections after a
         # same-port relaunch binds.
         options=_CHANNEL_OPTIONS + [("grpc.so_reuseport", 0)],
-        interceptors=overload.server_budget_interceptors(),
+        interceptors=interceptors,
     )
 
 

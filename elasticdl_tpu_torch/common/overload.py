@@ -1,7 +1,8 @@
 """Overload discipline for the training plane: deadline budgets, retry
 budgets, circuit breakers and server pushback (port of
-elasticdl_tpu/common/overload.py, without its events journal and
-metrics series; the transitions are logged).
+elasticdl_tpu/common/overload.py). Breaker transitions, exhausted retry
+budgets and pushback waits feed the ``edl_circuit_*`` and ``edl_retry_*``
+series and the ``circuit_<state>`` events.
 
 Four cooperating pieces, all inert until their knob is set or the
 caller opts in:
@@ -42,6 +43,8 @@ from elasticdl_tpu_torch.common.env_utils import env_float, env_int, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
 
 logger = _logger_factory("elasticdl_tpu_torch.common.overload")
 
@@ -451,10 +454,47 @@ class CircuitBreaker:
         if transition is None:
             return
         prev, state, failures = transition
+        _m_circuit_transitions.labels(state=state).inc()
+        _m_circuit_state.labels(
+            target=self.target, kind=self.kind
+        ).set(_STATE_VALUE[state])
         logger.warning(
             "circuit %s -> %s for %s/%s (failures=%d)",
             prev, state, self.target, self.kind, failures,
         )
+        if events.enabled():
+            events.emit(
+                "circuit_%s" % state, target=self.target,
+                method_class=self.kind, previous=prev,
+                consecutive_failures=failures,
+                reset_secs=self.reset_secs,
+            )
+
+
+# LAZY instruments: this module reaches every role through
+# common.grpc_utils at import time, before main() publishes
+# EDL_METRICS_PORT; an eager counter() here would freeze the process
+# registry disabled and blank /metrics for the whole role
+_m_circuit_transitions = obs_metrics.lazy_counter(
+    "edl_circuit_transitions_total",
+    "Circuit-breaker state transitions", ("state",),
+)
+_m_circuit_state = obs_metrics.lazy_gauge(
+    "edl_circuit_state",
+    "Breaker state per target/method-class "
+    "(0 closed, 1 open, 2 half-open)",
+    ("target", "kind"),
+)
+_m_retry_budget_exhausted = obs_metrics.lazy_counter(
+    "edl_retry_budget_exhausted_total",
+    "Retries refused because the per-target token bucket ran dry",
+    ("target",),
+)
+_m_pushback_waits = obs_metrics.lazy_counter(
+    "edl_retry_pushback_waits_total",
+    "Retries paced by a server edl-retry-after-ms hint", ("target",),
+)
+_STATE_VALUE = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 2.0}
 
 
 # process-wide registries: breakers and budgets are per-TARGET state
@@ -507,8 +547,13 @@ def note_brownout_skip():
 
 
 def note_pushback_wait(target):
+    _m_pushback_waits.labels(target=target).inc()
     with _lock:
         _counters["pushback_waits"] += 1
+
+
+def note_budget_exhausted(target):
+    _m_retry_budget_exhausted.labels(target=target).inc()
 
 
 def client_stats():

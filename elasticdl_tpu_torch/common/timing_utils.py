@@ -1,6 +1,6 @@
 """Opt-in wall-clock accounting per phase (port of
-elasticdl_tpu/common/timing_utils.py's ``Timing``, without its metrics
-bridge and JAX profiler hooks).
+elasticdl_tpu/common/timing_utils.py's ``Timing``, without its JAX
+profiler hooks).
 
 ``Timing`` accumulates seconds per named phase (the sparse trainer's
 ``sparse_pull``, ``sparse_push`` and ``batch_process``) when
@@ -9,6 +9,11 @@ no-op and nothing is measured. ``end_record_sync`` waits for the card
 (``torch.cuda.synchronize``) before it stops the clock, so a phase that
 launched asynchronous device work is charged its real duration. The
 port keeps each phase's samples too, so ``summary()`` gives medians.
+
+The metrics bridge: with metrics collection on, every phase also lands
+in ``edl_phase_seconds{phase}`` and the step phase in
+``edl_step_time_seconds``, as host time. Only ``EDL_TIMING`` waits for
+the card: a metric must not change the step it measures.
 """
 
 import contextlib
@@ -21,6 +26,7 @@ from elasticdl_tpu_torch.common.env_utils import env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
 
 logger = _logger_factory("elasticdl_tpu_torch.common.timing_utils")
 
@@ -40,25 +46,47 @@ class Timing:
             enabled = env_str("EDL_TIMING", "") not in ("", "0")
         self._enabled = bool(enabled)
         self._samples = {}  # phase -> [seconds, ...] since the last report
+        # phase -> duration of the most recent record
+        self.last_seconds = {}
+        self._metrics_on = obs_metrics.metrics_enabled()
+        if self._metrics_on:
+            self._phase_hist = obs_metrics.histogram(
+                "edl_phase_seconds",
+                "Wall-clock per training-loop phase (timing_utils bridge)",
+                ("phase",),
+            )
+            self._step_gauge = obs_metrics.gauge(
+                "edl_step_time_seconds",
+                "Duration of the most recent train step",
+            )
+        self._measure = self._enabled or self._metrics_on
 
     @property
     def enabled(self):
         return self._enabled
 
     def start(self):
-        return time.monotonic() if self._enabled else 0.0
+        return time.monotonic() if self._measure else 0.0
 
     def end_record(self, phase, start):
-        if not self._enabled:
+        if not self._measure:
             return
-        self._samples.setdefault(phase, []).append(time.monotonic() - start)
+        elapsed = time.monotonic() - start
+        self.last_seconds[phase] = elapsed
+        if self._metrics_on:
+            self._phase_hist.labels(phase).observe(elapsed)
+            if phase == STEP_PHASE:
+                self._step_gauge.set(elapsed)
+        if self._enabled:
+            self._samples.setdefault(phase, []).append(elapsed)
 
     def end_record_sync(self, phase, start, result=None):
-        """Wait for the card (when ``result`` is a CUDA tensor) before
-        recording."""
-        if not self._enabled:
+        """Wait for the card (when ``result`` is a CUDA tensor, and only
+        under EDL_TIMING) before recording."""
+        if not self._measure:
             return
-        _sync(result)
+        if self._enabled:
+            _sync(result)
         self.end_record(phase, start)
 
     @contextlib.contextmanager

@@ -1,5 +1,5 @@
 """Embedding pull/cache stack shared by training and serving (port of
-elasticdl_tpu/embedding/client.py, without its events journal).
+elasticdl_tpu/embedding/client.py).
 
 ``EmbeddingClient`` pulls rows through an optional bounded-staleness
 ``HotRowCache``, riding the fused multi-table pull when the PS client
@@ -32,6 +32,7 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.common.tensor_utils import normalize_id_tables
+from elasticdl_tpu_torch.observability import events
 
 logger = _logger_factory("elasticdl_tpu_torch.embedding.client")
 
@@ -275,6 +276,11 @@ class EmbeddingClient:
             "cold-init zeros (%s)", name, n_stale,
             int(missing.size) - n_stale, error,
         )
+        if events.enabled():
+            events.emit(
+                "degraded_pull", table=name, ids=int(unique.size),
+                stale=n_stale, cold=int(missing.size) - n_stale,
+            )
         return rows
 
     def pull(self, name, unique):

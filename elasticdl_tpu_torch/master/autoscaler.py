@@ -14,10 +14,13 @@ requeue-on-death: ``take_expired`` hands the worker to the task
 monitor's ``mark_worker_dead``, so a wedged worker never strands its
 tasks.
 
+The fleet monitor (``fleet``) goes quiet about a draining worker and
+forgets a drained one; each outcome counts in
+``edl_master_drains_total{outcome}`` and journals ``worker_draining``,
+``drain_ack`` or ``drain_expired``.
+
 Not ported (ROADMAP): the ``ElasticController`` and its
-``DecisionGate``, which need a scaler (the k8s pod manager); the fleet
-monitor's drain hygiene (the ``fleet`` argument stays None until
-master/fleet.py is ported); the drain metrics and events.
+``DecisionGate``, which need a scaler (the k8s pod manager).
 """
 
 import threading
@@ -27,6 +30,8 @@ from elasticdl_tpu_torch.common.env_utils import env_float
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
 
 logger = _logger_factory("elasticdl_tpu_torch.master.autoscaler")
 
@@ -65,11 +70,19 @@ class DrainManager:
         # drained or expired ids whose pods a scaler may still report;
         # insertion-ordered and capped at DEPARTED_CAP (oldest out)
         self._departed = {}
+        self._m_drains = obs_metrics.counter(
+            "edl_master_drains_total",
+            "Graceful-drain outcomes", ("outcome",),
+        )
+        for outcome in ("ack", "expired"):
+            self._m_drains.labels(outcome=outcome)  # stable series set
 
     # ------------------------------------------------------------------
-    def begin_drain(self, worker_id, reason="scale_down"):
+    def begin_drain(self, worker_id, reason="scale_down",
+                    initiator="master"):
         """Mark ``worker_id`` draining: the get_task gate stops handing
-        it work. Idempotent; False when already draining."""
+        it work and the fleet detectors go quiet about it. Idempotent;
+        False when already draining."""
         now = time.time()
         with self._lock:
             if worker_id in self._draining:
@@ -84,6 +97,10 @@ class DrainManager:
         logger.info(
             "draining worker %s (%s, deadline %.0fs)",
             worker_id, reason, self._deadline,
+        )
+        events.emit(
+            "worker_draining", worker=worker_id, reason=reason,
+            initiator=initiator,
         )
         return True
 
@@ -116,8 +133,9 @@ class DrainManager:
         marked (SIGTERMed directly)."""
         worker_id = request.worker_id
         with self._lock:
-            self._draining.pop(worker_id, None)
+            entry = self._draining.pop(worker_id, None)
             self._note_departed_locked(worker_id)
+        initiator = "master" if entry is not None else "worker"
         host = (
             self._servicer.worker_host(worker_id)
             if self._servicer is not None
@@ -135,12 +153,19 @@ class DrainManager:
             self._rendezvous.remove_worker_host(
                 host, reason=request.reason or "drain"
             )
+        self._m_drains.labels(outcome="ack").inc()
         logger.info(
             "worker %s drained cleanly (%s; pushes_joined=%s "
             "tier_flushed=%s handed_back=%d)",
             worker_id, request.reason or "unspecified",
             request.pushes_joined, request.tier_flushed,
             request.tasks_reported,
+        )
+        events.emit(
+            "drain_ack", worker=worker_id, reason=request.reason,
+            initiator=initiator, pushes_joined=request.pushes_joined,
+            tier_flushed=request.tier_flushed,
+            handed_back=request.tasks_reported,
         )
 
     def take_expired(self, now=None):
@@ -153,13 +178,19 @@ class DrainManager:
                 wid for wid, entry in self._draining.items()
                 if now >= entry["deadline"]
             ]
+            entries = {wid: self._draining.pop(wid) for wid in expired}
             for wid in expired:
-                del self._draining[wid]
                 self._note_departed_locked(wid)
         for wid in expired:
+            self._m_drains.labels(outcome="expired").inc()
             logger.warning(
                 "drain of worker %s expired after %.0fs; falling back "
                 "to requeue-on-death", wid, self._deadline,
+            )
+            events.emit(
+                "drain_expired", worker=wid,
+                reason=entries[wid]["reason"],
+                waited_secs=round(now - entries[wid]["since"], 2),
             )
         return expired
 

@@ -8,7 +8,9 @@ Usage: python -m elasticdl_tpu_torch.master.main --model_zoo=... \
 ``--validation_data`` alone an evaluation-only one. With ``--output``
 a training job ends with the train-end task: one worker exports the
 model there. The master runs on the host and exits 0 when the job
-finished, 1 when it failed.
+finished, 1 when it failed. ``--metrics_port`` (or
+``EDL_METRICS_PORT``) serves ``/metrics``, ``/healthz``, ``/readyz``,
+``/statusz`` and ``/alerts``.
 
 With ``EDL_STATE_DIR=DIR`` in its environment the master journals its
 state under DIR. A master that died (SIGKILL, a lost node) is relaunched
@@ -17,6 +19,7 @@ journal, its workers re-register when they see its new
 ``master_epoch``, and the job finishes with every task done once.
 """
 
+import os
 import sys
 
 from elasticdl_tpu_torch.common.args import parse_master_args
@@ -26,6 +29,19 @@ from elasticdl_tpu_torch.models.registry import parse_params_string
 
 def main(argv=None):
     args = parse_master_args(argv)
+    # a SIGTERMed master leaves a complete flight record: SIGTERM dumps
+    # the event ring and flushes the journal and trace buffer, then
+    # exits so Master.run's finally runs stop(); uncaught exceptions
+    # dump the ring too
+    from elasticdl_tpu_torch.observability import events
+
+    events.install_crash_hooks()
+    if args.metrics_port:
+        # publish the knob before any instrument is constructed: the
+        # registry decides enabled/no-op at first touch
+        from elasticdl_tpu_torch.observability.http_server import PORT_ENV
+
+        os.environ[PORT_ENV] = str(args.metrics_port)
     records_per_task = args.records_per_task
     if args.num_minibatches_per_task > 0:
         records_per_task = (
@@ -47,6 +63,7 @@ def main(argv=None):
         task_timeout_secs=args.task_timeout_secs,
         model_def=args.model_def,
         model_params=args.model_params,
+        metrics_port=args.metrics_port,
     )
     master.prepare()
     return master.run()

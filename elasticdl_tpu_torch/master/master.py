@@ -15,11 +15,19 @@ directory replays it and finishes the job, every task done once. The
 ``DrainManager`` (master/autoscaler.py) serves workers that drain on
 SIGTERM.
 
+The master builds one ``FleetMonitor`` (master/fleet.py), fed by the
+telemetry its workers and PS piggyback on their RPCs and evaluated on
+the task monitor's scan. With ``metrics_port`` (``--metrics_port`` or
+``EDL_METRICS_PORT``) it serves ``/metrics``, ``/healthz``, ``/readyz``,
+``/statusz`` (the fleet snapshot and the task queue) and ``/alerts``
+(the firing detectors); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on
+its events journal and trace.
+
 Not ported (ROADMAP): the pod manager and the elastic controller, the
-fleet monitor, the stream feeder, tensorboard and the observability
-endpoints.
+stream feeder and tensorboard.
 """
 
+import os
 import time
 
 from elasticdl_tpu_torch.common.constants import JobType
@@ -30,12 +38,19 @@ from elasticdl_tpu_torch.common.log_utils import (
 from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.master.autoscaler import DrainManager
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.fleet import FleetMonitor
 from elasticdl_tpu_torch.master.rendezvous import MeshRendezvous
 from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.state_store import MasterStateJournal
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.master.task_monitor import TaskMonitor
 from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.observability import (
+    events,
+    http_server,
+    profiler,
+    trace,
+)
 from elasticdl_tpu_torch.proto.services import add_master_servicer_to_server
 
 logger = _logger_factory("elasticdl_tpu_torch.master.master")
@@ -60,7 +75,15 @@ class Master:
         seed=None,
         model_def="",
         model_params="",
+        metrics_port=0,
     ):
+        if metrics_port:
+            # programmatic construction (no CLI entry ran): publish the
+            # knob before the first instrument is constructed (the
+            # fleet monitor's alert counter below is the earliest), or
+            # the process-global registry freezes disabled and /metrics
+            # serves empty
+            os.environ.setdefault(http_server.PORT_ENV, str(metrics_port))
         self.spec = get_model_spec(
             model_zoo_module, model_def=model_def,
             model_params=model_params,
@@ -94,6 +117,10 @@ class Master:
             state_journal=self.state_journal,
             recovered=self._recovered,
         )
+        # cluster-level fleet view + anomaly detectors (/statusz,
+        # /alerts): fed by telemetry piggybacked on worker/PS RPCs,
+        # evaluated on the task monitor's scan tick
+        self.fleet_monitor = FleetMonitor()
         if saved_model_path and self.job_type != JobType.PREDICTION_ONLY:
             self.task_dispatcher.add_deferred_callback_create_train_end_task(
                 {"saved_model_path": saved_model_path}
@@ -112,6 +139,7 @@ class Master:
             self.task_dispatcher,
             self.evaluation_service,
             self.rendezvous,
+            fleet_monitor=self.fleet_monitor,
             state_journal=self.state_journal,
             recovered=self._recovered,
         )
@@ -127,6 +155,7 @@ class Master:
         self.drain_manager = DrainManager(
             self.task_dispatcher,
             servicer=self.servicer,
+            fleet=self.fleet_monitor,
             rendezvous=self.rendezvous,
         )
         self.servicer.drain_manager = self.drain_manager
@@ -135,11 +164,74 @@ class Master:
             self.servicer,
             self.rendezvous,
             liveness_timeout_secs=task_timeout_secs,
+            fleet_monitor=self.fleet_monitor,
             drain_manager=self.drain_manager,
         )
         self._task_timeout_secs = task_timeout_secs
         self._port = port
         self._server = None
+        self._metrics_port = metrics_port
+        self._serving = False
+        self.observability = None
+        self._register_domain_gauges()
+
+    def _register_domain_gauges(self):
+        """Master-side gauges: pending/doing/done task counts, per-stage
+        queue depth, and worker relaunches, callback-fed from the
+        dispatcher/servicer so a scrape always reads live state. All
+        no-op instruments when metrics collection is off."""
+        from elasticdl_tpu_torch.observability import metrics as obs_metrics
+
+        dispatcher = self.task_dispatcher
+        # one dispatcher.stats() snapshot per scrape, not one per
+        # series: each stats() is an O(tasks) scan under the dispatcher
+        # lock the RPC handlers contend on
+        cache = {"at": 0.0, "stats": None}
+
+        def stats():
+            now = time.monotonic()
+            if cache["stats"] is None or now - cache["at"] > 1.0:
+                cache["stats"] = dispatcher.stats()
+                cache["at"] = now
+            return cache["stats"]
+
+        tasks = obs_metrics.gauge(
+            "edl_master_tasks",
+            "Task counts by lifecycle state and task type",
+            ("state", "type"),
+        )
+        for type_name in ("training", "evaluation", "prediction"):
+            for state in ("pending", "doing", "done"):
+                tasks.labels(state=state, type=type_name).set_function(
+                    lambda state=state, type_name=type_name: stats()[
+                        state
+                    ].get(type_name, 0)
+                )
+        depth = obs_metrics.gauge(
+            "edl_master_queue_depth",
+            "Tasks queued per dispatch stage (training includes the "
+            "train-end callback task)",
+            ("queue",),
+        )
+        for queue in ("training", "evaluation"):
+            depth.labels(queue=queue).set_function(
+                lambda queue=queue: stats()["queue_depth"][queue]
+            )
+        obs_metrics.gauge(
+            "edl_master_epochs_left", "Training epochs not yet created"
+        ).set_function(lambda: stats()["epochs_left"])
+        servicer = self.servicer
+        # no _total suffix: a callback-fed snapshot that resets with
+        # the master, exposed as a gauge
+        obs_metrics.gauge(
+            "edl_master_worker_relaunches",
+            "Worker relaunches observed (reset_worker beyond a "
+            "worker_id's first)",
+        ).set_function(servicer.worker_relaunch_count)
+        obs_metrics.gauge(
+            "edl_master_live_workers",
+            "Workers with a liveness entry (heartbeating recently)",
+        ).set_function(lambda: len(servicer.worker_liveness()))
 
     @staticmethod
     def _infer_job_type(training_data, validation_data, prediction_data):
@@ -172,6 +264,47 @@ class Master:
                          "process); exiting", self._port)
             raise RuntimeError("master cannot bind port %d" % self._port)
         self._server.start()
+        self._serving = True
+        trace.configure("master")
+        events.configure("master")
+        events.emit("role_start", port=self._port)
+        # the host stack sampler: on when EDL_PROF_HZ is set, served as
+        # /profilez on the observability port below
+        profiler.maybe_start("master")
+        if self._recovered is not None:
+            # flight-recorder marker: the postmortem threads the crash,
+            # the relaunch and the resumed dispatch into one timeline
+            events.emit(
+                "master_restarted",
+                master_epoch=self.state_journal.master_epoch,
+                todo=len(self._recovered.get("todo", ())),
+                requeued=len(self._recovered.get("doing", ())),
+                epochs_left=self._recovered.get("epochs_left", 0),
+            )
+        self.observability = http_server.maybe_start(
+            "master", cli_port=self._metrics_port
+        )
+        if self.observability is not None:
+            # readiness milestone: the gRPC servicer is started
+            self.observability.add_readiness_check(
+                "servicer_started", lambda: self._serving
+            )
+            # the cluster-level view: the fleet snapshot (+ task queue
+            # stats) and the firing anomaly detectors
+            self.observability.add_json_handler(
+                "/statusz",
+                lambda: self.fleet_monitor.snapshot(
+                    extra={
+                        "tasks": self.task_dispatcher.stats(),
+                        "draining": self.drain_manager.state(),
+                        "autoscaler": None,
+                        "stream": None,
+                    }
+                ),
+            )
+            self.observability.add_json_handler(
+                "/alerts", self.fleet_monitor.alerts
+            )
         self.task_monitor.start()
         logger.info("Master serving on :%d", self._port)
         return self
@@ -209,6 +342,13 @@ class Master:
             time.sleep(0.05)
 
     def stop(self):
+        self._serving = False
+        if self.observability is not None:
+            self.observability.stop()
+            self.observability = None
+        events.emit("role_stop")
+        events.flush()
+        trace.flush()
         self.task_monitor.stop()
         if self.evaluation_service is not None:
             self.evaluation_service.stop()

@@ -1,5 +1,6 @@
 """Mesh-epoch rendezvous for the elastic worker set (port of
-elasticdl_tpu/master/rendezvous.py, without the events journal).
+elasticdl_tpu/master/rendezvous.py). Each bump journals a
+``mesh_epoch_restart`` event.
 
 A counter the master bumps whenever the alive-host set changes. Workers
 read it through ``get_comm_info`` (rank, world size, mesh epoch and the
@@ -12,6 +13,7 @@ import time
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
 
 logger = _logger_factory("elasticdl_tpu_torch.master.rendezvous")
 
@@ -31,9 +33,19 @@ class MeshRendezvous:
         already changed ``self._hosts``."""
         self._mesh_epoch += 1
         self._last_change = time.time()
+        new_world = len(self._hosts)
         logger.info(
             "Mesh epoch -> %d (%s, %d -> %d hosts)",
-            self._mesh_epoch, reason, old_world, len(self._hosts),
+            self._mesh_epoch, reason, old_world, new_world,
+        )
+        events.emit(
+            "mesh_epoch_restart",
+            epoch=self._mesh_epoch,
+            old_mesh="dp=%d" % old_world if old_world else "",
+            new_mesh="dp=%d" % new_world if new_world else "",
+            old_world=old_world,
+            new_world=new_world,
+            reason=reason,
         )
 
     def set_worker_hosts(self, hosts, reason="set_hosts"):

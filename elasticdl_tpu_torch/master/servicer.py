@@ -14,7 +14,9 @@ leaves through ``deregister_worker`` (master/autoscaler.py
 their base are journaled, and ``master_epoch`` is the journal's boot
 counter.
 
-Not ported (ROADMAP): the fleet monitor and its telemetry.
+Every RPC that carries a ``TelemetryBlob`` folds it into the fleet
+monitor (master/fleet.py); the handlers record the ``dispatch`` span and
+the ``task_dispatch``, ``worker_register`` and ``task_report`` events.
 """
 
 import threading
@@ -23,6 +25,7 @@ import time
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events, trace
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 
 logger = _logger_factory("elasticdl_tpu_torch.master.servicer")
@@ -35,6 +38,7 @@ class MasterServicer:
         evaluation_service=None,
         rendezvous=None,
         auto_join_mesh=True,
+        fleet_monitor=None,
         state_journal=None,
         recovered=None,
     ):
@@ -45,6 +49,10 @@ class MasterServicer:
         # Master after construction; a bare servicer builds one on the
         # first deregister_worker
         self.drain_manager = None
+        # fleet telemetry sink (master/fleet.py): every RPC is a
+        # liveness sighting, and requests carrying the piggybacked
+        # TelemetryBlob update the role's fleet-view entry
+        self._fleet = fleet_monitor
         # membership = live workers: a worker's first get_comm_info
         # joins its host to the mesh
         self._auto_join_mesh = auto_join_mesh
@@ -142,7 +150,7 @@ class MasterServicer:
     # RPC handlers (also callable in-process without gRPC)
 
     def get_task(self, request, context=None):
-        self._touch(request.worker_id)
+        self._observe(request)
         if self.drain_manager is not None and (
             self.drain_manager.is_draining(request.worker_id)
         ):
@@ -154,11 +162,23 @@ class MasterServicer:
                 draining=True,
             )
         task_type = request.task_type if request.task_type else None
+        dispatch_start = time.time()
         task = self._task_dispatcher.get(request.worker_id, task_type)
         if task is not None:
             # constant per process: stamping the shared record's proto
             # is idempotent
             task.master_epoch = self._master_epoch
+            # the master-side anchor of the cross-role task trace: the
+            # worker's train/push spans carry the same task_id
+            trace.complete(
+                "dispatch", dispatch_start,
+                task_id=task.task_id, worker_id=request.worker_id,
+            )
+            events.emit(
+                "task_dispatch", task=task.task_id,
+                worker=request.worker_id,
+                type=pb.TaskType.Name(task.type).lower(),
+            )
             return task
         if (
             self._task_dispatcher.finished()
@@ -181,7 +201,7 @@ class MasterServicer:
 
         Returns this worker_id's relaunch epoch (base + 1, base + 2,
         ...): the worker's push incarnation."""
-        self._touch(request.worker_id)
+        self._observe(request)
         with self._lock:
             count = self._worker_restarts.get(request.worker_id, 0) + 1
             self._worker_restarts[request.worker_id] = count
@@ -195,6 +215,10 @@ class MasterServicer:
                 "count": count,
             })
         self._task_dispatcher.recover_tasks(request.worker_id)
+        events.emit(
+            "worker_register", worker=request.worker_id, epoch=epoch,
+            relaunch=count > 1,
+        )
         return pb.ResetWorkerResponse(
             restart_count=epoch, master_epoch=self._master_epoch
         )
@@ -205,6 +229,10 @@ class MasterServicer:
         rows flushed) and exits on purpose. It is removed with no
         counted requeue, whether the master asked for the drain or the
         worker was SIGTERMed directly."""
+        if request.HasField("telemetry") and self._fleet is not None:
+            # final telemetry fold (not _observe: that would re-add the
+            # liveness entry the drain is about to remove)
+            self._fleet.observe(request.worker_id, request.telemetry)
         if self.drain_manager is None:
             # bare servicer: the ack's bookkeeping is the same either
             # way, so build the manager on first use
@@ -212,13 +240,22 @@ class MasterServicer:
 
             self.drain_manager = DrainManager(
                 self._task_dispatcher, servicer=self,
-                rendezvous=self._rendezvous,
+                fleet=self._fleet, rendezvous=self._rendezvous,
             )
         self.drain_manager.deregister(request)
         return pb.Empty()
 
+    def worker_relaunch_count(self):
+        """Relaunches observed across all workers (each reset_worker
+        beyond a worker_id's first is a relaunch): the master's
+        ``edl_master_worker_relaunches`` gauge."""
+        with self._lock:
+            return sum(
+                max(0, n - 1) for n in self._worker_restarts.values()
+            )
+
     def report_task_result(self, request, context=None):
-        self._touch(request.worker_id)
+        self._observe(request)
         success = not request.err_message
         # "requeue:" prefix = lifecycle hand-back: requeue WITHOUT
         # charging the task's retry cap
@@ -231,6 +268,15 @@ class MasterServicer:
         self._task_dispatcher.report(
             request.task_id, success, worker_id=request.worker_id,
             count_failure=count_failure,
+        )
+        trace.instant(
+            "task_reported", task_id=request.task_id,
+            worker_id=request.worker_id, success=success,
+        )
+        events.emit(
+            "task_report", task=request.task_id,
+            worker=request.worker_id, ok=success,
+            err=request.err_message[:200],
         )
         return pb.Empty()
 
@@ -253,6 +299,18 @@ class MasterServicer:
             )
         return pb.Empty()
 
+    def _observe(self, request):
+        """Fold one RPC into the fleet view: a liveness sighting always,
+        plus the telemetry blob when the sender piggybacked one."""
+        self._touch(request.worker_id)
+        if self._fleet is not None:
+            blob = (
+                request.telemetry
+                if request.HasField("telemetry")
+                else None
+            )
+            self._fleet.observe(request.worker_id, blob)
+
     def export_worker_state(self):
         """Snapshot section for journal compaction: the relaunch-epoch
         grants and their base (state_store.empty_state keys)."""
@@ -263,7 +321,7 @@ class MasterServicer:
             }
 
     def get_comm_info(self, request, context=None):
-        self._touch(request.worker_id)
+        self._observe(request)
         if self._rendezvous is None:
             return pb.CommInfo(
                 rank=0, world_size=1, mesh_epoch=0,

@@ -29,6 +29,7 @@ from elasticdl_tpu_torch.common.constants import MAX_TASK_RETRIES
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 
 logger = _logger_factory("elasticdl_tpu_torch.master.task_dispatcher")
@@ -383,6 +384,9 @@ class TaskDispatcher:
         """
         completed_callbacks = []
         result = (False, None)
+        # events decided under the lock, emitted after it (the journal
+        # does file I/O; never under the lock the RPC handlers contend on)
+        journal = []
         with self._lock:
             record = self._records.get(task_id)
             if record is None:
@@ -462,6 +466,10 @@ class TaskDispatcher:
                         record.retry_count,
                     )
                     self._job_failed = True
+                    journal.append(
+                        ("job_failed",
+                         dict(task=task_id, retries=record.retry_count))
+                    )
                     if self._journal is not None:
                         self._journal_ops.append(
                             {"op": "job_failed", "task": task_id}
@@ -473,12 +481,20 @@ class TaskDispatcher:
                         else self._todo
                     )
                     queue.append(task_id)
+                    journal.append(
+                        ("task_requeue",
+                         dict(task=task_id, worker=assignee,
+                              retries=record.retry_count,
+                              counted=count_failure))
+                    )
                     if self._journal is not None:
                         self._journal_ops.append({
                             "op": "requeue", "task": task_id,
                             "retries": record.retry_count,
                         })
         self._flush_journal()
+        for event, fields in journal:
+            events.emit(event, **fields)
         # completion callbacks run outside the lock: they may call back
         # into the dispatcher (the evaluation service queueing tasks)
         for cb in completed_callbacks:

@@ -8,8 +8,10 @@ liveness timeout); its tasks go back to the queue through
 ``recover_tasks``. A graceful drain whose deadline passed
 (master/autoscaler.py ``DrainManager.take_expired``) joins the dead.
 
-Not ported (ROADMAP): the fleet monitor's detectors and the autoscaler
-tick that ride the same scan.
+The fleet monitor's detectors (master/fleet.py) ride the same scan: one
+``evaluate()`` a tick, and ``mark_dead`` on a worker presumed dead.
+
+Not ported (ROADMAP): the autoscaler tick.
 """
 
 import threading
@@ -18,6 +20,7 @@ import time
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
 
 logger = _logger_factory("elasticdl_tpu_torch.master.task_monitor")
 
@@ -34,12 +37,17 @@ class TaskMonitor:
         scan_interval_secs=1.0,
         mesh_restart_grace_secs=30.0,
         mesh_rejoin_timeout_secs=90.0,
+        fleet_monitor=None,
         drain_manager=None,
     ):
         self._dispatcher = task_dispatcher
         self._servicer = servicer
         self._rendezvous = rendezvous
         self._on_worker_dead = on_worker_dead
+        # fleet anomaly detectors (master/fleet.py) ride this thread's
+        # 1 Hz scan: one evaluate() a tick keeps the alert counters and
+        # journal current without a second timer thread
+        self._fleet = fleet_monitor
         # drain deadlines are enforced on this scan: an expired drain
         # falls back to mark_worker_dead (requeue-on-death)
         self._drain_manager = drain_manager
@@ -80,6 +88,8 @@ class TaskMonitor:
     def _scan(self):
         now = time.time()
         dead = set()
+        if self._fleet is not None:
+            self._fleet.evaluate()
         if self._drain_manager is not None:
             dead.update(self._drain_manager.take_expired(now))
         # liveness: a worker silent for too long while holding tasks OR
@@ -143,12 +153,20 @@ class TaskMonitor:
         rendezvous. Idempotent and self-healing: a worker wrongly
         presumed dead re-registers on its next RPC."""
         host = self._servicer.worker_host(worker_id)
+        events.emit(
+            "worker_presumed_dead", worker=worker_id, host=host or "",
+        )
         if self._drain_manager is not None:
             # a draining worker evicted for its own reasons must not be
             # evicted again when its drain deadline later expires
             self._drain_manager.on_worker_dead(worker_id)
         self._dispatcher.recover_tasks(worker_id)
         self._servicer.forget_worker(worker_id)
+        if self._fleet is not None:
+            # force the dead-air transition if it had not fired yet (a
+            # fast-task job's 3x-average timeout beats the dead-air
+            # window) and leave an eviction tombstone on /alerts
+            self._fleet.mark_dead(worker_id)
         if self._rendezvous is not None and host:
             self._rendezvous.remove_worker_host(host, reason="worker_death")
         if self._on_worker_dead is not None:

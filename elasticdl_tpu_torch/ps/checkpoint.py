@@ -28,9 +28,8 @@ Every shard file is written to a ``.tmp`` sibling and renamed into
 place, so a crash mid-``np.savez`` leaves a temp file (ignored by every
 reader, removed with its chain by GC), never a truncated shard.
 
-The reference also journals ``checkpoint_skipped`` and
-``checkpoint_delta_skipped`` events; this package has no events journal
-yet, so those are log warnings here.
+A version skipped at restore journals ``checkpoint_skipped``, a chain
+cut short ``checkpoint_delta_skipped`` (observability/events.py).
 """
 
 import binascii
@@ -47,6 +46,7 @@ from elasticdl_tpu_torch.common.env_utils import env_int
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
 
 logger = _logger_factory("elasticdl_tpu_torch.ps.checkpoint")
 
@@ -386,6 +386,10 @@ class SparseCheckpointSaver:
             except Exception as e:
                 logger.warning("truncating chain version-%d at delta %d: %s",
                                version, k, e)
+                events.emit(
+                    "checkpoint_delta_skipped", version=version,
+                    delta=k, why=str(e)[:200],
+                )
                 break
             deltas.append((k, files, stamp))
         return base_files, deltas
@@ -407,6 +411,10 @@ class SparseCheckpointSaver:
             except Exception as e:
                 logger.warning("skipping sparse checkpoint version %d: %s",
                                candidate, e)
+                events.emit(
+                    "checkpoint_skipped", version=candidate,
+                    why=str(e)[:200],
+                )
                 continue
             # imports one verified file at a time, keeping only this
             # shard's rows: peak memory one shard file

@@ -1,5 +1,5 @@
 """In-process PS client: an embedding store behind the PSClient surface
-(port of elasticdl_tpu/ps/local_client.py, without its trace spans).
+(port of elasticdl_tpu/ps/local_client.py).
 
 Lets ``LocalExecutor`` and ``SparseTrainer`` run sparse models with no
 gRPC and no PS process.
@@ -8,6 +8,9 @@ gRPC and no PS process.
 pushed gradients round-trip through the configured wire dtype (down
 and back up, no serialization), so a local run trains with exactly the
 rounding a worker<->PS deployment under the knob would see.
+
+The pull and apply spans carry ``role="ps"``: the process plays both
+roles, and a local trace attributes them as a worker<->PS topology does.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ from elasticdl_tpu_torch.common.tensor_utils import (
     normalize_id_tables,
     wire_round_trip,
 )
+from elasticdl_tpu_torch.observability import trace
 from elasticdl_tpu_torch.ps.embedding_store import (
     create_store,
     parse_initializer,
@@ -38,8 +42,9 @@ class LocalPSClient:
             )
 
     def pull_embedding_vectors(self, name, ids):
-        rows = self.store.lookup(name, np.asarray(ids, dtype=np.int64))
-        return wire_round_trip(rows)
+        with trace.span("ps_pull", role="ps", table=name):
+            rows = self.store.lookup(name, np.asarray(ids, dtype=np.int64))
+            return wire_round_trip(rows)
 
     def pull_embedding_batch(self, ids_by_table):
         """{table: ids} -> {table: rows}; the in-process analogue of
@@ -75,13 +80,16 @@ class LocalPSClient:
         sync-pairing arguments (``only_shards``, ``force_empty``,
         ``round_scoped``) are taken for the PSClient surface and have
         nothing to pair here."""
-        del model_version, only_shards, force_empty, round_scoped
+        del only_shards, force_empty, round_scoped
         lr_scale = lr_scale if lr_scale > 0 else 1.0
-        for name, (values, ids) in grads_by_table.items():
-            values, ids = deduplicate_indexed_slices(
-                np.asarray(values), np.asarray(ids, dtype=np.int64)
-            )
-            values = wire_round_trip(np.asarray(values, dtype=np.float32))
-            self.store.push_gradients(name, ids, values, lr_scale=lr_scale)
-        self.store.bump_version()
+        with trace.span("ps_apply_push", role="ps", version=model_version):
+            for name, (values, ids) in grads_by_table.items():
+                values, ids = deduplicate_indexed_slices(
+                    np.asarray(values), np.asarray(ids, dtype=np.int64)
+                )
+                values = wire_round_trip(
+                    np.asarray(values, dtype=np.float32))
+                self.store.push_gradients(name, ids, values,
+                                          lr_scale=lr_scale)
+            self.store.bump_version()
         return PushResult(True, self.store.version)

@@ -34,9 +34,16 @@ round is applied and a final full checkpoint saved
 master-gone exit and the end of a masterless run drain the checkpoint
 thread first.
 
+Observability: ``--metrics_port`` (or ``EDL_METRICS_PORT``) serves
+``/metrics``, ``/healthz`` and ``/readyz`` (ready once a table or the
+dense init exists); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on
+the journal (``role_start``, ``ps_restored``, checkpoints, ``role_stop``)
+and the trace of role ``ps-<id>``. With ``--master_addr`` each poll
+carries the servicer's ``telemetry_blob`` to the master's fleet monitor
+(``EDL_TELEMETRY=0`` opts out).
+
 Not ported (ROADMAP): the version reports to the master, the lifecycle
-sweep, the stream checkpoint, ``--metrics_port`` and the events
-journal.
+sweep and the stream checkpoint.
 """
 
 import argparse
@@ -46,10 +53,16 @@ import sys
 import time
 
 from elasticdl_tpu_torch.common.args import add_bool_argument
-from elasticdl_tpu_torch.common.env_utils import env_float
+from elasticdl_tpu_torch.common.env_utils import env_float, env_str
 from elasticdl_tpu_torch.common.grpc_utils import build_server, uds_socket_path
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.observability import (
+    events,
+    http_server,
+    profiler,
+    trace,
 )
 from elasticdl_tpu_torch.proto.services import add_pserver_servicer_to_server
 from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
@@ -85,6 +98,9 @@ def parse_ps_args(argv=None):
     # benchmarking knob: sleep this long at the top of every RPC handler
     # to emulate worker<->PS network RTT (a localhost PS measures ~0)
     parser.add_argument("--inject_rpc_delay_ms", type=float, default=0.0)
+    # observability: /metrics + /healthz + /readyz on this port
+    # (0/unset = disabled; falls back to EDL_METRICS_PORT)
+    parser.add_argument("--metrics_port", type=int, default=0)
     return parser.parse_args(argv)
 
 
@@ -170,8 +186,17 @@ class ParameterServer:
             self._master_client = MasterClient(
                 args.master_addr, worker_id=-(args.ps_id + 1)
             )
+            if env_str("EDL_TELEMETRY", "") != "0":
+                # this PS's push/pull rates, version lag and round
+                # fill ride the liveness poll the run loop already
+                # makes, for the master's stuck-round and version-lag
+                # detectors
+                self._master_client.telemetry_provider = (
+                    self.servicer.telemetry_blob
+                )
         self.server = None
         self._uds_path = None
+        self.observability = None
 
     def prepare(self):
         self.server = build_server()
@@ -213,6 +238,27 @@ class ParameterServer:
                 logger.warning("UDS bind failed (%s); serving TCP only", e)
                 self._uds_path = None
         self.server.start()
+        role = "ps-%d" % self.args.ps_id
+        trace.configure(role)
+        events.configure(role)
+        events.emit("role_start", port=self.args.port)
+        # the host stack sampler: on when EDL_PROF_HZ is set, served as
+        # /profilez on the observability port below
+        profiler.maybe_start(role)
+        if self.restored_version is not None:
+            events.emit(
+                "ps_restored", version=self.restored_version,
+                ps=self.args.ps_id,
+            )
+        self.observability = http_server.maybe_start(
+            role, cli_port=self.args.metrics_port
+        )
+        if self.observability is not None:
+            # readiness milestone: the dense init arrived or a table
+            # exists; before either a pull serves nothing
+            self.observability.add_readiness_check(
+                "model_initialized", self.servicer.model_initialized
+            )
         self._install_sigterm_stop()
         logger.info("PS %d/%d serving on :%d (%s store, %s)",
                     self.args.ps_id, self.args.num_ps_pods, self.args.port,
@@ -257,7 +303,16 @@ class ParameterServer:
         self._cleanup_uds()
         self.servicer.graceful_stop()
         logger.info("PS %d stopped on SIGTERM", self.args.ps_id)
+        self._stop_observability("sigterm_drain")
         return 0
+
+    def _stop_observability(self, reason):
+        events.emit("role_stop", reason=reason)
+        events.flush()
+        trace.flush()
+        if self.observability is not None:
+            self.observability.stop()
+            self.observability = None
 
     def run(self, poll_secs=0.5):
         """Serve until SIGTERM (drained, 0), until the master is gone
@@ -295,11 +350,21 @@ class ParameterServer:
         # an orderly exit: an enqueued save lands before the process
         # ends, or a relaunch restores without the last pushes
         self.servicer.finish_checkpoints()
+        self._stop_observability(
+            "master_gone" if self._master_client is not None else "stopped"
+        )
         return 0
 
 
 def main(argv=None):
     args = parse_ps_args(argv)
+    if args.metrics_port:
+        # publish the knob before any instrument is constructed: the
+        # registry decides enabled/no-op at first touch
+        os.environ[http_server.PORT_ENV] = str(args.metrics_port)
+    # uncaught exceptions dump the event ring; prepare() then puts the
+    # graceful SIGTERM drain (final checkpoint, role_stop) in front
+    events.install_crash_hooks()
     return ParameterServer(args).prepare().run()
 
 

@@ -35,11 +35,17 @@ through one GIL-released C call per table; anything else (the numpy
 store, legacy repeated ids, another dtype) goes through numpy with the
 same values, bit for bit.
 
+Telemetry: plain-int tallies (pushes, pulls, their payload bytes, the
+last pushed version, the last checkpoint's rows and chain length) feed
+``telemetry_blob``, which the PS's master poll carries to the fleet
+monitor; the reference's ``edl_ps_*`` series, the ``ps_apply_push`` /
+``ps_apply_round`` spans and the events (overload edges, stale and dead
+pushes, rounds, checkpoints) mirror them when metrics, tracing or the
+journal are on.
+
 Not ported (ROADMAP): the stream checkpoint
-(``maybe_stream_checkpoint``), the checkpoint metrics series and
-events, the embedding lifecycle, the table-health scan,
-``telemetry_blob``, the other metrics series and the events journal,
-the master's version reports and fault injection.
+(``maybe_stream_checkpoint``), the embedding lifecycle, the table-health
+scan, the master's version reports and fault injection.
 """
 
 import concurrent.futures
@@ -64,6 +70,9 @@ from elasticdl_tpu_torch.common.tensor_utils import (
     wire_dtype,
     wire_dtype_name,
 )
+from elasticdl_tpu_torch.observability import events
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
+from elasticdl_tpu_torch.observability import trace
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.ps.checkpoint import AsyncCheckpointer
 from elasticdl_tpu_torch.ps.embedding_store import (
@@ -153,6 +162,7 @@ class PserverServicer:
         self._max_pending = env_int(MAX_PENDING_APPLIES_ENV, 64)
         self._pending_lock = threading.Lock()
         self._pending_applies = 0
+        self._t_overload_rejections = 0
         self._overloaded = False
         # EWMA of admitted apply seconds: calibrates the retry-after hint
         self._apply_ewma_secs = 0.0
@@ -174,6 +184,161 @@ class PserverServicer:
         self._round_buffer = []  # [(worker_key, {name: (vals, ids)}, scale)]
         # round-scoped pairing (lockstep pushers): tag -> entries
         self._round_groups = {}
+        self._backend = "native" if self._native_store else "numpy"
+        self._register_metrics()
+        # fleet-telemetry source: plain-int tallies kept independently
+        # of the metrics registry (telemetry works with /metrics off),
+        # read by telemetry_blob() on the PS's master poll. Unlocked
+        # increments: a GIL-level race costs at most one count in a
+        # rate estimate
+        self._t_push_count = 0
+        self._t_pull_count = 0
+        self._t_push_bytes = 0
+        self._t_push_dense_bytes = 0
+        self._t_pull_bytes = 0
+        self._t_last_push_version = 0
+        self._t_ckpt_dirty_rows = 0
+        self._t_ckpt_chain_len = 0
+        self._t_prev = None  # (timestamp, push_count, pull_count)
+
+    def _register_metrics(self):
+        """PS-side series: push/pull rates and bytes, the round-buffer
+        fill, the version lag, the apply latency and the checkpoints.
+        No-op instruments when metrics collection is off."""
+        self._m_pull_requests = obs_metrics.counter(
+            "edl_ps_pull_requests_total",
+            "pull_embedding_vectors RPCs served", ("table",),
+        )
+        self._m_pull_rows = obs_metrics.counter(
+            "edl_ps_pulled_rows_total",
+            "Embedding rows served to workers", ("table",),
+        )
+        self._m_push_requests = obs_metrics.counter(
+            "edl_ps_push_requests_total", "push_gradients RPCs received"
+        )
+        self._m_push_rejected = obs_metrics.counter(
+            "edl_ps_push_rejected_total",
+            "Pushes rejected as stale (sync mode version check)",
+        )
+        self._m_overload_rejected = obs_metrics.counter(
+            "edl_ps_overload_rejected_total",
+            "RPCs rejected by admission control (RESOURCE_EXHAUSTED + "
+            "retry-after pushback) once the apply backlog crossed "
+            "EDL_PS_MAX_PENDING_APPLIES, by method", ("method",),
+        )
+        obs_metrics.gauge(
+            "edl_ps_pending_applies",
+            "Admission-control depth: in-flight push handlers plus "
+            "round-buffer entries beyond one full sync round",
+        ).set_function(self._pending_depth)
+        self._m_push_dropped_dead = obs_metrics.counter(
+            "edl_ps_push_dropped_dead_incarnation_total",
+            "Pushes dropped as a dead incarnation's delayed delivery "
+            "(a sustained nonzero rate on a live worker means its "
+            "incarnation ordering is wrong — alert on it)",
+        )
+        self._m_version_lag = obs_metrics.gauge(
+            "edl_ps_version_lag",
+            "store version minus the last push's gradient version",
+        )
+        obs_metrics.gauge(
+            "edl_ps_round_buffer_fill",
+            "Buffered pushes awaiting a sync round (counting + scoped)",
+        ).set_function(self._buffered_count)
+        obs_metrics.gauge(
+            "edl_ps_store_version", "Embedding store version"
+        ).set_function(lambda: self._store.version)
+        self._m_table_rows = obs_metrics.gauge(
+            "edl_ps_embedding_rows",
+            "Materialized rows per embedding table", ("table",),
+        )
+        self._m_push_bytes = obs_metrics.counter(
+            "edl_ps_push_bytes_total",
+            "Gradient payload bytes received (tensor content + ids), "
+            "by wire dtype", ("dtype",),
+        )
+        self._m_pull_bytes = obs_metrics.counter(
+            "edl_ps_pull_bytes_total",
+            "Embedding-row payload bytes served, by wire dtype",
+            ("dtype",),
+        )
+        self._m_push_dense_bytes = obs_metrics.counter(
+            "edl_ps_push_dense_bytes_total",
+            "Dense-gradient payload bytes received over push_gradients "
+            "(0 under the GSPMD dense data plane: only embedding rows "
+            "ride the PS)",
+        )
+        # an explicit 0 on /metrics: the contract is "provably zero"
+        self._m_push_dense_bytes.inc(0)
+        self._m_rows_written = obs_metrics.counter(
+            "edl_ps_rows_written_total",
+            "Embedding rows overwritten by device-tier writebacks",
+        )
+        self._m_apply_seconds = obs_metrics.histogram(
+            "edl_ps_apply_seconds",
+            "Wall seconds per push's gradient deserialize+apply, by "
+            "store backend", ("backend",),
+        )
+        obs_metrics.gauge(
+            "edl_ps_native_active",
+            "1 when this PS runs the native (C++) embedding store, "
+            "0 on the numpy fallback",
+        ).set(1 if self._native_store else 0)
+        self._m_ckpt_seconds = obs_metrics.histogram(
+            "edl_ps_checkpoint_seconds",
+            "Wall seconds per sparse checkpoint save, by kind",
+            ("kind",),
+        )
+        self._m_ckpt_dirty_rows = obs_metrics.gauge(
+            "edl_ps_ckpt_dirty_rows",
+            "Rows carried by the most recent checkpoint save "
+            "(all resident rows for a full base, dirty rows for a "
+            "delta)",
+        )
+        self._m_ckpt_chain_len = obs_metrics.gauge(
+            "edl_ps_ckpt_chain_len",
+            "Deltas in the live checkpoint chain since its full base",
+        )
+
+    def telemetry_blob(self):
+        """Piggyback payload of the PS's get_comm_info master poll:
+        push/pull rates over the window since the previous blob, the
+        store/pusher version lag, and the round-buffer fill the
+        stuck-round detector watches."""
+        now = time.time()
+        push_count, pull_count = self._t_push_count, self._t_pull_count
+        push_rate = pull_rate = 0.0
+        if self._t_prev is not None:
+            since, prev_push, prev_pull = self._t_prev
+            window = max(1e-6, now - since)
+            push_rate = (push_count - prev_push) / window
+            pull_rate = (pull_count - prev_pull) / window
+        self._t_prev = (now, push_count, pull_count)
+        return pb.TelemetryBlob(
+            role="ps-%d" % self._ps_id,
+            push_rate=push_rate,
+            pull_rate=pull_rate,
+            version_lag=max(
+                0, self._store.version - self._t_last_push_version
+            ),
+            model_version=self._store.version,
+            round_buffer_fill=self._buffered_count(),
+            push_bytes=self._t_push_bytes,
+            pull_bytes=self._t_pull_bytes,
+            ps_native_store=self._native_store,
+            ps_ckpt_dirty_rows=self._t_ckpt_dirty_rows,
+            ps_ckpt_chain_len=self._t_ckpt_chain_len,
+            ps_overload_rejections=self._t_overload_rejections,
+            ps_pending_applies=self._pending_depth(),
+        )
+
+    def model_initialized(self):
+        """This PS's /readyz milestone: cold-start dense parameters
+        arrived, or at least one embedding table exists to serve."""
+        with self._lock:
+            if self._dense_initialized:
+                return True
+        return bool(self._store.table_names())
 
     # ------------------------------------------------------------------
     def push_model(self, request, context=None):
@@ -207,6 +372,9 @@ class PserverServicer:
                 kind, param = "uniform", 0.05
             self._store.create_table(
                 info.name, info.dim, init_scale=param, initializer=kind
+            )
+            self._m_table_rows.labels(table=info.name).set_function(
+                lambda name=info.name: self._store.table_size(name)
             )
 
     def _stamp(self, response):
@@ -247,13 +415,20 @@ class PserverServicer:
             del blob.dims[:]
             blob.dims.extend((int(ids.size), self._store.table_dim(name)))
             blob.content = content
-            return blob
-        values = self._store.lookup(name, ids)
-        return ndarray_to_blob(values, blob,
-                               wire_dtype=wire_dtype() if reduced_ok else None)
+        else:
+            values = self._store.lookup(name, ids)
+            blob = ndarray_to_blob(
+                values, blob, wire_dtype=wire_dtype() if reduced_ok else None)
+        payload = len(blob.content)
+        self._t_pull_bytes += payload
+        self._m_pull_bytes.labels(dtype=blob.dtype).inc(payload)
+        self._m_pull_requests.labels(table=name).inc()
+        self._m_pull_rows.labels(table=name).inc(int(ids.size))
+        return blob
 
     def pull_embedding_vectors(self, request, context=None):
         self._admit_or_abort(context, "pull_embedding_vectors")
+        self._t_pull_count += 1
         # repeated ids without a packed blob: a pre-ids_blob client,
         # which also predates EDL_WIRE_DTYPE; serve it fp32
         legacy_peer = bool(request.ids) and not request.ids_blob
@@ -265,6 +440,7 @@ class PserverServicer:
         this shard, each aligned with its request's id order."""
         self._admit_or_abort(context, "pull_embedding_batch")
         response = self._stamp(pb.PullEmbeddingBatchResponse())
+        self._t_pull_count += 1
         for name, slices in request.tables.items():
             self._pull_table(name, unpack_ids(slices), response.tables[name])
         return response
@@ -291,7 +467,14 @@ class PserverServicer:
                 self._overloaded = False
                 logger.warning("PS %d overload cleared (depth %d < %d)",
                                self._ps_id, depth, self._max_pending)
+                if events.enabled():
+                    events.emit(
+                        "ps_overload_clear", ps_id=self._ps_id,
+                        depth=depth,
+                    )
             return
+        self._t_overload_rejections += 1
+        self._m_overload_rejected.labels(method=method).inc()
         # hint = (how far past the limit) x (observed seconds per
         # apply), floored at 50 ms and capped at 2 s
         excess = max(1, depth - self._max_pending + 1)
@@ -304,6 +487,12 @@ class PserverServicer:
                 "(retry-after %dms)", self._ps_id, depth, self._max_pending,
                 retry_ms,
             )
+            if events.enabled():
+                events.emit(
+                    "ps_overload_enter", ps_id=self._ps_id,
+                    depth=depth, max_pending=self._max_pending,
+                    method=method,
+                )
         context.set_trailing_metadata(
             ((overload.RETRY_AFTER_KEY, str(retry_ms)),)
         )
@@ -330,7 +519,34 @@ class PserverServicer:
                 else:
                     self._apply_ewma_secs = elapsed
 
+    def _count_push_bytes(self, request):
+        """Fold one push's gradient payload bytes (tensor content +
+        ids, either encoding) into the counters."""
+        payload = 0
+        dtype = "none"
+        for slices in request.gradients.embedding_tables.values():
+            payload += len(slices.concat_tensors.content)
+            payload += len(slices.ids_blob) or 8 * len(slices.ids)
+            dtype = slices.concat_tensors.dtype or dtype
+        self._t_push_bytes += payload
+        if payload:
+            self._m_push_bytes.labels(dtype=dtype).inc(payload)
+        dense_payload = sum(
+            len(blob.content)
+            for blob in request.gradients.dense_parameters.values()
+        )
+        if dense_payload:
+            self._t_push_dense_bytes += dense_payload
+            self._m_push_dense_bytes.inc(dense_payload)
+
     def _push_gradients_admitted(self, request):
+        self._t_push_count += 1
+        self._t_last_push_version = request.gradients.version
+        self._m_push_requests.inc()
+        self._count_push_bytes(request)
+        self._m_version_lag.set(
+            self._store.version - request.gradients.version
+        )
         if self._stopped:
             # the SIGTERM drain flushed the round buffer and saves the
             # final checkpoint: an update admitted now would be
@@ -346,8 +562,13 @@ class PserverServicer:
             lr_scale = 1.0 / max(1, diff) if diff > 0 else 1.0
         if request.lr_scale > 0:
             lr_scale *= request.lr_scale
+        apply_start = time.time()
         self._apply_tables(request.gradients.embedding_tables.items(),
                            lr_scale)
+        self._m_apply_seconds.labels(backend=self._backend).observe(
+            time.time() - apply_start
+        )
+        trace.complete("ps_apply_push", apply_start, version=grad_version)
         self._store.bump_version()
         version = self._store.version
         self._maybe_checkpoint(version)
@@ -360,8 +581,9 @@ class PserverServicer:
         row spaces, and each table's apply is atomic)."""
         items = list(items)
         if self._apply_pool is not None and len(items) > 1:
+            apply_one = trace.bind_context(self._apply_one)
             list(self._apply_pool.map(
-                lambda pair: self._apply_one(pair[0], pair[1], lr_scale),
+                lambda pair: apply_one(pair[0], pair[1], lr_scale),
                 items,
             ))
             return
@@ -396,6 +618,12 @@ class PserverServicer:
             # rows; refuse, so the client reports the loss
             return self._stamp(pb.PushGradientsResponse(
                 accepted=False, version=self._store.version))
+        self._m_rows_written.inc(
+            sum(
+                len(slices.ids) or len(slices.ids_blob) // 8
+                for slices in request.embedding_tables.values()
+            )
+        )
         for name, slices in request.embedding_tables.items():
             if self._native_store and _blob_fast_path_ok(
                 self._store, name, slices
@@ -429,15 +657,38 @@ class PserverServicer:
             name: _deserialize_gradients(slices)
             for name, slices in request.gradients.embedding_tables.items()
         }
+        # events decided under the push lock, written after it (a slow
+        # journal flush must not serialize every worker's push)
+        journal = []
+        try:
+            return self._push_gradients_sync_locked(request, tables,
+                                                    journal)
+        finally:
+            for event, fields in journal:
+                events.emit(event, **fields)
+
+    def _push_gradients_sync_locked(self, request, tables, journal):
         grad_version = request.gradients.version
         with self._push_lock:
             version = self._store.version
             if self._stopped:
                 # lost the race against graceful_stop: the buffer this
                 # push would join was already flushed
+                self._m_push_rejected.inc()
                 return self._stamp(pb.PushGradientsResponse(
                     accepted=False, version=version))
             if grad_version < version - self._sync_tolerance:
+                self._m_push_rejected.inc()
+                journal.append((
+                    "stale_push_rejected",
+                    dict(
+                        worker=(
+                            request.worker_id
+                            if request.HasField("worker_id") else -1
+                        ),
+                        version=grad_version, store_version=version,
+                    ),
+                ))
                 return self._stamp(pb.PushGradientsResponse(
                     accepted=False, version=version))
             # lr_scale rides beside the raw grads to the apply (folding
@@ -470,6 +721,12 @@ class PserverServicer:
                         "dead incarnation %d (a newer incarnation already "
                         "holds this round)", request.worker_id, incarnation,
                     )
+                    self._m_push_dropped_dead.inc()
+                    journal.append((
+                        "dead_incarnation_dropped",
+                        dict(worker=request.worker_id,
+                             incarnation=incarnation, version=version),
+                    ))
                     return self._stamp(pb.PushGradientsResponse(
                         accepted=True, version=version))
                 for entry in same_worker:
@@ -481,6 +738,30 @@ class PserverServicer:
                         request.worker_id, version,
                     )
             entry = (key, tables, push_scale)
+            if events.enabled():
+                # round_open on the first push buffered toward this
+                # round (per tag for scoped pushers), round_fill on
+                # every buffered push: the journal's answer to "why did
+                # the sync round stop filling"
+                if request.round_scoped:
+                    opened = not self._round_groups.get(grad_version)
+                else:
+                    opened = not self._round_buffer
+                if opened:
+                    journal.append(
+                        ("round_open", dict(version=grad_version))
+                    )
+                journal.append((
+                    "round_fill",
+                    dict(
+                        version=grad_version,
+                        fill=self._buffered_count() + 1,
+                        worker=(
+                            request.worker_id
+                            if request.HasField("worker_id") else -1
+                        ),
+                    ),
+                ))
             if request.round_scoped:
                 group = self._round_groups.setdefault(grad_version, [])
                 if key is not None:
@@ -492,13 +773,13 @@ class PserverServicer:
                     return self._stamp(pb.PushGradientsResponse(
                         accepted=True, version=version))
                 del self._round_groups[grad_version]
-                self._apply_round_locked(group)
+                self._apply_round_locked(group, journal)
             else:
                 self._round_buffer.append(entry)
                 if len(self._round_buffer) < self._grads_to_wait:
                     return self._stamp(pb.PushGradientsResponse(
                         accepted=True, version=version))
-                self._apply_round_locked(self._round_buffer)
+                self._apply_round_locked(self._round_buffer, journal)
                 self._round_buffer = []
             self._store.bump_version()
             version = self._store.version
@@ -527,11 +808,20 @@ class PserverServicer:
                     del self._round_groups[tag]
                 return
 
-    def _apply_round_locked(self, entries):
+    def _apply_round_locked(self, entries, journal):
         """Merge and apply one completed round (the caller holds the
         push lock and bumps the version), then drop scoped groups whose
-        tag can no longer fill."""
-        self._merge_apply_locked(entries)
+        tag can no longer fill. ``journal`` collects the events the
+        caller writes after the lock."""
+        with trace.span(
+            "ps_apply_round", version=self._store.version,
+            pushes=len(entries),
+        ):
+            self._merge_apply_locked(entries)
+        journal.append((
+            "round_close",
+            dict(version=self._store.version, pushes=len(entries)),
+        ))
         floor = self._store.version - self._sync_tolerance
         for tag in [t for t in self._round_groups if t < floor]:
             logger.warning(
@@ -568,6 +858,7 @@ class PserverServicer:
         later push, then save a final full checkpoint so the successor
         restores the newest state. Idempotent; a failed flush or save
         does not stop the exit."""
+        journal = []
         with self._push_lock:
             if self._stopped:
                 return
@@ -577,13 +868,15 @@ class PserverServicer:
                 logger.warning("SIGTERM with %d buffered push(es); applying "
                                "the partial round before exit", len(entries))
                 try:
-                    self._apply_round_locked(entries)
+                    self._apply_round_locked(entries, journal)
                     self._round_buffer = []
                     self._round_groups = {}
                     self._store.bump_version()
                 except Exception:
                     logger.exception("partial-round flush failed at SIGTERM")
             version = self._store.version
+        for event, fields in journal:
+            events.emit(event, **fields)
         if self._ckpt_async is not None:
             # abandon what is pending: the final full save below
             # supersedes every enqueued delta
@@ -604,10 +897,21 @@ class PserverServicer:
         start = time.monotonic()
         result = self._checkpoint_saver.save(version, self._store,
                                              force_full=force_full)
+        elapsed = time.monotonic() - start
         logger.info("checkpoint %s at version %d: %s, %d rows, %d "
                     "tombstones, chain %d, %.3f s", kind, version,
                     result.kind, result.rows, result.tombstones,
-                    result.chain_len, time.monotonic() - start)
+                    result.chain_len, elapsed)
+        self._m_ckpt_seconds.labels(kind=result.kind).observe(elapsed)
+        self._m_ckpt_dirty_rows.set(result.rows)
+        self._m_ckpt_chain_len.set(result.chain_len)
+        self._t_ckpt_dirty_rows = result.rows
+        self._t_ckpt_chain_len = result.chain_len
+        events.emit(
+            "checkpoint_saved", version=version, kind=kind,
+            mode=result.kind, rows=result.rows,
+            tombstones=result.tombstones, chain_len=result.chain_len,
+        )
 
     def _request_checkpoint(self, version, kind):
         """Trigger a save at ``version``: enqueue it on the checkpoint

@@ -1,6 +1,5 @@
 """Admission-controlled micro-batcher (port of
-elasticdl_tpu/serve/batcher.py, without its metrics and trace
-instruments).
+elasticdl_tpu/serve/batcher.py).
 
 Requests enter a BOUNDED queue (``EDL_SERVE_QUEUE_DEPTH``); beyond the
 bound they are SHED immediately (``QueueFull`` -> RESOURCE_EXHAUSTED on
@@ -12,6 +11,16 @@ answer is a wrong answer to a caller that already gave up),
 concatenates the survivors along the batch dim, runs them through the
 runner in ONE forward, and splits the outputs back per request.
 Features are tensors or arrays; batches concatenate as tensors.
+
+Each request snapshots its admitting thread's trace context; the
+formation thread adopts the batch head's, so the batch's
+``serve_batch_assemble`` (the concatenation) and ``serve_batch_run``
+(the forward) spans land in the head request's trace. Both carry the
+batch's number, which every request of the batch also stamps onto its
+admitting span (``batch``), so a request's queue wait, assembly,
+forward and reply can be read from the trace. The
+``edl_serve_queue_depth``, ``edl_serve_requests_shed_total`` and
+``edl_serve_batch_size`` series mirror the admission counters.
 """
 
 import collections
@@ -25,6 +34,9 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.common.tensor_utils import as_tensor
+from elasticdl_tpu_torch.observability import metrics, trace
+
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 logger = _logger_factory("elasticdl_tpu_torch.serve.batcher")
 
@@ -74,7 +86,7 @@ def _schema(features):
 class _Request:
     __slots__ = (
         "features", "rows", "deadline", "enqueued", "done",
-        "outputs", "error", "keys",
+        "outputs", "error", "keys", "adopt_trace", "batch",
     )
 
     def __init__(self, features, rows, deadline):
@@ -86,6 +98,11 @@ class _Request:
         self.outputs = None
         self.error = None
         self.keys = _schema(features)
+        self.batch = None  # the number of the batch that served it
+        # span-context snapshot from the admitting RPC thread: the
+        # formation thread adopts the batch head's, so batch-level work
+        # lands in the trace of the request that opened the window
+        self.adopt_trace = trace.capture_context()
 
     def resolve(self, outputs):
         self.outputs = outputs
@@ -102,8 +119,10 @@ class MicroBatcher:
     formation, response splitting -- lives here."""
 
     def __init__(self, runner, max_batch=None, max_delay_ms=None,
-                 queue_depth=None, default_deadline_ms=None):
+                 queue_depth=None, default_deadline_ms=None,
+                 on_shed=None, registry=None):
         self._runner = runner
+        self._on_shed = on_shed
         self.max_batch = int(
             max_batch if max_batch is not None
             else _env_num(MAX_BATCH_ENV, 32, int)
@@ -134,15 +153,42 @@ class MicroBatcher:
         self.shed_total = 0
         self.served_total = 0
         self.batches_total = 0  # formed batches that ran the runner
+        self._batches_formed = 0  # the formation thread's alone
+        reg = registry or metrics.default_registry()
+        self._m_queue_depth = reg.gauge(
+            "edl_serve_queue_depth",
+            "Instantaneous admission-queue depth of the micro-batcher",
+        )
+        self._m_shed = reg.counter(
+            "edl_serve_requests_shed_total",
+            "Requests shed (queue at depth, or deadline expired while "
+            "queued), by reason",
+            ("reason",),
+        )
+        self._m_batch_size = reg.histogram(
+            "edl_serve_batch_size",
+            "Rows per formed inference batch",
+            buckets=_BATCH_BUCKETS,
+        )
+        # pre-register so /metrics shows the series at zero
+        self._m_shed.labels(reason="queue_full")
+        self._m_shed.labels(reason="deadline")
         self._thread = threading.Thread(
             target=self._loop, name="edl-serve-batcher", daemon=True
         )
         self._thread.start()
 
     # ------------------------------------------------------------------
-    def _shed(self):
+    def _shed(self, reason):
         with self._count_lock:
             self.shed_total += 1
+            total = self.shed_total
+        self._m_shed.labels(reason=reason).inc()
+        if self._on_shed is not None:
+            try:
+                self._on_shed(reason, total)
+            except Exception:
+                logger.exception("on_shed callback failed")
 
     def submit(self, features, rows, deadline_secs=None):
         """Blocks until served; returns ``(outputs, step, stamp)``.
@@ -158,11 +204,12 @@ class MicroBatcher:
             if self._draining:
                 raise Draining("serve role is draining; not admitting")
             if len(self._pending) >= self.queue_depth:
-                self._shed()
+                self._shed("queue_full")
                 raise QueueFull(
                     "admission queue at depth %d" % self.queue_depth
                 )
             self._pending.append(request)
+            self._m_queue_depth.set(len(self._pending))
             self._cond.notify()
         # the formation thread resolves every admitted request; the pad
         # is defense against a wedged runner -- surface it as an error
@@ -178,8 +225,12 @@ class MicroBatcher:
                     self._pending.remove(request)
                 except ValueError:
                     pass  # already popped into a forming batch
-            self._shed()
+                else:
+                    self._m_queue_depth.set(len(self._pending))
+            self._shed("deadline")
             raise DeadlineExpired("request timed out awaiting the batcher")
+        if request.batch is not None:
+            trace.annotate(batch=request.batch)
         if request.error is not None:
             raise request.error
         with self._count_lock:
@@ -223,6 +274,7 @@ class MicroBatcher:
                     break
                 batch.append(self._pending.popleft())
                 rows += nxt.rows
+            self._m_queue_depth.set(len(self._pending))
             return batch
 
     def _run(self, batch):
@@ -231,7 +283,7 @@ class MicroBatcher:
         live = []
         for request in batch:
             if request.deadline is not None and now > request.deadline:
-                self._shed()
+                self._shed("deadline")
                 request.fail(DeadlineExpired(
                     "deadline expired after %.1f ms in queue"
                     % ((now - request.enqueued) * 1e3)
@@ -240,22 +292,20 @@ class MicroBatcher:
                 live.append(request)
         if not live:
             return
+        number = self._batches_formed
+        self._batches_formed += 1
+        for request in live:
+            request.batch = number
         try:
-            if len(live) == 1:
-                features = live[0].features
-            elif not isinstance(live[0].features, dict):
-                features = torch.cat(
-                    [as_tensor(r.features) for r in live], dim=0
-                )
-            else:
-                features = {
-                    key: torch.cat(
-                        [as_tensor(r.features[key]) for r in live], dim=0
-                    )
-                    for key in live[0].features
-                }
             total = sum(r.rows for r in live)
-            outputs, step, stamp = self._runner(features, total)
+            with live[0].adopt_trace():
+                with trace.span("serve_batch_assemble", requests=len(live),
+                                rows=total, batch=number):
+                    features = self._assemble(live)
+                self._m_batch_size.observe(total)
+                with trace.span("serve_batch_run", requests=len(live),
+                                rows=total, batch=number):
+                    outputs, step, stamp = self._runner(features, total)
             with self._count_lock:
                 self.batches_total += 1
             offset = 0
@@ -274,6 +324,21 @@ class MicroBatcher:
             for request in live:
                 if not request.done.is_set():
                     request.fail(e)
+
+    @staticmethod
+    def _assemble(live):
+        """The live requests' features concatenated along the batch
+        dim."""
+        if len(live) == 1:
+            return live[0].features
+        if not isinstance(live[0].features, dict):
+            return torch.cat([as_tensor(r.features) for r in live], dim=0)
+        return {
+            key: torch.cat(
+                [as_tensor(r.features[key]) for r in live], dim=0
+            )
+            for key in live[0].features
+        }
 
     def _loop(self):
         while True:

@@ -7,6 +7,7 @@ from elasticdl_tpu_torch.common.tensor_utils import (
     blob_to_tensor,
     tensor_to_blob,
 )
+from elasticdl_tpu_torch.observability.grpc_metrics import instrument_channel
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.proto.services import ServeStub
 from elasticdl_tpu_torch.serve.model import SINGLE_INPUT_KEY
@@ -14,7 +15,7 @@ from elasticdl_tpu_torch.serve.model import SINGLE_INPUT_KEY
 
 class ServeClient:
     def __init__(self, addr):
-        self._channel = build_channel(addr)
+        self._channel = instrument_channel(build_channel(addr))
         self._stub = ServeStub(self._channel)
 
     def predict(self, features, deadline_secs=None, deadline_ms=0,

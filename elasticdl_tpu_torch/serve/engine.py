@@ -15,8 +15,11 @@ reference assignment. A batch that already entered ``_run_batch`` holds
 its own model reference, so in-flight requests finish on the version
 that admitted them.
 
-Not ported yet: the router-directed (fleet) mode, the metrics and the
-events journal.
+The ``edl_serve_model_info``, ``edl_serve_version_swaps_total`` and
+``edl_serve_cache_hit_rate`` series and the ``model_loaded``,
+``version_swapped`` and ``requests_shed`` events follow the lifecycle.
+
+Not ported yet: the router-directed (fleet) mode.
 """
 
 import threading
@@ -28,6 +31,7 @@ from elasticdl_tpu_torch.common.log_utils import (
 )
 from elasticdl_tpu_torch.embedding.client import HotRowCache
 from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.observability import events, metrics
 from elasticdl_tpu_torch.serve.batcher import MicroBatcher, _env_num
 from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
 
@@ -35,6 +39,9 @@ logger = _logger_factory("elasticdl_tpu_torch.serve.engine")
 
 WATCH_SECS_ENV = "EDL_SERVE_WATCH_SECS"
 CACHE_TTL_ENV = "EDL_SERVE_CACHE_TTL_SECS"
+# at most one requests_shed event per window: a shed storm must not
+# flood the journal at the moment it matters most
+_SHED_EVENT_WINDOW_SECS = 1.0
 
 
 class ServingEngine:
@@ -43,7 +50,7 @@ class ServingEngine:
                  max_batch=None, max_delay_ms=None, queue_depth=None,
                  deadline_ms=None, cache_ttl_secs=None,
                  cache_capacity=1_000_000, watch_secs=None,
-                 device="cuda"):
+                 device="cuda", registry=None):
         self.model_zoo = model_zoo
         self.export_dir = export_dir
         self.device = resolve_device(device)
@@ -73,12 +80,31 @@ class ServingEngine:
         self._template = None       # (features, rows) of a recent batch
         self._stopped = threading.Event()
         self.swaps = 0
+        self._last_shed_event = 0.0
+        self._shed_at_last_event = 0
+        reg = registry or metrics.default_registry()
+        self._m_model_info = reg.gauge(
+            "edl_serve_model_info",
+            "1 for the loaded model version (export step), 0 for "
+            "versions served earlier in this process's life",
+            ("version",),
+        )
+        self._m_swaps = reg.counter(
+            "edl_serve_version_swaps_total",
+            "Completed model-version hot swaps",
+        )
+        self._m_cache_hit_rate = reg.gauge(
+            "edl_serve_cache_hit_rate",
+            "Lifetime hit fraction of the serving embedding row cache",
+        )
         self.batcher = MicroBatcher(
             self._run_batch,
             max_batch=max_batch,
             max_delay_ms=max_delay_ms,
             queue_depth=queue_depth,
             default_deadline_ms=deadline_ms,
+            on_shed=self._on_shed,
+            registry=registry,
         )
         # read-only preparers never take the client's hook slot, so one
         # chain here covers every ServingModel build
@@ -186,13 +212,28 @@ class ServingEngine:
             if previous is not None and replacement.stamp == previous.stamp:
                 return False
             self._model = replacement
+        self._m_model_info.labels(version=str(replacement.step)).set(1)
         if previous is not None:
+            self._m_model_info.labels(version=str(previous.step)).set(0)
             self.swaps += 1
+            self._m_swaps.inc()
+            events.emit(
+                "version_swapped",
+                from_step=previous.step,
+                to_step=replacement.step,
+                stamp=replacement.stamp,
+            )
             logger.info(
                 "model version swapped: step %d -> %d (%s)",
                 previous.step, replacement.step, replacement.stamp,
             )
         else:
+            events.emit(
+                "model_loaded",
+                step=replacement.step,
+                stamp=replacement.stamp,
+                path=str(self.export_dir),
+            )
             logger.info(
                 "model loaded: step %d (%s) on %s",
                 replacement.step, replacement.stamp, self.device,
@@ -222,11 +263,24 @@ class ServingEngine:
         if self._template is None:
             self._template = (features, rows)
         outputs = model.predict(features, rows)
+        if self.cache is not None:
+            self._m_cache_hit_rate.set(model.embedding_hit_rate)
         return outputs, model.step, model.stamp
 
     def predict(self, features, rows, deadline_secs=None):
         """The servicer's entry: admission -> batch -> forward."""
         return self.batcher.submit(features, rows, deadline_secs)
+
+    def _on_shed(self, reason, total):
+        now = time.monotonic()
+        if now - self._last_shed_event < _SHED_EVENT_WINDOW_SECS:
+            return
+        shed_since = total - self._shed_at_last_event
+        self._last_shed_event = now
+        self._shed_at_last_event = total
+        events.emit(
+            "requests_shed", reason=reason, count=shed_since, total=total
+        )
 
     # ------------------------------------------------------------------
     def drain(self, timeout=30.0):

@@ -12,18 +12,34 @@ Runs on ``cuda`` unless ``--device cpu`` is given; with ``cuda`` and no
 card it raises rather than fall back. SIGTERM drains gracefully: stop
 admitting, flush the queue, stop the server, exit 0.
 
-Not ported yet: master telemetry, the router (fleet) link, the
-/metrics, /healthz and /readyz endpoints, the flight-recorder journal
-and the profiler.
+Observability: ``--metrics_port`` (or ``EDL_METRICS_PORT``) serves
+``/metrics``, ``/healthz`` and ``/readyz`` (503 until the model is
+loaded); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on the journal
+(``role_start``, ``trace_flushed``, ``serve_drained``, ``role_stop``) and
+the trace of role ``serve-<id>``; ``--master_addr`` piggybacks the
+replica's telemetry blob (queries/s, queue depth, sheds, the cache's hit
+rate and ``observability/device.py``'s memory view) on a poll of the
+master's ``get_comm_info``.
+
+Not ported yet: the router (fleet) link.
 """
 
 import argparse
+import os
 import signal
 import sys
 import threading
+import time
 
+from elasticdl_tpu_torch.common.env_utils import env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
+)
+from elasticdl_tpu_torch.observability import (
+    events,
+    http_server,
+    profiler,
+    trace,
 )
 
 logger = _logger_factory("elasticdl_tpu_torch.serve.main")
@@ -44,6 +60,11 @@ def parse_serve_args(argv=None):
     parser.add_argument(
         "--ps_addrs", default="",
         help="comma-separated PS addresses for sparse-embedding models",
+    )
+    parser.add_argument(
+        "--master_addr", default="",
+        help="optional: piggyback serving telemetry on the master's "
+        "fleet view (/statusz)",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -79,6 +100,9 @@ def parse_serve_args(argv=None):
         "--watch_secs", type=float, default=-1.0,
         help="export watch interval (<0 = EDL_SERVE_WATCH_SECS or 2)",
     )
+    # observability: /metrics + /healthz + /readyz on this port
+    # (0/unset = disabled; falls back to EDL_METRICS_PORT)
+    parser.add_argument("--metrics_port", type=int, default=0)
     return parser.parse_args(argv)
 
 
@@ -113,12 +137,54 @@ class ServeRole:
             watch_secs=args.watch_secs if args.watch_secs >= 0 else None,
             device=args.device,
         )
+        self._master_client = None
+        if args.master_addr:
+            from elasticdl_tpu_torch.worker.master_client import MasterClient
+
+            # a negative id below the PS's -(ps_id + 1): the serve role
+            # is neither a worker nor a mesh member
+            self._master_client = MasterClient(
+                args.master_addr, worker_id=-(1000 + args.serve_id),
+            )
+            if env_str("EDL_TELEMETRY", "") != "0":
+                self._master_client.telemetry_provider = self.telemetry_blob
         self.server = None
+        self.observability = None
+        self._observing = False
         self._drained = threading.Event()
         # SIGTERM arrival marker: a plain bool write is all the signal
         # handler does; run() polls it and drains (_finish_term)
         self._term_flag = False
         self._term_previous = None
+        self._qps_window = (time.monotonic(), 0)  # (ts, served_total)
+
+    def telemetry_blob(self):
+        """The replica's piggyback payload: queries/s since the last
+        blob, queue depth, sheds, the row cache's hit rate and the
+        device's memory view."""
+        from elasticdl_tpu_torch.observability import device as device_obs
+        from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+        batcher = self.engine.batcher
+        now = time.monotonic()
+        last_ts, last_served = self._qps_window
+        served = batcher.served_total
+        elapsed = max(now - last_ts, 1e-6)
+        self._qps_window = (now, served)
+        info = self.engine.model_info()
+        blob = pb.TelemetryBlob(
+            role="serve-%d" % self.args.serve_id,
+            serve_qps=(served - last_served) / elapsed,
+            serve_queue_depth=batcher.pending_count(),
+            serve_shed_total=batcher.shed_total,
+            model_version=max(info["step"], 0),
+            tier_hit_rate=(
+                self.engine.cache.hit_rate()
+                if self.engine.cache is not None
+                else 0.0
+            ),
+        )
+        return device_obs.fill_blob(blob)
 
     def prepare(self):
         from elasticdl_tpu_torch.common.grpc_utils import build_server
@@ -127,6 +193,7 @@ class ServeRole:
         )
         from elasticdl_tpu_torch.serve.servicer import ServeServicer
 
+        self.start_observability()
         self.engine.start()
         self.server = build_server()
         add_serve_servicer_to_server(ServeServicer(self.engine), self.server)
@@ -138,6 +205,29 @@ class ServeRole:
             self.args.serve_id, self.args.port, self.args.export_dir,
             self.engine.device,
         )
+        return self
+
+    def start_observability(self):
+        """The role's trace, journal (``role_start``), host sampler and
+        probes, before the model loads: ``/readyz`` answers 503 until it
+        has. ``prepare`` calls it; idempotent."""
+        if self._observing:
+            return self
+        self._observing = True
+        role = "serve-%d" % self.args.serve_id
+        trace.configure(role)
+        events.configure(role)
+        events.emit("role_start", port=self.args.port)
+        # the host stack sampler: on when EDL_PROF_HZ is set, served as
+        # /profilez on the observability port below
+        profiler.maybe_start(role)
+        self.observability = http_server.maybe_start(
+            role, cli_port=self.args.metrics_port
+        )
+        if self.observability is not None:
+            self.observability.add_readiness_check(
+                "model_loaded", lambda: self.engine.loaded
+            )
         return self
 
     def _install_sigterm_drain(self):
@@ -171,6 +261,10 @@ class ServeRole:
             return
         self._drained.set()
         flushed = self.engine.drain()
+        # every request span is final once the queue flushed
+        trace.flush()
+        if trace.enabled():
+            events.emit("trace_flushed", reason=reason)
         if self.server is not None:
             self.server.stop(grace=2.0).wait(timeout=5.0)
         if self.ps_client is not None:
@@ -180,18 +274,44 @@ class ServeRole:
             reason, flushed, self.engine.batcher.served_total,
             self.engine.batcher.shed_total,
         )
+        events.emit(
+            "serve_drained", reason=reason, flushed=flushed,
+            served=self.engine.batcher.served_total,
+            shed=self.engine.batcher.shed_total,
+        )
+        events.emit("role_stop", reason=reason)
+        events.flush()
+        if self.observability is not None:
+            self.observability.stop()
+            self.observability = None
 
     def run(self, poll_secs=1.0):
         """Serve until stopped; a SIGTERM flag is noticed within one
-        poll and drains."""
+        poll and drains. With ``--master_addr`` every fifth poll also
+        carries the telemetry blob to the master."""
+        polls = 0
         while self.server.wait_for_termination(timeout=poll_secs):
             if self._term_flag:
                 return self._finish_term()
+            polls += 1
+            if self._master_client is not None and polls % 5 == 0:
+                try:
+                    self._master_client.get_comm_info()
+                except Exception:
+                    logger.debug("telemetry poll failed (master gone?)")
         return 0
 
 
 def main(argv=None):
     args = parse_serve_args(argv)
+    if args.metrics_port:
+        # publish before any instrument is constructed: the registry
+        # decides enabled/no-op at first touch
+        os.environ[http_server.PORT_ENV] = str(args.metrics_port)
+    # SIGTERM chain order: the crash hooks first; prepare()'s handler
+    # registers last and only flags, run() drains off the signal path
+    # and chains into the ring dump and exit 0
+    events.install_crash_hooks()
     return ServeRole(args).prepare().run()
 
 

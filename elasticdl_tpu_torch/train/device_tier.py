@@ -33,8 +33,9 @@ thread, which ``.cpu()`` also synchronises, before the next launch can
 touch the rows; the writeback thread only ever sees numpy copies. The
 steady-state gather-only combine runs K1, the function the reference
 computed there with an XLA gather. One device only: the reference's
-``ep`` mesh sharding and its metrics series are not ported yet (the
-integer tallies and ``stats()`` are).
+``ep`` mesh sharding is not ported yet. The tallies feed ``stats()``
+and the reference's per-table ``edl_device_tier_*`` series (no-ops
+when metrics collection is off).
 """
 
 import concurrent.futures
@@ -49,6 +50,7 @@ from elasticdl_tpu_torch.common.env_utils import env_int, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
 from elasticdl_tpu_torch.ops import embedding_tier as tier_ops
 
 logger = _logger_factory("elasticdl_tpu_torch.train.device_tier")
@@ -249,6 +251,34 @@ class DeviceEmbeddingTier:
         self.evict_chunks = 0
         self.row_reads = 0
         self.written_back_rows = 0
+        # per-table series in the metrics registry (no-ops when
+        # collection is off)
+        self._m_hits = obs_metrics.counter(
+            "edl_device_tier_hits_total",
+            "Unique ids served from the device-resident hot set",
+            ("table",),
+        )
+        self._m_misses = obs_metrics.counter(
+            "edl_device_tier_misses_total",
+            "Unique ids that fell through to the PS spillover tier",
+            ("table",),
+        )
+        self._m_evictions = obs_metrics.counter(
+            "edl_device_tier_evictions_total",
+            "Hot-set rows demoted (LFU pressure or TTL idle)",
+            ("table",),
+        )
+        self._m_hit_rate = obs_metrics.gauge(
+            "edl_device_tier_hit_rate",
+            "Cumulative device-tier hit rate (hits / lookups)",
+            ("table",),
+        )
+        self._m_occupancy = obs_metrics.gauge(
+            "edl_device_tier_occupancy",
+            "Resident rows / capacity", ("table",),
+        )
+        self._t_hits = {}    # per-table cumulative (the hit-rate gauge)
+        self._t_misses = {}
         logger.info(
             "device embedding tier: %d tables x %d rows on %s (%s "
             "optimizer, promote@%d, ttl=%d, writeback every %d steps)",
@@ -317,8 +347,20 @@ class DeviceEmbeddingTier:
                 # and the writeback decision must already see it dirty
                 table.slot_dirty[hit_slots] = True
             n_hit = int((slots >= 0).sum())
+            n_miss = int(unique.size) - n_hit
             self.hits += n_hit
-            self.misses += int(unique.size) - n_hit
+            self.misses += n_miss
+            self._t_hits[name] = self._t_hits.get(name, 0) + n_hit
+            self._t_misses[name] = self._t_misses.get(name, 0) + n_miss
+            total = self._t_hits[name] + self._t_misses[name]
+        if n_hit:
+            self._m_hits.labels(table=name).inc(n_hit)
+        if n_miss:
+            self._m_misses.labels(table=name).inc(n_miss)
+        if total:
+            self._m_hit_rate.labels(table=name).set(
+                self._t_hits[name] / total
+            )
         return slots
 
     def admit(self, name, miss_ids, miss_rows):
@@ -493,6 +535,12 @@ class DeviceEmbeddingTier:
                 dirty_slots.astype(np.int64).tolist()
             )
         self.evictions += int(victim_slots.size)
+        self._m_evictions.labels(table=table.name).inc(
+            int(victim_slots.size)
+        )
+        self._m_occupancy.labels(table=table.name).set(
+            table.res_ids.size / max(1, table.capacity)
+        )
 
     def mark_restart(self):
         """PS relaunch detected (may fire on another thread): invalidate
@@ -559,6 +607,7 @@ class DeviceEmbeddingTier:
         table.staged_slots, table.staged_ids = [], []
         table.staged_rows = []
         table.evict_ids, table.evict_slots = [], []
+        self._m_occupancy.labels(table=table.name).set(0.0)
 
     def _reset_state(self, table):
         table.state = tier_ops.init_table_state(
@@ -608,6 +657,9 @@ class DeviceEmbeddingTier:
             table.staged_slots, table.staged_ids = [], []
             table.staged_rows = []
             table.evict_ids, table.evict_slots = [], []
+            self._m_occupancy.labels(table=name).set(
+                table.res_ids.size / max(1, table.capacity)
+            )
         slots_dev = self._to_device(np.asarray(slots, np.int32))
         miss_dev = self._to_device(np.asarray(rows_buffer, np.float32))
         if not ins_slots and not ev_slots:
@@ -825,6 +877,16 @@ class DeviceEmbeddingTier:
             "row_reads": self.row_reads,
             "written_back_rows": self.written_back_rows,
         }
+
+    def hbm_bytes(self):
+        """Device bytes the tier's table state pins (rows + optimizer
+        slots): the HBM-accounting side of the worker's device
+        telemetry."""
+        return sum(
+            int(value.numel() * value.element_size())
+            for table in self._tables.values()
+            for value in table.state.values()
+        )
 
     def table_rows(self, name):
         """Resident (id, row) snapshot, for tests and debugging."""

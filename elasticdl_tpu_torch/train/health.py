@@ -20,8 +20,9 @@ the batch contributes nothing) or ``halt`` (raise
 :class:`HealthSentinelError`). ``EDL_HEALTH=0`` disables it all: the
 step returns no extra outputs and no tracker is built.
 
-The JAX package also journals these events and exports them as
-metrics; the port logs them until its observability layer is ported.
+Each detection is journaled (``health_loss_spike``,
+``health_grad_explosion``, ``health_nonfinite`` at a streak's start,
+``health_halt``) and counted in the ``edl_worker_*`` health series.
 """
 
 import threading
@@ -31,6 +32,8 @@ from elasticdl_tpu_torch.common.env_utils import env_float, env_int, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
 
 logger = _logger_factory("elasticdl_tpu_torch.train.health")
 
@@ -116,6 +119,31 @@ class HealthTracker:
         self.grad_explosions = 0
         self.skipped_batches = 0
         self.last_nonfinite_ts = 0.0
+        # counters (no-ops when metrics are off); the loss and norm
+        # gauges read straight off the tracker's fields
+        self._m_nonfinite = obs_metrics.counter(
+            "edl_worker_nonfinite_batches_total",
+            "Batches whose loss or gradients were NaN/Inf",
+        )
+        self._m_spikes = obs_metrics.counter(
+            "edl_worker_loss_spikes_total",
+            "Loss spikes beyond the robust z threshold",
+        )
+        self._m_explosions = obs_metrics.counter(
+            "edl_worker_grad_explosions_total",
+            "Global grad-norm explosions beyond the ceiling",
+        )
+        self._m_skipped = obs_metrics.counter(
+            "edl_worker_health_skipped_batches_total",
+            "Nonfinite batches dropped under the skip sentinel",
+        )
+        obs_metrics.gauge(
+            "edl_worker_loss_ewma", "Loss EWMA the spike detector tracks"
+        ).set_function(lambda: self.loss_ewma)
+        obs_metrics.gauge(
+            "edl_worker_grad_norm",
+            "Global gradient L2 norm, last finished batch",
+        ).set_function(lambda: self.grad_norm_last)
 
     def observe(self, loss, grad_norm, nonfinite):
         """Fold one batch's health scalars; returns None or "skip", or
@@ -171,30 +199,57 @@ class HealthTracker:
                 self.loss_last = loss
                 self.grad_norm_last = grad_norm
             streak = self.nonfinite_streak
+        # edge-triggered side effects outside the lock (journal IO)
         if spiked:
+            self._m_spikes.inc()
             logger.warning(
                 "loss spike: %.6g vs ewma %.6g (dev scale %.3g)",
                 loss, self.loss_ewma, self.loss_dev_ewma,
             )
+            # no role kwarg: events.emit stamps the process's role
+            events.emit(
+                "health_loss_spike",
+                loss=round(loss, 6), ewma=round(self.loss_ewma, 6),
+            )
         if exploded:
+            self._m_explosions.inc()
             logger.warning(
                 "grad-norm explosion: %.6g (ewma %.6g, ceiling "
                 "max=%g factor=%g)", grad_norm, self.grad_norm_ewma,
                 self.grad_norm_max, self.grad_factor,
             )
+            events.emit(
+                "health_grad_explosion",
+                grad_norm=round(grad_norm, 6),
+                ewma=round(self.grad_norm_ewma, 6),
+            )
         if not nonfinite:
             return None
+        self._m_nonfinite.inc()
+        if streak == 1:
+            # the streak's edge, not every step of a stuck run
+            events.emit(
+                "health_nonfinite",
+                loss=repr(loss), grad_norm=repr(grad_norm),
+                action=self.action,
+            )
         logger.warning(
             "nonfinite batch (loss=%r grad_norm=%r, streak %d); "
             "sentinel action=%s", loss, grad_norm, streak, self.action,
         )
         if self.action == "halt":
+            events.emit(
+                "health_halt", loss=repr(loss),
+                grad_norm=repr(grad_norm), streak=streak,
+            )
+            events.flush()
             raise HealthSentinelError(
                 "nonfinite loss/gradients (loss=%r grad_norm=%r); "
                 "%s=halt -- failing the task loudly"
                 % (loss, grad_norm, ON_NONFINITE_ENV)
             )
         if self.action == "skip":
+            self._m_skipped.inc()
             with self._lock:
                 self.skipped_batches += 1
             return "skip"

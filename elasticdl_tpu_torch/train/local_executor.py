@@ -8,8 +8,11 @@ A dense model trains through ``TorchTrainer``. A model with sparse
 embedding specs (DeepFM) trains through ``SparseTrainer`` over an
 in-process embedding store (``LocalPSClient``), with the device tier
 when ``EDL_DEVICE_TIER`` turns it on. The weights are initialised from
-``seed``. The JAX executor's trace, events, profiler and HTTP endpoints
-wait for the observability port.
+``seed``. Observability as in the distributed roles, under role
+``local``: ``EDL_TRACE_DIR`` makes each step a ``train_batch`` root span,
+``EDL_EVENTS_DIR`` opens the journal, ``EDL_PROF_HZ`` starts the host
+stack sampler and ``EDL_METRICS_PORT`` serves ``/metrics``,
+``/healthz`` and ``/readyz``.
 """
 
 import numpy as np
@@ -26,6 +29,12 @@ from elasticdl_tpu_torch.data.pipeline import (
 )
 from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.observability import (
+    events,
+    http_server,
+    profiler,
+    trace,
+)
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.ps.local_client import LocalPSClient
 from elasticdl_tpu_torch.train.metrics import EvaluationMetrics
@@ -97,6 +106,16 @@ class LocalExecutor:
                 device=self.device,
             )
         self.state = None
+        # observability: opt-in through the distributed roles' knobs
+        trace.configure("local")
+        events.configure("local")
+        profiler.maybe_start("local")
+        self.observability = http_server.maybe_start("local")
+        if self.observability is not None:
+            # a local run is ready as soon as the trainer exists
+            self.observability.add_readiness_check(
+                "trainer_constructed", lambda: self.trainer is not None
+            )
 
     # ------------------------------------------------------------------
     def _records(self, reader):
@@ -122,10 +141,17 @@ class LocalExecutor:
     def train(self):
         """Train for ``num_epochs``; returns the per-step losses."""
         losses = []
+        step = 0
         for epoch in range(self._num_epochs):
             for batch in self._batches(self._train_reader, "training"):
-                self.state, loss = self.trainer.train_step(self.state, batch)
+                # each step is a root span, as in the distributed run;
+                # the in-process store's spans chain under it
+                with trace.root_span("train_batch", role="worker",
+                                     step=step):
+                    self.state, loss = self.trainer.train_step(
+                        self.state, batch)
                 losses.append(float(loss))
+                step += 1
             logger.info(
                 "Epoch %d done; last-batch loss %.4f", epoch, losses[-1]
             )

@@ -29,10 +29,15 @@ started when the step is dispatched, with the loss and the health
 scalars beside them; ``_fold`` waits for it. The buffers are reused,
 so what leaves them for a push or an accumulation is copied out first.
 
+The step's host-blocking row-gradient fetch is a ``transfer`` span
+(observability/device.py), the async push keeps its step's trace
+context (``trace.bind_context``), and brownout skips and recoveries are
+journaled.
+
 Not ported yet: the serving tier's read-only preparer, the SPMD and
 multi-host hooks (the tier's mesh, the per-process row-gradient
-shard), the fault injector's poisoned batch, the events journal and
-the device-obs transfer spans and cost counters.
+shard), the fault injector's poisoned batch and the device-obs cost
+counters.
 """
 
 import concurrent.futures
@@ -51,6 +56,8 @@ from elasticdl_tpu_torch.common.log_utils import (
 from elasticdl_tpu_torch.common.tensor_utils import deduplicate_indexed_slices
 from elasticdl_tpu_torch.common.timing_utils import Timing
 from elasticdl_tpu_torch.data.pipeline import MASK_KEY
+from elasticdl_tpu_torch.observability import device as device_obs
+from elasticdl_tpu_torch.observability import events, trace
 from elasticdl_tpu_torch.embedding.client import (  # noqa: F401
     EmbeddingClient,
     HotRowCache,
@@ -724,8 +731,14 @@ class SparseTrainer:
         still hold these rows. (Copying out costs 8 bytes a row here;
         rotating buffers would need as many sets as steps can be held.)
         """
-        self._fetch.wait(flight.event)
         host = flight.host
+        # the wait is the step's host-blocking d2h fetch (no extra sync:
+        # the copy was issued with the step)
+        with device_obs.transfer_span(
+            "d2h", sum(host[k].numel() * host[k].element_size()
+                       for k in host if k.startswith("rows_"))
+        ):
+            self._fetch.wait(flight.event)
         if self._health_on:
             scalars = {k[len("health_"):]: v for k, v in host.items()
                        if k.startswith("health_")}
@@ -827,11 +840,23 @@ class SparseTrainer:
                 "failure %s, streak %d%s)", code, self._brownout_streak,
                 ", degraded pacing" if degraded else "",
             )
+            if events.enabled():
+                events.emit(
+                    "brownout_skipped_push",
+                    streak=self._brownout_streak,
+                    degraded=degraded,
+                    code=str(code),
+                )
             # never sent: nothing to retry, no version to adopt
             return True, self._version, ()
         if self._brownout_streak:
             logger.warning("brownout recovered: push landed after %d "
                            "dropped pushes", self._brownout_streak)
+            if events.enabled():
+                events.emit(
+                    "brownout_recovered",
+                    skipped=self._brownout_streak,
+                )
             self._brownout_streak = 0
         return result
 
@@ -872,9 +897,12 @@ class SparseTrainer:
             # staleness, the async PS's envelope)
             with self.timing.timeit("sparse_push"):
                 self.join_pushes()
+            # bind_context: the push runs on the executor thread after
+            # this step's root span closed; binding keeps its ps_push and
+            # RPC spans children of the step that made the gradients
             self._push_future = self._async_pool.submit(
-                self._push_with_brownout, row_grads, pull_info,
-                model_version=self._version)
+                trace.bind_context(self._push_with_brownout), row_grads,
+                pull_info, model_version=self._version)
             return state, loss
         with self.timing.timeit("sparse_push"):
             accepted, version, rejected = self._push_with_brownout(
@@ -930,9 +958,13 @@ class SparseTrainer:
         outputs = self._eval_step(
             state, _to_device(prepared["features"], self.device)
         )
-        if isinstance(outputs, dict):
-            return {k: _host(v) for k, v in outputs.items()}
-        return _host(outputs)
+        leaves = (list(outputs.values()) if isinstance(outputs, dict)
+                  else [outputs])
+        nbytes = sum(v.numel() * v.element_size() for v in leaves)
+        with device_obs.transfer_span("d2h", nbytes):
+            if isinstance(outputs, dict):
+                return {k: _host(v) for k, v in outputs.items()}
+            return _host(outputs)
 
     # ------------------------------------------------------------------
     def train_stream(self, state, batches, on_first_batch=None,

@@ -10,8 +10,10 @@ tier, deregisters and exits normally (bounded by the worker's
 ``EDL_DRAIN_DEADLINE_SECS`` watchdog). Before ``bind`` (a SIGTERM during
 start-up) it chains the handler installed before it, or exits 0.
 
-Not ported (ROADMAP): the flight recorder, which the reference chains
-in front of this hook.
+worker/main.py installs the flight recorder's crash hooks
+(``events.install_crash_hooks``) after this hook, so a SIGTERM first
+dumps the event ring and flushes the journal and the trace, then chains
+into the drain.
 """
 
 import signal

@@ -18,8 +18,16 @@ in-flight push, flushes its device tier to the PS, deregisters and
 exits 0 (worker/drain.py), within ``EDL_DRAIN_DEADLINE_SECS`` (45 s; past
 it the process exits 1 and the master requeues its tasks). A SIGTERM
 before the worker exists exits 0 at once.
+
+``--metrics_port`` (or ``EDL_METRICS_PORT``) serves ``/metrics``,
+``/healthz`` and ``/readyz`` (ready once the master channel carried an
+RPC); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on the worker's
+events journal and trace (role ``worker-<id>``). At exit the worker logs
+its device tier's tallies (``tier stats at exit``).
 """
 
+import json
+import os
 import sys
 
 from elasticdl_tpu_torch.common.args import parse_worker_args
@@ -28,6 +36,12 @@ from elasticdl_tpu_torch.common.log_utils import (
 )
 from elasticdl_tpu_torch.data.readers import create_data_reader
 from elasticdl_tpu_torch.models.registry import parse_params_string
+from elasticdl_tpu_torch.observability import (
+    events,
+    http_server,
+    profiler,
+    trace,
+)
 from elasticdl_tpu_torch.train.health import HealthSentinelError
 from elasticdl_tpu_torch.worker.drain import install_sigterm_drain
 from elasticdl_tpu_torch.worker.master_client import MasterClient
@@ -41,11 +55,37 @@ def main(argv=None):
     # exists, exits 0)
     drain_hook = install_sigterm_drain()
     args = parse_worker_args(argv)
+    role = "worker-%d" % args.worker_id
+    if args.metrics_port:
+        # publish the knob before any instrument (or instrumented
+        # channel) is constructed: the registry decides enabled/no-op
+        # at first touch
+        os.environ[http_server.PORT_ENV] = str(args.metrics_port)
+    trace.configure(role)
+    events.configure(role)
+    # the host stack sampler: on when EDL_PROF_HZ is set, served as
+    # /profilez on the observability port below
+    profiler.maybe_start(role)
+    # in chain order: the drain hook came first, so the crash hooks
+    # capture it as the previous handler; a SIGTERM dumps the event
+    # ring, flushes the journal and the trace, then drains
+    events.install_crash_hooks()
     master_client = MasterClient(args.master_addr, worker_id=args.worker_id)
+    observability = http_server.maybe_start(role, cli_port=args.metrics_port)
+    if observability is not None:
+        # readiness milestone: the master channel has carried an RPC
+        # (reset_worker below, then the heartbeat)
+        observability.add_readiness_check(
+            "master_channel_ready", master_client.channel_ok
+        )
     # fresh incarnation: flush any task a dead predecessor with this
     # worker_id still holds; the answer is this worker_id's relaunch
     # epoch, the push incarnation the sync PS orders relaunches by
     master_client.reset_worker()
+    events.emit(
+        "role_start", worker=args.worker_id,
+        epoch=master_client.incarnation or 0,
+    )
     reader = create_data_reader(
         args.training_data or args.validation_data or args.prediction_data,
         **parse_params_string(args.data_reader_params),
@@ -79,13 +119,30 @@ def main(argv=None):
         worker.run()
     except HealthSentinelError as e:
         # the task was already reported failed (requeued once); exit
-        # nonzero so the failure is loud
+        # nonzero so the failure is loud, with the buffers flushed
         logger.error("health sentinel halt: %s", e)
+        events.emit(
+            "role_stop", worker=args.worker_id, reason="health_halt"
+        )
+        events.flush()
+        trace.flush()
         return 1
     except CheckpointRestoreError as e:
         # held tasks were handed back; the restore is not retried here
         logger.error("checkpoint restore failed: %s", e)
+        events.emit(
+            "role_stop", worker=args.worker_id, reason="restore_failed"
+        )
+        events.flush()
+        trace.flush()
         return 1
+    tier = getattr(worker.trainer, "device_tier", None)
+    if tier is not None:
+        logger.info("Worker %d tier stats at exit: %s", args.worker_id,
+                    json.dumps(tier.stats(), sort_keys=True))
+    events.emit("role_stop", worker=args.worker_id)
+    events.flush()
+    trace.flush()
     return 0
 
 

@@ -1,6 +1,5 @@
 """Thin gRPC wrapper the worker (and the PS's liveness poll) uses to
-talk to the master (port of elasticdl_tpu/worker/master_client.py,
-without its RPC metrics and telemetry).
+talk to the master (port of elasticdl_tpu/worker/master_client.py).
 
 ``get_task`` answers an empty Task on an RPC error, which the worker
 reads as "job over", so a master that exits never strands its workers.
@@ -9,6 +8,12 @@ backoff through ``MASTER_RETRY_BUDGET_SECS`` (a master relaunch window;
 ``EDL_MASTER_RETRY_BUDGET_SECS`` overrides), and every response's
 ``master_epoch`` feeds a restart detector: when it moves, a registered
 client calls ``reset_worker`` again so the new master knows it.
+
+``telemetry_provider`` (set by the worker or the PS) returns the
+``TelemetryBlob`` that get_task, report_task_result, get_comm_info and
+deregister_worker carry to the master's fleet monitor: telemetry never
+makes an RPC of its own. The channel carries the client metrics
+interceptor when metrics are on.
 """
 
 import grpc
@@ -19,6 +24,7 @@ from elasticdl_tpu_torch.common.grpc_utils import build_channel, retry_call
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability.grpc_metrics import instrument_channel
 from elasticdl_tpu_torch.common.tensor_utils import ndarray_to_blob
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.proto.services import MasterStub
@@ -38,7 +44,7 @@ class MasterClient:
         rendezvous. The port has no multi-host trainer, so by default a
         worker stays out of the mesh ("", as a PS does) and the task
         monitor judges it by its liveness alone; pass a host to join."""
-        self._channel = build_channel(master_addr)
+        self._channel = instrument_channel(build_channel(master_addr))
         self._stub = MasterStub(self._channel)
         self._worker_id = worker_id
         self._worker_host = worker_host
@@ -50,6 +56,26 @@ class MasterClient:
         # poll must not start registering).
         self._seen_master_epoch = None
         self._registered = False
+        # readiness signal for /readyz: True once any RPC round-tripped
+        self._channel_ok = False
+        # fleet-telemetry piggyback: a callable returning a
+        # pb.TelemetryBlob (or None to skip) that get_task /
+        # report_task_result / get_comm_info / deregister_worker attach
+        # to their requests; no extra RPC is ever made for telemetry
+        self.telemetry_provider = None
+
+    def _attach_telemetry(self, request):
+        provider = self.telemetry_provider
+        if provider is None:
+            return request
+        try:
+            blob = provider()
+        except Exception:
+            logger.warning("telemetry provider failed", exc_info=True)
+            return request
+        if blob is not None:
+            request.telemetry.CopyFrom(blob)
+        return request
 
     @property
     def worker_id(self):
@@ -60,6 +86,13 @@ class MasterClient:
         """Master-assigned relaunch epoch, or None if reset_worker has
         not succeeded."""
         return self._incarnation
+
+    def channel_ok(self):
+        """The worker's /readyz check: has the master channel carried a
+        successful RPC recently? Updated by reset_worker and the
+        heartbeat's get_comm_info, so a dead master flips the worker
+        unready within a heartbeat interval."""
+        return self._channel_ok
 
     # get_task deadline misses tolerated before concluding job-over: an
     # empty Task makes the worker exit, so one slow call must not end
@@ -92,6 +125,7 @@ class MasterClient:
         request = pb.GetTaskRequest(worker_id=self._worker_id)
         if task_type is not None:
             request.task_type = task_type
+        self._attach_telemetry(request)
         deadline_misses = 0
         while True:
             try:
@@ -119,16 +153,21 @@ class MasterClient:
                     continue
                 # master gone past the whole budget: job over
                 return pb.Task()
+            self._channel_ok = True
             if self._maybe_reregister(task.master_epoch):
                 continue
             return task
 
-    def report_task_result(self, task_id, err_message=""):
+    def report_task_result(self, task_id, err_message="",
+                           exec_counters=None):
         request = pb.ReportTaskResultRequest(
             task_id=task_id,
             err_message=err_message,
             worker_id=self._worker_id,
         )
+        self._attach_telemetry(request)
+        for key, value in (exec_counters or {}).items():
+            request.exec_counters[key] = str(value)
         try:
             self._stub.report_task_result(
                 request, timeout=GRPC.DEFAULT_RPC_TIMEOUT_SECS
@@ -176,6 +215,7 @@ class MasterClient:
             return None
         self._incarnation = response.restart_count
         self._registered = True
+        self._channel_ok = True
         if response.master_epoch:
             self._seen_master_epoch = response.master_epoch
         return self._incarnation
@@ -188,12 +228,14 @@ class MasterClient:
         UNIMPLEMENTED, or the master is gone): the caller exits anyway
         and the master's liveness and drain-deadline fallback covers the
         cleanup."""
-        request = pb.DeregisterWorkerRequest(
-            worker_id=self._worker_id,
-            reason=reason,
-            pushes_joined=pushes_joined,
-            tier_flushed=tier_flushed,
-            tasks_reported=tasks_reported,
+        request = self._attach_telemetry(
+            pb.DeregisterWorkerRequest(
+                worker_id=self._worker_id,
+                reason=reason,
+                pushes_joined=pushes_joined,
+                tier_flushed=tier_flushed,
+                tasks_reported=tasks_reported,
+            )
         )
         try:
             self._stub.deregister_worker(
@@ -215,9 +257,11 @@ class MasterClient:
     def get_comm_info(self):
         """The heartbeat and the PS's liveness poll. A failure answers
         ``mesh_epoch=-1`` (the master-gone marker)."""
-        request = pb.GetCommInfoRequest(
-            worker_id=self._worker_id,
-            worker_host=self._worker_host,
+        request = self._attach_telemetry(
+            pb.GetCommInfoRequest(
+                worker_id=self._worker_id,
+                worker_host=self._worker_host,
+            )
         )
         try:
             # a short channel-driving retry: fail-fast attempts alone
@@ -232,7 +276,9 @@ class MasterClient:
                 channel=self._channel,
             )
         except grpc.RpcError:
+            self._channel_ok = False
             return pb.CommInfo(rank=-1, world_size=0, mesh_epoch=-1)
+        self._channel_ok = True
         # the heartbeat is usually the first RPC to see a restarted
         # master: re-register before the next dispatch
         self._maybe_reregister(info.master_epoch)

@@ -1,6 +1,5 @@
 """Worker-side PS client: id-mod sharding and per-shard fan-out (port of
-elasticdl_tpu/worker/ps_client.py, without its trace spans, RPC metrics
-and events journal).
+elasticdl_tpu/worker/ps_client.py).
 
 Embedding rows live on PS shard ``id % ps_num``. Pulls and pushes fan
 out over the shards concurrently and reassemble in input order;
@@ -11,6 +10,12 @@ and retry budget (``common/overload.py``).
 
 A client talks to the PS of either package: the service, its methods
 and the messages are the same.
+
+Each pull and push is a span (``ps_pull``, ``ps_pull_batch``,
+``ps_push_rows``, ``ps_push``) whose context rides the per-shard pool
+threads (``trace.bind_context``) onto the wire; the channels carry the
+client metrics interceptor when metrics are on, and a shard's relaunch
+journals ``worker_resynced``.
 """
 
 import concurrent.futures
@@ -26,6 +31,8 @@ from elasticdl_tpu_torch.common.grpc_utils import build_channel, retry_call
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.observability import events, trace
+from elasticdl_tpu_torch.observability.grpc_metrics import instrument_channel
 from elasticdl_tpu_torch.common.tensor_utils import (
     blob_to_f32,
     blob_to_ndarray,
@@ -78,7 +85,8 @@ class PSClient:
         if isinstance(ps_addrs, str):
             ps_addrs = [a for a in ps_addrs.split(",") if a]
         self._addrs = list(ps_addrs)
-        self._channels = [build_channel(a) for a in self._addrs]
+        self._channels = [instrument_channel(build_channel(a))
+                          for a in self._addrs]
         self._stubs = [PserverStub(ch) for ch in self._channels]
         # identity stamped onto pushes so the sync PS can clean its
         # round buffer per worker; None = anonymous. The incarnation
@@ -213,6 +221,12 @@ class PSClient:
         hook = self.resync_hook
         if hook is not None:
             hook(shard)
+        events.emit(
+            "worker_resynced", shard=shard,
+            version=version if version is not None else -1,
+            restored=restored if restored is not None else -1,
+            worker=self._worker_id if self._worker_id is not None else -1,
+        )
 
     def push_dense_init(self, params, version=0):
         self._dense_init = (dict(params), version)
@@ -246,6 +260,10 @@ class PSClient:
     def pull_embedding_vectors(self, name, ids):
         """ids: int64 array; returns fp32 rows aligned with input
         order."""
+        with trace.span("ps_pull", table=name):
+            return self._pull_embedding_vectors(name, ids)
+
+    def _pull_embedding_vectors(self, name, ids):
         ids = np.asarray(ids, dtype=np.int64)
         if ids.size == 0:
             return np.empty((0, 0), dtype=np.float32)
@@ -263,7 +281,7 @@ class PSClient:
         shard_of = ids % self.ps_num
         futures, positions = {}, {}
         # bind_budget: a caller's deadline budget rides into the pool
-        call = overload.bind_budget(_call_with_retry)
+        call = overload.bind_budget(trace.bind_context(_call_with_retry))
         for shard in np.unique(shard_of):
             shard = int(shard)
             pos = np.nonzero(shard_of == shard)[0]
@@ -295,7 +313,9 @@ class PSClient:
                 max_workers=max(4, len(ids_by_table)),
                 thread_name_prefix="ps-table-pull",
             )
-        pull = overload.bind_budget(self.pull_embedding_vectors)
+        pull = overload.bind_budget(
+            trace.bind_context(self._pull_embedding_vectors)
+        )
         futures = {
             name: self._table_pool.submit(pull, name, ids)
             for name, ids in ids_by_table.items()
@@ -307,6 +327,10 @@ class PSClient:
         fp32 rows aligned with that table's ids}`` out, one RPC per PS
         shard for the whole step. Falls back to per-table pulls against
         an old server (UNIMPLEMENTED, remembered)."""
+        with trace.span("ps_pull_batch", tables=len(ids_by_table)):
+            return self._pull_embedding_batch(ids_by_table)
+
+    def _pull_embedding_batch(self, ids_by_table):
         ids_by_table = normalize_id_tables(ids_by_table)
         if not ids_by_table:
             return {}
@@ -326,7 +350,7 @@ class PSClient:
                 positions[(name, shard)] = pos
                 requests[shard].tables[name].ids_blob = pack_ids(ids[pos])
         futures = {}
-        call = overload.bind_budget(_call_with_retry)
+        call = overload.bind_budget(trace.bind_context(_call_with_retry))
         fail_fast = overload.brownout_enabled()
         for shard, request in enumerate(requests):
             if not request.tables:
@@ -376,6 +400,10 @@ class PSClient:
         values overwriting the PS store. Always fp32 on the wire,
         whatever EDL_WIRE_DTYPE says: these are master copies, and a
         reduced payload would round them for good."""
+        with trace.span("ps_push_rows", tables=len(rows_by_table)):
+            return self._push_embedding_rows(rows_by_table)
+
+    def _push_embedding_rows(self, rows_by_table):
         requests = [pb.Model() for _ in self._stubs]
         for name, (ids, values) in rows_by_table.items():
             ids = np.asarray(ids, dtype=np.int64)
@@ -397,7 +425,7 @@ class PSClient:
                     packed=not self._legacy_ids,
                 )
         futures = []
-        call = overload.bind_budget(_call_with_retry)
+        call = overload.bind_budget(trace.bind_context(_call_with_retry))
         for shard, (stub, request) in enumerate(zip(self._stubs, requests)):
             if not request.embedding_tables:
                 continue
@@ -438,6 +466,14 @@ class PSClient:
         each shard's sync round. ``round_scoped``: ask the sync PS to
         pair pushes by version tag, not arrival order.
         """
+        with trace.span("ps_push", version=model_version):
+            return self._push_gradients(
+                grads_by_table, model_version, lr_scale, only_shards,
+                force_empty, round_scoped,
+            )
+
+    def _push_gradients(self, grads_by_table, model_version, lr_scale,
+                        only_shards, force_empty, round_scoped):
         shard_filter = (None if only_shards is None
                         else set(int(s) for s in only_shards))
         per_ps = self._push_requests
@@ -475,7 +511,7 @@ class PSClient:
                     wire_dtype=payload_dtype, packed=not self._legacy_ids,
                 )
         futures = []
-        call = overload.bind_budget(_call_with_retry)
+        call = overload.bind_budget(trace.bind_context(_call_with_retry))
         for shard, (stub, request) in enumerate(zip(self._stubs, per_ps)):
             if not request.gradients.embedding_tables and not force_empty:
                 continue

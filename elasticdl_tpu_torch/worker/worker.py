@@ -32,8 +32,17 @@ master ``deregister_worker``. ``EDL_DRAIN_DEADLINE_SECS`` (45 s) bounds
 it: past the deadline the process exits 1 and the master's
 requeue-on-death fallback takes over.
 
-Not ported (ROADMAP): the lockstep multi-host loop, stream
-checkpoints, telemetry and trace spans.
+Telemetry: a compact ``TelemetryBlob`` (step-time EWMA, examples/s,
+the device tier's tallies, the health tracker's fields and
+``observability/device.py``'s memory view) rides the master RPCs the
+worker already makes; ``EDL_TELEMETRY=0`` opts out. With
+``EDL_TRACE_DIR`` each sequential train step is the root span of a
+trace (``train_batch``, carrying the task id) that covers the step and
+its bookkeeping, so the PS pulls and pushes and the task's report to
+the master join it over gRPC.
+
+Not ported (ROADMAP): the lockstep multi-host loop and stream
+checkpoints.
 """
 
 import contextlib
@@ -44,9 +53,10 @@ import time
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common import overload
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.device import resolve_device
-from elasticdl_tpu_torch.common.env_utils import env_float
+from elasticdl_tpu_torch.common.env_utils import env_float, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -57,6 +67,10 @@ from elasticdl_tpu_torch.data.pipeline import (
     normalize_outputs,
 )
 from elasticdl_tpu_torch.models.registry import get_model_spec
+from elasticdl_tpu_torch.observability import device as device_obs
+from elasticdl_tpu_torch.observability import events
+from elasticdl_tpu_torch.observability import metrics as obs_metrics
+from elasticdl_tpu_torch.observability import trace
 from elasticdl_tpu_torch.ops import embedding_tier as tier_ops
 from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 from elasticdl_tpu_torch.train.callbacks import SavedModelExporter
@@ -239,12 +253,35 @@ class Worker:
             cb.set_worker(self)
         # per-phase wall clock (EDL_TIMING=1)
         self._timing = Timing()
+        # domain gauges fed off the step telemetry (no second timer);
+        # no-op instruments when metrics are off
+        self._m_examples_per_sec = obs_metrics.gauge(
+            "edl_worker_examples_per_second",
+            "Real (unpadded) examples trained per second, last step",
+        )
+        self._m_version = obs_metrics.gauge(
+            "edl_worker_model_version", "This worker's model version"
+        )
         self._heartbeat_stop = threading.Event()
         self._heartbeat_thread = None
         # graceful drain (begin_drain / _finish_drain)
         self._draining = False
         self._drain_reason = None
         self._drain_done = False
+        # fleet telemetry: a compact blob piggybacked on the master RPCs
+        # this worker already makes. Cost: one clock read and a few
+        # float ops a batch, one small proto a RPC; EDL_TELEMETRY=0
+        # opts out
+        self._telemetry_on = env_str("EDL_TELEMETRY", "") != "0"
+        self._step_ewma = 0.0
+        self._last_examples_per_sec = 0.0
+        self._prev_batch_end = 0.0
+        self._telemetry_samples = 0
+        self._ewma_outlier_streak = 0
+        if self._telemetry_on and hasattr(
+            master_client, "telemetry_provider"
+        ):
+            master_client.telemetry_provider = self._telemetry_blob
 
     def _start_heartbeat(self):
         def beat():
@@ -261,6 +298,94 @@ class Worker:
         if self._heartbeat_thread is not None:
             self._heartbeat_thread.join()
             self._heartbeat_thread = None
+
+    def _telemetry_blob(self):
+        """The piggyback payload of the master RPCs. Called on the RPC
+        path (get_task, report, heartbeat, deregister), never a step."""
+        blob = pb.TelemetryBlob(
+            role="worker-%d" % self._mc.worker_id,
+            step_time_ewma=self._step_ewma,
+            examples_per_sec=self._last_examples_per_sec,
+            last_task_seconds=self.tds.last_task_seconds,
+            model_version=self._version,
+        )
+        # the device tier's hot-set health
+        tier = getattr(self.trainer, "device_tier", None)
+        if tier is not None:
+            stats = tier.stats()
+            blob.tier_hit_rate = stats["hit_rate"]
+            blob.tier_occupancy = stats["occupancy"]
+            blob.tier_hits = stats["hits"]
+            blob.tier_misses = stats["misses"]
+            blob.tier_evictions = stats["evictions"]
+        # training health: the numerics sentinels' view of this
+        # worker's model, for the master's nonfinite_loss / loss_spike /
+        # grad_explosion detectors
+        tracker = getattr(self.trainer, "health", None)
+        if tracker is not None:
+            stats = tracker.stats()
+            blob.health_loss_ewma = stats["loss_ewma"]
+            blob.health_loss_last = stats["loss_last"]
+            blob.health_grad_norm = stats["grad_norm"]
+            blob.health_nonfinite_batches = stats["nonfinite_batches"]
+            blob.health_nonfinite_streak = stats["nonfinite_streak"]
+            blob.health_loss_spikes = stats["loss_spikes"]
+            blob.health_grad_explosions = stats["grad_explosions"]
+            blob.health_skipped_batches = stats["skipped_batches"]
+        # device runtime: the allocator's HBM view (what hbm_pressure
+        # reads); the compile ledger's fields stay 0 (no compiled step)
+        device_obs.fill_blob(blob)
+        if tier is not None and device_obs.device_obs_enabled():
+            blob.tier_hbm_bytes = tier.hbm_bytes()
+        # the overload plane: this process's circuit-breaker, retry
+        # budget and brownout tallies
+        ostats = overload.client_stats()
+        blob.circuit_open_count = ostats["circuit_open_count"]
+        blob.degraded_pulls = ostats["degraded_pulls"]
+        blob.retry_budget_exhausted = ostats["retry_budget_exhausted"]
+        blob.brownout_skipped_pushes = getattr(
+            self.trainer, "brownout_skipped_pushes", 0
+        )
+        return blob
+
+    def _update_step_telemetry(self, real_count):
+        """Fold one finished batch into the telemetry EWMA: the wall
+        time between batch ends (the step's device work is asynchronous,
+        and no telemetry may synchronize the card). Every worker
+        measures the same way, which is all the straggler's
+        fleet-relative comparison needs.
+
+        Outliers: the first batch carries the start-up and is skipped;
+        later samples over 10x the EWMA (and over 1 s, a task-boundary
+        gap) are skipped unless three arrive in a row, so a worker that
+        really slowed down re-anchors after three steps."""
+        now = time.time()
+        step_secs = (now - self._prev_batch_end
+                     if self._prev_batch_end > 0.0 else None)
+        self._prev_batch_end = now
+        if step_secs is None or step_secs <= 0:
+            return
+        self._telemetry_samples += 1
+        if self._telemetry_samples == 1:
+            return
+        if (
+            self._step_ewma > 0.0
+            and step_secs > 10.0 * self._step_ewma
+            and step_secs > 1.0
+        ):
+            self._ewma_outlier_streak += 1
+            if self._ewma_outlier_streak < 3:
+                return
+            self._step_ewma = step_secs  # sustained: the new reality
+        else:
+            self._step_ewma = (
+                step_secs
+                if self._step_ewma == 0.0
+                else 0.9 * self._step_ewma + 0.1 * step_secs
+            )
+        self._ewma_outlier_streak = 0
+        self._last_examples_per_sec = real_count / step_secs
+        self._m_examples_per_sec.set(self._last_examples_per_sec)
 
     # ------------------------------------------------------------------
     @property
@@ -288,6 +413,10 @@ class Worker:
             "Worker %s draining (%s): finishing current task, then "
             "flush + deregister", self._mc.worker_id, reason,
         )
+        events.emit(
+            "worker_draining", worker=self._mc.worker_id, reason=reason,
+            initiator="worker",
+        )
         deadline = env_float("EDL_DRAIN_DEADLINE_SECS", 45.0)
         # bounds a wedged drain (a PS that stopped answering): past the
         # deadline the process dies and the master's requeue-on-death
@@ -304,6 +433,9 @@ class Worker:
         logger.error(
             "drain did not finish within %.0fs; aborting", deadline
         )
+        events.dump("drain_deadline")
+        events.flush()
+        trace.flush()
         os._exit(1)
 
     def _finish_drain(self):
@@ -350,6 +482,15 @@ class Worker:
             tier_flushed=flushed,
             tasks_reported=handed_back,
         )
+        if not acked:
+            # the master journals the canonical drain_ack on the RPC;
+            # this side's record of an unheard flush has its own name
+            events.emit(
+                "drain_unacked", worker=self._mc.worker_id,
+                reason=reason, pushes_joined=joined,
+                tier_flushed=flushed, handed_back=handed_back,
+            )
+        events.flush()
         self._drain_done = True
         logger.info(
             "Worker %s drained at version %d (%s; acked=%s "
@@ -400,6 +541,8 @@ class Worker:
         self._join_trainer_pushes()
         self._flush_device_tier()
         self._checkpoint_mgr.save(self._version, self.state)
+        events.emit("checkpoint_saved", version=self._version,
+                    kind="dense")
 
     def _timed_train_step(self, batch):
         t0 = self._timing.start()
@@ -417,8 +560,12 @@ class Worker:
             and self._version % self._checkpoint_steps == 0
         ):
             self._save_checkpoint()
+        real = batch_real_count(batch)
+        if self._telemetry_on:
+            self._update_step_telemetry(real)
         with self._timing.timeit("report_record"):
-            self.tds.report_record_done(batch_real_count(batch))
+            self.tds.report_record_done(real)
+        self._m_version.set(self._version)
         if (
             self._report_version_steps
             and self._version % self._report_version_steps == 0
@@ -460,12 +607,29 @@ class Worker:
                 if self.stop_training:
                     break
 
+    def _step_trace(self):
+        """With EDL_TRACE_DIR: the root span of a train step's trace
+        (``train_batch``, under the current task's id). The PS client's
+        pull and push spans become its children, and the context
+        crosses the gRPC hops, so the PS handlers and the master's task
+        report land in the same trace. A span is host time: the step's
+        device work is asynchronous and nothing here waits for it."""
+        if not trace.enabled():
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(trace.task_context(self.tds.current_task_id()))
+        stack.enter_context(trace.root_span(
+            "train_batch", role="worker", version=self._version
+        ))
+        return stack
+
     def _train_batches_sequential(self, batches):
         for batch in batches:
             if not self._restore_attempted:
                 self._restore_from_checkpoint(batch)
-            loss = self._timed_train_step(batch)
-            self._after_train_batch(batch, loss)
+            with self._step_trace():
+                loss = self._timed_train_step(batch)
+                self._after_train_batch(batch, loss)
             if self.stop_training:
                 break
 

@@ -238,7 +238,16 @@ def test_artifact_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
     assert out["master_rc"] == 0 and out["worker0_version"] == 64
     assert out["export_step"] == 64 and out["dense_versions"] == [48, 64]
     assert len(out["train_end_tasks_done"]) == 1
-    assert out["launches_train_end_flush"] == [[2, 0, 0]]
+    # the train-end barrier reads back what was dirty at it: both tables
+    # when the job's evaluation ran first, nothing when a get_task
+    # between the last task report and the version report handed the
+    # train-end task out first (tests/test_torch_train_end_order.py)
+    (end,) = out["train_end_flushes"]
+    assert out["launches_train_end_flush"] == [end["want"]]
+    assert end["reads"] == end["dirty_tables"]
+    assert end["dirty_tables"] == (
+        2 if out["train_end_order"] == "evaluation_first" else 0)
+    assert not out["training_handed_after_train_end"]
     assert out["launches_checkpoint_flush"] == [[2, 0, 0]] * 4
     assert not out["launch_formula_mismatches"]
     assert out["ps_final_versions"] == [64, 64]
@@ -284,3 +293,76 @@ def test_control_phase_rehearses_on_the_cpu(tmp_path, counting_tier):
     assert out["export_step"] == out["worker0_version"]
     assert out["evaluations"] and not out["launch_formula_mismatches"]
     assert out["launches"]["gather"] > 0
+
+
+@pytest.fixture
+def counting_flash(monkeypatch):
+    """K4's CPU path, counting a launch where the CUDA wrapper would."""
+    from elasticdl_tpu_torch.ops import flash_attention as flash
+
+    fwd = flash.flash_attention_fwd
+
+    def counted(*args, **kwargs):
+        flash.LAUNCHES += 1
+        return fwd(*args, **kwargs)
+
+    monkeypatch.setattr(flash, "flash_attention_fwd", counted)
+    return flash
+
+
+def test_telemetry_phase_rehearses_on_the_cpu(tmp_path, counting_tier,
+                                              counting_flash):
+    """Phase 13 end to end on the CPU at a small size (8 fields, batch
+    64, 2 of 4 files of 8192 records: 32 tasks of 8 steps, evaluated
+    every 96 versions, late enough that the worker which runs the
+    evaluation has learned past the AUC floor; the dead-air
+    times scaled down through the same knobs, each gap 3-5 s spare:
+    dead air 8 s, a 12 s stop, a 20 s liveness timeout, the PS's poll
+    each 1 s): worker 1 is SIGSTOPped and SIGCONTed, dead air raised for it
+    alone and cleared; then the TransformerLM server at narrow widths
+    (a warm-up batch, then 4 measured requests).
+    Every check of the phase holds, and the record carries what the
+    card run prints."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    workdir = str(tmp_path)
+    chip_smoke.job_data(np, workdir, records=32768, valid=2048, fields=8)
+    out = chip_smoke.telemetry_phase(
+        torch, np, counting_tier, workdir, device="cpu", per_task=512,
+        batch=64, eval_steps=96, report_version_steps=8, dead_air_s=8.0,
+        stop_s=12.0, task_timeout_s=20.0, ps_gone_s=2.0,
+        card="CPU rehearsal, no card", out_dir=os.path.join(workdir, "tel"),
+        worker_env=dict(chip_smoke.JOB_WORKER_ENV,
+                        EDL_DEVICE_TIER_ROWS="2048",
+                        EDL_DEVICE_TIER_STAGE="256",
+                        EDL_SPARSE_ID_CAPACITY="512"))
+    assert out["master_rc"] == 0 and out["worker1_rc"] == 0
+    assert out["ps_exit_codes"] == [0, 0]
+    assert out["alerts_seen"] == [("dead_air", "worker-1")]
+    assert out["alerts_total"] == {"dead_air": 1.0}
+    assert [t[:3] for t in out["alert_transitions"]] == [
+        ("alert_raised", "dead_air", "1"), ("alert_cleared", "dead_air", "1")]
+    assert not out["requeues_or_deaths"]
+    assert out["done_exactly_once"] and out["training_tasks"] == 32
+    assert {"worker-0", "worker-1", "ps-0", "ps-1"} <= set(
+        out["fleet_roles"])
+    for series, stats in out["tier_series_vs_stats"].values():
+        assert series == stats > 0
+    assert sum(out["server_pushes"]) == sum(out["client_pushes"]) > 0
+    assert out["traces_in_three_roles"] > 0
+    assert out["evaluations"] and not out["launch_formula_mismatches"]
+    assert out["launches"]["gather"] > 0
+    serve = chip_smoke.telemetry_serve(
+        torch, np, counting_flash, workdir, device="cpu",
+        widths=dict(vocab_size=512, num_layers=2, num_heads=2,
+                    embed_dim=128), seq=128, requests=4,
+        out_dir=os.path.join(workdir, "tel_serve"))
+    assert (serve["readyz_before_load"], serve["readyz_after_load"]) == (
+        503, 200)
+    # a warm-up batch of 8, then the 4 measured requests, each split
+    assert serve["served_ok_counter"] == 8 + 4
+    assert serve["launches"] == 2 * serve["batches"]
+    assert serve["split_requests"] == 4 and serve["warmup_batches"] >= 1
+    assert all(v is not None for v in serve["split_ms_median"].values())

@@ -422,3 +422,61 @@ print("journal ok")
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "journal ok"
+
+
+TELEMETRY_MODULES = (
+    "observability.metrics", "observability.events", "observability.trace",
+    "observability.trace_propagation", "observability.grpc_metrics",
+    "observability.http_server", "master.fleet", "observability.device",
+    "observability.profiler",
+)
+
+
+def test_telemetry_slice_modules_isolated_and_observed_with_jax_blocked(
+        tmp_path):
+    """The telemetry slice's nine modules import with JAX and the JAX
+    package blocked (in a fresh process, each alone), and with them
+    blocked a master's fleet monitor folds a blob, raises an alert
+    behind /alerts, journals it, and the device telemetry answers on
+    the CPU."""
+    modules = _port_modules()
+    for name in TELEMETRY_MODULES:
+        assert "elasticdl_tpu_torch." + name in modules, name
+    for name in TELEMETRY_MODULES:
+        out = subprocess.run(
+            [sys.executable, "-c", _BLOCKER, "elasticdl_tpu_torch." + name],
+            env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, (name, out.stderr)
+    code = _BLOCK + r'''
+import json, os, urllib.request
+os.environ["EDL_EVENTS_DIR"] = sys.argv[1]
+os.environ["EDL_HBM_LIMIT_BYTES"] = "100"
+from elasticdl_tpu_torch.master.fleet import FleetMonitor
+from elasticdl_tpu_torch.observability import device, events, http_server
+from elasticdl_tpu_torch.observability.metrics import Registry
+from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+journal = events.configure("master")
+fleet = FleetMonitor(version_lag_max=10)
+fleet.observe(-1, pb.TelemetryBlob(role="ps-0", version_lag=50))
+server = http_server.ObservabilityServer(
+    "master", 0, registry=Registry(enabled=True)).start()
+server.add_json_handler("/alerts", fleet.alerts)
+fleet.evaluate()
+body = urllib.request.urlopen(
+    "http://localhost:%d/alerts" % server.port, timeout=5).read()
+server.stop()
+assert [a["alert"] for a in json.loads(body)] == ["version_lag"]
+with open(journal.path) as f:
+    assert "alert_raised" in f.read()
+assert device.telemetry()["hbm_limit_bytes"] == 100
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("observed ok")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "events")],
+        env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "observed ok"
