@@ -232,7 +232,31 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    a batch, the batcher's and servicer's spans, whose split of each
    measured request's time (queue wait, batch assembly, forward,
    reply; medians over the 64) is printed beside worker 0's steps/s against phase 9's, the bytes of
-   each role's trace and journal and the phase's seconds.
+   each role's trace and journal and the phase's seconds;
+14. the serving fleet -- ``python -m elasticdl_tpu_torch.serve.router_main``
+   a process of its own (``--min_replicas 2 --max_replicas 3``, a
+   versioned export root, the fleet clocks of ``FLEET_ENV``), its
+   ``SubprocessReplicaScaler`` spawning port ``serve.main`` replicas of
+   the zoo TransformerLM at full width (``--device cuda``, bf16,
+   ``--max_batch 8``); 256-token requests from 8 closed-loop callers in
+   a process of their own, affinity keys 1-64 and every 8th request
+   unkeyed. Spin-up: two replicas register and load v1; one answer
+   through the router within SERVE_MEAN_TOL / SERVE_MAX_TOL of an
+   in-process ``ServingModel`` of v1 (K4 once a layer); a burst over
+   keys 1-64 lands on each replica as the ring says; one replica's keys
+   as four bursts, through the router, direct to it, direct, through
+   the router. Under the loop:
+   a replica SIGKILLed (no request fails, ``replica_lost``, the floor's
+   replacement registers and serves, only the victim's keys move on
+   the ring); a v2 export (same weights, step + 7) promoted by the
+   canary and loaded everywhere; a poisoned v3 (every logit + 0.5)
+   rolled back and never retried; the router's SIGTERM drain exits 0.
+   Every scale and canary decision is journaled with reasons, and in
+   every replica process (``K4_HOOK``) K4 launched once a layer for
+   every forward. It prints the loop's and the bursts' p50/p99, kill to
+   the replacement's registration and first served request, export to
+   promotion and to rollback, each replica's cold start and the card's
+   free memory after the replacement registered.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -5052,6 +5076,578 @@ def telemetry_serve(torch, np, flash, workdir, device="cuda", widths=None,
     return record
 
 
+FLEET_SEQ = 256                # tokens a request: 256 x 32000 bf16 logits
+FLEET_MAX_BATCH = 8
+FLEET_CALLERS = 8              # concurrent closed-loop callers
+FLEET_KEYS = 64                # affinity keys 1-64; every 8th request key 0
+FLEET_KEY0_EVERY = 8
+FLEET_BURST = 64               # requests of each timed burst
+FLEET_WAIT_S = 300
+# the fleet clocks of the reference's fleet smoke; the scale cooldown
+# outlasts a replica's cold start on the card (no spawn storm)
+FLEET_ENV = {
+    "EDL_ROUTER_HEARTBEAT_SECS": "1",
+    "EDL_ROUTER_REPLICA_TIMEOUT_SECS": "15",
+    "EDL_CANARY_FRACTION": "0.5",
+    "EDL_CANARY_MIN_REQUESTS": "15",
+    "EDL_CANARY_TIMEOUT_SECS": "600",
+    "EDL_SERVE_SCALE_COOLDOWN_SECS": "30",
+}
+# the poisoned export: ln_f's bias 1 and lm_head + 0.5 / d lift every
+# logit by 0.5 (LayerNorm's centred part sums to 0 over d), so the
+# judge's clipped per-request mean moves from bin 0 to bin 5
+FLEET_POISON_SHIFT = 0.5
+_SPAWN_RE = re.compile(r"spawned serve replica pid=(\d+) port=(\d+)")
+
+# counts K4 inside each replica process from this script's side: the
+# router's replicas inherit PYTHONPATH, and this sitecustomize, in a
+# process started as elasticdl_tpu_torch.serve.main only, wraps
+# ServingModel.predict (one forward each) and reads the wrapper's
+# LAUNCHES beside it whenever no forward is in flight, holding its lock
+# only around the counts, never across a forward; on the CPU, where the
+# wrapper counts nothing, it wraps flash_attention_fwd to count as the
+# card's wrapper does
+K4_HOOK = '''\
+import json, os, sys, threading, time
+
+_dir = os.environ.get("EDL_SMOKE_K4_DIR")
+if _dir and "elasticdl_tpu_torch.serve.main" in sys.orig_argv:
+    from elasticdl_tpu_torch.ops import flash_attention as _flash
+    from elasticdl_tpu_torch.serve import model as _model
+
+    if os.environ.get("EDL_SMOKE_K4_CPU") == "1":
+        _fwd = _flash.flash_attention_fwd
+
+        def _counting_fwd(q, *a, **k):
+            if q.device.type == "cpu":
+                _flash.LAUNCHES += 1
+            return _fwd(q, *a, **k)
+
+        _flash.flash_attention_fwd = _counting_fwd
+    _lock = threading.Lock()
+    # forwards in flight, forwards done, and (forwards, launches) as of
+    # the last moment no forward was in flight
+    _state = {"inflight": 0, "forwards": 0, "quiet": None}
+    _predict = _model.ServingModel.predict
+
+    def _counted(self, features, rows):
+        with _lock:
+            _state["inflight"] += 1
+        done = False
+        try:
+            out = _predict(self, features, rows)
+            done = True
+            return out
+        finally:
+            with _lock:
+                _state["inflight"] -= 1
+                _state["forwards"] += done
+                if not _state["inflight"]:
+                    _state["quiet"] = (_state["forwards"], _flash.LAUNCHES)
+
+    _model.ServingModel.predict = _counted
+
+    def _report():
+        path = os.path.join(_dir, "k4-%d.json" % os.getpid())
+        last = None
+        while True:
+            time.sleep(0.2)
+            with _lock:
+                now = _state["quiet"]
+            if now != last and now[0]:
+                with open(path + ".tmp", "w") as f:
+                    json.dump({"pid": os.getpid(), "forwards": now[0],
+                               "launches": now[1]}, f)
+                os.replace(path + ".tmp", path)
+                last = now
+
+    threading.Thread(target=_report, daemon=True).start()
+'''
+
+
+def fleet_callers(seq, vocab, seed):
+    """The callers of ``fleet_phase``, in a process of their own. Reads
+    one JSON command a line from stdin and answers each with one JSON
+    line: ``burst`` sends ``keys`` as requests from ``concurrency``
+    callers to ``addr`` and answers every request's latency and the
+    errors; ``start`` starts ``concurrency`` closed-loop callers to
+    ``addr`` (affinity keys cycling over 1..``keys``, every
+    ``key0_every``-th request key 0); ``stop`` stops them and answers
+    every request's (start, end, key, status, step). Every answer is
+    checked where it arrives: the model's shape, finite logits."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.serve.client import ServeClient
+
+    tokens = np.random.default_rng(seed).integers(
+        0, vocab, size=(256, seq), dtype=np.int32)
+    lock = threading.Lock()
+
+    def request(client, i, key):
+        t0 = time.time()
+        try:
+            outputs, step, _ = client.predict(
+                tokens[i % len(tokens)][None], deadline_secs=600,
+                affinity_key=key)
+            out = outputs["output"]
+            if (tuple(out.shape) != (1, seq, vocab)
+                    or not bool(torch.isfinite(out.float()).all())):
+                return (t0, time.time(), key, "BAD_ANSWER", step)
+            return (t0, time.time(), key, "OK", step)
+        except Exception as e:  # reported to the parent
+            code = getattr(e, "code", None)
+            name = code().name if callable(code) else repr(e)
+            return (t0, time.time(), key, name, -1)
+
+    def burst(addr, keys, concurrency):
+        records, todo = [], list(enumerate(keys))
+
+        def caller():
+            with ServeClient(addr) as client:
+                while True:
+                    with lock:
+                        if not todo:
+                            return
+                        i, key = todo.pop(0)
+                    rec = request(client, i, key)
+                    with lock:
+                        records.append(rec)
+
+        threads = [threading.Thread(target=caller)
+                   for _ in range(concurrency)]
+        t0 = time.time()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        return {"seconds": time.time() - t0, "records": records}
+
+    loop = {"stop": threading.Event(), "records": [], "threads": []}
+
+    def looper(addr, c, keys, key0_every):
+        n = c
+        with ServeClient(addr) as client:
+            while not loop["stop"].is_set():
+                key = 0 if n % key0_every == 0 else 1 + n % keys
+                rec = request(client, n, key)
+                with lock:
+                    loop["records"].append(rec)
+                n += len(loop["threads"])
+
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        if cmd["op"] == "burst":
+            answer = burst(cmd["addr"], cmd["keys"], cmd["concurrency"])
+        elif cmd["op"] == "start":
+            loop["threads"] = [threading.Thread(target=looper, args=(
+                cmd["addr"], c, cmd["keys"], cmd["key0_every"]))
+                for c in range(cmd["concurrency"])]
+            for t in loop["threads"]:
+                t.start()
+            answer = {"started": len(loop["threads"])}
+        elif cmd["op"] == "stop":
+            loop["stop"].set()
+            for t in loop["threads"]:
+                t.join(timeout=900)
+            answer = {"records": loop["records"]}
+        else:
+            return
+        print(json.dumps(answer), flush=True)
+
+
+FLEET_CALLER_CHILD = ("import chip_smoke; "
+                      "chip_smoke.fleet_callers(%d, %d, %d)")
+
+
+def kill_if_replica(pid):
+    """SIGKILL ``pid`` if it is still a ``serve.main`` replica (a pid of
+    an exited replica may belong to another process by now)."""
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as f:
+            if b"elasticdl_tpu_torch.serve.main" not in f.read():
+                return
+        os.kill(pid, signal.SIGKILL)
+    except OSError:
+        pass
+
+
+def latency_ms(np, records):
+    """p50 / p99 / count of (start, end, ...) records, in ms."""
+    lat = np.array([1000.0 * (r[1] - r[0]) for r in records])
+    if not len(lat):
+        return {"n": 0}
+    return {"n": int(len(lat)), "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99))}
+
+
+def poisoned(np, flat):
+    """``flat`` with every logit lifted by FLEET_POISON_SHIFT."""
+    dim = flat["ln_f/bias"].shape[0]
+    out = dict(flat)
+    out["ln_f/bias"] = np.ones(dim, np.float32)
+    out["lm_head/kernel"] = flat["lm_head/kernel"] + np.float32(
+        FLEET_POISON_SHIFT / dim)
+    return out
+
+
+def fleet_phase(torch, np, flash, device="cuda", widths=None,
+                seq=FLEET_SEQ, callers=FLEET_CALLERS, burst=FLEET_BURST,
+                fleet_env=None, wait_s=FLEET_WAIT_S, out_dir=None):
+    """Phase 14, the serving fleet: ``router_main`` a process of its own
+    with ``--min_replicas 2 --max_replicas 3`` over a versioned export
+    root, its ``SubprocessReplicaScaler`` spawning port ``serve.main``
+    replicas (``--device``, bf16, ``--max_batch 8``) of the zoo
+    TransformerLM; the callers a process of their own. In order:
+    spin-up (two replicas register and load v1; one answer through the
+    router held against an in-process ``ServingModel`` of v1 that
+    launches K4 once a layer; a burst over keys 1-64 lands on each
+    replica as the ring says; one replica's keys timed as four bursts,
+    through the router, direct to it, direct, through the router); then
+    closed-loop traffic from ``callers`` callers throughout: one
+    replica SIGKILLed (zero failed requests, ``replica_lost``
+    journaled, the floor's replacement registers and serves, only the
+    victim's keys move on the ring); a v2 export (the same weights,
+    step + 7) promoted by the canary and loaded by every replica; a
+    poisoned v3 rolled back and never retried. Then the router drains
+    on SIGTERM (its replicas deregister) and exits 0. Checks also: no
+    request failed; every scale and canary decision journaled with
+    reasons; in every replica process K4 launched once a layer for
+    every forward. Raises SystemExit on a failure; returns the record
+    it logs."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.common.hash_utils import stable_u64
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.serve.client import ServeClient
+    from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
+    from elasticdl_tpu_torch.serve.router import HashRing
+    from elasticdl_tpu_torch.train.export import export_state_dict
+
+    widths = dict(ZOO_WIDTHS if widths is None else widths)
+    model_params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
+    layers, vocab = widths["num_layers"], widths["vocab_size"]
+    out = out_dir or os.path.join(HERE, "build", "chip_smoke_fleet")
+    shutil.rmtree(out, ignore_errors=True)
+    root, logs, events_dir, k4_dir, hook_dir = (
+        os.path.join(out, name)
+        for name in ("exports", "replicas", "events", "k4", "k4hook"))
+    for d in (root, logs, events_dir, k4_dir, hook_dir):
+        os.makedirs(d)
+    with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+        f.write(K4_HOOK)
+    flat = zoo_weights(np, np.random.default_rng(SEED + 14), **widths)
+    v1, v2, v3 = (os.path.join(root, "v%05d" % i) for i in (1, 2, 3))
+    export_state_dict(flat, v1, step=1)
+    stamp1 = export_signature(v1)
+
+    rport, mport = find_free_port(), find_free_port()
+    router_addr = "localhost:%d" % rport
+    base = "http://localhost:%d" % mport
+    env = dict(os.environ, **(fleet_env or FLEET_ENV))
+    env.update({"EDL_EVENTS_DIR": events_dir, "EDL_SMOKE_K4_DIR": k4_dir,
+                "PYTHONPATH": os.pathsep.join([hook_dir, HERE]),
+                "EDL_SMOKE_K4_CPU": "1" if device == "cpu" else "0"})
+    replica_args = (
+        "--model_zoo %s --model_params %s --device %s "
+        "--compute_dtype bfloat16 --max_batch %d --max_delay_ms 5 "
+        "--deadline_ms 600000 --watch_secs 0.5"
+        % (ZOO, model_params, device, FLEET_MAX_BATCH))
+    router_log = open(os.path.join(out, "router.log"), "w")
+    t_spawn = time.time()
+    router = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.serve.router_main",
+         "--port", str(rport), "--min_replicas", "2",
+         "--max_replicas", "3", "--export_root", root,
+         "--replica_args", replica_args, "--replica_log_dir", logs,
+         "--metrics_port", str(mport)],
+        cwd=HERE, env=env, stdout=router_log, stderr=subprocess.STDOUT)
+    caller_env = {k: v for k, v in os.environ.items()
+                  if not k.startswith("EDL_")}
+    caller = subprocess.Popen(
+        [sys.executable, "-c", FLEET_CALLER_CHILD % (seq, vocab, SEED + 14)],
+        cwd=HERE, env=dict(caller_env, PYTHONPATH=HERE),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    record = {"fleet": "zoo TransformerLM", "seq": seq,
+              "callers": callers, "device": device}
+    failures = []
+
+    def command(**cmd):
+        caller.stdin.write(json.dumps(cmd) + "\n")
+        caller.stdin.flush()
+        line = caller.stdout.readline()
+        if not line:
+            raise SystemExit("fleet phase: the callers' process died")
+        return json.loads(line)
+
+    def routerz():
+        status, body = scrape(base + "/routerz")
+        return json.loads(body) if status == 200 else None
+
+    def wait_for(cond, what):
+        deadline = time.monotonic() + wait_s
+        while time.monotonic() < deadline:
+            if router.poll() is not None:
+                raise SystemExit("fleet phase: the router exited %s while "
+                                 "waiting for %s" % (router.returncode,
+                                                     what))
+            state = routerz()
+            if state is not None and cond(state):
+                return state
+            time.sleep(0.1)
+        raise SystemExit("fleet phase: no %s within %d s (routerz %s)"
+                         % (what, wait_s, json.dumps(routerz())[:2000]))
+
+    def served_by(replica):
+        status, text = scrape(base + "/metrics")
+        return series_value(text or "", "edl_router_requests_total",
+                            replica=replica, outcome="ok")
+
+    def owners(members, keys):
+        ring = HashRing()
+        for rid in members:
+            ring.add(rid)
+        return {k: ring.lookup(stable_u64("k:%d" % k)) for k in keys}
+
+    def all_loaded(export):
+        return lambda s: len(s["replicas"]) >= 2 and all(
+            r["loaded_export"] == export for r in s["replicas"].values())
+
+    keys = list(range(1, FLEET_KEYS + 1))
+    try:
+        # -- spin-up ----------------------------------------------------
+        state = wait_for(all_loaded(os.path.basename(v1)),
+                         "two replicas registered with v1 loaded")
+        record["spin_up_s"] = time.time() - t_spawn
+        first = sorted(state["replicas"])
+        model = ServingModel(get_model_spec(ZOO, model_params=model_params),
+                             v1, max_batch=FLEET_MAX_BATCH,
+                             compute_dtype="bfloat16", device=device)
+        tokens = np.random.default_rng(SEED + 14).integers(
+            0, vocab, size=(256, seq), dtype=np.int32)
+        with ServeClient(router_addr) as client:
+            outputs, step, stamp = client.predict(
+                tokens[:1], deadline_secs=600, affinity_key=1)
+        reset_launches(flash)
+        want = model.predict(tokens[:1], 1)["output"].float()
+        record["inprocess_k4_launches"] = flash.LAUNCHES
+        if flash.LAUNCHES != layers:
+            failures.append("the in-process ServingModel launched K4 %d "
+                            "times for one batch" % flash.LAUNCHES)
+        diff = (outputs["output"].float() - want).abs()
+        record["vs_inprocess"] = {"max_abs": diff.max().item(),
+                                  "mean_abs": diff.mean().item(),
+                                  "tol_mean": SERVE_MEAN_TOL,
+                                  "tol_max": SERVE_MAX_TOL}
+        if (step != 1 or stamp != stamp1
+                or record["vs_inprocess"]["mean_abs"] > SERVE_MEAN_TOL
+                or record["vs_inprocess"]["max_abs"] > SERVE_MAX_TOL):
+            failures.append("served answer %s step %d stamp %s against the "
+                            "in-process model" % (record["vs_inprocess"],
+                                                  step, stamp))
+        del model, want, outputs
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # affinity: a burst over every key lands as the ring says
+        ring_owner = owners(first, keys)
+        before = {rid: served_by(rid) for rid in first}
+        sticky = command(op="burst", addr=router_addr, keys=keys,
+                         concurrency=callers)
+        got = {rid: served_by(rid) - before[rid] for rid in first}
+        want_n = {rid: sum(1 for k in keys if ring_owner[k] == rid)
+                  for rid in first}
+        record["affinity"] = {"served": got, "ring": want_n}
+        if got != want_n:
+            failures.append("affinity: replicas served %s, the ring says %s"
+                            % (got, want_n))
+        # the router's cost: one replica's keys through it and direct to
+        # it, in the order via, direct, direct, via
+        target = first[0]
+        own = [k for k in keys if ring_owner[k] == target] or [1]
+        burst_keys = [own[i % len(own)] for i in range(burst)]
+        bursts = {"via_router": [], "direct": []}
+        for route in ("via_router", "direct", "direct", "via_router"):
+            addr = (router_addr if route == "via_router"
+                    else state["replicas"][target]["addr"])
+            bursts[route].append(command(op="burst", addr=addr,
+                                         keys=burst_keys,
+                                         concurrency=callers))
+        for route, runs in bursts.items():
+            record["burst_" + route] = [
+                dict(latency_ms(np, b["records"]), seconds=b["seconds"])
+                for b in runs]
+        spin_errors = [r for b in [sticky] + sum(bursts.values(), [])
+                       for r in b["records"] if r[3] != "OK"]
+        if spin_errors:
+            failures.append("spin-up requests failed: %s" % spin_errors[:3])
+
+        # -- SIGKILL one replica mid-traffic -------------------------------
+        command(op="start", addr=router_addr, keys=FLEET_KEYS,
+                key0_every=FLEET_KEY0_EVERY, concurrency=callers)
+        time.sleep(3.0)
+        victim = first[0]
+        t_kill = time.time()
+        os.kill(int(victim.rsplit("-", 1)[1]), signal.SIGKILL)
+        state = wait_for(
+            lambda s: victim not in s["replicas"] and len(s["replicas"]) >= 2
+            and all(r["loaded_stamp"] for r in s["replicas"].values()),
+            "replacement of the killed replica")
+        now_members = sorted(state["replicas"])
+        newcomer = [r for r in now_members if r not in first]
+        if device == "cuda":
+            free, total = torch.cuda.mem_get_info()
+            record["mem_after_replacement"] = {"free": free, "total": total}
+        deadline = time.monotonic() + wait_s
+        while newcomer and served_by(newcomer[0]) <= 0:
+            if time.monotonic() > deadline:
+                failures.append("the replacement served nothing")
+                break
+            time.sleep(0.1)
+        record["kill_to_first_served_by_replacement_s"] = time.time() - t_kill
+        survivors = [r for r in first if r != victim]
+        before_ring = owners(first, keys)
+        without = owners(survivors, keys)
+        with_new = owners(survivors + newcomer, keys)
+        moved_out = [k for k in keys if before_ring[k] != without[k]]
+        moved_in = [k for k in keys if without[k] != with_new[k]]
+        record["ring_moves"] = {"victim_keys": len(moved_out),
+                                "to_replacement": len(moved_in)}
+        if (any(before_ring[k] != victim for k in moved_out)
+                or any(with_new[k] not in newcomer for k in moved_in)
+                or len(newcomer) != 1):
+            failures.append("keys moved beyond the victim's: out %s in %s "
+                            "newcomer %s" % (moved_out, moved_in, newcomer))
+
+        # -- promote v2 -------------------------------------------------
+        export_state_dict(flat, v2, step=8)
+        t_v2 = time.time()
+        stamp2 = export_signature(v2)
+        wait_for(lambda s: s["canary"]["incumbent"]["stamp"] == stamp2,
+                 "promotion of v2")
+        wait_for(all_loaded(os.path.basename(v2)), "v2 loaded everywhere")
+        record["v2_loaded_everywhere_s"] = time.time() - t_v2
+
+        # -- roll back a poisoned v3 -------------------------------------
+        export_state_dict(poisoned(np, flat), v3, step=9)
+        t_v3 = time.time()
+        stamp3 = export_signature(v3)
+        wait_for(lambda s: stamp3 in s["canary"]["rejected"],
+                 "rollback of the poisoned v3")
+        state = wait_for(all_loaded(os.path.basename(v2)),
+                         "v2 back everywhere after the rollback")
+        record["v2_back_everywhere_s"] = time.time() - t_v3
+        time.sleep(3.0)  # three heartbeats with v3 still the newest
+        state = routerz()
+        if state["canary"]["state"] != "idle":
+            failures.append("the canary retried: %s" % state["canary"])
+        stopped = command(op="stop")
+    finally:
+        if caller.poll() is None:
+            try:
+                caller.stdin.close()
+            except OSError:
+                pass
+            try:
+                caller.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                caller.kill()
+                caller.wait()
+        if router.poll() is None:
+            router.send_signal(signal.SIGTERM)
+            try:
+                router.wait(timeout=90)
+            except subprocess.TimeoutExpired:
+                router.kill()
+                router.wait()
+        router_log.close()
+        # a replica the router failed to stop must not outlive the phase
+        with open(os.path.join(out, "router.log")) as f:
+            spawned = [int(m.group(1)) for m in _SPAWN_RE.finditer(f.read())]
+        for pid in spawned:
+            kill_if_replica(pid)
+    record["router_rc"] = router.returncode
+    if router.returncode != 0:
+        failures.append("the router exited %s" % router.returncode)
+
+    loop = stopped["records"]
+    record["loop"] = latency_ms(np, loop)
+    failed = [r for r in loop if r[3] != "OK"]
+    record["failed_requests"] = len(failed)
+    if failed or not loop:
+        failures.append("%d of %d looped requests failed: %s"
+                        % (len(failed), len(loop), failed[:3]))
+    steps_seen = sorted({r[4] for r in loop})
+    record["steps_served"] = steps_seen
+
+    journal = []
+    for name in sorted(os.listdir(events_dir)):
+        if name.endswith(".events.ndjson"):
+            journal += read_journal(os.path.join(events_dir, name))
+    router_events = [e for e in journal if e["role"].startswith("router")]
+
+    def of(kind, **match):
+        return [e for e in router_events if e["event"] == kind
+                and all(e.get(k) == v for k, v in match.items())]
+
+    grows = of("scale_decision", direction="grow")
+    registered = of("replica_registered")
+    lost = of("replica_lost", replica=victim)
+    record["journal"] = {
+        "replica_registered": len(registered), "replica_lost": len(lost),
+        "grows": [(e["delta"], e["reasons"]) for e in grows],
+        "canary_started": len(of("canary_started")),
+        "promoted": [e["reasons"] for e in of("canary_promoted")],
+        "rolled_back": [e["reasons"] for e in of("canary_rolled_back")],
+        "drain_acks": len(of("drain_ack")),
+    }
+    reg_new = [e for e in registered if e["replica"] in newcomer]
+    if reg_new:
+        record["kill_to_replacement_registered_s"] = reg_new[0]["ts"] - t_kill
+    promoted = of("canary_promoted", stamp=stamp2)
+    rolled = of("canary_rolled_back", stamp=stamp3)
+    if promoted:
+        record["v2_land_to_promotion_s"] = promoted[0]["ts"] - t_v2
+    if rolled:
+        record["v3_land_to_rollback_s"] = rolled[0]["ts"] - t_v3
+    # a replica's cold start: its grow decision (the spawn) to its
+    # registration
+    cold = {}
+    for e in registered:
+        spawn = [g["ts"] for g in grows if g["ts"] <= e["ts"]]
+        if spawn:
+            cold[e["replica"]] = e["ts"] - spawn[-1]
+    record["cold_start_s"] = cold
+    if not lost or len(reg_new) != 1:
+        failures.append("replica_lost for the victim %d, replacement "
+                        "registrations %d" % (len(lost), len(reg_new)))
+    if (len(grows) < 2 or not all(e.get("reasons") for e in grows)
+            or not any(str(r).startswith("below_floor")
+                       for e in grows for r in e["reasons"])):
+        failures.append("scale decisions: %s" % record["journal"]["grows"])
+    if (len(promoted) != 1 or len(rolled) != 1
+            or not promoted[0].get("reasons")
+            or not rolled[0].get("reasons")
+            or not any("drift" in r for r in rolled[0]["reasons"])
+            or len(of("canary_started", stamp=stamp3)) != 1
+            or len(of("canary_started", stamp=stamp2)) != 1):
+        failures.append("canary decisions: %s" % record["journal"])
+    # K4 in every replica that served: once a layer a forward
+    k4 = []
+    for name in sorted(os.listdir(k4_dir)):
+        if name.endswith(".json"):
+            with open(os.path.join(k4_dir, name)) as f:
+                k4.append(json.load(f))
+    record["replica_k4"] = k4
+    record["replica_k4_launches"] = sum(r["launches"] for r in k4)
+    if (len(k4) < 3 or any(r["launches"] != layers * r["forwards"]
+                           or r["forwards"] <= 0 for r in k4)):
+        failures.append("K4 in the replicas: %s" % k4)
+    log(json.dumps(record))
+    if failures:
+        raise SystemExit("fleet phase: " + "; ".join(failures))
+    return record
+
+
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
     """Flax-named fp32 weights: kernels ~ N(0, 1/fan_in), embedding
     ~ N(0, 0.02^2), LayerNorm scale 1 and bias 0."""
@@ -5957,7 +6553,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-13 and the last lines (see the module docstring)."""
+    """Phases 1-14 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -6041,6 +6637,10 @@ def run_phases(torch, np, job_dir, data_proc):
             torch, np, flash, workdir,
             export_dir=os.path.join(workdir, "export"))
         done("13_telemetry")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet = fleet_phase(torch, np, flash)
+        done("14_fleet")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -6055,6 +6655,8 @@ def run_phases(torch, np, job_dir, data_proc):
         cases[main_case], "fwd")
     fwd["launches_serve"] = serve_launches
     fwd["launches_serve_telemetry"] = telemetry["serve"]["launches"]
+    # K4 in the fleet's replica processes, counted by K4_HOOK
+    fwd["launches_fleet_replicas"] = fleet["replica_k4_launches"]
     log(json.dumps({"kernels": [
         fwd,
         kernel_entry("flash_attention_bwd_dq", BWD_SOURCE,

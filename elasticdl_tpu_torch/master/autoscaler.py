@@ -1,4 +1,5 @@
-"""Graceful drain (port of the ``DrainManager`` of
+"""Graceful drain and autoscaler hysteresis (port of the
+``DrainManager`` and ``DecisionGate`` of
 elasticdl_tpu/master/autoscaler.py).
 
 Spot preemptions, evictions and scale-downs reach a worker as SIGTERM.
@@ -19,14 +20,18 @@ forgets a drained one; each outcome counts in
 ``edl_master_drains_total{outcome}`` and journals ``worker_draining``,
 ``drain_ack`` or ``drain_expired``.
 
-Not ported (ROADMAP): the ``ElasticController`` and its
-``DecisionGate``, which need a scaler (the k8s pod manager).
+``DecisionGate`` is the hold + cooldown hysteresis every autoscaler
+shares; the serving fleet's ``ReplicaAutoscaler`` (serve/fleet.py) runs
+on it.
+
+Not ported (ROADMAP): the ``ElasticController``, which needs a scaler
+(the k8s pod manager).
 """
 
 import threading
 import time
 
-from elasticdl_tpu_torch.common.env_utils import env_float
+from elasticdl_tpu_torch.common.env_utils import env_float, env_int
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -41,6 +46,64 @@ DRAIN_DEADLINE_ENV = "EDL_DRAIN_DEADLINE_SECS"
 # only need covering for that lag; the bound keeps a long-lived job from
 # accumulating ids forever
 DEPARTED_CAP = 256
+
+
+def _env_num(name, default, cast=float):
+    if cast is int:
+        return env_int(name, default)
+    return env_float(name, default)
+
+
+class DecisionGate:
+    """Hold + cooldown hysteresis shared by every autoscaler.
+
+    A condition must persist for ``hold_secs`` before it may fire (one
+    transient spike buys nothing), and after any decision the gate stays
+    closed for ``cooldown_secs`` (let the previous resize land before
+    judging again). Conditions are named so each direction keeps its
+    own hold timer while the cooldown is shared.
+    """
+
+    def __init__(self, hold_secs, cooldown_secs):
+        self._hold = float(hold_secs)
+        self._cooldown = float(cooldown_secs)
+        self._lock = threading.Lock()
+        self._since = {}  # condition name -> first-observed ts
+        self._last_action = None  # no decision yet: no cooldown
+
+    def observe(self, condition, want, now):
+        """Feed one tick's reading of ``condition``. Returns True when
+        the condition has held for ``hold_secs`` and the gate is out of
+        cooldown; a False ``want`` resets that condition's hold timer.
+        The hold timer keeps accumulating through a cooldown window, so
+        a condition that persisted across it fires the moment the
+        cooldown lifts."""
+        with self._lock:
+            if not want:
+                self._since.pop(condition, None)
+                return False
+            since = self._since.setdefault(condition, now)
+            if now - since < self._hold:
+                return False
+            return not (
+                self._last_action is not None
+                and now - self._last_action < self._cooldown
+            )
+
+    def fired(self, condition, now):
+        """Record a decision: starts the shared cooldown and resets
+        ``condition``'s hold timer (the other conditions keep theirs: a
+        grow must not forgive a brewing shrink signal's history)."""
+        with self._lock:
+            self._last_action = now
+            self._since.pop(condition, None)
+
+    def in_cooldown(self, now):
+        with self._lock:
+            return (
+                self._last_action is not None
+                and now - self._last_action < self._cooldown
+            )
 
 
 class DrainManager:
@@ -63,7 +126,7 @@ class DrainManager:
         self._deadline = (
             deadline_secs
             if deadline_secs is not None
-            else env_float(DRAIN_DEADLINE_ENV, 60.0)
+            else _env_num(DRAIN_DEADLINE_ENV, 60.0)
         )
         self._lock = threading.Lock()
         self._draining = {}  # worker_id -> {since, deadline, reason}

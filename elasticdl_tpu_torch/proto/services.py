@@ -1,8 +1,8 @@
 """gRPC bindings for the ``elasticdl_tpu.Master``,
-``elasticdl_tpu.Pserver`` and ``elasticdl_tpu.Serve`` services.
+``elasticdl_tpu.Pserver``, ``elasticdl_tpu.Serve`` and
+``elasticdl_tpu.Router`` services.
 
-Port of elasticdl_tpu/proto/services.py, trimmed to the master, PS and
-serving surfaces. The service and method names are the JAX package's, and
+Port of elasticdl_tpu/proto/services.py. The service and method names are the JAX package's, and
 ``elasticdl_tpu_pb2`` is a verbatim copy of its generated module, so a
 client of either package talks to a server of either package.
 """
@@ -14,6 +14,7 @@ from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
 _MASTER_SERVICE = "elasticdl_tpu.Master"
 _PSERVER_SERVICE = "elasticdl_tpu.Pserver"
 _SERVE_SERVICE = "elasticdl_tpu.Serve"
+_ROUTER_SERVICE = "elasticdl_tpu.Router"
 
 # method name -> (request class, response class)
 _MASTER_METHODS = {
@@ -53,6 +54,18 @@ _SERVE_METHODS = {
     "model_info": (pb.Empty, pb.ModelInfoResponse),
 }
 
+# The serving router's replica-facing control plane (the router also
+# serves the whole Serve surface, so clients point at it unchanged):
+# register announces a replica (addr, capacity, loaded stamp); heartbeat
+# carries its telemetry and loaded/available export versions up and the
+# drain and target-export directives down; deregister is the
+# exactly-once drain ack.
+_ROUTER_METHODS = {
+    "register_replica": (pb.RegisterReplicaRequest, pb.RegisterReplicaResponse),
+    "heartbeat_replica": (pb.ReplicaHeartbeatRequest, pb.ReplicaHeartbeatResponse),
+    "deregister_replica": (pb.DeregisterReplicaRequest, pb.Empty),
+}
+
 
 class _Stub:
     """Unary-unary callables for each method of a service."""
@@ -85,6 +98,11 @@ class ServeStub(_Stub):
         super().__init__(channel, _SERVE_SERVICE, _SERVE_METHODS)
 
 
+class RouterStub(_Stub):
+    def __init__(self, channel):
+        super().__init__(channel, _ROUTER_SERVICE, _ROUTER_METHODS)
+
+
 def _add_service(server, servicer, service_name, methods):
     handlers = {
         name: grpc.unary_unary_rpc_method_handler(
@@ -109,3 +127,7 @@ def add_pserver_servicer_to_server(servicer, server):
 
 def add_serve_servicer_to_server(servicer, server):
     _add_service(server, servicer, _SERVE_SERVICE, _SERVE_METHODS)
+
+
+def add_router_servicer_to_server(servicer, server):
+    _add_service(server, servicer, _ROUTER_SERVICE, _ROUTER_METHODS)

@@ -1,5 +1,5 @@
 """Model-version lifecycle: load, watch, warm, atomically swap (port of
-elasticdl_tpu/serve/engine.py, single-pod mode).
+elasticdl_tpu/serve/engine.py).
 
 The engine owns the active ``ServingModel`` reference and, for a model
 with sparse tables served over the PS (``ps_client``), the embedding
@@ -13,15 +13,25 @@ changes, the replacement version is built and WARMED in the background
 while the active version keeps serving, then swapped in with one
 reference assignment. A batch that already entered ``_run_batch`` holds
 its own model reference, so in-flight requests finish on the version
-that admitted them.
+that admitted them. The exporter rewrites a bundle in place as
+model.npz, then manifest.json: a new npz under the manifest the active
+version was read with is mid-rewrite, and the watcher waits for its
+manifest; it takes the npz alone only once it has stood unchanged for
+``REWRITE_SETTLE_SECS`` (a copy that wrote the manifest first).
+
+Directed mode (``directed=True``, a fleet replica): ``export_dir`` is a
+versioned root holding one subdirectory per export bundle, and the
+router steers which version this replica loads through ``set_target``;
+until the first directive the newest complete bundle wins. Undirected
+(single pod) keeps the flat layout and follows whatever lands in
+``export_dir``.
 
 The ``edl_serve_model_info``, ``edl_serve_version_swaps_total`` and
 ``edl_serve_cache_hit_rate`` series and the ``model_loaded``,
 ``version_swapped`` and ``requests_shed`` events follow the lifecycle.
-
-Not ported yet: the router-directed (fleet) mode.
 """
 
+import os
 import threading
 import time
 
@@ -33,6 +43,7 @@ from elasticdl_tpu_torch.embedding.client import HotRowCache
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.observability import events, metrics
 from elasticdl_tpu_torch.serve.batcher import MicroBatcher, _env_num
+from elasticdl_tpu_torch.serve.fleet import scan_export_versions
 from elasticdl_tpu_torch.serve.model import ServingModel, export_signature
 
 logger = _logger_factory("elasticdl_tpu_torch.serve.engine")
@@ -42,6 +53,19 @@ CACHE_TTL_ENV = "EDL_SERVE_CACHE_TTL_SECS"
 # at most one requests_shed event per window: a shed storm must not
 # flood the journal at the moment it matters most
 _SHED_EVENT_WINDOW_SECS = 1.0
+# how long a new model.npz under the active version's manifest waits
+# for its own manifest before the watcher loads it anyway
+REWRITE_SETTLE_SECS = 5.0
+
+
+def _npz_rewritten_under(model, export_dir, signature):
+    """True when ``signature`` shows a new model.npz in the directory
+    ``model`` was loaded from, under the manifest it was loaded with."""
+    if model is None or model.export_path != export_dir:
+        return False
+    _, npz, manifest = signature.split(":")
+    _, loaded_npz, loaded_manifest = model.stamp.split(":")
+    return manifest == loaded_manifest and npz != loaded_npz
 
 
 class ServingEngine:
@@ -50,9 +74,12 @@ class ServingEngine:
                  max_batch=None, max_delay_ms=None, queue_depth=None,
                  deadline_ms=None, cache_ttl_secs=None,
                  cache_capacity=1_000_000, watch_secs=None,
-                 device="cuda", registry=None):
+                 device="cuda", registry=None, directed=False):
         self.model_zoo = model_zoo
         self.export_dir = export_dir
+        self._directed = bool(directed)
+        self._target_rel = None  # None = no directive yet: newest wins
+        self._loaded_rel = ""
         self.device = resolve_device(device)
         self._ps = ps_client
         self._compute_dtype = compute_dtype
@@ -140,6 +167,38 @@ class ServingEngine:
         return self._model is not None
 
     @property
+    def loaded_export(self):
+        """Rel name of the loaded version under the export root
+        (directed mode); "" for the flat single-pod layout."""
+        return self._loaded_rel
+
+    def set_target(self, rel):
+        """Directed mode: the router told this replica which version to
+        run (canary membership, promote, or rollback). The watcher
+        picks the change up on its next tick through the single-pod hot
+        swap, in-flight requests finishing on the version that admitted
+        them."""
+        if not self._directed or not rel or rel == self._target_rel:
+            return
+        self._target_rel = rel
+        logger.info("export target directed to %r", rel)
+
+    def _resolve_export(self):
+        """(directory, rel) the engine should be serving right now."""
+        if not self._directed:
+            return self.export_dir, ""
+        rel = self._target_rel
+        if not rel:
+            # no directive yet (bootstrap): the newest complete bundle;
+            # the router adopts whatever the fleet converged on as the
+            # incumbent and pins everyone from then on
+            versions = scan_export_versions(self.export_dir)
+            if not versions:
+                return self.export_dir, ""
+            rel = versions[-1][0]
+        return os.path.join(self.export_dir, rel), rel
+
+    @property
     def model(self):
         return self._model
 
@@ -179,10 +238,10 @@ class ServingEngine:
                 shard,
             )
 
-    def _build(self):
+    def _build(self, export_dir):
         return ServingModel(
             self.spec,
-            self.export_dir,
+            export_dir,
             max_batch=self.batcher.max_batch,
             ps_client=self._ps,
             cache=self.cache,
@@ -194,8 +253,9 @@ class ServingEngine:
         # build + warm OUTSIDE the swap lock: the lock guards only the
         # stamp compare-and-swap; a load that loses the race to the
         # same stamp drops its replacement
+        export_dir, rel = self._resolve_export()
         previous = self._model
-        replacement = self._build()
+        replacement = self._build(export_dir)
         if previous is not None and replacement.stamp == previous.stamp:
             return False
         template = self._template
@@ -212,6 +272,7 @@ class ServingEngine:
             if previous is not None and replacement.stamp == previous.stamp:
                 return False
             self._model = replacement
+            self._loaded_rel = rel
         self._m_model_info.labels(version=str(replacement.step)).set(1)
         if previous is not None:
             self._m_model_info.labels(version=str(previous.step)).set(0)
@@ -241,14 +302,21 @@ class ServingEngine:
         return True
 
     def _watch_loop(self):
+        pending = None  # (signature, first seen) of a mid-rewrite npz
         while not self._stopped.wait(self._watch_secs):
             try:
-                signature = export_signature(self.export_dir)
+                export_dir = self._resolve_export()[0]
+                signature = export_signature(export_dir)
                 model = self._model
                 if signature is None:
                     continue
                 if model is not None and signature == model.stamp:
                     continue
+                if _npz_rewritten_under(model, export_dir, signature):
+                    if pending is None or pending[0] != signature:
+                        pending = (signature, time.monotonic())
+                    if time.monotonic() - pending[1] < REWRITE_SETTLE_SECS:
+                        continue
                 self._load_and_swap()
             except Exception:
                 # a torn mid-write export fails here and succeeds on a

@@ -2,7 +2,8 @@
 
 Usage: python -m elasticdl_tpu_torch.serve.main --model_zoo=... \
     --export_dir=/artifacts/model --port=50052 [--device cuda|cpu] \
-    [--ps_addrs=host:port,host:port] [--cache_ttl_secs=2]
+    [--ps_addrs=host:port,host:port] [--cache_ttl_secs=2] \
+    [--router_addr=host:port [--advertise_addr=host:port]]
 
 A model with sparse embedding tables (DeepFM) serves its export's dense
 params beside the training job's PS, given by ``--ps_addrs``, through a
@@ -12,6 +13,14 @@ Runs on ``cuda`` unless ``--device cpu`` is given; with ``cuda`` and no
 card it raises rather than fall back. SIGTERM drains gracefully: stop
 admitting, flush the queue, stop the server, exit 0.
 
+Fleet mode (``--router_addr``): the replica registers with the serving
+router (``serve/router_main.py``) and heartbeats its telemetry blob and
+its loaded / newest available export versions; ``--export_dir`` then
+names the versioned export root (one subdirectory per bundle) and the
+router directs which version the replica loads (``target_export``).
+A ``drain`` directive takes the SIGTERM drain path; every drain ends
+with the exactly-once ``deregister_replica`` ack.
+
 Observability: ``--metrics_port`` (or ``EDL_METRICS_PORT``) serves
 ``/metrics``, ``/healthz`` and ``/readyz`` (503 until the model is
 loaded); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on the journal
@@ -20,8 +29,6 @@ the trace of role ``serve-<id>``; ``--master_addr`` piggybacks the
 replica's telemetry blob (queries/s, queue depth, sheds, the cache's hit
 rate and ``observability/device.py``'s memory view) on a poll of the
 master's ``get_comm_info``.
-
-Not ported yet: the router (fleet) link.
 """
 
 import argparse
@@ -65,6 +72,19 @@ def parse_serve_args(argv=None):
         "--master_addr", default="",
         help="optional: piggyback serving telemetry on the master's "
         "fleet view (/statusz)",
+    )
+    parser.add_argument(
+        "--router_addr", default="",
+        help="fleet mode: register with the serving router at this "
+        "address and heartbeat telemetry + export versions; "
+        "--export_dir then names the VERSIONED export root (one "
+        "subdirectory per bundle) and the router directs which "
+        "version this replica loads",
+    )
+    parser.add_argument(
+        "--advertise_addr", default="",
+        help="address the router should reach this replica at "
+        "(default 127.0.0.1:<port>, the local-subprocess topology)",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -136,6 +156,7 @@ class ServeRole:
             ),
             watch_secs=args.watch_secs if args.watch_secs >= 0 else None,
             device=args.device,
+            directed=bool(args.router_addr),
         )
         self._master_client = None
         if args.master_addr:
@@ -151,6 +172,15 @@ class ServeRole:
         self.server = None
         self.observability = None
         self._observing = False
+        # the fleet link: register/heartbeat with the router
+        self.replica_id = "serve-%d-%d" % (args.serve_id, os.getpid())
+        self._advertise_addr = (
+            args.advertise_addr or "127.0.0.1:%d" % args.port
+        )
+        self._router_stub = None
+        self._fleet_thread = None
+        self._registered = False
+        self._drain_reason = "sigterm"
         self._drained = threading.Event()
         # SIGTERM arrival marker: a plain bool write is all the signal
         # handler does; run() polls it and drains (_finish_term)
@@ -200,6 +230,8 @@ class ServeRole:
         self.server.add_insecure_port("[::]:%d" % self.args.port)
         self.server.start()
         self._install_sigterm_drain()
+        if self.args.router_addr:
+            self._start_fleet_link()
         logger.info(
             "serve %d on :%d (export %s, device %s)",
             self.args.serve_id, self.args.port, self.args.export_dir,
@@ -230,6 +262,112 @@ class ServeRole:
             )
         return self
 
+    # -- the fleet link ---------------------------------------------------
+    def _start_fleet_link(self):
+        from elasticdl_tpu_torch.common.grpc_utils import build_channel
+        from elasticdl_tpu_torch.proto import services
+
+        self._router_stub = services.RouterStub(
+            build_channel(self.args.router_addr)
+        )
+        self._fleet_thread = threading.Thread(
+            target=self._fleet_loop, name="edl-serve-fleet", daemon=True
+        )
+        self._fleet_thread.start()
+
+    def _fleet_loop(self):
+        """Register with the router, then heartbeat until drained.
+
+        Heartbeats carry telemetry and the loaded / newest available
+        export versions up and directives down: ``target_export`` steers
+        the directed engine (canary, promote, rollback) and ``drain``
+        routes this replica through the SIGTERM drain path (stop
+        admitting, flush, deregister, exit 0): the run loop sees the
+        same flag the signal handler sets."""
+        from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+        from elasticdl_tpu_torch.serve.fleet import scan_export_versions
+
+        heartbeat_secs = 2.0
+        while not (self._drained.is_set() or self._term_flag):
+            try:
+                if not self._registered:
+                    resp = self._router_stub.register_replica(
+                        pb.RegisterReplicaRequest(
+                            replica_id=self.replica_id,
+                            addr=self._advertise_addr,
+                            max_batch=self.engine.batcher.max_batch,
+                            model_stamp=self.engine.model_info()["stamp"],
+                            telemetry=self.telemetry_blob(),
+                        ),
+                        timeout=5.0,
+                    )
+                    if resp.heartbeat_secs > 0:
+                        heartbeat_secs = resp.heartbeat_secs
+                    if resp.target_export:
+                        self.engine.set_target(resp.target_export)
+                    self._registered = True
+                    logger.info(
+                        "registered with router %s as %s",
+                        self.args.router_addr, self.replica_id,
+                    )
+                else:
+                    versions = scan_export_versions(self.args.export_dir)
+                    newest = versions[-1] if versions else ("", 0, "")
+                    info = self.engine.model_info()
+                    resp = self._router_stub.heartbeat_replica(
+                        pb.ReplicaHeartbeatRequest(
+                            replica_id=self.replica_id,
+                            loaded_export=self.engine.loaded_export,
+                            loaded_stamp=info["stamp"],
+                            available_export=newest[0],
+                            available_stamp=newest[2],
+                            draining=self._term_flag,
+                            telemetry=self.telemetry_blob(),
+                        ),
+                        timeout=5.0,
+                    )
+                    if not resp.known:
+                        # the router restarted (or expired us while
+                        # partitioned): re-register from scratch
+                        self._registered = False
+                        continue
+                    if resp.target_export:
+                        self.engine.set_target(resp.target_export)
+                    if resp.drain:
+                        self._drain_reason = "router_drain"
+                        self._term_flag = True
+                        return
+            except Exception:
+                # router unreachable: keep trying -- the tier outlives
+                # a router restart, and re-registration is idempotent
+                logger.debug("router link hiccup", exc_info=True)
+            time.sleep(heartbeat_secs if self._registered else 1.0)
+
+    def _deregister(self, reason):
+        """The exactly-once drain ack (fleet mode): tell the router the
+        queue is flushed so it forgets this replica with no
+        ``replica_lost`` alert. Best-effort: with the router gone the
+        heartbeat timeout journals the loss instead."""
+        if self._router_stub is None or not self._registered:
+            return
+        self._registered = False
+        from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+        try:
+            self._router_stub.deregister_replica(
+                pb.DeregisterReplicaRequest(
+                    replica_id=self.replica_id,
+                    reason=reason,
+                    served=self.engine.batcher.served_total,
+                    shed=self.engine.batcher.shed_total,
+                ),
+                timeout=5.0,
+            )
+        except Exception:
+            logger.warning(
+                "drain ack to router failed (router gone?)", exc_info=True
+            )
+
     def _install_sigterm_drain(self):
         self._term_previous = signal.getsignal(signal.SIGTERM)
 
@@ -248,8 +386,10 @@ class ServeRole:
 
     def _finish_term(self):
         """The deferred SIGTERM drain, on the run loop with no lock
-        held; then chains any handler installed before ours."""
-        self.drain(reason="sigterm")
+        held; then chains any handler installed before ours. A router
+        drain directive funnels through the same flag with its own
+        reason."""
+        self.drain(reason=self._drain_reason)
         previous = self._term_previous
         if callable(previous):
             previous(signal.SIGTERM, None)
@@ -261,6 +401,10 @@ class ServeRole:
             return
         self._drained.set()
         flushed = self.engine.drain()
+        # the drain ack after the flush (its counts are final) and
+        # before the server stops: the router already stopped routing
+        # here when it directed the drain
+        self._deregister(reason)
         # every request span is final once the queue flushed
         trace.flush()
         if trace.enabled():

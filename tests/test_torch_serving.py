@@ -475,3 +475,87 @@ def test_export_hot_swap_zero_failed_requests(jax_export, tmp_path):
         stop.set()
         server.stop(0)
         engine.drain(timeout=5)
+
+
+def test_export_rewritten_in_place_swaps_once_to_the_whole_bundle(
+        jax_export, tmp_path):
+    """The exporter rewrites model.npz, then manifest.json. A publisher
+    descheduled between the two (as under a loaded host) leaves a new
+    npz described by the old manifest for many watch ticks; the watcher
+    must not swap to that torn bundle, only to the whole new one, once.
+    (Before the fix the engine swapped 5 -> 5 on the torn bundle, then
+    5 -> 12, and the hot-swap test above saw step 5 after its swap.)"""
+    import shutil
+
+    model, state, path = jax_export
+    export_dir = str(tmp_path / "export")
+    export_train_state(state, export_dir)
+    staged = str(tmp_path / "staged")
+    export_train_state(state.replace(step=state.step + 7), staged)
+    engine = _engine(export_dir, watch_secs=0.05)
+    try:
+        first = engine.model.stamp
+        shutil.copyfile(os.path.join(staged, "model.npz"),
+                        os.path.join(export_dir, "model.npz"))
+        time.sleep(0.5)  # ten watch ticks with the torn bundle on disk
+        assert engine.swaps == 0
+        assert engine.model.stamp == first
+        shutil.copyfile(os.path.join(staged, "manifest.json"),
+                        os.path.join(export_dir, "manifest.json"))
+        deadline = time.monotonic() + 30
+        while engine.swaps == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        time.sleep(0.3)  # a second swap would land within a few ticks
+        assert engine.swaps == 1
+        assert engine.model.step == STEP + 7
+    finally:
+        engine.drain(timeout=5)
+
+
+def test_export_copied_manifest_first_loads_and_takes_its_npz(
+        jax_export, tmp_path, monkeypatch):
+    """A bundle copied manifest.json first is complete: the engine loads
+    it. Copied that way over the active bundle, the engine first swaps
+    to the new manifest over the old npz (a torn bundle, as the
+    reference does); the new npz then sits under the manifest the active
+    version was read with, waits ``REWRITE_SETTLE_SECS`` for a manifest
+    that never comes, and swaps in."""
+    import shutil
+
+    from elasticdl_tpu_torch.serve import engine as engine_mod
+    from elasticdl_tpu_torch.serve.model import export_signature
+
+    monkeypatch.setattr(engine_mod, "REWRITE_SETTLE_SECS", 0.3)
+    model, state, path = jax_export
+    staged = {}
+    for name, step in (("a", state.step), ("b", state.step + 7)):
+        staged[name] = str(tmp_path / name)
+        export_train_state(state.replace(step=step), staged[name])
+    export_dir = str(tmp_path / "export")
+    os.makedirs(export_dir)
+
+    def copy(src, name):
+        shutil.copyfile(os.path.join(src, name),
+                        os.path.join(export_dir, name))
+        time.sleep(0.01)  # mtimes apart on a coarse filesystem clock
+
+    copy(staged["a"], "manifest.json")
+    copy(staged["a"], "model.npz")
+    engine = _engine(export_dir, watch_secs=0.05)
+    try:
+        assert engine.model.step == STEP
+        assert engine.model.stamp == export_signature(export_dir)
+        copy(staged["b"], "manifest.json")
+        deadline = time.monotonic() + 30
+        while engine.swaps == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert engine.swaps == 1
+        copy(staged["b"], "model.npz")
+        while (engine.model.stamp != export_signature(export_dir)
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        assert engine.model.stamp == export_signature(export_dir)
+        assert engine.swaps == 2
+        assert engine.model.step == STEP + 7
+    finally:
+        engine.drain(timeout=5)
