@@ -256,7 +256,36 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    every forward. It prints the loop's and the bursts' p50/p99, kill to
    the replacement's registration and first served request, export to
    promotion and to rollback, each replica's cold start and the card's
-   free memory after the replacement registered.
+   free memory after the replacement registered;
+15. the vision zoo and the rest of the dense step -- bench.py's
+   ResNet-50 configuration (bench.py:441-461: ``resnet50(num_classes=
+   1000, stem="space_to_depth")``, Momentum lr 0.1 / 0.9 nesterov, bf16
+   compute, batch 256, 224x224 random images from numpy seed 0) through
+   the port's ``make_train_step``: warm-up steps, then windows of
+   steps each fenced by its loss; images/s of the best window, step
+   ms, peak memory, the FLOP share of the bf16 peak (989 TFLOP/s; the
+   FLOPs counted from the model's Conv and Dense shapes, 3x the
+   forward) and a profiled step (device busy, idle share, top ops).
+   Then one fp32 step at batch 8 on the card (TF32 off) and on the CPU
+   from the same weights: loss, training-mode logits and the updated
+   running statistics within the printed tolerances. Then ResNet-50 as
+   a job: 512 planted-class 224x224 RecordIO images, the port's
+   ``Master`` in this process with ``saved_model_path``, one ``python
+   -m elasticdl_tpu_torch.worker.main`` (bf16, batch 64, 4 tasks);
+   checks: master and worker rc 0, every task done once, the export
+   at the final step with ``model_state/batch_stats`` and trained
+   statistics; ``serve.main`` on the export answers a warm-up request,
+   then 8 concurrent one-image requests, each within SERVE_MEAN_TOL /
+   SERVE_MAX_TOL of an in-process ``ServingModel``. Then the zoo TransformerLM (S 1024, batch 8, bf16,
+   AdamW) through ``TorchTrainer`` under no remat, "dots", "flash" and
+   "full": K4 launches 12, 12, 12 and 24 a step and K5/K6 12 (held),
+   step ms, peak memory, and gradients equal to no remat's within the
+   reference test's tolerances; one "flash" and one no-remat step at S
+   16384, batch 1 ("flash" must peak lower); two steps with dropout 0.1
+   under "flash" equal to the same steps without remat. Last, mnist,
+   cifar10 and mobilenet each one ``LocalExecutor`` epoch on seeded
+   planted-class records, the loss falling. Every record carries the
+   card's name and power limit.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -6414,6 +6443,698 @@ def mutation_phase():
         raise SystemExit("planted faults not caught: %s" % missed)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the vision zoo and the rest of the dense step
+# ---------------------------------------------------------------------------
+
+RESNET_ZOO = "elasticdl_tpu_torch.models.resnet"
+# bench.py:441-461: resnet50(num_classes=1000, stem="space_to_depth"),
+# Momentum lr 0.1 momentum 0.9 nesterov, bf16 compute, batch 256, 224x224
+RESNET_BATCH = 256
+RESNET_IMAGE = 224
+RESNET_CLASSES = 1000
+RESNET_WARMUP = 3
+RESNET_WINDOWS = 3        # bench.py: best of 5 windows of 100 steps
+RESNET_WINDOW_STEPS = 10
+# card (TF32 off) against CPU, fp32, batch 8, one step from the same
+# weights: convolutions summed in other orders through 53 BatchNorms;
+# the loss to 1e-4 relative, logits and the updated running statistics
+# to 1e-3 of each one's largest entry
+RESNET_AGREE_BATCH = 8
+RESNET_AGREE_LOSS_RTOL = 1e-4
+RESNET_AGREE_RTOL = 1e-3
+# ResNet-50 as a job: 512 planted-class records (the job's data cut from
+# ImageNet's 1.28 M), batch 64, 4 tasks of 2 steps
+VISION_JOB_RECORDS = 512
+VISION_JOB_CLASSES = 4
+VISION_JOB_BATCH = 64
+VISION_JOB_PER_TASK = 128
+VISION_SERVE_REQUESTS = 8
+VISION_JOB_WAIT_S = 300
+# the zoo TransformerLM under remat: S 1024, batch 8 (phase 6's shape)
+REMAT_POLICIES = (("none", False, "full"), ("dots", True, "dots"),
+                  ("flash", True, "flash"), ("full", True, "full"))
+REMAT_STEPS = 3
+REMAT_LONG_SEQ = 16384    # bench.py's s16k length and batch 1
+REMAT_DROPOUT = 0.1
+# tests/test_transformer_spmd.py's remat tolerances
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_RTOL = 1e-5
+REMAT_GRAD_ATOL = 1e-7
+# the small zoo models' short LocalExecutor runs
+SMALL_ZOO = (("mnist", 28), ("cifar10", 16), ("mobilenet", 16))
+SMALL_RECORDS = 384
+SMALL_BATCH = 32
+
+
+def card_line(device):
+    """The card's name and power limit beside a number (``cpu`` in a
+    rehearsal)."""
+    return nvidia_smi_line() if str(device).startswith("cuda") else "cpu"
+
+
+def vision_images(np, rng, n, size, classes, channels=3):
+    """uint8 images with a planted class: a bright block in the quadrant
+    of ``label % 4`` and, with 3 channels, a colour of ``label // 4``."""
+    labels = rng.integers(0, classes, n)
+    shape = (n, size, size, channels) if channels > 1 else (n, size, size)
+    images = (rng.random(shape, dtype=np.float32) * 60).astype(np.uint8)
+    half = size // 2
+    for i, label in enumerate(labels):
+        row, col = divmod(int(label) % 4, 2)
+        block = (slice(row * half, (row + 1) * half),
+                 slice(col * half, (col + 1) * half))
+        if channels > 1:
+            images[i][block + ((int(label) // 4) % channels,)] += 180
+        else:
+            images[i][block] += 180
+    return images, labels
+
+
+def write_vision_records(np, path, images, labels):
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.data.example import encode_example
+
+    os.makedirs(path, exist_ok=True)
+    recordio.write_records(os.path.join(path, "part-0.rec"), [
+        encode_example({"image": image, "label": np.int64(label)})
+        for image, label in zip(images, labels)])
+    return path
+
+
+def conv_dense_flops(torch, model, features):
+    """FLOPs of one forward from the model's Conv and Dense shapes
+    (2 x output elements x inputs a product), counted by forward hooks
+    in eval mode."""
+    from elasticdl_tpu_torch.models.layers import Conv
+
+    total = [0]
+
+    def hook(module, inputs, output):
+        weight = module.weight
+        if isinstance(module, Conv):
+            per_out = weight.shape[1] * weight.shape[2] * weight.shape[3]
+        else:
+            per_out = weight.shape[1]
+        total[0] += 2 * output.numel() * per_out
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, torch.nn.Linear))]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(features)
+    finally:
+        for h in hooks:
+            h.remove()
+        model.train(was_training)
+    return total[0]
+
+
+def profile_dense_step(torch, step, what):
+    """One step under torch.profiler (the card alone, opened with
+    ``profiler_warmup``): wall ms beside device-busy ms, the idle share
+    and the top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warmup(torch)
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        total_us = getattr(evt, "device_time_total", None)
+        if total_us is None:
+            total_us = evt.cuda_time_total
+        kernels[evt.key] = (total_us / 1e3, evt.count)
+    for key in [k for k in kernels if PROFILER_WARMUP_NAME in k]:
+        kernels.pop(key)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"profile": what, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms if busy_ms > 0 else "not measured",
+            "idle_share": (max(0.0, 1.0 - busy_ms / wall_ms) if busy_ms > 0
+                           else "not measured"),
+            "top": [[key[:90], ms, n] for key, (ms, n) in top]}
+
+
+def resnet_bench(torch, np, device="cuda", batch=RESNET_BATCH,
+                 image=RESNET_IMAGE, classes=RESNET_CLASSES,
+                 warmup=RESNET_WARMUP, windows=RESNET_WINDOWS,
+                 window_steps=RESNET_WINDOW_STEPS):
+    """bench.py's ResNet-50 configuration through the port's step
+    (``make_train_step`` as bench.py calls it, the batch on the card
+    once): warm-up steps, then windows of steps, each fenced by its last
+    loss; images/s of the best window, the step's device-busy time, idle
+    share and top ops from one profiled step, peak memory, and the FLOP
+    share of the card's bf16 peak (989 TFLOP/s)."""
+    from elasticdl_tpu_torch.models import resnet
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.step_fns import make_train_step
+    from elasticdl_tpu_torch.train.train_state import create_train_state
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = resnet.resnet50(num_classes=classes, stem="space_to_depth")
+    model = model.to(device)
+    tx = create_optimizer("Momentum", learning_rate=0.1, momentum=0.9,
+                          nesterov=True)
+    step_fn = make_train_step(model, resnet.loss, tx,
+                              compute_dtype=torch.bfloat16)
+    rng = np.random.RandomState(0)
+    features = torch.from_numpy(
+        rng.rand(batch, image, image, 3).astype(np.float32)).to(device)
+    labels = torch.from_numpy(
+        rng.randint(0, classes, size=batch).astype(np.int32)).to(device)
+    step_batch = {"features": features, "labels": labels,
+                  "_mask": torch.ones(batch, device=device)}
+    state = create_train_state(model, tx)
+    flops = 3 * conv_dense_flops(torch, model, features[:1]) * batch
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(warmup):
+        state, loss = step_fn(state, step_batch)
+        losses.append(float(loss))
+    best = float("inf")
+    for _ in range(windows):
+        sync(torch, torch.device(device))
+        t0 = time.perf_counter()
+        for _ in range(window_steps):
+            state, loss = step_fn(state, step_batch)
+        losses.append(float(loss))  # the fetch fences the window
+        best = min(best, time.perf_counter() - t0)
+    if not all(np.isfinite(losses)):
+        raise SystemExit("resnet50 bench losses: %s" % losses)
+    step_s = best / window_steps
+    record = {
+        "vision": "resnet50_bench", "config": "bench.py:441-461",
+        "batch": batch, "image": image, "compute_dtype": "bfloat16",
+        "windows": windows, "window_steps": window_steps,
+        "images_per_s": batch / step_s, "step_ms": step_s * 1e3,
+        "losses": losses, "model_tflop_per_step": flops / 1e12,
+        "peak_tflops": PEAK_FLOPS["bfloat16"] / 1e12,
+        "flop_share_of_bf16_peak": flops / step_s / PEAK_FLOPS["bfloat16"],
+    }
+    if device == "cuda":
+        record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        holder = {"state": state}
+
+        def one():
+            holder["state"], _ = step_fn(holder["state"], step_batch)
+
+        record["step_profile"] = profile_dense_step(torch, one,
+                                                    "resnet50_train_step")
+    log(json.dumps(dict(record, card=card_line(device))))
+    del state, step_batch, features
+    return record
+
+
+def resnet_agreement(torch, np, device="cuda", batch=RESNET_AGREE_BATCH,
+                     image=RESNET_IMAGE, classes=RESNET_CLASSES):
+    """One fp32 step of bench.py's ResNet-50 on the card (TF32 off for
+    matmuls and convolutions) and on the CPU from the same weights: the
+    loss, the training-mode logits and the updated running
+    statistics."""
+    from elasticdl_tpu_torch.models import resnet
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.step_fns import (
+        _fresh_model_state,
+        apply_model,
+        make_train_step,
+    )
+    from elasticdl_tpu_torch.train.train_state import (
+        create_train_state,
+        flat_model_state,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 15)
+        weights = resnet.resnet50(num_classes=classes,
+                                  stem="space_to_depth").state_dict()
+    rng = np.random.RandomState(1)
+    images = rng.rand(batch, image, image, 3).astype(np.float32)
+    labels = rng.randint(0, classes, size=batch).astype(np.int32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    try:
+        for where in (device, "cpu"):
+            model = resnet.resnet50(num_classes=classes,
+                                    stem="space_to_depth")
+            model.load_state_dict(weights)
+            model = model.to(where)
+            tx = create_optimizer("Momentum", learning_rate=0.1,
+                                  momentum=0.9, nesterov=True)
+            state = create_train_state(model, tx)
+            x = torch.from_numpy(images).to(where)
+            model.train()
+            with torch.no_grad():
+                logits = apply_model(model, state.params,
+                                     _fresh_model_state(state.model_state),
+                                     x).cpu().numpy()
+            state, loss = make_train_step(model, resnet.loss, tx)(state, {
+                "features": x, "labels": torch.from_numpy(labels).to(where),
+                "_mask": torch.ones(batch, device=where)})
+            results[where] = (float(loss), logits, {
+                k: v.cpu().numpy() for k, v in
+                flat_model_state(state.model_state).items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (loss_d, logits_d, stats_d), (loss_c, logits_c, stats_c) = (
+        results[device], results["cpu"])
+    rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                       1e-12))
+    stats_err = {k: rel(stats_d[k], stats_c[k]) for k in stats_c}
+    worst = max(stats_err, key=stats_err.get)
+    record = {"vision": "resnet50_card_vs_cpu_fp32", "batch": batch,
+              "loss": loss_d, "cpu_loss": loss_c,
+              "loss_rel_diff": abs(loss_d - loss_c) / abs(loss_c),
+              "tol_loss_rel": RESNET_AGREE_LOSS_RTOL,
+              "logits_rel_err": rel(logits_d, logits_c),
+              "stats_leaves": len(stats_err),
+              "stats_worst_rel_err": stats_err[worst],
+              "stats_worst": worst, "tol_rel": RESNET_AGREE_RTOL,
+              "tf32": False, "card": card_line(device)}
+    log(json.dumps(record))
+    if (not np.isfinite(loss_d)
+            or record["loss_rel_diff"] > RESNET_AGREE_LOSS_RTOL
+            or record["logits_rel_err"] > RESNET_AGREE_RTOL
+            or record["stats_worst_rel_err"] > RESNET_AGREE_RTOL):
+        raise SystemExit("ResNet-50 on the card disagrees with the CPU")
+    return record
+
+
+def vision_job(torch, np, workdir, device="cuda",
+               records=VISION_JOB_RECORDS, image=RESNET_IMAGE,
+               classes=VISION_JOB_CLASSES, batch=VISION_JOB_BATCH,
+               per_task=VISION_JOB_PER_TASK, model_params="",
+               requests=VISION_SERVE_REQUESTS, compute_dtype="bfloat16"):
+    """ResNet-50 as a job: the port's ``Master`` in this process with
+    ``--output`` (``saved_model_path``), one ``python -m
+    elasticdl_tpu_torch.worker.main`` on the card (bf16), planted-class
+    RecordIO images; then ``python -m elasticdl_tpu_torch.serve.main``
+    on the export and ``requests`` one-image requests, each answer held
+    against an in-process ``ServingModel`` (an eval forward) within
+    SERVE_MEAN_TOL / SERVE_MAX_TOL. Checks: master rc 0, worker rc 0,
+    every task done once, the export at the final step with every
+    ``model_state/batch_stats`` leaf and trained statistics."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.serve.client import ServeClient
+    from elasticdl_tpu_torch.serve.model import ServingModel
+    from elasticdl_tpu_torch.train.export import load_exported
+
+    params = ";".join(p for p in ("num_classes=%d" % classes, model_params)
+                      if p)
+    out = os.path.join(HERE, "build", "chip_smoke_vision")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    rng = np.random.default_rng(SEED + 15)
+    images, labels = vision_images(np, rng, records, image, classes)
+    t0 = time.monotonic()
+    train_dir = write_vision_records(np, os.path.join(workdir, "vision"),
+                                     images, labels)
+    data_s = time.monotonic() - t0
+    export_dir = os.path.join(workdir, "vision_export")
+    master = Master(RESNET_ZOO, training_data=train_dir,
+                    records_per_task=per_task, num_epochs=1,
+                    port=find_free_port(), saved_model_path=export_dir,
+                    task_timeout_secs=60.0, seed=SEED, model_params=params)
+    dispatcher = master.task_dispatcher
+    done = []
+    report = dispatcher.report
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if success and task is not None:
+            done.append((task.type, task.shard_name, task.start, task.end))
+        return ok, task
+
+    dispatcher.report = on_report
+    addr = "localhost:%d" % master._port
+    env = dict(os.environ, PYTHONPATH=HERE)
+    result, procs = {}, []
+    try:
+        job_t0 = time.monotonic()
+        master.prepare()
+        thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(
+                poll_secs=0.5)), daemon=True)
+        thread.start()
+        worker_log = os.path.join(out, "worker-0.log")
+        worker = start_worker_process(worker_log, [
+            "--model_zoo", RESNET_ZOO, "--model_params", params,
+            "--training_data", train_dir, "--minibatch_size", str(batch),
+            "--master_addr", addr, "--worker_id", "0",
+            "--compute_dtype", compute_dtype, "--device",
+            torch.device(device).type], env)
+        procs.append(worker)
+        thread.join(VISION_JOB_WAIT_S)
+        worker_rc = worker.wait(60)
+        job_s = time.monotonic() - job_t0
+        with open(worker_log) as f:
+            worker_tail = f.read()[-3000:]
+        training = sorted((s, a, b) for t, s, a, b in done
+                          if t == pb.TRAINING)
+        expected = [(s, a, min(a + per_task, records))
+                    for s in {x for x, _, _ in training}
+                    for a in range(0, records, per_task)]
+        trained = sum(b - a for _, a, b in training)
+        _, model_state, export_step = load_exported(export_dir)
+        var_leaves = [v for k, v in model_state.items() if k.endswith("/var")]
+        record = {
+            "vision": "resnet50_job", "records": records, "image": image,
+            "batch": batch, "tasks": len(training), "records_trained":
+            trained, "master_rc": result.get("rc"), "worker_rc": worker_rc,
+            "export_step": export_step, "job_seconds": job_s,
+            "data_seconds": data_s,
+            "export_batch_stats_arrays": len(model_state),
+            "export_bytes": dir_bytes(export_dir),
+            "card": card_line(device)}
+        log(json.dumps(record))
+        steps = -(-per_task // batch) * len(training)
+        failures = [
+            what for what, bad in (
+                ("master rc", result.get("rc") != 0),
+                ("worker rc", worker_rc != 0),
+                ("every task done once", training != sorted(expected)
+                 or trained != records),
+                ("export step", export_step != steps),
+                ("batch_stats exported", not model_state or any(
+                    not k.startswith("batch_stats/") for k in model_state)),
+                ("trained statistics", not any(
+                    not np.allclose(v, 1.0) for v in var_leaves)))
+            if bad]
+        if failures:
+            raise SystemExit("vision job: %s\n%s" % (failures, worker_tail))
+
+        serve_port = find_free_port()
+        serve_log = os.path.join(out, "serve.log")
+        serve_t0 = time.monotonic()
+        with open(serve_log, "w") as sink:
+            serve_proc = subprocess.Popen(
+                [sys.executable, "-m", "elasticdl_tpu_torch.serve.main",
+                 "--model_zoo", RESNET_ZOO, "--model_params", params,
+                 "--export_dir", export_dir, "--port", str(serve_port),
+                 "--max_batch", str(requests), "--compute_dtype",
+                 compute_dtype, "--device", torch.device(device).type,
+                 "--deadline_ms", "600000", "--watch_secs", "3600"],
+                cwd=HERE, env=env, stdout=sink, stderr=subprocess.STDOUT)
+        procs.append(serve_proc)
+        wait_for_line(serve_proc, serve_log, "serve 0 on :%d" % serve_port,
+                      "the ResNet-50 server")
+        cold_s = time.monotonic() - serve_t0
+        rows = (images[:requests].astype(np.float32) / 255.0)
+        # one warm-up request first (the server's first forward sets up
+        # cuDNN), left out of the latencies
+        t = time.monotonic()
+        with ServeClient("localhost:%d" % serve_port) as client:
+            client.predict(rows[:1], deadline_secs=300)
+        warmup_ms = (time.monotonic() - t) * 1e3
+        answers, latencies = [None] * requests, [None] * requests
+
+        def call(i):
+            with ServeClient("localhost:%d" % serve_port) as client:
+                t = time.monotonic()
+                outputs, _, _ = client.predict(rows[i:i + 1],
+                                               deadline_secs=300)
+                latencies[i] = time.monotonic() - t
+                answers[i] = outputs["output"].float().numpy()
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        if any(a is None for a in answers):
+            raise SystemExit("a ResNet-50 request failed")
+        served = np.concatenate(answers)
+        reference = ServingModel(
+            get_model_spec(RESNET_ZOO, model_params=params), export_dir,
+            max_batch=requests, compute_dtype=compute_dtype or None,
+            device=device).predict(rows, requests)["output"].float().numpy()
+        diff = np.abs(served - reference)
+        serve_record = {
+            "vision": "resnet50_served", "requests": requests,
+            "shape": list(served.shape), "max_abs": float(diff.max()),
+            "mean_abs": float(diff.mean()), "bitwise_equal": bool(
+                np.array_equal(served, reference)),
+            "tol_mean": SERVE_MEAN_TOL, "tol_max": SERVE_MAX_TOL,
+            "cold_start_s": cold_s, "warmup_request_ms": warmup_ms,
+            "p50_ms": float(np.median(latencies)) * 1e3,
+            "max_ms": float(max(latencies)) * 1e3,
+            "card": card_line(device)}
+        log(json.dumps(serve_record))
+        if (served.shape != (requests, classes)
+                or not np.isfinite(served).all()
+                or serve_record["mean_abs"] > SERVE_MEAN_TOL
+                or serve_record["max_abs"] > SERVE_MAX_TOL):
+            raise SystemExit("the served ResNet-50 answers disagree")
+        return dict(record, serve=serve_record)
+    finally:
+        master.stop()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+
+
+def remat_trainer(torch, np, flat, widths, remat, policy, dropout=0.0,
+                  device="cuda"):
+    """A TorchTrainer over the zoo TransformerLM with ``flat`` weights
+    (the spec's ``custom_model`` with remat and dropout through its
+    model params), bf16 compute, AdamW."""
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
+    params += ";remat=%s;remat_policy='%s';dropout=%r" % (remat, policy,
+                                                          dropout)
+    spec = get_model_spec(ZOO, model_params=params)
+    model = spec.custom_model()
+    model.load_state_dict(spec.params_from_flax(flat), strict=True)
+    return TorchTrainer(model, spec.loss, spec.optimizer(),
+                        compute_dtype="bfloat16", health=False,
+                        device=device), spec
+
+
+def remat_phase(torch, np, flash, device="cuda", widths=None,
+                seq=TRAIN_SEQ, batch=TRAIN_BATCH, long_seq=REMAT_LONG_SEQ,
+                steps=REMAT_STEPS):
+    """The zoo TransformerLM under no remat, "dots", "flash" and "full":
+    per policy a train step's K4 / K5 / K6 launches (12, 12, 12 and 24;
+    12 and 12), its time and peak memory, and its gradients against no
+    remat's; then one "flash" and one no-remat step at S ``long_seq``,
+    batch 1 (peak memory: "flash" lower); then two steps with dropout
+    0.1 under "flash" against the same steps without remat."""
+    from elasticdl_tpu_torch.train.step_fns import make_loss_and_grads
+
+    widths = dict(ZOO_WIDTHS if widths is None else widths)
+    layers, vocab = widths["num_layers"], widths["vocab_size"]
+    flat = zoo_weights(np, np.random.default_rng(SEED + 15), **widths)
+    rng = np.random.default_rng(SEED + 16)
+    tokens = rng.integers(0, vocab, size=(batch, seq), dtype=np.int32)
+    step_batch = {"features": tokens, "labels": tokens,
+                  "_mask": np.ones(batch, np.float32)}
+    records, base_grads, launches = [], None, {}
+    for name, remat, policy in REMAT_POLICIES:
+        trainer, spec = remat_trainer(torch, np, flat, widths, remat, policy,
+                                      device=device)
+        state = trainer.create_state()
+        tensors = {k: torch.from_numpy(v).to(device)
+                   for k, v in step_batch.items()}
+        loss, grads = make_loss_and_grads(
+            trainer.model, spec.loss, compute_dtype=torch.bfloat16)(
+            state, tensors)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash)
+        state, first_loss = trainer.train_step(state, step_batch)
+        sync(torch, torch.device(device))
+        launches[name] = read_launches(flash)
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if device == "cuda" else "not measured")
+        t0 = time.monotonic()
+        for _ in range(steps):
+            state, _ = trainer.train_step(state, step_batch)
+        sync(torch, torch.device(device))
+        step_ms = (time.monotonic() - t0) / steps * 1e3
+        record = {"remat": name, "seq": seq, "batch": batch,
+                  "launches_per_step": launches[name], "step_ms": step_ms,
+                  "peak_mem_gb": peak, "loss": float(loss),
+                  "first_step_loss": float(first_loss)}
+        if base_grads is None:
+            base_grads, base_loss = grads, float(loss)
+        else:
+            errs = {n: float((grads[n] - base_grads[n]).abs().max()
+                             / max(float(base_grads[n].abs().max()), 1e-30))
+                    for n in base_grads}
+            worst = max(errs, key=errs.get)
+            bad = [n for n in base_grads if not torch.allclose(
+                grads[n], base_grads[n], rtol=REMAT_GRAD_RTOL,
+                atol=REMAT_GRAD_ATOL)]
+            record.update(
+                loss_rel_diff=abs(float(loss) - base_loss) / abs(base_loss),
+                grad_worst_rel=errs[worst], grad_worst=worst,
+                grad_leaves_outside_tol=len(bad),
+                tol=[REMAT_LOSS_RTOL, REMAT_GRAD_RTOL, REMAT_GRAD_ATOL])
+        record["card"] = card_line(device)
+        log(json.dumps(record))
+        records.append(record)
+        want_fwd = layers * (2 if name == "full" else 1)
+        if launches[name] != {"fwd": want_fwd, "dq": layers, "dkv": layers}:
+            raise SystemExit("remat %s launches %s (want K4 %d, K5/K6 %d)"
+                             % (name, launches[name], want_fwd, layers))
+        if "grad_leaves_outside_tol" in record and (
+                record["grad_leaves_outside_tol"]
+                or record["loss_rel_diff"] > REMAT_LOSS_RTOL):
+            raise SystemExit("remat %s gradients differ from no remat's"
+                             % name)
+        del trainer, state, grads, tensors
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    del base_grads
+
+    long_tokens = rng.integers(0, vocab, size=(1, long_seq), dtype=np.int32)
+    long_batch = {"features": long_tokens, "labels": long_tokens,
+                  "_mask": np.ones(1, np.float32)}
+    long = {}
+    for name, remat, policy in (("flash", True, "flash"),
+                                ("none", False, "full")):
+        trainer, _ = remat_trainer(torch, np, flat, widths, remat, policy,
+                                   device=device)
+        state = trainer.create_state()
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches(flash)
+        t0 = time.monotonic()
+        state, loss = trainer.train_step(state, long_batch)
+        sync(torch, torch.device(device))
+        long[name] = {
+            "seconds": time.monotonic() - t0, "loss": float(loss),
+            "launches": read_launches(flash),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device == "cuda" else "not measured")}
+        del trainer, state
+    long_record = {"remat": "long_sequence", "seq": long_seq, "batch": 1,
+                   **long, "card": card_line(device)}
+    log(json.dumps(long_record))
+    if not all(np.isfinite(v["loss"]) for v in long.values()) or (
+            device == "cuda"
+            and not long["flash"]["peak_mem_gb"] < long["none"]["peak_mem_gb"]):
+        raise SystemExit("remat flash at S %d: %s" % (long_seq, long))
+
+    dropout = {}
+    for name, remat, policy in (("flash", True, "flash"),
+                                ("none", False, "full")):
+        trainer, _ = remat_trainer(torch, np, flat, widths, remat, policy,
+                                   dropout=REMAT_DROPOUT, device=device)
+        state = trainer.create_state()
+        losses = []
+        for _ in range(2):
+            state, loss = trainer.train_step(state, step_batch)
+            losses.append(float(loss))
+        dropout[name] = (losses, {n: p.detach().float().cpu()
+                                  for n, p in state.params.items()})
+        del trainer, state
+    (losses_r, params_r), (losses_n, params_n) = (dropout["flash"],
+                                                  dropout["none"])
+    param_diff = max(float((params_r[n] - params_n[n]).abs().max())
+                     for n in params_n)
+    drop_record = {"remat": "dropout_flash_vs_none", "rate": REMAT_DROPOUT,
+                   "losses_flash": losses_r, "losses_none": losses_n,
+                   "param_max_abs_diff": param_diff,
+                   "tol": [REMAT_LOSS_RTOL, REMAT_GRAD_ATOL],
+                   "card": card_line(device)}
+    log(json.dumps(drop_record))
+    if (not all(np.isfinite(losses_r))
+            or not np.allclose(losses_r, losses_n, rtol=REMAT_LOSS_RTOL)
+            or param_diff > REMAT_GRAD_ATOL):
+        raise SystemExit("dropout under remat differs from no remat")
+    del dropout, params_r, params_n
+    gc.collect()
+    return {"policies": records, "launches": launches, "long": long_record,
+            "dropout": drop_record}
+
+
+def small_zoo_phase(torch, np, workdir, device="cuda",
+                    records=SMALL_RECORDS, batch=SMALL_BATCH):
+    """mnist, cifar10 and mobilenet (its cifar variant, the zoo module's
+    ``custom_model``) each one LocalExecutor epoch on small seeded
+    planted-class RecordIO data; the loss falls (the mean of the last
+    three steps below the first three's)."""
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+
+    results = {}
+    for name, size in SMALL_ZOO:
+        rng = np.random.default_rng(SEED + len(results))
+        channels = 1 if name == "mnist" else 3
+        images, labels = vision_images(np, rng, records, size, 4,
+                                       channels=channels)
+        data = write_vision_records(np, os.path.join(workdir, name),
+                                    images, labels)
+        executor = LocalExecutor("elasticdl_tpu_torch.models." + name,
+                                 training_data=data, minibatch_size=batch,
+                                 num_epochs=1, seed=SEED, device=device)
+        t0 = time.monotonic()
+        losses = executor.train()
+        results[name] = {"steps": len(losses), "seconds":
+                         time.monotonic() - t0, "first": losses[:3],
+                         "last": losses[-3:]}
+        del executor
+    record = {"vision": "small_zoo_local_executor", **results,
+              "card": card_line(device)}
+    log(json.dumps(record))
+    for name, r in results.items():
+        if not (np.isfinite(r["last"]).all()
+                and np.mean(r["last"]) < np.mean(r["first"])):
+            raise SystemExit("%s did not learn: %s" % (name, r))
+    return record
+
+
+def vision_phase(torch, np, flash, workdir):
+    """Phase 15 on the card (see the module docstring)."""
+    bench = resnet_bench(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = resnet_agreement(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = vision_job(torch, np, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat = remat_phase(torch, np, flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = small_zoo_phase(torch, np, workdir)
+    return {"bench": bench, "agreement": agreement, "job": job,
+            "remat": remat, "small": small}
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -6553,7 +7274,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-14 and the last lines (see the module docstring)."""
+    """Phases 1-15 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -6641,6 +7362,10 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         fleet = fleet_phase(torch, np, flash)
         done("14_fleet")
+        gc.collect()
+        torch.cuda.empty_cache()
+        vision = vision_phase(torch, np, flash, workdir)
+        done("15_vision")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -6657,14 +7382,21 @@ def run_phases(torch, np, job_dir, data_proc):
     fwd["launches_serve_telemetry"] = telemetry["serve"]["launches"]
     # K4 in the fleet's replica processes, counted by K4_HOOK
     fwd["launches_fleet_replicas"] = fleet["replica_k4_launches"]
+    # phase 15: a train step's launches under each remat policy
+    remat = vision["remat"]["launches"]
+    fwd["launches_per_step_remat"] = {p: c["fwd"] for p, c in remat.items()}
+    dq = kernel_entry("flash_attention_bwd_dq", BWD_SOURCE,
+                      "elasticdl_tpu/ops/flash_attention.py:229",
+                      launches["dq"], bwd_cases[main_case], "dq")
+    dq["launches_per_step_remat"] = {p: c["dq"] for p, c in remat.items()}
+    dkv = kernel_entry("flash_attention_bwd_dkv", BWD_SOURCE,
+                       "elasticdl_tpu/ops/flash_attention.py:293",
+                       launches["dkv"], bwd_cases[main_case], "dkv")
+    dkv["launches_per_step_remat"] = {p: c["dkv"] for p, c in remat.items()}
     log(json.dumps({"kernels": [
         fwd,
-        kernel_entry("flash_attention_bwd_dq", BWD_SOURCE,
-                     "elasticdl_tpu/ops/flash_attention.py:229",
-                     launches["dq"], bwd_cases[main_case], "dq"),
-        kernel_entry("flash_attention_bwd_dkv", BWD_SOURCE,
-                     "elasticdl_tpu/ops/flash_attention.py:293",
-                     launches["dkv"], bwd_cases[main_case], "dkv"),
+        dq,
+        dkv,
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
                           "gather", tier_cases, sparse, stream, job,

@@ -7,7 +7,8 @@ types:
 - ``custom_model()`` -> an ``nn.Module`` whose ``forward(features)``
   maps a batch to outputs
 - ``params_from_flax(flat)`` -> its state_dict from the export bundle's
-  flat flax names (port addition: the bundle format both packages share)
+  flat flax names, params and ``batch_stats/...`` model state (port
+  addition: the bundle format both packages share)
 - ``loss(labels, predictions)`` -> per-sample loss vector (torch)
 - ``optimizer()`` -> a ``train.optimizers.GradientTransformation``
 - ``dataset_fn(dataset, mode, metadata)`` -> maps a pipeline.Dataset of

@@ -2,9 +2,10 @@
 the model and the model-zoo contract).
 
 Pre-LayerNorm blocks, tanh-approximate GELU MLP, rotary position
-embeddings, untied LM head, no biases -- the flax model's function, as
-``nn.Module``s. Attention goes through ``ops.attention`` and so through
-the flash kernels on the card: K4 forward, K5 and K6 backward.
+embeddings, untied LM head, no biases, dropout after the attention
+projection and the MLP, per-block remat -- the flax model's function,
+as ``nn.Module``s. Attention goes through ``ops.attention`` and so
+through the flash kernels on the card: K4 forward, K5 and K6 backward.
 
 Numerics kept from flax: LayerNorm epsilon is 1e-6 (torch's default is
 1e-5), ``nn.gelu`` is the tanh approximation, and rotary angles are
@@ -19,14 +20,17 @@ Dense kernels are ``(in, out)``, the transpose of an ``nn.Linear``
 weight; Embed is ``(vocab, dim)``.
 """
 
+import functools
 import re
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from elasticdl_tpu_torch.data.example import decode_example
+from elasticdl_tpu_torch.models.layers import Dropout
 from elasticdl_tpu_torch.ops.attention import dot_product_attention
 from elasticdl_tpu_torch.train import metrics
 from elasticdl_tpu_torch.train.losses import sparse_softmax_cross_entropy
@@ -57,7 +61,7 @@ def rotary_embedding(x, base=10000.0, seq_axis=2):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, num_heads, attention_impl="auto"):
+    def __init__(self, dim, num_heads, attention_impl="auto", dropout=0.0):
         super().__init__()
         self.num_heads = num_heads
         self.attention_impl = attention_impl
@@ -65,6 +69,7 @@ class Attention(nn.Module):
         self.key = nn.Linear(dim, dim, bias=False)
         self.value = nn.Linear(dim, dim, bias=False)
         self.out_proj = nn.Linear(dim, dim, bias=False)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         batch, seq, dim = x.shape
@@ -78,32 +83,91 @@ class Attention(nn.Module):
             q, k, v, causal=True, impl=self.attention_impl
         )
         out = out.transpose(1, 2).reshape(batch, seq, dim)
-        return self.out_proj(out)
+        return self.dropout(self.out_proj(out))
 
 
 class Block(nn.Module):
-    def __init__(self, dim, num_heads, mlp_ratio=4, attention_impl="auto"):
+    def __init__(self, dim, num_heads, mlp_ratio=4, attention_impl="auto",
+                 dropout=0.0):
         super().__init__()
         self.ln_attn = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.attn = Attention(dim, num_heads, attention_impl)
+        self.attn = Attention(dim, num_heads, attention_impl, dropout)
         self.ln_mlp = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.mlp_up = nn.Linear(dim, dim * mlp_ratio, bias=False)
         self.mlp_down = nn.Linear(dim * mlp_ratio, dim, bias=False)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         x = x + self.attn(self.ln_attn(x))
         h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
-        return x + self.mlp_down(h)
+        return x + self.dropout(self.mlp_down(h))
+
+
+REMAT_POLICIES = ("full", "dots", "flash")
+# what each policy keeps from a block's forward for its backward (the
+# rest is recomputed): "dots" the matmul outputs of the projections and
+# the MLP (jax's dots_with_no_batch_dims_saveable) and K4's (o, lse),
+# "flash" only K4's (o, lse), "full" nothing
+_DOTS = ("aten.mm.default", "aten.addmm.default")
+_FLASH = ("edl.flash_attention_fwd.default",)
+_SAVED = {"full": (), "dots": _DOTS + _FLASH, "flash": _FLASH}
+
+
+def _remat_context(policy):
+    """``torch.utils.checkpoint``'s ``context_fn`` for ``policy``: a
+    selective-checkpoint policy that saves the named ops' outputs."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    saved = _SAVED[policy]
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        if str(op) in saved:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
+
+
+def _run_block(block, names, x, *weights):
+    return functional_call(block, dict(zip(names, weights)), (x,))
 
 
 class TransformerLM(nn.Module):
+    """``remat=True`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, non-reentrant) under ``remat_policy``:
+    "full" saves nothing, so the recompute launches K4 again; "dots"
+    saves the matmul outputs and K4's (o, lse); "flash" saves only K4's
+    (o, lse), so neither re-launches K4. Dropout masks come from the
+    step's seed (``layers.dropout_seed``), so a recompute redraws them."""
+
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
-                 embed_dim=512, mlp_ratio=4, attention_impl="auto"):
+                 embed_dim=512, mlp_ratio=4, attention_impl="auto",
+                 dropout=0.0, remat=False, remat_policy="full"):
         super().__init__()
+        if remat:
+            if remat_policy not in REMAT_POLICIES:
+                raise ValueError(
+                    "remat_policy must be 'full', 'dots' or 'flash', "
+                    "got %r" % (remat_policy,))
+            # only the flash kernel's op is what "flash" saves: under
+            # another attention impl the policy would match nothing and
+            # silently run as "full"
+            if remat_policy == "flash" and attention_impl not in (
+                    "auto", "flash", "pallas"):
+                raise ValueError(
+                    'remat_policy="flash" saves the flash kernel\'s '
+                    "outputs; attention_impl=%r never produces them (the "
+                    "policy would match nothing and degrade to \"full\")"
+                    % (attention_impl,))
         self.num_heads = num_heads
+        self.remat = bool(remat)
+        self.remat_policy = remat_policy
         self.wte = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attention_impl)
+            Block(embed_dim, num_heads, mlp_ratio, attention_impl, dropout)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
@@ -111,8 +175,24 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens):
         x = self.wte(tokens.long())
+        remat = self.remat and torch.is_grad_enabled()
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            kwargs = {"use_reentrant": False}
+            if self.remat_policy != "full":
+                kwargs["context_fn"] = _remat_context(self.remat_policy)
         for block in self.blocks:
-            x = block(x)
+            if not remat:
+                x = block(x)
+                continue
+            # the block's weights go in as inputs: the recompute runs in
+            # the backward, after the step's functional_call has put the
+            # module's own (fp32) weights back, and must see the ones the
+            # forward saw (under bf16 compute, their bf16 casts)
+            names, weights = zip(*block.named_parameters())
+            x = checkpoint(functools.partial(_run_block, block, names), x,
+                           *weights, **kwargs)
         return self.lm_head(self.ln_f(x))
 
     def flax_params(self, state):
@@ -208,16 +288,20 @@ def params_to_flax(state_dict, num_heads):
 
 
 def custom_model(vocab_size=32000, num_layers=12, num_heads=12,
-                 embed_dim=768, attention_impl="auto"):
+                 embed_dim=768, attention_impl="auto", dropout=0.0,
+                 remat=False, remat_policy="full"):
     """The zoo TransformerLM (elasticdl_tpu/models/transformer.py
-    custom_model widths); ``--model_params`` may override any width or
-    the attention impl."""
+    custom_model widths); ``--model_params`` may override any width,
+    the attention impl, dropout and remat."""
     return TransformerLM(
         vocab_size=vocab_size,
         num_layers=num_layers,
         num_heads=num_heads,
         embed_dim=embed_dim,
         attention_impl=attention_impl,
+        dropout=dropout,
+        remat=remat,
+        remat_policy=remat_policy,
     )
 
 

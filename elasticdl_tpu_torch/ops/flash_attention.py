@@ -14,6 +14,9 @@ for CUDA tensors and raise on anything the kernels do not take. They
 run the plain versions only for CPU tensors. ``LAUNCHES`` (K4),
 ``DQ_LAUNCHES`` (K5) and ``DKV_LAUNCHES`` (K6) count kernel launches, so
 a run can show that its path went through the kernels.
+``flash_attention_fwd_op`` (``torch.ops.edl.flash_attention_fwd``)
+wraps the forward as a custom op, so a remat policy can save K4's
+outputs.
 """
 
 import math
@@ -264,28 +267,53 @@ def _merge(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
+@torch.library.custom_op("edl::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, shape: list[int], causal: bool,
+                           sm_scale: float) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``flash_attention_fwd`` as an op the dispatcher sees: K4 (its
+    plain version for CPU tensors) on merged ``(bh, seq, head_dim)``
+    q, k, v, returning a fresh o of the 4-D ``shape`` and lse.
+
+    A selective-checkpoint policy (models/transformer.py's remat) can
+    save this op's outputs, so a recomputed block does not launch K4
+    again; a ctypes launch inside a Function's forward is invisible to
+    it. The output is allocated in the final 4-D shape and the kernel
+    writes it through a merged view: returning a view of a merged o
+    would hide the Function behind a view's grad_fn."""
+    out = torch.empty(shape, dtype=q.dtype, device=q.device)
+    # looked up on the module at call time (a test may wrap it)
+    _, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                 out=out.view(q.shape))
+    return out, lse
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, shape, causal, sm_scale):
+    bh, seq, _ = q.shape
+    return (q.new_empty(shape),
+            q.new_empty((bh, 1, seq), dtype=torch.float32))
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention on ``(batch, heads, seq, head_dim)`` tensors whose
     gradient runs K5 and K6 (the JAX package's ``_attach``/``_flash``
     pair).
 
-    The forward merges batch and heads, runs K4 (its plain version on
-    the CPU) and saves ``(q, k, v, o, lse)``, so the backward never
-    re-runs the forward. The backward computes ``delta`` in plain torch
-    and launches K5 and K6 (their plain versions on the CPU); it
-    returns contiguous gradients in the inputs' 4-D shape.
+    The forward merges batch and heads, runs K4 through
+    ``flash_attention_fwd_op`` (its plain version on the CPU) and saves
+    ``(q, k, v, o, lse)``, so the backward never re-runs the forward.
+    The backward computes ``delta`` in plain torch and launches K5 and
+    K6 (their plain versions on the CPU); it returns contiguous
+    gradients in the inputs' 4-D shape.
     """
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale):
         merged = [_merge(t) for t in (q, k, v)]
-        # the output is allocated in the inputs' 4-D shape and the kernel
-        # writes it through a merged view: returning a view of a merged
-        # o would hide this Function behind a view's grad_fn
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _, lse = flash_attention_fwd(*merged, causal=causal,
-                                     sm_scale=sm_scale,
-                                     out=out.view(merged[0].shape))
+        out, lse = torch.ops.edl.flash_attention_fwd(
+            *merged, list(q.shape), causal, sm_scale)
         ctx.save_for_backward(*merged, out, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale

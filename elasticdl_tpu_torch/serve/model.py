@@ -1,9 +1,11 @@
 """One loaded, servable model version (port of
 elasticdl_tpu/serve/model.py).
 
-A ``ServingModel`` is immutable once built: the export's params loaded
-into the model-zoo module on its device, floating params cast to the
-compute dtype (as ``cast_floating`` does in the JAX eval step), and a
+A ``ServingModel`` is immutable once built: the export's params and
+model state (BatchNorm's running averages) loaded into the model-zoo
+module on its device in eval mode, floating params cast to the compute
+dtype (as ``cast_floating`` does to the params in the JAX eval step;
+the model state stays fp32), and a
 padded-batch ``predict`` that runs the forward under
 ``torch.inference_mode()``. Every formed batch is zero-padded to
 ``max_batch``, so each row sees the same shapes whatever batch it rode
@@ -78,17 +80,21 @@ class ServingModel:
                 % export_path
             )
         params, model_state, step = load_exported(export_path)
-        if model_state:
-            raise ValueError(
-                "export %r carries model_state %s; the port serves "
-                "stateless models only" % (export_path, sorted(model_state))
-            )
         self.step = int(step)
         model = spec.custom_model()
-        model.load_state_dict(spec.params_from_flax(params), strict=True)
+        # the model state's names keep their collection
+        # (batch_stats/...): the zoo's params_from_flax maps both
+        model.load_state_dict(spec.params_from_flax({**params,
+                                                     **model_state}),
+                              strict=True)
         self.compute_dtype = resolve_dtype(compute_dtype)
         if self.compute_dtype is not None:
-            model = model.to(self.compute_dtype)  # floating params only
+            # the floating params only: as the reference's eval step
+            # casts ``params``, BatchNorm's running averages stay fp32
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.is_floating_point():
+                        p.data = p.data.to(self.compute_dtype)
         self.model = model.to(self.device).eval()
         self._preparer = None
         if spec.sparse_embedding_specs:

@@ -3,13 +3,12 @@
 ``Callback`` is the hook surface the worker drives: ``on_batch_end``
 after every training batch, ``on_train_end`` on the job's
 TRAIN_END_CALLBACK task. ``MaxStepsStopping`` stops the worker's
-training after a step count; ``SavedModelExporter`` writes the export
-bundle to the task's ``saved_model_path``.
-
-Not ported (ROADMAP): ``LearningRateScheduler``, which rewrites the
-learning rate of an optimizer built by
-``create_host_schedulable_optimizer`` (not ported yet).
+training after a step count; ``LearningRateScheduler`` sets the
+learning rate from the model version each batch; ``SavedModelExporter``
+writes the export bundle to the task's ``saved_model_path``.
 """
+
+import dataclasses
 
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
@@ -46,6 +45,39 @@ class MaxStepsStopping(Callback):
     def on_batch_end(self, step, loss):
         if step >= self._max_steps and self.worker is not None:
             self.worker.stop_training = True
+
+
+class LearningRateScheduler(Callback):
+    """Set the learning rate from the model version each batch: the
+    learning rate of an optimizer built by
+    ``create_host_schedulable_optimizer`` lives in its state, and this
+    rewrites it between steps. With any other optimizer it is a no-op,
+    warned once (a schedule given to ``create_optimizer`` as the
+    ``learning_rate`` runs inside the update instead)."""
+
+    def __init__(self, schedule):
+        super().__init__()
+        self.schedule = schedule
+        self._warned = False
+
+    def on_batch_end(self, step, loss):
+        from elasticdl_tpu_torch.train.optimizers import set_learning_rate
+
+        worker = self.worker
+        state = getattr(worker, "state", None)
+        if state is None:
+            return
+        new_opt_state = set_learning_rate(state.opt_state,
+                                          self.schedule(step))
+        if new_opt_state is None:
+            if not self._warned:
+                self._warned = True
+                logger.warning(
+                    "LearningRateScheduler: the optimizer holds no "
+                    "learning rate in its state (build it with "
+                    "create_host_schedulable_optimizer); schedule ignored")
+            return
+        worker.state = dataclasses.replace(state, opt_state=new_opt_state)
 
 
 class SavedModelExporter(Callback):

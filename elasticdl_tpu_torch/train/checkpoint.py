@@ -15,7 +15,8 @@ orbax checkpoints. Each version is one ``state.npz`` (no pickle):
 
 - ``params/<name>``: the params under the export's flat flax names
   (the model's ``flax_params``, as ``train/export.py`` writes them);
-- ``model_state/<name>``: the buffers under their module names;
+- ``model_state/<collection>/<flax path>``: the model state under the
+  export's names (``model_state/batch_stats/BatchNorm_0/mean``);
 - ``opt/<slot>/<name>``: each optimizer slot over the params, under the
   same flax names (Adam's ``mu``, ``nu``), and ``opt/<slot>`` for a
   scalar slot (Adam's ``count``);
@@ -40,6 +41,7 @@ import torch
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.train.train_state import flat_model_state
 
 logger = _logger_factory("elasticdl_tpu_torch.train.checkpoint")
 
@@ -61,7 +63,7 @@ def _to_flat(state):
     flat = {"step": np.asarray(int(state.step), np.int64)}
     for name, value in to_flax(state.params).items():
         flat["params/" + name] = np.array(value, copy=True)
-    for name, tensor in state.model_state.items():
+    for name, tensor in flat_model_state(state.model_state).items():
         flat["model_state/" + name] = _host(tensor)
     for slot, value in state.opt_state.items():
         if isinstance(value, dict):
@@ -208,8 +210,8 @@ class DenseCheckpointManager:
                     if name.startswith(prefix)}
 
         _load_into(template.params, from_flax(group("params/")), "params")
-        _load_into(template.model_state, group("model_state/"),
-                   "model state")
+        _load_into(flat_model_state(template.model_state),
+                   group("model_state/"), "model state")
         for slot, value in template.opt_state.items():
             if isinstance(value, dict):
                 _load_into(value, from_flax(group("opt/%s/" % slot)),

@@ -15,18 +15,22 @@ import numpy as np
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
+from elasticdl_tpu_torch.train.train_state import flat_model_state
 
 logger = _logger_factory("elasticdl_tpu_torch.train.export")
 
 FORMAT = "elasticdl_tpu.export.v1"
 
 
-def export_state_dict(params, path, step=0):
+def export_state_dict(params, path, step=0, model_state=None):
     """Write ``params`` ({flax name: array}, names without the
     ``params/`` prefix -- e.g. ``models.transformer.params_to_flax``)
-    as an export bundle of a model with no mutable state."""
+    and ``model_state`` ({"<collection>/<flax path>": array}, e.g.
+    ``batch_stats/BatchNorm_0/mean``, or None) as an export bundle."""
     os.makedirs(path, exist_ok=True)
     flat = {"params/" + k: np.asarray(v) for k, v in params.items()}
+    for name, value in (model_state or {}).items():
+        flat["model_state/" + name] = np.asarray(value)
     np.savez(os.path.join(path, "model.npz"), **flat)
     manifest = {"format": FORMAT, "step": int(step), "num_arrays": len(flat)}
     with open(os.path.join(path, "manifest.json"), "w") as f:
@@ -36,30 +40,28 @@ def export_state_dict(params, path, step=0):
 
 
 def export_train_state(state, path):
-    """Write a ``TrainState``'s params as an export bundle at its step.
-    The params go out under the export's flax names through the
-    model's ``flax_params`` (``state.to_flax``), so a state trained on
-    the port serves on either package. Models with mutable state
-    (buffers) are not exported yet: the bundle has no mapping for
-    their names."""
-    if state.model_state:
-        raise NotImplementedError(
-            "export of a model with buffers %s is not ported yet"
-            % sorted(state.model_state)
-        )
+    """Write a ``TrainState``'s params and model state as an export
+    bundle at its step. The params go out under the export's flax names
+    through the model's ``flax_params`` (``state.to_flax``), the model
+    state under the reference's ``model_state/batch_stats/<flax path>``
+    names, so a state trained on the port serves on either package."""
     params = state.params
     if state.to_flax is not None:
         params = state.to_flax(params)
     else:
         params = {name: t.detach().float().cpu().numpy()
                   for name, t in params.items()}
-    return export_state_dict(params, path, step=int(state.step))
+    model_state = {name: t.detach().cpu().numpy()
+                   for name, t in flat_model_state(state.model_state).items()}
+    return export_state_dict(params, path, step=int(state.step),
+                             model_state=model_state)
 
 
 def load_exported(path):
     """Returns (params, model_state, step); params and model_state are
     flat {name: ndarray} dicts with the ``params/`` and
-    ``model_state/`` prefixes stripped."""
+    ``model_state/`` prefixes stripped (a model state name keeps its
+    collection: ``batch_stats/BatchNorm_0/mean``)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     params, model_state = {}, {}

@@ -104,6 +104,7 @@ class LocalExecutor:
                 optimizer=self.spec.optimizer(),
                 compute_dtype=compute_dtype,
                 device=self.device,
+                seed=seed,
             )
         self.state = None
         # observability: opt-in through the distributed roles' knobs

@@ -62,6 +62,7 @@ from elasticdl_tpu_torch.embedding.client import (  # noqa: F401
     EmbeddingClient,
     HotRowCache,
 )
+from elasticdl_tpu_torch.models.layers import has_uninitialized_params
 from elasticdl_tpu_torch.train.device_tier import (
     DeviceEmbeddingTier,
     resolve_tier_config,
@@ -502,13 +503,6 @@ def make_row_grads_fn(model, loss_fn, specs, compute_dtype=None):
     return row_grads
 
 
-def _has_uninitialized_params(model):
-    from torch.nn.parameter import UninitializedParameter
-
-    return any(isinstance(p, UninitializedParameter)
-               for p in model.parameters())
-
-
 class _HostFetch:
     """Host buffers for a step's loss, health scalars and row
     gradients, reused every step (pinned when the step runs on the
@@ -658,7 +652,7 @@ class SparseTrainer:
         initialised from the trainer's seed through its
         ``reset_parameters(generator)``; a model whose weights exist
         (built or loaded) keeps them."""
-        if _has_uninitialized_params(self._model):
+        if has_uninitialized_params(self._model):
             features = _to_device(sample_features, self.device)
             devices = [self.device] if self.device.type == "cuda" else []
             # sizing draws no number from the caller's RNG streams

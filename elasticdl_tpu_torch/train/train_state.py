@@ -3,8 +3,14 @@ elasticdl_tpu/train/train_state.py).
 
 As in the JAX package, one object holds the whole training state: the
 step, the fp32 master parameters (``{name: tensor}``, the module's
-``named_parameters`` names), the model's mutable state (its buffers)
-and the optimizer state. The tensors live on the trainer's device.
+``named_parameters`` names), the model's mutable state and the
+optimizer state. The tensors live on the trainer's device.
+
+The model state keeps flax's collection layout: ``{"batch_stats":
+{buffer name: tensor}}`` (the module's ``named_buffers`` names; every
+buffer of the zoo is a BatchNorm statistic), ``{}`` for a model without
+buffers. Its flat flax names (``batch_stats/BatchNorm_0/mean``, the
+export's ``model_state/`` group) come from ``flat_model_state``.
 """
 
 import dataclasses
@@ -32,12 +38,33 @@ class TrainState:
     )
 
 
+BATCH_STATS = "batch_stats"
+
+
+def model_buffers(model_state):
+    """``{buffer name: tensor}`` over every collection: what
+    ``functional_call`` takes beside the params."""
+    return {name: t for tensors in model_state.values()
+            for name, t in tensors.items()}
+
+
+def flat_model_state(model_state):
+    """``{"<collection>/<flax path>": tensor}``: the buffer names with
+    ``.`` as flax's ``/`` (the zoo's modules carry flax's scope
+    names), as the export bundle and the dense checkpoints name them
+    under ``model_state/``."""
+    return {"%s/%s" % (collection, name.replace(".", "/")): t
+            for collection, tensors in model_state.items()
+            for name, t in tensors.items()}
+
+
 def create_train_state(model, tx):
     """State over ``model``'s current parameters and buffers. The state
     shares their storage: the step updates them in place, so the module
     always holds the newest weights."""
     params = {name: p.detach() for name, p in model.named_parameters()}
-    model_state = {name: b.detach() for name, b in model.named_buffers()}
+    buffers = {name: b.detach() for name, b in model.named_buffers()}
+    model_state = {BATCH_STATS: buffers} if buffers else {}
     return TrainState(
         step=0,
         params=params,

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.models.layers import has_uninitialized_params
 from elasticdl_tpu_torch.train.health import maybe_tracker
 from elasticdl_tpu_torch.train.step_fns import make_eval_step, make_train_step
 from elasticdl_tpu_torch.train.train_state import (
@@ -41,12 +42,14 @@ def _to_numpy(tree):
 
 class TorchTrainer:
     def __init__(self, model, loss_fn, optimizer, compute_dtype=None,
-                 grad_accum_steps=1, health=None, device="cuda"):
+                 grad_accum_steps=1, health=None, device="cuda", seed=0):
         """``model`` is trained in place on ``device`` (``cuda`` unless
         the caller asks for the CPU; no card raises). ``health``: None
         reads EDL_HEALTH (default on), False disables, or pass a
-        HealthTracker."""
+        HealthTracker. ``seed`` initialises the layers a model sizes
+        from its first batch."""
         self.device = resolve_device(device)
+        self._seed = seed
         self._model = model.to(self.device)
         self._tx = optimizer
         if health is None:
@@ -74,10 +77,25 @@ class TorchTrainer:
 
     # ------------------------------------------------------------------
     def create_state(self, sample_features=None):
-        """State over the model's current weights (the model was
-        initialised when it was built; ``sample_features`` is accepted
-        for the JAX trainer's signature)."""
-        del sample_features
+        """State over the model's current weights. A model with layers
+        sized by the first batch (flax's Dense infers its input width;
+        the port's ``LazyDense``) runs once on ``sample_features`` in
+        eval mode to size them, then draws its weights from the
+        trainer's seed through ``reset_parameters(generator)``; a model
+        whose weights exist (built or loaded) keeps them."""
+        if has_uninitialized_params(self._model):
+            if sample_features is None:
+                raise ValueError("the model sizes layers from its first "
+                                 "batch: pass sample_features")
+            features = _to_device(sample_features, self.device)
+            devices = [self.device] if self.device.type == "cuda" else []
+            # sizing draws no number from the caller's RNG streams and
+            # moves no running average
+            with torch.random.fork_rng(devices=devices), torch.no_grad():
+                self._model.eval()
+                self._model(features)
+            self._model.reset_parameters(
+                torch.Generator().manual_seed(self._seed))
         return create_train_state(self._model, self._tx)
 
     def ensure_state(self, state, batch):

@@ -195,6 +195,7 @@ class Worker:
 
             factory = trainer_factory or TorchTrainer
             trainer_kwargs["grad_accum_steps"] = grad_accum_steps
+            trainer_kwargs["seed"] = seed
         self.trainer = factory(**trainer_kwargs)
         # the pipelined sparse stream only where it exists and the model
         # is sparse (train/sparse.py train_stream)
