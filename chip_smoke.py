@@ -15,13 +15,15 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    under build/ with programmatic dependent launch off (the serial
    chain of phase 4);
 2. kernels -- K4 against its plain PyTorch version on the card at the
-   serving and training shape and at five more (fp32, non-causal,
-   head_dim 128, ragged S = 1000), each under the tolerance printed
-   with it; times of the kernel, the plain version and
+   serving and training shape and at ten more (fp32, non-causal,
+   head_dim 128, ragged S = 1000; head_dim 256 at bench.py's
+   transformer and s16k_flash shapes, ragged in fp32 and bf16; head_dim
+   96, zero-padded to the kernel's 128), each under the tolerance
+   printed with it; times of the kernel, the plain version and
    ``scaled_dot_product_attention`` (timed only: the port never calls
    it) with CUDA events, L2 flushed before every launch;
 3. backward kernels -- K5 (dq) and K6 (dk, dv) against
-   ``flash_attention_bwd_reference`` at the same six shapes, row by row
+   ``flash_attention_bwd_reference`` at the same eleven shapes, row by row
    (each row's error relative to that row's size), raw launches on the
    same inputs bit-equal to the wrapper's, each kernel timed alone
    beside its own plain version, the wrapper (delta and both kernels)
@@ -285,7 +287,29 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    under "flash" equal to the same steps without remat. Last, mnist,
    cifar10 and mobilenet each one ``LocalExecutor`` epoch on seeded
    planted-class records, the loss falling. Every record carries the
-   card's name and power limit.
+   card's name and power limit;
+16. heads of 256 and the CTR zoo -- bench.py's ``transformer``
+   (bench.py:265-280: d 2048, 10 layers, 8 heads of 256, vocab 32000,
+   S 1024, batch 12, no remat, AdamW lr 3e-4 wd 0.01, bf16, the default
+   attention) through the port's ``make_train_step``, weights made with
+   numpy from a seed and token ids from numpy seed 0: the first step
+   against the same model on plain attention (phase 6's loss, cosine
+   and attention-leaf rules), then warm-up steps and windows of steps,
+   10 K4, 10 K5 and 10 K6 launches in every step, finite losses; step
+   ms, tokens/s, peak memory, the FLOP share of the bf16 peak and a
+   profiled step (device busy, idle share, top ops). Then bench.py's
+   ``s16k_flash`` (the same model at S 16384, batch 1, remat "flash")
+   through ``TorchTrainer``: 10 of each kernel a step, step ms, tokens/s,
+   the FLOP share and peak memory. Then Wide&Deep, DCN and xDeepFM at
+   the zoo's defaults (vocab 1,000,000, dim 8) through
+   ``LocalExecutor`` over RecordIO records of 39 Zipf(1.2) ids with
+   phase 9's planted signal (16384 training, 4096 validation, batch
+   512, 2 epochs): finite, falling losses, the validation AUC at least
+   CTR_AUC_FLOOR, and one fp32 step at batch 64 on the card and on the
+   CPU from the same weights agreeing in the loss, in every gradient
+   leaf as the optimizer receives it, and in the updated tables and
+   dense weights (CTR_AGREE_*), each table moved; steps/s, peak memory
+   and the AUC.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -294,7 +318,11 @@ limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 ``K4_MUTATIONS``, ``BWD_MUTATIONS`` and ``TIER_MUTATIONS`` in its own
 copy of the port under build/ and requires the kernel phase to fail
 there, then times K4's schedules (``K4_SCHEDULES``) and K3's handling
-of misses (``K3_VARIANTS``) in turns.
+of misses (``K3_VARIANTS``) in turns. ``--sparse-ab PARENT`` runs phase
+7's main run for the checkout at PARENT and this one in turns.
+``--against-parent PARENT`` builds K4-K6 from the checkout at PARENT
+and from this one and requires both builds' raw launches to give the
+same bits at every head_dim both take (``AGAINST_PARENT_CASES``).
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -330,6 +358,18 @@ CASES = (
     ("bf16_d128_causal", 48, 1024, 128, "bfloat16", True),
     ("bf16_ragged_s1000_causal", 96, 1000, 64, "bfloat16", True),
     ("f32_d128_ragged_s1000_full", 16, 1000, 128, "float32", False),
+    # heads of 256: bench.py's transformer (batch 12 x 8 heads, S 1024),
+    # its s16k_flash (batch 1 x 8 heads, S 16384: 256 query tiles, the
+    # causal tile range and the K/V ring over as many turns as the main
+    # path runs; the plain versions' fp32 score matrices are 8.6 GB
+    # each) and the ragged edges of the D 256 tiles (64 keys in K4 and
+    # K6, 32 in K5; K6's query mask past S needs a ragged bf16 case)
+    ("bench_bf16_d256_causal", 96, 1024, 256, "bfloat16", True),
+    ("s16k_bf16_d256_causal", 8, 16384, 256, "bfloat16", True),
+    ("f32_d256_ragged_s1000_full", 16, 1000, 256, "float32", False),
+    ("bf16_d256_ragged_s1000_causal", 16, 1000, 256, "bfloat16", True),
+    # a head_dim between the kernels' widths: zero-padded to 128
+    ("bf16_d96_padded_causal", 96, 1024, 96, "bfloat16", True),
 )
 # o tolerance per dtype: bf16 rounds p and o at other points than the
 # plain version (one bf16 ulp of O(1) values is 2^-8 = 0.004); fp32
@@ -494,14 +534,19 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
         )
         scale = 1.0 / dim ** 0.5
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
-        o_raw, lse_raw = torch.empty_like(o), torch.empty_like(lse)
-        raw = raw_launch(torch, lib.edl_flash_fwd, q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), o_raw.data_ptr(), lse_raw.data_ptr(),
-                         bh, seq, dim, int(dtype == torch.bfloat16),
-                         int(causal), scale)
+        # the kernel's own width: a head_dim between 64, 128 and 256
+        # runs zero-padded, and its raw launch takes the padded inputs
+        width = flash.kernel_head_dim(dim)
+        raw_in = [flash.pad_head_dim(t, width) for t in (q, k, v)]
+        o_raw, lse_raw = torch.empty_like(raw_in[0]), torch.empty_like(lse)
+        raw = raw_launch(torch, lib.edl_flash_fwd,
+                         *(t.data_ptr() for t in raw_in), o_raw.data_ptr(),
+                         lse_raw.data_ptr(), bh, seq, width,
+                         int(dtype == torch.bfloat16), int(causal), scale)
         raw()
         torch.cuda.synchronize()
-        bit_equal = torch.equal(o, o_raw) and torch.equal(lse, lse_raw)
+        bit_equal = (torch.equal(o, o_raw[..., :dim])
+                     and torch.equal(lse, lse_raw))
         ro, rlse = flash.flash_attention_fwd_reference(q, k, v, causal, scale)
         err_o = (o.float() - ro.float()).abs().max().item()
         err_lse = (lse - rlse).abs().max().item()
@@ -516,7 +561,7 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
         )
         record = {
             "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
-            "causal": causal, "max_abs_err": err_o,
+            "causal": causal, "kernel_width": width, "max_abs_err": err_o,
             "max_abs_err_lse": err_lse, "tol_o": tol, "tol_lse": LSE_TOL,
             "launches_bit_equal": bit_equal,
         }
@@ -547,7 +592,7 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
         record["ok"] = ok
         log(json.dumps(record))
         results[name] = record
-        del q, k, v, o, lse, o_raw, lse_raw, ro, rlse
+        del q, k, v, o, lse, o_raw, lse_raw, ro, rlse, raw_in
     return results
 
 
@@ -593,12 +638,18 @@ def bwd_kernel_phase(torch, flash, timing=True):
                        and row_err <= rtol
                        and (dtype_name == "bfloat16" or err <= GRAD_F32_ATOL))
         del refs
-        delta = (o.float() * do.float()).sum(-1).unsqueeze(1)
-        common = (bh, seq, dim, int(dtype == torch.bfloat16), int(causal),
+        # raw launches at the kernel's width (padded inputs, as K4's;
+        # delta summed over the padded rows, as the wrapper sums it)
+        width = flash.kernel_head_dim(dim)
+        raw_in = [flash.pad_head_dim(t, width) for t in (q, k, v, do)]
+        o_in = flash.pad_head_dim(o, width)
+        delta = (o_in.float() * raw_in[3].float()).sum(-1).unsqueeze(1)
+        del o_in
+        common = (bh, seq, width, int(dtype == torch.bfloat16), int(causal),
                   scale)
-        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr())
-        raw_out = [torch.empty_like(q) for _ in range(3)]
+        inputs = (*(t.data_ptr() for t in raw_in), lse.data_ptr(),
+                  delta.data_ptr())
+        raw_out = [torch.empty_like(raw_in[0]) for _ in range(3)]
         raw_dq = raw_launch(torch, lib.edl_flash_bwd_dq, *inputs,
                             raw_out[0].data_ptr(), *common)
         raw_dkv = raw_launch(torch, lib.edl_flash_bwd_dkv, *inputs,
@@ -607,12 +658,12 @@ def bwd_kernel_phase(torch, flash, timing=True):
         raw_dq()
         raw_dkv()
         torch.cuda.synchronize()
-        bit_equal = all(torch.equal(a, b)
+        bit_equal = all(torch.equal(a[..., :dim], b)
                         for a, b in zip(raw_out, (dq, dk, dv)))
         oks.append(bit_equal)
         record = {
             "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
-            "causal": causal,
+            "causal": causal, "kernel_width": width,
             "max_abs_err": errs, "worst_row_rel_err": row_errs,
             "tol_row_rel": rtol, "row_floor": GRAD_FLOOR * dim ** 0.5,
             "median_row_norm": row_norms,
@@ -628,7 +679,7 @@ def bwd_kernel_phase(torch, flash, timing=True):
         if not timing:
             log(json.dumps(record))
             results[name] = record
-            del q, k, v, do, o, lse, dq, dk, dv, delta, raw_out
+            del q, k, v, do, o, lse, dq, dk, dv, delta, raw_out, raw_in
             continue
         record["dq_ms"] = time_ms(torch, raw_dq, flush)
         record["dkv_ms"] = time_ms(torch, raw_dkv, flush)
@@ -653,7 +704,7 @@ def bwd_kernel_phase(torch, flash, timing=True):
         log(json.dumps(record))
         results[name] = record
         del q, k, v, do, o, lse, dq, dk, dv, delta, raw_out, q4, k4, v4
-        del sdpa, do4, args
+        del sdpa, do4, args, raw_in
     return results
 
 
@@ -5927,23 +5978,23 @@ def read_launches(flash):
             "dkv": flash.DKV_LAUNCHES}
 
 
-def first_step_agreement(torch, trainer, spec_plain, batch, device):
+def first_step_agreement(torch, model, spec_plain, batch, device):
     """Loss and fp32 master gradients of the first step, from identical
-    weights, through the kernel model and the same model on plain
-    attention (bf16 compute on both)."""
+    weights, through the kernel model ``model`` and the same model on
+    plain attention (bf16 compute on both), one after the other."""
     from elasticdl_tpu_torch.train.optimizers import sgd
     from elasticdl_tpu_torch.train.step_fns import make_loss_and_grads
     from elasticdl_tpu_torch.train.train_state import create_train_state
 
-    plain = spec_plain.custom_model()
-    plain.load_state_dict(trainer.model.state_dict())
-    plain = plain.to(device)
+    with torch.device(device):
+        plain = spec_plain.custom_model()
+    plain.load_state_dict(model.state_dict())
     tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     results = []
-    for model in (trainer.model, plain):
-        state = create_train_state(model, sgd(0.0))
+    for net in (model, plain):
+        state = create_train_state(net, sgd(0.0))
         loss, grads = make_loss_and_grads(
-            model, spec_plain.loss, compute_dtype=torch.bfloat16)(
+            net, spec_plain.loss, compute_dtype=torch.bfloat16)(
             state, tensors)
         results.append((loss.item(), grads))
         del state
@@ -5971,6 +6022,15 @@ def first_step_agreement(torch, trainer, spec_plain, batch, device):
             len(leaf_errs) // 2],
         "tol_attn_leaf_rel_l2": TRAIN_ATTN_LEAF_TOL,
     }
+
+
+def hold_agreement(agreement, what):
+    """Raise unless ``first_step_agreement``'s numbers are within
+    TRAIN_LOSS_TOL, TRAIN_GRAD_COS and TRAIN_ATTN_LEAF_TOL."""
+    if (agreement["loss_abs_diff"] > TRAIN_LOSS_TOL
+            or not agreement["grad_cosine"] >= TRAIN_GRAD_COS
+            or not agreement["attn_leaf_worst_rel_l2"] <= TRAIN_ATTN_LEAF_TOL):
+        raise SystemExit("%s disagrees with plain attention" % what)
 
 
 def train_phase(torch, np, flash, workdir, device="cuda", widths=None,
@@ -6002,15 +6062,12 @@ def train_phase(torch, np, flash, workdir, device="cuda", widths=None,
     )
     trainer = executor.trainer
     agreement = first_step_agreement(
-        torch, trainer,
+        torch, trainer.model,
         get_model_spec(ZOO, model_params=model_params
                        + ";attention_impl='xla'"),
         first, device)
     log(json.dumps(agreement))
-    if (agreement["loss_abs_diff"] > TRAIN_LOSS_TOL
-            or not agreement["grad_cosine"] >= TRAIN_GRAD_COS
-            or not agreement["attn_leaf_worst_rel_l2"] <= TRAIN_ATTN_LEAF_TOL):
-        raise SystemExit("first train step disagrees with plain attention")
+    hold_agreement(agreement, "first train step")
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -6170,6 +6227,17 @@ BWD_MUTATIONS = (
         ("const uint32_t q_src = q_s + stage * L::kTileBytes;",
          "const uint32_t q_src = q_s + ((stage + 1) % kStages) "
          "* L::kTileBytes;"),)),
+    # K6 at D 256 (the split kernel): the query mask past S, and each
+    # warpgroup reading P^T and dS^T from its own buffer (the other
+    # warpgroup's half stale)
+    ("k6_d256_no_query_mask_past_s", (
+        ("const bool masked = q_pos >= seq || (causal && k_pos > q_pos);",
+         "const bool masked = causal && k_pos > q_pos;"),)),
+    ("k6_d256_buffers_per_warpgroup", (
+        ("const uint32_t p_buf = p_s + (kv & 1) * L::kPBytes;",
+         "const uint32_t p_buf = p_s + ((kv + wg) & 1) * L::kPBytes;"),
+        ("const uint32_t ds_buf = ds_s + (kv & 1) * L::kPBytes;",
+         "const uint32_t ds_buf = ds_s + ((kv + wg) & 1) * L::kPBytes;"))),
 )
 TIER_SOURCE = "elasticdl_tpu_torch/ops/csrc/embedding_tier.cu"
 K3_HIT = "const bool hit = s >= 0 && s < table_rows - 1;"
@@ -6364,6 +6432,94 @@ def sparse_ab(parent):
                 [r["split_stage_ms_median"].get(k, 0.0) for r in mine]))
                 for k in stages}}
     log(json.dumps({"sparse_ab": "summary", **summary}))
+
+
+# K4-K6 of two checkouts on the same inputs (python3 chip_smoke.py
+# --against-parent <parent>): every CASES entry at a head_dim the parent
+# took (64, 128) at its own shape, and the tile edges of each (one row,
+# one row past a tile) in both dtypes, causal and not
+AGAINST_PARENT_CASES = tuple(
+    case for case in CASES if case[3] in (64, 128)) + tuple(
+    ("edge_%s_d%d_s%d_%s" % (dtype, dim, seq,
+                             "causal" if causal else "full"),
+     6, seq, dim, dtype, causal)
+    for dim in (64, 128) for dtype in ("bfloat16", "float32")
+    for seq in (1, 129) for causal in (False, True))
+# a child in the parent's checkout builds its K4-K6 and prints where
+AGAINST_PARENT_CHILD = (
+    "import json, sys\n"
+    "sys.path.insert(0, '.')\n"
+    "from elasticdl_tpu_torch.ops import _build\n"
+    "_build.build(['flash_fwd', 'flash_bwd'])\n"
+    "print(json.dumps({n: _build.library_path(n) "
+    "for n in ('flash_fwd', 'flash_bwd')}))\n"
+)
+
+
+def flash_raw_outputs(torch, libs, q, k, v, do, causal):
+    """(o, lse, dq, dk, dv) from raw launches of ``libs``' K4, K5 and K6
+    (delta from this o, as the wrapper computes it)."""
+    bh, seq, dim = q.shape
+    common = (bh, seq, dim, int(q.dtype == torch.bfloat16), int(causal),
+              1.0 / dim ** 0.5)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, 1, seq, device="cuda")
+    raw_launch(torch, libs["flash_fwd"].edl_flash_fwd, q.data_ptr(),
+               k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+               *common)()
+    delta = (o.float() * do.float()).sum(-1).unsqueeze(1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    raw_launch(torch, libs["flash_bwd"].edl_flash_bwd_dq, *inputs,
+               dq.data_ptr(), *common)()
+    raw_launch(torch, libs["flash_bwd"].edl_flash_bwd_dkv, *inputs,
+               dk.data_ptr(), dv.data_ptr(), *common)()
+    torch.cuda.synchronize()
+    return o, lse, dq, dk, dv
+
+
+def against_parent(torch, parent):
+    """K4-K6 built from the checkout at ``parent`` and from this one,
+    raw-launched on the same inputs at every AGAINST_PARENT_CASES entry:
+    raises unless o, lse, dq, dk and dv are the same bits."""
+    from elasticdl_tpu_torch.ops import _build
+
+    parent = os.path.abspath(parent)
+    if not os.path.exists(os.path.join(parent, BWD_SOURCE)):
+        raise SystemExit("no %s in %s" % (BWD_SOURCE, parent))
+    child = subprocess.Popen([sys.executable, "-c", AGAINST_PARENT_CHILD],
+                             cwd=parent, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    _build.build(["flash_fwd", "flash_bwd"])
+    out, _ = child.communicate(timeout=900)
+    if child.returncode:
+        raise SystemExit("the parent's kernels did not build:\n%s"
+                         % out[-3000:])
+    paths = json.loads(out.strip().splitlines()[-1])
+    libs = {"parent": {n: _build.bind(path, n) for n, path in paths.items()},
+            "change": {n: _build.load(n) for n in paths}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    differ = []
+    for name, bh, seq, dim, dtype_name, causal in AGAINST_PARENT_CASES:
+        q, k, v, do = (
+            torch.randn(bh, seq, dim, device="cuda", generator=gen).to(
+                getattr(torch, dtype_name)) for _ in range(4))
+        got = {label: flash_raw_outputs(torch, lib, q, k, v, do, causal)
+               for label, lib in libs.items()}
+        equal = {out_name: torch.equal(a, b) for out_name, a, b in zip(
+            ("o", "lse", "dq", "dk", "dv"), got["parent"], got["change"])}
+        log(json.dumps({"against_parent": name, "shape": [bh, seq, dim],
+                        "dtype": dtype_name, "causal": causal,
+                        "bit_equal": equal}))
+        if not all(equal.values()):
+            differ.append(name)
+        del q, k, v, do, got
+    log(json.dumps({"against_parent": "summary", "parent": parent,
+                    "libraries": paths, "cases": len(AGAINST_PARENT_CASES),
+                    "differ": differ}))
+    if differ:
+        raise SystemExit("K4-K6 differ from the parent's at %s" % differ)
 
 
 def mutation_phase():
@@ -6918,20 +7074,30 @@ def vision_job(torch, np, workdir, device="cuda",
                     proc.wait()
 
 
-def remat_trainer(torch, np, flat, widths, remat, policy, dropout=0.0,
-                  device="cuda"):
-    """A TorchTrainer over the zoo TransformerLM with ``flat`` weights
-    (the spec's ``custom_model`` with remat and dropout through its
-    model params), bf16 compute, AdamW."""
+def lm_model(torch, flat, widths, device, remat=False, policy="full",
+             dropout=0.0):
+    """``(model, spec)``: the zoo TransformerLM at ``widths`` (remat and
+    dropout through its model params, the default attention) built on
+    ``device`` holding the flax-named weights ``flat``."""
     from elasticdl_tpu_torch.models.registry import get_model_spec
-    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 
     params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
     params += ";remat=%s;remat_policy='%s';dropout=%r" % (remat, policy,
                                                           dropout)
     spec = get_model_spec(ZOO, model_params=params)
-    model = spec.custom_model()
+    with torch.device(device):
+        model = spec.custom_model()
     model.load_state_dict(spec.params_from_flax(flat), strict=True)
+    return model, spec
+
+
+def remat_trainer(torch, np, flat, widths, remat, policy, dropout=0.0,
+                  device="cuda"):
+    """A TorchTrainer over ``lm_model``, bf16 compute, AdamW."""
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    model, spec = lm_model(torch, flat, widths, device, remat, policy,
+                           dropout)
     return TorchTrainer(model, spec.loss, spec.optimizer(),
                         compute_dtype="bfloat16", health=False,
                         device=device), spec
@@ -7135,6 +7301,389 @@ def vision_phase(torch, np, flash, workdir):
             "remat": remat, "small": small}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: heads of 256 (bench.py's transformer and s16k_flash) and the
+# CTR zoo
+# ---------------------------------------------------------------------------
+
+# bench.py's transformer configuration (bench.py:265-280, the model and
+# step scripts/bench_transformer_mfu.py:136-155 builds): d 2048, 10
+# layers, 8 heads of 256, vocab 32000, mlp_ratio 4, S 1024, batch 12, no
+# remat, AdamW lr 3e-4 wd 0.01, bf16 compute, the default attention
+BENCH_LM_WIDTHS = dict(vocab_size=32000, num_layers=10, num_heads=8,
+                       embed_dim=2048)
+BENCH_LM_SEQ = 1024
+BENCH_LM_BATCH = 12
+BENCH_LM_WARMUP = 2
+BENCH_LM_WINDOWS = 3
+BENCH_LM_WINDOW_STEPS = 4
+# bench.py's s16k_flash (bench.py:299-313): the same model at S 16384,
+# batch 1, remat "flash" (K4's outputs saved, so K4 runs once a layer)
+S16K_SEQ = 16384
+S16K_STEPS = 3
+# the CTR zoo at its defaults (vocab 1M, dim 8) over 39 fields of
+# Zipf(1.2) ids, as phase 9's data makes them (a planted linear signal
+# in the label), batch 512: 32 steps an epoch, 2 epochs
+CTR_ZOO = ("wide_deep", "dcn", "xdeepfm")
+CTR_RECORDS = 16384
+CTR_VALID = 4096
+CTR_BATCH = 512
+CTR_EPOCHS = 2
+# the validation AUC each variant must reach: phase 9's floor and the
+# reference test's (tests/test_model_zoo.py); the CPU rehearsal of this
+# configuration (the same records and seeds) reads 0.78 (DCN, which has
+# no linear term), 0.86 (Wide&Deep) and 0.89 (xDeepFM)
+CTR_AUC_FLOOR = 0.70
+# one fp32 step at batch 64 on the card and on the CPU from the same
+# weights: the loss (fp32 sums in another order), every gradient leaf
+# as the optimizer receives it, and the updated parameters. The
+# gradients are what hold magnitudes: a leaf's relative L2 error,
+# ||g_card - g_cpu|| / ||g_cpu||, is fp32 summation order over the
+# batch (a few 1e-7), and a gradient wrong by any factor on one side
+# reads that factor less one. Adam's first step moves a weight by
+# lr * g / (|g| + eps), about lr * sign(g), so the updated parameters
+# show which way each weight moved and that the update landed, not how
+# large its gradient was: the tables' atol of 1e-5 is a thousandth of
+# one step (a table row's gradient is a sum over the few examples
+# holding its id); a dense weight's gradient sums over the batch and
+# can cancel to within a few eps of 0, where the division turns the two
+# sums' rounding into up to a few percent of a step (the card read
+# 1.8e-5 on Wide&Deep), so the dense weights are held to a tenth of a
+# step: a sign check, with their magnitudes held by the gradients
+CTR_AGREE_BATCH = 64
+CTR_AGREE_LOSS_RTOL = 1e-5
+CTR_AGREE_GRAD_RTOL = 1e-5
+CTR_AGREE_ATOL = 1e-5
+CTR_AGREE_DENSE_ATOL = 1e-3
+
+
+def check_launches(record, launches, layers, what):
+    """Every step of ``launches`` launched K4, K5 and K6 ``layers``
+    times."""
+    want = {"fwd": layers, "dq": layers, "dkv": layers}
+    if any(step != want for step in launches):
+        log(json.dumps(record))
+        raise SystemExit("%s: launches a step %s, want %s" % (
+            what, launches, want))
+
+
+def bench_lm_phase(torch, np, flash, device="cuda", widths=None,
+                   seq=BENCH_LM_SEQ, batch=BENCH_LM_BATCH,
+                   warmup=BENCH_LM_WARMUP, windows=BENCH_LM_WINDOWS,
+                   window_steps=BENCH_LM_WINDOW_STEPS):
+    """bench.py's ``transformer`` through the port's ``make_train_step``
+    (heads of 256 through K4-K6): the first step's loss and gradients
+    from the carried weights against the same model on plain attention
+    (phase 6's rules), then warm-up steps and windows of steps, each
+    fenced by its loss; K4, K5 and K6 launches counted in every step.
+    Step ms and tokens/s of the best window, peak memory, the FLOP share
+    of the bf16 peak (``model_train_flops``) and a profiled step."""
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.train.step_fns import make_train_step
+    from elasticdl_tpu_torch.train.train_state import create_train_state
+
+    widths = dict(BENCH_LM_WIDTHS if widths is None else widths)
+    layers = widths["num_layers"]
+    flat = zoo_weights(np, np.random.default_rng(SEED + 17), **widths)
+    model, spec = lm_model(torch, flat, widths, device)
+    tokens = np.random.RandomState(0).randint(
+        0, widths["vocab_size"], size=(batch, seq)).astype(np.int32)
+    step_batch = {"features": tokens, "labels": tokens,
+                  "_mask": np.ones(batch, np.float32)}
+    params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
+    agreement = first_step_agreement(
+        torch, model, get_model_spec(
+            ZOO, model_params=params + ";attention_impl='xla'"),
+        step_batch, device)
+    log(json.dumps(dict(agreement, phase="16_bench_transformer",
+                        card=card_line(device))))
+    hold_agreement(agreement, "bench transformer's first step")
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    tx = spec.optimizer()  # AdamW lr 3e-4, weight decay 0.01
+    step_fn = make_train_step(model, spec.loss, tx,
+                              compute_dtype=torch.bfloat16)
+    tensors = {k: torch.from_numpy(v).to(device)
+               for k, v in step_batch.items()}
+    state = create_train_state(model, tx)
+    losses, launches, best = [], [], float("inf")
+
+    def counted_step(state):
+        reset_launches(flash)
+        state, loss = step_fn(state, tensors)
+        launches.append(read_launches(flash))
+        return state, loss
+
+    for _ in range(warmup):
+        state, loss = counted_step(state)
+        losses.append(float(loss))
+    for _ in range(windows):
+        sync(torch, torch.device(device))
+        t0 = time.perf_counter()
+        for _ in range(window_steps):
+            state, loss = counted_step(state)
+        losses.append(float(loss))  # the fetch fences the window
+        best = min(best, time.perf_counter() - t0)
+    step_s = best / window_steps
+    flops = model_train_flops(widths["embed_dim"], layers, seq, batch,
+                              widths["vocab_size"])
+    record = {
+        "phase": "16_bench_transformer",
+        "config": "bench.py:265-280, scripts/bench_transformer_mfu.py:"
+                  "136-155", "widths": widths, "head_dim":
+        widths["embed_dim"] // widths["num_heads"], "seq": seq,
+        "batch": batch, "remat": "none", "attention_impl": "auto",
+        "compute_dtype": "bfloat16", "warmup": warmup, "windows": windows,
+        "window_steps": window_steps, "step_ms": step_s * 1e3,
+        "tokens_per_s": batch * seq / step_s, "losses": losses,
+        "launches_per_step": launches,
+        "model_tflop_per_step": flops / 1e12,
+        "flop_share_of_bf16_peak": flops / step_s / PEAK_FLOPS["bfloat16"],
+    }
+    if not all(np.isfinite(losses)):
+        log(json.dumps(record))
+        raise SystemExit("bench transformer losses: %s" % losses)
+    check_launches(record, launches, layers, "bench transformer")
+    if device == "cuda":
+        record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        holder = {"state": state}
+
+        def one():
+            holder["state"], _ = step_fn(holder["state"], tensors)
+
+        record["step_profile"] = profile_dense_step(
+            torch, one, "bench_transformer_train_step")
+        state = holder["state"]
+    else:
+        record["peak_mem_gb"] = "not measured"
+    record["card"] = card_line(device)
+    log(json.dumps(record))
+    del state, model, tensors, step_fn
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"record": record, "agreement": agreement, "flat": flat,
+            "widths": widths}
+
+
+def s16k_phase(torch, np, flash, flat, widths, device="cuda",
+               seq=S16K_SEQ, steps=S16K_STEPS):
+    """bench.py's ``s16k_flash``: the same model at S ``seq``, batch 1,
+    remat "flash" through ``TorchTrainer``; every step launches K4, K5
+    and K6 once a layer ("flash" saves K4's outputs); step ms (the steps
+    after the first), tokens/s, the FLOP share of the bf16 peak (the
+    formula's, without the recompute) and peak memory."""
+    layers = widths["num_layers"]
+    trainer, _ = remat_trainer(torch, np, flat, widths, True, "flash",
+                               device=device)
+    tokens = np.random.RandomState(0).randint(
+        0, widths["vocab_size"], size=(1, seq)).astype(np.int32)
+    step_batch = {"features": tokens, "labels": tokens,
+                  "_mask": np.ones(1, np.float32)}
+    state = trainer.create_state()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, launches, step_ms = [], [], []
+    for _ in range(steps):
+        reset_launches(flash)
+        sync(torch, torch.device(device))
+        t0 = time.perf_counter()
+        state, loss = trainer.train_step(state, step_batch)
+        losses.append(float(loss))  # fences the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches(flash))
+    timed = step_ms[1:] or step_ms
+    mean_s = sum(timed) / len(timed) / 1e3
+    flops = model_train_flops(widths["embed_dim"], layers, seq, 1,
+                              widths["vocab_size"])
+    record = {
+        "phase": "16_s16k_flash", "config": "bench.py:299-313",
+        "seq": seq, "batch": 1, "remat": "flash", "steps": steps,
+        "step_ms": step_ms, "step_ms_after_first": mean_s * 1e3,
+        "tokens_per_s": seq / mean_s, "losses": losses,
+        "launches_per_step": launches,
+        "model_tflop_per_step": flops / 1e12,
+        "flop_share_of_bf16_peak": flops / mean_s / PEAK_FLOPS["bfloat16"],
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if device == "cuda" else "not measured"),
+        "card": card_line(device),
+    }
+    log(json.dumps(record))
+    if not all(np.isfinite(losses)):
+        raise SystemExit("s16k_flash losses: %s" % losses)
+    check_launches(record, launches, layers, "s16k_flash")
+    del trainer, state
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return record
+
+
+class RecordGrads:
+    """An optimizer that keeps a CPU copy of the gradients its last
+    ``update`` received and otherwise is ``tx``."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def __getattr__(self, name):
+        return getattr(self.tx, name)
+
+    def update(self, grads, opt_state, params):
+        self.grads = {n: g.detach().cpu().clone() for n, g in grads.items()}
+        return self.tx.update(grads, opt_state, params)
+
+
+def ctr_agreement(torch, np, variant, device="cuda",
+                  batch=CTR_AGREE_BATCH, fields=SPARSE_FIELDS,
+                  vocab=SPARSE_VOCAB):
+    """One fp32 step of ``variant`` at ``batch`` through TorchTrainer on
+    ``device`` and on the CPU from the same weights (sized by the batch,
+    drawn from SEED): the loss, every gradient leaf as the optimizer
+    receives it, and every updated parameter."""
+    import copy
+
+    from elasticdl_tpu_torch.models import ctr
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    (step_batch,) = ctr_batches(np, 1, batch=batch, fields=fields,
+                                vocab=vocab, seed=SEED + 18)
+    model = ctr.VARIANTS[variant](vocab=vocab)
+    with torch.no_grad():
+        model({"ids": torch.from_numpy(step_batch["features"]["ids"])})
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    initial = {n: p.detach().clone() for n, p in model.named_parameters()}
+    results = []
+    for where, net in ((device, copy.deepcopy(model)), ("cpu", model)):
+        tx = RecordGrads(ctr.optimizer())
+        trainer = TorchTrainer(net, ctr.loss, tx, health=False,
+                               device=where)
+        state, loss = trainer.train_step(trainer.create_state(),
+                                         step_batch)
+        params = {n: p.detach().cpu() for n, p in state.params.items()}
+        results.append((loss.item(), tx.grads, params))
+        del trainer, state
+    (loss_d, grads_d, params_d), (loss_c, grads_c, params_c) = results
+    grad_rel = {n: float((grads_d[n] - grads_c[n]).norm()
+                         / grads_c[n].norm().clamp(min=1e-30))
+                for n in grads_c}
+    diffs = {n: float((params_d[n] - params_c[n]).abs().max())
+             for n in params_c}
+    tables = [n for n in diffs if n.endswith("embeddings")]
+    # how far the step moved each table (a step that leaves a table as
+    # it was fails the phase)
+    moved = {n: float((params_c[n] - initial[n]).abs().max())
+             for n in tables}
+    dense = max(d for n, d in diffs.items() if n not in tables)
+    return {
+        "loss": loss_d, "cpu_loss": loss_c,
+        "loss_rel_diff": abs(loss_d - loss_c) / abs(loss_c),
+        "grad_rel_l2": grad_rel,
+        "grad_worst_rel_l2": max(grad_rel.values()),
+        "grad_worst": max(grad_rel, key=grad_rel.get),
+        "table_max_abs_diff": max(diffs[n] for n in tables),
+        "dense_max_abs_diff": dense,
+        "dense_worst": max((n for n in diffs if n not in tables),
+                           key=diffs.get),
+        "tables_moved": moved, "params": len(diffs),
+        "tol": {"loss_rel": CTR_AGREE_LOSS_RTOL,
+                "grad_rel_l2": CTR_AGREE_GRAD_RTOL,
+                "table_abs": CTR_AGREE_ATOL,
+                "dense_abs": CTR_AGREE_DENSE_ATOL},
+    }
+
+
+def ctr_phase(torch, np, workdir, device="cuda", records=CTR_RECORDS,
+              valid=CTR_VALID, batch=CTR_BATCH, epochs=CTR_EPOCHS,
+              fields=SPARSE_FIELDS, vocab=SPARSE_VOCAB,
+              agree_batch=CTR_AGREE_BATCH, auc_floor=CTR_AUC_FLOOR):
+    """Wide&Deep, DCN and xDeepFM at the zoo's defaults through the
+    port's ``LocalExecutor`` over RecordIO records with a planted signal
+    (``job_data``'s, in one file): every loss finite and falling (the
+    mean of the last four steps below the first four's), the validation
+    AUC at least ``auc_floor``, and ``ctr_agreement`` within its
+    tolerances. Steps/s of the run (the host's reading and batching
+    included), peak memory and the AUC."""
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+
+    train_dir, valid_dir = job_data(np, os.path.join(workdir, "ctr"),
+                                    records=records, valid=valid, files=1,
+                                    fields=fields, vocab=vocab)
+    results = {}
+    for variant in CTR_ZOO:
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        executor = LocalExecutor(
+            "elasticdl_tpu_torch.models." + variant,
+            training_data=train_dir, validation_data=valid_dir,
+            minibatch_size=batch, num_epochs=epochs, seed=SEED,
+            device=device)
+        t0 = time.monotonic()
+        losses = executor.train()
+        seconds = time.monotonic() - t0
+        auc = float(executor.evaluate()["auc"])
+        record = {
+            "phase": "16_ctr", "variant": variant, "vocab": vocab,
+            "dim": 8, "fields": fields, "batch": batch, "epochs": epochs,
+            "records": records, "compute_dtype": "float32",
+            "steps": len(losses), "steps_per_s": len(losses) / seconds,
+            "examples_per_s": len(losses) * batch / seconds,
+            "first_losses": losses[:4], "last_losses": losses[-4:],
+            "auc": auc, "auc_floor": auc_floor,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device == "cuda" else "not measured"),
+        }
+        del executor
+        gc.collect()
+        record["agreement"] = ctr_agreement(torch, np, variant, device,
+                                            batch=agree_batch, fields=fields,
+                                            vocab=vocab)
+        record["card"] = card_line(device)
+        log(json.dumps(record))
+        ctr_check(np, variant, losses, record)
+        results[variant] = record
+    return results
+
+
+def ctr_check(np, variant, losses, record):
+    """Raise unless ``variant`` learned (finite losses, the last four
+    steps' mean below the first four's), reached its AUC floor, and its
+    card step agreed with the CPU's (the loss, every gradient leaf, the
+    updated parameters) and moved every table."""
+    agree = record["agreement"]
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-4:]) < np.mean(losses[:4])):
+        raise SystemExit("%s did not learn: %s" % (variant, losses))
+    if not record["auc"] >= record["auc_floor"]:
+        raise SystemExit("%s AUC %.4f below %.2f" % (
+            variant, record["auc"], record["auc_floor"]))
+    if not min(agree["tables_moved"].values()) > 0:
+        raise SystemExit("%s: a table did not move in one step: %s"
+                         % (variant, agree["tables_moved"]))
+    if not agree["grad_worst_rel_l2"] <= CTR_AGREE_GRAD_RTOL:
+        raise SystemExit("%s: the card's gradients disagree with the "
+                         "CPU's: %s reads %.3g" % (
+                             variant, agree["grad_worst"],
+                             agree["grad_worst_rel_l2"]))
+    if not (agree["loss_rel_diff"] <= CTR_AGREE_LOSS_RTOL
+            and agree["table_max_abs_diff"] <= CTR_AGREE_ATOL
+            and agree["dense_max_abs_diff"] <= CTR_AGREE_DENSE_ATOL):
+        raise SystemExit("%s: the card's step disagrees with the CPU's: "
+                         "%s" % (variant, agree))
+
+
+def heads256_ctr_phase(torch, np, flash, workdir):
+    """Phase 16 on the card (see the module docstring)."""
+    bench = bench_lm_phase(torch, np, flash)
+    s16k = s16k_phase(torch, np, flash, bench.pop("flat"), bench["widths"])
+    ctr_records = ctr_phase(torch, np, workdir)
+    return {"bench": bench, "s16k": s16k, "ctr": ctr_records}
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -7254,9 +7803,13 @@ def main(argv):
         sparse_ab(argv[1])
         log(nvidia_smi_line())
         return 0
+    if len(argv) == 2 and argv[0] == "--against-parent":
+        against_parent(torch, argv[1])
+        log(nvidia_smi_line())
+        return 0
     if argv:
-        print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT]",
-              file=sys.stderr)
+        print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT | "
+              "--against-parent PARENT]", file=sys.stderr)
         return 2
 
     # phase 9's data is written by a child process during the build
@@ -7274,7 +7827,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-15 and the last lines (see the module docstring)."""
+    """Phases 1-16 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -7366,6 +7919,10 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         vision = vision_phase(torch, np, flash, workdir)
         done("15_vision")
+        gc.collect()
+        torch.cuda.empty_cache()
+        heads256 = heads256_ctr_phase(torch, np, flash, workdir)
+        done("16_heads256_ctr")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -7393,6 +7950,24 @@ def run_phases(torch, np, job_dir, data_proc):
                        "elasticdl_tpu/ops/flash_attention.py:293",
                        launches["dkv"], bwd_cases[main_case], "dkv")
     dkv["launches_per_step_remat"] = {p: c["dkv"] for p, c in remat.items()}
+    # phase 16: heads of 256, at bench.py's transformer shape and at
+    # its s16k_flash shape
+    for entry, kind, source in ((fwd, "fwd", cases), (dq, "dq", bwd_cases),
+                                (dkv, "dkv", bwd_cases)):
+        for key, case in (("d256", "bench_bf16_d256_causal"),
+                          ("d256_s16k", "s16k_bf16_d256_causal")):
+            d256 = kernel_entry(entry["name"], entry["source"],
+                                entry["replaces"], None, source[case], kind)
+            entry[key] = {k: d256[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "wrapper_ms", "ms_k5_k6", "library_ms_k5_k6")
+                if k in d256}
+            entry[key]["shape"] = source[case]["shape"]
+        # every step's count is the same (phase 16 checks it)
+        entry["launches_per_step_d256"] = {
+            "transformer": heads256["bench"]["record"][
+                "launches_per_step"][0][kind],
+            "s16k_flash": heads256["s16k"]["launches_per_step"][0][kind]}
     log(json.dumps({"kernels": [
         fwd,
         dq,

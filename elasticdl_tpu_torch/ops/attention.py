@@ -6,8 +6,9 @@ the op model code calls:
 
 - ``"flash"``  -- ops/flash_attention.py ``FlashAttention``: the K4
                   kernel forward and the K5/K6 kernels backward for CUDA
-                  tensors (which raise on a dtype or head_dim they do
-                  not take), their plain versions for CPU tensors
+                  tensors (bf16 or fp32, any head_dim up to 256, padded
+                  to the kernels' 64, 128 or 256; anything else raises),
+                  their plain versions for CPU tensors
 - ``"pallas"`` -- the JAX package's name for its kernel path: the same
                   as ``"flash"``, so model code written against the
                   reference (``TransformerLM(attention_impl="pallas")``)

@@ -80,6 +80,23 @@
 //   spills, for all four entries. 3 ring stages: 132,184 (K5 D 64),
 //   164,952 (K5 D 128), 135,256 (K6 D 64) and 166,488 (K6 D 128) bytes
 //   of dynamic shared memory, 1 KB of it alignment slack.
+// - D 256, K5: the owned q and do are 128 KB, so the streamed k and v
+//   tiles are 32 rows (16 KB each): 3 stages make 230,488 bytes, under
+//   the 232,448 a block may have. A thread holds 16 + 16 + 128 fp32 (S,
+//   dP, dQ; S and dP as m64n32 products, dQ += dS K as m64n256).
+// - D 256, K6 (flash_bwd_dkv_bf16_wgmma_split_kernel): dK and dV of 64
+//   keys x 256 columns are 128 + 128 fp32 a thread in one warpgroup,
+//   more than setmaxnreg's 232. Both consumer warpgroups own the same 64
+//   keys instead. Each computes S^T and dP^T for half of a 64-query tile
+//   (16 + 16 fp32), writes its P^T and dS^T as bf16 into 128B-swizzled
+//   shared tiles, and after a named barrier accumulates dK and dV for
+//   half of the head's columns over all 64 queries (64 + 64 fp32), with
+//   P^T or dS^T as wgmma's A from shared memory. Chosen over dK/dV in
+//   shared memory (64 KB more, and a read-modify-write of it per query
+//   tile) and over one warpgroup computing S^T and the other dP^T (the
+//   exchange would pass fp32 values, or give ds a bf16 p where the
+//   reference has an fp32 one). 2 ring stages of 64-row q and do tiles,
+//   two P^T and two dS^T buffers: 231,488 bytes.
 // - Not kept: the first design (nvcuda::wmma, 64-row blocks launched in
 //   index order, every tile copied through registers, two
 //   __syncthreads() per tile, s and dp written to shared memory as fp32
@@ -91,7 +108,9 @@
 //
 // fp32 path: the tensor cores take no full-precision fp32, so products
 // are FMAs. Four threads share a row (each holds a quarter of it in
-// registers); the other side's tiles of 32 rows sit in shared memory.
+// registers; eight at D 256, so K6's thread holds 4 x 32 floats and not
+// 4 x 64); the other side's tiles of 32 rows (16 at D 256) sit in
+// shared memory.
 // Keys (K5) or queries (K6) past S get p = 0 and rows past S are never
 // written.
 //
@@ -112,7 +131,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the forward's causal mask value
-constexpr int kThreads = 128;      // fp32 path
 constexpr int kMaxDevices = 64;
 
 // ---------------------------------------------------------------------------
@@ -126,10 +144,11 @@ constexpr int kAtomBytes = 128;  // one swizzle atom row: 64 bf16
 constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// rows of the streamed tile: keys (K5) or queries (K6)
+// rows of the streamed tile: keys (K5) or queries (K6; D 256 has its
+// own layout, DkvSplitLayout)
 template <int D>
 struct Stream {
-  static constexpr int kN = D == 64 ? 128 : 64;
+  static constexpr int kN = D == 64 ? 128 : D == 128 ? 64 : 32;
 };
 
 // K5: q and do of the work tile, then the k ring, the v ring, then the
@@ -160,6 +179,30 @@ struct DkvLayout {
   static constexpr int kQ = kV + kOwnBytes;
   static constexpr int kDo = kQ + kStages * kTileBytes;
   static constexpr int kLse = kDo + kStages * kTileBytes;
+  static constexpr int kDelta = kLse + kStages * kStatBytes;
+  static constexpr int kBar = kDelta + kStages * kStatBytes;
+  static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;
+};
+
+// K6 at D 256: k and v of a 64-key work tile, the q ring, the do ring
+// (kStages 64-row tiles), two P^T and two dS^T buffers (bf16, 64 keys x
+// 64 queries, 128B-swizzled), the lse and delta rings, then the barriers
+struct DkvSplitLayout {
+  static constexpr int D = 256;
+  static constexpr int kOwnRows = 64;
+  static constexpr int kN = 64;
+  static constexpr int kStages = 2;
+  static constexpr int kOwnBytes = kOwnRows * D * 2;  // k or v
+  static constexpr int kTileBytes = kN * D * 2;       // one q or do tile
+  static constexpr int kPBytes = kOwnRows * kN * 2;   // one P^T or dS^T
+  static constexpr int kStatBytes = kN * 4;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kOwnBytes;
+  static constexpr int kQ = kV + kOwnBytes;
+  static constexpr int kDo = kQ + kStages * kTileBytes;
+  static constexpr int kP = kDo + kStages * kTileBytes;
+  static constexpr int kDs = kP + 2 * kPBytes;
+  static constexpr int kLse = kDs + 2 * kPBytes;
   static constexpr int kDelta = kLse + kStages * kStatBytes;
   static constexpr int kBar = kDelta + kStages * kStatBytes;
   static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;
@@ -252,6 +295,20 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
       "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
+// d (64 x 32 fp32) (+)= A (64 x 16) * B (16 x 32), both K-major in
+// shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64 fp32) (+)= A (64 x 16) * B (16 x 64), both K-major in
 // shared memory; scale_d 0 overwrites d
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
@@ -324,7 +381,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 128 fp32) += A (64 x 16, K-major in shared memory) * B (16 x
+// 128, MN-major in shared memory, two 64-column atoms)
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 256 fp32) += A (64 x 16 bf16, registers) * B (16 x 256,
+// MN-major in shared memory, four 64-column atoms)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
+        F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef F8
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// the two consumer warpgroups (256 threads) meet at named barrier 1
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -346,9 +461,9 @@ __device__ __forceinline__ int dq_key_tiles(int q0, int seq, int causal) {
 }
 
 // S (or S^T) = A B^T over D: a consumer warpgroup's 64 rows of the A
-// tile (`a_rows` rows a 64-column atom) against the kN rows of the B
-// tile, both K-major
-template <int D, int kN>
+// tile (`a_rows` rows a 64-column atom) against kN rows of the B tile
+// (kBRows rows a 64-column atom), both K-major
+template <int D, int kN, int kBRows = kN>
 __device__ __forceinline__ void scores(float (&acc)[kN / 2], uint32_t a_wg,
                                        int a_rows, uint32_t b_tile) {
   fence_regs(acc);
@@ -357,7 +472,7 @@ __device__ __forceinline__ void scores(float (&acc)[kN / 2], uint32_t a_wg,
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;  // 16 bf16 inside a 128-byte atom
     wgmma_ss(acc, sw128_desc(a_wg + (kk / 4) * a_rows * kAtomBytes + col, 16),
-             sw128_desc(b_tile + (kk / 4) * kN * kAtomBytes + col, 16),
+             sw128_desc(b_tile + (kk / 4) * kBRows * kAtomBytes + col, 16),
              kk > 0);
   }
   wgmma_commit();
@@ -375,12 +490,12 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 2],
   }
 }
 
-// rows r and r + 8 of a warpgroup's 64 x D accumulator (r from the
+// rows r and r + 8 of a warpgroup's 64 x W accumulator (r from the
 // accumulator layout, c its column in each 8-column chunk) as bf16 into
-// rows row0 + r, row0 + r + 8 of a (seq, D) matrix; rows past seq are
-// not written
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+// rows row0 + r, row0 + r + 8 of a (seq, D) matrix at `out` (W of its D
+// columns); rows past seq are not written
+template <int D, int W = D>
+__device__ __forceinline__ void store_rows(const float (&acc)[W / 2],
                                            __nv_bfloat16* out, int row0, int r,
                                            int c, int seq) {
 #pragma unroll
@@ -389,7 +504,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
     if (row >= seq) continue;
     __nv_bfloat16* dst = out + (size_t)row * D + c;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < W / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
@@ -398,14 +513,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
 
 // `full` arrivals complete a ring stage's full_a and full_b: the TMA
 // thread's (with its bytes), and K6's statistics warp's 32 lanes
+template <int Stages = kStages>
 __device__ __forceinline__ void init_barriers(uint32_t bar, int full) {
   if (threadIdx.x == 0) {
     mbar_init(bar, 1);                   // own_full
     mbar_init(bar + 8, kConsumers * 4);  // own_empty: every consumer warp
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Stages; ++s) {
       mbar_init(bar + 16 + 8 * s, full);                         // full_a
-      mbar_init(bar + 16 + 8 * (kStages + s), full);             // full_b
-      mbar_init(bar + 16 + 8 * (2 * kStages + s), kConsumers * 4);  // empty
+      mbar_init(bar + 16 + 8 * (Stages + s), full);              // full_b
+      mbar_init(bar + 16 + 8 * (2 * Stages + s), kConsumers * 4);  // empty
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -774,21 +890,262 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// the bf16 pair (x, y) at row `row`, columns col, col + 1 of a 64 x 64
+// K-major tile at the 1024-aligned `tile`, 128B-swizzled as TMA lays out
+// a tile (the 16-byte chunk index XOR row % 8), so that wgmma reads it
+// as an A operand through sw128_desc
+__device__ __forceinline__ void store_swizzled(uint32_t tile, int row, int col,
+                                               uint32_t pair) {
+  const uint32_t at = tile + row * kAtomBytes +
+                      ((((col * 2) >> 4) ^ (row & 7)) << 4) + ((col * 2) & 15);
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(pair) : "memory");
+}
+
+// K6 at D 256: dk and dv of a persistent CTA's 64-key work tiles. dK and
+// dV of 64 keys x 256 columns would be 256 fp32 registers a thread in
+// one warpgroup, so both consumer warpgroups own the same 64 keys and
+// split the work twice over: warpgroup w computes S^T and dP^T for query
+// columns [32w, 32w + 32) of each streamed tile (m64n32, the whole D
+// contracted), writes its P^T and dS^T as bf16 into shared tiles that
+// hold all 64 query columns, and, past a named barrier, accumulates dV
+// and dK for head columns [128w, 128w + 128) over all 64 queries
+// (m64n128, A = P^T or dS^T from shared memory, B = dO or Q MN-major).
+// The P^T and dS^T tiles are double-buffered by the ring count, so one
+// barrier per query tile orders both the writes before the reads and the
+// reads before the next writes to the same buffer.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_dkv_bf16_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                          const __grid_constant__ CUtensorMap tm_v,
+                                          const __grid_constant__ CUtensorMap tm_q,
+                                          const __grid_constant__ CUtensorMap tm_do,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ delta,
+                                          __nv_bfloat16* __restrict__ dk,
+                                          __nv_bfloat16* __restrict__ dv,
+                                          int bh_count, int seq, int causal,
+                                          float scale, float scale_log2) {
+  using L = DkvSplitLayout;
+  constexpr int D = L::D;
+  constexpr int kN = L::kN;
+  constexpr int kOwnRows = L::kOwnRows;
+  constexpr int kRing = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t k_s = base + L::kK;
+  const uint32_t v_s = base + L::kV;
+  const uint32_t q_s = base + L::kQ;
+  const uint32_t do_s = base + L::kDo;
+  const uint32_t p_s = base + L::kP;
+  const uint32_t ds_s = base + L::kDs;
+  float* lse_ring = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kLse);
+  float* delta_ring =
+      reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDelta);
+  const uint32_t bar_own_full = base + L::kBar;
+  const uint32_t bar_own_empty = bar_own_full + 8;
+  const uint32_t bar_full_q = bar_own_full + 16;
+  const uint32_t bar_full_do = bar_full_q + 8 * kRing;
+  const uint32_t bar_empty = bar_full_do + 8 * kRing;
+  const int k_tiles = (seq + kOwnRows - 1) / kOwnRows;
+  const int q_tiles = (seq + kN - 1) / kN;
+  const int n_work = bh_count * k_tiles;
+  init_barriers<kRing>(bar_own_full, 1 + 32);
+
+  // work tiles longest first, as the D 64/128 kernel's
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int ptid = threadIdx.x - kConsumers * 128;
+    if (ptid / 32 == 1) {
+      int kv = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const int bh = t % bh_count;
+        const int k0 = (t / bh_count) * kOwnRows;
+        for (int n = causal ? k0 / kN : 0; n < q_tiles; ++n, ++kv) {
+          const int stage = kv % kRing;
+          mbar_wait(bar_empty + 8 * stage, ((kv / kRing) & 1) ^ 1);
+#pragma unroll
+          for (int i = 0; i < kN / 32; ++i) {
+            const int col = 32 * i + ptid % 32;
+            const int q_pos = n * kN + col;
+            const size_t at = (size_t)bh * seq + q_pos;
+            lse_ring[stage * kN + col] = q_pos < seq ? lse[at] * kLog2e : 0.f;
+            delta_ring[stage * kN + col] = q_pos < seq ? delta[at] : 0.f;
+          }
+          mbar_arrive(bar_full_q + 8 * stage);
+          mbar_arrive(bar_full_do + 8 * stage);
+        }
+      }
+    } else if (ptid == 0) {
+      int kv = 0;
+      for (int t = blockIdx.x, w = 0; t < n_work; t += gridDim.x, ++w) {
+        const int bh = t % bh_count;
+        const int k0 = (t / bh_count) * kOwnRows;
+        mbar_wait(bar_own_empty, (w & 1) ^ 1);
+        mbar_expect_tx(bar_own_full, 2 * L::kOwnBytes);
+#pragma unroll
+        for (int a = 0; a < D / 64; ++a) {
+          tma_load_3d(k_s + a * kOwnRows * kAtomBytes, &tm_k, bar_own_full,
+                      64 * a, k0, bh);
+          tma_load_3d(v_s + a * kOwnRows * kAtomBytes, &tm_v, bar_own_full,
+                      64 * a, k0, bh);
+        }
+        for (int n = causal ? k0 / kN : 0; n < q_tiles; ++n, ++kv) {
+          const int stage = kv % kRing;
+          mbar_wait(bar_empty + 8 * stage, ((kv / kRing) & 1) ^ 1);
+          const int row = bh * seq + n * kN;
+          const uint32_t full_q = bar_full_q + 8 * stage;
+          const uint32_t full_do = bar_full_do + 8 * stage;
+          mbar_expect_tx(full_q, L::kTileBytes);
+#pragma unroll
+          for (int a = 0; a < D / 64; ++a) {
+            tma_load_2d(q_s + stage * L::kTileBytes + a * kN * kAtomBytes, &tm_q,
+                        full_q, 64 * a, row);
+          }
+          mbar_expect_tx(full_do, L::kTileBytes);
+#pragma unroll
+          for (int a = 0; a < D / 64; ++a) {
+            tma_load_2d(do_s + stage * L::kTileBytes + a * kN * kAtomBytes,
+                        &tm_do, full_do, 64 * a, row);
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup `wg`: all 64 keys of the work tile; query
+    // columns [32 wg, 32 wg + 32) of S^T and dP^T, head columns
+    // [128 wg, 128 wg + 128) of dK and dV
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32;
+    const int r = (tid / 32) * 16 + lane / 4;
+    const int c = (lane % 4) * 2;
+    const int q_half = wg * (kN / 2);
+    const uint32_t d_half = wg * 2 * kN * kAtomBytes;  // two atoms of a tile
+    int kv = 0;
+    for (int t = blockIdx.x, w = 0; t < n_work; t += gridDim.x, ++w) {
+      const int bh = t % bh_count;
+      const int kw = (t / bh_count) * kOwnRows;
+      const int first = causal ? kw / kN : 0;
+      float acc_dk[D / 4];
+      float acc_dv[D / 4];
+#pragma unroll
+      for (int j = 0; j < D / 4; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+
+      mbar_wait(bar_own_full, w & 1);
+      __syncwarp();
+      for (int n = first; n < q_tiles; ++n, ++kv) {
+        const int stage = kv % kRing;
+        const uint32_t parity = (kv / kRing) & 1;
+        const int q0 = n * kN;
+        const uint32_t q_stage = q_s + stage * L::kTileBytes;
+        const uint32_t do_stage = do_s + stage * L::kTileBytes;
+        const uint32_t p_buf = p_s + (kv & 1) * L::kPBytes;
+        const uint32_t ds_buf = ds_s + (kv & 1) * L::kPBytes;
+        const float* lse_t = lse_ring + stage * kN;
+        const float* delta_t = delta_ring + stage * kN;
+
+        // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 32 queries
+        float acc_s[kN / 4];
+        float acc_dp[kN / 4];
+        mbar_wait(bar_full_q + 8 * stage, parity);
+        __syncwarp();
+        scores<D, kN / 2, kN>(acc_s, k_s, kOwnRows,
+                              q_stage + q_half * kAtomBytes);
+        mbar_wait(bar_full_do + 8 * stage, parity);
+        __syncwarp();
+        scores<D, kN / 2, kN>(acc_dp, v_s, kOwnRows,
+                              do_stage + q_half * kAtomBytes);
+        wgmma_wait_all();
+        fence_regs(acc_s);
+        fence_regs(acc_dp);
+        if (n == q_tiles - 1 && lane == 0) mbar_arrive(bar_own_empty);
+
+        // P^T and dS^T in fp32, stored as bf16 into the shared tiles
+        const bool edge = q0 + kN > seq || (causal && kw + kOwnRows - 1 > q0);
+#pragma unroll
+        for (int j = 0; j < kN / 4; j += 2) {
+          const int h = (j >> 1) & 1;
+          const int col = q_half + (j / 4) * 8 + c;  // query in the tile
+          const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + col);
+          const float2 delta2 = *reinterpret_cast<const float2*>(delta_t + col);
+          const float lse_c[2] = {lse2.x, lse2.y};
+          const float delta_c[2] = {delta2.x, delta2.y};
+          float p[2], ds[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float s = acc_s[j + e] * scale_log2;
+            if (edge) {
+              const int q_pos = q0 + col + e;
+              const int k_pos = kw + r + 8 * h;
+              // a query past S holds the next head's row here
+              const bool masked = q_pos >= seq || (causal && k_pos > q_pos);
+              if (masked) s = kNegInf;
+            }
+            p[e] = fast_exp2(s - lse_c[e]);
+            ds[e] = p[e] * (acc_dp[j + e] - delta_c[e]) * scale;
+          }
+          store_swizzled(p_buf, r + 8 * h, col, pack_bf16(p[0], p[1]));
+          store_swizzled(ds_buf, r + 8 * h, col, pack_bf16(ds[0], ds[1]));
+        }
+        // the stores are read by wgmma (the async proxy), after the
+        // other warpgroup's stores too
+        fence_async_shared();
+        consumers_sync();
+
+        // dV += P^T dO and dK += dS^T Q for this warpgroup's 128 columns
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kN / 16; ++kk) {
+          const uint32_t col = kk * 32;  // 16 bf16 inside the 128-byte row
+          wgmma_ss_tb(acc_dv, sw128_desc(p_buf + col, 16),
+                      sw128_desc(do_stage + d_half + kk * 16 * kAtomBytes,
+                                 kN * kAtomBytes));
+          wgmma_ss_tb(acc_dk, sw128_desc(ds_buf + col, 16),
+                      sw128_desc(q_stage + d_half + kk * 16 * kAtomBytes,
+                                 kN * kAtomBytes));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc_dv);
+        fence_regs(acc_dk);
+        if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+      }
+      const size_t head = (size_t)bh * seq * D + wg * (D / 2);
+      store_rows<D, D / 2>(acc_dk, dk + head, kw, r, c, seq);
+      store_rows<D, D / 2>(acc_dv, dv + head, kw, r, c, seq);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // fp32 path: FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int kRowsF = kThreads / 4;  // rows a block owns: 4 threads a row
-constexpr int kTileF = 32;            // rows per tile of the other side
+constexpr int kRowsF = 32;  // rows a block owns
 
-// the sum over the four threads of a row (consecutive lanes)
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+template <int D>
+struct BwdF32 {
+  static constexpr int kSplit = D == 256 ? 8 : 4;  // threads a row
+  static constexpr int kThreads = kRowsF * kSplit;
+  static constexpr int kTileF = D == 256 ? 16 : 32;  // rows of the other side
+  static constexpr int kPart = D / kSplit;  // elements of a row a thread holds
+};
+
+// the sum over the kSplit threads of a row (consecutive lanes)
+template <int kSplit>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int lanes = 1; lanes < kSplit / 2; lanes <<= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, lanes);
+  }
+  return x + __shfl_xor_sync(0xffffffffu, x, kSplit / 2);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdF32<D>::kThreads)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -797,24 +1154,28 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ delta,
                             float* __restrict__ dq, int seq, int causal,
                             float scale) {
+  constexpr int kSplit = BwdF32<D>::kSplit;
+  constexpr int kThreads = BwdF32<D>::kThreads;
+  constexpr int kTileF = BwdF32<D>::kTileF;
+  constexpr int kPart = BwdF32<D>::kPart;
   __shared__ float ks[kTileF][D];
   __shared__ float vs[kTileF][D];
 
-  // thread `sub` of a row holds elements 4i + sub
-  const int row = threadIdx.x >> 2;
-  const int sub = threadIdx.x & 3;
+  // thread `sub` of a row holds elements kSplit * i + sub
+  const int row = threadIdx.x / kSplit;
+  const int sub = threadIdx.x % kSplit;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kRowsF;
   const int q_pos = q0 + row;
   const size_t base = (size_t)bh * seq * D;
   const bool real_row = q_pos < seq;
 
-  float qr[D / 4];
-  float dor[D / 4];
-  float acc[D / 4];
+  float qr[kPart];
+  float dor[kPart];
+  float acc[kPart];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const size_t at = base + (size_t)q_pos * D + 4 * i + sub;
+  for (int i = 0; i < kPart; ++i) {
+    const size_t at = base + (size_t)q_pos * D + kSplit * i + sub;
     qr[i] = real_row ? q[at] : 0.f;
     dor[i] = real_row ? dout[at] : 0.f;
     acc[i] = 0.f;
@@ -842,28 +1203,28 @@ __global__ void __launch_bounds__(kThreads)
       float s_part = 0.f;
       float dp_part = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) {
-        s_part = fmaf(qr[i], ks[j][4 * i + sub], s_part);
-        dp_part = fmaf(dor[i], vs[j][4 * i + sub], dp_part);
+      for (int i = 0; i < kPart; ++i) {
+        s_part = fmaf(qr[i], ks[j][kSplit * i + sub], s_part);
+        dp_part = fmaf(dor[i], vs[j][kSplit * i + sub], dp_part);
       }
       const int k_pos = k0 + j;
-      float s = quad_sum(s_part) * scale;
+      float s = row_sum<kSplit>(s_part) * scale;
       if (causal && k_pos > q_pos) s = kNegInf;
       const float p = k_pos < seq ? expf(s - lse_r) : 0.f;
-      const float ds = p * (quad_sum(dp_part) - delta_r) * scale;
+      const float ds = p * (row_sum<kSplit>(dp_part) - delta_r) * scale;
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) acc[i] = fmaf(ds, ks[j][4 * i + sub], acc[i]);
+      for (int i = 0; i < kPart; ++i) acc[i] = fmaf(ds, ks[j][kSplit * i + sub], acc[i]);
     }
   }
   if (real_row) {
     float* out = dq + base + (size_t)q_pos * D;
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) out[4 * i + sub] = acc[i];
+    for (int i = 0; i < kPart; ++i) out[kSplit * i + sub] = acc[i];
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdF32<D>::kThreads)
     flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -872,26 +1233,30 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
                              int seq, int causal, float scale) {
+  constexpr int kSplit = BwdF32<D>::kSplit;
+  constexpr int kThreads = BwdF32<D>::kThreads;
+  constexpr int kTileF = BwdF32<D>::kTileF;
+  constexpr int kPart = BwdF32<D>::kPart;
   __shared__ float qs[kTileF][D];
   __shared__ float dos[kTileF][D];
   __shared__ float lse_s[kTileF];
   __shared__ float delta_s[kTileF];
 
-  const int row = threadIdx.x >> 2;
-  const int sub = threadIdx.x & 3;
+  const int row = threadIdx.x / kSplit;
+  const int sub = threadIdx.x % kSplit;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kRowsF;
   const int k_pos = k0 + row;
   const size_t base = (size_t)bh * seq * D;
   const bool real_row = k_pos < seq;
 
-  float kr[D / 4];
-  float vr[D / 4];
-  float dk_acc[D / 4];
-  float dv_acc[D / 4];
+  float kr[kPart];
+  float vr[kPart];
+  float dk_acc[kPart];
+  float dv_acc[kPart];
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) {
-    const size_t at = base + (size_t)k_pos * D + 4 * i + sub;
+  for (int i = 0; i < kPart; ++i) {
+    const size_t at = base + (size_t)k_pos * D + kSplit * i + sub;
     kr[i] = real_row ? k[at] : 0.f;
     vr[i] = real_row ? v[at] : 0.f;
     dk_acc[i] = 0.f;
@@ -922,19 +1287,19 @@ __global__ void __launch_bounds__(kThreads)
       float s_part = 0.f;
       float dp_part = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) {
-        s_part = fmaf(kr[i], qs[j][4 * i + sub], s_part);
-        dp_part = fmaf(vr[i], dos[j][4 * i + sub], dp_part);
+      for (int i = 0; i < kPart; ++i) {
+        s_part = fmaf(kr[i], qs[j][kSplit * i + sub], s_part);
+        dp_part = fmaf(vr[i], dos[j][kSplit * i + sub], dp_part);
       }
       const int q_pos = q0 + j;
-      float s = quad_sum(s_part) * scale;
+      float s = row_sum<kSplit>(s_part) * scale;
       if (causal && k_pos > q_pos) s = kNegInf;
       const float p = q_pos < seq ? expf(s - lse_s[j]) : 0.f;
-      const float ds = p * (quad_sum(dp_part) - delta_s[j]) * scale;
+      const float ds = p * (row_sum<kSplit>(dp_part) - delta_s[j]) * scale;
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) {
-        dv_acc[i] = fmaf(p, dos[j][4 * i + sub], dv_acc[i]);
-        dk_acc[i] = fmaf(ds, qs[j][4 * i + sub], dk_acc[i]);
+      for (int i = 0; i < kPart; ++i) {
+        dv_acc[i] = fmaf(p, dos[j][kSplit * i + sub], dv_acc[i]);
+        dk_acc[i] = fmaf(ds, qs[j][kSplit * i + sub], dk_acc[i]);
       }
     }
   }
@@ -942,9 +1307,9 @@ __global__ void __launch_bounds__(kThreads)
     float* dk_out = dk + base + (size_t)k_pos * D;
     float* dv_out = dv + base + (size_t)k_pos * D;
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) {
-      dk_out[4 * i + sub] = dk_acc[i];
-      dv_out[4 * i + sub] = dv_acc[i];
+    for (int i = 0; i < kPart; ++i) {
+      dk_out[kSplit * i + sub] = dk_acc[i];
+      dv_out[kSplit * i + sub] = dv_acc[i];
     }
   }
 }
@@ -1102,10 +1467,36 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// K6 at D 256: 64-key work tiles, both consumer warpgroups on each
+cudaError_t launch_dkv_bf16_split(const Args& a, void* dk, void* dv) {
+  using L = DkvSplitLayout;
+  if ((long long)a.bh * a.seq + L::kN > 0x7fffffff) return cudaErrorInvalidValue;
+  const int n_work = a.bh * ((a.seq + L::kOwnRows - 1) / L::kOwnRows);
+  CUtensorMap tm_k, tm_v, tm_q, tm_do;
+  if (!encode_heads(&tm_k, a.k, a.bh, a.seq, L::D, L::kOwnRows) ||
+      !encode_heads(&tm_v, a.v, a.bh, a.seq, L::D, L::kOwnRows) ||
+      !encode_rows(&tm_q, a.q, a.bh, a.seq, L::D, L::kN) ||
+      !encode_rows(&tm_do, a.dout, a.bh, a.seq, L::D, L::kN)) {
+    return cudaErrorInvalidValue;
+  }
+  static int sm_count[kMaxDevices] = {};
+  const int smem = L::kBytes;
+  int sms = 0;
+  const cudaError_t err =
+      prepare(flash_bwd_dkv_bf16_wgmma_split_kernel, smem, sm_count, sms);
+  if (err != cudaSuccess) return err;
+  const int grid = n_work < sms ? n_work : sms;
+  flash_bwd_dkv_bf16_wgmma_split_kernel<<<grid, kBwdThreads, smem, a.stream>>>(
+      tm_k, tm_v, tm_q, tm_do, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.bh, a.seq, a.causal, a.scale,
+      a.scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
   const dim3 grid((a.seq + kRowsF - 1) / kRowsF, a.bh);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+  flash_bwd_dq_f32_kernel<D><<<grid, BwdF32<D>::kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
       a.delta, static_cast<float*>(dq), a.seq, a.causal, a.scale);
@@ -1115,7 +1506,7 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
   const dim3 grid((a.seq + kRowsF - 1) / kRowsF, a.bh);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+  flash_bwd_dkv_f32_kernel<D><<<grid, BwdF32<D>::kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
       a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.seq,
@@ -1124,13 +1515,14 @@ cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
 }
 
 bool valid(int bh, int seq, int head_dim) {
-  return bh > 0 && seq > 0 && bh <= 65535 && (head_dim == 64 || head_dim == 128);
+  return bh > 0 && seq > 0 && bh <= 65535 &&
+         (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
 }  // namespace
 
 // q, k, v, dout, dq: (bh, seq, head_dim) contiguous, bf16 (is_bf16 = 1)
-// or fp32, 16-byte aligned; lse, delta: (bh, 1, seq) fp32, 16-byte
+// or fp32, head_dim 64, 128 or 256, 16-byte aligned; lse, delta: (bh, 1, seq) fp32, 16-byte
 // aligned. Returns a cudaError_t (0 = launched).
 extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
@@ -1143,9 +1535,13 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (is_bf16) {
-    err = head_dim == 64 ? launch_dq_bf16<64>(a, dq) : launch_dq_bf16<128>(a, dq);
+    err = head_dim == 64    ? launch_dq_bf16<64>(a, dq)
+          : head_dim == 128 ? launch_dq_bf16<128>(a, dq)
+                            : launch_dq_bf16<256>(a, dq);
   } else {
-    err = head_dim == 64 ? launch_dq_f32<64>(a, dq) : launch_dq_f32<128>(a, dq);
+    err = head_dim == 64    ? launch_dq_f32<64>(a, dq)
+          : head_dim == 128 ? launch_dq_f32<128>(a, dq)
+                            : launch_dq_f32<256>(a, dq);
   }
   return (int)err;
 }
@@ -1162,11 +1558,13 @@ extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (is_bf16) {
-    err = head_dim == 64 ? launch_dkv_bf16<64>(a, dk, dv)
-                         : launch_dkv_bf16<128>(a, dk, dv);
+    err = head_dim == 64    ? launch_dkv_bf16<64>(a, dk, dv)
+          : head_dim == 128 ? launch_dkv_bf16<128>(a, dk, dv)
+                            : launch_dkv_bf16_split(a, dk, dv);
   } else {
-    err = head_dim == 64 ? launch_dkv_f32<64>(a, dk, dv)
-                         : launch_dkv_f32<128>(a, dk, dv);
+    err = head_dim == 64    ? launch_dkv_f32<64>(a, dk, dv)
+          : head_dim == 128 ? launch_dkv_f32<128>(a, dk, dv)
+                            : launch_dkv_f32<256>(a, dk, dv);
   }
   return (int)err;
 }

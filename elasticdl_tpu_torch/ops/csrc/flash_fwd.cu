@@ -35,8 +35,15 @@
 //   one for V (TMA completion, expect_tx bytes) and an "empty" mbarrier
 //   the 8 consumer warps arrive on. Every tile is 128B-swizzled, in
 //   64-column (128-byte) atoms: one per row at D 64, two side by side
-//   at D 128.
-// - S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory.
+//   at D 128, four at D 256.
+// - D 256: a 128-key K or V tile is 64 KB, so Q (64 KB) and two stages
+//   of K and V would need 320 KB of the 227 KB a block can have. The
+//   key tile is 64 rows there (FwdLayout::kBlockN): Q plus two stages is
+//   192 KB. The fp32 O accumulator is 64 x 256 per warpgroup, 128
+//   registers a thread; S over 64 keys adds 32 and P's bf16 fragments
+//   16, under setmaxnreg's 232.
+// - S = Q K^T: wgmma m64nNk16 (N = the key tile: 128, or 64 at D 256),
+//   both operands K-major in shared memory.
 //   The scores stay in registers; the softmax runs in the accumulator's
 //   own layout (a thread holds two rows, a quad of lanes shares a row:
 //   two shuffles per reduction), in base 2 on scores pre-scaled by
@@ -53,9 +60,11 @@
 //   give the same bits.
 //
 // fp32 path: the tensor cores take no full-precision fp32, so products
-// are FMAs. Two threads share a query row, each holding half of q and of
-// the accumulator in registers; K/V tiles of 32 rows sit in shared
-// memory. Keys past S score -inf (they do not exist, so they add
+// are FMAs. Two threads share a query row (eight at D 256, so a thread
+// holds 32 + 32 floats and not 128 + 128), each holding its share of q
+// and of the accumulator in registers; K/V tiles of 32 rows (16 at
+// D 256: 32 KB of static shared memory) sit in shared memory. Keys past
+// S score -inf (they do not exist, so they add
 // nothing), and no output is written past S; neither path demands that
 // S divide by a block size.
 //
@@ -74,7 +83,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // K4's mask value (flash_attention.py NEG_INF)
-constexpr int kThreads = 128;      // fp32 path
 constexpr int kBlockQ = 64;        // fp32 path: query rows per block
 
 // ---------------------------------------------------------------------------
@@ -82,7 +90,6 @@ constexpr int kBlockQ = 64;        // fp32 path: query rows per block
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockM = 128;  // query rows per CTA
-constexpr int kBlockN = 128;  // key rows per K/V tile
 constexpr int kConsumers = 2;  // consumer warpgroups, 64 query rows each
 constexpr int kFwdThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
 constexpr int kAtomBytes = 128;  // one swizzle atom row: 64 bf16
@@ -92,6 +99,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 template <int D>
 struct FwdLayout {
   static constexpr int kAtoms = D / 64;  // 64-column atoms per row
+  static constexpr int kBlockN = D == 256 ? 64 : 128;  // key rows per K/V tile
   static constexpr int kStages = D == 64 ? 3 : 2;
   static constexpr int kQBytes = kBlockM * D * 2;
   static constexpr int kTileBytes = kBlockN * D * 2;  // one K or V tile
@@ -182,10 +190,26 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
       "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
+// d (64 x 64 fp32) (+)= A (64 x 16) * B (16 x 64), both K-major in
+// shared memory; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 128 fp32) (+)= A (64 x 16) * B (16 x 128), both K-major in
 // shared memory; scale_d 0 overwrites d
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -238,6 +262,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 256 fp32) += A (64 x 16 bf16, registers) * B (16 x 256,
+// MN-major in shared memory, four 64-column atoms)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56),
+        F8(64), F8(72), F8(80), F8(88), F8(96), F8(104), F8(112), F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef F8
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -251,8 +304,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// key tiles a query tile visits: up to its last row's diagonal under
-// causal masking, all of them otherwise
+// key tiles of kBlockN keys a query tile visits: up to its last row's
+// diagonal under causal masking, all of them otherwise
+template <int kBlockN>
 __device__ __forceinline__ int key_tiles(int q0, int seq, int causal) {
   const int q_last = min(q0 + kBlockM, seq) - 1;
   return causal ? q_last / kBlockN + 1 : (seq + kBlockN - 1) / kBlockN;
@@ -277,6 +331,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                                 int seq, int causal, float scale_log2) {
   using L = FwdLayout<D>;
   constexpr int kStages = L::kStages;
+  constexpr int kBlockN = L::kBlockN;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::kQ;
@@ -322,7 +377,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           tma_load(q_s + a * kBlockM * kAtomBytes, &tm_q, bar_q_full, 64 * a,
                    q0, bh);
         }
-        const int n_tiles = key_tiles(q0, seq, causal);
+        const int n_tiles = key_tiles<kBlockN>(q0, seq, causal);
         for (int n = 0; n < n_tiles; ++n, ++kv) {
           const int stage = kv % kStages;
           // the first turn of the ring finds every stage empty
@@ -361,7 +416,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       int bh, q0;
       work_tile(t, bh_count, m_tiles, bh, q0);
       const int qw = q0 + wg * 64;
-      const int n_tiles = key_tiles(q0, seq, causal);
+      const int n_tiles = key_tiles<kBlockN>(q0, seq, causal);
       float acc_o[D / 2];
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) acc_o[j] = 0.f;
@@ -377,7 +432,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         const uint32_t k_src = k_s + stage * L::kTileBytes;
         const uint32_t v_src = v_s + stage * L::kTileBytes;
 
-        // S = Q K^T (64 x 128 per warpgroup)
+        // S = Q K^T (64 x kBlockN per warpgroup)
         float acc_s[kBlockN / 2];
         mbar_wait(bar_full_k + 8 * stage, parity);
         __syncwarp();
@@ -386,7 +441,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t col = (kk % 4) * 32;  // 16 bf16 inside a 128-byte atom
-          wgmma_ss_n128(
+          wgmma_ss(
               acc_s,
               sw128_desc(q_wg + (kk / 4) * kBlockM * kAtomBytes + col, 16),
               sw128_desc(k_src + (kk / 4) * kBlockN * kAtomBytes + col, 16),
@@ -486,31 +541,41 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 // fp32 path: FMAs
 // ---------------------------------------------------------------------------
 
-constexpr int kTileF = 32;  // key rows per tile
+template <int D>
+struct F32Layout {
+  static constexpr int kSplit = D == 256 ? 8 : 2;  // threads a query row
+  static constexpr int kThreads = kBlockQ * kSplit;
+  static constexpr int kTileF = D == 256 ? 16 : 32;  // key rows per tile
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(F32Layout<D>::kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int seq, int causal,
                          float scale) {
+  constexpr int kSplit = F32Layout<D>::kSplit;
+  constexpr int kThreads = F32Layout<D>::kThreads;
+  constexpr int kTileF = F32Layout<D>::kTileF;
+  constexpr int kPart = D / kSplit;  // elements of a row a thread holds
   __shared__ float ks[kTileF][D];
   __shared__ float vs[kTileF][D];
 
-  // two threads per query row; thread `half` holds elements 2i + half
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
+  // kSplit threads per query row; thread `half` holds elements
+  // kSplit * i + half
+  const int row = threadIdx.x / kSplit;
+  const int half = threadIdx.x % kSplit;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
   const int q_pos = q0 + row;
   const size_t base = (size_t)bh * seq * D;
 
-  float qr[D / 2];
-  float acc[D / 2];
+  float qr[kPart];
+  float acc[kPart];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    qr[i] = q_pos < seq ? q[base + (size_t)q_pos * D + 2 * i + half] : 0.f;
+  for (int i = 0; i < kPart; ++i) {
+    qr[i] = q_pos < seq ? q[base + (size_t)q_pos * D + kSplit * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf;
@@ -538,8 +603,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kTileF; ++j) {
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) part = fmaf(qr[i], ks[j][2 * i + half], part);
-      const float s = (part + __shfl_xor_sync(0xffffffffu, part, 1)) * scale;
+      for (int i = 0; i < kPart; ++i) {
+        part = fmaf(qr[i], ks[j][kSplit * i + half], part);
+      }
+      // the row's sum over its kSplit threads (consecutive lanes)
+#pragma unroll
+      for (int lanes = 1; lanes < kSplit; lanes <<= 1) {
+        part += __shfl_xor_sync(0xffffffffu, part, lanes);
+      }
+      const float s = part * scale;
       const int k_pos = k0 + j;
       sv[j] = k_pos >= seq ? -INFINITY
               : (causal && k_pos > q_pos) ? kNegInf
@@ -549,14 +621,16 @@ __global__ void __launch_bounds__(kThreads)
     const float m_new = fmaxf(m, tile_max);
     const float corr = expf(m - m_new);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
+    for (int i = 0; i < kPart; ++i) acc[i] *= corr;
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < kTileF; ++j) {
       const float p = expf(sv[j] - m_new);
       psum += p;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(p, vs[j][2 * i + half], acc[i]);
+      for (int i = 0; i < kPart; ++i) {
+        acc[i] = fmaf(p, vs[j][kSplit * i + half], acc[i]);
+      }
     }
     l = l * corr + psum;
     m = m_new;
@@ -566,7 +640,7 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = l > 0.f ? l : 1.f;
     float* out = o + base + (size_t)q_pos * D;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) out[2 * i + half] = acc[i] / denom;
+    for (int i = 0; i < kPart; ++i) out[kSplit * i + half] = acc[i] / denom;
     if (half == 0) {
       lse[(size_t)bh * seq + q_pos] = m + logf(fmaxf(l, 1e-30f));
     }
@@ -628,8 +702,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int n_work = bh * m_tiles;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!encode_bf16(&tm_q, q, bh, seq, D, kBlockM) ||
-      !encode_bf16(&tm_k, k, bh, seq, D, kBlockN) ||
-      !encode_bf16(&tm_v, v, bh, seq, D, kBlockN)) {
+      !encode_bf16(&tm_k, k, bh, seq, D, FwdLayout<D>::kBlockN) ||
+      !encode_bf16(&tm_v, v, bh, seq, D, FwdLayout<D>::kBlockN)) {
     return cudaErrorInvalidValue;
   }
   // above 48 KB: opt in, once per device (the attribute holds for the
@@ -664,7 +738,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int seq, int causal, float scale,
                        cudaStream_t stream) {
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_f32_kernel<D><<<grid, F32Layout<D>::kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, seq, causal,
       scale);
@@ -674,8 +748,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o: (bh, seq, head_dim) contiguous, bf16 (is_bf16 = 1) or fp32,
-// 16-byte aligned; lse: (bh, 1, seq) fp32. Returns a cudaError_t (0 =
-// launched).
+// head_dim 64, 128 or 256, 16-byte aligned; lse: (bh, 1, seq) fp32.
+// Returns a cudaError_t (0 = launched).
 extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int bh, int seq,
                              int head_dim, int is_bf16, int causal,
@@ -689,6 +763,8 @@ extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
       err = launch_bf16<64>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
     } else if (head_dim == 128) {
       err = launch_bf16<128>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+    } else if (head_dim == 256) {
+      err = launch_bf16<256>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
@@ -697,6 +773,8 @@ extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
       err = launch_f32<64>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
     } else if (head_dim == 128) {
       err = launch_f32<128>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+    } else if (head_dim == 256) {
+      err = launch_f32<256>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }

@@ -10,8 +10,13 @@ Port of elasticdl_tpu/ops/flash_attention.py: ``_fwd`` (the Pallas
 give the bounds at the serving and training shapes.
 
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels
-for CUDA tensors and raise on anything the kernels do not take. They
-run the plain versions only for CPU tensors. ``LAUNCHES`` (K4),
+for CUDA tensors and raise on anything the kernels do not take. The
+kernels are built for head_dim 64, 128 and 256; any other head_dim up
+to 256 is zero-padded to the next of those (``kernel_head_dim``,
+``pad_head_dim``) and the outputs sliced back, with the scale of the
+true head_dim. That is exact: zero columns add nothing to a score, and
+the padded columns of o, dq, dk and dv are zeros. They run the plain
+versions only for CPU tensors. ``LAUNCHES`` (K4),
 ``DQ_LAUNCHES`` (K5) and ``DKV_LAUNCHES`` (K6) count kernel launches, so
 a run can show that its path went through the kernels.
 ``flash_attention_fwd_op`` (``torch.ops.edl.flash_attention_fwd``)
@@ -31,7 +36,7 @@ DQ_LAUNCHES = 0
 DKV_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -48,10 +53,31 @@ def _default_scale(q, sm_scale):
     return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
 
 
+def kernel_head_dim(head_dim):
+    """The kernel instantiation a head_dim runs through: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds it. Raises over the largest."""
+    for d in KERNEL_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(
+        "flash attention kernels take head_dim up to %d; got %d"
+        % (KERNEL_HEAD_DIMS[-1], head_dim)
+    )
+
+
+def pad_head_dim(t, head_dim):
+    """``t`` with zero columns appended up to ``head_dim``, contiguous
+    (``t`` itself when it is already that wide)."""
+    extra = head_dim - t.shape[-1]
+    if extra == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, extra)).contiguous()
+
+
 def _kernel_inputs(name, *tensors):
     """Raise unless the CUDA tensors are what the kernels take: one
-    device and dtype, bf16 or fp32, head_dim 64 or 128, contiguous and
-    16-byte aligned."""
+    device and dtype, bf16 or fp32, head_dim 64, 128 or 256, contiguous
+    and 16-byte aligned."""
     q = tensors[0]
     for t in tensors:
         if t.device != q.device or t.dtype != q.dtype:
@@ -106,10 +132,9 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, out=None):
     given, is a tensor like q that receives o (and is returned as o).
 
     CUDA tensors go to the kernel, which takes contiguous bf16 or fp32
-    inputs with head_dim 64 or 128; anything else raises. CPU tensors
-    go to ``flash_attention_fwd_reference``.
+    inputs with head_dim up to 256 (padded to 64, 128 or 256); anything
+    else raises. CPU tensors go to ``flash_attention_fwd_reference``.
     """
-    global LAUNCHES
     _check_shapes(q, k, v, *(() if out is None else (out,)))
     sm_scale = _default_scale(q, sm_scale)
     if q.device.type == "cpu":
@@ -117,6 +142,18 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, out=None):
         return (o, lse) if out is None else (out.copy_(o), lse)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_fwd: unsupported device %s" % q.device)
+    head_dim = q.shape[-1]
+    padded = kernel_head_dim(head_dim)
+    if padded == head_dim:
+        return _launch_fwd(q, k, v, causal, sm_scale, out)
+    o, lse = _launch_fwd(*(pad_head_dim(t, padded) for t in (q, k, v)),
+                         causal, sm_scale, None)
+    o = o[..., :head_dim]
+    return (o.contiguous(), lse) if out is None else (out.copy_(o), lse)
+
+
+def _launch_fwd(q, k, v, causal, sm_scale, out):
+    global LAUNCHES
     o = torch.empty_like(q) if out is None else out
     _kernel_inputs("flash_attention_fwd", q, k, v, o)
     from elasticdl_tpu_torch.ops import _build
@@ -202,11 +239,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
     ``(o, lse)`` and the output gradient ``do``, each like its input.
 
     CUDA tensors go to K5 (dq) and K6 (dk, dv), which take what K4 takes
-    (contiguous 16-byte-aligned bf16 or fp32, head_dim 64 or 128; lse
-    fp32); anything else raises. CPU tensors go to
+    (contiguous 16-byte-aligned bf16 or fp32, head_dim up to 256, padded
+    as K4's; lse fp32); anything else raises. CPU tensors go to
     ``flash_attention_bwd_reference``.
     """
-    global DQ_LAUNCHES, DKV_LAUNCHES
     _check_shapes(q, k, v, o, do)
     sm_scale = _default_scale(q, sm_scale)
     if q.device.type == "cpu":
@@ -214,6 +250,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
             q, k, v, o, lse, do, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd: unsupported device %s" % q.device)
+    head_dim = q.shape[-1]
+    padded = kernel_head_dim(head_dim)
+    if padded == head_dim:
+        return _launch_bwd(q, k, v, o, lse, do, causal, sm_scale)
+    # delta = rowsum(o * do) is the same over the zero columns
+    grads = _launch_bwd(*(pad_head_dim(t, padded) for t in (q, k, v, o)),
+                        lse, pad_head_dim(do, padded), causal, sm_scale)
+    return tuple(g[..., :head_dim].contiguous() for g in grads)
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal, sm_scale):
+    global DQ_LAUNCHES, DKV_LAUNCHES
     _kernel_inputs("flash_attention_bwd", q, k, v, o, do)
     bh, seq, head_dim = q.shape
     if (lse.shape != (bh, 1, seq) or lse.dtype != torch.float32

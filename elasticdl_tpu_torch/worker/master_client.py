@@ -7,7 +7,11 @@ Connection errors on ``get_task`` are first retried with full-jitter
 backoff through ``MASTER_RETRY_BUDGET_SECS`` (a master relaunch window;
 ``EDL_MASTER_RETRY_BUDGET_SECS`` overrides), and every response's
 ``master_epoch`` feeds a restart detector: when it moves, a registered
-client calls ``reset_worker`` again so the new master knows it.
+client calls ``reset_worker`` again so the new master knows it. The
+detector runs under one lock that ``get_task`` holds across its call:
+the heartbeat skips it while a ``get_task`` is in flight (that call's
+own response carries the new epoch), so one restart re-registers once
+and no task is kept that the re-registration requeued.
 
 ``telemetry_provider`` (set by the worker or the PS) returns the
 ``TelemetryBlob`` that get_task, report_task_result, get_comm_info and
@@ -15,6 +19,8 @@ deregister_worker carry to the master's fleet monitor: telemetry never
 makes an RPC of its own. The channel carries the client metrics
 interceptor when metrics are on.
 """
+
+import threading
 
 import grpc
 
@@ -56,6 +62,8 @@ class MasterClient:
         # poll must not start registering).
         self._seen_master_epoch = None
         self._registered = False
+        # serialises the detector with get_task's dispatch (module note)
+        self._register_lock = threading.Lock()
         # readiness signal for /readyz: True once any RPC round-tripped
         self._channel_ok = False
         # fleet-telemetry piggyback: a callable returning a
@@ -103,7 +111,8 @@ class MasterClient:
         """Fold a response's master_epoch into the restart detector;
         True when the master restarted and this client re-registered
         (the caller discards the triggering response: re-registration
-        requeued anything the new master had just assigned us)."""
+        requeued anything the new master had just assigned us). The
+        caller holds ``_register_lock``."""
         if not master_epoch or not self._registered:
             return False
         if self._seen_master_epoch is None:
@@ -128,34 +137,35 @@ class MasterClient:
         self._attach_telemetry(request)
         deadline_misses = 0
         while True:
-            try:
-                task = retry_call(
-                    lambda: self._stub.get_task(
-                        request, timeout=GRPC.DEFAULT_RPC_TIMEOUT_SECS
-                    ),
-                    "get_task",
-                    MASTER_RETRY_BUDGET_SECS,
-                    retryable=(grpc.StatusCode.UNAVAILABLE,),
-                    channel=self._channel,
-                )
-            except grpc.RpcError as e:
-                code = e.code() if hasattr(e, "code") else None
-                if (
-                    code == grpc.StatusCode.DEADLINE_EXCEEDED
-                    and deadline_misses < self.GET_TASK_DEADLINE_RETRIES
-                ):
-                    deadline_misses += 1
-                    logger.warning(
-                        "get_task deadline exceeded (%d/%d); master "
-                        "slow, retrying",
-                        deadline_misses, self.GET_TASK_DEADLINE_RETRIES,
+            with self._register_lock:
+                try:
+                    task = retry_call(
+                        lambda: self._stub.get_task(
+                            request, timeout=GRPC.DEFAULT_RPC_TIMEOUT_SECS
+                        ),
+                        "get_task",
+                        MASTER_RETRY_BUDGET_SECS,
+                        retryable=(grpc.StatusCode.UNAVAILABLE,),
+                        channel=self._channel,
                     )
+                except grpc.RpcError as e:
+                    code = e.code() if hasattr(e, "code") else None
+                    if (
+                        code == grpc.StatusCode.DEADLINE_EXCEEDED
+                        and deadline_misses < self.GET_TASK_DEADLINE_RETRIES
+                    ):
+                        deadline_misses += 1
+                        logger.warning(
+                            "get_task deadline exceeded (%d/%d); master "
+                            "slow, retrying",
+                            deadline_misses, self.GET_TASK_DEADLINE_RETRIES,
+                        )
+                        continue
+                    # master gone past the whole budget: job over
+                    return pb.Task()
+                self._channel_ok = True
+                if self._maybe_reregister(task.master_epoch):
                     continue
-                # master gone past the whole budget: job over
-                return pb.Task()
-            self._channel_ok = True
-            if self._maybe_reregister(task.master_epoch):
-                continue
             return task
 
     def report_task_result(self, task_id, err_message="",
@@ -280,8 +290,13 @@ class MasterClient:
             return pb.CommInfo(rank=-1, world_size=0, mesh_epoch=-1)
         self._channel_ok = True
         # the heartbeat is usually the first RPC to see a restarted
-        # master: re-register before the next dispatch
-        self._maybe_reregister(info.master_epoch)
+        # master: re-register before the next dispatch, unless a
+        # get_task is in flight and re-registers from its own response
+        if self._register_lock.acquire(blocking=False):
+            try:
+                self._maybe_reregister(info.master_epoch)
+            finally:
+                self._register_lock.release()
         return info
 
     def close(self):

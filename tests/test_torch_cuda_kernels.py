@@ -39,12 +39,13 @@ def _qkv(card, bh, seq, dim, dtype, seed=0):
     ]
 
 
-# S across the bf16 kernel's 128-row query and key tiles (127, 128, 129)
-# and several turns of its K/V ring (3 stages of 128 keys at d 64, 2 at
-# d 128: 640, 1000 and 2048 wrap it), ragged and not
+# S across the bf16 kernel's 128-row query tiles and its key tiles (128
+# keys, 64 at d 256: 63, 127, 128, 129) and several turns of its K/V ring
+# (3 stages at d 64, 2 at d 128 and d 256: 640, 1000 and 2048 wrap it),
+# ragged and not
 @pytest.mark.parametrize("seq", [1, 63, 127, 128, 129, 200, 256, 640, 1000,
                                  2048])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_fwd_matches_plain_version(card, dtype, causal, dim, seq):
@@ -60,7 +61,7 @@ def test_flash_fwd_matches_plain_version(card, dtype, causal, dim, seq):
     torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=1e-5)
 
 
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_bf16_launches_are_bit_equal(card, causal, dim):
     """No atomics and no split over keys: two launches on the same
@@ -73,11 +74,30 @@ def test_flash_fwd_bf16_launches_are_bit_equal(card, causal, dim):
     assert torch.equal(o1, o2) and torch.equal(lse1, lse2)
 
 
-@pytest.mark.parametrize("dim", [32, 96, 256])
+@pytest.mark.parametrize("dim", [32, 96, 200])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fwd_pads_head_dims_between_the_kernels(card, dtype, dim):
+    """A head_dim the kernels are not built for runs through the next
+    of 64, 128 and 256, zero-padded, in one launch."""
+    q, k, v = _qkv(card, 6, 257, dim, dtype)
+    before = flash.LAUNCHES
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = flash.flash_attention_fwd_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES == before + 1
+    assert o.shape == q.shape and o.is_contiguous()
+    tol = O_TOL[dtype]
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dim", [257, 320])
 def test_flash_fwd_refuses_other_bf16_head_dims(card, dim):
+    """Over 256, the kernels' widest instantiation, the wrapper raises
+    and names the limit."""
     q, k, v = _qkv(card, 2, 64, dim, torch.bfloat16)
     before = flash.LAUNCHES
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="256"):
         flash.flash_attention_fwd(q, k, v, causal=True)
     assert flash.LAUNCHES == before
 
@@ -92,12 +112,13 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
         flash.flash_attention_fwd(strided, k[..., :64], v[..., :64])
 
 
-# S across the bf16 kernels' tiles (128 owned rows; streamed tiles of 128
-# rows at d 64 and 64 at d 128: 127, 128, 129) and several turns of
-# their 3-stage rings (640, 1000, 2048), ragged and not
+# S across the bf16 kernels' tiles (128 owned rows, 64 in K6 at d 256;
+# streamed tiles of 128 rows at d 64, 64 at d 128 and K6 d 256, 32 in K5
+# at d 256: 63, 127, 128, 129) and several turns of their rings (640,
+# 1000, 2048), ragged and not
 @pytest.mark.parametrize("seq", [1, 63, 127, 128, 129, 200, 256, 640, 1000,
                                  2048])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_bwd_matches_plain_version(card, dtype, causal, dim, seq):
@@ -127,7 +148,7 @@ def _bwd_inputs(card, bh, seq, dim, causal, seed):
     return q, k, v, o, lse, do
 
 
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_bf16_launches_are_bit_equal(card, causal, dim):
     """Each gradient row has one owner and no atomics: two launches of K5
@@ -141,11 +162,28 @@ def test_flash_bwd_bf16_launches_are_bit_equal(card, causal, dim):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("dim", [32, 96, 256])
+@pytest.mark.parametrize("dim", [32, 96, 200])
+def test_flash_bwd_pads_head_dims_between_the_kernels(card, dim):
+    """K5 and K6 at a head_dim they are not built for: one launch each
+    on zero-padded inputs, gradients sliced back, held row by row."""
+    args = _bwd_inputs(card, 6, 257, dim, True, seed=0)
+    before = (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    grads = flash.flash_attention_bwd(*args, causal=True)
+    refs = flash.flash_attention_bwd_reference(*args, causal=True)
+    torch.cuda.synchronize()
+    assert (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.shape == args[0].shape and got.is_contiguous(), name
+        err, _ = chip_smoke.worst_row_error(got, ref, dim)
+        assert err <= chip_smoke.GRAD_ROW_RTOL["bfloat16"], (name, err)
+
+
+@pytest.mark.parametrize("dim", [257, 320])
 def test_flash_bwd_refuses_other_bf16_head_dims(card, dim):
     args = _bwd_inputs(card, 2, 64, dim, True, seed=0)
     before = (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="256"):
         flash.flash_attention_bwd(*args, causal=True)
     assert (flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == before
 
@@ -157,7 +195,7 @@ def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
         return q, k, v, q, lse, v
 
     with pytest.raises(ValueError):
-        flash.flash_attention_bwd(*args(96, torch.bfloat16))
+        flash.flash_attention_bwd(*args(320, torch.bfloat16))
     with pytest.raises(ValueError):
         flash.flash_attention_bwd(*args(64, torch.float16))
     q, k, v, o, lse, do = args(128, torch.bfloat16)
@@ -219,21 +257,25 @@ def test_trainer_step_launches_the_kernels(card):
     assert state.step == 1 and bool(torch.isfinite(loss))
 
 
-def test_auto_dispatch_launches_the_kernel_on_the_card(card):
-    q, k, v = (t.view(2, 3, 128, 64) for t in _qkv(card, 6, 128, 64,
-                                                    torch.bfloat16))
+@pytest.mark.parametrize("dim", [64, 96, 256])
+def test_auto_dispatch_launches_the_kernel_on_the_card(card, dim):
+    """"auto" is the kernel path for every head_dim up to 256 (96 runs
+    padded to 128), and matches the plain attention."""
+    q, k, v = (t.view(2, 3, 128, dim) for t in _qkv(card, 6, 128, dim,
+                                                     torch.bfloat16))
     before = flash.LAUNCHES
     out = attention.dot_product_attention(q, k, v, causal=True)
     assert flash.LAUNCHES == before + 1
     plain = attention.xla_attention(q, k, v, causal=True)
     torch.testing.assert_close(out.float(), plain.float(), atol=2e-2,
                                rtol=2e-2)
-    # a head_dim the kernel does not take raises: the plain attention
-    # runs on the card only when asked for by name
-    q96 = torch.randn(2, 3, 128, 96, device=card, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        attention.dot_product_attention(q96, q96, q96, causal=True)
-    attention.dot_product_attention(q96, q96, q96, causal=True, impl="xla")
+    # over 256 the kernel path raises: the plain attention runs on the
+    # card only when asked for by name
+    q320 = torch.randn(2, 3, 128, 320, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
+        attention.dot_product_attention(q320, q320, q320, causal=True)
+    attention.dot_product_attention(q320, q320, q320, causal=True,
+                                    impl="xla")
     assert flash.LAUNCHES == before + 1
 
 

@@ -45,7 +45,7 @@ def _qkv(bh=4, seq=256, dim=64, seed=0):
     ]
 
 
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_fwd_matches_jax_pallas_interpret(causal, dim):
     q, k, v = _qkv(dim=dim)

@@ -46,7 +46,7 @@ def _arrays(bh=4, seq=256, dim=64, seed=0, n=4):
 
 
 @pytest.mark.parametrize("blocks", [(64, 64), (128, 128), (64, 128)])
-@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("dim", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_plain_bwd_matches_jax_pallas_interpret(causal, dim, blocks):
     q, k, v, do = _arrays(dim=dim)

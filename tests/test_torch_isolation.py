@@ -480,3 +480,36 @@ print("observed ok")
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "observed ok"
+
+
+def test_ctr_zoo_trains_with_jax_blocked():
+    """The CTR zoo's modules are among those imported with JAX blocked
+    above, and with JAX blocked a DCN at a small vocab sizes its lazy
+    layers, draws flax's initializers and takes one training step on
+    the CPU."""
+    modules = _port_modules()
+    for name in ("models.ctr", "models.wide_deep", "models.dcn",
+                 "models.xdeepfm"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+import numpy as np
+from elasticdl_tpu_torch.models import ctr
+from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+ids = np.random.RandomState(0).randint(0, 50, size=(8, 5))
+batch = {"features": {"ids": ids}, "labels": np.ones(8, np.float32),
+         "_mask": np.ones(8, np.float32)}
+trainer = TorchTrainer(ctr.custom_model("dcn", vocab=50, embed_dim=4),
+                       ctr.loss, ctr.optimizer(), health=False, device="cpu")
+state, loss = trainer.train_step(None, batch)
+assert state.step == 1 and np.isfinite(float(loss))
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("trained")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained"

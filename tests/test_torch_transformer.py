@@ -192,3 +192,50 @@ def test_registry_binds_model_params_and_model_def():
     assert len(by_def.custom_model().blocks) == 1
     with pytest.raises(ValueError):
         registry.get_model_spec(zoo_dir, model_def="missing")
+
+
+# bench.py's transformer configuration has heads of 256 (d 2048, 8
+# heads); this one keeps the head width at 2 heads of 256 and cuts
+# everything else down
+D256_WIDTHS = dict(vocab_size=512, num_layers=2, num_heads=2, embed_dim=512)
+# fp32 gradients: the same math in another summation order (the flash
+# path's plain version against the reference's xla attention); measured
+# worst leaf 2.6e-6 relative L2
+GRAD_LEAF_RTOL = 1e-4
+
+
+def test_head_dim_256_logits_and_grads_match_jax():
+    """A TransformerLM with heads of 256 through the port's default
+    attention (the flash path; its plain versions on the CPU) against
+    the reference from the same weights: logits, loss and every
+    parameter's gradient (relative L2 per leaf)."""
+    from elasticdl_tpu.models import transformer as jax_zoo
+
+    model = JaxLM(**D256_WIDTHS)
+    tokens = np.random.RandomState(2).randint(
+        0, D256_WIDTHS["vocab_size"], size=(2, 128)).astype(np.int32)
+    params = model.init(jax.random.PRNGKey(4), jnp.asarray(tokens))["params"]
+
+    def jax_loss(p):
+        logits = model.apply({"params": p}, jnp.asarray(tokens))
+        return jax_zoo.loss(jnp.asarray(tokens), logits).mean(), logits
+
+    (expected_loss, expected), jax_grads = jax.value_and_grad(
+        jax_loss, has_aux=True)(params)
+    port_lm = port.TransformerLM(**D256_WIDTHS)
+    port_lm.load_state_dict(port.params_from_flax(
+        jax_export._flatten(jax.device_get(params))), strict=True)
+    assert port_lm.blocks[0].attn.attention_impl == "auto"
+    logits = port_lm(torch.from_numpy(tokens))
+    loss = port.loss(torch.from_numpy(tokens), logits).mean()
+    loss.backward()
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(expected),
+                               atol=FP32_ATOL, rtol=1e-5)
+    assert abs(float(loss) - float(expected_loss)) <= 1e-5
+    got = port.params_to_flax(
+        {n: p.grad for n, p in port_lm.named_parameters()}, num_heads=2)
+    reference = jax_export._flatten(jax.device_get(jax_grads))
+    assert set(got) == set(reference)
+    for name, value in reference.items():
+        err = np.linalg.norm(got[name] - value) / np.linalg.norm(value)
+        assert err <= GRAD_LEAF_RTOL, (name, err)
