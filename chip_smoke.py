@@ -309,15 +309,51 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    CPU from the same weights agreeing in the loss, in every gradient
    leaf as the optimizer receives it, and in the updated tables and
    dense weights (CTR_AGREE_*), each table moved; steps/s, peak memory
-   and the AUC.
+   and the AUC;
+17. the feature-column family -- tests/test_model_handler.py's model
+   (DenseFeatures, Dense 16 + ReLU, Dense 1) with ``cat_big`` at
+   1,000,000 buckets x dim 8 (32 MB of fp32) under the "mean" combiner,
+   1-5 Zipf(1.2) ids a row through ``from_row_lists``, beside
+   ``cat_small`` (10 x 4, a device parameter) and a numeric ``x``:
+   ``promote_large_embeddings`` at its default 2 MiB threshold must
+   promote ``cat_big`` alone. First the promoted column's output on the
+   card against a float64 numpy mean of the same PS rows over the real
+   slots; then three steps on the card and on the CPU from the same
+   weights and store seed, the tier on (adam eps 1e-3): the loss, every
+   dense gradient leaf as the optimizer receives it and the row
+   gradients of the pulled buffer within a relative L2 of 1e-5; then
+   200 steps at batch 512 through ``SparseTrainer`` over the in-process
+   store with the tier on through ``EDL_DEVICE_TIER=1`` (adam lr 0.05):
+   finite losses, the last-10 mean below 0.7x the first-10 mean, K1-K3
+   by phase 7's formula at every step and each launched in every step
+   after the 20th, no PS row and no tier slot or candidate for an id
+   that only padded slots hold (0, and the masked rows' id), and after
+   the tier's flush ``export_promoted_train_state`` and
+   ``load_exported_tables`` give every row bit-equal to the live PS.
+   Then census_wide_deep, census_dnn, census_sqlflow_wide_deep and
+   heart through ``LocalExecutor`` over RecordIO from the port's
+   generators at the reference tests' sizes, each above its AUC floor
+   (``FEATURE_ZOO``; census_wide_deep also one card-against-CPU step,
+   every gradient leaf within 1e-5). Then iris as a job: ``python -m
+   elasticdl_tpu_torch.master.main`` (``EDL_STATE_DIR``, ``--output``)
+   and one ``worker.main --device cuda`` over two CSV files of 120 rows,
+   16 rows a task, 10 epochs: master and worker rc 0, every task the
+   journal created done once, one train-end task, the export at the
+   final step and its accuracy on the validation rows above 0.85, and
+   the export served by an in-process ``ServingEngine`` over gRPC
+   bit-equal to ``eval_step`` on the same 32 rows. Each part prints a
+   record (steps/s, AUC or accuracy, the worst gradient error, K1-K3
+   launches per step) beside the card's name and power limit, and the
+   phase its seconds.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --mutations`` plants each fault of
-``K4_MUTATIONS``, ``BWD_MUTATIONS`` and ``TIER_MUTATIONS`` in its own
-copy of the port under build/ and requires the kernel phase to fail
-there, then times K4's schedules (``K4_SCHEDULES``) and K3's handling
+``K4_MUTATIONS``, ``BWD_MUTATIONS``, ``TIER_MUTATIONS`` and
+``FC_MUTATIONS`` in its own copy of the port under build/ and requires
+the kernel phase (phase 17's promoted model for ``FC_MUTATIONS``) to
+fail there, then times K4's schedules (``K4_SCHEDULES``) and K3's handling
 of misses (``K3_VARIANTS``) in turns. ``--sparse-ab PARENT`` runs phase
 7's main run for the checkout at PARENT and this one in turns.
 ``--against-parent PARENT`` builds K4-K6 from the checkout at PARENT
@@ -2349,7 +2385,7 @@ def job_data(np, workdir, records=JOB_RECORDS, valid=JOB_VALID,
     return dirs
 
 
-def count_worker_steps(tier, trainer):
+def count_worker_steps(tier, trainer, tables=2):
     """Instrument an in-process worker's ``trainer`` (device tier on):
     each train step's host time, loss, prepare time (its PS pull
     inside), whether it evicted, and its end on the host clock; each
@@ -2358,10 +2394,11 @@ def count_worker_steps(tier, trainer):
     writeback every 256 tier steps, the PS-restart flush); the push
     RPC's own time and the loop's gap between steps. Returns the dict
     the wrappers fill: ``steps`` [(s, loss, prepare ms, evicted, end)],
-    ``bad_steps`` [[step, launches, formula]], ``gaps``, ``calls_ms``
-    and ``reads`` (a one-element count)."""
+    ``bad_steps`` [[step, launches, formula]], ``gaps``, ``calls_ms``,
+    ``reads`` (a one-element count) and ``launches`` (each step's [K1,
+    K2, K3]). ``tables``: the host-PS tables, one K3 each a step."""
     dtier = trainer.device_tier
-    rec = {"steps": [], "bad_steps": [], "gaps": [],
+    rec = {"steps": [], "bad_steps": [], "gaps": [], "launches": [],
            "calls_ms": {"prepare": [], "push_rpc": []}, "reads": [0]}
     calls_ms, reads = rec["calls_ms"], rec["reads"]
 
@@ -2405,7 +2442,9 @@ def count_worker_steps(tier, trainer):
             stats1[k] - stats0[k]
             for k in ("gather_only_combines", "staged_chunks",
                       "insert_chunks", "evict_chunks"))
-        want = (gather_only + chunks + evicts + reads[0] - reads0, inserts, 2)
+        want = (gather_only + chunks + evicts + reads[0] - reads0, inserts,
+                tables)
+        rec["launches"].append([d_k1, d_k2, d_k3])
         if (d_k1, d_k2, d_k3) != want:
             rec["bad_steps"].append([len(rec["steps"]) - 1,
                                      [d_k1, d_k2, d_k3], list(want)])
@@ -6300,12 +6339,21 @@ K3_VARIANTS = {
         (K3_HIT, "if (s < 0 || s >= table_rows - 1) s = table_rows - 1;\n"
                  "  const bool hit = true;"),),
 }
+# phase 17's planted fault: the promoted column's "mean" divides by the
+# padded length instead of the real slots' count (the "features" child)
+FC_MUTATIONS = (
+    ("fc_mean_padded_length",
+     "elasticdl_tpu_torch/preprocessing/feature_column.py",
+     (("    denom = torch.sum(w, dim=1, keepdim=True)\n",
+       "    denom = torch.full_like(w[:, :1], w.shape[1])\n"),)),
+)
 # a child run in a copy: K4's kernel_phase at every case ("check") or
 # the main case alone ("time"), bwd_kernel_phase's checks at every case
-# ("bwd"), tier_kernel_phase's checks ("tier"), or K3's hit-mix timing
+# ("bwd"), tier_kernel_phase's checks ("tier"), phase 17's promoted
+# model over a short run ("features"), or K3's hit-mix timing
 # ("tier_time")
 MUTATION_CHILD = (
-    "import sys, numpy as np, torch, chip_smoke\n"
+    "import os, sys, numpy as np, torch, chip_smoke\n"
     "from elasticdl_tpu_torch.ops import embedding_tier as tier\n"
     "from elasticdl_tpu_torch.ops import flash_attention as flash\n"
     "mode = sys.argv[1]\n"
@@ -6313,6 +6361,11 @@ MUTATION_CHILD = (
     "    chip_smoke.bwd_kernel_phase(torch, flash, timing=False)\n"
     "elif mode == 'tier':\n"
     "    chip_smoke.tier_kernel_phase(torch, np, tier, timing=False)\n"
+    "elif mode == 'features':\n"
+    "    torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "    work = os.path.join('build', 'features_work')\n"
+    "    os.makedirs(work, exist_ok=True)\n"
+    "    chip_smoke.promoted_phase(torch, np, tier, work, steps=40)\n"
     "elif mode == 'tier_time':\n"
     "    chip_smoke.k3_hit_mix_timing(torch, np)\n"
     "else:\n"
@@ -6523,9 +6576,10 @@ def against_parent(torch, parent):
 
 
 def mutation_phase():
-    """Plant each of K4_MUTATIONS, BWD_MUTATIONS and TIER_MUTATIONS in
-    its own copy and require kernel_phase (K4), bwd_kernel_phase (K5,
-    K6) or tier_kernel_phase (K1-K3) to fail there. K1_RACE is a race:
+    """Plant each of K4_MUTATIONS, BWD_MUTATIONS, TIER_MUTATIONS and
+    FC_MUTATIONS in its own copy and require kernel_phase (K4),
+    bwd_kernel_phase (K5, K6), tier_kernel_phase (K1-K3) or phase 17's
+    promoted_phase (the feature columns) to fail there. K1_RACE is a race:
     its copy runs K1_RACE_RUNS times, each run's chain mismatches are
     logged, and it counts as missed only if no run caught it. Then time
     K4 at the main case under each of K4_SCHEDULES, in turns (A B C C B
@@ -6538,12 +6592,14 @@ def mutation_phase():
                    for name, edits in BWD_MUTATIONS})
     copies.update({name: (kernel_copy(name, TIER_SOURCE, edits), "tier")
                    for name, edits in TIER_MUTATIONS})
+    copies.update({name: (kernel_copy(name, source, edits), "features")
+                   for name, source, edits in FC_MUTATIONS})
     schedules = {name: kernel_copy(name, K4_SOURCE, edits)
                  for name, edits in K4_SCHEDULES.items()}
     k3_variants = {name: kernel_copy("k3_" + name, TIER_SOURCE, edits)
                    for name, edits in K3_VARIANTS.items()}
     built = {"check": ["flash_fwd"], "bwd": ["flash_fwd", "flash_bwd"],
-             "tier": ["embedding_tier"]}
+             "tier": ["embedding_tier"], "features": ["embedding_tier"]}
     targets = [(root, built[mode]) for root, mode in copies.values()]
     targets += [(root, ["flash_fwd"]) for root in schedules.values()]
     targets += [(root, ["embedding_tier"]) for root in k3_variants.values()]
@@ -7684,6 +7740,610 @@ def heads256_ctr_phase(torch, np, flash, workdir):
     return {"bench": bench, "s16k": s16k, "ctr": ctr_records}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the feature-column family
+# ---------------------------------------------------------------------------
+
+# the promoted model: tests/test_model_handler.py's columns with cat_big
+# at 1,000,000 buckets x dim 8 (32 MB of fp32, over the reference's
+# 2 MiB: promoted at the default threshold), 1-5 ids a row under "mean"
+FEATURE_VOCAB = 1_000_000
+FEATURE_DIM = 8
+FEATURE_MAX_IDS = 5
+FEATURE_BATCH = 512
+FEATURE_STEPS = 200
+FEATURE_LR = 0.05              # the reference test's Adam, dense and PS
+# once the tier is this many steps old, K1, K2 and K3 each launch in
+# every step
+FEATURE_WARM = 20
+# batch rows past the mask hold ids no real slot holds: 0 (the padded
+# slots' id after materialize_ids) and FEATURE_VOCAB - 1
+FEATURE_PAD_ROWS = 8
+FEATURE_LOSS_DROP = 0.7        # last-10 mean below 0.7 x first-10 mean
+FEATURE_TIER_ENV = {"EDL_DEVICE_TIER": "1",
+                    "EDL_DEVICE_TIER_OPT_ARGS": "lr=%g" % FEATURE_LR}
+# card against CPU: fp32 (TF32 off), three steps from carried weights
+# and one store seed, adam eps 1e-3 (phase 7's reason); the loss, every
+# dense gradient leaf and the row gradients per step
+FEATURE_AGREE_STEPS = 3
+FEATURE_AGREE_RTOL = 1e-5
+# the promoted column's output against a float64 numpy mean of the
+# same PS rows over the real slots
+FEATURE_COMBINE_RTOL = 1e-6
+# the four LocalExecutor models at the reference tests' sizes and floors:
+# (module, records (train, valid), epochs, AUC floor)
+FEATURE_ZOO = (
+    ("census_wide_deep", (2048, 256), 8, 0.75),
+    ("census_dnn", (2048, 512), 6, 0.75),
+    ("census_sqlflow_wide_deep", (2048, 512), 6, 0.75),
+    ("heart", (1024, 256), 10, 0.7),
+)
+FEATURE_ZOO_BATCH = 64
+# the weights' seed. The floors were set on the reference's own draws,
+# and both packages' draws move the AUC past them: on the CPU the port's
+# seed 0 leaves census_sqlflow_wide_deep at 0.636 after its 6 epochs
+# (seeds 1-7: 0.81-0.93), and the reference's heart reads 0.68-0.80
+# over seeds 0-5 (PERF.md §6). The zoo trains from seed 1, the first
+# after 0.
+FEATURE_ZOO_SEED = 1
+FEATURE_ZOO_AGREE = "census_wide_deep"
+# iris as a job: rows as tests/test_model_zoo.py's create_iris_csv
+# makes them (with a header row), two training files and one
+# validation file of 120 rows, 16 rows a task, 10 epochs
+IRIS_FILES = 2
+IRIS_ROWS = 120
+IRIS_PER_TASK = 16
+IRIS_EPOCHS = 10
+IRIS_BATCH = 16
+IRIS_ACCURACY_FLOOR = 0.85
+IRIS_SERVE_ROWS = 32
+IRIS_WAIT_S = 240
+
+
+class patched_env:
+    """``os.environ`` with ``values`` set inside the block."""
+
+    def __init__(self, values):
+        self.values, self.saved = dict(values), {}
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for key, value in self.saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def feature_columns(vocab=FEATURE_VOCAB):
+    from elasticdl_tpu_torch.preprocessing import feature_column as fc
+
+    big = fc.embedding_column(
+        fc.categorical_column_with_identity("cat_big", vocab),
+        dimension=FEATURE_DIM, combiner="mean")
+    small = fc.embedding_column(
+        fc.categorical_column_with_identity("cat_small", 10), dimension=4)
+    return [big, small, fc.numeric_column("x")]
+
+
+def feature_model(torch, plan, seed=SEED):
+    """tests/test_model_handler.py's ``_Model`` over the plan's columns:
+    DenseFeatures, Dense 16 + ReLU, Dense 1; weights from ``seed``."""
+    from elasticdl_tpu_torch.models.layers import Dense
+    from elasticdl_tpu_torch.models.feature_net import FeatureNet
+    from elasticdl_tpu_torch.train import model_handler as mh
+
+    class Model(FeatureNet):
+        def __init__(self):
+            super().__init__()
+            self.features_layer = mh.dense_features(plan)
+            self.Dense_0 = Dense(self.features_layer.output_dim, 16)
+            self.Dense_1 = Dense(16, 1)
+
+        def forward(self, features):
+            x = torch.relu(self.Dense_0(self.features_layer(features)))
+            return self.Dense_1(x)[:, 0]
+
+    model = Model()
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model
+
+
+def feature_batches(np, plan, n, batch=FEATURE_BATCH, vocab=FEATURE_VOCAB,
+                    seed=SEED + 17):
+    """``n`` batches, ids materialized: each row 1-5 Zipf(1.2) ids in
+    [1, vocab - 2] through ``from_row_lists``, cat_small in [0, 10), x
+    normal; the last FEATURE_PAD_ROWS rows masked out, holding id
+    vocab - 1. The label is a planted linear signal over per-id weights
+    (mean over the row's ids, as the combiner) and x."""
+    from elasticdl_tpu_torch.preprocessing.sparse import from_row_lists
+
+    rng = np.random.RandomState(seed)
+    weights = np.random.RandomState(JOB_SIGNAL_SEED).randn(vocab).astype(
+        np.float32)
+    out = []
+    for _ in range(n):
+        lengths = rng.randint(1, FEATURE_MAX_IDS + 1, size=batch)
+        ids = rng.zipf(1.2, size=(batch, FEATURE_MAX_IDS)) % (vocab - 2) + 1
+        rows = [list(ids[i, :lengths[i]]) for i in range(batch)]
+        for i in range(batch - FEATURE_PAD_ROWS, batch):
+            rows[i] = [vocab - 1] * len(rows[i])
+        x = rng.normal(size=batch).astype(np.float32)
+        score = np.array([weights[r].mean() for r in rows]) + 0.5 * x
+        mask = np.ones(batch, np.float32)
+        mask[batch - FEATURE_PAD_ROWS:] = 0
+        out.append({
+            "features": plan.materialize_ids({
+                "cat_big": from_row_lists(rows, max_len=FEATURE_MAX_IDS),
+                "cat_small": rng.randint(0, 10, size=(batch, 1)),
+                "x": x}),
+            "labels": (score > 0).astype(np.float32),
+            "_mask": mask,
+        })
+    return out
+
+
+def feature_trainer(torch, plan, model, device, eps=None):
+    """SparseTrainer over the plan's host-PS table: the in-process store
+    ``LocalPSClient`` picks (adam, seed SEED), the tier on through
+    ``EDL_DEVICE_TIER=1`` (its default knobs, adam at FEATURE_LR)."""
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train.losses import sigmoid_binary_cross_entropy
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+
+    eps_args = {} if eps is None else {"epsilon": eps}
+    env = dict(FEATURE_TIER_ENV)
+    if eps is not None:
+        env["EDL_DEVICE_TIER_OPT_ARGS"] += ";epsilon=%g" % eps
+    tx = RecordGrads(create_optimizer("Adam", learning_rate=FEATURE_LR,
+                                      **eps_args))
+    with patched_env(env):
+        trainer = SparseTrainer(
+            model, sigmoid_binary_cross_entropy, tx, plan.sparse_specs,
+            LocalPSClient(seed=SEED, opt_type="adam", lr=FEATURE_LR,
+                          **eps_args),
+            seed=SEED, device=device, health=False)
+    if trainer.device_tier is None:
+        raise SystemExit("EDL_DEVICE_TIER=1 left the tier off")
+    return trainer, tx
+
+
+def combiner_check(torch, np, plan, batch, device):
+    """The promoted column's output on ``device`` (the pulled rows
+    gathered and combined under "mean") against a float64 numpy mean of
+    the same PS rows over each real row's real slots."""
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+    from elasticdl_tpu_torch.train import model_handler as mh
+    from elasticdl_tpu_torch.train.sparse import (
+        SparseBatchPreparer,
+        _to_device,
+    )
+
+    (column,) = plan.promoted
+    ps = LocalPSClient(seed=SEED)
+    prepared, _ = SparseBatchPreparer(plan.sparse_specs, ps).prepare(batch)
+    got = column(_to_device(prepared["features"], torch.device(device)))
+    got = got.detach().cpu().numpy()
+    ids = batch["features"][mh.IDS_PREFIX + column.table_name]
+    slots = batch["features"][column.table_name + mh.MASK_SUFFIX]
+    real = batch["_mask"] > 0
+    rows = ps.pull_embedding_vectors(column.table_name, ids.reshape(-1))
+    rows = rows.reshape(ids.shape + (FEATURE_DIM,)).astype(np.float64)
+    want = (rows * slots[..., None]).sum(1) / np.maximum(
+        slots.sum(1, keepdims=True), 1)
+    err = float(np.abs(got[real] - want[real]).max()
+                / np.abs(want[real]).max())
+    return {"max_rel_err": err, "tol": FEATURE_COMBINE_RTOL,
+            "rows": int(real.sum())}
+
+
+def feature_agreement(torch, np, plan, batches, device="cuda"):
+    """FEATURE_AGREE_STEPS steps of the promoted model on ``device`` and
+    on the CPU from the same weights, each over its own store of one
+    seed with the tier on (adam eps 1e-3): per step the loss, every
+    dense gradient leaf (as the optimizer receives it) and the row
+    gradients d(loss)/d(rows) of the whole pulled buffer, hits and
+    misses, as relative L2 errors."""
+    import copy
+
+    model = feature_model(torch, plan)
+    runs = []
+    for where, net in ((device, copy.deepcopy(model)), ("cpu", model)):
+        trainer, tx = feature_trainer(torch, plan, net, where,
+                                      eps=SPARSE_AGREE_EPS)
+        step_fn, rows = trainer._train_step, []
+
+        def recording(state, b, step_fn=step_fn, rows=rows):
+            out = step_fn(state, b)
+            rows.append({k: v.detach().cpu().clone()
+                         for k, v in out[2].items()})
+            return out
+
+        trainer._train_step = recording
+        state, steps = None, []
+        for b in batches[:FEATURE_AGREE_STEPS]:
+            state = trainer.ensure_state(state, b)
+            state, loss = trainer.train_step(state, b)
+            steps.append((loss.item(), tx.grads, rows[-1]))
+        hits = trainer.device_tier.stats()
+        trainer.close()
+        runs.append((steps, hits))
+        del trainer, state
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    (card, card_stats), (cpu, _) = runs
+    per_step = []
+    for (loss_d, grads_d, rows_d), (loss_c, grads_c, rows_c) in zip(card,
+                                                                    cpu):
+        dense = {n: rel(grads_d[n], grads_c[n]) for n in grads_c}
+        row = {n: rel(rows_d[n], rows_c[n]) for n in rows_c}
+        per_step.append({"loss_rel": abs(loss_d - loss_c) / abs(loss_c),
+                         "dense_worst": max(dense.values()),
+                         "dense_worst_leaf": max(dense, key=dense.get),
+                         "rows": row})
+    worst = max(max(s["loss_rel"], s["dense_worst"], *s["rows"].values())
+                for s in per_step)
+    return {"steps": per_step, "worst_rel_l2": worst,
+            "tol": FEATURE_AGREE_RTOL,
+            "card_tier_hits": card_stats.get("hits"),
+            "dense_leaves": len(card[0][1])}
+
+
+def promoted_phase(torch, np, tier, workdir, device="cuda",
+                   vocab=FEATURE_VOCAB, batch=FEATURE_BATCH,
+                   steps=FEATURE_STEPS, warm=FEATURE_WARM):
+    """The promoted model (see the module docstring, phase 17)."""
+    from elasticdl_tpu_torch.train import model_handler as mh
+
+    t0 = time.monotonic()
+    plan = mh.promote_large_embeddings(feature_columns(vocab))
+    (column,) = plan.promoted
+    name = column.table_name
+    if plan.table_shapes != {name: (vocab, FEATURE_DIM)} or len(
+            plan.kept) != 2:
+        raise SystemExit("the plan did not promote cat_big alone: %s"
+                         % plan.table_shapes)
+    batches = feature_batches(np, plan, steps, batch=batch, vocab=vocab)
+    data_s = time.monotonic() - t0
+    combine = combiner_check(torch, np, plan, batches[0], device)
+    log(json.dumps({"phase": "17_features", "part": "combiner", **combine}))
+    if not combine["max_rel_err"] <= FEATURE_COMBINE_RTOL:
+        raise SystemExit("the promoted column's mean disagrees with numpy: "
+                         "%s" % combine)
+    agree = feature_agreement(torch, np, plan, batches, device)
+    log(json.dumps({"phase": "17_features", "part": "agreement", **agree}))
+    if not agree["worst_rel_l2"] <= FEATURE_AGREE_RTOL:
+        raise SystemExit("the promoted step on the card disagrees with the "
+                         "CPU's: %s" % agree)
+
+    trainer, _ = feature_trainer(torch, plan, feature_model(torch, plan),
+                                 device)
+    ps = trainer.preparer._ps
+    rec = count_worker_steps(tier, trainer, tables=1)
+    reset_tier_launches(tier)
+    state, losses = None, []
+    run_t0 = time.monotonic()
+    for b in batches:
+        state = trainer.ensure_state(state, b)
+        state, loss = trainer.train_step(state, b)
+        losses.append(float(loss))
+    sync(torch, torch.device(device))
+    run_s = time.monotonic() - run_t0
+    totals = tier_counts(tier)
+    stats = trainer.device_tier.stats()
+    store_ids, _ = ps.store.export_table(name)
+    resident, _ = trainer.device_tier.table_rows(name)
+    candidates = trainer.device_tier._tables[name].cand_ids
+    padded_only = np.array([0, vocab - 1])
+    leaked = sorted(int(i) for i in np.intersect1d(
+        padded_only, np.concatenate([store_ids, resident, candidates])))
+    warm_launches = rec["launches"][warm:]
+    t = time.monotonic()
+    trainer.close()  # the tier's flush: every resident row to the PS
+    export_dir = os.path.join(workdir, "promoted_export")
+    mh.export_promoted_train_state(state, plan, ps, export_dir)
+    export_s = time.monotonic() - t
+    table = mh.load_exported_tables(export_dir)[name]
+    live = ps.pull_embedding_vectors(name, np.arange(vocab, dtype=np.int64))
+    record = {
+        "phase": "17_features", "part": "promoted", "vocab": vocab,
+        "dim": FEATURE_DIM, "batch": batch, "steps": steps,
+        "table_mb": vocab * FEATURE_DIM * 4 / 2**20,
+        "threshold_mb": mh.EMBEDDING_PROMOTION_THRESHOLD_BYTES / 2**20,
+        "store": type(ps.store).__name__,
+        "steps_per_s": steps / run_s,
+        "examples_per_s": steps * batch / run_s,
+        "first_losses_mean": float(np.mean(losses[:10])),
+        "last_losses_mean": float(np.mean(losses[-10:])),
+        "launches": dict(zip(("gather", "insert_rows", "scatter_apply"),
+                             totals)),
+        "launches_per_step": {k: v / steps for k, v in zip(
+            ("gather", "insert_rows", "scatter_apply"), totals)},
+        "warm_steps_missing": [[warm + i, launches] for i, launches in
+                               enumerate(warm_launches) if min(launches) < 1],
+        "bad_steps": rec["bad_steps"][:5], "n_bad_steps":
+        len(rec["bad_steps"]), "tier": stats,
+        "ps_rows": int(store_ids.size), "padded_only_ids_created": leaked,
+        "export_rows_equal_ps": bool(np.array_equal(table, live)),
+        "export_seconds": export_s, "data_seconds": data_s,
+        "card": card_line(device)}
+    log(json.dumps(record))
+    failures = [what for what, bad in (
+        ("finite losses", not np.isfinite(losses).all()),
+        ("the loss falls", not record["last_losses_mean"]
+         < FEATURE_LOSS_DROP * record["first_losses_mean"]),
+        ("K1-K3 by the path's formula", record["n_bad_steps"]),
+        ("K1, K2 and K3 in every warm step", record["warm_steps_missing"]),
+        ("no row or slot for a padded-only id", leaked),
+        ("exported rows bit-equal to the PS", not record[
+            "export_rows_equal_ps"])) if bad]
+    if failures:
+        raise SystemExit("promoted model: %s" % failures)
+    return dict(record, combiner=combine, agreement=agree)
+
+
+def zoo_agreement(torch, np, name, batch, device):
+    """One fp32 step of zoo model ``name`` through TorchTrainer on
+    ``device`` and on the CPU from the same weights: the loss and every
+    gradient leaf as the optimizer receives it (relative L2)."""
+    import copy
+    import importlib
+
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    mod = importlib.import_module("elasticdl_tpu_torch.models." + name)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(FEATURE_ZOO_SEED)
+        model = mod.custom_model()
+    results = []
+    for where, net in ((device, copy.deepcopy(model)), ("cpu", model)):
+        tx = RecordGrads(mod.optimizer())
+        trainer = TorchTrainer(net, mod.loss, tx, health=False, device=where)
+        _, loss = trainer.train_step(trainer.create_state(), batch)
+        results.append((loss.item(), tx.grads))
+    (loss_d, grads_d), (loss_c, grads_c) = results
+    rel = {n: float((grads_d[n] - grads_c[n]).norm()
+                    / grads_c[n].norm().clamp(min=1e-30)) for n in grads_c}
+    return {"loss_rel": abs(loss_d - loss_c) / abs(loss_c),
+            "grad_worst_rel_l2": max(rel.values()),
+            "grad_worst": max(rel, key=rel.get), "leaves": len(rel),
+            "tol": FEATURE_AGREE_RTOL}
+
+
+def feature_zoo_phase(torch, np, workdir, device="cuda", zoo=FEATURE_ZOO,
+                      batch=FEATURE_ZOO_BATCH):
+    """census_wide_deep, census_dnn, census_sqlflow_wide_deep and heart
+    through the port's LocalExecutor on ``device`` over RecordIO from the
+    port's generators (training seed 0, validation seed 1), from
+    FEATURE_ZOO_SEED's weights: finite losses, the last below the first,
+    the validation AUC above the reference test's floor; census_wide_deep
+    also one card-against-CPU step (``zoo_agreement``)."""
+    from elasticdl_tpu_torch.data.gen import (
+        gen_census_recordio,
+        gen_heart_recordio,
+    )
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+
+    results = {}
+    for name, (n_train, n_valid), epochs, floor in zoo:
+        maker = gen_heart_recordio if name == "heart" else (
+            gen_census_recordio)
+        root = os.path.join(workdir, "features_" + name)
+        train_dir, valid_dir = (os.path.join(root, "train"),
+                                os.path.join(root, "valid"))
+        maker(train_dir, num_records=n_train, seed=0)
+        maker(valid_dir, num_records=n_valid, seed=1)
+        executor = LocalExecutor(
+            "elasticdl_tpu_torch.models." + name, training_data=train_dir,
+            validation_data=valid_dir, minibatch_size=batch,
+            num_epochs=epochs, seed=FEATURE_ZOO_SEED, device=device)
+        t0 = time.monotonic()
+        losses = executor.train()
+        seconds = time.monotonic() - t0
+        auc = float(executor.evaluate()["auc"])
+        record = {
+            "phase": "17_features", "part": "zoo", "model": name,
+            "records": n_train, "batch": batch, "epochs": epochs,
+            "seed": FEATURE_ZOO_SEED, "steps": len(losses),
+            "steps_per_s": len(losses) / seconds,
+            "examples_per_s": len(losses) * batch / seconds,
+            "first_loss": losses[0], "last_loss": losses[-1], "auc": auc,
+            "auc_floor": floor, "card": card_line(device)}
+        if name == FEATURE_ZOO_AGREE:
+            first = next(iter(executor._batches(executor._train_reader,
+                                                "training")))
+            record["agreement"] = zoo_agreement(torch, np, name, first,
+                                                device)
+        log(json.dumps(record))
+        agree = record.get("agreement")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise SystemExit("%s did not learn: %s ... %s"
+                             % (name, losses[:3], losses[-3:]))
+        if not auc > floor:
+            raise SystemExit("%s AUC %.4f not above %.2f" % (name, auc, floor))
+        if agree is not None and not max(
+                agree["loss_rel"], agree["grad_worst_rel_l2"]) <= (
+                    FEATURE_AGREE_RTOL):
+            raise SystemExit("%s: the card's step disagrees with the CPU's: "
+                             "%s" % (name, agree))
+        results[name] = record
+        del executor
+        gc.collect()
+    return results
+
+
+def iris_rows(np, path, num_records=IRIS_ROWS, seed=0):
+    """tests/test_model_zoo.py's create_iris_csv, with a header row (the
+    CSV reader takes the first line as one)."""
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        f.write("sepal_length,sepal_width,petal_length,petal_width,label\n")
+        for _ in range(num_records):
+            label = rng.randint(0, 3)
+            base = np.array([4.5, 3.0, 1.5, 0.2]) + label * np.array(
+                [1.0, 0.2, 1.8, 0.9])
+            row = base + rng.randn(4) * 0.2
+            f.write(",".join("%.3f" % v for v in row) + ",%d\n" % label)
+    return path
+
+
+def iris_job(torch, np, workdir, device="cuda", files=IRIS_FILES,
+             rows=IRIS_ROWS, per_task=IRIS_PER_TASK, epochs=IRIS_EPOCHS,
+             batch=IRIS_BATCH, wait_s=IRIS_WAIT_S):
+    """iris as a job (see the module docstring, phase 17)."""
+    from elasticdl_tpu_torch.common.grpc_utils import (
+        build_server,
+        find_free_port,
+    )
+    from elasticdl_tpu_torch.master.state_store import (
+        JOURNAL_NAME,
+        STATE_DIR_ENV,
+    )
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.proto.services import (
+        add_serve_servicer_to_server,
+    )
+    from elasticdl_tpu_torch.serve.client import ServeClient
+    from elasticdl_tpu_torch.serve.engine import ServingEngine
+    from elasticdl_tpu_torch.serve.servicer import ServeServicer
+    from elasticdl_tpu_torch.train.export import load_exported
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    zoo = "elasticdl_tpu_torch.models.iris_dnn"
+    out = os.path.join(HERE, "build", "chip_smoke_iris")
+    shutil.rmtree(out, ignore_errors=True)
+    root = os.path.join(workdir, "iris")
+    train_dir, valid_dir = (os.path.join(root, "train"),
+                            os.path.join(root, "valid"))
+    for d in (out, train_dir, valid_dir):
+        os.makedirs(d)
+    for i in range(files):
+        iris_rows(np, os.path.join(train_dir, "part-%d.csv" % i), rows,
+                  seed=2 * i)
+    iris_rows(np, os.path.join(valid_dir, "valid.csv"), rows, seed=1)
+    state_dir, export_dir = (os.path.join(out, "state"),
+                             os.path.join(out, "export"))
+    port = find_free_port()
+    env = dict(os.environ, PYTHONPATH=HERE, **{STATE_DIR_ENV: state_dir})
+    master_log, worker_log = (os.path.join(out, "master.log"),
+                              os.path.join(out, "worker-0.log"))
+    procs = []
+    try:
+        t0 = time.monotonic()
+        with open(master_log, "w") as sink:
+            master = subprocess.Popen(
+                [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+                 "--model_zoo", zoo, "--training_data", train_dir,
+                 "--records_per_task", str(per_task), "--num_epochs",
+                 str(epochs), "--minibatch_size", str(batch), "--port",
+                 str(port), "--output", export_dir], cwd=HERE, env=env,
+                stdout=sink, stderr=subprocess.STDOUT)
+        procs.append(master)
+        wait_for_line(master, master_log, "Master serving on :%d" % port,
+                      "the iris master")
+        worker = start_worker_process(worker_log, [
+            "--model_zoo", zoo, "--training_data", train_dir,
+            "--minibatch_size", str(batch), "--master_addr",
+            "localhost:%d" % port, "--worker_id", "0", "--device",
+            torch.device(device).type], env)
+        procs.append(worker)
+        master_rc = master.wait(wait_s)
+        worker_rc = worker.wait(60)
+        job_s = time.monotonic() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ops = journal_ops(os.path.join(state_dir, JOURNAL_NAME))
+    created = {t[0]: t[1] for op in ops if op["op"] == "tasks_created"
+               for t in op["tasks"]}
+    done = [op["task"] for op in ops if op["op"] == "done"]
+    training = [t for t, kind in created.items() if kind == pb.TRAINING]
+    train_end = [t for t, kind in created.items()
+                 if kind == pb.TRAIN_END_CALLBACK]
+    # the export's accuracy on the validation rows, on the card
+    spec = get_model_spec(zoo)
+    params, _, export_step = load_exported(export_dir)
+    model = spec.custom_model()
+    model.load_state_dict(spec.params_from_flax(params), strict=True)
+    trainer = TorchTrainer(model, spec.loss, spec.optimizer(), health=False,
+                           device=device)
+    state = trainer.create_state()
+    valid = np.loadtxt(os.path.join(valid_dir, "valid.csv"), delimiter=",",
+                       skiprows=1, dtype=np.float32)
+    x, labels = valid[:, :4], valid[:, 4].astype(np.int64)
+    logits = trainer.eval_step(state, {"features": x})
+    accuracy = float((logits.argmax(-1) == labels).mean())
+    # the export served by an in-process engine over gRPC
+    engine = ServingEngine(zoo, export_dir, max_batch=IRIS_SERVE_ROWS,
+                           max_delay_ms=2.0, deadline_ms=60000.0,
+                           device=device).start(block=True)
+    server = build_server()
+    add_serve_servicer_to_server(ServeServicer(engine), server)
+    serve_port = find_free_port()
+    server.add_insecure_port("localhost:%d" % serve_port)
+    server.start()
+    try:
+        with ServeClient("localhost:%d" % serve_port) as client:
+            served, served_step, _ = client.predict(
+                x[:IRIS_SERVE_ROWS], deadline_secs=120)
+    finally:
+        server.stop(0)
+        engine.drain(timeout=10)
+    served = served["output"].numpy()
+    want = trainer.eval_step(state, {"features": x[:IRIS_SERVE_ROWS],
+                                     "_mask": np.ones(IRIS_SERVE_ROWS)})
+    # the worker batches its task stream across task boundaries
+    steps = -(-files * rows * epochs // batch)
+    record = {
+        "phase": "17_features", "part": "iris_job", "files": files,
+        "rows": rows, "per_task": per_task, "epochs": epochs,
+        "batch": batch, "master_rc": master_rc, "worker_rc": worker_rc,
+        "tasks": len(training), "done": len(done),
+        "train_end_tasks": len(train_end), "export_step": export_step,
+        "job_seconds": job_s, "steps_per_s": steps / job_s,
+        "accuracy": accuracy, "accuracy_floor": IRIS_ACCURACY_FLOOR,
+        "served_step": served_step,
+        "served_bit_equal": bool(np.array_equal(served, want)),
+        "card": card_line(device)}
+    log(json.dumps(record))
+    with open(worker_log) as f:
+        worker_tail = f.read()[-3000:]
+    failures = [what for what, bad in (
+        ("master rc", master_rc != 0), ("worker rc", worker_rc != 0),
+        ("every task done once", sorted(done) != sorted(created)
+         or len(training) != files * -(-rows // per_task) * epochs),
+        ("one train-end task", len(train_end) != 1),
+        ("export at the final step", export_step != steps),
+        ("accuracy", not accuracy > IRIS_ACCURACY_FLOOR),
+        ("served bit-equal to eval_step", not record["served_bit_equal"]
+         or served_step != export_step)) if bad]
+    if failures:
+        raise SystemExit("iris job: %s\n%s" % (failures, worker_tail))
+    return record
+
+
+def feature_phase(torch, np, tier, workdir):
+    """Phase 17 on the card (see the module docstring)."""
+    t0 = time.monotonic()
+    promoted = promoted_phase(torch, np, tier, workdir)
+    zoo = feature_zoo_phase(torch, np, workdir)
+    iris = iris_job(torch, np, workdir)
+    seconds = time.monotonic() - t0
+    log(json.dumps({"phase": "17_features", "part": "summary",
+                    "seconds": seconds, "card": nvidia_smi_line()}))
+    return {"promoted": promoted, "zoo": zoo, "iris": iris,
+            "seconds": seconds}
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -7827,7 +8487,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-16 and the last lines (see the module docstring)."""
+    """Phases 1-17 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -7923,6 +8583,10 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         heads256 = heads256_ctr_phase(torch, np, flash, workdir)
         done("16_heads256_ctr")
+        gc.collect()
+        torch.cuda.empty_cache()
+        features = feature_phase(torch, np, tier, workdir)
+        done("17_features")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -7968,10 +8632,7 @@ def run_phases(torch, np, job_dir, data_proc):
             "transformer": heads256["bench"]["record"][
                 "launches_per_step"][0][kind],
             "s16k_flash": heads256["s16k"]["launches_per_step"][0][kind]}
-    log(json.dumps({"kernels": [
-        fwd,
-        dq,
-        dkv,
+    tier_entries = [
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",
                           "gather", tier_cases, sparse, stream, job,
@@ -7984,7 +8645,15 @@ def run_phases(torch, np, job_dir, data_proc):
                           "elasticdl_tpu/ops/embedding_tier.py:253",
                           "scatter_apply", tier_cases, sparse, stream, job,
                           restart, artifact, control, telemetry),
-    ]}))
+    ]
+    # phase 17: the promoted feature-column model's run
+    promoted = features["promoted"]
+    for entry, kind in zip(tier_entries, ("gather", "insert_rows",
+                                          "scatter_apply")):
+        entry["launches_features"] = promoted["launches"][kind]
+        entry["launches_per_step_features"] = promoted[
+            "launches_per_step"][kind]
+    log(json.dumps({"kernels": [fwd, dq, dkv, *tier_entries]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

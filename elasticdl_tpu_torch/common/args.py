@@ -2,8 +2,8 @@
 flag helpers (port of elasticdl_tpu/common/args.py).
 
 The flags are the JAX package's, trimmed to the features the port has:
-the multi-host, mesh, pod-spec and symbol-override flags wait
-with their features (ROADMAP). The worker adds ``--device``
+the multi-host, mesh and pod-spec flags wait with their features
+(ROADMAP). The worker adds ``--device``
 (``cuda`` unless the caller asks for the CPU). The PS server's own
 flags live in ``ps/server.py:parse_ps_args``.
 """
@@ -39,6 +39,8 @@ def _add_common(parser):
     # for custom_model
     parser.add_argument("--model_def", default="")
     parser.add_argument("--model_params", default="")
+    # the contract's symbol names (--loss my_loss, ...)
+    add_symbol_override_arguments(parser)
 
 
 def parse_master_args(argv=None):
@@ -115,6 +117,35 @@ def parse_worker_args(argv=None):
     # (0/unset = disabled; falls back to EDL_METRICS_PORT)
     parser.add_argument("--metrics_port", type=int, default=0)
     return parser.parse_args(argv)
+
+
+# the contract symbol-name override flags: one list read by every
+# parser that defines them and by symbol_overrides_from_args
+SYMBOL_OVERRIDE_KEYS = (
+    "loss",
+    "optimizer",
+    "dataset_fn",
+    "eval_metrics_fn",
+    "callbacks",
+    "prediction_outputs_processor",
+)
+
+
+def add_symbol_override_arguments(parser):
+    for key in SYMBOL_OVERRIDE_KEYS:
+        parser.add_argument("--%s" % key, default="")
+
+
+def symbol_overrides_from_args(args):
+    """The non-empty symbol-name flags as the ``symbol_overrides`` dict
+    ``get_model_spec`` takes (None when all are left at their
+    default)."""
+    overrides = {
+        k: getattr(args, k)
+        for k in SYMBOL_OVERRIDE_KEYS
+        if getattr(args, k, "")
+    }
+    return overrides or None
 
 
 def bool_flag(value):

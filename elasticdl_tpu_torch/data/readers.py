@@ -1,14 +1,18 @@
 """Data readers: the contract between storage and the task system (port
-of elasticdl_tpu/data/readers.py, RecordIO only).
+of elasticdl_tpu/data/readers.py, RecordIO and CSV).
 
 A reader yields the raw records of a task's ``[start, end)`` range of
 one shard (``read_records(task)``) and lists its shards
 (``create_shards()``). RecordIO (the ``edlrec`` format of
-data/recordio.py) makes one shard per file. The CSV and MaxCompute
-table readers wait until a ported path reads them (ROADMAP Queue 1).
+data/recordio.py) makes one shard per file. CSV makes one shard per
+file too: the first line is the header, and a line-offset index built
+on open lets a task seek to its first row. The MaxCompute table reader
+is not ported (ROADMAP Queue 1).
 """
 
+import csv
 import glob
+import io
 import os
 
 from elasticdl_tpu_torch.data import recordio
@@ -68,9 +72,71 @@ class RecordIODataReader(AbstractDataReader):
             yield from reader.read_range(task.start, task.end)
 
 
+class CSVDataReader(AbstractDataReader):
+    """CSV with a header row; one shard per file, seekable by line index."""
+
+    def __init__(self, data_dir=None, sep=",", **kwargs):
+        super().__init__(**kwargs)
+        self._data_dir = data_dir
+        self._sep = sep
+        self._columns = None
+        # path -> [byte offset of each data row]
+        self._row_index = {}
+
+    def _files(self):
+        if os.path.isfile(self._data_dir):
+            return [self._data_dir]
+        files = sorted(glob.glob(os.path.join(self._data_dir, "*.csv")))
+        if not files:
+            raise ValueError("No csv files under %s" % self._data_dir)
+        return files
+
+    def _index_file(self, path):
+        if path in self._row_index:
+            return self._row_index[path]
+        offsets = []
+        with open(path, "rb") as f:
+            header = f.readline()
+            if self._columns is None:
+                self._columns = (
+                    header.decode("utf-8").rstrip("\r\n").split(self._sep)
+                )
+            off = f.tell()
+            for line in f:
+                if line.strip():
+                    offsets.append(off)
+                off += len(line)
+        self._row_index[path] = offsets
+        return offsets
+
+    def create_shards(self):
+        return {
+            path: (0, len(self._index_file(path))) for path in self._files()
+        }
+
+    def read_records(self, task):
+        offsets = self._index_file(task.shard_name)
+        with open(task.shard_name, "rb") as f:
+            for i in range(task.start, min(task.end, len(offsets))):
+                f.seek(offsets[i])
+                line = f.readline().decode("utf-8").rstrip("\r\n")
+                yield next(csv.reader(io.StringIO(line), delimiter=self._sep))
+
+    @property
+    def records_output_types(self):
+        return list
+
+    @property
+    def metadata(self):
+        if self._columns is None:
+            self._index_file(self._files()[0])
+        return Metadata(column_names=self._columns or [])
+
+
 def create_data_reader(data_origin, records_per_task=None, **kwargs):
-    """RecordIO for a file or directory origin. A table origin raises
-    ``NotImplementedError``: its reader is not ported."""
+    """CSV for a ``.csv`` file or a directory holding ``.csv`` files,
+    else RecordIO. A table origin raises ``NotImplementedError``: its
+    reader is not ported."""
     del records_per_task  # read only by the table reader
     if kwargs.get("table_client") is not None or (
         data_origin and data_origin.startswith("odps://")
@@ -79,4 +145,12 @@ def create_data_reader(data_origin, records_per_task=None, **kwargs):
             "table origin %r: the MaxCompute reader is not ported yet "
             "(ROADMAP Queue 1)" % (data_origin,)
         )
+    if data_origin and (
+        data_origin.endswith(".csv")
+        or (
+            os.path.isdir(data_origin)
+            and glob.glob(os.path.join(data_origin, "*.csv"))
+        )
+    ):
+        return CSVDataReader(data_dir=data_origin, **kwargs)
     return RecordIODataReader(data_dir=data_origin, **kwargs)

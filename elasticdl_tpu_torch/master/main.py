@@ -22,7 +22,10 @@ journal, its workers re-register when they see its new
 import os
 import sys
 
-from elasticdl_tpu_torch.common.args import parse_master_args
+from elasticdl_tpu_torch.common.args import (
+    parse_master_args,
+    symbol_overrides_from_args,
+)
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.models.registry import parse_params_string
 
@@ -63,6 +66,7 @@ def main(argv=None):
         task_timeout_secs=args.task_timeout_secs,
         model_def=args.model_def,
         model_params=args.model_params,
+        symbol_overrides=symbol_overrides_from_args(args),
         metrics_port=args.metrics_port,
     )
     master.prepare()

@@ -75,6 +75,7 @@ class Master:
         seed=None,
         model_def="",
         model_params="",
+        symbol_overrides=None,
         metrics_port=0,
     ):
         if metrics_port:
@@ -87,6 +88,7 @@ class Master:
         self.spec = get_model_spec(
             model_zoo_module, model_def=model_def,
             model_params=model_params,
+            symbol_overrides=symbol_overrides,
         )
         reader_params = data_reader_params or {}
 

@@ -21,6 +21,14 @@ types:
 - ``PredictionOutputsProcessor`` -> class whose ``process(outputs,
   worker_id)`` takes each prediction batch's outputs and whose optional
   ``close()`` runs before the task is reported done (optional)
+- ``ps_optimizer`` -> the PS's optimizer spec (optional; kept on the
+  spec, read by no ported role yet: the reference's pod manager, which
+  passes it to the PS pods, is not ported)
+
+``symbol_overrides`` (the ``--loss``, ``--optimizer``, ``--dataset_fn``,
+``--eval_metrics_fn``, ``--callbacks`` and
+``--prediction_outputs_processor`` flags) names the module attribute
+that plays a contract part, for modules whose exports use other names.
 
 Serving reads only the first two, so a serving-only module may leave
 out the training names; the trainers raise when one is missing.
@@ -38,7 +46,8 @@ class ModelSpec:
     def __init__(self, custom_model, params_from_flax, loss=None,
                  optimizer=None, dataset_fn=None, eval_metrics_fn=None,
                  sparse_embedding_specs=None, callbacks=None,
-                 prediction_outputs_processor=None, module=None):
+                 prediction_outputs_processor=None, ps_optimizer=None,
+                 module=None):
         self.custom_model = custom_model
         # {flax name: array} -> state_dict (port addition: exports carry
         # the JAX package's flat flax names)
@@ -50,6 +59,9 @@ class ModelSpec:
         self.sparse_embedding_specs = sparse_embedding_specs
         self.callbacks = callbacks or (lambda: [])
         self.prediction_outputs_processor = prediction_outputs_processor
+        # the PS's optimizer; its consumer, the reference's pod manager
+        # (k8s/pod_manager.py), is not ported (ROADMAP Queue 1)
+        self.ps_optimizer = ps_optimizer
         self.module = module
 
     def require_training(self):
@@ -107,14 +119,17 @@ def _resolve(module, name, default_name=None, required=True):
     return target
 
 
-def get_model_spec(module_path_or_name, model_def="",
-                   model_params="") -> ModelSpec:
+def get_model_spec(module_path_or_name, model_def="", model_params="",
+                   symbol_overrides=None) -> ModelSpec:
     """Resolve the model-zoo contract.
 
     ``model_def``: when ``module_path_or_name`` is a directory, a dotted
     path inside it selecting the module file, optionally with a trailing
     segment naming the model factory. ``model_params``: a ``k=v;k=v``
     string of kwargs bound onto ``custom_model``.
+    ``symbol_overrides``: {contract key: module attribute name}. A name
+    given there that the module does not define is an error, even for
+    an optional part: the user asked for it by name.
     """
     factory_name = None
     target = module_path_or_name
@@ -155,7 +170,12 @@ def get_model_spec(module_path_or_name, model_def="",
         custom_model = functools.partial(
             custom_model, **parse_params_string(model_params)
         )
-    optional = lambda name: _resolve(module, name, required=False)
+    overrides = symbol_overrides or {}
+
+    def optional(key, default_name=None):
+        return _resolve(module, overrides.get(key) or default_name or key,
+                        required=key in overrides)
+
     return ModelSpec(
         custom_model=custom_model,
         params_from_flax=_resolve(module, "params_from_flax"),
@@ -165,6 +185,8 @@ def get_model_spec(module_path_or_name, model_def="",
         eval_metrics_fn=optional("eval_metrics_fn"),
         sparse_embedding_specs=optional("sparse_embedding_specs"),
         callbacks=optional("callbacks"),
-        prediction_outputs_processor=optional("PredictionOutputsProcessor"),
+        prediction_outputs_processor=optional(
+            "prediction_outputs_processor", "PredictionOutputsProcessor"),
+        ps_optimizer=optional("ps_optimizer"),
         module=module,
     )

@@ -70,7 +70,8 @@ def _npz_rewritten_under(model, export_dir, signature):
 
 class ServingEngine:
     def __init__(self, model_zoo, export_dir, ps_client=None,
-                 model_def="", model_params="", compute_dtype=None,
+                 model_def="", model_params="", symbol_overrides=None,
+                 compute_dtype=None,
                  max_batch=None, max_delay_ms=None, queue_depth=None,
                  deadline_ms=None, cache_ttl_secs=None,
                  cache_capacity=1_000_000, watch_secs=None,
@@ -84,7 +85,8 @@ class ServingEngine:
         self._ps = ps_client
         self._compute_dtype = compute_dtype
         self.spec = get_model_spec(
-            model_zoo, model_def=model_def, model_params=model_params
+            model_zoo, model_def=model_def, model_params=model_params,
+            symbol_overrides=symbol_overrides,
         )
         if cache_ttl_secs is None:
             cache_ttl_secs = _env_num(CACHE_TTL_ENV, 2.0, float)

@@ -57,12 +57,14 @@ class LocalExecutor:
         seed=0,
         model_def="",
         model_params="",
+        symbol_overrides=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.spec = get_model_spec(
             model_zoo_module, model_def=model_def,
             model_params=model_params,
+            symbol_overrides=symbol_overrides,
         )
         self.spec.require_training()
         self._minibatch_size = minibatch_size

@@ -1,11 +1,10 @@
 """Streaming evaluation metrics (port of elasticdl_tpu/train/metrics.py:
-``Metric``, ``Mean``, ``Accuracy``, ``BinaryAccuracy``, ``AUC`` and
-``EvaluationMetrics``).
+``Metric``, ``Mean``, ``Accuracy``, ``BinaryAccuracy``, ``AUC``,
+``MeanSquaredError``, ``MeanAbsoluteError`` and ``EvaluationMetrics``).
 
 Small numpy accumulators with the ``update_state``/``result``/
 ``reset_states`` contract; model-zoo modules return them from
-``eval_metrics_fn``. The JAX package's regression metrics wait for the
-models that use them.
+``eval_metrics_fn``.
 """
 
 import numpy as np
@@ -136,6 +135,44 @@ class AUC(Metric):
         rank_sum_pos = float(ranks[labels == 1].sum())
         u = rank_sum_pos - pos * (pos + 1) / 2.0
         return u / (pos * neg)
+
+
+class MeanSquaredError(Metric):
+    def __init__(self, name="mse"):
+        self.name = name
+        self.reset_states()
+
+    def reset_states(self):
+        self._total = 0.0
+        self._count = 0
+
+    def update_state(self, labels, outputs):
+        labels = np.asarray(labels, dtype=np.float64).reshape(-1)
+        outputs = np.asarray(outputs, dtype=np.float64).reshape(-1)
+        self._total += float(((labels - outputs) ** 2).sum())
+        self._count += labels.size
+
+    def result(self):
+        return self._total / max(self._count, 1)
+
+
+class MeanAbsoluteError(Metric):
+    def __init__(self, name="mae"):
+        self.name = name
+        self.reset_states()
+
+    def reset_states(self):
+        self._total = 0.0
+        self._count = 0
+
+    def update_state(self, labels, outputs):
+        labels = np.asarray(labels, dtype=np.float64).reshape(-1)
+        outputs = np.asarray(outputs, dtype=np.float64).reshape(-1)
+        self._total += float(np.abs(labels - outputs).sum())
+        self._count += labels.size
+
+    def result(self):
+        return self._total / max(self._count, 1)
 
 
 class EvaluationMetrics:

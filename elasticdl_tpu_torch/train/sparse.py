@@ -102,10 +102,16 @@ class SparseEmbeddingSpec:
     feature_key: the feature holding int ids, shape [B] or [B, F].
     capacity: padded unique-ids buffer size (static shape); defaults to
     batch_size * F at prepare time if 0.
+    combiner: how the model side combines a row's ids (sum, mean or
+    sqrtn; None keeps the [B, F, dim] rows).
+    mask_feature_key: an optional bool [B, F] feature marking the real
+    id slots; padded slots leave the unique-id pull and push, so padding
+    never creates or updates a PS row or a tier slot.
     """
 
     def __init__(self, name, dim, feature_key=None, capacity=0,
-                 init_scale=0.05, initializer="uniform"):
+                 init_scale=0.05, initializer="uniform", combiner="sum",
+                 mask_feature_key=None):
         self.name = name
         self.dim = dim
         self.feature_key = feature_key or name
@@ -113,6 +119,8 @@ class SparseEmbeddingSpec:
         self.init_scale = init_scale
         # uniform / constant / normal / truncated_normal / zeros
         self.initializer = initializer
+        self.combiner = combiner
+        self.mask_feature_key = mask_feature_key
 
 
 def _wire_initializer(spec):
@@ -124,27 +132,39 @@ def _wire_initializer(spec):
 
 
 def embedding_lookup(features, name, combiner=None):
-    """Model side: gather pulled rows and sum them over the feature axis.
+    """Model side: gather pulled rows and combine them over the feature
+    axis.
 
     rows: [capacity, dim]; indices: [B] or [B, F] positions into rows.
-    Returns [B, dim] (summed, ``combiner="sum"``) or [B, F, dim] when
-    combiner is None. Padded slots (the batch-mask slot mask) count as
-    zero rows.
+    Returns [B, dim] (combined by ``combiner``: sum, mean or sqrtn,
+    weighted by the slot mask) or [B, F, dim] when combiner is None.
+    Padded slots (the slot mask) count as zero rows.
     """
     rows = features[name + ROWS_SUFFIX]
     indices = features[name + INDICES_SUFFIX]
     gathered = rows[indices.long()]  # [B, dim] or [B, F, dim]
     mask = features.get(name + SLOT_MASK_SUFFIX)
-    if mask is not None and gathered.dim() == 3:
-        # padded slots index row 0 of the pulled buffer; zero them
-        gathered = gathered * mask.to(gathered.dtype)[..., None]
     if gathered.dim() == 2 or combiner is None:
+        if mask is not None and gathered.dim() == 3:
+            # padded slots index row 0 of the pulled buffer; zero them
+            gathered = gathered * mask.to(gathered.dtype)[..., None]
         return gathered
-    if combiner != "sum":
-        # the reference's mean and sqrtn combiners wait for a model
-        # that uses them
-        raise ValueError("unsupported combiner %r" % combiner)
-    return gathered.sum(dim=1)
+    if combiner not in ("sum", "mean", "sqrtn"):
+        raise ValueError("unknown combiner %r" % combiner)
+    if combiner == "sum":
+        if mask is not None:
+            gathered = gathered * mask.to(gathered.dtype)[..., None]
+        return gathered.sum(dim=1)
+    from elasticdl_tpu_torch.preprocessing.feature_column import (
+        combine_gathered,
+    )
+
+    if mask is not None:
+        w = mask.to(gathered.dtype)
+    else:
+        w = torch.ones(gathered.shape[:2], dtype=gathered.dtype,
+                       device=gathered.device)
+    return combine_gathered(gathered, w, combiner)
 
 
 class PullInfo(dict):
@@ -276,11 +296,14 @@ class SparseBatchPreparer:
             consumed.add(spec.feature_key)
             capacity = spec.capacity or int(np.prod(ids.shape))
             mask = None
+            if spec.mask_feature_key and spec.mask_feature_key in features:
+                mask = _host(features[spec.mask_feature_key]).astype(bool)
             if batch_mask is not None:
-                mask = np.broadcast_to(
+                rows_real = np.broadcast_to(
                     batch_mask.reshape((-1,) + (1,) * (ids.ndim - 1)),
                     ids.shape,
                 )
+                mask = rows_real if mask is None else (mask & rows_real)
             if mask is not None:
                 unique, inv_real = np.unique(ids[mask], return_inverse=True)
                 # padded slots index row 0; the slot-mask feature zeroes
@@ -410,6 +433,11 @@ def _host(value):
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # a PaddedSparse feature (values, mask, weights)
+        return type(tree)(*(_to_device(v, device) for v in tree))
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     array = np.asarray(tree)

@@ -80,6 +80,8 @@ def cast_floating(tree, dtype):
     the tensor cores); other leaves pass through."""
     if isinstance(tree, dict):
         return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(cast_floating(v, dtype) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floating(v, dtype) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.is_floating_point():

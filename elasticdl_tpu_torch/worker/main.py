@@ -30,7 +30,10 @@ import json
 import os
 import sys
 
-from elasticdl_tpu_torch.common.args import parse_worker_args
+from elasticdl_tpu_torch.common.args import (
+    parse_worker_args,
+    symbol_overrides_from_args,
+)
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -110,6 +113,7 @@ def main(argv=None):
         sparse_push_interval=args.sparse_push_interval,
         model_def=args.model_def,
         model_params=args.model_params,
+        symbol_overrides=symbol_overrides_from_args(args),
         log_loss_steps=args.log_loss_steps,
         device=args.device,
     )

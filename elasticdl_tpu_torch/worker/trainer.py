@@ -25,6 +25,11 @@ from elasticdl_tpu_torch.train.train_state import (
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # a PaddedSparse feature (values, mask, weights)
+        return type(tree)(*(_to_device(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return torch.as_tensor(np.asarray(tree)).to(device, non_blocking=True)

@@ -131,6 +131,7 @@ class Worker:
         sparse_push_interval=1,
         model_def="",
         model_params="",
+        symbol_overrides=None,
         log_loss_steps=100,
         device="cuda",
     ):
@@ -143,6 +144,7 @@ class Worker:
         self.spec = get_model_spec(
             model_zoo_module, model_def=model_def,
             model_params=model_params,
+            symbol_overrides=symbol_overrides,
         )
         self.spec.require_training()
         self._log_loss_steps = log_loss_steps

@@ -26,6 +26,8 @@ TABLES = (
        for name, edits in chip_smoke.K3_VARIANTS.items() if edits]
     + [("K1_CHAIN_VARIANTS", name, chip_smoke.TIER_SOURCE, edits)
        for name, edits in chip_smoke.K1_CHAIN_VARIANTS.items() if edits]
+    + [("FC_MUTATIONS", name, source, edits)
+       for name, source, edits in chip_smoke.FC_MUTATIONS]
 )
 
 

@@ -101,11 +101,24 @@ def test_recordio_reader_shards_and_tasks_match_jax(tmp_path):
 
 
 def test_reader_factory_refuses_what_is_not_ported(tmp_path):
-    """A table origin raises NotImplementedError, as the JAX factory
-    would route it to the table reader the port lacks; an empty
-    directory raises as the JAX RecordIO reader does."""
+    """A ``.csv`` origin (a file, or a directory holding one) dispatches
+    to the CSV reader, as the JAX factory's does; a table origin raises
+    NotImplementedError, as the JAX factory would route it to the table
+    reader the port lacks; an empty directory raises as the JAX
+    RecordIO reader does."""
+    csv_dir = tmp_path / "csv"
+    csv_dir.mkdir()
+    (csv_dir / "x.csv").write_text("a\n1\n")
+    for origin in (str(csv_dir / "x.csv"), str(csv_dir)):
+        reader = port_readers.create_data_reader(origin)
+        assert isinstance(reader, port_readers.CSVDataReader)
+        assert isinstance(jax_readers.create_data_reader(origin),
+                          jax_readers.CSVDataReader)
+        assert reader.create_shards() == {str(csv_dir / "x.csv"): (0, 1)}
     with pytest.raises(NotImplementedError):
         port_readers.create_data_reader("odps://project/table")
+    with pytest.raises(NotImplementedError):
+        port_readers.create_data_reader("t", table_client=object())
     empty = str(tmp_path / "empty")
     os.makedirs(empty)
     for readers in (port_readers, jax_readers):

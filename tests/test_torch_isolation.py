@@ -513,3 +513,76 @@ print("trained")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "trained"
+
+
+def test_feature_column_slice_modules_isolated_and_train_with_jax_blocked():
+    """The feature-column slice's modules are among those imported with
+    JAX blocked above; with JAX blocked a promoted model (a
+    variable-length column on the PS under the mean combiner) and
+    census_dnn each take a step on the CPU, and iris reads its CSV."""
+    modules = _port_modules()
+    for name in ("preprocessing", "preprocessing.sparse",
+                 "preprocessing.layers", "preprocessing.analyzer_utils",
+                 "preprocessing.feature_column", "data.census_schema",
+                 "data.gen", "data.gen.converters", "models.feature_net",
+                 "models.census_dnn", "models.census_wide_deep",
+                 "models.census_sqlflow_wide_deep", "models.heart",
+                 "models.iris_dnn", "train.model_handler"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+import os, sys, tempfile
+import numpy as np
+from elasticdl_tpu_torch.data.gen import gen_census_recordio
+from elasticdl_tpu_torch.models.layers import Dense, FlaxNamed
+from elasticdl_tpu_torch.preprocessing import feature_column as fc
+from elasticdl_tpu_torch.preprocessing.sparse import from_row_lists
+from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+from elasticdl_tpu_torch.train import model_handler as mh
+from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+from elasticdl_tpu_torch.train.losses import sigmoid_binary_cross_entropy
+from elasticdl_tpu_torch.train.optimizers import create_optimizer
+from elasticdl_tpu_torch.train.sparse import SparseTrainer
+import torch
+col = fc.embedding_column(fc.categorical_column_with_identity("tags", 10**6),
+                          dimension=8, combiner="mean")
+plan = mh.promote_large_embeddings([col, fc.numeric_column("x")])
+assert plan.table_shapes == {"tags_embedding": (10**6, 8)}
+class M(FlaxNamed):
+    def __init__(self):
+        super().__init__()
+        self.f = mh.dense_features(plan)
+        self.d = Dense(self.f.output_dim, 1)
+    def forward(self, features):
+        return self.d(self.f(features))[:, 0]
+trainer = SparseTrainer(M(), sigmoid_binary_cross_entropy,
+                        create_optimizer("Adam", learning_rate=0.01),
+                        plan.sparse_specs, LocalPSClient(), device="cpu",
+                        health=False)
+rows = [[1, 2], [3], [4, 5, 6], [7]]
+batch = {"features": plan.materialize_ids({"tags": from_row_lists(rows),
+                                           "x": np.ones(4, np.float32)}),
+         "labels": np.ones(4, np.float32), "_mask": np.ones(4, np.float32)}
+state, loss = trainer.train_step(trainer.ensure_state(None, batch), batch)
+assert state.step == 1 and np.isfinite(float(loss))
+d = tempfile.mkdtemp()
+gen_census_recordio(d, num_records=64)
+ex = LocalExecutor("elasticdl_tpu_torch.models.census_dnn", training_data=d,
+                   minibatch_size=32, device="cpu")
+assert len(ex.train()) == 2
+with open(os.path.join(d, "iris.csv"), "w") as f:
+    f.write("a,b,c,d,label\n" + "1,2,3,4,1\n" * 8)
+ex = LocalExecutor("elasticdl_tpu_torch.models.iris_dnn",
+                   training_data=os.path.join(d, "iris.csv"),
+                   minibatch_size=4, device="cpu")
+assert len(ex.train()) == 2
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("trained")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained"
