@@ -344,7 +344,38 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    bit-equal to ``eval_step`` on the same 32 rows. Each part prints a
    record (steps/s, AUC or accuracy, the worst gradient error, K1-K3
    launches per step) beside the card's name and power limit, and the
-   phase its seconds.
+   phase its seconds;
+18. continual streaming (``continual_phase``; phase 8's ``stream_phase``
+   is another path) -- DeepFM as a stream job at phase 9's size: the
+   port's master in this process with ``EDL_STREAM=synthetic`` (24
+   windows of 8192 records of a Zipf(1.3) clickstream over a hot set of
+   200,000 ids sliding 20 a window, 39 fields, at most 32,768
+   records minted ahead, a checkpoint boundary every 49,152 records of
+   watermark and an export every 98,304), its state journal, events
+   journal, ``--output`` and ``--tensorboard_log_dir``, evaluating over
+   the two windows after the stream; two PS processes with the
+   embedding lifecycle (admission after 4 sightings, at most 24,000
+   rows a table, under the tier's 32,768 a shard, a sweep a second, LFU
+   decay 0.9, ids touched in the last second safe from LFU), PS 1 with an
+   ``unavailable`` burst of 3 on ``push_gradients`` (``EDL_FAULT_SPEC``);
+   worker 0 in this process, the tier on. Eight checks, each printed:
+   every window minted and done once, in the replayed journal too, the
+   final watermark the minted records; each boundary a watermark event
+   on the worker and on each PS, a sparse checkpoint per shard and a
+   worker barrier whose tier flush launched K1; the feeder's two exports
+   at the cadence and the train-end export after them, the last export
+   scoring the holdout; every sweep of the stream within the row bound
+   and every later one over it only by in-flight rows, LFU evictions,
+   dropped pre-admission gradients and tombstones; K1-K3 by phase 7's
+   formula at every step and every tier-resident row bit-equal on its
+   shard right after a re-assert at the stream's end; the holdout's
+   logloss under its base
+   rate's; the burst fired exactly 3 times with every push's version
+   booked on both sides; the TensorBoard event file read back, CRC
+   checked, with every evaluation's scalars. A summary prints steps/s,
+   K1-K3 a step, peak resident rows, evictions, admissions, the
+   watermark's lag, each checkpoint's seconds, the phase's seconds and
+   the card's name and power limit.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -355,13 +386,15 @@ limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 the kernel phase (phase 17's promoted model for ``FC_MUTATIONS``) to
 fail there, then times K4's schedules (``K4_SCHEDULES``) and K3's handling
 of misses (``K3_VARIANTS``) in turns. ``--sparse-ab PARENT`` runs phase
-7's main run for the checkout at PARENT and this one in turns.
+7's main run for the checkout at PARENT and this one in turns;
+``--job-ab PARENT [OTHER ...]`` runs phase 9's job the same way.
 ``--against-parent PARENT`` builds K4-K6 from the checkout at PARENT
 and from this one and requires both builds' raw launches to give the
 same bits at every head_dim both take (``AGAINST_PARENT_CASES``).
 Imports nothing of JAX or of the JAX package.
 """
 
+import datetime
 import gc
 import json
 import os
@@ -3253,10 +3286,10 @@ def flush_counts(tier, worker, counts):
                         "s": time.monotonic() - t0})
 
     def labelled(name, fn):
-        def run(*args):
+        def run(*args, **kwargs):
             label[0] = name
             try:
-                return fn(*args)
+                return fn(*args, **kwargs)
             finally:
                 label[0] = None
         return run
@@ -3528,6 +3561,19 @@ def artifact_phase(torch, np, tier, workdir, device="cuda",
                 return report_version(version)
 
             worker0._mc.report_version = delayed_report
+            add_eval = master.evaluation_service.add_evaluation_task_if_needed
+
+            def held_eval(version):
+                # the PS report every store version too (the trigger
+                # fires at version steps_total - 1 from a PS), so no
+                # round starts before the train-end hand-out, whoever
+                # reports (unmet, the report only defers it)
+                if not any(h[0] == pb.TRAIN_END_CALLBACK for h in handed):
+                    return False
+                return add_eval(version)
+
+            master.evaluation_service.add_evaluation_task_if_needed = (
+                held_eval)
         reset_tier_launches(tier)  # the phase's count starts here
         runner = threading.Thread(target=worker0.run, daemon=True)
         runner.start()
@@ -6487,6 +6533,69 @@ def sparse_ab(parent):
     log(json.dumps({"sparse_ab": "summary", **summary}))
 
 
+# phase 9's job across checkouts, each running its own job_data and
+# job_phase in a child process, the others around this one in mirrored
+# order (A, B, change, change, B, A): python3 chip_smoke.py --job-ab
+# <parent> [<other checkout> ...]
+JOB_AB_CHILD = (
+    "import os, sys\n"
+    "import numpy as np\n"
+    "import torch\n"
+    "sys.path.insert(0, '.')\n"
+    "import chip_smoke as cs\n"
+    "from elasticdl_tpu_torch.ops import _build\n"
+    "from elasticdl_tpu_torch.ops import embedding_tier as tier\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "_build.build(['embedding_tier'])\n"
+    "d = os.path.join(cs.HERE, 'build', 'chip_smoke_jobdata')\n"
+    "cs.job_data(np, d)\n"
+    "cs.job_phase(torch, np, tier, d, data_written=True)\n"
+)
+JOB_AB_KEYS = ("job_wall_s", "training_window_s",
+               "examples_per_s_training_window", "worker0_steps_per_s")
+
+
+def job_ab(others):
+    """Phase 9 (the DeepFM job with its worker kill and requeue) for
+    each checkout in ``others`` and this one, in mirrored turns; logs
+    each run's job wall, training window and worker 0's steps/s, and the
+    runs by checkout."""
+    roots = []
+    for other in others:
+        other = os.path.abspath(other)
+        if not os.path.exists(os.path.join(other, "chip_smoke.py")):
+            raise SystemExit("no chip_smoke.py in %s" % other)
+        roots.append((os.path.basename(other), other))
+    order = roots + [("change", HERE)] * 2 + roots[::-1]
+    runs = []
+    for label, root in order:
+        t0 = time.monotonic()
+        out = subprocess.run([sys.executable, "-c", JOB_AB_CHILD],
+                             cwd=root, capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode:
+            raise SystemExit("the %s run failed:\n%s" % (
+                label, (out.stdout + out.stderr)[-3000:]))
+        result = None
+        for line in out.stdout.splitlines():
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(rec, dict) and rec.get("job") == "result":
+                result = rec
+        run = dict({"job_ab": label, "root": root,
+                    "child_s": time.monotonic() - t0},
+                   **{k: result.get(k) for k in JOB_AB_KEYS})
+        log(json.dumps(run))
+        runs.append(run)
+    log(json.dumps({"job_ab": "summary", **{
+        label: {k: [r[k] for r in runs if r["job_ab"] == label]
+                for k in JOB_AB_KEYS + ("child_s",)}
+        for label in dict(order)}}))
+
+
 # K4-K6 of two checkouts on the same inputs (python3 chip_smoke.py
 # --against-parent <parent>): every CASES entry at a head_dim the parent
 # took (64, 128) at its own shape, and the tile edges of each (one row,
@@ -8344,6 +8453,667 @@ def feature_phase(torch, np, tier, workdir):
             "seconds": seconds}
 
 
+# phase 18: continual streaming. Named continual_phase: phase 8's
+# stream_phase is the sparse trainer's pipelined train_stream, another
+# path. The stream is phase 9's size (JOB_RECORDS, 384 steps of 512)
+# minted in windows by the master's feeder; its vocabulary slides by
+# CONTINUAL_DRIFT ids a window while its tail (a tenth of the draws past
+# rank 2,000) keeps bringing ids the shards have not seen, so the
+# admitted vocabulary outgrows each shard's row bound. A Zipf(1.3)
+# window puts a quarter of its id slots on its rank-1 id and most on its
+# first hundred ranks, and a label is a draw over the mean planted
+# weight of its ids, so the holdout is learnable only where its head
+# was trained: an oracle knowing the weight of every id seen 20 times in
+# training scores the holdout's logloss at 0.693 against a base rate's
+# 0.645 with a slide of 2,000, at 0.503 against 0.677 with a slide of 20
+# (tests/test_torch_stream_source.py computes it). The reference's own
+# streaming bench slides 30 ids a 256-record window at k = 4
+# (scripts/bench_streaming.py:58-69)
+CONTINUAL_WINDOW = 8192
+CONTINUAL_WINDOWS = 24
+CONTINUAL_HOT_VOCAB = 200_000
+CONTINUAL_ZIPF_A = 1.3
+CONTINUAL_DRIFT = 20
+CONTINUAL_BACKLOG = 32_768          # 4 windows minted ahead at most
+CONTINUAL_CKPT_EVERY = 49_152       # 4 checkpoint boundaries
+CONTINUAL_EXPORT_EVERY = 98_304     # 2 exports at the cadence
+CONTINUAL_SEED = 7                  # EDL_STREAM_SEED
+# a worker's step sights an id 4 times on its shard's one sketch: the
+# deduplicated pull and push of both tables (deepfm_emb, deepfm_linear
+# share ids), so below 4 every id admits at its first step and no
+# gradient is ever dropped; at 4 an id's first push of deepfm_emb drops
+CONTINUAL_ADMIT_K = 4
+# rows a table a shard: under the 32,768 the tier's 65,536 rows a
+# table put on each of the two shards (every boundary re-asserts them
+# all), and under the 55,000 deepfm_emb rows a shard admits unbounded
+# on an H100 (PERF.md). The LFU protection keeps its default (1 s): the
+# ids the shards sighted in the last second must fit under the bound
+CONTINUAL_MAX_ROWS = 24_000
+CONTINUAL_SWEEP_S = 1.0
+CONTINUAL_LFU_DECAY = 0.9
+# evaluation over the holdout at versions 128 and 256 of the 384
+CONTINUAL_EVAL_STEPS = 128
+CONTINUAL_FAULT_BURST = 3           # unavailable on PS 1's push_gradients
+CONTINUAL_WAIT_S = 300
+CONTINUAL_PS_GONE_S = 60            # the PS outlive the master: SIGTERMed
+_FAULT_FIRE_RE = re.compile(r"fault injection: unavailable fired on "
+                            r"push_gradients \((\S+), fire (\d+)\)")
+_SWEEP_RE = re.compile(
+    r"^(\S+ \S+) .*lifecycle sweep: evicted ttl (\d+) lfu (\d+) in "
+    r"([0-9.]+) s; resident rows (\{[^}]*\}); in flight (\{[^}]*\}); "
+    r"totals admitted (\d+) evicted ttl (\d+) lfu (\d+), grad rows "
+    r"dropped (\d+)", re.M)
+
+
+def continual_phase(torch, np, tier, workdir, device="cuda",
+                    batch=SPARSE_BATCH, fields=SPARSE_FIELDS,
+                    window=CONTINUAL_WINDOW, windows=CONTINUAL_WINDOWS,
+                    hot_vocab=CONTINUAL_HOT_VOCAB, zipf_a=CONTINUAL_ZIPF_A,
+                    drift=CONTINUAL_DRIFT, backlog=CONTINUAL_BACKLOG,
+                    ckpt_every=CONTINUAL_CKPT_EVERY,
+                    export_every=CONTINUAL_EXPORT_EVERY,
+                    admit_k=CONTINUAL_ADMIT_K, max_rows=CONTINUAL_MAX_ROWS,
+                    sweep_s=CONTINUAL_SWEEP_S, lfu_decay=CONTINUAL_LFU_DECAY,
+                    eval_steps=CONTINUAL_EVAL_STEPS,
+                    report_version_steps=JOB_REPORT_VERSION_STEPS,
+                    task_timeout_s=JOB_TASK_TIMEOUT_S,
+                    fault_burst=CONTINUAL_FAULT_BURST, worker_env=None,
+                    lfu_protect_s=None, wait_s=CONTINUAL_WAIT_S, card=None):
+    """Phase 18: DeepFM trains as a continual stream job. The port's
+    master in this process with ``EDL_STREAM=synthetic`` (its feeder
+    mints ``windows`` windows of ``window`` records of the drifting
+    clickstream into a spool directory, at most ``backlog`` records
+    ahead of the watermark, and an export task each ``export_every``
+    records of watermark), ``EDL_STATE_DIR``, ``EDL_EVENTS_DIR``,
+    ``--output`` and ``--tensorboard_log_dir``, evaluating every
+    ``eval_steps`` versions over a holdout of the two windows after the
+    stream's end (written from the same source); two PS processes (async,
+    ``--master_addr``, one ``--checkpoint_dir``) with the embedding
+    lifecycle (``EDL_EMB_ADMIT_K``, ``EDL_EMB_MAX_ROWS``,
+    ``EDL_EMB_SWEEP_SECS``, ``EDL_EMB_LFU_DECAY``) and
+    ``EDL_STREAM_CHECKPOINT_EVERY=ckpt_every``, PS 1 with
+    ``EDL_FAULT_SPEC`` an ``unavailable`` burst of ``fault_burst`` on
+    ``push_gradients``; worker 0 a ``Worker`` in this process with the
+    device tier on (``worker_env``), its K1-K3 launches counted.
+    Checks (each printed; a failure raises SystemExit): (1) every window
+    minted once, in the journal too, every window task done once, the
+    final watermark the minted records; (2) each checkpoint boundary
+    gives a ``stream_watermark`` event on the worker and on each PS, one
+    sparse checkpoint per PS shard and one worker barrier whose tier
+    flush launched K1; (3) the feeder's exports at the cadence, the
+    train-end export after them, the last export loads and scores the
+    holdout; (4) after every sweep until the watermark reaches the
+    stream's end each table of each shard holds at most ``max_rows``
+    rows, and after every later sweep (the evaluation's, the final
+    check's and the scoring's reads) at most that many or only rows the
+    sweep found in flight, counted under the sweep's lock; LFU evictions
+    and pre-admission gradient drops above 0, ``row_evicted`` tombstones
+    in the PS journals; (5) K1-K3 by phase 7's formula in every step,
+    and at each flush at the stream's end every tier-resident row pulled
+    back bit-equal from its shard right after a re-assert that no sweep
+    of that shard overtook;
+    (6) the holdout's logloss under its labels' base-rate logloss; (7)
+    PS 1's interceptor fired exactly ``fault_burst`` times, PS 0's
+    never, and each shard's store version at its SIGTERM equals the
+    version worker 0 holds for it; (8) the TensorBoard event file reads
+    back, CRC checked, with every evaluation's scalars at its version.
+    The job must end within ``wait_s``. ``EDL_EMB_LFU_PROTECT_SECS``
+    keeps its default (1 s) unless ``lfu_protect_s`` is given: a
+    rehearsal whose whole stream takes seconds scales it down with the
+    stream.
+    ``card`` is the nvidia-smi line printed with the numbers."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master import tensorboard_service
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.master.state_store import (
+        MasterStateJournal,
+        apply_op,
+    )
+    from elasticdl_tpu_torch.models.registry import get_model_spec
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.serve.model import ServingModel
+    from elasticdl_tpu_torch.stream.source import SyntheticClickstreamSource
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    card = card or nvidia_smi_line()
+    worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
+    total = window * windows
+    phase_t0 = time.monotonic()
+    out = os.path.join(HERE, "build", "chip_smoke_continual")
+    shutil.rmtree(out, ignore_errors=True)
+    dirs = {name: os.path.join(out, name) for name in (
+        "spool", "holdout", "ckpt", "export", "tb", "state", "events")}
+    for path in dirs.values():
+        os.makedirs(path)
+    # the holdout: windows ``windows`` and ``windows + 1`` of the same
+    # source, the two the stream never reaches
+    source_kwargs = dict(records_per_window=window, num_features=fields,
+                         hot_vocab=hot_vocab, zipf_a=zipf_a,
+                         drift_per_window=drift, seed=CONTINUAL_SEED)
+    holdout = SyntheticClickstreamSource(dirs["holdout"], **source_kwargs)
+    holdout.seek(windows)
+    for _ in range(2):
+        holdout.next_window()
+    hold = [holdout.window_examples(windows + k) for k in range(2)]
+    hold_ids = np.concatenate([h[0] for h in hold])
+    hold_labels = np.concatenate([h[1] for h in hold]).astype(np.float64)
+    job_env = dict(worker_env, **{
+        "EDL_STREAM": "synthetic", "EDL_STREAM_FEATURES": str(fields),
+        "EDL_STREAM_WINDOW_RECORDS": str(window),
+        "EDL_STREAM_TOTAL_RECORDS": str(total),
+        "EDL_STREAM_HOT_VOCAB": str(hot_vocab),
+        "EDL_STREAM_ZIPF_A": str(zipf_a), "EDL_STREAM_DRIFT": str(drift),
+        "EDL_STREAM_MAX_BACKLOG": str(backlog),
+        "EDL_STREAM_CHECKPOINT_EVERY": str(ckpt_every),
+        "EDL_STREAM_EXPORT_EVERY": str(export_every),
+        "EDL_STREAM_SEED": str(CONTINUAL_SEED),
+        "EDL_STATE_DIR": dirs["state"], "EDL_EVENTS_DIR": dirs["events"],
+    })
+    ps_env = {
+        "EDL_EMB_ADMIT_K": str(admit_k), "EDL_EMB_MAX_ROWS": str(max_rows),
+        "EDL_EMB_SWEEP_SECS": str(sweep_s),
+        "EDL_EMB_LFU_DECAY": str(lfu_decay),
+        "EDL_STREAM_CHECKPOINT_EVERY": str(ckpt_every),
+        "EDL_EVENTS_DIR": dirs["events"],
+        "EDL_PS_MASTER_GONE_SECS": str(CONTINUAL_PS_GONE_S),
+        "PYTHONPATH": HERE,
+    }
+    if lfu_protect_s is not None:
+        ps_env["EDL_EMB_LFU_PROTECT_SECS"] = str(lfu_protect_s)
+    saved_env = {k: os.environ.get(k) for k in job_env}
+    os.environ.update(job_env)
+    procs, started, result = [], [], {}
+    runner = master = probe = stream_end = None
+    try:
+        master = Master(zoo, training_data=dirs["spool"],
+                        validation_data=dirs["holdout"],
+                        records_per_task=window, num_epochs=1,
+                        port=find_free_port(), eval_steps=eval_steps,
+                        saved_model_path=dirs["export"],
+                        task_timeout_secs=task_timeout_s, seed=SEED,
+                        tensorboard_log_dir=dirs["tb"])
+        dispatcher = master.task_dispatcher
+        if master.stream_feeder is None:
+            raise SystemExit("the master built no stream feeder")
+        addr = "localhost:%d" % master._port
+        # the dispatcher's decisions, recorded as the feeder and the
+        # servicer drive it: windows minted, exports minted, tasks done
+        minted, exports, done, lag = [], [], [], []
+        add_window, add_export = (dispatcher.add_stream_window,
+                                  dispatcher.add_stream_export_task)
+        report = dispatcher.report
+
+        def on_window(shard_name, start, end, model_version=-1):
+            task_id = add_window(shard_name, start, end, model_version)
+            minted.append((task_id, os.path.basename(shard_name),
+                           int(start), int(end)))
+            return task_id
+
+        def on_export(extended_config=None):
+            task_id = add_export(extended_config)
+            exports.append((task_id, dispatcher.stream_watermark()))
+            return task_id
+
+        def on_report(task_id, success, worker_id=None, count_failure=True):
+            doing = dispatcher.doing_tasks().get(task_id)
+            ok, task = report(task_id, success, worker_id=worker_id,
+                              count_failure=count_failure)
+            if success and task is not None and doing is not None:
+                done.append((task_id, task.type))
+            return ok, task
+
+        dispatcher.add_stream_window = on_window
+        dispatcher.add_stream_export_task = on_export
+        dispatcher.report = on_report
+        job_t0 = time.monotonic()
+        master.prepare()
+        master_thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.5)),
+            daemon=True)
+        master_thread.start()
+        ports = [find_free_port(), find_free_port()]
+        addrs = ["localhost:%d" % p for p in ports]
+        logs = [os.path.join(out, "ps-%d.log" % i) for i in range(2)]
+        extra = ("--use_async", "1", "--master_addr", addr,
+                 "--checkpoint_dir", dirs["ckpt"])
+        env = dict(os.environ, **ps_env)
+        fault_spec = "ps-1:push_gradients:unavailable:%d" % fault_burst
+        procs.append(start_ps(0, ports[0], logs[0], extra, env))
+        procs.append(start_ps(1, ports[1], logs[1], extra,
+                              dict(env, EDL_FAULT_SPEC=fault_spec)))
+        started.append((procs, addrs, logs))
+        lines = wait_ps_ready(started)
+        if not all("(NativeEmbeddingStore store, async)" in ln
+                   for ln in lines):
+            raise SystemExit("a stream PS does not serve the native store "
+                             "async: %s" % lines)
+        client = MasterClient(addr, worker_id=0)
+        client.reset_worker()
+        worker0 = Worker(client, zoo, RecordIODataReader(
+            data_dir=dirs["spool"]), minibatch_size=batch,
+            report_version_steps=report_version_steps, wait_sleep_secs=0.1,
+            ps_addrs=addrs, device=device)
+        trainer = worker0.trainer
+        dtier = trainer.device_tier
+        if dtier is None:
+            raise SystemExit("worker 0 runs without the device tier")
+        ps_client = trainer.preparer._ps
+        probe = PSClient(addrs)
+        counts = count_worker_steps(tier, trainer)
+        # the train-end tasks worker 0 runs, each flush's launches, and
+        # after each flush at the stream's end the tier-resident rows
+        # held against the PS's
+        train_ends, flushes, finals, at_end = [], [], [], [False]
+        flush, train_end = (worker0._flush_device_tier,
+                            worker0._process_train_end_task)
+
+        def final_check(shard):
+            held = {}
+            for name in ("deepfm_emb", "deepfm_linear"):
+                ids, rows = dtier.table_rows(name)
+                mine = ids % len(addrs) == shard
+                ids, rows = ids[mine], rows[mine]
+                served = probe.pull_embedding_vectors(name, ids)
+                held[name] = {
+                    "rows": int(ids.size),
+                    "differ": int((served != rows).any(axis=1).sum())
+                    if ids.size else 0,
+                    "all_zero": int((rows == 0).all(axis=1).sum())}
+            return held
+
+        def sweeps_logged():
+            counts = []
+            for path in logs:
+                with open(path) as f:
+                    counts.append(f.read().count("lifecycle sweep:"))
+            return counts
+
+        def next_sweep(shard):
+            seen = sweeps_logged()[shard]
+            deadline = time.monotonic() + 4 * sweep_s + 2.0
+            while (sweeps_logged()[shard] == seen
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+
+        def noted_flush():
+            before = tier_counts(tier)
+            t0 = time.monotonic()
+            flush()
+            flushes.append({"reassert": dtier.reassert, "launches": [
+                a - c for a, c in zip(tier_counts(tier), before)],
+                "s": time.monotonic() - t0, "at_end": at_end[0]})
+            if not at_end[0]:
+                return
+            # each shard is read back right after a re-assert that no
+            # sweep of that shard followed (a sweep may rightly cut the
+            # re-asserted rows down to the bound): the tier re-asserts
+            # right after one of the shard's sweeps, and again after the
+            # next where a sweep still overtook the read, three times
+            final = {"tables": {}, "attempts": [], "overtaken": []}
+            for shard in range(len(addrs)):
+                for attempt in range(1, 4):
+                    next_sweep(shard)
+                    swept = sweeps_logged()[shard]
+                    dtier.flush()
+                    held = final_check(shard)
+                    overtaken = sweeps_logged()[shard] != swept
+                    if not overtaken:
+                        break
+                for name, c in held.items():
+                    total_c = final["tables"].setdefault(
+                        name, {"rows": 0, "differ": 0, "all_zero": 0})
+                    for key in total_c:
+                        total_c[key] += c[key]
+                final["attempts"].append(attempt)
+                final["overtaken"].append(overtaken)
+            finals.append(final)
+
+        def noted_train_end(task):
+            state = dispatcher.stream_state()
+            at_end[0] = state["watermark"] >= total
+            train_ends.append((task.task_id, state["watermark"]))
+            try:
+                return train_end(task)
+            finally:
+                at_end[0] = False
+
+        worker0._flush_device_tier = noted_flush
+        worker0._process_train_end_task = noted_train_end
+        reset_tier_launches(tier)  # the phase's count starts here
+        runner = threading.Thread(target=worker0.run, daemon=True)
+        runner.start()
+        deadline = time.monotonic() + wait_s
+        while master_thread.is_alive() and time.monotonic() < deadline:
+            state = dispatcher.stream_state()
+            lag.append(state["minted_records"] - state["watermark"])
+            if state["watermark"] >= total and stream_end is None:
+                stream_end = time.time()
+            master_thread.join(timeout=0.25)
+        if master_thread.is_alive():
+            raise SystemExit("the stream job did not finish in %d s "
+                             "(watermark %s)" % (
+                                 wait_s, dispatcher.stream_state()))
+        job_s = time.monotonic() - job_t0
+        runner.join(timeout=60)
+        launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                            tier_counts(tier)))
+        shard_versions = dict(ps_client._shard_versions)
+        # the last export scores the holdout through the PS it pairs with
+        model = ServingModel(get_model_spec(zoo), dirs["export"],
+                             max_batch=batch, ps_client=PSClient(addrs),
+                             device=device)
+        logits = np.concatenate([
+            model.predict({"ids": hold_ids[i:i + batch]},
+                          len(hold_ids[i:i + batch]))["output"].numpy()
+            for i in range(0, len(hold_ids), batch)]).astype(np.float64)
+        model._preparer._ps.close()
+        export_step = model.step
+        ps_codes = stop_ps(started)
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if probe is not None:
+            probe.close()
+        if master is not None:
+            master.stop()
+        # the journal knob is gone again: later roles of this process
+        # journal nothing
+        from elasticdl_tpu_torch.observability import events
+
+        events.configure("master")
+    # -- read back what the roles wrote -----------------------------------
+    texts = []
+    for path in logs:
+        with open(path) as f:
+            texts.append(f.read())
+    # the journal as a relaunched master would replay it: the snapshot
+    # compaction wrote, then the ops after it
+    store = MasterStateJournal(dirs["state"])
+    replayed, _, snap_seq = store._read_snapshot()
+    journal, _, _ = store._read_journal(snap_seq)
+    if replayed is None:
+        from elasticdl_tpu_torch.master.state_store import empty_state
+
+        replayed = empty_state()
+    for op in journal:
+        apply_op(replayed, op)
+    role_events = {}
+    for name in sorted(os.listdir(dirs["events"])):
+        if name.endswith(".events.ndjson"):
+            role = name.rsplit("-", 1)[0]
+            role_events.setdefault(role, []).extend(
+                read_journal(os.path.join(dirs["events"], name)))
+    watermark_events = {
+        role: [(e.get("kind"), e.get("watermark")) for e in evs
+               if e.get("event") == "stream_watermark"]
+        for role, evs in role_events.items()}
+    tombstones = {role: sum(1 for e in evs if e.get("event") == "row_evicted")
+                  for role, evs in role_events.items()}
+    sweeps = [[{"at": datetime.datetime.strptime(
+                    m[1], "%Y-%m-%d %H:%M:%S,%f").timestamp(),
+                "rows": json.loads(m[5]), "in_flight": json.loads(m[6]),
+                "s": float(m[4]), "admitted": int(m[7]), "ttl": int(m[8]),
+                "lfu": int(m[9]), "dropped": int(m[10])}
+               for m in _SWEEP_RE.finditer(text)] for text in texts]
+    stream_saves = [[(int(m[2]), m[3], int(m[4]), float(m[7]))
+                     for m in _SAVE_RE.finditer(text)
+                     if m[1] == "sparse_stream"] for text in texts]
+    final_versions = [int(m[1]) if m else None for m in
+                      (_FINAL_SAVE_RE.search(text) for text in texts)]
+    fires = [[(spec, int(n)) for spec, n in _FAULT_FIRE_RE.findall(text)]
+             for text in texts]
+    summaries = master.evaluation_service.completed_summaries
+    tb_events = tensorboard_service.read_events(
+        master.tensorboard_service.event_file)
+    tb_scalars = {e["step"]: e["scalars"] for e in tb_events
+                  if e["scalars"]}
+    # -- the numbers ----------------------------------------------------
+    steps, bad_steps = counts["steps"], counts["bad_steps"]
+    warm = [s[0] for s in steps[10:]] or [s[0] for s in steps]
+    losses = [s[1] for s in steps]
+    p0 = float(np.clip(hold_labels.mean(), 1e-7, 1 - 1e-7))
+    base_logloss = -(p0 * np.log(p0) + (1 - p0) * np.log(1 - p0))
+    holdout_logloss = float(np.mean(np.logaddexp(0.0, logits)
+                                    - hold_labels * logits))
+    window_done = [d for d in done if d[1] == pb.TRAINING]
+    train_end_done = [d for d in done if d[1] == pb.TRAIN_END_CALLBACK]
+    journal_windows = [op for op in journal if op.get("op") == "stream_window"]
+    left_training = [t for t in replayed["tasks"].values()
+                     if int(t[1]) == pb.TRAINING]
+    peak_rows = [{name: max((s["rows"].get(name, 0) for s in shard),
+                            default=0)
+                  for name in ("deepfm_emb", "deepfm_linear")}
+                 for shard in sweeps]
+    # while the stream runs every sweep holds the bound; after it, the
+    # evaluation's, the final check's and the scoring's reads leave ids
+    # LFU-protected for EDL_EMB_LFU_PROTECT_SECS, and a sweep may then
+    # keep more rows than the bound only where every row over it is one
+    # of those (the reference's in-flight protection)
+    stream_end = stream_end or time.time()
+    peak_rows_in_stream = [
+        {name: max((s["rows"].get(name, 0) for s in shard
+                    if s["at"] < stream_end), default=0)
+         for name in ("deepfm_emb", "deepfm_linear")} for shard in sweeps]
+    over_in_stream = [(k, name, rows) for k, shard in enumerate(sweeps)
+                      for s in shard if s["at"] < stream_end
+                      for name, rows in s["rows"].items() if rows > max_rows]
+    held_in_flight = [(k, name, rows, s["in_flight"].get(name))
+                      for k, shard in enumerate(sweeps) for s in shard
+                      for name, rows in s["rows"].items() if rows > max_rows]
+    # the tallies are cumulative: each shard's last sweep has its totals
+    last_sweep = [shard[-1] for shard in sweeps if shard]
+    evicted_lfu = sum(s["lfu"] for s in last_sweep)
+    dropped = sum(s["dropped"] for s in last_sweep)
+    admitted = [s["admitted"] for s in last_sweep]
+    over_bound = [(k, name, rows, flying)
+                  for k, name, rows, flying in held_in_flight
+                  if rows > flying] + over_in_stream
+    barriers = worker0.stream_barriers
+    worker_marks = [w for kind, w in watermark_events.get("master", ())
+                    if kind == "checkpoint"]
+    ps_marks = [[w for kind, w in watermark_events.get("ps-%d" % k, ())
+                 if kind == "checkpoint"] for k in range(2)]
+    export_marks = [w for kind, w in watermark_events.get("master", ())
+                    if kind == "export"]
+    boundaries = list(range(1, total // ckpt_every + 1))
+    tb_missing = [
+        v for v, summary in summaries
+        if v not in tb_scalars or any(
+            tb_scalars[v].get(k) != np.float32(float(val))
+            for k, val in summary.items())]
+    record = {
+        "phase": "18_continual", "master_rc": result.get("rc"),
+        "job_wall_s": job_s, "steps": len(steps),
+        "steps_per_s": len(warm) / sum(warm) if warm else None,
+        "examples_per_s_job": total / job_s,
+        "step_ms_host_median": (float(np.median(warm)) * 1e3 if warm
+                                else None),
+        "losses_first_last": [losses[0], losses[-1]] if losses else None,
+        "all_finite": bool(np.isfinite(losses).all()) if losses else False,
+        "windows_minted": len(minted),
+        "distinct_windows": len({m[1] for m in minted}),
+        "journal_stream": replayed["stream"],
+        "journal_windows_done": replayed["done_counts"].get(pb.TRAINING, 0),
+        "journal_training_left": len(left_training),
+        "journal_tail_positions": [op["pos"] for op in journal_windows],
+        "window_tasks_done": len(window_done),
+        "distinct_window_tasks_done": len({d[0] for d in window_done}),
+        "final_watermark": dispatcher.stream_watermark(),
+        "minted_records": dispatcher.stream_state()["minted_records"],
+        "watermark_lag_records_max": max(lag) if lag else None,
+        "watermark_lag_records_mean": (float(np.mean(lag)) if lag
+                                       else None),
+        "worker_checkpoint_watermarks": worker_marks,
+        "ps_checkpoint_watermarks": ps_marks,
+        "ps_stream_checkpoints": [[s[0] for s in shard]
+                                  for shard in stream_saves],
+        "checkpoint_seconds": [[s[3] for s in shard]
+                               for shard in stream_saves],
+        "checkpoint_modes": [[s[1] for s in shard] for shard in stream_saves],
+        "worker_barriers": barriers,
+        "exports_minted_at": [w for _, w in exports],
+        "export_events": export_marks,
+        "train_end_tasks": train_ends,
+        "train_end_tasks_done": len(train_end_done),
+        "export_step": export_step,
+        "flushes": flushes, "final_checks": finals,
+        "lifecycle_sweeps": [len(shard) for shard in sweeps],
+        "peak_resident_rows_after_sweep": peak_rows,
+        "peak_resident_rows_in_stream": peak_rows_in_stream,
+        "sweeps_in_stream": [sum(s["at"] < stream_end for s in shard)
+                             for shard in sweeps],
+        "rows_over_bound": over_bound[:5],
+        "sweeps_over_bound_all_in_flight": held_in_flight[:5],
+        "max_rows": max_rows,
+        "evictions": {"lfu": evicted_lfu,
+                      "ttl": sum(s["ttl"] for s in last_sweep)},
+        "admissions": admitted, "preadmission_grads_dropped": dropped,
+        "sweep_s_max": max((s["s"] for shard in sweeps for s in shard),
+                           default=None),
+        "tombstone_events": tombstones,
+        "launches": launches,
+        "launches_per_step": {k: v / max(len(steps), 1)
+                              for k, v in launches.items()},
+        "launch_formula_mismatches": bad_steps[:5],
+        "tier_stats": dtier.stats(),
+        "evaluations": [[v, s] for v, s in summaries],
+        "holdout_logloss": holdout_logloss,
+        "holdout_base_rate_logloss": float(base_logloss),
+        "fault_fires": fires, "fault_burst": fault_burst,
+        "worker_shard_versions": shard_versions,
+        "ps_final_versions": final_versions, "ps_exit_codes": ps_codes,
+        "tensorboard_events": len(tb_events),
+        "tensorboard_missing_versions": tb_missing,
+        "seconds": time.monotonic() - phase_t0, "card": card,
+    }
+    log(json.dumps(record))
+    failures = []
+    # (1) exactly once
+    positions = record["journal_tail_positions"]
+    if (result.get("rc") != 0 or record["windows_minted"] != windows
+            or record["distinct_windows"] != windows
+            or record["journal_stream"] != {
+                "open": False, "pos": windows, "minted_records": total,
+                "done_records": total}
+            or record["journal_windows_done"] != windows
+            or record["journal_training_left"]
+            or len(set(positions)) != len(positions)
+            or record["window_tasks_done"] != windows
+            or record["distinct_window_tasks_done"] != windows
+            or {d[0] for d in window_done} != {m[0] for m in minted}
+            or record["final_watermark"] != total
+            or record["minted_records"] != total):
+        failures.append("exactly once: master rc %s, %d windows minted "
+                        "(%d distinct), the journal replays to %s with %d "
+                        "windows done and %d left (tail positions %s), %d "
+                        "window tasks done, watermark %d of %d"
+                        % (result.get("rc"), record["windows_minted"],
+                           record["distinct_windows"],
+                           record["journal_stream"],
+                           record["journal_windows_done"],
+                           record["journal_training_left"], positions[:30],
+                           record["window_tasks_done"],
+                           record["final_watermark"], total))
+    # (2) the checkpoint cadence
+    if ([w // ckpt_every for w in worker_marks] != boundaries
+            or any([w // ckpt_every for w in marks] != boundaries
+                   for marks in ps_marks)
+            or any(len(shard) != len(boundaries) for shard in stream_saves)
+            or len(barriers) != len(boundaries)
+            or any(b.get("k1_launches", 0) < 1 for b in barriers)):
+        failures.append("checkpoint cadence: worker events %s, PS events "
+                        "%s, PS stream saves %s, worker barrier K1 %s "
+                        "(boundaries %s)" % (
+                            worker_marks, ps_marks,
+                            record["ps_stream_checkpoints"],
+                            [b.get("k1_launches") for b in barriers],
+                            boundaries))
+    # (3) exports
+    cadence = list(range(1, total // export_every + 1))
+    if ([w // export_every for _, w in exports] != cadence
+            or [w // export_every for w in export_marks] != cadence
+            or [t for t, _ in train_ends][:len(exports)]
+            != [t for t, _ in exports]
+            or len(train_ends) != len(exports) + 1
+            or record["train_end_tasks_done"] != len(exports) + 1):
+        failures.append("exports: minted at %s, events %s, train-end "
+                        "tasks run %s" % (record["exports_minted_at"],
+                                          export_marks, train_ends))
+    # (4) the lifecycle
+    if (over_bound or evicted_lfu <= 0 or dropped <= 0
+            or any(not shard for shard in sweeps)
+            or sum(v for r, v in tombstones.items()
+                   if r.startswith("ps")) <= 0):
+        failures.append("lifecycle: rows over the bound %s, LFU evictions "
+                        "%d, dropped gradient rows %d, sweeps %s, "
+                        "tombstones %s" % (over_bound[:3], evicted_lfu,
+                                           dropped,
+                                           record["lifecycle_sweeps"],
+                                           tombstones))
+    # (5) the tier
+    if (bad_steps or min(launches.values()) <= 0 or not finals
+            or any(any(final["overtaken"]) for final in finals)
+            or any(c["differ"] or not c["rows"]
+                   for final in finals for c in final["tables"].values())):
+        failures.append("tier: formula mismatches %s, launches %s, after "
+                        "the final flush %s" % (bad_steps[:5], launches,
+                                                finals))
+    # (6) learning
+    if not record["all_finite"] or not holdout_logloss < base_logloss:
+        failures.append("holdout logloss %.6f not under the base rate's "
+                        "%.6f (losses finite %s)" % (
+                            holdout_logloss, base_logloss,
+                            record["all_finite"]))
+    # (7) faults and the version books
+    if (len(fires[1]) != fault_burst or fires[0]
+            or [n for _, n in fires[1]] != list(range(1, fault_burst + 1))
+            or final_versions != [shard_versions.get(k) for k in range(2)]
+            or ps_codes != [0, 0]):
+        failures.append("faults: PS fires %s, PS final versions %s against "
+                        "worker 0's %s, PS exit codes %s" % (
+                            fires, final_versions, shard_versions,
+                            ps_codes))
+    # (8) TensorBoard
+    if len(summaries) < 2 or tb_missing:
+        failures.append("tensorboard: %d evaluations, versions missing "
+                        "from the event file %s" % (len(summaries),
+                                                    tb_missing))
+    if failures:
+        raise SystemExit("continual phase: " + "; ".join(failures))
+    for i, name in enumerate(("exactly once", "checkpoint cadence",
+                              "exports", "lifecycle", "tier", "learning",
+                              "faults", "tensorboard"), 1):
+        log("phase 18 check %d (%s): ok" % (i, name))
+    record.pop("tier_stats")
+    return record
+
+
+def continual_summary(record):
+    """Phase 18's printed summary: steps/s, K1-K3 a step, peak resident
+    rows per shard, evictions, admissions, the watermark's lag, each
+    checkpoint's seconds, the phase's seconds and the card."""
+    keys = ("steps_per_s", "launches_per_step",
+            "peak_resident_rows_after_sweep", "peak_resident_rows_in_stream",
+            "evictions", "admissions",
+            "watermark_lag_records_max", "watermark_lag_records_mean",
+            "checkpoint_seconds", "holdout_logloss",
+            "holdout_base_rate_logloss", "seconds", "card")
+    log(json.dumps(dict({"phase": "18_continual", "part": "summary"},
+                        **{k: record[k] for k in keys})))
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -8463,13 +9233,18 @@ def main(argv):
         sparse_ab(argv[1])
         log(nvidia_smi_line())
         return 0
+    if len(argv) >= 2 and argv[0] == "--job-ab":
+        job_ab(argv[1:])
+        log(nvidia_smi_line())
+        return 0
     if len(argv) == 2 and argv[0] == "--against-parent":
         against_parent(torch, argv[1])
         log(nvidia_smi_line())
         return 0
     if argv:
         print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT | "
-              "--against-parent PARENT]", file=sys.stderr)
+              "--job-ab PARENT [OTHER ...] | --against-parent PARENT]",
+              file=sys.stderr)
         return 2
 
     # phase 9's data is written by a child process during the build
@@ -8487,7 +9262,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-17 and the last lines (see the module docstring)."""
+    """Phases 1-18 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -8587,6 +9362,11 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         features = feature_phase(torch, np, tier, workdir)
         done("17_features")
+        gc.collect()
+        torch.cuda.empty_cache()
+        continual = continual_phase(torch, np, tier, workdir)
+        continual_summary(continual)
+        done("18_continual")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -8652,6 +9432,10 @@ def run_phases(torch, np, job_dir, data_proc):
                                           "scatter_apply")):
         entry["launches_features"] = promoted["launches"][kind]
         entry["launches_per_step_features"] = promoted[
+            "launches_per_step"][kind]
+        # phase 18: worker 0 of the continual stream job
+        entry["launches_continual"] = continual["launches"][kind]
+        entry["launches_per_step_continual"] = continual[
             "launches_per_step"][kind]
     log(json.dumps({"kernels": [fwd, dq, dkv, *tier_entries]}))
     log(nvidia_smi_line())

@@ -63,6 +63,8 @@ def parse_master_args(argv=None):
     parser.add_argument(
         "--output", default="", help="saved-model export path"
     )
+    # evaluation metrics as TensorBoard scalars under this directory
+    parser.add_argument("--tensorboard_log_dir", default="")
     # observability: /metrics + /healthz + /readyz on this port
     # (0/unset = disabled; falls back to EDL_METRICS_PORT)
     parser.add_argument("--metrics_port", type=int, default=0)

@@ -1,9 +1,10 @@
 """gRPC channel/server helpers and the shared jittered retry policy
-(port of elasticdl_tpu/common/grpc_utils.py, without the
-fault-injection interceptors). Channels carry the trace-context
-interceptor and servers the metrics/trace interceptors when their knobs
-are set; with the knobs unset the call path is the uninstrumented one.
-Under a trace each ``retry_call`` attempt is an ``rpc_attempt`` span."""
+(port of elasticdl_tpu/common/grpc_utils.py). Channels carry the
+trace-context interceptor and servers the metrics/trace interceptors
+when their knobs are set; both carry the fault-injection interceptors
+(testing/faults.py) when ``EDL_FAULT_SPEC`` names them. With the knobs
+unset the call path is the uninstrumented one. Under a trace each
+``retry_call`` attempt is an ``rpc_attempt`` span."""
 
 import os
 import random
@@ -233,7 +234,9 @@ def build_channel(addr: str) -> grpc.Channel:
     one), with the deadline-budget interceptor unless
     EDL_DEADLINE_BUDGET=0, and the trace-context interceptor when
     EDL_TRACE_DIR is set with a nonzero sample rate (otherwise the
-    identity)."""
+    identity), outermost the fault interceptor when EDL_FAULT_SPEC names
+    this role's client calls: an injected client fault fails before
+    sending, so it must not reach the wire-facing layers."""
     uds = maybe_uds_addr(addr)
     if uds is not None:
         logger.info("channel to %s riding the local socket %s", addr, uds)
@@ -243,8 +246,9 @@ def build_channel(addr: str) -> grpc.Channel:
     from elasticdl_tpu_torch.observability.trace_propagation import (
         intercept_trace_channel,
     )
+    from elasticdl_tpu_torch.testing.faults import intercept_client_channel
 
-    return intercept_trace_channel(channel)
+    return intercept_client_channel(intercept_trace_channel(channel))
 
 
 def build_server(max_workers: int = 64) -> grpc.Server:
@@ -252,12 +256,18 @@ def build_server(max_workers: int = 64) -> grpc.Server:
     collection is enabled (observability/grpc_metrics.py; with the
     knobs unset ``server_interceptors()`` is empty and the call path is
     the uninstrumented one) and whose handlers adopt a caller's deadline
-    budget (unless EDL_DEADLINE_BUDGET=0)."""
+    budget (unless EDL_DEADLINE_BUDGET=0). The fault interceptor
+    (testing/faults.py) sits between them; it is the empty tuple unless
+    EDL_FAULT_SPEC is set."""
     from elasticdl_tpu_torch.observability.grpc_metrics import (
         server_interceptors,
     )
+    from elasticdl_tpu_torch.testing.faults import (
+        server_interceptors as fault_interceptors,
+    )
 
     interceptors = (tuple(server_interceptors())
+                    + fault_interceptors()
                     + overload.server_budget_interceptors())
     return grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers),

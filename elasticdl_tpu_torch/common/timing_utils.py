@@ -1,6 +1,5 @@
-"""Opt-in wall-clock accounting per phase (port of
-elasticdl_tpu/common/timing_utils.py's ``Timing``, without its JAX
-profiler hooks).
+"""Opt-in wall-clock accounting per phase and profiler regions (port of
+elasticdl_tpu/common/timing_utils.py).
 
 ``Timing`` accumulates seconds per named phase (the sparse trainer's
 ``sparse_pull``, ``sparse_push`` and ``batch_process``) when
@@ -14,9 +13,18 @@ The metrics bridge: with metrics collection on, every phase also lands
 in ``edl_phase_seconds{phase}`` and the step phase in
 ``edl_step_time_seconds``, as host time. Only ``EDL_TIMING`` waits for
 the card: a metric must not change the step it measures.
+
+``trace(name)`` is the reference's profiler region in its
+``torch.profiler`` form: with ``EDL_PROFILE_DIR`` set, the region's
+host activity (and the card's, where there is one) lands as a chrome
+trace under ``EDL_PROFILE_DIR/<name>/`` (chrome://tracing, Perfetto or
+TensorBoard's profile plugin read it), and ``step_annotation(name,
+step)`` names a sub-region inside it. With the knob unset both are
+no-ops.
 """
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -32,6 +40,7 @@ logger = _logger_factory("elasticdl_tpu_torch.common.timing_utils")
 
 # the phase whose duration is "the step"
 STEP_PHASE = "batch_process"
+PROFILE_DIR_ENV = "EDL_PROFILE_DIR"
 
 
 def _sync(result):
@@ -120,3 +129,36 @@ class Timing:
         logger.info("Timing%s: %s",
                     " (%s)" % context if context else "", self.summary())
         self._samples.clear()
+
+
+@contextlib.contextmanager
+def trace(name="edl_train"):
+    """``torch.profiler`` region -> ``EDL_PROFILE_DIR/<name>/``, one
+    ``*.pt.trace.json`` per region, written when it closes. CPU activity
+    always, CUDA activity when a card is present. Yields the profiler,
+    or None when the knob is unset (a no-op)."""
+    profile_dir = env_str(PROFILE_DIR_ENV, "")
+    if not profile_dir:
+        yield None
+        return
+    out = os.path.join(profile_dir, name)
+    os.makedirs(out, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(out),
+    ) as prof:
+        yield prof
+
+
+@contextlib.contextmanager
+def step_annotation(name, step):
+    """A named sub-region (``<name>#<step>``) inside a ``trace``; a no-op
+    with ``EDL_PROFILE_DIR`` unset."""
+    if not env_str(PROFILE_DIR_ENV, ""):
+        yield
+        return
+    with torch.profiler.record_function("%s#%d" % (name, step)):
+        yield

@@ -10,7 +10,9 @@ a training job ends with the train-end task: one worker exports the
 model there. The master runs on the host and exits 0 when the job
 finished, 1 when it failed. ``--metrics_port`` (or
 ``EDL_METRICS_PORT``) serves ``/metrics``, ``/healthz``, ``/readyz``,
-``/statusz`` and ``/alerts``.
+``/statusz`` and ``/alerts``. ``--tensorboard_log_dir`` writes the
+evaluation metrics as TensorBoard scalars; ``EDL_STREAM`` turns the job
+into a continual stream (master/master.py).
 
 With ``EDL_STATE_DIR=DIR`` in its environment the master journals its
 state under DIR. A master that died (SIGKILL, a lost node) is relaunched
@@ -39,6 +41,10 @@ def main(argv=None):
     from elasticdl_tpu_torch.observability import events
 
     events.install_crash_hooks()
+    from elasticdl_tpu_torch.testing import faults
+
+    # before the gRPC server is built: fault specs match on role
+    faults.set_role("master")
     if args.metrics_port:
         # publish the knob before any instrument is constructed: the
         # registry decides enabled/no-op at first touch
@@ -68,6 +74,7 @@ def main(argv=None):
         model_params=args.model_params,
         symbol_overrides=symbol_overrides_from_args(args),
         metrics_port=args.metrics_port,
+        tensorboard_log_dir=args.tensorboard_log_dir or None,
     )
     master.prepare()
     return master.run()

@@ -23,8 +23,15 @@ the task monitor's scan. With ``metrics_port`` (``--metrics_port`` or
 (the firing detectors); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on
 its events journal and trace.
 
-Not ported (ROADMAP): the pod manager and the elastic controller, the
-stream feeder and tensorboard.
+Continual streaming (``EDL_STREAM=synthetic|replay``, stream/feeder.py):
+training tasks are minted from arriving windows by a ``StreamFeeder``
+thread instead of epochs, ``training_data`` is the window spool (or the
+replayed origin), and the feeder mints export tasks on the watermark's
+``EDL_STREAM_EXPORT_EVERY`` cadence. ``tensorboard_log_dir``
+(``--tensorboard_log_dir``) writes each evaluation's metrics as
+TensorBoard scalars (master/tensorboard_service.py).
+
+Not ported (ROADMAP): the pod manager and the elastic controller.
 """
 
 import os
@@ -44,6 +51,7 @@ from elasticdl_tpu_torch.master.servicer import MasterServicer
 from elasticdl_tpu_torch.master.state_store import MasterStateJournal
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 from elasticdl_tpu_torch.master.task_monitor import TaskMonitor
+from elasticdl_tpu_torch.master.tensorboard_service import TensorboardService
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.observability import (
     events,
@@ -52,6 +60,7 @@ from elasticdl_tpu_torch.observability import (
     trace,
 )
 from elasticdl_tpu_torch.proto.services import add_master_servicer_to_server
+from elasticdl_tpu_torch.stream.feeder import StreamFeeder, source_from_env
 
 logger = _logger_factory("elasticdl_tpu_torch.master.master")
 
@@ -77,6 +86,7 @@ class Master:
         model_params="",
         symbol_overrides=None,
         metrics_port=0,
+        tensorboard_log_dir=None,
     ):
         if metrics_port:
             # programmatic construction (no CLI entry ran): publish the
@@ -101,6 +111,11 @@ class Master:
         self.job_type = self._infer_job_type(
             training_data, validation_data, prediction_data
         )
+        # streaming mode (EDL_STREAM): tasks come from arriving windows,
+        # so training_data is never sharded up front
+        stream_source = source_from_env(
+            training_data, reader_params=reader_params
+        )
         # crash recovery (EDL_STATE_DIR): replay the predecessor's
         # journal, so a relaunched master resumes the job mid-epoch
         self.state_journal = MasterStateJournal.maybe_create()
@@ -110,23 +125,40 @@ class Master:
             else None
         )
         self.task_dispatcher = TaskDispatcher(
-            training_shards=shards_of(training_data),
+            training_shards=(
+                {} if stream_source is not None
+                else shards_of(training_data)
+            ),
             evaluation_shards=shards_of(validation_data),
             prediction_shards=shards_of(prediction_data),
             records_per_task=records_per_task,
-            num_epochs=num_epochs,
+            num_epochs=0 if stream_source is not None else num_epochs,
             seed=seed,
             state_journal=self.state_journal,
             recovered=self._recovered,
+            stream=stream_source is not None,
         )
         # cluster-level fleet view + anomaly detectors (/statusz,
         # /alerts): fed by telemetry piggybacked on worker/PS RPCs,
         # evaluated on the task monitor's scan tick
         self.fleet_monitor = FleetMonitor()
+        # built after the fleet monitor: the windows' drift stats fold
+        # straight into its label_shift detector
+        self.stream_feeder = None
+        if stream_source is not None:
+            self.stream_feeder = StreamFeeder(
+                self.task_dispatcher,
+                stream_source,
+                saved_model_path=saved_model_path or "",
+                fleet=self.fleet_monitor,
+            )
         if saved_model_path and self.job_type != JobType.PREDICTION_ONLY:
             self.task_dispatcher.add_deferred_callback_create_train_end_task(
                 {"saved_model_path": saved_model_path}
             )
+        self.tensorboard_service = None
+        if tensorboard_log_dir:
+            self.tensorboard_service = TensorboardService(tensorboard_log_dir)
         self.evaluation_service = None
         if validation_data:
             self.evaluation_service = EvaluationService(
@@ -135,6 +167,7 @@ class Master:
                 eval_start_delay_secs=eval_start_delay_secs,
                 eval_throttle_secs=eval_throttle_secs,
                 eval_steps=eval_steps,
+                summary_writer=self.tensorboard_service,
             )
         self.rendezvous = MeshRendezvous()
         self.servicer = MasterServicer(
@@ -300,13 +333,23 @@ class Master:
                         "tasks": self.task_dispatcher.stats(),
                         "draining": self.drain_manager.state(),
                         "autoscaler": None,
-                        "stream": None,
+                        "stream": (
+                            self.stream_feeder.state()
+                            if self.stream_feeder is not None
+                            else None
+                        ),
                     }
                 ),
             )
             self.observability.add_json_handler(
                 "/alerts", self.fleet_monitor.alerts
             )
+        if self.tensorboard_service is not None:
+            self.tensorboard_service.start()
+        if self.stream_feeder is not None:
+            # after the journal replay settled the dispatcher: the
+            # feeder seeks the source to the journaled position
+            self.stream_feeder.start()
         self.task_monitor.start()
         logger.info("Master serving on :%d", self._port)
         return self
@@ -318,7 +361,9 @@ class Master:
         A finished job keeps serving until every live worker has been
         answered "job over" (at most the liveness timeout): a worker
         that polls while it waits for its last task must not find the
-        server gone and sit out its reconnect budget."""
+        server gone and sit out its reconnect budget. A finished stream
+        also waits, within the same bound, until every live PS has read
+        the final watermark, so its last stream checkpoint is taken."""
         start = time.time()
         try:
             while True:
@@ -339,7 +384,11 @@ class Master:
 
     def _wait_for_workers_told(self):
         deadline = time.time() + self._task_timeout_secs
-        while (self.servicer.workers_not_told_job_over()
+        stream = self.task_dispatcher.stream_state()["stream"]
+        watermark = self.task_dispatcher.stream_watermark()
+        while ((self.servicer.workers_not_told_job_over()
+                or (stream and self.servicer.pollers_behind_watermark(
+                    watermark)))
                and time.time() < deadline):
             time.sleep(0.05)
 
@@ -351,9 +400,13 @@ class Master:
         events.emit("role_stop")
         events.flush()
         trace.flush()
+        if self.stream_feeder is not None:
+            self.stream_feeder.stop()
         self.task_monitor.stop()
         if self.evaluation_service is not None:
             self.evaluation_service.stop()
+        if self.tensorboard_service is not None:
+            self.tensorboard_service.stop()
         if self._server is not None:
             self._server.stop(grace=1.0).wait()
             self._server = None

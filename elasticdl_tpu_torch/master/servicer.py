@@ -66,6 +66,8 @@ class MasterServicer:
         # workers that have been answered "job over" (Master.run waits
         # for every live worker to hear it before the server stops)
         self._told_job_over = set()
+        # poller id -> the stream watermark its last CommInfo carried
+        self._told_watermark = {}
         # worker_id -> reset_worker count: the logical relaunch epoch a
         # worker stamps onto its gradient pushes as its incarnation,
         # monotonic per worker_id so the sync PS can order a relaunch
@@ -180,15 +182,19 @@ class MasterServicer:
                 type=pb.TaskType.Name(task.type).lower(),
             )
             return task
-        if (
-            self._task_dispatcher.finished()
-            or self._task_dispatcher.job_failed()
-        ):
-            # default Task (task_id=0, type=TRAINING): the job is over
-            # (success or terminal failure) and the worker should exit
-            with self._lock:
+        with self._lock:
+            # decided under the lock report_version's evaluation trigger
+            # takes: no evaluation round starts after a worker was told
+            # the job is over (no worker would be left to run it)
+            if (
+                self._task_dispatcher.finished()
+                or self._task_dispatcher.job_failed()
+            ):
+                # default Task (task_id=0, type=TRAINING): the job is
+                # over (success or terminal failure) and the worker
+                # should exit
                 self._told_job_over.add(request.worker_id)
-            return pb.Task(master_epoch=self._master_epoch)
+                return pb.Task(master_epoch=self._master_epoch)
         # queue temporarily empty (between epochs, during an eval pass):
         # the worker waits and polls again
         return pb.Task(type=pb.WAIT, master_epoch=self._master_epoch)
@@ -294,9 +300,15 @@ class MasterServicer:
                 {"op": "version", "version": request.model_version}
             )
         if self._evaluation_service is not None:
-            self._evaluation_service.add_evaluation_task_if_needed(
-                request.model_version
-            )
+            with self._lock:
+                # a version report that arrives after the job was
+                # declared over (the last task's report came first, or
+                # a PS reported its last push late) starts no round: it
+                # would reopen a finished job that no worker serves
+                if not self._told_job_over:
+                    self._evaluation_service.add_evaluation_task_if_needed(
+                        request.model_version
+                    )
         return pb.Empty()
 
     def _observe(self, request):
@@ -320,12 +332,34 @@ class MasterServicer:
                 "epoch_base": self._restart_epoch_base,
             }
 
+    def _stream_watermark(self, request=None):
+        """The dispatcher's record watermark (0 outside streaming
+        mode), stamped on CommInfo: workers and PS shards drive their
+        stream checkpoints off it through the polls they already
+        make. Noted per poller, so the end of a stream can wait for
+        every PS to have read the last one."""
+        watermark = getattr(self._task_dispatcher, "stream_watermark", None)
+        watermark = watermark() if callable(watermark) else 0
+        if request is not None:
+            with self._lock:
+                self._told_watermark[request.worker_id] = watermark
+        return watermark
+
+    def pollers_behind_watermark(self, watermark):
+        """Live pollers with a negative id (a PS, a serving replica)
+        whose last CommInfo carried a watermark below ``watermark``."""
+        with self._lock:
+            return sorted(
+                w for w in self._worker_liveness
+                if w < 0 and self._told_watermark.get(w, 0) < watermark)
+
     def get_comm_info(self, request, context=None):
         self._observe(request)
         if self._rendezvous is None:
             return pb.CommInfo(
                 rank=0, world_size=1, mesh_epoch=0,
                 master_epoch=self._master_epoch,
+                stream_watermark=self._stream_watermark(request),
             )
         if request.worker_host:
             with self._lock:
@@ -343,4 +377,5 @@ class MasterServicer:
             mesh_epoch=epoch,
             coordinator_addr=coordinator,
             master_epoch=self._master_epoch,
+            stream_watermark=self._stream_watermark(request),
         )

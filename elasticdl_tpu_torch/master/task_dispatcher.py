@@ -17,8 +17,15 @@ replayed state (``recovered``) mid-epoch: in-flight tasks go back to
 the queue, and their pre-restart holder's completion is still accepted
 once.
 
-Not ported (ROADMAP): the stream windows. A replayed state's ``stream``
-section is carried through snapshots unchanged.
+Streaming mode (``stream=True``): training tasks are minted from
+arriving windows (``add_stream_window``, the master's stream feeder)
+instead of epochs, and ``finished()`` becomes a drain contract: the
+job is over only once the feeder closed the stream and the queue
+drained. The watermark, the records of completed window tasks, is the
+job's durability clock: checkpoint and export cadence ride it where an
+epoch job rides epoch boundaries. The journal records every minted
+window with the source position, so a relaunched master resumes
+minting after the last journaled window and never re-mints one.
 """
 
 import random
@@ -67,6 +74,7 @@ class TaskDispatcher:
         seed=None,
         state_journal=None,
         recovered=None,
+        stream=False,
     ):
         self._lock = threading.Lock()
         # crash recovery (master/state_store.py): ops are decided under
@@ -105,9 +113,13 @@ class TaskDispatcher:
         self._task_durations = []
         # task type -> successfully completed count
         self._done_counts = {}
-        # the reference's streaming books, carried through snapshots
-        self._stream_state = {"open": False, "pos": 0,
-                              "minted_records": 0, "done_records": 0}
+        # streaming books: source windows minted, their records, and
+        # the records of completed window tasks (the watermark)
+        self._stream = bool(stream)
+        self._stream_open = bool(stream)
+        self._stream_pos = 0
+        self._stream_minted_records = 0
+        self._stream_done_records = 0
         if recovered is not None:
             # authoritative even when empty: a journal that says "all
             # tasks done" must not be answered with a fresh epoch
@@ -117,8 +129,11 @@ class TaskDispatcher:
                 pb.PREDICTION, self._prediction_shards)
             self._todo.extend(ids)
             self._journal_tasks_locked(ids, "train")
-        elif self._training_shards:
+        elif self._training_shards and not self._stream:
             self._create_training_epoch_locked()
+        if (self._stream and recovered is None
+                and self._journal is not None):
+            self._journal_ops.append({"op": "stream_open"})
         self._flush_journal()
 
     # ------------------------------------------------------------------
@@ -199,12 +214,25 @@ class TaskDispatcher:
             for t, n in recovered.get("done_counts", {}).items()
         }
         self._job_failed = bool(recovered.get("job_failed", False))
-        self._stream_state.update(recovered.get("stream") or {})
+        stream = recovered.get("stream") or {}
+        if stream.get("open") or stream.get("pos"):
+            # the journal is authoritative about the stream: the
+            # relaunched feeder resumes the source at ``pos`` and the
+            # watermark carries on from the predecessor's completions
+            self._stream = True
+            self._stream_open = bool(stream.get("open", False))
+            self._stream_pos = int(stream.get("pos", 0))
+            self._stream_minted_records = int(
+                stream.get("minted_records", 0))
+            self._stream_done_records = int(stream.get("done_records", 0))
         logger.info(
             "Dispatcher resumed from journal: %d todo, %d eval, "
-            "%d requeued in-flight, epochs left %d",
+            "%d requeued in-flight, epochs left %d%s",
             len(self._todo), len(self._eval_todo),
             len(self._recovered_assignee), self._epochs_left,
+            (", stream pos %d watermark %d"
+             % (self._stream_pos, self._stream_done_records)
+             if self._stream else ""),
         )
 
     def export_state(self):
@@ -234,7 +262,12 @@ class TaskDispatcher:
                 "epochs_left": self._epochs_left,
                 "next_task_id": self._next_task_id,
                 "job_failed": self._job_failed,
-                "stream": dict(self._stream_state),
+                "stream": {
+                    "open": self._stream_open,
+                    "pos": self._stream_pos,
+                    "minted_records": self._stream_minted_records,
+                    "done_records": self._stream_done_records,
+                },
             }
 
     # ------------------------------------------------------------------
@@ -288,6 +321,112 @@ class TaskDispatcher:
             self._journal_tasks_locked(ids, "eval")
         self._flush_journal()
         return len(ids)
+
+    # ------------------------------------------------------------------
+    # streaming mode
+
+    def add_stream_window(self, shard_name, start, end, model_version=-1):
+        """Mint one TRAINING task from an arrived stream window and
+        journal it with the source position. Returns the task id."""
+        with self._lock:
+            if not self._stream_open:
+                raise RuntimeError(
+                    "add_stream_window on a closed/non-stream dispatcher")
+            task = pb.Task(
+                task_id=self._next_task_id,
+                type=pb.TRAINING,
+                shard_name=shard_name,
+                start=int(start),
+                end=int(end),
+                model_version=model_version,
+            )
+            self._records[task.task_id] = _TaskRecord(task)
+            self._next_task_id += 1
+            self._todo.append(task.task_id)
+            self._stream_pos += 1
+            self._stream_minted_records += int(end) - int(start)
+            if self._journal is not None:
+                self._journal_ops.append({
+                    "op": "stream_window",
+                    "pos": self._stream_pos,
+                    "task": [task.task_id, int(pb.TRAINING), shard_name,
+                             int(start), int(end), model_version],
+                })
+            task_id = task.task_id
+        self._flush_journal()
+        return task_id
+
+    def add_stream_export_task(self, extended_config=None):
+        """Mint an export (TRAIN_END_CALLBACK) task mid-stream: one
+        worker joins its pushes, flushes its device tier and writes a
+        fresh export, which the serving tier's watcher then takes."""
+        with self._lock:
+            task = pb.Task(
+                task_id=self._next_task_id,
+                type=pb.TRAIN_END_CALLBACK,
+                shard_name="",
+                start=0,
+                end=0,
+            )
+            for key, value in (extended_config or {}).items():
+                task.extended_config[key] = value
+            self._records[task.task_id] = _TaskRecord(task)
+            self._next_task_id += 1
+            self._todo.append(task.task_id)
+            self._journal_tasks_locked([task.task_id], "train")
+            task_id = task.task_id
+        self._flush_journal()
+        return task_id
+
+    def close_stream(self):
+        """No more windows will arrive: ``finished()`` can report true
+        once the queue drains."""
+        with self._lock:
+            if not self._stream_open:
+                return
+            self._stream_open = False
+            if self._journal is not None:
+                self._journal_ops.append({"op": "stream_close"})
+            if (not self._todo
+                    and not self._doing_training_locked()
+                    and self._deferred_callbacks
+                    and not self._records_have_train_end_locked()):
+                # the queue drained while the stream was open: no later
+                # report() fires the deferred train-end task, so the
+                # close must
+                self._fire_deferred_locked()
+        self._flush_journal()
+        logger.info(
+            "Stream closed at pos %d (%d records minted, watermark %d)",
+            self._stream_pos, self._stream_minted_records,
+            self._stream_done_records,
+        )
+
+    def stream_watermark(self):
+        """Records of completed stream-window tasks: every record below
+        the watermark was trained and reported. 0 for a non-stream job
+        (the proto default on CommInfo)."""
+        with self._lock:
+            return self._stream_done_records
+
+    def stream_pos(self):
+        """Source windows minted so far: where a (re)started feeder
+        seeks its source to."""
+        with self._lock:
+            return self._stream_pos
+
+    def stream_state(self):
+        """O(1) snapshot for /statusz and the feeder."""
+        with self._lock:
+            return {
+                "stream": self._stream,
+                "open": self._stream_open,
+                "pos": self._stream_pos,
+                "minted_records": self._stream_minted_records,
+                "watermark": self._stream_done_records,
+                "backlog_records": (self._stream_minted_records
+                                    - self._stream_done_records),
+            }
 
     def add_deferred_callback_create_train_end_task(self,
                                                     extended_config=None):
@@ -439,15 +578,28 @@ class TaskDispatcher:
                 self._done_counts[task.type] = (
                     self._done_counts.get(task.type, 0) + 1
                 )
+                stream_records = 0
+                if self._stream and task.type == pb.TRAINING:
+                    # the watermark advances by this window's records;
+                    # the journal carries the count so a replay
+                    # reconstructs the same watermark
+                    stream_records = task.end - task.start
+                    self._stream_done_records += stream_records
                 if self._journal is not None:
-                    self._journal_ops.append({
+                    done_op = {
                         "op": "done", "task": task_id, "type": task.type,
-                    })
+                    }
+                    if stream_records:
+                        done_op["records"] = stream_records
+                    self._journal_ops.append(done_op)
                 if not self._todo and not self._doing_training_locked():
                     if self._epochs_left > 0:
                         self._create_training_epoch_locked()
                     elif (
                         self._deferred_callbacks
+                        # an open stream draining its queue is not the
+                        # end of training: close_stream fires it then
+                        and not self._stream_open
                         and not self._records_have_train_end_locked()
                     ):
                         # the last training task of the last epoch is
@@ -544,6 +696,8 @@ class TaskDispatcher:
                 and self._epochs_left <= 0
                 # a registered train-end task not created yet
                 and not self._deferred_callbacks
+                # an open stream is never finished: more windows come
+                and not self._stream_open
             )
 
     def job_failed(self):

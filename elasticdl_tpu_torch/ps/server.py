@@ -42,8 +42,17 @@ and the trace of role ``ps-<id>``. With ``--master_addr`` each poll
 carries the servicer's ``telemetry_blob`` to the master's fleet monitor
 (``EDL_TELEMETRY=0`` opts out).
 
-Not ported (ROADMAP): the version reports to the master, the lifecycle
-sweep and the stream checkpoint.
+The embedding lifecycle (stream/lifecycle.py) is on when an
+``EDL_EMB_*`` policy knob is set (``EDL_EMB_ADMIT_K``,
+``EDL_EMB_MAX_ROWS`` or ``EDL_EMB_TTL_SECS``): the run loop is its
+clock, sweeping every ``EDL_EMB_SWEEP_SECS`` (5), and after a restore
+it re-anchors on the restored rows. With ``EDL_STREAM_CHECKPOINT_EVERY``
+and ``--master_addr`` the PS polls the master at every loop tick
+(0.5 s) and saves a sparse checkpoint each time the master's record
+watermark crosses a boundary of that many records. The run loop also
+runs the table-health scan (``EDL_HEALTH_SCAN_SECS``). With
+``--master_addr`` the PS reports every version it reaches to the master
+(the evaluation service's version trigger).
 """
 
 import argparse
@@ -53,7 +62,7 @@ import sys
 import time
 
 from elasticdl_tpu_torch.common.args import add_bool_argument
-from elasticdl_tpu_torch.common.env_utils import env_float, env_str
+from elasticdl_tpu_torch.common.env_utils import env_float, env_int, env_str
 from elasticdl_tpu_torch.common.grpc_utils import build_server, uds_socket_path
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
@@ -68,6 +77,8 @@ from elasticdl_tpu_torch.proto.services import add_pserver_servicer_to_server
 from elasticdl_tpu_torch.ps.checkpoint import SparseCheckpointSaver
 from elasticdl_tpu_torch.ps.embedding_store import create_store
 from elasticdl_tpu_torch.ps.servicer import PserverServicer
+from elasticdl_tpu_torch.stream.lifecycle import EmbeddingLifecycle
+from elasticdl_tpu_torch.testing import faults
 from elasticdl_tpu_torch.train.optimizers import parse_opt_args
 
 logger = _logger_factory("elasticdl_tpu_torch.ps.server")
@@ -166,17 +177,19 @@ class ParameterServer:
                 sum(self.store.table_size(name)
                     for name in self.store.table_names()),
                 time.monotonic() - restore_t0)
-        self.servicer = PserverServicer(
-            self.store,
-            ps_id=args.ps_id,
-            checkpoint_saver=saver,
-            checkpoint_steps=args.checkpoint_steps,
-            use_async=bool(args.use_async),
-            grads_to_wait=args.grads_to_wait,
-            sync_version_tolerance=args.sync_version_tolerance,
-            staleness_modulation=bool(args.lr_staleness_modulation),
-            restored_version=self.restored_version,
-        )
+        # the admission/eviction policy of the EDL_EMB_* knobs (None when
+        # none is set), built before the servicer so its gates hold from
+        # the first RPC
+        self.lifecycle = EmbeddingLifecycle.maybe_create(self.store)
+        if self.lifecycle is not None and self.restored_version is not None:
+            # a restore already made tables and rows: register them (the
+            # model's push_embedding_table_infos brings the real
+            # initializer later) and re-anchor: every restored row
+            # admitted, the sketch empty
+            for name in self.store.table_names():
+                self.lifecycle.register_table(name,
+                                              self.store.table_dim(name))
+            self.lifecycle.adopt_store()
         self._master_client = None
         if args.master_addr:
             from elasticdl_tpu_torch.worker.master_client import MasterClient
@@ -186,14 +199,27 @@ class ParameterServer:
             self._master_client = MasterClient(
                 args.master_addr, worker_id=-(args.ps_id + 1)
             )
-            if env_str("EDL_TELEMETRY", "") != "0":
-                # this PS's push/pull rates, version lag and round
-                # fill ride the liveness poll the run loop already
-                # makes, for the master's stuck-round and version-lag
-                # detectors
-                self._master_client.telemetry_provider = (
-                    self.servicer.telemetry_blob
-                )
+        self.servicer = PserverServicer(
+            self.store,
+            ps_id=args.ps_id,
+            master_client=self._master_client,
+            lifecycle=self.lifecycle,
+            checkpoint_saver=saver,
+            checkpoint_steps=args.checkpoint_steps,
+            use_async=bool(args.use_async),
+            grads_to_wait=args.grads_to_wait,
+            sync_version_tolerance=args.sync_version_tolerance,
+            staleness_modulation=bool(args.lr_staleness_modulation),
+            restored_version=self.restored_version,
+        )
+        if (self._master_client is not None
+                and env_str("EDL_TELEMETRY", "") != "0"):
+            # this PS's push/pull rates, version lag and round fill ride
+            # the liveness poll the run loop already makes, for the
+            # master's stuck-round and version-lag detectors
+            self._master_client.telemetry_provider = (
+                self.servicer.telemetry_blob
+            )
         self.server = None
         self._uds_path = None
         self.observability = None
@@ -322,11 +348,24 @@ class ParameterServer:
         gone_secs = env_float("EDL_PS_MASTER_GONE_SECS", 90.0)
         # at least two polls inside the grace
         master_poll_secs = min(5.0, gone_secs / 2)
+        stream_ckpt_every = env_int("EDL_STREAM_CHECKPOINT_EVERY", 0)
+        if stream_ckpt_every > 0:
+            # the watermark is the stream checkpoint's clock: read it at
+            # every tick, so no boundary passes between two polls
+            master_poll_secs = poll_secs
+        sweep_secs = env_float("EDL_EMB_SWEEP_SECS", 5.0)
+        next_sweep = time.monotonic() + sweep_secs
         gone_since = None
         next_poll = time.monotonic() + master_poll_secs
         while self.server.wait_for_termination(timeout=poll_secs):
             if self._term_flag:
                 return self._finish_term()
+            if self.lifecycle is not None and time.monotonic() >= next_sweep:
+                next_sweep = time.monotonic() + sweep_secs
+                self.servicer.lifecycle_tick()
+            # rate-limited inside (EDL_HEALTH_SCAN_SECS); its aggregates
+            # ride the next telemetry blob
+            self.servicer.table_health_scan()
             if self._master_client is None or time.monotonic() < next_poll:
                 continue
             polled_at = time.monotonic()
@@ -334,6 +373,9 @@ class ParameterServer:
             next_poll = time.monotonic() + master_poll_secs
             if info.mesh_epoch >= 0:
                 gone_since = None
+                if stream_ckpt_every > 0:
+                    self.servicer.maybe_stream_checkpoint(
+                        info.stream_watermark, stream_ckpt_every)
                 continue
             # gone since the first unanswered poll began (the failed
             # call itself retries for seconds)
@@ -358,6 +400,8 @@ class ParameterServer:
 
 def main(argv=None):
     args = parse_ps_args(argv)
+    # before any channel or server is built: fault specs match on role
+    faults.set_role("ps-%d" % args.ps_id)
     if args.metrics_port:
         # publish the knob before any instrument is constructed: the
         # registry decides enabled/no-op at first touch

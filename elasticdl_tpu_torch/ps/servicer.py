@@ -43,12 +43,21 @@ monitor; the reference's ``edl_ps_*`` series, the ``ps_apply_push`` /
 pushes, rounds, checkpoints) mirror them when metrics, tracing or the
 journal are on.
 
-Not ported (ROADMAP): the stream checkpoint
-(``maybe_stream_checkpoint``), the embedding lifecycle, the table-health
-scan, the master's version reports and fault injection.
+The embedding lifecycle (``lifecycle``, stream/lifecycle.py) gates the
+RPC paths when the PS runs one: a pull of an id not yet admitted is
+served the initializer's cold row without touching the store, its
+pushed gradients are dropped, and a ``push_embedding_rows`` writeback
+admits its rows. ``lifecycle_tick`` (the eviction sweep),
+``table_health_scan`` (sampled row norms, the dead-row fraction) and
+``maybe_stream_checkpoint`` (a save each time the master's record
+watermark crosses a boundary) run on the PS's poll loop, never on an
+RPC handler. With a ``master_client`` every version the store reaches
+is reported to the master. The ``overload`` fault kind
+(testing/faults.py) lands inside the push's admission slot.
 """
 
 import concurrent.futures
+import json
 import sys
 import threading
 import time
@@ -57,7 +66,7 @@ import grpc
 import numpy as np
 
 from elasticdl_tpu_torch.common import overload
-from elasticdl_tpu_torch.common.env_utils import env_int
+from elasticdl_tpu_torch.common.env_utils import env_float, env_int
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -80,6 +89,8 @@ from elasticdl_tpu_torch.ps.embedding_store import (
     BLOB_ITEMSIZE,
     parse_initializer,
 )
+from elasticdl_tpu_torch.testing import faults
+from elasticdl_tpu_torch.train.health import health_enabled
 
 logger = _logger_factory("elasticdl_tpu_torch.ps.servicer")
 
@@ -92,6 +103,14 @@ MAX_PENDING_APPLIES_ENV = "EDL_PS_MAX_PENDING_APPLIES"
 # 1 (default): a push handler only enqueues a checkpoint request and a
 # checkpoint thread saves; 0: the handler saves inline
 CKPT_ASYNC_ENV = "EDL_CKPT_ASYNC"
+# table-health scan: the row-norm ceiling past which a sampled row
+# counts as exploding, the rows sampled per table, the seconds between
+# scans and the table size past which a table is skipped (the scan's
+# full-table export would stall pushes)
+ROW_NORM_MAX_ENV = "EDL_HEALTH_ROW_NORM_MAX"
+HEALTH_SCAN_SAMPLE_ENV = "EDL_HEALTH_SCAN_SAMPLE"
+HEALTH_SCAN_SECS_ENV = "EDL_HEALTH_SCAN_SECS"
+HEALTH_SCAN_MAX_ROWS_ENV = "EDL_HEALTH_SCAN_MAX_ROWS"
 
 # packed-id blobs are little-endian; the native fast paths read them as
 # host int64, so they are only taken on little-endian hosts
@@ -124,17 +143,60 @@ def _blob_fast_path_ok(store, name, slices):
     return len(blob.content) == n * dim * BLOB_ITEMSIZE[blob.dtype]
 
 
+class _VersionReporter:
+    """Sends the store's newest version to the master off the push
+    handlers: a push records its version and wakes one thread, which
+    reports the newest version not yet sent. The reference reports every
+    version synchronously inside the handler, one master RPC on every
+    push's path; the master's evaluation trigger only needs each crossing
+    of ``eval_steps``, which any later version carries. The thread is a
+    daemon: a PS that exits leaves nothing the master still needs."""
+
+    def __init__(self, client, name):
+        self._client = client
+        self._cond = threading.Condition()
+        self._latest = self._sent = -1
+        self._thread = threading.Thread(target=self._run, name=name,
+                                        daemon=True)
+        self._thread.start()
+
+    def offer(self, version):
+        with self._cond:
+            if version > self._latest:
+                self._latest = version
+                self._cond.notify()
+
+    def _run(self):
+        while True:
+            with self._cond:
+                while self._latest <= self._sent:
+                    self._cond.wait()
+                version = self._sent = self._latest
+            try:
+                self._client.report_version(version)
+            except Exception as e:  # the next version reports again
+                logger.warning("version report %d failed: %s", version, e)
+
+
 class PserverServicer:
     def __init__(self, store, ps_id=0, staleness_modulation=True,
                  checkpoint_saver=None, checkpoint_steps=0, use_async=True,
                  grads_to_wait=1, sync_version_tolerance=0,
-                 restored_version=None):
+                 restored_version=None, master_client=None,
+                 lifecycle=None):
         """``use_async`` defaults to True for the bare constructor;
         the server entry point passes its flag (default sync).
         ``restored_version`` is the checkpoint version the PS restored
-        at boot (None: none)."""
+        at boot (None: none). ``lifecycle`` (None: tables grow
+        unbounded) is the admission/eviction policy over this shard."""
         self._store = store
         self._ps_id = ps_id
+        self._lifecycle = lifecycle
+        self._master_client = master_client
+        self._reporter = (
+            _VersionReporter(master_client, "ps-%d-report" % ps_id)
+            if master_client is not None else None)
+        self._stream_ckpt_boundary = None
         # wire encoding of the boot restore: version + 1, 0 = none
         self._restored_wire = (int(restored_version) + 1
                                if restored_version is not None else 0)
@@ -200,6 +262,20 @@ class PserverServicer:
         self._t_ckpt_dirty_rows = 0
         self._t_ckpt_chain_len = 0
         self._t_prev = None  # (timestamp, push_count, pull_count)
+        # the table-health scan's books: shard-level aggregates the
+        # telemetry blob carries between scans, and its rate limit
+        self._health_scan_on = health_enabled()
+        self._row_norm_max = env_float(ROW_NORM_MAX_ENV, 1e3)
+        self._health_sample = max(8, env_int(HEALTH_SCAN_SAMPLE_ENV, 256))
+        self._health_scan_max_rows = env_int(HEALTH_SCAN_MAX_ROWS_ENV,
+                                             262_144)
+        self._health_scan_skipped = set()
+        self._health_scan_secs = env_float(HEALTH_SCAN_SECS_ENV, 30.0)
+        self._health_scan_at = 0.0
+        self._t_row_norm_p50 = 0.0
+        self._t_row_norm_p99 = 0.0
+        self._t_dead_row_fraction = 0.0
+        self._t_exploding_rows = 0
 
     def _register_metrics(self):
         """PS-side series: push/pull rates and bytes, the round-buffer
@@ -299,6 +375,21 @@ class PserverServicer:
             "edl_ps_ckpt_chain_len",
             "Deltas in the live checkpoint chain since its full base",
         )
+        self._m_row_norm = obs_metrics.gauge(
+            "edl_ps_row_norm",
+            "Sampled row-norm percentile per table",
+            ("table", "quantile"),
+        )
+        self._m_exploding = obs_metrics.gauge(
+            "edl_ps_exploding_rows",
+            "Sampled rows with norm beyond EDL_HEALTH_ROW_NORM_MAX",
+            ("table",),
+        )
+        self._m_dead_fraction = obs_metrics.gauge(
+            "edl_ps_dead_row_fraction",
+            "Evicted rows / (evicted + resident), from the lifecycle "
+            "books (0 without a lifecycle)",
+        )
 
     def telemetry_blob(self):
         """Piggyback payload of the PS's get_comm_info master poll:
@@ -314,7 +405,7 @@ class PserverServicer:
             push_rate = (push_count - prev_push) / window
             pull_rate = (pull_count - prev_pull) / window
         self._t_prev = (now, push_count, pull_count)
-        return pb.TelemetryBlob(
+        blob = pb.TelemetryBlob(
             role="ps-%d" % self._ps_id,
             push_rate=push_rate,
             pull_rate=pull_rate,
@@ -328,9 +419,24 @@ class PserverServicer:
             ps_native_store=self._native_store,
             ps_ckpt_dirty_rows=self._t_ckpt_dirty_rows,
             ps_ckpt_chain_len=self._t_ckpt_chain_len,
+            # the last table-health scan's shard-level aggregates
+            ps_row_norm_p50=self._t_row_norm_p50,
+            ps_row_norm_p99=self._t_row_norm_p99,
+            ps_dead_row_fraction=self._t_dead_row_fraction,
+            ps_exploding_rows=self._t_exploding_rows,
             ps_overload_rejections=self._t_overload_rejections,
             ps_pending_applies=self._pending_depth(),
         )
+        if self._lifecycle is not None:
+            # the admission/eviction tallies and the resident-row count
+            # the bounded-memory contract is about
+            stats = self._lifecycle.stats()
+            blob.ps_rows_admitted = stats["rows_admitted"]
+            blob.ps_rows_evicted_ttl = stats["rows_evicted_ttl"]
+            blob.ps_rows_evicted_lfu = stats["rows_evicted_lfu"]
+            blob.ps_tracked_ids = stats["tracked_ids"]
+            blob.ps_resident_rows = stats["resident_rows"]
+        return blob
 
     def model_initialized(self):
         """This PS's /readyz milestone: cold-start dense parameters
@@ -373,6 +479,12 @@ class PserverServicer:
             self._store.create_table(
                 info.name, info.dim, init_scale=param, initializer=kind
             )
+            if self._lifecycle is not None:
+                # pre-admission pulls get the initializer's
+                # deterministic cold row
+                self._lifecycle.register_table(
+                    info.name, info.dim, init_kind=kind, init_param=param
+                )
             self._m_table_rows.labels(table=info.name).set_function(
                 lambda name=info.name: self._store.table_size(name)
             )
@@ -405,6 +517,24 @@ class PserverServicer:
         dtype; ``reduced_ok=False`` pins fp32 for legacy clients, which
         cannot decode extension dtype names."""
         wd_name = wire_dtype_name() if reduced_ok else None
+        if self._lifecycle is not None:
+            mask = self._lifecycle.filter_pull(name, ids)
+            if not mask.all():
+                # a mixed pull: admitted rows come from the store, ids
+                # not yet admitted get the cold row and never touch it
+                # (a pull is a sighting, not a materialization)
+                values = self._lifecycle.cold_rows(name, ids.size)
+                if mask.any():
+                    values[mask] = self._store.lookup(name, ids[mask])
+                blob = ndarray_to_blob(
+                    values, blob,
+                    wire_dtype=wire_dtype() if reduced_ok else None)
+                payload = len(blob.content)
+                self._t_pull_bytes += payload
+                self._m_pull_bytes.labels(dtype=blob.dtype).inc(payload)
+                self._m_pull_requests.labels(table=name).inc()
+                self._m_pull_rows.labels(table=name).inc(int(ids.size))
+                return blob
         if self._native_store and _LITTLE_ENDIAN:
             # lazy init + gather + wire cast in one GIL-released call,
             # straight into the response blob
@@ -508,6 +638,12 @@ class PserverServicer:
             self._pending_applies += 1
         started = time.monotonic()
         try:
+            # the overload fault lands here, inside an occupied
+            # admission slot, so its latency builds the backlog real
+            # slow applies would
+            injected = faults.apply_delay("push_gradients")
+            if injected:
+                time.sleep(injected)
             return self._push_gradients_admitted(request)
         finally:
             elapsed = time.monotonic() - started
@@ -572,6 +708,7 @@ class PserverServicer:
         self._store.bump_version()
         version = self._store.version
         self._maybe_checkpoint(version)
+        self._maybe_report_version(version)
         return self._stamp(pb.PushGradientsResponse(accepted=True,
                                                     version=version))
 
@@ -593,6 +730,20 @@ class PserverServicer:
     def _apply_one(self, name, slices, lr_scale):
         """One table's deserialize + dedup + apply: the native single
         call for a packed payload, else numpy with the same values."""
+        if self._lifecycle is not None:
+            mask = self._lifecycle.filter_push(name, unpack_ids(slices))
+            if not mask.all():
+                # gradients of ids not yet admitted are dropped: the
+                # admitted subset applies through numpy (the single
+                # native call has no row filter)
+                if not mask.any():
+                    return
+                values, ids = _deserialize_gradients(slices)
+                values, ids = deduplicate_indexed_slices(values[mask],
+                                                         ids[mask])
+                self._store.push_gradients(name, ids, values,
+                                           lr_scale=lr_scale)
+                return
         if self._native_store and _blob_fast_path_ok(
             self._store, name, slices
         ):
@@ -637,6 +788,12 @@ class PserverServicer:
                 continue
             values, ids = _deserialize_gradients(slices)
             self._store.import_table(name, ids, values)
+        if self._lifecycle is not None:
+            # writebacks are authoritative: the rows exist now, so they
+            # are admitted (and their TTL refreshed), or the eviction
+            # bound would never see them age out
+            for name, slices in request.embedding_tables.items():
+                self._lifecycle.note_import(name, unpack_ids(slices))
         return self._stamp(pb.PushGradientsResponse(
             accepted=True, version=self._store.version))
 
@@ -784,6 +941,7 @@ class PserverServicer:
             self._store.bump_version()
             version = self._store.version
         self._maybe_checkpoint(version)
+        self._maybe_report_version(version)
         return self._stamp(pb.PushGradientsResponse(accepted=True,
                                                     version=version))
 
@@ -817,7 +975,7 @@ class PserverServicer:
             "ps_apply_round", version=self._store.version,
             pushes=len(entries),
         ):
-            self._merge_apply_locked(entries)
+            self._merge_apply_locked(entries, journal)
         journal.append((
             "round_close",
             dict(version=self._store.version, pushes=len(entries)),
@@ -830,7 +988,7 @@ class PserverServicer:
             )
             del self._round_groups[tag]
 
-    def _merge_apply_locked(self, entries):
+    def _merge_apply_locked(self, entries, journal=None):
         scales = [s for _, _, s in entries]
         apply_scale = sum(scales) / len(scales)
         merged = {}  # name -> ([values...], [ids...])
@@ -849,6 +1007,14 @@ class PserverServicer:
                 np.concatenate(values_list, axis=0),
                 np.concatenate(ids_list, axis=0),
             )
+            if self._lifecycle is not None:
+                # the admission gate under the push lock: its events
+                # ride the round's journal, written after the lock
+                mask = self._lifecycle.filter_push(name, ids,
+                                                   journal=journal)
+                if not mask.any():
+                    continue
+                values, ids = values[mask], ids[mask]
             self._store.push_gradients(name, ids, values,
                                        lr_scale=apply_scale)
 
@@ -889,6 +1055,139 @@ class PserverServicer:
                             version)
             except Exception:  # the exit goes on
                 logger.exception("final sparse checkpoint failed")
+
+    # ------------------------------------------------------------------
+    # the poll loop's work (ps/server.py), never on an RPC handler
+
+    def lifecycle_tick(self):
+        """One TTL/LFU eviction sweep; None without a lifecycle, else
+        the sweep's {"ttl": n, "lfu": n} eviction counts."""
+        if self._lifecycle is None:
+            return None
+        t0 = time.monotonic()
+        swept = self._lifecycle.sweep()
+        stats = self._lifecycle.stats()
+        logger.info(
+            "lifecycle sweep: evicted ttl %d lfu %d in %.4f s; resident "
+            "rows %s; in flight %s; totals admitted %d evicted ttl %d lfu "
+            "%d, grad rows dropped %d", swept["ttl"], swept["lfu"],
+            time.monotonic() - t0,
+            json.dumps({name: rows for name, (rows, _) in
+                        self._lifecycle.last_sweep_rows.items()},
+                       sort_keys=True),
+            json.dumps({name: flying for name, (_, flying) in
+                        self._lifecycle.last_sweep_rows.items()},
+                       sort_keys=True),
+            stats["rows_admitted"], stats["rows_evicted_ttl"],
+            stats["rows_evicted_lfu"], stats["grad_rows_dropped"])
+        return swept
+
+    def table_health_scan(self, force=False):
+        """Sampled per-table row-norm percentiles, the shard's dead-row
+        fraction from the lifecycle books and the count of sampled rows
+        whose norm exceeds EDL_HEALTH_ROW_NORM_MAX. Rate-limited by
+        EDL_HEALTH_SCAN_SECS; exports each table once a scan and samples
+        at most EDL_HEALTH_SCAN_SAMPLE rows of it. Returns the scan, or
+        None when skipped (rate limit, EDL_HEALTH=0)."""
+        if not self._health_scan_on:
+            return None
+        now = time.time()
+        if not force and now - self._health_scan_at < self._health_scan_secs:
+            return None
+        self._health_scan_at = now
+        pooled = []
+        exploding_total = 0
+        per_table = {}
+        for name in self._store.table_names():
+            try:
+                size = self._store.table_size(name)
+            except KeyError:
+                continue
+            if size > self._health_scan_max_rows:
+                # the export copies the whole table under its lock:
+                # past the cap that copy stalls the data plane
+                if name not in self._health_scan_skipped:
+                    self._health_scan_skipped.add(name)
+                    logger.warning(
+                        "table-health scan skipping %s: %d resident rows "
+                        "> %s=%d (the scan's full-table export would "
+                        "stall pushes)", name, size,
+                        HEALTH_SCAN_MAX_ROWS_ENV, self._health_scan_max_rows,
+                    )
+                continue
+            try:
+                _ids, values = self._store.export_table(name)
+            except KeyError:
+                continue
+            if values.shape[0] == 0:
+                continue
+            if values.shape[0] > self._health_sample:
+                stride = values.shape[0] // self._health_sample
+                values = values[::stride][: self._health_sample]
+            norms = np.sqrt(
+                np.sum(np.square(values.astype(np.float32)), axis=1))
+            p50 = float(np.percentile(norms, 50))
+            p99 = float(np.percentile(norms, 99))
+            exploding = int(np.sum(norms > self._row_norm_max))
+            self._m_row_norm.labels(table=name, quantile="p50").set(p50)
+            self._m_row_norm.labels(table=name, quantile="p99").set(p99)
+            self._m_exploding.labels(table=name).set(exploding)
+            pooled.append(norms)
+            exploding_total += exploding
+            per_table[name] = {"p50": p50, "p99": p99,
+                               "exploding": exploding,
+                               "sampled": int(norms.size)}
+        if pooled:
+            norms = np.concatenate(pooled)
+            self._t_row_norm_p50 = float(np.percentile(norms, 50))
+            self._t_row_norm_p99 = float(np.percentile(norms, 99))
+        dead_fraction = 0.0
+        if self._lifecycle is not None:
+            stats = self._lifecycle.stats()
+            evicted = stats["rows_evicted_ttl"] + stats["rows_evicted_lfu"]
+            alive = stats["resident_rows"]
+            if evicted + alive > 0:
+                dead_fraction = evicted / float(evicted + alive)
+        self._m_dead_fraction.set(dead_fraction)
+        self._t_dead_row_fraction = dead_fraction
+        if exploding_total > 0 and self._t_exploding_rows == 0:
+            # the edge only: a chronically hot table must not flood the
+            # journal once a scan
+            events.emit(
+                "health_table_exploding", ps=self._ps_id,
+                rows=exploding_total,
+                tables=sorted(t for t, d in per_table.items()
+                              if d["exploding"]),
+                norm_max=self._row_norm_max,
+            )
+        self._t_exploding_rows = exploding_total
+        return {"tables": per_table, "dead_row_fraction": dead_fraction,
+                "exploding_rows": exploding_total}
+
+    def maybe_stream_checkpoint(self, watermark, every):
+        """The streaming checkpoint cadence: with no epoch boundaries,
+        durability rides the master's record watermark, one sparse
+        checkpoint each time it crosses a boundary of ``every`` records.
+        A fresh PS saves from the first boundary crossed; a PS that
+        restored a checkpoint anchors at its first observed watermark
+        (its predecessor covered those boundaries). True when a save
+        was requested."""
+        if self._checkpoint_saver is None or every <= 0 or watermark <= 0:
+            return False
+        boundary = int(watermark) // int(every)
+        last = self._stream_ckpt_boundary
+        if last is None:
+            last = boundary if self._restored_wire else 0
+            self._stream_ckpt_boundary = last
+        if boundary <= last:
+            return False
+        self._stream_ckpt_boundary = boundary
+        version = self._store.version
+        events.emit("stream_watermark", watermark=int(watermark),
+                    kind="checkpoint")
+        logger.info("stream checkpoint at watermark %d (version %d)",
+                    watermark, version)
+        return self._request_checkpoint(version, "sparse_stream")
 
     def _save_checkpoint_now(self, version, kind, force_full=False):
         """One synchronous save, shared by the inline path, the
@@ -939,3 +1238,10 @@ class PserverServicer:
                 and self._checkpoint_steps > 0
                 and version % self._checkpoint_steps == 0):
             self._request_checkpoint(version, "sparse")
+
+    def _maybe_report_version(self, version):
+        """The store's newest version goes to the master (the evaluation
+        service's version trigger), off this handler's thread."""
+        if self._reporter is not None:
+            self._reporter.offer(version)
+

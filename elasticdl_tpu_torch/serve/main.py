@@ -48,6 +48,7 @@ from elasticdl_tpu_torch.observability import (
     profiler,
     trace,
 )
+from elasticdl_tpu_torch.testing import faults
 
 logger = _logger_factory("elasticdl_tpu_torch.serve.main")
 
@@ -448,6 +449,8 @@ class ServeRole:
 
 def main(argv=None):
     args = parse_serve_args(argv)
+    # before any channel or server is built: fault specs match on role
+    faults.set_role("serve-%d" % args.serve_id)
     if args.metrics_port:
         # publish before any instrument is constructed: the registry
         # decides enabled/no-op at first touch

@@ -241,6 +241,10 @@ class RouterRole:
 
 def main(argv=None):
     args = parse_router_args(argv)
+    from elasticdl_tpu_torch.testing import faults
+
+    # before any channel or server is built: fault specs match on role
+    faults.set_role("router-%d" % args.router_id)
     if args.metrics_port:
         from elasticdl_tpu_torch.observability import http_server
 

@@ -245,6 +245,8 @@ class DeviceEmbeddingTier:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # flush() writes back every resident row, not only dirty ones
+        self.reassert = False
         self.gather_only_combines = 0
         self.staged_chunks = 0
         self.insert_chunks = 0
@@ -816,9 +818,17 @@ class DeviceEmbeddingTier:
 
     def flush(self):
         """Checkpoint/export boundary: every tier-held update reaches
-        the PS before the caller proceeds."""
+        the PS before the caller proceeds. With ``reassert`` set (the
+        worker sets it in a continual stream job) it writes back every
+        resident row, clean ones too: a PS whose embedding lifecycle
+        evicts rows may have dropped a clean row the tier holds, and the
+        state a boundary snapshots must carry it."""
         self._process_restart()
         self._drain_staged()
+        if self.reassert:
+            with self._lock:
+                for table in self._tables.values():
+                    table.slot_dirty[table.slot_id >= 0] = True
         self._flush_dirty(wait=True)
 
     def _drain_staged(self):

@@ -63,6 +63,7 @@ from elasticdl_tpu_torch.embedding.client import (  # noqa: F401
     HotRowCache,
 )
 from elasticdl_tpu_torch.models.layers import has_uninitialized_params
+from elasticdl_tpu_torch.testing import faults
 from elasticdl_tpu_torch.train.device_tier import (
     DeviceEmbeddingTier,
     resolve_tier_config,
@@ -731,6 +732,8 @@ class SparseTrainer:
         """Run the step and start the host copy of its loss, health
         scalars and row gradients; returns (state, loss on the device,
         the in-flight step)."""
+        # EDL_FAULT_SPEC's data-plane kinds (nan-batch, shape-churn)
+        prepared = faults.maybe_poison_batch(prepared)
         outputs = self._train_step(state, _to_device(prepared, self.device))
         state, loss, row_grads = outputs[:3]
         tensors = {"loss": loss}

@@ -45,6 +45,7 @@ from elasticdl_tpu_torch.observability import (
     profiler,
     trace,
 )
+from elasticdl_tpu_torch.testing import faults
 from elasticdl_tpu_torch.train.health import HealthSentinelError
 from elasticdl_tpu_torch.worker.drain import install_sigterm_drain
 from elasticdl_tpu_torch.worker.master_client import MasterClient
@@ -69,6 +70,8 @@ def main(argv=None):
     # the host stack sampler: on when EDL_PROF_HZ is set, served as
     # /profilez on the observability port below
     profiler.maybe_start(role)
+    # before any master or PS channel is built: fault specs match on role
+    faults.set_role(role)
     # in chain order: the drain hook came first, so the crash hooks
     # capture it as the previous handler; a SIGTERM dumps the event
     # ring, flushes the journal and the trace, then drains

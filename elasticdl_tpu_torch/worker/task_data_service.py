@@ -122,7 +122,8 @@ class TaskDataService:
 
     def report_record_done(self, count):
         """Account ``count`` consumed records to the oldest pending tasks;
-        report each task whose full range is now covered."""
+        report each task whose full range is now covered. Returns the
+        number of tasks reported."""
         done = []
         with self._lock:
             while count > 0 and self._pending_tasks:
@@ -137,6 +138,7 @@ class TaskDataService:
                     done.append(task)
         for task in done:
             self._mc.report_task_result(task.task_id, "")
+        return len(done)
 
     def report_pending_failed(self, err_message):
         """Report every pending task as failed (training step blew up).

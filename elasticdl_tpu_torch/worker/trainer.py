@@ -14,6 +14,7 @@ import torch
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.models.layers import has_uninitialized_params
+from elasticdl_tpu_torch.testing import faults
 from elasticdl_tpu_torch.train.health import maybe_tracker
 from elasticdl_tpu_torch.train.step_fns import make_eval_step, make_train_step
 from elasticdl_tpu_torch.train.train_state import (
@@ -112,6 +113,8 @@ class TorchTrainer:
         """One step on a numpy batch; returns ``(state, loss)`` with the
         loss a 0-d tensor on the device."""
         state = self.ensure_state(state, batch)
+        # EDL_FAULT_SPEC's data-plane kinds (nan-batch, shape-churn)
+        batch = faults.maybe_poison_batch(batch)
         batch = _to_device(batch, self.device)
         if not self._health_on:
             return self._train_step(state, batch)

@@ -41,8 +41,19 @@ trace (``train_batch``, carrying the task id) that covers the step and
 its bookkeeping, so the PS pulls and pushes and the task's report to
 the master join it over gRPC.
 
-Not ported (ROADMAP): the lockstep multi-host loop and stream
-checkpoints.
+Stream checkpoints (``EDL_STREAM_CHECKPOINT_EVERY``): in a continual
+stream the master's record watermark rides the heartbeat's CommInfo,
+and the worker refreshes it after each task it reports. Each time it
+crosses a boundary of that many records the worker runs the barriers a
+step-cadence checkpoint runs (the in-flight push joined, the device
+tier's dirty rows flushed through K1, the dense checkpoint saved where
+configured), re-clocked from steps to stream records. The first
+boundary observed only anchors the marker. In a stream job these
+barriers and the export's re-assert every tier-resident row, clean ones
+too: the PS's embedding lifecycle may have evicted a clean row the tier
+holds, and the checkpoint or export must carry it.
+
+Not ported (ROADMAP): the lockstep multi-host loop.
 """
 
 import contextlib
@@ -56,7 +67,7 @@ import torch
 from elasticdl_tpu_torch.common import overload
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.device import resolve_device
-from elasticdl_tpu_torch.common.env_utils import env_float, env_str
+from elasticdl_tpu_torch.common.env_utils import env_float, env_int, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -285,11 +296,23 @@ class Worker:
             master_client, "telemetry_provider"
         ):
             master_client.telemetry_provider = self._telemetry_blob
+        # the streaming checkpoint cadence: the watermark last seen on
+        # a CommInfo, and the boundary last acted on
+        self._stream_ckpt_every = env_int("EDL_STREAM_CHECKPOINT_EVERY", 0)
+        self._stream_ckpt_mark = None
+        self._seen_stream_watermark = 0
+        # one record per fired boundary (watermark, version, the tier
+        # flush's tallies and seconds)
+        self.stream_barriers = []
+
+    def _note_comm_info(self, info):
+        if info.mesh_epoch >= 0:
+            self._seen_stream_watermark = info.stream_watermark
 
     def _start_heartbeat(self):
         def beat():
             while not self._heartbeat_stop.wait(self.HEARTBEAT_SECS):
-                self._mc.get_comm_info()
+                self._note_comm_info(self._mc.get_comm_info())
 
         self._heartbeat_thread = threading.Thread(
             target=beat, name="worker-heartbeat", daemon=True
@@ -532,8 +555,16 @@ class Worker:
         """Device-tier writeback barrier (train/device_tier.py): the
         checkpoint and train-end boundaries write the tier's dirty rows
         back to the PS first, so the PS state those artifacts pair with
-        carries the tier's updates. A no-op for dense trainers and with
-        the tier off."""
+        carries the tier's updates. In a continual stream job
+        (EDL_STREAM_CHECKPOINT_EVERY set, or a watermark seen) the PS
+        may run the embedding lifecycle, which evicts rows the tier
+        holds clean, so from then on the tier's flushes re-assert every
+        resident row (``DeviceEmbeddingTier.reassert``). A no-op for
+        dense trainers and with the tier off."""
+        tier = getattr(self.trainer, "device_tier", None)
+        if tier is not None and (self._stream_ckpt_every > 0
+                                 or self._seen_stream_watermark > 0):
+            tier.reassert = True
         flush = getattr(self.trainer, "flush_device_tier", None)
         if flush is not None:
             flush()
@@ -546,6 +577,50 @@ class Worker:
         self._checkpoint_mgr.save(self._version, self.state)
         events.emit("checkpoint_saved", version=self._version,
                     kind="dense")
+
+    def maybe_stream_checkpoint(self):
+        """Fire the checkpoint barriers when the last seen watermark
+        crossed an EDL_STREAM_CHECKPOINT_EVERY boundary, so the PS-side
+        state a stream checkpoint snapshots carries every update this
+        worker holds in flight. True when a boundary fired."""
+        every = self._stream_ckpt_every
+        watermark = self._seen_stream_watermark
+        if every <= 0 or watermark <= 0:
+            return False
+        boundary = watermark // every
+        if self._stream_ckpt_mark is None:
+            # a freshly joined worker must not fire on a boundary its
+            # peers already covered
+            self._stream_ckpt_mark = boundary
+            return False
+        if boundary <= self._stream_ckpt_mark:
+            return False
+        self._stream_ckpt_mark = boundary
+        before = _flush_tallies(self.trainer)
+        t0 = time.monotonic()
+        if self._checkpoint_mgr is not None:
+            # _save_checkpoint runs the join and flush barriers itself
+            self._save_checkpoint()
+        else:
+            self._join_trainer_pushes()
+            self._flush_device_tier()
+        seconds = time.monotonic() - t0
+        after = _flush_tallies(self.trainer)
+        record = {"watermark": int(watermark), "version": self._version,
+                  "seconds": seconds}
+        if before is not None:
+            record.update({key: after[key] - before[key] for key in after})
+        self.stream_barriers.append(record)
+        events.emit("stream_watermark", watermark=int(watermark),
+                    kind="checkpoint")
+        logger.info(
+            "Worker %s stream checkpoint barrier at watermark %d, version "
+            "%d: %d rows written back, %d K1 launches, %.4f s",
+            self._mc.worker_id, watermark, self._version,
+            record.get("written_back_rows", 0),
+            record.get("k1_launches", 0), seconds,
+        )
+        return True
 
     def _timed_train_step(self, batch):
         t0 = self._timing.start()
@@ -567,7 +642,12 @@ class Worker:
         if self._telemetry_on:
             self._update_step_telemetry(real)
         with self._timing.timeit("report_record"):
-            self.tds.report_record_done(real)
+            reported = self.tds.report_record_done(real)
+        if reported and self._stream_ckpt_every > 0:
+            # a window task reported moves the watermark: read it now,
+            # not at the next heartbeat, so no boundary passes unseen
+            self._note_comm_info(self._mc.get_comm_info())
+        self.maybe_stream_checkpoint()
         self._m_version.set(self._version)
         if (
             self._report_version_steps

@@ -62,6 +62,9 @@ def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
     assert "elasticdl_tpu_torch.ops.flash_attention" in modules
     assert "elasticdl_tpu_torch.serve.main" in modules
+    for name in ("stream.source", "stream.feeder", "stream.lifecycle",
+                 "testing.faults", "master.tensorboard_service"):
+        assert "elasticdl_tpu_torch." + name in modules
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *modules],
         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,

@@ -149,8 +149,19 @@ def test_sampler_collects_hot_frames(pkg):
     sampler.start()
     stop = threading.Event()
     thread = _burn_thread(pkg.trace, stop)
+
+    def hot(snap):
+        return any("burn_hot_loop" in f
+                   for e in snap["stacks"] for f in e["stack"])
+
     try:
+        # wait for what is asserted: the first five samples may all
+        # predate the burn thread's first call under a loaded host
+        deadline = time.time() + 10.0
         snap = _wait_for_samples(sampler)
+        while not hot(snap) and time.time() < deadline:
+            time.sleep(0.05)
+            snap = sampler.snapshot()
     finally:
         stop.set()
         thread.join()
