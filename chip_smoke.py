@@ -15,15 +15,16 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    under build/ with programmatic dependent launch off (the serial
    chain of phase 4);
 2. kernels -- K4 against its plain PyTorch version on the card at the
-   serving and training shape and at ten more (fp32, non-causal,
+   serving and training shape and at eleven more (fp32, non-causal,
    head_dim 128, ragged S = 1000; head_dim 256 at bench.py's
    transformer and s16k_flash shapes, ragged in fp32 and bf16; head_dim
-   96, zero-padded to the kernel's 128), each under the tolerance
+   96, zero-padded to the kernel's 128; head_dim 128 at bench.py's MoE
+   shape, batch 16 x 8 heads, S 1024), each under the tolerance
    printed with it; times of the kernel, the plain version and
    ``scaled_dot_product_attention`` (timed only: the port never calls
    it) with CUDA events, L2 flushed before every launch;
 3. backward kernels -- K5 (dq) and K6 (dk, dv) against
-   ``flash_attention_bwd_reference`` at the same eleven shapes, row by row
+   ``flash_attention_bwd_reference`` at the same twelve shapes, row by row
    (each row's error relative to that row's size), raw launches on the
    same inputs bit-equal to the wrapper's, each kernel timed alone
    beside its own plain version, the wrapper (delta and both kernels)
@@ -341,10 +342,19 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    journal created done once, one train-end task, the export at the
    final step and its accuracy on the validation rows above 0.85, and
    the export served by an in-process ``ServingEngine`` over gRPC
-   bit-equal to ``eval_step`` on the same 32 rows. Each part prints a
-   record (steps/s, AUC or accuracy, the worst gradient error, K1-K3
-   launches per step) beside the card's name and power limit, and the
-   phase its seconds;
+   bit-equal to ``eval_step`` on the same 32 rows. Then iris again as
+   an in-process job over a table: the port's ``Master`` with an
+   ``odps://`` origin and one ``Worker`` on the card over a
+   ``TableDataReader`` of an ``InMemoryTableClient`` holding the same
+   rows; every row trained once an epoch by the dispatcher's books,
+   accuracy at or above 0.85; then a prediction-only job over the
+   validation table whose rows land through a
+   ``TablePredictionOutputsProcessor`` in an ``InMemoryWritableTable``
+   and, read back through ``TableDataReader``, equal the trained
+   state's ``eval_step`` over the same rows bit for bit. Each part
+   prints a record (steps/s, AUC or accuracy, the worst gradient error,
+   K1-K3 launches per step) beside the card's name and power limit, and
+   the phase its seconds;
 18. continual streaming (``continual_phase``; phase 8's ``stream_phase``
    is another path) -- DeepFM as a stream job at phase 9's size: the
    port's master in this process with ``EDL_STREAM=synthetic`` (24
@@ -375,7 +385,28 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    checked, with every evaluation's scalars. A summary prints steps/s,
    K1-K3 a step, peak resident rows, evictions, admissions, the
    watermark's lag, each checkpoint's seconds, the phase's seconds and
-   the card's name and power limit.
+   the card's name and power limit;
+19. MoE on one card -- bench.py's MoE (bench.py:316-334: d 1024, 8
+   layers, 8 heads of 128, vocab 32000, MLP ratio 4, 8 experts, top-2,
+   capacity factor 1.25 (320 slots an expert), S 1024, batch 16, AdamW
+   lr 3e-4 wd 0.01, bf16, the one-hot dispatch) and the dense
+   TransformerLM at the matched active MLP ratio 7, both through the
+   port's ``make_train_step`` and the default attention: each arm's
+   first step against the same model on plain attention (phase 6's
+   loss, cosine and attention-leaf rules, ``hold_agreement``),
+   then 2 warm-up steps and 10 timed ones, 8 K4, 8 K5 and 8 K6 in every
+   step; step ms, tokens/s, the FLOP share of the bf16 peak by
+   scripts/bench_moe.py's formulas, peak memory, a profiled step and
+   ``moe_step_overhead_vs_dense``. Then ``"compact"`` against
+   ``"onehot"``: three fp32 AdamW steps each from the same weights,
+   losses within 1e-4 relative, and the compact arm's bf16 step time;
+   the aux loss finite and each MoE block's first-choice share per
+   expert and dropped share. Last, the zoo's MoE ``custom_model`` (12
+   layers, 12 heads, d 768, 8 experts) 3 steps through
+   ``LocalExecutor`` over RecordIO token records (K4-K6 12 a step), its
+   export answered once by an in-process ``ServingEngine``: bare
+   logits, K4 12 times in that forward, within the serve tolerances of
+   ``eval_step``.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -439,6 +470,9 @@ CASES = (
     ("bf16_d256_ragged_s1000_causal", 16, 1000, 256, "bfloat16", True),
     # a head_dim between the kernels' widths: zero-padded to 128
     ("bf16_d96_padded_causal", 96, 1024, 96, "bfloat16", True),
+    # bench.py's MoE and its matched dense arm (phase 19): batch 16 x 8
+    # heads of 128, S 1024
+    ("moe_bf16_d128_causal", 128, 1024, 128, "bfloat16", True),
 )
 # o tolerance per dtype: bf16 rounds p and o at other points than the
 # plain version (one bf16 ulp of O(1) values is 2^-8 = 0.004); fp32
@@ -499,6 +533,19 @@ TRAIN_ATTN_LEAF_TOL = 0.03
 
 def log(msg):
     print(msg, flush=True)
+
+
+def stage_clock():
+    """``(seconds, mark)``: ``mark(name)`` books under ``name`` the
+    seconds since the previous mark, or since the clock was made."""
+    seconds, last = {}, [time.monotonic()]
+
+    def mark(name):
+        now = time.monotonic()
+        seconds[name] = now - last[0]
+        last[0] = now
+
+    return seconds, mark
 
 
 def nvidia_smi_line():
@@ -5248,11 +5295,25 @@ FLEET_KEYS = 64                # affinity keys 1-64; every 8th request key 0
 FLEET_KEY0_EVERY = 8
 FLEET_BURST = 64               # requests of each timed burst
 FLEET_WAIT_S = 300
-# the fleet clocks of the reference's fleet smoke; the scale cooldown
-# outlasts a replica's cold start on the card (no spawn storm)
+# the replica heartbeat's period, and the deadline of one heartbeat RPC
+# (serve/main.py's heartbeat loop). A replica whose heartbeat RPC hangs
+# until its deadline goes silent for a period, the deadline and another
+# period before its next heartbeat lands, so the router's replica
+# timeout is those 7 s and 1 s of margin. It was 15 s, the reference
+# fleet smoke's; every second of it is a second from the kill to the
+# replacement
+FLEET_HEARTBEAT_S = 1
+FLEET_HEARTBEAT_RPC_S = 5
+FLEET_REPLICA_TIMEOUT_S = 2 * FLEET_HEARTBEAT_S + FLEET_HEARTBEAT_RPC_S + 1
+# closed-loop traffic runs this long before the kill: the callers start
+# at once, so a second is tens of requests in flight on every replica
+FLEET_LOOP_BEFORE_KILL_S = 1.0
+# the fleet clocks of the reference's fleet smoke but for the replica
+# timeout above; the scale cooldown outlasts a replica's cold start on
+# the card (no spawn storm)
 FLEET_ENV = {
-    "EDL_ROUTER_HEARTBEAT_SECS": "1",
-    "EDL_ROUTER_REPLICA_TIMEOUT_SECS": "15",
+    "EDL_ROUTER_HEARTBEAT_SECS": str(FLEET_HEARTBEAT_S),
+    "EDL_ROUTER_REPLICA_TIMEOUT_SECS": str(FLEET_REPLICA_TIMEOUT_S),
     "EDL_CANARY_FRACTION": "0.5",
     "EDL_CANARY_MIN_REQUESTS": "15",
     "EDL_CANARY_TIMEOUT_SECS": "600",
@@ -5488,6 +5549,7 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
     from elasticdl_tpu_torch.serve.router import HashRing
     from elasticdl_tpu_torch.train.export import export_state_dict
 
+    split, stage = stage_clock()  # the phase's seconds stage by stage
     widths = dict(ZOO_WIDTHS if widths is None else widths)
     model_params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
     layers, vocab = widths["num_layers"], widths["vocab_size"]
@@ -5504,6 +5566,7 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
     v1, v2, v3 = (os.path.join(root, "v%05d" % i) for i in (1, 2, 3))
     export_state_dict(flat, v1, step=1)
     stamp1 = export_signature(v1)
+    stage("weights_and_v1")
 
     rport, mport = find_free_port(), find_free_port()
     router_addr = "localhost:%d" % rport
@@ -5544,9 +5607,17 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
             raise SystemExit("fleet phase: the callers' process died")
         return json.loads(line)
 
+    heartbeat_ages = {}  # replica -> the largest heartbeat age seen
+
     def routerz():
         status, body = scrape(base + "/routerz")
-        return json.loads(body) if status == 200 else None
+        if status != 200:
+            return None
+        state = json.loads(body)
+        for rid, replica in state.get("replicas", {}).items():
+            heartbeat_ages[rid] = max(heartbeat_ages.get(rid, 0.0),
+                                      replica["heartbeat_age"])
+        return state
 
     def wait_for(cond, what):
         deadline = time.monotonic() + wait_s
@@ -5583,15 +5654,18 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
         state = wait_for(all_loaded(os.path.basename(v1)),
                          "two replicas registered with v1 loaded")
         record["spin_up_s"] = time.time() - t_spawn
+        stage("spin_up")
         first = sorted(state["replicas"])
         model = ServingModel(get_model_spec(ZOO, model_params=model_params),
                              v1, max_batch=FLEET_MAX_BATCH,
                              compute_dtype="bfloat16", device=device)
+        stage("in_process_model")
         tokens = np.random.default_rng(SEED + 14).integers(
             0, vocab, size=(256, seq), dtype=np.int32)
         with ServeClient(router_addr) as client:
             outputs, step, stamp = client.predict(
                 tokens[:1], deadline_secs=600, affinity_key=1)
+        stage("first_routed_answer")
         reset_launches(flash)
         want = model.predict(tokens[:1], 1)["output"].float()
         record["inprocess_k4_launches"] = flash.LAUNCHES
@@ -5613,6 +5687,7 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+        stage("in_process_answer")
         # affinity: a burst over every key lands as the ring says
         ring_owner = owners(first, keys)
         before = {rid: served_by(rid) for rid in first}
@@ -5625,6 +5700,7 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
         if got != want_n:
             failures.append("affinity: replicas served %s, the ring says %s"
                             % (got, want_n))
+        stage("affinity_burst")
         # the router's cost: one replica's keys through it and direct to
         # it, in the order via, direct, direct, via
         target = first[0]
@@ -5645,11 +5721,12 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
                        for r in b["records"] if r[3] != "OK"]
         if spin_errors:
             failures.append("spin-up requests failed: %s" % spin_errors[:3])
+        stage("router_cost_bursts")
 
         # -- SIGKILL one replica mid-traffic -------------------------------
         command(op="start", addr=router_addr, keys=FLEET_KEYS,
                 key0_every=FLEET_KEY0_EVERY, concurrency=callers)
-        time.sleep(3.0)
+        time.sleep(FLEET_LOOP_BEFORE_KILL_S)
         victim = first[0]
         t_kill = time.time()
         os.kill(int(victim.rsplit("-", 1)[1]), signal.SIGKILL)
@@ -5669,6 +5746,7 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
                 break
             time.sleep(0.1)
         record["kill_to_first_served_by_replacement_s"] = time.time() - t_kill
+        stage("loop_kill_to_first_served")
         survivors = [r for r in first if r != victim]
         before_ring = owners(first, keys)
         without = owners(survivors, keys)
@@ -5685,15 +5763,18 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
 
         # -- promote v2 -------------------------------------------------
         export_state_dict(flat, v2, step=8)
+        stage("v2_export")
         t_v2 = time.time()
         stamp2 = export_signature(v2)
         wait_for(lambda s: s["canary"]["incumbent"]["stamp"] == stamp2,
                  "promotion of v2")
         wait_for(all_loaded(os.path.basename(v2)), "v2 loaded everywhere")
         record["v2_loaded_everywhere_s"] = time.time() - t_v2
+        stage("v2_promoted_and_loaded")
 
         # -- roll back a poisoned v3 -------------------------------------
         export_state_dict(poisoned(np, flat), v3, step=9)
+        stage("v3_export")
         t_v3 = time.time()
         stamp3 = export_signature(v3)
         wait_for(lambda s: stamp3 in s["canary"]["rejected"],
@@ -5701,11 +5782,13 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
         state = wait_for(all_loaded(os.path.basename(v2)),
                          "v2 back everywhere after the rollback")
         record["v2_back_everywhere_s"] = time.time() - t_v3
+        stage("v3_rolled_back")
         time.sleep(3.0)  # three heartbeats with v3 still the newest
         state = routerz()
         if state["canary"]["state"] != "idle":
             failures.append("the canary retried: %s" % state["canary"])
         stopped = command(op="stop")
+        stage("no_retry_and_stop")
     finally:
         if caller.poll() is None:
             try:
@@ -5730,6 +5813,12 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
             spawned = [int(m.group(1)) for m in _SPAWN_RE.finditer(f.read())]
         for pid in spawned:
             kill_if_replica(pid)
+        stage("router_drain")
+    # what the replica timeout has to cover: the longest silence the
+    # script's polls saw of each replica (the victim's ends at its expiry)
+    record["max_heartbeat_age_s"] = heartbeat_ages
+    record["replica_timeout_s"] = float(
+        (fleet_env or FLEET_ENV)["EDL_ROUTER_REPLICA_TIMEOUT_SECS"])
     record["router_rc"] = router.returncode
     if router.returncode != 0:
         failures.append("the router exited %s" % router.returncode)
@@ -5782,6 +5871,12 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
         if spawn:
             cold[e["replica"]] = e["ts"] - spawn[-1]
     record["cold_start_s"] = cold
+    # each cold start in three: the spawn to the replica's role_start
+    # (interpreter, imports, the engine's set-up), to its model_loaded
+    # (the export read, cast and moved to the device), to its
+    # registration
+    record["cold_start_split_s"] = cold_start_split(journal, grows,
+                                                    registered)
     if not lost or len(reg_new) != 1:
         failures.append("replica_lost for the victim %d, replacement "
                         "registrations %d" % (len(lost), len(reg_new)))
@@ -5807,10 +5902,30 @@ def fleet_phase(torch, np, flash, device="cuda", widths=None,
     if (len(k4) < 3 or any(r["launches"] != layers * r["forwards"]
                            or r["forwards"] <= 0 for r in k4)):
         failures.append("K4 in the replicas: %s" % k4)
+    stage("journal_and_checks")
+    record["split_s"] = split
     log(json.dumps(record))
     if failures:
         raise SystemExit("fleet phase: " + "; ".join(failures))
     return record
+
+
+def cold_start_split(journal, grows, registered):
+    """{replica: [spawn to role_start, role_start to model_loaded,
+    model_loaded to registration]} in seconds, from the router's grow
+    decisions and registrations and each replica's own journal (its
+    pid is the replica id's suffix)."""
+    split = {}
+    for e in registered:
+        spawn = [g["ts"] for g in grows if g["ts"] <= e["ts"]]
+        pid = int(e["replica"].rsplit("-", 1)[1])
+        own = {r["event"]: r["ts"] for r in journal if r.get("pid") == pid
+               and r["event"] in ("role_start", "model_loaded")}
+        if spawn and len(own) == 2:
+            split[e["replica"]] = [own["role_start"] - spawn[-1],
+                                   own["model_loaded"] - own["role_start"],
+                                   e["ts"] - own["model_loaded"]]
+    return split
 
 
 def zoo_weights(np, rng, vocab_size, num_layers, num_heads, embed_dim):
@@ -7899,6 +8014,8 @@ FEATURE_ZOO_AGREE = "census_wide_deep"
 # iris as a job: rows as tests/test_model_zoo.py's create_iris_csv
 # makes them (with a header row), two training files and one
 # validation file of 120 rows, 16 rows a task, 10 epochs
+IRIS_COLUMNS = ("sepal_length", "sepal_width", "petal_length",
+                "petal_width", "label")
 IRIS_FILES = 2
 IRIS_ROWS = 120
 IRIS_PER_TASK = 16
@@ -8287,18 +8404,28 @@ def feature_zoo_phase(torch, np, workdir, device="cuda", zoo=FEATURE_ZOO,
     return results
 
 
-def iris_rows(np, path, num_records=IRIS_ROWS, seed=0):
-    """tests/test_model_zoo.py's create_iris_csv, with a header row (the
-    CSV reader takes the first line as one)."""
+def iris_records(np, num_records=IRIS_ROWS, seed=0):
+    """tests/test_model_zoo.py's create_iris_csv rows: four features at
+    the file's three decimals and an int label a row."""
     rng = np.random.RandomState(seed)
+    rows = []
+    for _ in range(num_records):
+        label = rng.randint(0, 3)
+        base = np.array([4.5, 3.0, 1.5, 0.2]) + label * np.array(
+            [1.0, 0.2, 1.8, 0.9])
+        row = base + rng.randn(4) * 0.2
+        rows.append(tuple(float("%.3f" % v) for v in row) + (int(label),))
+    return rows
+
+
+def iris_rows(np, path, num_records=IRIS_ROWS, seed=0):
+    """``iris_records`` as a CSV file with a header row (the CSV reader
+    takes the first line as one)."""
     with open(path, "w") as f:
-        f.write("sepal_length,sepal_width,petal_length,petal_width,label\n")
-        for _ in range(num_records):
-            label = rng.randint(0, 3)
-            base = np.array([4.5, 3.0, 1.5, 0.2]) + label * np.array(
-                [1.0, 0.2, 1.8, 0.9])
-            row = base + rng.randn(4) * 0.2
-            f.write(",".join("%.3f" % v for v in row) + ",%d\n" % label)
+        f.write(",".join(IRIS_COLUMNS) + "\n")
+        for row in iris_records(np, num_records, seed):
+            f.write(",".join("%.3f" % v for v in row[:4])
+                    + ",%d\n" % row[4])
     return path
 
 
@@ -8440,16 +8567,184 @@ def iris_job(torch, np, workdir, device="cuda", files=IRIS_FILES,
     return record
 
 
+# phase 17's table job: iris over an in-process table (the rows
+# iris_job writes to its CSV files), then its predictions landed in a
+# table
+TABLE_ZOO = "chip_smoke_iris_table"
+TABLE_ORIGIN = "odps://smoke/iris"
+
+
+def table_zoo(sink):
+    """A model-zoo module made in this process and registered as
+    TABLE_ZOO: iris_dnn's contract, and a PredictionOutputsProcessor
+    that lands each prediction batch in ``sink`` (one module object, so
+    the master, the worker and this script see the same sink)."""
+    import types
+
+    from elasticdl_tpu_torch.data.table_writer import (
+        TablePredictionOutputsProcessor,
+    )
+    from elasticdl_tpu_torch.models import iris_dnn
+
+    module = types.ModuleType(TABLE_ZOO)
+    for name in ("custom_model", "dataset_fn", "eval_metrics_fn", "loss",
+                 "optimizer", "params_from_flax"):
+        setattr(module, name, getattr(iris_dnn, name))
+
+    class PredictionOutputsProcessor(TablePredictionOutputsProcessor):
+        def make_sink(self):
+            return sink
+
+    module.PredictionOutputsProcessor = PredictionOutputsProcessor
+    sys.modules[TABLE_ZOO] = module
+    return module
+
+
+def table_job(torch, np, workdir, device="cuda"):
+    """iris as an in-process job over a table: the port's ``Master``
+    (``training_data`` an ``odps://`` origin, its table client through
+    ``data_reader_params``) and one ``Worker`` on ``device`` over a
+    ``TableDataReader`` of an ``InMemoryTableClient`` holding the rows
+    iris_job writes to its CSV files (``iris_records``, same seeds), with
+    a dense checkpoint at the final step. Checks: every row trained once an epoch by the
+    dispatcher's books, the final version, accuracy on the validation
+    rows at or above IRIS_ACCURACY_FLOOR. Then a prediction-only job
+    over the validation table restoring that checkpoint: its rows land
+    through a ``TablePredictionOutputsProcessor`` in an
+    ``InMemoryWritableTable``, are read back through ``TableDataReader``
+    and must equal the trained state's ``eval_step`` over the same rows
+    bit for bit."""
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data.pipeline import Dataset, batch_real_count
+    from elasticdl_tpu_torch.data.readers import create_data_reader
+    from elasticdl_tpu_torch.data.table_reader import (
+        InMemoryTableClient,
+        TableDataReader,
+    )
+    from elasticdl_tpu_torch.data.table_writer import InMemoryWritableTable
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.models import iris_dnn
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    train_rows = sum((iris_records(np, IRIS_ROWS, seed=2 * i)
+                      for i in range(IRIS_FILES)), [])
+    valid_rows = iris_records(np, IRIS_ROWS, seed=1)
+    sink = InMemoryWritableTable(column_names=["output"])
+    table_zoo(sink)
+    ckpt_dir = os.path.join(workdir, "iris_table_ckpt")
+    steps = -(-len(train_rows) * IRIS_EPOCHS // IRIS_BATCH)
+
+    def job(table_rows, mode, data_key, **worker_kwargs):
+        client = InMemoryTableClient(table_rows, IRIS_COLUMNS)
+        port = find_free_port()
+        master = Master(TABLE_ZOO, records_per_task=IRIS_PER_TASK,
+                        port=port, num_epochs=(
+                            IRIS_EPOCHS if mode == Mode.TRAINING else 1),
+                        task_timeout_secs=60.0,
+                        data_reader_params={"table_client": client},
+                        **{data_key: TABLE_ORIGIN})
+        done = []
+        master.task_dispatcher.add_task_completed_callback(
+            lambda t: done.append((t.type, t.shard_name, t.start, t.end)))
+        master.prepare()
+        t0 = time.monotonic()
+        try:
+            worker = Worker(
+                MasterClient("localhost:%d" % port, worker_id=0), TABLE_ZOO,
+                create_data_reader(TABLE_ORIGIN, table_client=client),
+                minibatch_size=IRIS_BATCH, mode=mode, wait_sleep_secs=0.1,
+                device=device, **worker_kwargs)
+            worker.run()
+            finished = master.task_dispatcher.finished()
+        finally:
+            master.stop()
+        return worker, done, finished, time.monotonic() - t0
+
+    trainer, done, train_finished, train_s = job(
+        train_rows, Mode.TRAINING, "training_data", checkpoint_dir=ckpt_dir,
+        checkpoint_steps=steps)
+    trained = sorted((start, end) for kind, _, start, end in done
+                     if kind == pb.TRAINING)
+    want_ranges = sorted((lo, min(lo + IRIS_PER_TASK, len(train_rows)))
+                         for lo in range(0, len(train_rows), IRIS_PER_TASK)
+                         for _ in range(IRIS_EPOCHS))
+    x = np.asarray([r[:4] for r in valid_rows], np.float32)
+    labels = np.asarray([r[4] for r in valid_rows])
+    logits = trainer.trainer.eval_step(trainer.state, {"features": x})
+    accuracy = float((np.asarray(logits).argmax(-1) == labels).mean())
+
+    scorer, pred_done, pred_finished, pred_s = job(
+        valid_rows, Mode.PREDICTION, "prediction_data",
+        checkpoint_dir_for_init=ckpt_dir)
+    written = sink.rows("worker=0")
+    back = TableDataReader(
+        table_client=InMemoryTableClient(written, ["output"]),
+        table="predictions", records_per_task=max(1, len(written)))
+    read = [row[0] for name, (start, count) in back.create_shards().items()
+            for row in back.read_records(
+                pb.Task(shard_name=name, start=start, end=start + count))]
+    read = np.asarray(read, np.float32)
+    # the trained state's forward over the same rows, task by task in
+    # the order they were done, in the worker's batches
+    reader = TableDataReader(
+        table_client=InMemoryTableClient(valid_rows, IRIS_COLUMNS),
+        table="iris")
+    want = []
+    for _, shard, lo, hi in pred_done:
+        task = pb.Task(shard_name=shard, start=lo, end=hi)
+        for one in iris_dnn.dataset_fn(Dataset(
+                lambda task=task: reader.read_records(task)),
+                Mode.PREDICTION).batch(IRIS_BATCH):
+            outputs = trainer.trainer.eval_step(trainer.state, one)
+            want.append(np.asarray(outputs)[:batch_real_count(one)])
+    want = np.concatenate(want) if want else np.zeros((0, 3), np.float32)
+    record = {
+        "phase": "17_features", "part": "table_job", "rows": len(train_rows),
+        "per_task": IRIS_PER_TASK, "epochs": IRIS_EPOCHS,
+        "batch": IRIS_BATCH,
+        "train_tasks_done": len(trained), "train_seconds": train_s,
+        "steps": steps, "model_version": trainer.model_version,
+        "steps_per_s": steps / train_s, "accuracy": accuracy,
+        "accuracy_floor": IRIS_ACCURACY_FLOOR,
+        "prediction_tasks_done": len(pred_done),
+        "prediction_seconds": pred_s, "scored_step": int(scorer.state.step),
+        "partitions": sorted(sink.partitions), "rows_written": len(written),
+        "read_back_bit_equal": bool(read.shape == want.shape
+                                    and np.array_equal(read, want)),
+        "card": card_line(device)}
+    log(json.dumps(record))
+    failures = [what for what, bad in (
+        ("the training job finished", not train_finished),
+        ("every row once an epoch", trained != want_ranges),
+        ("the final version", trainer.model_version != steps),
+        ("accuracy", not accuracy >= IRIS_ACCURACY_FLOOR),
+        ("the prediction job finished", not pred_finished
+         or [d[0] for d in pred_done]
+         != [pb.PREDICTION] * -(-len(valid_rows) // IRIS_PER_TASK)),
+        ("scored the final checkpoint", record["scored_step"] != steps),
+        ("one partition of every row", record["partitions"] != ["worker=0"]
+         or len(written) != len(valid_rows)),
+        ("predictions read back bit-equal to eval_step",
+         not record["read_back_bit_equal"])) if bad]
+    if failures:
+        raise SystemExit("table job: %s" % failures)
+    return record
+
+
 def feature_phase(torch, np, tier, workdir):
     """Phase 17 on the card (see the module docstring)."""
     t0 = time.monotonic()
     promoted = promoted_phase(torch, np, tier, workdir)
     zoo = feature_zoo_phase(torch, np, workdir)
     iris = iris_job(torch, np, workdir)
+    table = table_job(torch, np, workdir)
     seconds = time.monotonic() - t0
     log(json.dumps({"phase": "17_features", "part": "summary",
                     "seconds": seconds, "card": nvidia_smi_line()}))
-    return {"promoted": promoted, "zoo": zoo, "iris": iris,
+    return {"promoted": promoted, "zoo": zoo, "iris": iris, "table": table,
             "seconds": seconds}
 
 
@@ -8494,6 +8789,12 @@ CONTINUAL_LFU_DECAY = 0.9
 # evaluation over the holdout at versions 128 and 256 of the 384
 CONTINUAL_EVAL_STEPS = 128
 CONTINUAL_FAULT_BURST = 3           # unavailable on PS 1's push_gradients
+# the holdout's logloss served by the PS against the same export scored
+# with the rows the tier held at the job's end: the PS's row bound cuts
+# a third of those rows, and a cut of the tier's hottest rows moved the
+# logloss by 0.084 on an H100 (PERF.md); rows the holdout barely reads
+# move it by under 1e-4
+CONTINUAL_SERVED_GAP = 0.01
 CONTINUAL_WAIT_S = 300
 CONTINUAL_PS_GONE_S = 60            # the PS outlive the master: SIGTERMed
 _FAULT_FIRE_RE = re.compile(r"fault injection: unavailable fired on "
@@ -8503,6 +8804,17 @@ _SWEEP_RE = re.compile(
     r"([0-9.]+) s; resident rows (\{[^}]*\}); in flight (\{[^}]*\}); "
     r"totals admitted (\d+) evicted ttl (\d+) lfu (\d+), grad rows "
     r"dropped (\d+)", re.M)
+
+
+def tier_lookup(tier_ids, ids):
+    """(held, at): which of ``ids`` the non-empty, unsorted ``tier_ids``
+    hold, and each held id's position in ``tier_ids``."""
+    import numpy as np
+
+    order = np.argsort(tier_ids)
+    pos = np.searchsorted(tier_ids, ids, sorter=order)
+    at = order[np.minimum(pos, tier_ids.size - 1)]
+    return tier_ids[at] == ids, at
 
 
 def continual_phase(torch, np, tier, workdir, device="cuda",
@@ -8552,7 +8864,9 @@ def continual_phase(torch, np, tier, workdir, device="cuda",
     and at each flush at the stream's end every tier-resident row pulled
     back bit-equal from its shard right after a re-assert that no sweep
     of that shard overtook;
-    (6) the holdout's logloss under its labels' base-rate logloss; (7)
+    (6) the holdout's logloss under its labels' base-rate logloss, and
+    within ``CONTINUAL_SERVED_GAP`` of the same export scored with the
+    rows the tier held at the job's end; (7)
     PS 1's interceptor fired exactly ``fault_burst`` times, PS 0's
     never, and each shard's store version at its SIGTERM equals the
     version worker 0 holds for it; (8) the TensorBoard event file reads
@@ -8803,15 +9117,42 @@ def continual_phase(torch, np, tier, workdir, device="cuda",
         launches = dict(zip(("gather", "insert_rows", "scatter_apply"),
                             tier_counts(tier)))
         shard_versions = dict(ps_client._shard_versions)
-        # the last export scores the holdout through the PS it pairs with
+        # the last export scores the holdout through the PS it pairs with;
+        # each pull's rows are noted and held against the tier's, and the
+        # holdout is scored again with the tier's rows where it holds them
+        reader = PSClient(addrs)
+        pull, served = reader.pull_embedding_batch, []
+        tier_rows = {name: dtier.table_rows(name)
+                     for name in ("deepfm_emb", "deepfm_linear")}
+
+        def noted_pull(ids_by_table):
+            rows = pull(ids_by_table)
+            served.append({name: (np.asarray(ids), np.asarray(rows[name]))
+                           for name, ids in ids_by_table.items()})
+            return rows
+
+        def tier_pull(ids_by_table):
+            rows = pull(ids_by_table)
+            for name, ids in ids_by_table.items():
+                held, at = tier_lookup(tier_rows[name][0], ids)
+                rows[name] = np.array(rows[name], dtype=np.float32)
+                rows[name][held] = tier_rows[name][1][at[held]]
+            return rows
+
         model = ServingModel(get_model_spec(zoo), dirs["export"],
-                             max_batch=batch, ps_client=PSClient(addrs),
+                             max_batch=batch, ps_client=reader,
                              device=device)
-        logits = np.concatenate([
-            model.predict({"ids": hold_ids[i:i + batch]},
-                          len(hold_ids[i:i + batch]))["output"].numpy()
-            for i in range(0, len(hold_ids), batch)]).astype(np.float64)
-        model._preparer._ps.close()
+
+        def score(pull_fn):
+            reader.pull_embedding_batch = pull_fn
+            return np.concatenate([
+                model.predict({"ids": hold_ids[i:i + batch]},
+                              len(hold_ids[i:i + batch]))["output"].numpy()
+                for i in range(0, len(hold_ids), batch)]).astype(np.float64)
+
+        logits = score(noted_pull)
+        logits_tier = score(tier_pull)
+        reader.close()
         export_step = model.step
         ps_codes = stop_ps(started)
     finally:
@@ -8887,6 +9228,20 @@ def continual_phase(torch, np, tier, workdir, device="cuda",
     base_logloss = -(p0 * np.log(p0) + (1 - p0) * np.log(1 - p0))
     holdout_logloss = float(np.mean(np.logaddexp(0.0, logits)
                                     - hold_labels * logits))
+    tier_logloss = float(np.mean(np.logaddexp(0.0, logits_tier)
+                                 - hold_labels * logits_tier))
+    # of the ids each scoring pull asked for: how many the tier held at
+    # the job's end, and of those how many the PS served as the tier
+    # held them (a row the PS's LFU bound evicted comes back cold)
+    tier_served = {name: [0, 0, 0] for name in tier_rows}
+    for pulled in served:
+        for name, (ids, rows) in pulled.items():
+            held, at = tier_lookup(tier_rows[name][0], ids)
+            same = (rows[held] == tier_rows[name][1][at[held]]).all(axis=1)
+            counts = tier_served[name]
+            counts[0] += int(ids.size)
+            counts[1] += int(held.sum())
+            counts[2] += int(same.sum())
     window_done = [d for d in done if d[1] == pb.TRAINING]
     train_end_done = [d for d in done if d[1] == pb.TRAIN_END_CALLBACK]
     journal_windows = [op for op in journal if op.get("op") == "stream_window"]
@@ -8991,6 +9346,8 @@ def continual_phase(torch, np, tier, workdir, device="cuda",
         "evaluations": [[v, s] for v, s in summaries],
         "holdout_logloss": holdout_logloss,
         "holdout_base_rate_logloss": float(base_logloss),
+        "holdout_logloss_tier_rows": tier_logloss,
+        "holdout_pulled_tier_held_served": tier_served,
         "fault_fires": fires, "fault_burst": fault_burst,
         "worker_shard_versions": shard_versions,
         "ps_final_versions": final_versions, "ps_exit_codes": ps_codes,
@@ -9070,12 +9427,16 @@ def continual_phase(torch, np, tier, workdir, device="cuda",
         failures.append("tier: formula mismatches %s, launches %s, after "
                         "the final flush %s" % (bad_steps[:5], launches,
                                                 finals))
-    # (6) learning
-    if not record["all_finite"] or not holdout_logloss < base_logloss:
+    # (6) learning, and the PS serving what the tier learned
+    if (not record["all_finite"] or not holdout_logloss < base_logloss
+            or not holdout_logloss - tier_logloss < CONTINUAL_SERVED_GAP):
         failures.append("holdout logloss %.6f not under the base rate's "
-                        "%.6f (losses finite %s)" % (
+                        "%.6f or not within %s of the tier rows' %.6f "
+                        "(losses finite %s, pulled/tier-held/served as "
+                        "held %s)" % (
                             holdout_logloss, base_logloss,
-                            record["all_finite"]))
+                            CONTINUAL_SERVED_GAP, tier_logloss,
+                            record["all_finite"], tier_served))
     # (7) faults and the version books
     if (len(fires[1]) != fault_burst or fires[0]
             or [n for _, n in fires[1]] != list(range(1, fault_burst + 1))
@@ -9109,9 +9470,452 @@ def continual_summary(record):
             "evictions", "admissions",
             "watermark_lag_records_max", "watermark_lag_records_mean",
             "checkpoint_seconds", "holdout_logloss",
-            "holdout_base_rate_logloss", "seconds", "card")
+            "holdout_base_rate_logloss", "holdout_logloss_tier_rows",
+            "holdout_pulled_tier_held_served", "seconds", "card")
     log(json.dumps(dict({"phase": "18_continual", "part": "summary"},
                         **{k: record[k] for k in keys})))
+
+
+# phase 19: bench.py's MoE (bench.py:316-334 runs scripts/bench_moe.py at
+# d 1024, 8 layers, S 1024, batch 16, 8 experts; that script's defaults
+# give 8 heads (of 128), vocab 32000, MLP ratio 4, top-2, capacity factor
+# 1.25, AdamW lr 3e-4 wd 0.01, bf16 compute and the one-hot dispatch)
+# beside the dense LM at the matched active MLP ratio, both through the
+# port's make_train_step and the default attention (K4-K6 at head_dim
+# 128). Cut from bench_moe.py's one warm-up scan and one timed scan of 10
+# steps to 2 warm-up steps and 10 timed ones
+MOE_ZOO = "elasticdl_tpu_torch.models.moe_transformer"
+MOE_WIDTHS = dict(vocab_size=32000, num_layers=8, num_heads=8,
+                  embed_dim=1024)
+MOE_ROUTING = dict(num_experts=8, top_k=2, capacity_factor=1.25)
+MOE_MLP_RATIO = 4
+MOE_SEQ = 1024
+MOE_BATCH = 16
+MOE_WARMUP = 2
+MOE_STEPS = 10
+# "compact" against "onehot": three AdamW steps each from the same
+# weights in fp32 (TF32 off), the losses within the rtol of
+# tests/test_moe.py::test_moe_lm_compact_matches_onehot_losses. In bf16
+# the per-sample losses are bf16 values (an ulp is 0.0625 at 8-16), so a
+# one-ulp difference in one sample's mean would move the batch loss by
+# 4e-4 relative: the two dispatches round at other points (the one-hot
+# einsum once over its k terms, the gather per term)
+MOE_COMPACT_STEPS = 3
+MOE_COMPACT_RTOL = 1e-4
+MOE_COMPACT_BF16_STEPS = 3     # the compact arm's bf16 step time, after 1
+# the zoo's custom_model (vocab 32000, 12 layers, 12 heads, d 768, 8
+# experts) through LocalExecutor over RecordIO token records: 3 steps of 4
+MOE_ZOO_BATCH = 4
+MOE_ZOO_STEPS = 3
+
+
+def moe_flops(d, layers, seq, batch, vocab, mlp_ratio, num_experts, k,
+              capacity_factor, compact_dispatch):
+    """Matmul FLOPs of one MoeTransformerLM train step, fwd + bwd = 3x
+    fwd (the formula of scripts/bench_moe.py:45-77): the MoE FFN in every
+    other block runs every (expert, slot) of the static capacity, full
+    or not; the one-hot dispatch and combine einsums count as matmuls,
+    the compact gathers do not."""
+    from elasticdl_tpu_torch.ops.moe import expert_capacity
+
+    tokens = batch * seq
+    moe_layers = layers // 2
+    dense_layers = layers - moe_layers
+    capacity = expert_capacity(seq, num_experts, k, capacity_factor)
+    ff = mlp_ratio * d
+    proj_attn = 2 * tokens * (4 * d * d) * layers
+    attn = 2 * (2 * batch * seq * seq * d) * layers / 2
+    ffn_dense = 2 * tokens * (2 * mlp_ratio * d * d) * dense_layers
+    slots = batch * num_experts * capacity
+    ffn_moe = 2 * slots * (2 * d * ff) * moe_layers
+    router = 2 * tokens * d * num_experts * moe_layers
+    dispatch = 0 if compact_dispatch else (
+        2 * 2 * batch * seq * num_experts * capacity * d * moe_layers)
+    head = 2 * tokens * d * vocab
+    return 3 * (proj_attn + attn + ffn_dense + ffn_moe + router + dispatch
+                + head)
+
+
+def matched_mlp_ratio(mlp_ratio, top_k, capacity_factor):
+    """The dense arm's MLP ratio at the MoE arm's active FFN FLOPs
+    (scripts/bench_moe.py:222-227): half the blocks carry k*cf times the
+    FFN, so the mean ratio is r * (1 + k*cf) / 2; 7 at bench's config."""
+    return max(1, round(mlp_ratio * (1 + top_k * capacity_factor) / 2))
+
+
+def expert_load(torch, model, params, tokens, routing):
+    """One training-mode forward of ``model`` at ``params`` (bf16) on
+    ``tokens``, no gradient: the aux loss and, per MoE block, the share of
+    tokens whose first choice is each expert and the share of (token,
+    rank) assignments dropped past the capacity."""
+    from torch.func import functional_call
+
+    from elasticdl_tpu_torch.models.moe_transformer import MoeBlock
+    from elasticdl_tpu_torch.ops.moe import (
+        expert_capacity,
+        top_k_routing_compact,
+    )
+    from elasticdl_tpu_torch.train.train_state import cast_floating
+
+    logits = []
+    hooks = [b.moe_mlp.router.register_forward_hook(
+        lambda mod, args, out: logits.append(out.detach().float()))
+        for b in model.blocks if isinstance(b, MoeBlock)]
+    model.train()
+    try:
+        with torch.no_grad():
+            out = functional_call(
+                model, cast_floating(dict(params), torch.bfloat16),
+                (tokens,))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    experts, k = routing["num_experts"], routing["top_k"]
+    capacity = expert_capacity(tokens.shape[1], experts, k,
+                               routing["capacity_factor"])
+    layers = []
+    for lg in logits:
+        _, slot, _ = top_k_routing_compact(lg, k, capacity)
+        first = torch.bincount(lg.argmax(dim=-1).reshape(-1),
+                               minlength=experts).float()
+        layers.append({
+            "first_choice_share": (first / first.sum()).tolist(),
+            "dropped_share": (slot == experts * capacity).float().mean()
+            .item()})
+    return {"aux_loss": out["aux_loss"].item(), "capacity": capacity,
+            "layers": layers}
+
+
+def lm_arm(torch, np, flash, model, spec_plain, loss_fn, tokens, device,
+           what, warmup=MOE_WARMUP, steps=MOE_STEPS):
+    """One arm: the first step against ``spec_plain`` (the same model on
+    plain attention; phase 6's rules), then ``warmup`` steps and
+    ``steps`` timed ones through ``make_train_step`` (AdamW lr 3e-4 wd
+    0.01, bf16 compute), fenced by the last loss, K4-K6 counted in every
+    step; step ms, tokens/s, peak memory and a profiled step. Returns
+    (record, agreement, state)."""
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.step_fns import make_train_step
+    from elasticdl_tpu_torch.train.train_state import create_train_state
+
+    batch, seq = tokens.shape
+    step_batch = {"features": tokens, "labels": tokens,
+                  "_mask": np.ones(batch, np.float32)}
+    agreement = first_step_agreement(torch, model, spec_plain, step_batch,
+                                     device)
+    log(json.dumps(dict(agreement, phase="19_moe", arm=what,
+                        card=card_line(device))))
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tx = create_optimizer("AdamW", learning_rate=3e-4, weight_decay=0.01)
+    step_fn = make_train_step(model, loss_fn, tx,
+                              compute_dtype=torch.bfloat16)
+    tensors = {k: torch.from_numpy(v).to(device)
+               for k, v in step_batch.items()}
+    state = create_train_state(model, tx)
+    losses, launches = [], []
+
+    def counted_step(state):
+        reset_launches(flash)
+        state, loss = step_fn(state, tensors)
+        launches.append(read_launches(flash))
+        return state, loss
+
+    for _ in range(warmup):
+        state, loss = counted_step(state)
+        losses.append(float(loss))
+    sync(torch, torch.device(device))
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = counted_step(state)
+    losses.append(float(loss))  # the fetch fences the timed steps
+    step_s = (time.perf_counter() - t0) / steps
+    record = {"phase": "19_moe", "arm": what, "seq": seq, "batch": batch,
+              "warmup": warmup, "steps": steps, "step_ms": step_s * 1e3,
+              "tokens_per_s": batch * seq / step_s, "losses": losses,
+              "launches_per_step": launches}
+    if device == "cuda":
+        record["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        holder = {"state": state}
+
+        def one():
+            holder["state"], _ = step_fn(holder["state"], tensors)
+
+        record["step_profile"] = profile_dense_step(
+            torch, one, "moe_%s_train_step" % what)
+        state = holder["state"]
+    else:
+        record["peak_mem_gb"] = "not measured"
+    del step_fn, tensors
+    return record, agreement, state
+
+
+def moe_compact_check(torch, np, init, widths, routing, tokens, device):
+    """"compact" against "onehot" from the same weights ``init``: three
+    AdamW steps each in fp32, the losses within MOE_COMPACT_RTOL; each
+    arm's fp32 step times; then the compact arm's bf16 step time (one
+    warm-up step, then MOE_COMPACT_BF16_STEPS)."""
+    from elasticdl_tpu_torch.models.moe_transformer import (
+        MoeTransformerLM,
+        loss,
+    )
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+    from elasticdl_tpu_torch.train.step_fns import make_train_step
+    from elasticdl_tpu_torch.train.train_state import create_train_state
+
+    batch = tokens.shape[0]
+    tensors = {"features": torch.from_numpy(tokens).to(device),
+               "labels": torch.from_numpy(tokens).to(device),
+               "_mask": torch.ones(batch, device=device)}
+
+    def arm(impl, compute_dtype, n):
+        with torch.device(device):
+            net = MoeTransformerLM(mlp_ratio=MOE_MLP_RATIO,
+                                   dispatch_impl=impl,
+                                   **widths, **routing)
+        net.load_state_dict(init)
+        tx = create_optimizer("AdamW", learning_rate=3e-4, weight_decay=0.01)
+        step_fn = make_train_step(net, loss, tx, compute_dtype=compute_dtype)
+        state = create_train_state(net, tx)
+        losses, step_ms = [], []
+        for _ in range(n):
+            sync(torch, torch.device(device))
+            t0 = time.perf_counter()
+            state, value = step_fn(state, tensors)
+            losses.append(float(value))  # fences the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        del net, state, step_fn
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        return losses, step_ms
+
+    onehot, onehot_ms = arm("onehot", None, MOE_COMPACT_STEPS)
+    compact, compact_ms = arm("compact", None, MOE_COMPACT_STEPS)
+    bf16_losses, bf16_ms = arm("compact", torch.bfloat16,
+                               1 + MOE_COMPACT_BF16_STEPS)
+    rel = [abs(c - o) / abs(o) for c, o in zip(compact, onehot)]
+    return {"phase": "19_moe", "part": "compact_vs_onehot",
+            "compute_dtype": "float32", "steps": MOE_COMPACT_STEPS,
+            "onehot_losses": onehot, "compact_losses": compact,
+            "loss_rel_diff": rel, "rtol": MOE_COMPACT_RTOL,
+            "onehot_fp32_step_ms": onehot_ms,
+            "compact_fp32_step_ms": compact_ms,
+            "compact_bf16_losses": bf16_losses,
+            "compact_bf16_step_ms": (sum(bf16_ms[1:])
+                                     / MOE_COMPACT_BF16_STEPS),
+            "ok": max(rel) <= MOE_COMPACT_RTOL
+            and all(np.isfinite(bf16_losses))}
+
+
+def moe_zoo_job(torch, np, flash, workdir, device="cuda", widths=None,
+                seq=TRAIN_SEQ):
+    """The zoo's custom_model (or ``widths``) through ``LocalExecutor``
+    (bf16, AdamW) over RecordIO token records made with numpy from a
+    seed: finite losses, K4-K6 once a layer in every step; its export
+    answered once by an in-process ``ServingEngine``: bare logits of
+    the request's shape, K4 once a layer in that forward, within the
+    serve tolerances of the trainer's ``eval_step``."""
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.serve.engine import ServingEngine
+    from elasticdl_tpu_torch.train.export import export_train_state
+    from elasticdl_tpu_torch.train.local_executor import LocalExecutor
+
+    params = "" if widths is None else ";".join(
+        "%s=%r" % kv for kv in sorted(widths.items()))
+    # the zoo's defaults (the reference's custom_model) where not given
+    layers = (widths or {}).get("num_layers", 12)
+    vocab = (widths or {}).get("vocab_size", 32000)
+    tokens = np.random.default_rng(SEED + 19).integers(
+        0, vocab, size=(MOE_ZOO_STEPS * MOE_ZOO_BATCH, seq), dtype=np.int32)
+    data_dir = os.path.join(workdir, "moe_zoo_data")
+    os.makedirs(data_dir)
+    recordio.write_records(os.path.join(data_dir, "part-0.rec"),
+                           [encode_example({"tokens": t}) for t in tokens])
+    executor = LocalExecutor(MOE_ZOO, training_data=data_dir,
+                             minibatch_size=MOE_ZOO_BATCH,
+                             compute_dtype="bfloat16",
+                             seed=SEED, model_params=params, device=device)
+    reset_launches(flash)
+    losses = executor.train()
+    launches = read_launches(flash)
+    export_dir = os.path.join(workdir, "moe_zoo_export")
+    export_train_state(executor.state, export_dir)
+    engine = ServingEngine(MOE_ZOO, export_dir, model_params=params,
+                           compute_dtype="bfloat16", max_batch=1,
+                           max_delay_ms=2.0, deadline_ms=600000.0,
+                           device=device).start(block=True)
+    try:
+        reset_launches(flash)
+        outputs, served_step, _ = engine.predict(tokens[:1], 1,
+                                                 deadline_secs=600)
+        serve_k4 = flash.LAUNCHES
+    finally:
+        engine.drain(timeout=30)
+    served = outputs["output"]
+    want = executor.trainer.eval_step(executor.state, {"features": tokens[:1]})
+    got = served.float().cpu().numpy()
+    diff = np.abs(got - np.asarray(want, np.float32))
+    record = {
+        "phase": "19_moe", "part": "zoo_job", "layers": layers,
+        "steps": len(losses), "losses": losses, "launches": launches,
+        "served_shape": list(served.shape), "served_step": served_step,
+        "serve_k4_launches": serve_k4, "served_vs_eval_max_abs":
+        float(diff.max()), "served_vs_eval_mean_abs": float(diff.mean()),
+        "tol_mean": SERVE_MEAN_TOL, "tol_max": SERVE_MAX_TOL,
+        "card": card_line(device)}
+    log(json.dumps(record))
+    failures = [what for what, bad in (
+        ("finite losses", len(losses) != MOE_ZOO_STEPS
+         or not all(np.isfinite(losses))),
+        ("K4-K6 once a layer a step",
+         launches != {k: layers * MOE_ZOO_STEPS
+                      for k in ("fwd", "dq", "dkv")}),
+        ("bare logits", not isinstance(served, torch.Tensor)
+         or list(served.shape) != [1, seq, vocab]
+         or not np.isfinite(got).all()),
+        ("served at the final step", served_step != MOE_ZOO_STEPS),
+        ("K4 once a layer in the served forward", serve_k4 != layers),
+        ("served against eval_step",
+         record["served_vs_eval_mean_abs"] > SERVE_MEAN_TOL
+         or record["served_vs_eval_max_abs"] > SERVE_MAX_TOL)) if bad]
+    if failures:
+        raise SystemExit("moe zoo job: %s" % failures)
+    del executor, engine
+    return record
+
+
+def moe_phase(torch, np, flash, workdir, device="cuda", widths=None,
+              routing=None, seq=MOE_SEQ,
+              batch=MOE_BATCH, warmup=MOE_WARMUP, steps=MOE_STEPS,
+              zoo_widths=None, zoo_seq=TRAIN_SEQ):
+    """Phase 19 (see the module docstring): the MoE arm and the matched
+    dense arm, the compact dispatch against the one-hot, the expert
+    load, and the zoo's MoE LM as a job served once."""
+    from types import SimpleNamespace
+
+    from elasticdl_tpu_torch.models import transformer
+    from elasticdl_tpu_torch.models.moe_transformer import (
+        MoeTransformerLM,
+        loss,
+    )
+
+    t_phase = time.monotonic()
+    widths = dict(MOE_WIDTHS if widths is None else widths)
+    routing = dict(MOE_ROUTING if routing is None else routing)
+    layers = widths["num_layers"]
+    tokens = np.random.RandomState(0).randint(
+        0, widths["vocab_size"], size=(batch, seq)).astype(np.int32)
+
+    def moe_model(attention_impl="auto"):
+        with torch.device(device):
+            return MoeTransformerLM(mlp_ratio=MOE_MLP_RATIO,
+                                    attention_impl=attention_impl,
+                                    **widths, **routing)
+
+    torch.manual_seed(SEED + 19)
+    model = moe_model()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    moe, moe_agree, state = lm_arm(
+        torch, np, flash, model, SimpleNamespace(
+            custom_model=lambda: moe_model("xla"), loss=loss), loss, tokens,
+        device, "moe", warmup, steps)
+    moe["params_m"] = n_params / 1e6
+    moe["config"] = dict(widths, **routing, mlp_ratio=MOE_MLP_RATIO,
+                         dispatch_impl="auto (onehot)",
+                         source="bench.py:316-334, scripts/bench_moe.py")
+    flops = moe_flops(widths["embed_dim"], layers, seq, batch,
+                      widths["vocab_size"], MOE_MLP_RATIO,
+                      routing["num_experts"], routing["top_k"],
+                      routing["capacity_factor"], False)
+    moe["model_tflop_per_step"] = flops / 1e12
+    moe["flop_share_of_bf16_peak"] = (flops / (moe["step_ms"] / 1e3)
+                                      / PEAK_FLOPS["bfloat16"])
+    load = expert_load(torch, model, state.params,
+                       torch.from_numpy(tokens).to(device), routing)
+    moe["expert_load"] = load
+    moe["card"] = card_line(device)
+    log(json.dumps(moe))
+    del state, model
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    compact = moe_compact_check(torch, np, init, widths, routing, tokens,
+                                device)
+    compact["card"] = card_line(device)
+    log(json.dumps(compact))
+    del init
+    gc.collect()
+
+    ratio = matched_mlp_ratio(MOE_MLP_RATIO, routing["top_k"],
+                              routing["capacity_factor"])
+
+    def dense_model(attention_impl="auto"):
+        with torch.device(device):
+            return transformer.TransformerLM(mlp_ratio=ratio,
+                                             attention_impl=attention_impl,
+                                             **widths)
+
+    torch.manual_seed(SEED + 20)
+    dense_net = dense_model()
+    dense, dense_agree, state = lm_arm(
+        torch, np, flash, dense_net, SimpleNamespace(
+            custom_model=lambda: dense_model("xla"), loss=transformer.loss),
+        transformer.loss, tokens, device, "dense_matched_active", warmup,
+        steps)
+    dense["params_m"] = sum(p.numel() for p in dense_net.parameters()) / 1e6
+    dense["mlp_ratio"] = ratio
+    flops = model_train_flops(widths["embed_dim"], layers, seq, batch,
+                              widths["vocab_size"], ratio)
+    dense["model_tflop_per_step"] = flops / 1e12
+    dense["flop_share_of_bf16_peak"] = (flops / (dense["step_ms"] / 1e3)
+                                        / PEAK_FLOPS["bfloat16"])
+    dense["card"] = card_line(device)
+    log(json.dumps(dense))
+    del state, dense_net
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    hold_agreement(moe_agree, "the moe arm's first step")
+    hold_agreement(dense_agree, "the dense arm's first step")
+    want = {"fwd": layers, "dq": layers, "dkv": layers}
+    failures = [what for what, bad in (
+        ("moe losses finite", not all(np.isfinite(moe["losses"]))),
+        ("dense losses finite", not all(np.isfinite(dense["losses"]))),
+        ("moe K4-K6 %d a step" % layers,
+         any(s != want for s in moe["launches_per_step"])),
+        ("dense K4-K6 %d a step" % layers,
+         any(s != want for s in dense["launches_per_step"])),
+        ("compact against onehot", not compact["ok"]),
+        ("aux loss finite", not np.isfinite(load["aux_loss"]))) if bad]
+    if failures:
+        raise SystemExit("moe phase: %s" % failures)
+    zoo = moe_zoo_job(torch, np, flash, workdir, device, widths=zoo_widths,
+                      seq=zoo_seq)
+    summary = {
+        "phase": "19_moe", "part": "summary",
+        "moe_step_ms": moe["step_ms"], "dense_step_ms": dense["step_ms"],
+        "moe_step_overhead_vs_dense": moe["step_ms"] / dense["step_ms"],
+        "moe_tokens_per_s": moe["tokens_per_s"],
+        "dense_tokens_per_s": dense["tokens_per_s"],
+        "moe_flop_share": moe["flop_share_of_bf16_peak"],
+        "dense_flop_share": dense["flop_share_of_bf16_peak"],
+        "moe_peak_mem_gb": moe["peak_mem_gb"],
+        "dense_peak_mem_gb": dense["peak_mem_gb"],
+        "compact_bf16_step_ms": compact["compact_bf16_step_ms"],
+        "aux_loss": load["aux_loss"],
+        "dropped_share": [l["dropped_share"] for l in load["layers"]],
+        "seconds": time.monotonic() - t_phase, "card": card_line(device)}
+    log(json.dumps(summary))
+    return {"moe": moe, "dense": dense, "compact": compact, "zoo": zoo,
+            "agreement": {"moe": moe_agree, "dense": dense_agree},
+            "summary": summary}
 
 
 def kernel_entry(name, source, replaces, launches, case, kind):
@@ -9262,19 +10066,13 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-18 and the last lines (see the module docstring)."""
+    """Phases 1-19 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
 
     # each phase's seconds of command time, printed before the last lines
-    seconds, last = {}, [time.monotonic()]
-
-    def done(name):
-        now = time.monotonic()
-        seconds[name] = now - last[0]
-        last[0] = now
-
+    seconds, done = stage_clock()
     # the serial chain's copy builds beside the checkout's kernels
     serial_root = kernel_copy("k1_chain_serial", TIER_SOURCE,
                               K1_CHAIN_VARIANTS["serial"])
@@ -9367,6 +10165,10 @@ def run_phases(torch, np, job_dir, data_proc):
         continual = continual_phase(torch, np, tier, workdir)
         continual_summary(continual)
         done("18_continual")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe = moe_phase(torch, np, flash, workdir)
+        done("19_moe")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -9395,23 +10197,27 @@ def run_phases(torch, np, job_dir, data_proc):
                        launches["dkv"], bwd_cases[main_case], "dkv")
     dkv["launches_per_step_remat"] = {p: c["dkv"] for p, c in remat.items()}
     # phase 16: heads of 256, at bench.py's transformer shape and at
-    # its s16k_flash shape
+    # its s16k_flash shape; phase 19: heads of 128 at bench.py's MoE shape
     for entry, kind, source in ((fwd, "fwd", cases), (dq, "dq", bwd_cases),
                                 (dkv, "dkv", bwd_cases)):
         for key, case in (("d256", "bench_bf16_d256_causal"),
-                          ("d256_s16k", "s16k_bf16_d256_causal")):
-            d256 = kernel_entry(entry["name"], entry["source"],
-                                entry["replaces"], None, source[case], kind)
-            entry[key] = {k: d256[k] for k in (
+                          ("d256_s16k", "s16k_bf16_d256_causal"),
+                          ("d128_moe", "moe_bf16_d128_causal")):
+            other = kernel_entry(entry["name"], entry["source"],
+                                 entry["replaces"], None, source[case], kind)
+            entry[key] = {k: other[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "wrapper_ms", "ms_k5_k6", "library_ms_k5_k6")
-                if k in d256}
+                if k in other}
             entry[key]["shape"] = source[case]["shape"]
-        # every step's count is the same (phase 16 checks it)
+        # every step's count is the same (phases 16 and 19 check it)
         entry["launches_per_step_d256"] = {
             "transformer": heads256["bench"]["record"][
                 "launches_per_step"][0][kind],
             "s16k_flash": heads256["s16k"]["launches_per_step"][0][kind]}
+        entry["launches_per_step_moe"] = {
+            "moe": moe["moe"]["launches_per_step"][0][kind],
+            "dense_matched": moe["dense"]["launches_per_step"][0][kind]}
     tier_entries = [
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",

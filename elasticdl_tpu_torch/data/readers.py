@@ -1,13 +1,13 @@
 """Data readers: the contract between storage and the task system (port
-of elasticdl_tpu/data/readers.py, RecordIO and CSV).
+of elasticdl_tpu/data/readers.py).
 
 A reader yields the raw records of a task's ``[start, end)`` range of
 one shard (``read_records(task)``) and lists its shards
 (``create_shards()``). RecordIO (the ``edlrec`` format of
 data/recordio.py) makes one shard per file. CSV makes one shard per
 file too: the first line is the header, and a line-offset index built
-on open lets a task seek to its first row. The MaxCompute table reader
-is not ported (ROADMAP Queue 1).
+on open lets a task seek to its first row. A table origin goes to
+data/table_reader.py (fixed-size row ranges of one table).
 """
 
 import csv
@@ -15,7 +15,12 @@ import glob
 import io
 import os
 
+from elasticdl_tpu_torch.common.log_utils import (
+    default_logger as _logger_factory,
+)
 from elasticdl_tpu_torch.data import recordio
+
+logger = _logger_factory("elasticdl_tpu_torch.data.readers")
 
 
 class Metadata:
@@ -133,18 +138,77 @@ class CSVDataReader(AbstractDataReader):
         return Metadata(column_names=self._columns or [])
 
 
+def _table_kwargs(data_origin, kwargs):
+    """The table reader's (table, kwargs) for ``data_origin``:
+    ``odps://<project>/<table>[/<partition>...]`` parsed into project,
+    table and partition (partition segments joined by commas, as the
+    ODPS SDK's PartitionSpec takes them); without a ``table_client``,
+    the credentials from the ``MAXCOMPUTE_*`` environment."""
+    table = data_origin or ""
+    if table.startswith("odps://"):
+        parts = [p for p in table[len("odps://"):].split("/") if p]
+        if len(parts) < 2:
+            raise ValueError(
+                "odps:// origin must be odps://<project>/<table>"
+                "[/<partition>], got %r" % data_origin
+            )
+        kwargs.setdefault("project", parts[0])
+        if len(parts) > 2:
+            kwargs.setdefault("partition", ",".join(parts[2:]))
+        table = parts[1]
+    if kwargs.get("table_client") is None:
+        for key, env in (("project", "MAXCOMPUTE_PROJECT"),
+                         ("access_id", "MAXCOMPUTE_AK"),
+                         ("access_key", "MAXCOMPUTE_SK"),
+                         ("endpoint", "MAXCOMPUTE_ENDPOINT")):
+            kwargs.setdefault(key, os.environ.get(env))
+        missing = [
+            env for env, key in (
+                ("MAXCOMPUTE_PROJECT", "project"),
+                ("MAXCOMPUTE_AK", "access_id"),
+                ("MAXCOMPUTE_SK", "access_key"),
+            ) if not kwargs.get(key)
+        ]
+        if missing:
+            raise ValueError(
+                "table origin %r requires credentials; set %s (or "
+                "pass table_client=)" % (data_origin, ", ".join(missing))
+            )
+        if not kwargs.get("endpoint"):
+            # the SDK may find its endpoint in its own config
+            logger.warning(
+                "no MAXCOMPUTE_ENDPOINT set for %r; relying on the "
+                "ODPS SDK default endpoint resolution", data_origin
+            )
+    return table or "table", kwargs
+
+
 def create_data_reader(data_origin, records_per_task=None, **kwargs):
-    """CSV for a ``.csv`` file or a directory holding ``.csv`` files,
-    else RecordIO. A table origin raises ``NotImplementedError``: its
-    reader is not ported."""
-    del records_per_task  # read only by the table reader
+    """The reader for ``data_origin``: the table reader for a
+    ``table_client=`` kwarg, an ``odps://`` origin, or a path that does
+    not exist while ``MAXCOMPUTE_PROJECT``, ``_AK`` and ``_SK`` are all
+    set (``parallel=True`` takes ``ParallelTableDataReader``; tasks of
+    ``records_per_task`` rows); CSV for a ``.csv`` file or a directory
+    holding ``.csv`` files; else RecordIO."""
     if kwargs.get("table_client") is not None or (
         data_origin and data_origin.startswith("odps://")
+    ) or (
+        data_origin
+        and not os.path.exists(data_origin)
+        # project AND credentials, or a typo'd local path would reach
+        # the SDK and fail there without saying why
+        and all(os.environ.get(var) for var in (
+            "MAXCOMPUTE_PROJECT", "MAXCOMPUTE_AK", "MAXCOMPUTE_SK"))
     ):
-        raise NotImplementedError(
-            "table origin %r: the MaxCompute reader is not ported yet "
-            "(ROADMAP Queue 1)" % (data_origin,)
+        from elasticdl_tpu_torch.data.table_reader import (
+            ParallelTableDataReader,
+            TableDataReader,
         )
+
+        table, kwargs = _table_kwargs(data_origin, dict(kwargs))
+        cls = (ParallelTableDataReader if kwargs.pop("parallel", False)
+               else TableDataReader)
+        return cls(table=table, records_per_task=records_per_task, **kwargs)
     if data_origin and (
         data_origin.endswith(".csv")
         or (

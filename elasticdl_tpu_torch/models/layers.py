@@ -207,6 +207,26 @@ def _lecun_normal_(weight, fan_in, generator):
     weight.copy_(values)
 
 
+def lecun_normal(shape, fan_in):
+    """A new tensor of ``shape`` drawn as ``_lecun_normal_`` draws, on
+    the default device from the default generator, by rejection: the
+    draws outside two stddevs are drawn again until none is left. The
+    same distribution, but not the same values for a seed:
+    ``nn.init.trunc_normal_``'s inverse-CDF draw takes 1-2 s a tensor
+    of 19 M values on a CPU (a MoE expert's ``w_up``), and
+    ``_lecun_normal_`` keeps it because the layers above were seeded
+    and measured with it."""
+    values = torch.randn(shape)
+    if not values.is_meta:
+        flat = values.view(-1)
+        out = (flat.abs() > 2.0).nonzero().squeeze(1)
+        while out.numel():
+            redraw = torch.randn(out.numel(), device=values.device)
+            flat[out] = redraw
+            out = out[redraw.abs() > 2.0]
+    return values * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
 @torch.no_grad()
 def init_flax_(model, generator=None):
     """flax's default initializers on every ``Conv`` and ``Dense`` of

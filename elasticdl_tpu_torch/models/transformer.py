@@ -230,25 +230,26 @@ _TOP_LEAVES = {
     "lm_head/kernel": ("lm_head.weight", "dense"),
 }
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
-_BLOCK_FROM_TORCH = {t: (f, k) for f, (t, k) in _BLOCK_LEAVES.items()}
 _TOP_FROM_TORCH = {t: (f, k) for f, (t, k) in _TOP_LEAVES.items()}
 
 
-def _torch_name(flax_name):
+def _torch_name(flax_name, block_leaves=_BLOCK_LEAVES):
     match = _BLOCK.match(flax_name)
     if match:
-        leaf, kind = _BLOCK_LEAVES[match.group(2)]
+        leaf, kind = block_leaves[match.group(2)]
         return "blocks.%s.%s" % (match.group(1), leaf), kind
     return _TOP_LEAVES[flax_name]
 
 
-def params_from_flax(flat):
+def params_from_flax(flat, block_leaves=_BLOCK_LEAVES):
     """``{flax name: array}`` -> state_dict of fp32-or-native tensors.
-    Names may carry the export's ``params/`` prefix."""
+    Names may carry the export's ``params/`` prefix. ``block_leaves``:
+    the flax leaf under a block -> (torch leaf, kind) table (the MoE LM
+    passes its own, with the expert leaves)."""
     state = {}
     for name, value in flat.items():
         name = name[len("params/"):] if name.startswith("params/") else name
-        target, kind = _torch_name(name)
+        target, kind = _torch_name(name, block_leaves)
         value = np.asarray(value)
         if kind == "in_heads":      # (dim, H, d) -> weight (H*d, dim)
             value = value.reshape(value.shape[0], -1).T
@@ -260,15 +261,16 @@ def params_from_flax(flat):
     return state
 
 
-def params_to_flax(state_dict, num_heads):
+def params_to_flax(state_dict, num_heads, block_leaves=_BLOCK_LEAVES):
     """state_dict -> ``{flax name: fp32 ndarray}`` (the export's names,
     without the ``params/`` prefix)."""
+    from_torch = {t: (f, k) for f, (t, k) in block_leaves.items()}
     flat = {}
     for name, tensor in state_dict.items():
         value = tensor.detach().float().cpu().numpy()
         match = _TORCH_BLOCK.match(name)
         if match:
-            flax_leaf, kind = _BLOCK_FROM_TORCH[match.group(2)]
+            flax_leaf, kind = from_torch[match.group(2)]
             flax_name = "block_%s/%s" % (match.group(1), flax_leaf)
         else:
             flax_name, kind = _TOP_FROM_TORCH[name]

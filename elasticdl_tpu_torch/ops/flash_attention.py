@@ -21,7 +21,11 @@ versions only for CPU tensors. ``LAUNCHES`` (K4),
 a run can show that its path went through the kernels.
 ``flash_attention_fwd_op`` (``torch.ops.edl.flash_attention_fwd``)
 wraps the forward as a custom op, so a remat policy can save K4's
-outputs.
+outputs. The op is defined through ``torch.library.Library``, not
+``torch.library.custom_op``: custom_op's kernels import
+``torch._dynamo`` on their first call, seconds of imports paid by
+every new process's first forward (a serving replica's first
+request).
 """
 
 import math
@@ -315,11 +319,12 @@ def _merge(t):
     return t.clone(memory_format=torch.contiguous_format)
 
 
-@torch.library.custom_op("edl::flash_attention_fwd", mutates_args=())
-def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, shape: list[int], causal: bool,
-                           sm_scale: float) -> tuple[torch.Tensor,
-                                                     torch.Tensor]:
+_LIB = torch.library.Library("edl", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+            "int[] shape, bool causal, float sm_scale) -> (Tensor, Tensor)")
+
+
+def flash_attention_fwd_op(q, k, v, shape, causal, sm_scale):
     """``flash_attention_fwd`` as an op the dispatcher sees: K4 (its
     plain version for CPU tensors) on merged ``(bh, seq, head_dim)``
     q, k, v, returning a fresh o of the 4-D ``shape`` and lse.
@@ -337,7 +342,11 @@ def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-@flash_attention_fwd_op.register_fake
+_LIB.impl("flash_attention_fwd", flash_attention_fwd_op,
+          "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("edl::flash_attention_fwd")
 def _flash_attention_fwd_fake(q, k, v, shape, causal, sm_scale):
     bh, seq, _ = q.shape
     return (q.new_empty(shape),

@@ -54,11 +54,12 @@ class LocalPSClient:
             for name, ids in normalize_id_tables(ids_by_table).items()
         }
 
-    def push_embedding_rows(self, rows_by_table):
+    def push_embedding_rows(self, rows_by_table, sightings=None):
         """Device-tier writeback: raw row values overwrite the store
         (no optimizer math, no version bump and no wire round trip:
         writebacks are authoritative fp32 master copies even under
-        EDL_WIRE_DTYPE)."""
+        EDL_WIRE_DTYPE). ``sightings`` feed a PS's embedding lifecycle;
+        this client has none, so they are dropped."""
         for name, (ids, values) in rows_by_table.items():
             ids = np.asarray(ids, dtype=np.int64)
             if not ids.size:

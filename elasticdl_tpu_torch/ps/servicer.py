@@ -791,9 +791,14 @@ class PserverServicer:
         if self._lifecycle is not None:
             # writebacks are authoritative: the rows exist now, so they
             # are admitted (and their TTL refreshed), or the eviction
-            # bound would never see them age out
+            # bound would never see them age out. A device tier's
+            # writeback carries in ``dense_parameters[table]`` the
+            # sightings it absorbed, aligned with the table's ids
             for name, slices in request.embedding_tables.items():
-                self._lifecycle.note_import(name, unpack_ids(slices))
+                sightings = (blob_to_ndarray(request.dense_parameters[name])
+                             if name in request.dense_parameters else None)
+                self._lifecycle.note_import(name, unpack_ids(slices),
+                                            sightings)
         return self._stamp(pb.PushGradientsResponse(
             accepted=True, version=self._store.version))
 

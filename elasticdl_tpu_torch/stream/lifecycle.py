@@ -33,7 +33,9 @@ so a cached copy of an evicted row expires within the window the async
 PS already tolerates; the device tier holds its resident rows
 *authoritatively* and re-asserts them via ``push_embedding_rows``
 writebacks — ``note_import`` re-admits such rows, refreshing their
-TTL, so the tier's hot set can never be starved by PS-side eviction.
+TTL and adding to their LFU frequency the hits the tier served since it
+last wrote them back, so the tier's hot set can never be starved by
+PS-side eviction.
 An import refreshes the TTL stamp but not the LFU guard (the port's
 difference from the reference, which stamps both): the guard closes the
 gap between an admission filter and its store apply, and an import is
@@ -362,26 +364,39 @@ class EmbeddingLifecycle:
             self._m_dropped.labels(table=name).inc(dropped)
         return mask
 
-    def note_import(self, name, ids):
+    def note_import(self, name, ids, sightings=None):
         """Imports are authoritative writes (device-tier writebacks,
         checkpoint restores re-sharding rows in): the rows EXIST after
         the import, so they must be admitted — an unadmitted resident
         row would be invisible to the eviction bound and never age
         out. The TTL stamp moves, the LFU guard does not: the store
-        already holds the rows, so no apply of theirs is in flight."""
+        already holds the rows, so no apply of theirs is in flight.
+
+        ``sightings`` (optional, aligned with ``ids``; the port's
+        addition) are the uses of each row that the writer absorbed
+        since it last wrote the row back: a device tier serves its hot
+        rows' pulls and applies their pushes on the card, so the PS
+        never sights them. They join the row's LFU frequency as if
+        sighted here; without them the row bound's sweeps after a
+        re-assert take the tier's hottest rows first, their frequency
+        having decayed since the tier promoted them."""
         if name not in self._tables:
             return
         now = self._clock()
+        ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+        seen = (np.zeros(ids.size) if sightings is None
+                else np.asarray(sightings, dtype=np.float64).reshape(-1))
         with self._lock:
             admitted = self._tables[name].admitted
             fresh = 0
-            for i in np.asarray(ids, dtype=np.int64).reshape(-1):
-                i = int(i)
+            for i, extra in zip(ids.tolist(), seen.tolist()):
                 entry = admitted.get(i)
                 if entry is None:
-                    admitted[i] = [float(self.admit_k), now, float("-inf")]
+                    admitted[i] = [float(self.admit_k) + extra, now,
+                                   float("-inf")]
                     fresh += 1
                 else:
+                    entry[0] += extra
                     entry[1] = now
             if fresh:
                 self.admitted_total += fresh

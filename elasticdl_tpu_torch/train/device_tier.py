@@ -136,9 +136,10 @@ class _TableTier:
     __slots__ = (
         "name", "dim", "capacity", "alloc", "state",
         "res_ids", "res_slots", "slot_id", "slot_hits", "slot_last",
-        "slot_dirty", "free_slots", "cand_ids", "cand_counts",
-        "cand_last", "staged_slots", "staged_ids", "staged_rows",
-        "evict_ids", "evict_slots", "pending_flush",
+        "slot_dirty", "slot_unsent", "free_slots", "cand_ids",
+        "cand_counts", "cand_last", "staged_slots", "staged_ids",
+        "staged_rows", "evict_ids", "evict_slots", "evict_unsent",
+        "pending_flush",
     )
 
     def __init__(self, name, dim, capacity, opt_type, device):
@@ -157,6 +158,9 @@ class _TableTier:
         self.slot_hits = np.zeros((capacity,), np.int64)
         self.slot_last = np.zeros((capacity,), np.int64)
         self.slot_dirty = np.zeros((capacity,), bool)
+        # hits since the slot's row was last written back: the PS's
+        # sightings the tier absorbed (the port's addition)
+        self.slot_unsent = np.zeros((capacity,), np.int64)
         self.free_slots = list(range(capacity - 1, -1, -1))  # pop() = 0
         self.cand_ids = np.empty((0,), np.int64)   # sorted
         self.cand_counts = np.empty((0,), np.int64)
@@ -167,6 +171,7 @@ class _TableTier:
         self.staged_rows = []
         self.evict_ids = []
         self.evict_slots = []
+        self.evict_unsent = []
         # (ids, slots, host ids, host rows) snapshotted by mark_restart:
         # dirty rows whose device values must be written back (on the
         # dispatch thread) before the device state resets
@@ -343,6 +348,7 @@ class DeviceEmbeddingTier:
                 slots[found] = table.res_slots[clipped[found]]
                 hit_slots = slots[found]
                 table.slot_hits[hit_slots] += 1
+                table.slot_unsent[hit_slots] += 1
                 table.slot_last[hit_slots] = self._clock
                 # dirty at LOOKUP, not apply: a later prepare may stage
                 # this slot's eviction before this step's apply lands,
@@ -417,6 +423,8 @@ class DeviceEmbeddingTier:
             table.res_slots = merged_slots[order]
             table.slot_id[slots] = ids
             table.slot_hits[slots] = config.promote_hits
+            # the sightings before promotion were the PS's own
+            table.slot_unsent[slots] = 0
             table.slot_last[slots] = self._clock
             # dirty from birth: a promoted id is a hit in THIS step
             table.slot_dirty[slots] = True
@@ -536,6 +544,10 @@ class DeviceEmbeddingTier:
             table.evict_slots.extend(
                 dirty_slots.astype(np.int64).tolist()
             )
+            table.evict_unsent.extend(
+                table.slot_unsent[dirty_slots].tolist()
+            )
+        table.slot_unsent[victim_slots] = 0
         self.evictions += int(victim_slots.size)
         self._m_evictions.labels(table=table.name).inc(
             int(victim_slots.size)
@@ -602,6 +614,7 @@ class DeviceEmbeddingTier:
         table.slot_hits[:] = 0
         table.slot_last[:] = 0
         table.slot_dirty[:] = False
+        table.slot_unsent[:] = 0
         table.free_slots = list(range(table.capacity - 1, -1, -1))
         table.cand_ids = np.empty((0,), np.int64)
         table.cand_counts = np.empty((0,), np.int64)
@@ -609,6 +622,7 @@ class DeviceEmbeddingTier:
         table.staged_slots, table.staged_ids = [], []
         table.staged_rows = []
         table.evict_ids, table.evict_slots = [], []
+        table.evict_unsent = []
         self._m_occupancy.labels(table=table.name).set(0.0)
 
     def _reset_state(self, table):
@@ -656,9 +670,11 @@ class DeviceEmbeddingTier:
             )
             ev_ids = table.evict_ids
             ev_slots = table.evict_slots
+            ev_unsent = table.evict_unsent
             table.staged_slots, table.staged_ids = [], []
             table.staged_rows = []
             table.evict_ids, table.evict_slots = [], []
+            table.evict_unsent = []
             self._m_occupancy.labels(table=name).set(
                 table.res_ids.size / max(1, table.capacity)
             )
@@ -681,6 +697,7 @@ class DeviceEmbeddingTier:
             row_chunk = ins_rows[offset: offset + budget]
             ev_chunk = ev_slots[offset: offset + budget]
             ev_id_chunk = ev_ids[offset: offset + budget]
+            ev_unsent_chunk = ev_unsent[offset: offset + budget]
             offset += budget
             _, combined, evicted = tier_ops.fused_insert_gather(
                 table.state,
@@ -697,6 +714,7 @@ class DeviceEmbeddingTier:
                 self._submit_writeback(
                     name, np.asarray(ev_id_chunk, np.int64),
                     evicted.cpu().numpy(),
+                    np.asarray(ev_unsent_chunk, np.int64),
                 )
         return combined
 
@@ -717,9 +735,14 @@ class DeviceEmbeddingTier:
             table.slot_dirty[hit[hit < table.capacity]] = True
 
     # -- writeback / lifecycle -----------------------------------------
-    def _submit_writeback(self, name, ids, values):
+    def _submit_writeback(self, name, ids, values, hits=None):
+        """Queue one table's writeback. ``hits`` (aligned with ``ids``)
+        are each row's hits since its last writeback: each stood for a
+        pull and a push the PS did not see, so they reach the PS's
+        embedding lifecycle as twice as many sightings."""
+        kwargs = {} if hits is None else {"sightings": {name: 2 * hits}}
         future = self._writeback_pool.submit(
-            self._ps.push_embedding_rows, {name: (ids, values)}
+            self._ps.push_embedding_rows, {name: (ids, values)}, **kwargs
         )
         with self._lock:
             self.written_back_rows += len(ids)
@@ -793,9 +816,12 @@ class DeviceEmbeddingTier:
                 live = ids >= 0
                 dirty, ids = dirty[live], ids[live]
                 table.slot_dirty[dirty] = False
+                hits = table.slot_unsent[dirty]
+                table.slot_unsent[dirty] = 0
             if not dirty.size:
                 continue
-            self._submit_writeback(name, ids, self._read_rows(table, dirty))
+            self._submit_writeback(name, ids, self._read_rows(table, dirty),
+                                   hits)
         if wait:
             self.drain_writebacks()
 

@@ -395,35 +395,44 @@ class PSClient:
             return self._pull_per_table(ids_by_table)
         return out
 
-    def push_embedding_rows(self, rows_by_table):
+    def push_embedding_rows(self, rows_by_table, sightings=None):
         """Device-tier writeback: ``{table: (ids, values)}`` raw row
         values overwriting the PS store. Always fp32 on the wire,
         whatever EDL_WIRE_DTYPE says: these are master copies, and a
-        reduced payload would round them for good."""
+        reduced payload would round them for good. ``sightings``
+        (optional, ``{table: int64 counts aligned with its ids}``) are
+        the PS sightings the tier absorbed since it last wrote each row
+        back; each shard's share rides in its request's
+        ``dense_parameters[table]``, which a writeback has no other use
+        for, and which a PS without an embedding lifecycle ignores."""
         with trace.span("ps_push_rows", tables=len(rows_by_table)):
-            return self._push_embedding_rows(rows_by_table)
+            return self._push_embedding_rows(rows_by_table, sightings or {})
 
-    def _push_embedding_rows(self, rows_by_table):
+    def _push_embedding_rows(self, rows_by_table, sightings):
         requests = [pb.Model() for _ in self._stubs]
         for name, (ids, values) in rows_by_table.items():
             ids = np.asarray(ids, dtype=np.int64)
             values = np.asarray(values, dtype=np.float32)
             if not ids.size:
                 continue
+            seen = sightings.get(name)
+            if seen is not None:
+                seen = np.asarray(seen, dtype=np.int64)
             if self.ps_num == 1:
+                parts = [(0, slice(None))]
+            else:
+                shard_of = ids % self.ps_num
+                parts = [(int(shard), np.nonzero(shard_of == shard)[0])
+                         for shard in np.unique(shard_of)]
+            for shard, pos in parts:
+                request = requests[shard]
                 serialize_indexed_slices(
-                    values, ids, requests[0].embedding_tables[name],
+                    values[pos], ids[pos], request.embedding_tables[name],
                     packed=not self._legacy_ids,
                 )
-                continue
-            shard_of = ids % self.ps_num
-            for shard in np.unique(shard_of):
-                pos = np.nonzero(shard_of == shard)[0]
-                serialize_indexed_slices(
-                    values[pos], ids[pos],
-                    requests[int(shard)].embedding_tables[name],
-                    packed=not self._legacy_ids,
-                )
+                if seen is not None:
+                    ndarray_to_blob(seen[pos],
+                                    request.dense_parameters[name])
         futures = []
         call = overload.bind_budget(trace.bind_context(_call_with_retry))
         for shard, (stub, request) in enumerate(zip(self._stubs, requests)):

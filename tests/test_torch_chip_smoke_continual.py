@@ -59,6 +59,10 @@ def test_continual_phase_rehearses_on_the_cpu(tmp_path,
     assert max(max(p.values())
                for p in out["peak_resident_rows_in_stream"]) <= 384
     assert out["holdout_logloss"] < out["holdout_base_rate_logloss"]
+    assert (out["holdout_logloss"] - out["holdout_logloss_tier_rows"]
+            < chip_smoke.CONTINUAL_SERVED_GAP)
+    for pulled, held, same in out["holdout_pulled_tier_held_served"].values():
+        assert pulled >= held >= same > 0
     assert [n for _, n in out["fault_fires"][1]] == [1, 2, 3]
     assert out["fault_fires"][0] == []
     assert out["ps_final_versions"] == [

@@ -3,11 +3,12 @@ the CPU at small sizes: the promoted model at a 100,000-id vocab (3.2
 MB, over the 2 MiB threshold), batch 64, 60 steps (the K1-K3 wrappers'
 plain versions counting a launch where the CUDA wrappers launch); the
 four zoo models at reduced sizes (iris as a job in
-tests/test_torch_chip_smoke_iris.py). Every check of the phase holds,
-and the phase refuses each of two planted faults: the ``mean`` combiner
-dividing by the padded length (``FC_MUTATIONS``, the same text edit
-``--mutations`` plants on the card) and K1 counted twice at one step.
-What only the card can give reads "cpu" beside it here.
+tests/test_torch_chip_smoke_iris.py); iris over a table at the card's
+size. Every check of the phase holds, and the phase refuses each of
+three planted faults: the ``mean`` combiner dividing by the padded
+length (``FC_MUTATIONS``, the same text edit ``--mutations`` plants on
+the card), K1 counted twice at one step, and a prediction landed in the
+table an ulp off. What only the card can give reads "cpu" beside it here.
 """
 
 import importlib.util
@@ -88,3 +89,35 @@ def test_feature_zoo_rehearses(tmp_path):
     assert set(zoo) == {name for name, *_ in SMALL_ZOO}
     agree = zoo["census_wide_deep"]["agreement"]
     assert agree["grad_worst_rel_l2"] <= chip_smoke.FEATURE_AGREE_RTOL
+
+
+def test_table_job_rehearses(tmp_path):
+    """Phase 17's table job on the CPU at the card's size: iris over an
+    in-process table (the rows of iris_job's CSV files), every row once
+    an epoch, the accuracy floor, and the prediction-only job's rows
+    read back from its table bit-equal to ``eval_step``."""
+    record = chip_smoke.table_job(torch, np, str(tmp_path), device="cpu")
+    assert record["train_tasks_done"] == 15 * chip_smoke.IRIS_EPOCHS
+    assert record["model_version"] == record["steps"] == 150
+    assert record["accuracy"] >= chip_smoke.IRIS_ACCURACY_FLOOR
+    assert record["prediction_tasks_done"] == 8
+    assert record["rows_written"] == chip_smoke.IRIS_ROWS
+    assert record["read_back_bit_equal"]
+
+
+def test_table_job_refuses_a_prediction_off(tmp_path, monkeypatch):
+    """A processor that lands one row off (its first value nudged by an
+    ulp) fails the read-back check."""
+    from elasticdl_tpu_torch.data import table_writer
+
+    write = table_writer.TableWriter.write
+
+    def nudged(self, rows):
+        rows = {k: np.array(v, copy=True) for k, v in rows.items()}
+        first = rows["output"].reshape(-1)
+        first[0] = np.nextafter(first[0], np.float32(np.inf))
+        return write(self, rows)
+
+    monkeypatch.setattr(table_writer.TableWriter, "write", nudged)
+    with pytest.raises(SystemExit, match="read back bit-equal"):
+        chip_smoke.table_job(torch, np, str(tmp_path), device="cpu")

@@ -4,7 +4,7 @@ The router is a ``router_main`` process, its two replicas and the
 replacement port ``serve.main`` processes of a narrow TransformerLM
 (2 layers, d 64) with ``--device cpu``; the callers are a process of
 their own. The fleet clocks are the card run's but for the heartbeat
-timeout (4 s, not 15) and the scale cooldown (12 s, not 30), which keep
+timeout (4 s, not 8) and the scale cooldown (12 s, not 30), which keep
 the rehearsal short: a replica's cold start here is about 3-4 s.
 """
 
@@ -64,3 +64,14 @@ def test_fleet_phase_rehearses_on_the_cpu(tmp_path, monkeypatch):
                 "v2_land_to_promotion_s", "v3_land_to_rollback_s"):
         assert out[key] > 0
     assert len(out["cold_start_s"]) == 3
+    # each cold start split in three from the journals, adding up
+    assert set(out["cold_start_split_s"]) == set(out["cold_start_s"])
+    for replica, parts in out["cold_start_split_s"].items():
+        assert len(parts) == 3 and min(parts) >= 0
+        assert abs(sum(parts) - out["cold_start_s"][replica]) < 1e-6
+    assert list(out["split_s"]) == [
+        "weights_and_v1", "spin_up", "in_process_model",
+        "first_routed_answer", "in_process_answer", "affinity_burst",
+        "router_cost_bursts", "loop_kill_to_first_served", "v2_export",
+        "v2_promoted_and_loaded", "v3_export", "v3_rolled_back",
+        "no_retry_and_stop", "router_drain", "journal_and_checks"]

@@ -100,12 +100,12 @@ def test_recordio_reader_shards_and_tasks_match_jax(tmp_path):
         assert got == want and len(got) == 10
 
 
-def test_reader_factory_refuses_what_is_not_ported(tmp_path):
+def test_reader_factory_refuses_what_is_not_ported(tmp_path, monkeypatch):
     """A ``.csv`` origin (a file, or a directory holding one) dispatches
-    to the CSV reader, as the JAX factory's does; a table origin raises
-    NotImplementedError, as the JAX factory would route it to the table
-    reader the port lacks; an empty directory raises as the JAX
-    RecordIO reader does."""
+    to the CSV reader, as the JAX factory's does; a table origin goes to
+    the table reader on both (data/table_reader.py; without credentials
+    an ``odps://`` origin raises ValueError on both); an empty directory
+    raises as the JAX RecordIO reader does."""
     csv_dir = tmp_path / "csv"
     csv_dir.mkdir()
     (csv_dir / "x.csv").write_text("a\n1\n")
@@ -115,10 +115,15 @@ def test_reader_factory_refuses_what_is_not_ported(tmp_path):
         assert isinstance(jax_readers.create_data_reader(origin),
                           jax_readers.CSVDataReader)
         assert reader.create_shards() == {str(csv_dir / "x.csv"): (0, 1)}
-    with pytest.raises(NotImplementedError):
-        port_readers.create_data_reader("odps://project/table")
-    with pytest.raises(NotImplementedError):
-        port_readers.create_data_reader("t", table_client=object())
+    for var in ("MAXCOMPUTE_AK", "MAXCOMPUTE_SK"):
+        monkeypatch.delenv(var, raising=False)
+    for readers in (port_readers, jax_readers):
+        with pytest.raises(ValueError, match="requires credentials"):
+            readers.create_data_reader("odps://project/table")
+    from elasticdl_tpu_torch.data.table_reader import TableDataReader
+    assert isinstance(
+        port_readers.create_data_reader("t", table_client=object()),
+        TableDataReader)
     empty = str(tmp_path / "empty")
     os.makedirs(empty)
     for readers in (port_readers, jax_readers):

@@ -260,6 +260,67 @@ def test_env_tier_disabled_is_none(monkeypatch):
         port_tier.resolve_tier_config("on")
 
 
+class _SightingsRecorder:
+    """Wraps a LocalPSClient: each writeback's {id: sightings} per
+    table (None where the tier sent none)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.sent = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def push_embedding_rows(self, rows_by_table, sightings=None):
+        for name, (ids, _) in rows_by_table.items():
+            seen = (None if sightings is None
+                    else np.asarray(sightings[name]).tolist())
+            self.sent.append((name, np.asarray(ids).tolist(), seen))
+        return self.inner.push_embedding_rows(rows_by_table, sightings)
+
+    def take(self):
+        sent, self.sent = self.sent, []
+        return {i: n for _, ids, seen in sent for i, n in zip(ids, seen)}
+
+
+def test_writebacks_carry_the_hits_since_the_last_writeback():
+    """The port's addition: a writeback carries per row the tier's hits
+    since the row last went back, two PS sightings a hit (the pull and
+    the push it absorbed), for the PS's embedding lifecycle to rank the
+    rows by; a victim's hits go with its eviction writeback, a flush
+    zeroes what it sent, and a re-assert sends clean rows with 0."""
+    _, config = tier_configs(capacity=2, promote_hits=1, ttl=0,
+                             writeback_steps=0)
+    client = _SightingsRecorder(port_client(seed=0))
+    client.push_embedding_table_infos([("t", 4, "0.05")])
+    tier = port_tier.DeviceEmbeddingTier([_spec()], client, config,
+                                         device="cpu")
+    rows = np.ones((2, 4), np.float32)
+
+    def step(ids):
+        tier.advance()
+        ids = np.asarray(ids, np.int64)
+        slots = tier.lookup("t", ids)
+        miss = ids[slots < 0]
+        if miss.size:
+            tier.admit("t", miss, rows[:miss.size])
+
+    step([1, 2])                  # promoted: the PS saw these pulls
+    step([1, 2])
+    step([1])
+    step([1])                     # id 1: 3 hits, id 2: 1
+    step([7])                     # promoted over id 2, the LFU victim
+    tier.flush()
+    assert client.take() == {2: 2, 1: 6, 7: 0}
+    step([1, 7])
+    tier.flush()
+    assert client.take() == {1: 2, 7: 2}
+    tier.reassert = True
+    tier.flush()
+    assert client.take() == {1: 0, 7: 0}
+    tier.close()
+
+
 def test_tier_refuses_a_client_without_writeback_and_bad_optimizers():
     config = port_tier.DeviceTierConfig(capacity=4)
     with pytest.raises(ValueError, match="push_embedding_rows"):

@@ -157,3 +157,24 @@ def test_kernel_modules_import_without_nvcc_or_triton(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_first_forward_imports_no_dynamo(tmp_path):
+    """The K4 op's first call in a new process imports no
+    ``torch._dynamo`` (``torch.library.custom_op``'s kernels do: 3.7 s
+    on a CPU, paid by a serving replica's first request)."""
+    code = (
+        "import sys, torch\n"
+        "from elasticdl_tpu_torch.ops import attention\n"
+        "q = torch.randn(1, 2, 16, 64)\n"
+        "with torch.inference_mode():\n"
+        "    attention.dot_product_attention(q, q, q, causal=True)\n"
+        "print('torch._dynamo' in sys.modules)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

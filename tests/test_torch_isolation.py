@@ -63,7 +63,9 @@ def test_every_port_module_imports_with_jax_blocked():
     assert "elasticdl_tpu_torch.ops.flash_attention" in modules
     assert "elasticdl_tpu_torch.serve.main" in modules
     for name in ("stream.source", "stream.feeder", "stream.lifecycle",
-                 "testing.faults", "master.tensorboard_service"):
+                 "testing.faults", "master.tensorboard_service",
+                 "ops.moe", "models.moe_transformer", "data.table_reader",
+                 "data.table_writer"):
         assert "elasticdl_tpu_torch." + name in modules
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKER, *modules],

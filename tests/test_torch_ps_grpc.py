@@ -101,16 +101,20 @@ class _Recorder:
 
 
 @contextlib.contextmanager
-def live_ps(pkg, kind, n_shards=2, legacy=False, port=None, **servicer_kwargs):
+def live_ps(pkg, kind, n_shards=2, legacy=False, port=None, lifecycle=None,
+            **servicer_kwargs):
     """``n_shards`` in-process servers of package ``pkg`` over ``kind``
     stores (seed = shard id, adam lr 0.01); ``legacy`` serves the method
-    set without pull_embedding_batch, as an old binary. Yields (stores,
+    set without pull_embedding_batch, as an old binary; ``lifecycle``
+    (store -> embedding lifecycle) gives each shard one. Yields (stores,
     recorders, addrs)."""
     spec = PKGS[pkg]
     servers, stores, recorders, addrs = [], [], [], []
     try:
         for ps_id in range(n_shards):
             store = _store(pkg, kind, ps_id)
+            if lifecycle is not None:
+                servicer_kwargs["lifecycle"] = lifecycle(store)
             recorder = _Recorder(spec["servicer"](store, ps_id=ps_id,
                                                   **servicer_kwargs))
             server = spec["build_server"]()
@@ -274,6 +278,44 @@ def test_wire_codec_matches_reference_bit_for_bit():
 
 # ---------------------------------------------------------------------------
 # legacy peers, request reuse
+
+
+
+
+def test_writeback_sightings_travel_with_each_shards_rows():
+    """The port's addition: a device tier's writeback sightings split by
+    shard as its rows do and join each port PS's LFU frequency for the
+    rows; a reference PS, which has no use for them, imports the rows
+    as it would without them."""
+    from elasticdl_tpu_torch.stream.lifecycle import EmbeddingLifecycle
+
+    ids = np.arange(10, 18, dtype=np.int64)
+    rows = np.random.RandomState(3).randn(8, 4).astype(np.float32)
+    seen = np.arange(8, dtype=np.int64) * 3
+    with live_ps("port", "numpy", lifecycle=lambda store: EmbeddingLifecycle(
+            store, admit_k=2, max_rows=100)) as (stores, recorders, addrs):
+        client = port_ps_client.PSClient(addrs)
+        client.push_embedding_table_infos(TABLES)
+        client.push_embedding_rows({"e": (ids, rows)}, sightings={"e": seen})
+        freq = {}
+        for recorder in recorders:
+            freq.update({i: e[0] for i, e in
+                         recorder.inner._lifecycle._tables["e"]
+                         .admitted.items()})
+    assert freq == {int(i): 2.0 + n for i, n in zip(ids, seen)}
+    exports = {}
+    for sighted in (False, True):
+        with live_ps("ref", "numpy") as (stores, _, addrs):
+            client = port_ps_client.PSClient(addrs)
+            client.push_embedding_table_infos(TABLES)
+            client.push_embedding_rows(
+                {"e": (ids, rows)},
+                sightings={"e": seen} if sighted else None)
+            exports[sighted] = [store.export_table_full("e")
+                                for store in stores]
+    for without, with_ in zip(exports[False], exports[True]):
+        for a, b in zip(without, with_):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("server_pkg", ["port", "ref"])

@@ -11,8 +11,9 @@ packages' servicers and lifecycles (numpy store against numpy store,
 native against native), and after every push, pull and sweep the
 admitted id sets, each admitted id's [frequency, last seen], the
 sketch's cells, the sweep's evicted id sets and the surviving rows
-(weights, slots, step counts) are equal bit for bit; (c) the port's one
-difference: an import refreshes the TTL stamp but not the LFU guard.
+(weights, slots, step counts) are equal bit for bit; (c) the port's two
+differences: an import refreshes the TTL stamp but not the LFU guard,
+and a writeback's sightings join its rows' LFU frequency.
 """
 
 import importlib
@@ -320,6 +321,46 @@ def test_reassert_does_not_shield_rows_from_the_bound():
             clock[0] = 41.0
             assert servicer.lifecycle_tick()["ttl"] == len(admitted)
     assert resident == {"ref": 7, "port": 4}
+
+
+def test_writeback_sightings_rank_reasserted_rows_under_the_bound():
+    """The port's addition: a writeback's sightings (the hits a device
+    tier served since it last wrote each row back, carried in the
+    request's ``dense_parameters[table]``) join each row's LFU
+    frequency, so the sweep after a re-assert cuts the rows the tier
+    used least. Without sightings every re-asserted row weighs the
+    same and the cut falls by id, here on the rows the tier used most;
+    a later writeback's sightings add to a resident row's."""
+    m = modules("port")
+    kept = {}
+    for sighted in (False, True):
+        clock = [0.0]
+        servicer, store, lc = make_servicer(m, admit_k=1, max_rows=3,
+                                            clock=lambda: clock[0])
+        request = m.pb.Model()
+        m.tensor_utils.serialize_indexed_slices(
+            np.full((6, 2), 3.0, np.float32),
+            np.array([1, 2, 3, 4, 5, 6], np.int64),
+            request.embedding_tables["t"])
+        if sighted:
+            m.tensor_utils.ndarray_to_blob(
+                np.array([8, 6, 4, 0, 0, 0], np.int64),
+                request.dense_parameters["t"])
+        servicer.push_embedding_rows(request)
+        clock[0] = 5.0
+        assert servicer.lifecycle_tick()["lfu"] == 3
+        kept[sighted] = sorted(store.export_table("t")[0].tolist())
+        if sighted:
+            again = m.pb.Model()
+            m.tensor_utils.serialize_indexed_slices(
+                np.full((1, 2), 3.0, np.float32), np.array([3], np.int64),
+                again.embedding_tables["t"])
+            m.tensor_utils.ndarray_to_blob(np.array([2], np.int64),
+                                           again.dense_parameters["t"])
+            servicer.push_embedding_rows(again)
+            freq = {i: e[0] for i, e in lc._tables["t"].admitted.items()}
+            assert freq == {1: 9.0, 2: 7.0, 3: 7.0}
+    assert kept == {False: [4, 5, 6], True: [1, 2, 3]}
 
 
 def test_restore_reanchors_conservatively(m, tmp_path):
