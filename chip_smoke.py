@@ -19,12 +19,14 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    head_dim 128, ragged S = 1000; head_dim 256 at bench.py's
    transformer and s16k_flash shapes, ragged in fp32 and bf16; head_dim
    96, zero-padded to the kernel's 128; head_dim 128 at bench.py's MoE
-   shape, batch 16 x 8 heads, S 1024), each under the tolerance
-   printed with it; times of the kernel, the plain version and
+   shape, batch 16 x 8 heads, S 1024), and at five unequal query and
+   key lengths (``UNEQUAL_CASES``), each under the tolerance printed
+   with it; times of the kernel, the plain version and
    ``scaled_dot_product_attention`` (timed only: the port never calls
    it) with CUDA events, L2 flushed before every launch;
 3. backward kernels -- K5 (dq) and K6 (dk, dv) against
-   ``flash_attention_bwd_reference`` at the same twelve shapes, row by row
+   ``flash_attention_bwd_reference`` at the same seventeen shapes (K6's
+   dk and dv rows of keys no query sees exactly zero), row by row
    (each row's error relative to that row's size), raw launches on the
    same inputs bit-equal to the wrapper's, each kernel timed alone
    beside its own plain version, the wrapper (delta and both kernels)
@@ -401,7 +403,14 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    ``"onehot"``: three fp32 AdamW steps each from the same weights,
    losses within 1e-4 relative, and the compact arm's bf16 step time;
    the aux loss finite and each MoE block's first-choice share per
-   expert and dropped share. Last, the zoo's MoE ``custom_model`` (12
+   expert and dropped share. Then the mesh (``moe_mesh_arm``): three
+   bf16 steps of ``TorchTrainer`` and three of
+   ``parallel.spmd_trainer.SpmdTrainer`` over a one-rank NCCL process
+   group (started and destroyed here), its model on the host, from the
+   one-hot arm's starting weights: losses, parameters and AdamW's slots
+   bit-equal, K4-K6 8 a step, the dense plan all local and 0 collective
+   bytes, each step's ms beside the other's. Last, the zoo's MoE
+   ``custom_model`` (12
    layers, 12 heads, d 768, 8 experts) 3 steps through
    ``LocalExecutor`` over RecordIO token records (K4-K6 12 a step), its
    export answered once by an in-process ``ServingEngine``: bare
@@ -474,6 +483,32 @@ CASES = (
     # heads of 128, S 1024
     ("moe_bf16_d128_causal", 128, 1024, 128, "bfloat16", True),
 )
+# unequal query and key lengths: (name, batch*heads, seq_q, seq_k,
+# head_dim, dtype, causal). Fewer queries than keys leaves key tiles past
+# seq_q under the causal mask that no query sees (K6 stores their dk and
+# dv as zeros: d 256's 64-key work tiles 4-15 at seq_q 200), more
+# queries than keys gives rows past seq_k that see every key (their lse
+# from K4), and a head_dim between the kernels' widths runs padded
+UNEQUAL_CASES = (
+    ("uneq_bf16_d64_q384_k1000_causal", 16, 384, 1000, 64, "bfloat16", True),
+    ("uneq_bf16_d128_q1000_k384_causal", 16, 1000, 384, 128, "bfloat16",
+     True),
+    ("uneq_bf16_d256_q200_k1000_causal", 16, 200, 1000, 256, "bfloat16",
+     True),
+    ("uneq_f32_d128_q520_k1000_full", 16, 520, 1000, 128, "float32", False),
+    ("uneq_bf16_d96_q1000_k384_full", 16, 1000, 384, 96, "bfloat16", False),
+)
+
+
+def case_lengths(case):
+    """``(name, bh, seq_q, seq_k, dim, dtype, causal)`` of a CASES entry
+    (seq_k = seq_q) or an UNEQUAL_CASES entry."""
+    if len(case) == 6:
+        name, bh, seq, dim, dtype, causal = case
+        return name, bh, seq, seq, dim, dtype, causal
+    return tuple(case)
+
+
 # o tolerance per dtype: bf16 rounds p and o at other points than the
 # plain version (one bf16 ulp of O(1) values is 2^-8 = 0.004); fp32
 # differs only in summation order. lse is fp32 on both paths.
@@ -587,12 +622,17 @@ def worst_row_error(got, ref, dim):
 
 
 # per kernel: (matrix products over the kept (q, k) pairs, (seq, dim)
-# tensors read or written once, fp32 (bh, seq) statistics read or
+# tensors read or written once, fp32 (bh, seq_q) statistics read or
 # written once). K4: q k^T and p v; reads q, k, v, writes o and lse.
 # K5: q k^T, do v^T and ds k; reads q, k, v, do, lse, delta, writes dq.
 # K6: q k^T, do v^T, p^T do and ds^T q; reads q, k, v, do, lse, delta,
-# writes dk and dv.
+# writes dk and dv. KEY_TENSORS: how many of those tensors have seq_k
+# rows (k, v, and K6's dk, dv); the rest have seq_q. Of these, k and v
+# are read; under the causal mask no query sees a key at or past seq_q,
+# so only min(seq_q, seq_k) of their rows are read (K6 still writes
+# every row of dk and dv).
 KERNEL_WORK = {"fwd": (2, 4, 1), "dq": (3, 5, 2), "dkv": (4, 6, 2)}
+KEY_TENSORS = {"fwd": 2, "dq": 2, "dkv": 4}
 
 
 def roofline(nbytes, flops, dtype="float32"):
@@ -603,16 +643,29 @@ def roofline(nbytes, flops, dtype="float32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound(bh, seq, dim, dtype, causal, kernel="fwd"):
+def causal_pairs(seq_q, seq_k):
+    """The (q, k) pairs the causal mask keeps: sum over query rows i <
+    seq_q of min(i + 1, seq_k)."""
+    seen = min(seq_q, seq_k)
+    return seen * (seen + 1) // 2 + (seq_q - seen) * seq_k
+
+
+def bound(bh, seq, dim, dtype, causal, kernel="fwd", seq_k=None):
     """(bound_ms, bound_by) of one launch of ``kernel``: its bytes (each
     input read once, each output written once) and its operations (2 *
-    dim per kept (q, k) pair and product; causal keeps seq * (seq + 1) /
-    2 pairs) on the roofline."""
+    dim per kept (q, k) pair and product; causal keeps
+    ``causal_pairs``) on the roofline. ``seq`` is seq_q; seq_k defaults
+    to it."""
+    seq_k = seq if seq_k is None else seq_k
     products, tensors, stats = KERNEL_WORK[kernel]
+    key_tensors = KEY_TENSORS[kernel]
     elem = 2 if dtype == "bfloat16" else 4
-    pairs = seq * (seq + 1) // 2 if causal else seq * seq
+    pairs = causal_pairs(seq, seq_k) if causal else seq * seq_k
     flops = 2.0 * products * bh * dim * pairs
-    nbytes = tensors * bh * seq * dim * elem + stats * 4.0 * bh * seq
+    keys_read = min(seq, seq_k) if causal else seq_k
+    rows = ((tensors - key_tensors) * seq + 2 * keys_read
+            + (key_tensors - 2) * seq_k)
+    nbytes = rows * bh * dim * elem + stats * 4.0 * bh * seq
     return roofline(nbytes, flops, dtype)
 
 
@@ -628,7 +681,7 @@ def raw_launch(torch, fn, *args):
     return launch
 
 
-def kernel_phase(torch, flash, cases=CASES, baselines=True):
+def kernel_phase(torch, flash, cases=CASES + UNEQUAL_CASES, baselines=True):
     """K4 against its plain version at every case, and a raw launch of
     the built library's ``edl_flash_fwd`` on the same inputs bit-equal
     to the wrapper's. K4 is timed by that raw call (no wrapper, not
@@ -642,11 +695,12 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    for name, bh, seq, dim, dtype_name, causal in cases:
+    for case in cases:
+        name, bh, seq, seq_k, dim, dtype_name, causal = case_lengths(case)
         dtype = getattr(torch, dtype_name)
         q, k, v = (
-            torch.randn(bh, seq, dim, device="cuda", generator=gen).to(dtype)
-            for _ in range(3)
+            torch.randn(bh, rows, dim, device="cuda", generator=gen).to(dtype)
+            for rows in (seq, seq_k, seq_k)
         )
         scale = 1.0 / dim ** 0.5
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
@@ -657,7 +711,7 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
         o_raw, lse_raw = torch.empty_like(raw_in[0]), torch.empty_like(lse)
         raw = raw_launch(torch, lib.edl_flash_fwd,
                          *(t.data_ptr() for t in raw_in), o_raw.data_ptr(),
-                         lse_raw.data_ptr(), bh, seq, width,
+                         lse_raw.data_ptr(), bh, seq, seq_k, width,
                          int(dtype == torch.bfloat16), int(causal), scale)
         raw()
         torch.cuda.synchronize()
@@ -676,10 +730,10 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
             and err_lse <= LSE_TOL and bit_equal
         )
         record = {
-            "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
-            "causal": causal, "kernel_width": width, "max_abs_err": err_o,
-            "max_abs_err_lse": err_lse, "tol_o": tol, "tol_lse": LSE_TOL,
-            "launches_bit_equal": bit_equal,
+            "case": name, "shape": [bh, seq, dim], "seq_k": seq_k,
+            "dtype": dtype_name, "causal": causal, "kernel_width": width,
+            "max_abs_err": err_o, "max_abs_err_lse": err_lse, "tol_o": tol,
+            "tol_lse": LSE_TOL, "launches_bit_equal": bit_equal,
         }
         if not ok:
             log(json.dumps(dict(record, ok=False)))
@@ -698,13 +752,13 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
             record["plain_ms"] = time_ms(
                 torch, lambda: flash.flash_attention_fwd_reference(
                     q, k, v, causal, scale), flush)
-            q4, k4, v4 = (t.view(1, bh, seq, dim) for t in (q, k, v))
+            q4, k4, v4 = (t.view(1, bh, -1, dim) for t in (q, k, v))
             record["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     q4, k4, v4, is_causal=causal, scale=scale), flush)
             del q4, k4, v4
         record["bound_ms"], record["bound_by"] = bound(
-            bh, seq, dim, dtype_name, causal)
+            bh, seq, dim, dtype_name, causal, seq_k=seq_k)
         record["ok"] = ok
         log(json.dumps(record))
         results[name] = record
@@ -712,7 +766,7 @@ def kernel_phase(torch, flash, cases=CASES, baselines=True):
     return results
 
 
-def bwd_kernel_phase(torch, flash, timing=True):
+def bwd_kernel_phase(torch, flash, timing=True, cases=CASES + UNEQUAL_CASES):
     """K5 and K6 against the plain backward at every case, and raw
     launches of the built library's C functions on the same inputs
     bit-equal to the wrapper's; with ``timing``, each kernel timed
@@ -720,7 +774,9 @@ def bwd_kernel_phase(torch, flash, timing=True):
     ``flash_attention_bwd`` (checks, delta, K5 and K6: the only wrapper
     either kernel has), its own plain version, and the backward of
     scaled_dot_product_attention, which computes dq, dk and dv together
-    (no PyTorch call computes K5's or K6's part alone)."""
+    (no PyTorch call computes K5's or K6's part alone). Where the causal
+    mask leaves keys that no query sees (seq_q < seq_k), their dk and dv
+    rows must be exactly zero."""
     import torch.nn.functional as F
 
     from elasticdl_tpu_torch.ops import _build
@@ -729,11 +785,12 @@ def bwd_kernel_phase(torch, flash, timing=True):
     flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    for name, bh, seq, dim, dtype_name, causal in CASES:
+    for case in cases:
+        name, bh, seq, seq_k, dim, dtype_name, causal = case_lengths(case)
         dtype = getattr(torch, dtype_name)
         q, k, v, do = (
-            torch.randn(bh, seq, dim, device="cuda", generator=gen).to(dtype)
-            for _ in range(4)
+            torch.randn(bh, rows, dim, device="cuda", generator=gen).to(dtype)
+            for rows in (seq, seq_k, seq_k, seq)
         )
         scale = 1.0 / dim ** 0.5
         o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
@@ -744,16 +801,21 @@ def bwd_kernel_phase(torch, flash, timing=True):
                                                    causal, scale)
         errs, row_errs, row_norms, oks = {}, {}, {}, []
         rtol = GRAD_ROW_RTOL[dtype_name]
-        for grad_name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        for grad_name, got, ref, like in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                             refs, (q, k, v)):
             err = (got.float() - ref.float()).abs().max().item()
             row_err, row_norm = worst_row_error(got, ref, dim)
             errs[grad_name], row_errs[grad_name] = err, row_err
             row_norms[grad_name] = row_norm
-            oks.append(got.shape == q.shape and got.dtype == dtype
+            oks.append(got.shape == like.shape and got.dtype == dtype
                        and bool(torch.isfinite(got.float()).all())
                        and row_err <= rtol
                        and (dtype_name == "bfloat16" or err <= GRAD_F32_ATOL))
         del refs
+        # keys no query sees under the causal mask: exactly zero
+        unseen = seq_k - seq if causal and seq < seq_k else 0
+        if unseen:
+            oks.append(not bool(dk[:, seq:].any() | dv[:, seq:].any()))
         # raw launches at the kernel's width (padded inputs, as K4's;
         # delta summed over the padded rows, as the wrapper sums it)
         width = flash.kernel_head_dim(dim)
@@ -761,11 +823,11 @@ def bwd_kernel_phase(torch, flash, timing=True):
         o_in = flash.pad_head_dim(o, width)
         delta = (o_in.float() * raw_in[3].float()).sum(-1).unsqueeze(1)
         del o_in
-        common = (bh, seq, width, int(dtype == torch.bfloat16), int(causal),
-                  scale)
+        common = (bh, seq, seq_k, width, int(dtype == torch.bfloat16),
+                  int(causal), scale)
         inputs = (*(t.data_ptr() for t in raw_in), lse.data_ptr(),
                   delta.data_ptr())
-        raw_out = [torch.empty_like(raw_in[0]) for _ in range(3)]
+        raw_out = [torch.empty_like(t) for t in raw_in[:3]]
         raw_dq = raw_launch(torch, lib.edl_flash_bwd_dq, *inputs,
                             raw_out[0].data_ptr(), *common)
         raw_dkv = raw_launch(torch, lib.edl_flash_bwd_dkv, *inputs,
@@ -778,15 +840,18 @@ def bwd_kernel_phase(torch, flash, timing=True):
                         for a, b in zip(raw_out, (dq, dk, dv)))
         oks.append(bit_equal)
         record = {
-            "case": name, "shape": [bh, seq, dim], "dtype": dtype_name,
-            "causal": causal, "kernel_width": width,
+            "case": name, "shape": [bh, seq, dim], "seq_k": seq_k,
+            "dtype": dtype_name, "causal": causal, "kernel_width": width,
+            "unseen_key_rows_zero": unseen * bh if unseen else None,
             "max_abs_err": errs, "worst_row_rel_err": row_errs,
             "tol_row_rel": rtol, "row_floor": GRAD_FLOOR * dim ** 0.5,
             "median_row_norm": row_norms,
             "tol_abs": GRAD_F32_ATOL if dtype_name == "float32" else None,
             "launches_bit_equal": bit_equal,
-            "dq_bound": bound(bh, seq, dim, dtype_name, causal, "dq"),
-            "dkv_bound": bound(bh, seq, dim, dtype_name, causal, "dkv"),
+            "dq_bound": bound(bh, seq, dim, dtype_name, causal, "dq",
+                              seq_k),
+            "dkv_bound": bound(bh, seq, dim, dtype_name, causal, "dkv",
+                               seq_k),
             "ok": all(oks),
         }
         if not record["ok"]:
@@ -809,7 +874,7 @@ def bwd_kernel_phase(torch, flash, timing=True):
         record["dkv_plain_ms"] = time_ms(
             torch, lambda: flash.flash_attention_bwd_dkv_reference(*args),
             flush, iters=5)
-        q4, k4, v4 = (t.view(1, bh, seq, dim).detach().requires_grad_()
+        q4, k4, v4 = (t.view(1, bh, -1, dim).detach().requires_grad_()
                       for t in (q, k, v))
         sdpa = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
                                               scale=scale)
@@ -6386,8 +6451,8 @@ K4_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_fwd.cu"
 # ((source text, its replacement), ...)); kernel_phase must fail on each
 K4_MUTATIONS = (
     ("skip_diagonal_tile", (
-        ("return causal ? q_last / kBlockN + 1 :",
-         "return causal ? max(q_last / kBlockN, 1) :"),)),
+        ("return causal ? min(q_last / kBlockN + 1, all) :",
+         "return causal ? min(max(q_last / kBlockN, 1), all) :"),)),
     ("no_output_correction", (
         ("acc_o[i] *= corr[(i >> 1) & 1];", "acc_o[i] *= 1.f;"),)),
     ("wrong_ring_stage", (
@@ -6415,13 +6480,13 @@ BWD_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_bwd.cu"
 # the S = 1000 cases)
 BWD_MUTATIONS = (
     ("k5_skip_diagonal_tile", (
-        ("return causal ? q_last / kN + 1 :",
-         "return causal ? max(q_last / kN, 1) :"),)),
+        ("return causal ? min(q_last / kN + 1, all) :",
+         "return causal ? min(max(q_last / kN, 1), all) :"),)),
     ("k5_no_delta", (
         ("ds[e] = p * (acc_dp[j + e] - delta_r[h]) * scale;",
          "ds[e] = p * acc_dp[j + e] * scale;"),)),
     ("k6_no_query_mask_past_s", (
-        ("if (q_pos >= seq || (causal && k_pos > q_pos)) s = kNegInf;",
+        ("if (q_pos >= seq_q || (causal && k_pos > q_pos)) s = kNegInf;",
          "if (causal && k_pos > q_pos) s = kNegInf;"),)),
     ("k6_q_wrong_ring_stage", (
         ("const uint32_t q_src = q_s + stage * L::kTileBytes;",
@@ -6431,7 +6496,7 @@ BWD_MUTATIONS = (
     # warpgroup reading P^T and dS^T from its own buffer (the other
     # warpgroup's half stale)
     ("k6_d256_no_query_mask_past_s", (
-        ("const bool masked = q_pos >= seq || (causal && k_pos > q_pos);",
+        ("const bool masked = q_pos >= seq_q || (causal && k_pos > q_pos);",
          "const bool masked = causal && k_pos > q_pos;"),)),
     ("k6_d256_buffers_per_warpgroup", (
         ("const uint32_t p_buf = p_s + (kv & 1) * L::kPBytes;",
@@ -6531,7 +6596,7 @@ MUTATION_CHILD = (
     "    chip_smoke.k3_hit_mix_timing(torch, np)\n"
     "else:\n"
     "    cases = chip_smoke.CASES[:1] if mode == 'time' "
-    "else chip_smoke.CASES\n"
+    "else chip_smoke.CASES + chip_smoke.UNEQUAL_CASES\n"
     "    chip_smoke.kernel_phase(torch, flash, cases, baselines=False)\n"
 )
 
@@ -6737,15 +6802,15 @@ def flash_raw_outputs(torch, libs, q, k, v, do, causal):
     """(o, lse, dq, dk, dv) from raw launches of ``libs``' K4, K5 and K6
     (delta from this o, as the wrapper computes it)."""
     bh, seq, dim = q.shape
-    common = (bh, seq, dim, int(q.dtype == torch.bfloat16), int(causal),
-              1.0 / dim ** 0.5)
+    common = (bh, seq, k.shape[1], dim, int(q.dtype == torch.bfloat16),
+              int(causal), 1.0 / dim ** 0.5)
     o = torch.empty_like(q)
     lse = torch.empty(bh, 1, seq, device="cuda")
     raw_launch(torch, libs["flash_fwd"].edl_flash_fwd, q.data_ptr(),
                k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
                *common)()
     delta = (o.float() * do.float()).sum(-1).unsqueeze(1)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     raw_launch(torch, libs["flash_bwd"].edl_flash_bwd_dq, *inputs,
@@ -9507,6 +9572,10 @@ MOE_COMPACT_BF16_STEPS = 3     # the compact arm's bf16 step time, after 1
 # experts) through LocalExecutor over RecordIO token records: 3 steps of 4
 MOE_ZOO_BATCH = 4
 MOE_ZOO_STEPS = 3
+# the one-rank mesh arm: bench.py's MoE trained through SpmdTrainer
+# (moe_sharding_rules) on a process group of one rank, from the one-hot
+# arm's starting weights, beside TorchTrainer's steps
+MOE_MESH_STEPS = 3
 
 
 def moe_flops(d, layers, seq, batch, vocab, mlp_ratio, num_experts, k,
@@ -9710,6 +9779,120 @@ def moe_compact_check(torch, np, init, widths, routing, tokens, device):
             and all(np.isfinite(bf16_losses))}
 
 
+def moe_mesh_arm(torch, np, flash, init, widths, routing, tokens, device,
+                 steps=MOE_MESH_STEPS):
+    """The MoE through the mesh: ``steps`` bf16 AdamW steps of
+    ``TorchTrainer`` from the weights ``init``, then as many of
+    ``SpmdTrainer`` over a one-rank mesh (NCCL on the card, gloo on the
+    CPU; a group this arm starts is destroyed at its end), its model
+    built on the host and its blocks moved, with moe_sharding_rules.
+    Refuses unless the losses, the parameters and AdamW's slots are the
+    same bits, K4-K6 ran once a layer in every mesh step, and the dense
+    plan reads every parameter local and 0 collective bytes (recorded
+    bytes too)."""
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.models import moe_transformer
+    from elasticdl_tpu_torch.parallel.collectives import (
+        track_collective_bytes,
+    )
+    from elasticdl_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        build_mesh,
+        init_local_group,
+    )
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    t_arm = time.monotonic()
+    batch = {"features": tokens, "labels": tokens,
+             "_mask": np.ones(tokens.shape[0], np.float32)}
+    layers = widths["num_layers"]
+    started = init_local_group(device)
+    try:
+        mesh = build_mesh(MeshConfig(dp=1))
+
+        def net(on, **kw):
+            with torch.device(on):
+                model = moe_transformer.MoeTransformerLM(
+                    mlp_ratio=MOE_MLP_RATIO, **widths, **routing, **kw)
+            model.load_state_dict(init, assign=on == "meta")
+            return model
+
+        def optimizer():
+            return moe_transformer.optimizer()
+
+        def run(trainer):
+            state, losses, launches, step_ms = None, [], [], []
+            with track_collective_bytes() as moved:
+                for _ in range(steps):
+                    sync(torch, torch.device(device))
+                    reset_launches(flash)
+                    t0 = time.perf_counter()
+                    state, loss = trainer.train_step(state, dict(batch))
+                    losses.append(float(loss))  # fences the step
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    launches.append(read_launches(flash))
+            return state, losses, launches, step_ms, moved.total
+
+        common = dict(loss_fn=moe_transformer.loss,
+                      compute_dtype=torch.bfloat16, health=False,
+                      device=device, seed=SEED)
+        plain = TorchTrainer(model=net(device), optimizer=optimizer(),
+                             **common)
+        p_state, p_losses, p_launches, p_ms, _ = run(plain)
+        # host weights: on "meta", assigned CPU copies of init
+        init = {k: v.cpu() for k, v in init.items()}
+        spmd = SpmdTrainer(model=net("meta", mesh=mesh),
+                           optimizer=optimizer(), mesh=mesh,
+                           sharding_rules=moe_transformer.sharding_rules(),
+                           batch_spec=moe_transformer.batch_spec(), **common)
+        m_state, m_losses, m_launches, m_ms, moved = run(spmd)
+        same = all(torch.equal(p_state.params[k], m_state.params[k])
+                   for k in p_state.params)
+        slots = all(torch.equal(p_state.opt_state[s][k],
+                                m_state.opt_state[s][k])
+                    for s in ("mu", "nu") for k in p_state.params)
+        summary = spmd.dense_plan.summary()
+        record = {
+            "phase": "19_moe", "part": "mesh", "mesh": spmd.mesh_shape_str,
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "steps": steps, "plain_losses": p_losses,
+            "mesh_losses": m_losses, "params_bit_equal": same,
+            "adam_slots_bit_equal": slots,
+            "launches_per_step": m_launches,
+            "plain_launches_per_step": p_launches,
+            "plain_step_ms": p_ms, "mesh_step_ms": m_ms,
+            "plan": summary,
+            "collective_bytes_per_step": spmd.collective_bytes_per_step,
+            "recorded_collective_bytes": moved,
+            "seconds": time.monotonic() - t_arm,
+        }
+        want = {"fwd": layers, "dq": layers, "dkv": layers}
+        n_params = len(p_state.params)
+        failures = [what for what, bad in (
+            ("mesh losses bit-equal", m_losses != p_losses),
+            ("mesh params bit-equal", not same),
+            ("mesh adam slots bit-equal", not slots),
+            ("mesh K4-K6 %d a step" % layers,
+             any(s != want for s in m_launches)),
+            ("mesh plan all local",
+             summary["local_params"] != n_params
+             or summary["reduce_scatter_params"]
+             or summary["psum_params"]),
+            ("mesh 0 collective bytes",
+             spmd.collective_bytes_per_step != 0 or moved != 0)) if bad]
+        record["ok"] = not failures
+        log(json.dumps(record))
+        if failures:
+            raise SystemExit("moe phase: %s" % failures)
+        del p_state, m_state, plain, spmd
+        return record
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def moe_zoo_job(torch, np, flash, workdir, device="cuda", widths=None,
                 seq=TRAIN_SEQ):
     """The zoo's custom_model (or ``widths``) through ``LocalExecutor``
@@ -9793,8 +9976,9 @@ def moe_phase(torch, np, flash, workdir, device="cuda", widths=None,
               batch=MOE_BATCH, warmup=MOE_WARMUP, steps=MOE_STEPS,
               zoo_widths=None, zoo_seq=TRAIN_SEQ):
     """Phase 19 (see the module docstring): the MoE arm and the matched
-    dense arm, the compact dispatch against the one-hot, the expert
-    load, and the zoo's MoE LM as a job served once."""
+    dense arm, the compact dispatch against the one-hot, the MoE through
+    a one-rank mesh (``moe_mesh_arm``), the expert load, and the zoo's
+    MoE LM as a job served once."""
     from types import SimpleNamespace
 
     from elasticdl_tpu_torch.models import transformer
@@ -9849,8 +10033,13 @@ def moe_phase(torch, np, flash, workdir, device="cuda", widths=None,
                                 device)
     compact["card"] = card_line(device)
     log(json.dumps(compact))
+    mesh = moe_mesh_arm(torch, np, flash, init, widths, routing, tokens,
+                        device)
+    mesh["card"] = card_line(device)
     del init
     gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
 
     ratio = matched_mlp_ratio(MOE_MLP_RATIO, routing["top_k"],
                               routing["capacity_factor"])
@@ -9909,11 +10098,15 @@ def moe_phase(torch, np, flash, workdir, device="cuda", widths=None,
         "moe_peak_mem_gb": moe["peak_mem_gb"],
         "dense_peak_mem_gb": dense["peak_mem_gb"],
         "compact_bf16_step_ms": compact["compact_bf16_step_ms"],
+        "mesh_step_ms": mesh["mesh_step_ms"],
+        "mesh_plain_step_ms": mesh["plain_step_ms"],
+        "mesh_seconds": mesh["seconds"],
         "aux_loss": load["aux_loss"],
         "dropped_share": [l["dropped_share"] for l in load["layers"]],
         "seconds": time.monotonic() - t_phase, "card": card_line(device)}
     log(json.dumps(summary))
     return {"moe": moe, "dense": dense, "compact": compact, "zoo": zoo,
+            "mesh": mesh,
             "agreement": {"moe": moe_agree, "dense": dense_agree},
             "summary": summary}
 
@@ -10210,6 +10403,16 @@ def run_phases(torch, np, job_dir, data_proc):
                 "library_ms", "wrapper_ms", "ms_k5_k6", "library_ms_k5_k6")
                 if k in other}
             entry[key]["shape"] = source[case]["shape"]
+        # unequal query and key lengths (UNEQUAL_CASES)
+        entry["unequal"] = {}
+        for case in UNEQUAL_CASES:
+            other = kernel_entry(entry["name"], entry["source"],
+                                 entry["replaces"], None, source[case[0]],
+                                 kind)
+            entry["unequal"][case[0]] = {k: other[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "wrapper_ms", "ms_k5_k6", "library_ms_k5_k6")
+                if k in other}
         # every step's count is the same (phases 16 and 19 check it)
         entry["launches_per_step_d256"] = {
             "transformer": heads256["bench"]["record"][
@@ -10217,7 +10420,8 @@ def run_phases(torch, np, job_dir, data_proc):
             "s16k_flash": heads256["s16k"]["launches_per_step"][0][kind]}
         entry["launches_per_step_moe"] = {
             "moe": moe["moe"]["launches_per_step"][0][kind],
-            "dense_matched": moe["dense"]["launches_per_step"][0][kind]}
+            "dense_matched": moe["dense"]["launches_per_step"][0][kind],
+            "moe_mesh": moe["mesh"]["launches_per_step"][0][kind]}
     tier_entries = [
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",

@@ -2,8 +2,10 @@
 flag helpers (port of elasticdl_tpu/common/args.py).
 
 The flags are the JAX package's, trimmed to the features the port has:
-the multi-host, mesh and pod-spec flags wait with their features
-(ROADMAP). The worker adds ``--device``
+the multi-host and pod-spec flags wait with their features (ROADMAP).
+The worker's ``--mesh`` gives the SPMD trainer's axis sizes (e.g.
+``dp=4,fsdp=2``; dp=-1 absorbs the ranks left over) over the ranks of
+the default process group. The worker adds ``--device``
 (``cuda`` unless the caller asks for the CPU). The PS server's own
 flags live in ``ps/server.py:parse_ps_args``.
 """
@@ -99,6 +101,12 @@ def parse_worker_args(argv=None):
     # split each batch into k microbatches with one optimizer update
     # (dense models)
     parser.add_argument("--grad_accum_steps", type=int, default=1)
+    # mesh axis sizes for the SPMD trainer; dp=-1 absorbs the remaining
+    # ranks (a dense model; empty: the single-card trainer, unless the
+    # model exports mesh_config)
+    parser.add_argument(
+        "--mesh", default="", help='axis sizes, e.g. "dp=4,fsdp=2"'
+    )
     # pipelined sparse training: overlap batch N+1's PS pull with batch
     # N's device step; optional hot-row reuse and push accumulation
     parser.add_argument("--sparse_pipeline", type=int, default=0)

@@ -147,13 +147,17 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout``: identity in eval mode or at rate 0. In
     training mode the mask comes from this module's ``seed`` and its
     ``site`` (its index among the model's dropouts), both set by
-    ``dropout_seed``."""
+    ``dropout_seed``. With ``rows`` = ``(offset, total)`` (a data-
+    parallel rank's share of the batch) the mask is drawn for the whole
+    batch of ``total`` rows and this rank's rows are kept, so the ranks
+    together drop what one card would."""
 
     def __init__(self, rate):
         super().__init__()
         self.rate = float(rate)
         self.seed = None
         self.site = 0
+        self.rows = None
 
     def forward(self, x):
         if not self.training or self.rate == 0.0:
@@ -168,23 +172,29 @@ class Dropout(nn.Module):
         generator = torch.Generator(device=x.device)
         generator.manual_seed(
             _mix(self.seed ^ _mix(self.site)) & ((1 << 63) - 1))
-        draw = torch.rand(x.shape, generator=generator, device=x.device)
+        if self.rows is None:
+            draw = torch.rand(x.shape, generator=generator, device=x.device)
+        else:
+            offset, total = self.rows
+            draw = torch.rand((total, *x.shape[1:]), generator=generator,
+                              device=x.device)[offset:offset + x.shape[0]]
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
 @contextlib.contextmanager
-def dropout_seed(model, key):
+def dropout_seed(model, key, rows=None):
     """Give every ``Dropout`` of ``model`` the seed ``key`` (and its
-    site) for the forward AND the backward run inside the block: a
-    recompute under ``torch.utils.checkpoint`` redraws the same mask."""
+    site, and ``rows``: ``Dropout``'s docstring) for the forward AND the
+    backward run inside the block: a recompute under
+    ``torch.utils.checkpoint`` redraws the same mask."""
     sites = [m for m in model.modules() if isinstance(m, Dropout)]
     for site, module in enumerate(sites):
-        module.seed, module.site = key, site
+        module.seed, module.site, module.rows = key, site, rows
     try:
         yield
     finally:
         for module in sites:
-            module.seed = None
+            module.seed = module.rows = None
 
 
 # ---------------------------------------------------------------------------

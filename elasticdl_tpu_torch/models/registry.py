@@ -24,6 +24,12 @@ types:
 - ``ps_optimizer`` -> the PS's optimizer spec (optional; kept on the
   spec, read by no ported role yet: the reference's pod manager, which
   passes it to the PS pods, is not ported)
+- ``sharding_rules()`` -> parallel/sharding.py rules on flax paths
+  (optional; read by parallel/spmd_trainer.py)
+- ``batch_spec()`` -> the batch's PartitionSpec (optional)
+- ``mesh_config(num_devices)`` -> a parallel/mesh.py MeshConfig the
+  worker trains through the SPMD trainer with when ``--mesh`` is not
+  given (optional)
 
 ``symbol_overrides`` (the ``--loss``, ``--optimizer``, ``--dataset_fn``,
 ``--eval_metrics_fn``, ``--callbacks`` and
@@ -47,6 +53,7 @@ class ModelSpec:
                  optimizer=None, dataset_fn=None, eval_metrics_fn=None,
                  sparse_embedding_specs=None, callbacks=None,
                  prediction_outputs_processor=None, ps_optimizer=None,
+                 sharding_rules=None, batch_spec=None, mesh_config=None,
                  module=None):
         self.custom_model = custom_model
         # {flax name: array} -> state_dict (port addition: exports carry
@@ -62,6 +69,11 @@ class ModelSpec:
         # the PS's optimizer; its consumer, the reference's pod manager
         # (k8s/pod_manager.py), is not ported (ROADMAP Queue 1)
         self.ps_optimizer = ps_optimizer
+        # the SPMD surface: partition rules, the batch's spec and a
+        # model-chosen mesh (parallel/)
+        self.sharding_rules = sharding_rules
+        self.batch_spec = batch_spec
+        self.mesh_config = mesh_config
         self.module = module
 
     def require_training(self):
@@ -188,5 +200,8 @@ def get_model_spec(module_path_or_name, model_def="", model_params="",
         prediction_outputs_processor=optional(
             "prediction_outputs_processor", "PredictionOutputsProcessor"),
         ps_optimizer=optional("ps_optimizer"),
+        sharding_rules=optional("sharding_rules"),
+        batch_spec=optional("batch_spec"),
+        mesh_config=optional("mesh_config"),
         module=module,
     )

@@ -17,7 +17,20 @@ Weights cross over by name: ``params_from_flax`` maps the flax tree
 serves on either. Layouts: DenseGeneral q/k/v kernels are
 ``(dim, heads, head_dim)`` and out_proj ``(heads, head_dim, dim)``;
 Dense kernels are ``(in, out)``, the transpose of an ``nn.Linear``
-weight; Embed is ``(vocab, dim)``.
+weight; Embed is ``(vocab, dim)``. ``flax_leaf`` names a weight's flax
+path and layout, which parallel/sharding.py reads to lay the
+reference's ``sharding_rules`` over the port's weights.
+
+Tensor parallelism (``mesh`` with tp > 1, parallel/spmd_trainer.py):
+the model computes on its tp blocks of the weights, Megatron's layout
+as the reference's rules give it. q, k, v and mlp_up hold their rank's
+heads or features (attention runs K4-K6 on the rank's own heads) and
+out_proj and mlp_down the matching inputs, whose partial sums one
+``mesh_psum`` a branch adds; the branch's input enters through
+``mesh_replicate`` (its gradient all-reduced). wte and lm_head hold the
+rank's rows of the vocabulary: the lookup masks the other ranks' ids
+and sums over tp, and the logits gather over tp. Without a mesh (or at
+tp 1) none of it runs.
 """
 
 import functools
@@ -32,6 +45,14 @@ from torch.func import functional_call
 from elasticdl_tpu_torch.data.example import decode_example
 from elasticdl_tpu_torch.models.layers import Dropout
 from elasticdl_tpu_torch.ops.attention import dot_product_attention
+from elasticdl_tpu_torch.parallel.collectives import (
+    mesh_gather_replicated,
+    mesh_psum,
+    mesh_replicate,
+)
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXES
+from elasticdl_tpu_torch.parallel.sharding import PartitionSpec as P
+from elasticdl_tpu_torch.parallel.sharding import ShardingRules
 from elasticdl_tpu_torch.train import metrics
 from elasticdl_tpu_torch.train.losses import sparse_softmax_cross_entropy
 from elasticdl_tpu_torch.train.optimizers import create_optimizer
@@ -60,10 +81,49 @@ def rotary_embedding(x, base=10000.0, seq_axis=2):
     ).to(x.dtype)
 
 
+def tp_live(mesh):
+    """Whether ``mesh`` splits the model over tp."""
+    return mesh is not None and mesh.shape["tp"] > 1
+
+
+def tp_enter(x, mesh):
+    """``x`` entering a tp-split branch (``mesh_replicate``), or ``x``."""
+    return mesh_replicate(x, "tp", mesh=mesh) if tp_live(mesh) else x
+
+
+def tp_leave(x, mesh):
+    """A tp-split branch's partial sums added over tp, or ``x``."""
+    return mesh_psum(x, "tp", mesh=mesh) if tp_live(mesh) else x
+
+
+def vocab_embed(tokens, weight, mesh):
+    """``weight[tokens]`` with ``weight`` this rank's rows of a
+    vocabulary split over tp: ids outside them look up zeros, and the
+    ranks' lookups sum."""
+    if not tp_live(mesh):
+        return F.embedding(tokens, weight)
+    rows = weight.shape[0]
+    ids = tokens - mesh.index("tp") * rows
+    inside = (ids >= 0) & (ids < rows)
+    x = F.embedding(ids.clamp(0, rows - 1), weight)
+    return mesh_psum(x * inside[..., None].to(x.dtype), "tp", mesh=mesh)
+
+
+def vocab_logits(x, head, mesh):
+    """``head(x)`` over the whole vocabulary, with ``head`` holding this
+    rank's rows of a vocabulary split over tp: the blocks gather."""
+    if not tp_live(mesh):
+        return head(x)
+    return mesh_gather_replicated(head(tp_enter(x, mesh)), "tp", dim=-1,
+                                  mesh=mesh)
+
+
 class Attention(nn.Module):
-    def __init__(self, dim, num_heads, attention_impl="auto", dropout=0.0):
+    def __init__(self, dim, num_heads, attention_impl="auto", dropout=0.0,
+                 mesh=None):
         super().__init__()
         self.num_heads = num_heads
+        self.mesh = mesh
         self.attention_impl = attention_impl
         self.query = nn.Linear(dim, dim, bias=False)
         self.key = nn.Linear(dim, dim, bias=False)
@@ -73,25 +133,30 @@ class Attention(nn.Module):
 
     def forward(self, x):
         batch, seq, dim = x.shape
-        heads = self.num_heads
+        head_dim = dim // self.num_heads
+        x = tp_enter(x, self.mesh)
+        q = self.query(x)
+        # this rank's heads: all of them, or its block under tp
+        heads = q.shape[-1] // head_dim
         # (B, S, H*d) -> (B, H, S, d)
-        to_bhsd = lambda t: t.view(batch, seq, heads, dim // heads).transpose(1, 2)
-        q = rotary_embedding(to_bhsd(self.query(x)))
+        to_bhsd = lambda t: t.view(batch, seq, heads, head_dim).transpose(1, 2)
+        q = rotary_embedding(to_bhsd(q))
         k = rotary_embedding(to_bhsd(self.key(x)))
         v = to_bhsd(self.value(x))
         out = dot_product_attention(
             q, k, v, causal=True, impl=self.attention_impl
         )
-        out = out.transpose(1, 2).reshape(batch, seq, dim)
-        return self.dropout(self.out_proj(out))
+        out = out.transpose(1, 2).reshape(batch, seq, heads * head_dim)
+        return self.dropout(tp_leave(self.out_proj(out), self.mesh))
 
 
 class Block(nn.Module):
     def __init__(self, dim, num_heads, mlp_ratio=4, attention_impl="auto",
-                 dropout=0.0):
+                 dropout=0.0, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.ln_attn = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.attn = Attention(dim, num_heads, attention_impl, dropout)
+        self.attn = Attention(dim, num_heads, attention_impl, dropout, mesh)
         self.ln_mlp = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.mlp_up = nn.Linear(dim, dim * mlp_ratio, bias=False)
         self.mlp_down = nn.Linear(dim * mlp_ratio, dim, bias=False)
@@ -99,8 +164,9 @@ class Block(nn.Module):
 
     def forward(self, x):
         x = x + self.attn(self.ln_attn(x))
-        h = F.gelu(self.mlp_up(self.ln_mlp(x)), approximate="tanh")
-        return x + self.dropout(self.mlp_down(h))
+        h = F.gelu(self.mlp_up(tp_enter(self.ln_mlp(x), self.mesh)),
+                   approximate="tanh")
+        return x + self.dropout(tp_leave(self.mlp_down(h), self.mesh))
 
 
 REMAT_POLICIES = ("full", "dots", "flash")
@@ -145,7 +211,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size=32000, num_layers=4, num_heads=8,
                  embed_dim=512, mlp_ratio=4, attention_impl="auto",
-                 dropout=0.0, remat=False, remat_policy="full"):
+                 dropout=0.0, remat=False, remat_policy="full", mesh=None):
         super().__init__()
         if remat:
             if remat_policy not in REMAT_POLICIES:
@@ -163,18 +229,20 @@ class TransformerLM(nn.Module):
                     "policy would match nothing and degrade to \"full\")"
                     % (attention_impl,))
         self.num_heads = num_heads
+        self.mesh = mesh
         self.remat = bool(remat)
         self.remat_policy = remat_policy
         self.wte = nn.Embedding(vocab_size, embed_dim)
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, attention_impl, dropout)
+            Block(embed_dim, num_heads, mlp_ratio, attention_impl, dropout,
+                  mesh)
             for _ in range(num_layers)
         )
         self.ln_f = nn.LayerNorm(embed_dim, eps=LAYER_NORM_EPS)
         self.lm_head = nn.Linear(embed_dim, vocab_size, bias=False)
 
     def forward(self, tokens):
-        x = self.wte(tokens.long())
+        x = vocab_embed(tokens.long(), self.wte.weight, self.mesh)
         remat = self.remat and torch.is_grad_enabled()
         if remat:
             from torch.utils.checkpoint import checkpoint
@@ -193,7 +261,7 @@ class TransformerLM(nn.Module):
             names, weights = zip(*block.named_parameters())
             x = checkpoint(functools.partial(_run_block, block, names), x,
                            *weights, **kwargs)
-        return self.lm_head(self.ln_f(x))
+        return vocab_logits(self.ln_f(x), self.lm_head, self.mesh)
 
     def flax_params(self, state):
         """``{name: tensor}`` in this module's names -> the export's flat
@@ -202,6 +270,10 @@ class TransformerLM(nn.Module):
 
     def params_from_flax(self, flat):
         return params_from_flax(flat)
+
+    def flax_leaf(self, name):
+        """``(flax path, layout kind)`` of the weight ``name``."""
+        return flax_leaf(name)
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +311,17 @@ def _torch_name(flax_name, block_leaves=_BLOCK_LEAVES):
         leaf, kind = block_leaves[match.group(2)]
         return "blocks.%s.%s" % (match.group(1), leaf), kind
     return _TOP_LEAVES[flax_name]
+
+
+def flax_leaf(name, block_leaves=_BLOCK_LEAVES):
+    """``(flax path, layout kind)`` of the state_dict name ``name``:
+    the inverse of ``_torch_name``."""
+    match = _TORCH_BLOCK.match(name)
+    if match:
+        from_torch = {t: (f, k) for f, (t, k) in block_leaves.items()}
+        flax_name, kind = from_torch[match.group(2)]
+        return "block_%s/%s" % (match.group(1), flax_name), kind
+    return _TOP_FROM_TORCH[name]
 
 
 def params_from_flax(flat, block_leaves=_BLOCK_LEAVES):
@@ -289,12 +372,46 @@ def params_to_flax(state_dict, num_heads, block_leaves=_BLOCK_LEAVES):
 # ---------------------------------------------------------------------------
 
 
+def transformer_sharding_rules():
+    """Megatron-style TP layout + fsdp on everything big (the
+    reference's rules, on flax paths and layouts: parallel/sharding.py
+    lays them over the port's weights).
+
+    qkv and mlp-up split output features over tp (their matmuls become
+    local); out-proj and mlp-down split input features, after which one
+    psum a branch adds the partial sums. Embedding and lm_head split
+    vocab.
+    """
+    return ShardingRules(
+        rules=[
+            (r"(query|key|value)/kernel$", P("fsdp", "tp", None)),
+            (r"out_proj/kernel$", P("tp", None, "fsdp")),
+            (r"mlp_up/kernel$", P("fsdp", "tp")),
+            (r"mlp_down/kernel$", P("tp", "fsdp")),
+            (r"wte/embedding$", P("tp", "fsdp")),
+            (r"lm_head/kernel$", P("fsdp", "tp")),
+            (r".*", P()),
+        ],
+        default_spec=P(),
+    )
+
+
+def batch_spec():
+    """Tokens/labels (B, S): batch over data axes, sequence over sp."""
+    return P(DATA_AXES, "sp")
+
+
+def sharding_rules():
+    return transformer_sharding_rules()
+
+
 def custom_model(vocab_size=32000, num_layers=12, num_heads=12,
                  embed_dim=768, attention_impl="auto", dropout=0.0,
-                 remat=False, remat_policy="full"):
+                 remat=False, remat_policy="full", mesh=None):
     """The zoo TransformerLM (elasticdl_tpu/models/transformer.py
     custom_model widths); ``--model_params`` may override any width,
-    the attention impl, dropout and remat."""
+    the attention impl, dropout and remat. ``mesh``: the SPMD trainer's
+    (tensor parallelism computes on the rank's blocks)."""
     return TransformerLM(
         vocab_size=vocab_size,
         num_layers=num_layers,
@@ -304,6 +421,7 @@ def custom_model(vocab_size=32000, num_layers=12, num_heads=12,
         dropout=dropout,
         remat=remat,
         remat_policy=remat_policy,
+        mesh=mesh,
     )
 
 

@@ -59,10 +59,10 @@ KERNELS = {
         "flash_fwd.cu",
         {
             "edl_flash_fwd": (
-                # q, k, v, o, lse, bh, seq, head_dim, is_bf16, causal,
-                # sm_scale, stream
+                # q, k, v, o, lse, bh, seq_q, seq_k, head_dim, is_bf16,
+                # causal, sm_scale, stream
                 [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                 _FLOAT, _VP],
+                 _INT, _FLOAT, _VP],
                 _INT,
             ),
         },
@@ -71,15 +71,15 @@ KERNELS = {
         "flash_bwd.cu",
         {
             "edl_flash_bwd_dq": (
-                # q, k, v, do, lse, delta, dq, bh, seq, head_dim, is_bf16,
-                # causal, sm_scale, stream
-                [_VP] * 7 + [_INT] * 5 + [_FLOAT, _VP],
+                # q, k, v, do, lse, delta, dq, bh, seq_q, seq_k,
+                # head_dim, is_bf16, causal, sm_scale, stream
+                [_VP] * 7 + [_INT] * 6 + [_FLOAT, _VP],
                 _INT,
             ),
             "edl_flash_bwd_dkv": (
-                # q, k, v, do, lse, delta, dk, dv, bh, seq, head_dim,
-                # is_bf16, causal, sm_scale, stream
-                [_VP] * 8 + [_INT] * 5 + [_FLOAT, _VP],
+                # q, k, v, do, lse, delta, dk, dv, bh, seq_q, seq_k,
+                # head_dim, is_bf16, causal, sm_scale, stream
+                [_VP] * 8 + [_INT] * 6 + [_FLOAT, _VP],
                 _INT,
             ),
         },

@@ -8,7 +8,11 @@ the op model code calls:
                   kernel forward and the K5/K6 kernels backward for CUDA
                   tensors (bf16 or fp32, any head_dim up to 256, padded
                   to the kernels' 64, 128 or 256; anything else raises),
-                  their plain versions for CPU tensors
+                  their plain versions for CPU tensors. q may hold
+                  another number of positions than k and v: seq_q !=
+                  seq_k runs through the kernels too, and under
+                  ``causal`` query row i sees keys j <= i, both counted
+                  from 0
 - ``"pallas"`` -- the JAX package's name for its kernel path: the same
                   as ``"flash"``, so model code written against the
                   reference (``TransformerLM(attention_impl="pallas")``)

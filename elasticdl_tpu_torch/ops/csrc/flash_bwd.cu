@@ -2,8 +2,10 @@
 //
 // Replaces elasticdl_tpu/ops/flash_attention.py:_dq_kernel (K5) and
 // :_dkv_kernel (K6), both launched by _bwd through pl.pallas_call. Same
-// function: with s = q k^T * scale (masked to -1e30 above the causal
-// diagonal), p = exp(s - lse) from the forward's lse, dp = do v^T and
+// function, over (B*H, Sq, D) q, o, do, dq and (B*H, Sk, D) k, v, dk,
+// dv (Sq and Sk may differ): with s = q k^T * scale (masked to -1e30
+// above the causal diagonal, where query row i sees keys j <= i, both
+// counted from 0), p = exp(s - lse) from the forward's lse, dp = do v^T and
 // delta = rowsum(o * do) (computed by the caller in fp32, as _bwd does
 // outside its kernels):
 //   K5: ds = p * (dp - delta) * scale cast to k's dtype, dq = ds k;
@@ -31,7 +33,9 @@
 //   K5, keys in K6). One CTA per SM (grid min(SMs, work tiles)) walks
 //   the work tiles longest first: under causal masking K5's last query
 //   tiles (they see the most keys), K6's first key tiles (they are seen
-//   by the most queries).
+//   by the most queries). Under causal masking with Sq < Sk a key tile
+//   that starts at or past Sq is seen by no query: K6 walks none of its
+//   query tiles and stores its dk and dv rows as zeros.
 // - 384 threads: two consumer warpgroups of 64 owned rows each (wgmma's
 //   M = 64) and a producer warpgroup whose first thread issues every TMA
 //   load (in K6 its second warp also loads lse and delta); setmaxnreg
@@ -61,17 +65,18 @@
 //   dS^T Q with A from registers and dO, Q read MN-major. dK and dV stay
 //   in registers and are stored once. The query tiles walk from the
 //   causal diagonal on.
-// - Masks: element by element only on the causal diagonal tile and on
-//   the ragged last tile. K5's k and v tiles and both kernels' owned
-//   tiles come through 3-D tensor maps (D, S, B*H), so a ragged tail
-//   reads zeros inside its own head; keys past S still score -1e30 (a
-//   zero key would give p = exp(-lse)), and owned rows past S are never
-//   written. K6's q and do stream through 2-D maps over all heads' rows
-//   (D, B*H*S): a ragged query tile reads the next head's first rows
-//   (the last head's read zeros), so the mask of queries past S (score
-//   -1e30, hence p = 0 and dS = 0) is what keeps them out of dk and dv.
-//   Their lse and delta (rows of S * 4 bytes, no 16-byte stride for a
-//   tensor map) come through the statistics warp.
+// - Masks: element by element only on the tiles that cross the causal
+//   diagonal and on the ragged last tile. K5's k and v tiles and both
+//   kernels' owned tiles come through 3-D tensor maps (D, Sq or Sk,
+//   B*H), so a ragged tail reads zeros inside its own head; keys past Sk
+//   still score -1e30 (a zero key would give p = exp(-lse)), and owned
+//   rows past Sq (K5) or Sk (K6) are never written. K6's q and do stream
+//   through 2-D maps over all heads' rows (D, B*H*Sq): a ragged query
+//   tile reads the next head's first rows (the last head's read zeros),
+//   so the mask of queries past Sq (score -1e30, hence p = 0 and dS = 0)
+//   is what keeps them out of dk and dv. Their lse and delta (rows of Sq
+//   * 4 bytes, no 16-byte stride for a tensor map) come through the
+//   statistics warp.
 // - Tile widths, from ptxas's report with 0 spills: the streamed tile is
 //   128 rows at D 64 and 64 at D 128, so the fp32 accumulators a
 //   consumer thread holds are 64 + 64 + 32 (K5 D 64: S, dP, dQ) or 32 +
@@ -111,8 +116,8 @@
 // registers; eight at D 256, so K6's thread holds 4 x 32 floats and not
 // 4 x 64); the other side's tiles of 32 rows (16 at D 256) sit in
 // shared memory.
-// Keys (K5) or queries (K6) past S get p = 0 and rows past S are never
-// written.
+// Keys (K5) past Sk or queries (K6) past Sq get p = 0 and owned rows
+// past their length are never written.
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc takes
 // seconds): edl_flash_bwd_dq and edl_flash_bwd_dkv launch on the given
@@ -453,11 +458,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // K5: key tiles a query work tile visits: up to its last row's diagonal
-// under causal masking, all of them otherwise
+// under causal masking (and no further than the last key), all of them
+// otherwise
 template <int kN>
-__device__ __forceinline__ int dq_key_tiles(int q0, int seq, int causal) {
-  const int q_last = min(q0 + kOwn, seq) - 1;
-  return causal ? q_last / kN + 1 : (seq + kN - 1) / kN;
+__device__ __forceinline__ int dq_key_tiles(int q0, int seq_q, int seq_k,
+                                            int causal) {
+  const int all = (seq_k + kN - 1) / kN;
+  const int q_last = min(q0 + kOwn, seq_q) - 1;
+  return causal ? min(q_last / kN + 1, all) : all;
 }
 
 // S (or S^T) = A B^T over D: a consumer warpgroup's 64 rows of the A
@@ -538,8 +546,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                                    const float* __restrict__ lse,
                                    const float* __restrict__ delta,
                                    __nv_bfloat16* __restrict__ dq,
-                                   int bh_count, int seq, int causal,
-                                   float scale, float scale_log2) {
+                                   int bh_count, int seq_q, int seq_k,
+                                   int causal, float scale,
+                                   float scale_log2) {
   using L = DqLayout<D>;
   constexpr int kN = L::kN;
   extern __shared__ unsigned char smem_raw[];
@@ -553,7 +562,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const uint32_t bar_full_k = bar_own_full + 16;
   const uint32_t bar_full_v = bar_full_k + 8 * kStages;
   const uint32_t bar_empty = bar_full_v + 8 * kStages;
-  const int m_tiles = (seq + kOwn - 1) / kOwn;
+  const int m_tiles = (seq_q + kOwn - 1) / kOwn;
   const int n_work = bh_count * m_tiles;
   init_barriers(bar_own_full, 1);
 
@@ -578,7 +587,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           tma_load_3d(do_s + a * kOwn * kAtomBytes, &tm_do, bar_own_full,
                       64 * a, q0, bh);
         }
-        const int n_tiles = dq_key_tiles<kN>(q0, seq, causal);
+        const int n_tiles = dq_key_tiles<kN>(q0, seq_q, seq_k, causal);
         for (int n = 0; n < n_tiles; ++n, ++kv) {
           const int stage = kv % kStages;
           // the first turn of the ring finds every stage empty
@@ -616,15 +625,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       const int bh = t % bh_count;
       const int q0 = (m_tiles - 1 - t / bh_count) * kOwn;
       const int qw = q0 + wg * 64;
-      const int n_tiles = dq_key_tiles<kN>(q0, seq, causal);
+      const int n_tiles = dq_key_tiles<kN>(q0, seq_q, seq_k, causal);
       // the lse (base 2) and delta of this thread's two rows
       float lse_r[2], delta_r[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int q_pos = qw + r + 8 * h;
-        const size_t at = (size_t)bh * seq + q_pos;
-        lse_r[h] = q_pos < seq ? lse[at] * kLog2e : 0.f;
-        delta_r[h] = q_pos < seq ? delta[at] : 0.f;
+        const size_t at = (size_t)bh * seq_q + q_pos;
+        lse_r[h] = q_pos < seq_q ? lse[at] * kLog2e : 0.f;
+        delta_r[h] = q_pos < seq_q ? delta[at] : 0.f;
       }
       float acc_dq[D / 2];
 #pragma unroll
@@ -656,7 +665,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         if (n == n_tiles - 1 && lane == 0) mbar_arrive(bar_own_empty);
 
         // P and dS in the accumulators' layout, dS as bf16 A fragments
-        const bool edge = k0 + kN > seq || (causal && k0 + kN - 1 > qw);
+        const bool edge = k0 + kN > seq_k || (causal && k0 + kN - 1 > qw);
         uint32_t ds_frag[kN / 16][4];
 #pragma unroll
         for (int j = 0; j < kN / 2; j += 2) {
@@ -668,7 +677,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
             if (edge) {
               const int k_pos = k0 + (j / 4) * 8 + c + e;
               const int q_pos = qw + r + 8 * h;
-              if (k_pos >= seq || (causal && k_pos > q_pos)) s = kNegInf;
+              if (k_pos >= seq_k || (causal && k_pos > q_pos)) s = kNegInf;
             }
             const float p = fast_exp2(s - lse_r[h]);
             ds[e] = p * (acc_dp[j + e] - delta_r[h]) * scale;
@@ -685,7 +694,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         fence_regs(acc_dq);
         if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
       }
-      store_rows<D>(acc_dq, dq + (size_t)bh * seq * D, qw, r, c, seq);
+      store_rows<D>(acc_dq, dq + (size_t)bh * seq_q * D, qw, r, c, seq_q);
     }
   }
 }
@@ -701,8 +710,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                                     const float* __restrict__ delta,
                                     __nv_bfloat16* __restrict__ dk,
                                     __nv_bfloat16* __restrict__ dv,
-                                    int bh_count, int seq, int causal,
-                                    float scale, float scale_log2) {
+                                    int bh_count, int seq_q, int seq_k,
+                                    int causal, float scale,
+                                    float scale_log2) {
   using L = DkvLayout<D>;
   constexpr int kN = L::kN;
   extern __shared__ unsigned char smem_raw[];
@@ -720,8 +730,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const uint32_t bar_full_q = bar_own_full + 16;
   const uint32_t bar_full_do = bar_full_q + 8 * kStages;
   const uint32_t bar_empty = bar_full_do + 8 * kStages;
-  const int k_tiles = (seq + kOwn - 1) / kOwn;
-  const int q_tiles = (seq + kN - 1) / kN;
+  const int k_tiles = (seq_k + kOwn - 1) / kOwn;
+  const int q_tiles = (seq_q + kN - 1) / kN;
   const int n_work = bh_count * k_tiles;
   init_barriers(bar_own_full, 1 + 32);
 
@@ -748,9 +758,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           for (int i = 0; i < kN / 32; ++i) {
             const int col = 32 * i + ptid % 32;
             const int q_pos = n * kN + col;
-            const size_t at = (size_t)bh * seq + q_pos;
-            lse_ring[stage * kN + col] = q_pos < seq ? lse[at] * kLog2e : 0.f;
-            delta_ring[stage * kN + col] = q_pos < seq ? delta[at] : 0.f;
+            const size_t at = (size_t)bh * seq_q + q_pos;
+            lse_ring[stage * kN + col] = q_pos < seq_q ? lse[at] * kLog2e : 0.f;
+            delta_ring[stage * kN + col] = q_pos < seq_q ? delta[at] : 0.f;
           }
           // each lane's stores are released by its own arrival
           mbar_arrive(bar_full_q + 8 * stage);
@@ -774,8 +784,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         for (int n = causal ? k0 / kN : 0; n < q_tiles; ++n, ++kv) {
           const int stage = kv % kStages;
           mbar_wait(bar_empty + 8 * stage, ((kv / kStages) & 1) ^ 1);
-          // row bh * seq + q0 of the tensors over all heads' rows
-          const int row = bh * seq + n * kN;
+          // row bh * seq_q + q0 of the tensors over all heads' rows
+          const int row = bh * seq_q + n * kN;
           const uint32_t full_q = bar_full_q + 8 * stage;
           const uint32_t full_do = bar_full_do + 8 * stage;
           mbar_expect_tx(full_q, L::kTileBytes);
@@ -842,7 +852,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
         // P^T and dS^T in the accumulators' layout (rows: this thread's
         // keys; columns: queries), as bf16 A fragments
-        const bool edge = q0 + kN > seq || (causal && kw + 63 > q0);
+        const bool edge = q0 + kN > seq_q || (causal && kw + 63 > q0);
         uint32_t p_frag[kN / 16][4];
         uint32_t ds_frag[kN / 16][4];
 #pragma unroll
@@ -860,8 +870,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
             if (edge) {
               const int q_pos = q0 + col + e;
               const int k_pos = kw + r + 8 * h;
-              // a query past S holds the next head's row here
-              if (q_pos >= seq || (causal && k_pos > q_pos)) s = kNegInf;
+              // a query past Sq holds the next head's row here
+              if (q_pos >= seq_q || (causal && k_pos > q_pos)) s = kNegInf;
             }
             p[e] = fast_exp2(s - lse_c[e]);
             ds[e] = p[e] * (acc_dp[j + e] - delta_c[e]) * scale;
@@ -883,9 +893,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         fence_regs(acc_dk);
         if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
       }
-      const size_t head = (size_t)bh * seq * D;
-      store_rows<D>(acc_dk, dk + head, kw, r, c, seq);
-      store_rows<D>(acc_dv, dv + head, kw, r, c, seq);
+      // a key tile no query sees (causal, k0 >= Sq) walked no query
+      // tile: k and v may be reloaded, and its dk and dv rows are zeros
+      if (first >= q_tiles && lane == 0) mbar_arrive(bar_own_empty);
+      const size_t head = (size_t)bh * seq_k * D;
+      store_rows<D>(acc_dk, dk + head, kw, r, c, seq_k);
+      store_rows<D>(acc_dv, dv + head, kw, r, c, seq_k);
     }
   }
 }
@@ -922,8 +935,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                                           const float* __restrict__ delta,
                                           __nv_bfloat16* __restrict__ dk,
                                           __nv_bfloat16* __restrict__ dv,
-                                          int bh_count, int seq, int causal,
-                                          float scale, float scale_log2) {
+                                          int bh_count, int seq_q, int seq_k,
+                                          int causal, float scale,
+                                          float scale_log2) {
   using L = DkvSplitLayout;
   constexpr int D = L::D;
   constexpr int kN = L::kN;
@@ -946,8 +960,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const uint32_t bar_full_q = bar_own_full + 16;
   const uint32_t bar_full_do = bar_full_q + 8 * kRing;
   const uint32_t bar_empty = bar_full_do + 8 * kRing;
-  const int k_tiles = (seq + kOwnRows - 1) / kOwnRows;
-  const int q_tiles = (seq + kN - 1) / kN;
+  const int k_tiles = (seq_k + kOwnRows - 1) / kOwnRows;
+  const int q_tiles = (seq_q + kN - 1) / kN;
   const int n_work = bh_count * k_tiles;
   init_barriers<kRing>(bar_own_full, 1 + 32);
 
@@ -968,9 +982,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
           for (int i = 0; i < kN / 32; ++i) {
             const int col = 32 * i + ptid % 32;
             const int q_pos = n * kN + col;
-            const size_t at = (size_t)bh * seq + q_pos;
-            lse_ring[stage * kN + col] = q_pos < seq ? lse[at] * kLog2e : 0.f;
-            delta_ring[stage * kN + col] = q_pos < seq ? delta[at] : 0.f;
+            const size_t at = (size_t)bh * seq_q + q_pos;
+            lse_ring[stage * kN + col] = q_pos < seq_q ? lse[at] * kLog2e : 0.f;
+            delta_ring[stage * kN + col] = q_pos < seq_q ? delta[at] : 0.f;
           }
           mbar_arrive(bar_full_q + 8 * stage);
           mbar_arrive(bar_full_do + 8 * stage);
@@ -993,7 +1007,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         for (int n = causal ? k0 / kN : 0; n < q_tiles; ++n, ++kv) {
           const int stage = kv % kRing;
           mbar_wait(bar_empty + 8 * stage, ((kv / kRing) & 1) ^ 1);
-          const int row = bh * seq + n * kN;
+          const int row = bh * seq_q + n * kN;
           const uint32_t full_q = bar_full_q + 8 * stage;
           const uint32_t full_do = bar_full_do + 8 * stage;
           mbar_expect_tx(full_q, L::kTileBytes);
@@ -1062,7 +1076,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         if (n == q_tiles - 1 && lane == 0) mbar_arrive(bar_own_empty);
 
         // P^T and dS^T in fp32, stored as bf16 into the shared tiles
-        const bool edge = q0 + kN > seq || (causal && kw + kOwnRows - 1 > q0);
+        const bool edge = q0 + kN > seq_q || (causal && kw + kOwnRows - 1 > q0);
 #pragma unroll
         for (int j = 0; j < kN / 4; j += 2) {
           const int h = (j >> 1) & 1;
@@ -1078,8 +1092,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
             if (edge) {
               const int q_pos = q0 + col + e;
               const int k_pos = kw + r + 8 * h;
-              // a query past S holds the next head's row here
-              const bool masked = q_pos >= seq || (causal && k_pos > q_pos);
+              // a query past Sq holds the next head's row here
+              const bool masked = q_pos >= seq_q || (causal && k_pos > q_pos);
               if (masked) s = kNegInf;
             }
             p[e] = fast_exp2(s - lse_c[e]);
@@ -1113,9 +1127,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         fence_regs(acc_dk);
         if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
       }
-      const size_t head = (size_t)bh * seq * D + wg * (D / 2);
-      store_rows<D, D / 2>(acc_dk, dk + head, kw, r, c, seq);
-      store_rows<D, D / 2>(acc_dv, dv + head, kw, r, c, seq);
+      // a key tile no query sees: zeros, as the D 64/128 kernel's
+      if (first >= q_tiles && lane == 0) mbar_arrive(bar_own_empty);
+      const size_t head = (size_t)bh * seq_k * D + wg * (D / 2);
+      store_rows<D, D / 2>(acc_dk, dk + head, kw, r, c, seq_k);
+      store_rows<D, D / 2>(acc_dv, dv + head, kw, r, c, seq_k);
     }
   }
 }
@@ -1152,8 +1168,8 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
                             const float* __restrict__ dout,
                             const float* __restrict__ lse,
                             const float* __restrict__ delta,
-                            float* __restrict__ dq, int seq, int causal,
-                            float scale) {
+                            float* __restrict__ dq, int seq_q, int seq_k,
+                            int causal, float scale) {
   constexpr int kSplit = BwdF32<D>::kSplit;
   constexpr int kThreads = BwdF32<D>::kThreads;
   constexpr int kTileF = BwdF32<D>::kTileF;
@@ -1167,8 +1183,9 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kRowsF;
   const int q_pos = q0 + row;
-  const size_t base = (size_t)bh * seq * D;
-  const bool real_row = q_pos < seq;
+  const size_t base = (size_t)bh * seq_q * D;    // q, do and dq
+  const size_t base_k = (size_t)bh * seq_k * D;  // k and v
+  const bool real_row = q_pos < seq_q;
 
   float qr[kPart];
   float dor[kPart];
@@ -1180,20 +1197,20 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
     dor[i] = real_row ? dout[at] : 0.f;
     acc[i] = 0.f;
   }
-  const float lse_r = real_row ? lse[(size_t)bh * seq + q_pos] : 0.f;
-  const float delta_r = real_row ? delta[(size_t)bh * seq + q_pos] : 0.f;
+  const float lse_r = real_row ? lse[(size_t)bh * seq_q + q_pos] : 0.f;
+  const float delta_r = real_row ? delta[(size_t)bh * seq_q + q_pos] : 0.f;
 
-  const int q_last = min(q0 + kRowsF, seq) - 1;
-  const int n_tiles =
-      causal ? q_last / kTileF + 1 : (seq + kTileF - 1) / kTileF;
+  const int q_last = min(q0 + kRowsF, seq_q) - 1;
+  const int all = (seq_k + kTileF - 1) / kTileF;
+  const int n_tiles = causal ? min(q_last / kTileF + 1, all) : all;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kTileF;
     __syncthreads();
     for (int i = threadIdx.x; i < kTileF * D; i += kThreads) {
       const int r = i / D;
       const int c = i % D;
-      const bool real = k0 + r < seq;
-      const size_t at = base + (size_t)(k0 + r) * D + c;
+      const bool real = k0 + r < seq_k;
+      const size_t at = base_k + (size_t)(k0 + r) * D + c;
       ks[r][c] = real ? k[at] : 0.f;
       vs[r][c] = real ? v[at] : 0.f;
     }
@@ -1210,7 +1227,7 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
       const int k_pos = k0 + j;
       float s = row_sum<kSplit>(s_part) * scale;
       if (causal && k_pos > q_pos) s = kNegInf;
-      const float p = k_pos < seq ? expf(s - lse_r) : 0.f;
+      const float p = k_pos < seq_k ? expf(s - lse_r) : 0.f;
       const float ds = p * (row_sum<kSplit>(dp_part) - delta_r) * scale;
 #pragma unroll
       for (int i = 0; i < kPart; ++i) acc[i] = fmaf(ds, ks[j][kSplit * i + sub], acc[i]);
@@ -1232,7 +1249,7 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              float* __restrict__ dk, float* __restrict__ dv,
-                             int seq, int causal, float scale) {
+                             int seq_q, int seq_k, int causal, float scale) {
   constexpr int kSplit = BwdF32<D>::kSplit;
   constexpr int kThreads = BwdF32<D>::kThreads;
   constexpr int kTileF = BwdF32<D>::kTileF;
@@ -1247,8 +1264,9 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kRowsF;
   const int k_pos = k0 + row;
-  const size_t base = (size_t)bh * seq * D;
-  const bool real_row = k_pos < seq;
+  const size_t base = (size_t)bh * seq_k * D;    // k, v, dk and dv
+  const size_t base_q = (size_t)bh * seq_q * D;  // q and do
+  const bool real_row = k_pos < seq_k;
 
   float kr[kPart];
   float vr[kPart];
@@ -1263,23 +1281,24 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
     dv_acc[i] = 0.f;
   }
 
-  const int n_tiles = (seq + kTileF - 1) / kTileF;
-  // causal: tiles of queries before k0 see none of these keys
+  const int n_tiles = (seq_q + kTileF - 1) / kTileF;
+  // causal: tiles of queries before k0 see none of these keys (none at
+  // all when k0 >= Sq: the rows are stored as zeros)
   for (int t = causal ? k0 / kTileF : 0; t < n_tiles; ++t) {
     const int q0 = t * kTileF;
     __syncthreads();
     for (int i = threadIdx.x; i < kTileF * D; i += kThreads) {
       const int r = i / D;
       const int c = i % D;
-      const bool real = q0 + r < seq;
-      const size_t at = base + (size_t)(q0 + r) * D + c;
+      const bool real = q0 + r < seq_q;
+      const size_t at = base_q + (size_t)(q0 + r) * D + c;
       qs[r][c] = real ? q[at] : 0.f;
       dos[r][c] = real ? dout[at] : 0.f;
     }
     for (int i = threadIdx.x; i < kTileF; i += kThreads) {
-      const bool real = q0 + i < seq;
-      lse_s[i] = real ? lse[(size_t)bh * seq + q0 + i] : 0.f;
-      delta_s[i] = real ? delta[(size_t)bh * seq + q0 + i] : 0.f;
+      const bool real = q0 + i < seq_q;
+      lse_s[i] = real ? lse[(size_t)bh * seq_q + q0 + i] : 0.f;
+      delta_s[i] = real ? delta[(size_t)bh * seq_q + q0 + i] : 0.f;
     }
     __syncthreads();
 
@@ -1294,7 +1313,7 @@ __global__ void __launch_bounds__(BwdF32<D>::kThreads)
       const int q_pos = q0 + j;
       float s = row_sum<kSplit>(s_part) * scale;
       if (causal && k_pos > q_pos) s = kNegInf;
-      const float p = q_pos < seq ? expf(s - lse_s[j]) : 0.f;
+      const float p = q_pos < seq_q ? expf(s - lse_s[j]) : 0.f;
       const float ds = p * (row_sum<kSplit>(dp_part) - delta_s[j]) * scale;
 #pragma unroll
       for (int i = 0; i < kPart; ++i) {
@@ -1387,7 +1406,8 @@ struct Args {
   const float* lse;
   const float* delta;
   int bh;
-  int seq;
+  int seq_q;
+  int seq_k;
   int causal;
   float scale;
   cudaStream_t stream;
@@ -1416,14 +1436,14 @@ cudaError_t prepare(Kernel* kernel, int smem, int (&sm_count)[kMaxDevices],
 template <int D>
 cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   constexpr int kN = Stream<D>::kN;
-  const int m_tiles = (a.seq + kOwn - 1) / kOwn;
+  const int m_tiles = (a.seq_q + kOwn - 1) / kOwn;
   if ((long long)a.bh * m_tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const int n_work = a.bh * m_tiles;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!encode_heads(&tm_q, a.q, a.bh, a.seq, D, kOwn) ||
-      !encode_heads(&tm_k, a.k, a.bh, a.seq, D, kN) ||
-      !encode_heads(&tm_v, a.v, a.bh, a.seq, D, kN) ||
-      !encode_heads(&tm_do, a.dout, a.bh, a.seq, D, kOwn)) {
+  if (!encode_heads(&tm_q, a.q, a.bh, a.seq_q, D, kOwn) ||
+      !encode_heads(&tm_k, a.k, a.bh, a.seq_k, D, kN) ||
+      !encode_heads(&tm_v, a.v, a.bh, a.seq_k, D, kN) ||
+      !encode_heads(&tm_do, a.dout, a.bh, a.seq_q, D, kOwn)) {
     return cudaErrorInvalidValue;
   }
   static int sm_count[kMaxDevices] = {};
@@ -1436,21 +1456,22 @@ cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   const int grid = n_work < sms ? n_work : sms;
   flash_bwd_dq_bf16_wgmma_kernel<D><<<grid, kBwdThreads, smem, a.stream>>>(
       tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq),
-      a.bh, a.seq, a.causal, a.scale, a.scale * kLog2e);
+      a.bh, a.seq_q, a.seq_k, a.causal, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   constexpr int kN = Stream<D>::kN;
-  // the streamed maps address rows bh * seq + q0 with 32-bit coordinates
-  if ((long long)a.bh * a.seq + kN > 0x7fffffff) return cudaErrorInvalidValue;
-  const int n_work = a.bh * ((a.seq + kOwn - 1) / kOwn);
+  // the streamed maps address rows bh * seq_q + q0 with 32-bit
+  // coordinates
+  if ((long long)a.bh * a.seq_q + kN > 0x7fffffff) return cudaErrorInvalidValue;
+  const int n_work = a.bh * ((a.seq_k + kOwn - 1) / kOwn);
   CUtensorMap tm_k, tm_v, tm_q, tm_do;
-  if (!encode_heads(&tm_k, a.k, a.bh, a.seq, D, kOwn) ||
-      !encode_heads(&tm_v, a.v, a.bh, a.seq, D, kOwn) ||
-      !encode_rows(&tm_q, a.q, a.bh, a.seq, D, kN) ||
-      !encode_rows(&tm_do, a.dout, a.bh, a.seq, D, kN)) {
+  if (!encode_heads(&tm_k, a.k, a.bh, a.seq_k, D, kOwn) ||
+      !encode_heads(&tm_v, a.v, a.bh, a.seq_k, D, kOwn) ||
+      !encode_rows(&tm_q, a.q, a.bh, a.seq_q, D, kN) ||
+      !encode_rows(&tm_do, a.dout, a.bh, a.seq_q, D, kN)) {
     return cudaErrorInvalidValue;
   }
   static int sm_count[kMaxDevices] = {};
@@ -1462,21 +1483,21 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
   const int grid = n_work < sms ? n_work : sms;
   flash_bwd_dkv_bf16_wgmma_kernel<D><<<grid, kBwdThreads, smem, a.stream>>>(
       tm_k, tm_v, tm_q, tm_do, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.bh, a.seq, a.causal, a.scale,
-      a.scale * kLog2e);
+      static_cast<__nv_bfloat16*>(dv), a.bh, a.seq_q, a.seq_k, a.causal,
+      a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 // K6 at D 256: 64-key work tiles, both consumer warpgroups on each
 cudaError_t launch_dkv_bf16_split(const Args& a, void* dk, void* dv) {
   using L = DkvSplitLayout;
-  if ((long long)a.bh * a.seq + L::kN > 0x7fffffff) return cudaErrorInvalidValue;
-  const int n_work = a.bh * ((a.seq + L::kOwnRows - 1) / L::kOwnRows);
+  if ((long long)a.bh * a.seq_q + L::kN > 0x7fffffff) return cudaErrorInvalidValue;
+  const int n_work = a.bh * ((a.seq_k + L::kOwnRows - 1) / L::kOwnRows);
   CUtensorMap tm_k, tm_v, tm_q, tm_do;
-  if (!encode_heads(&tm_k, a.k, a.bh, a.seq, L::D, L::kOwnRows) ||
-      !encode_heads(&tm_v, a.v, a.bh, a.seq, L::D, L::kOwnRows) ||
-      !encode_rows(&tm_q, a.q, a.bh, a.seq, L::D, L::kN) ||
-      !encode_rows(&tm_do, a.dout, a.bh, a.seq, L::D, L::kN)) {
+  if (!encode_heads(&tm_k, a.k, a.bh, a.seq_k, L::D, L::kOwnRows) ||
+      !encode_heads(&tm_v, a.v, a.bh, a.seq_k, L::D, L::kOwnRows) ||
+      !encode_rows(&tm_q, a.q, a.bh, a.seq_q, L::D, L::kN) ||
+      !encode_rows(&tm_do, a.dout, a.bh, a.seq_q, L::D, L::kN)) {
     return cudaErrorInvalidValue;
   }
   static int sm_count[kMaxDevices] = {};
@@ -1488,51 +1509,53 @@ cudaError_t launch_dkv_bf16_split(const Args& a, void* dk, void* dv) {
   const int grid = n_work < sms ? n_work : sms;
   flash_bwd_dkv_bf16_wgmma_split_kernel<<<grid, kBwdThreads, smem, a.stream>>>(
       tm_k, tm_v, tm_q, tm_do, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.bh, a.seq, a.causal, a.scale,
-      a.scale * kLog2e);
+      static_cast<__nv_bfloat16*>(dv), a.bh, a.seq_q, a.seq_k, a.causal,
+      a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
-  const dim3 grid((a.seq + kRowsF - 1) / kRowsF, a.bh);
+  const dim3 grid((a.seq_q + kRowsF - 1) / kRowsF, a.bh);
   flash_bwd_dq_f32_kernel<D><<<grid, BwdF32<D>::kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
-      a.delta, static_cast<float*>(dq), a.seq, a.causal, a.scale);
+      a.delta, static_cast<float*>(dq), a.seq_q, a.seq_k, a.causal, a.scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  const dim3 grid((a.seq + kRowsF - 1) / kRowsF, a.bh);
+  const dim3 grid((a.seq_k + kRowsF - 1) / kRowsF, a.bh);
   flash_bwd_dkv_f32_kernel<D><<<grid, BwdF32<D>::kThreads, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
-      a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.seq,
-      a.causal, a.scale);
+      a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.seq_q,
+      a.seq_k, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-bool valid(int bh, int seq, int head_dim) {
-  return bh > 0 && seq > 0 && bh <= 65535 &&
+bool valid(int bh, int seq_q, int seq_k, int head_dim) {
+  return bh > 0 && seq_q > 0 && seq_k > 0 && bh <= 65535 &&
          (head_dim == 64 || head_dim == 128 || head_dim == 256);
 }
 
 }  // namespace
 
-// q, k, v, dout, dq: (bh, seq, head_dim) contiguous, bf16 (is_bf16 = 1)
-// or fp32, head_dim 64, 128 or 256, 16-byte aligned; lse, delta: (bh, 1, seq) fp32, 16-byte
-// aligned. Returns a cudaError_t (0 = launched).
+// q, dout, dq: (bh, seq_q, head_dim) and k, v: (bh, seq_k, head_dim)
+// contiguous, bf16 (is_bf16 = 1) or fp32, head_dim 64, 128 or 256,
+// 16-byte aligned; lse, delta: (bh, 1, seq_q) fp32, 16-byte aligned.
+// Returns a cudaError_t (0 = launched).
 extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
-                                const void* delta, void* dq, int bh, int seq,
-                                int head_dim, int is_bf16, int causal,
-                                float scale, void* stream) {
-  if (!valid(bh, seq, head_dim)) return (int)cudaErrorInvalidValue;
+                                const void* delta, void* dq, int bh,
+                                int seq_q, int seq_k, int head_dim,
+                                int is_bf16, int causal, float scale,
+                                void* stream) {
+  if (!valid(bh, seq_q, seq_k, head_dim)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), bh, seq, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(delta), bh, seq_q, seq_k, causal,
+               scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (is_bf16) {
     err = head_dim == 64    ? launch_dq_bf16<64>(a, dq)
@@ -1546,16 +1569,17 @@ extern "C" int edl_flash_bwd_dq(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// as edl_flash_bwd_dq; dk, dv: (bh, seq, head_dim) like k and v
+// as edl_flash_bwd_dq; dk, dv: (bh, seq_k, head_dim) like k and v
 extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int bh,
-                                 int seq, int head_dim, int is_bf16,
-                                 int causal, float scale, void* stream) {
-  if (!valid(bh, seq, head_dim)) return (int)cudaErrorInvalidValue;
+                                 int seq_q, int seq_k, int head_dim,
+                                 int is_bf16, int causal, float scale,
+                                 void* stream) {
+  if (!valid(bh, seq_q, seq_k, head_dim)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), bh, seq, causal, scale,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(delta), bh, seq_q, seq_k, causal,
+               scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (is_bf16) {
     err = head_dim == 64    ? launch_dkv_bf16<64>(a, dk, dv)

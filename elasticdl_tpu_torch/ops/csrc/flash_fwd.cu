@@ -2,8 +2,9 @@
 //
 // Replaces elasticdl_tpu/ops/flash_attention.py:_fwd_kernel (launched by
 // _fwd through pl.pallas_call). Same function: blockwise online-softmax
-// attention over (B*H, S, D) q/k/v, causal blocks above the diagonal
-// skipped, masked scores set to -1e30 (not -inf), products in the input
+// attention of (B*H, Sq, D) q over (B*H, Sk, D) k and v (Sq and Sk may
+// differ; under the causal mask query row i sees keys j <= i, both
+// counted from 0), causal blocks above the diagonal skipped, masked scores set to -1e30 (not -inf), products in the input
 // dtype with fp32 accumulation, p cast to the input dtype before the PV
 // product, softmax statistics in fp32, a fully-masked row gives o = 0,
 // and lse = m + log(max(l, 1e-30)) in natural log.
@@ -26,8 +27,8 @@
 //   M = 64) and a producer warpgroup whose first thread issues every TMA
 //   load; setmaxnreg moves registers from the producer (40) to the
 //   consumers (232).
-// - TMA through 3-D tensor maps (D, S, B*H), so a ragged tail zero-fills
-//   inside its own head. Q is loaded once per work tile, behind a
+// - TMA through 3-D tensor maps (D, Sq, B*H) for Q and (D, Sk, B*H) for
+//   K and V, so a ragged tail zero-fills inside its own head. Q is loaded once per work tile, behind a
 //   q_full/q_empty mbarrier pair (the next tile's Q lands once the last
 //   S product of this one is in). K and V tiles of 128 keys stream
 //   through a ring of kStages stages (3 at D 64, 2 at D 128) that runs
@@ -47,15 +48,17 @@
 //   The scores stay in registers; the softmax runs in the accumulator's
 //   own layout (a thread holds two rows, a quad of lanes shares a row:
 //   two shuffles per reduction), in base 2 on scores pre-scaled by
-//   scale * log2(e). Only the causal diagonal tile and the ragged last
-//   tile are masked element by element.
+//   scale * log2(e). Only the key tiles that cross the causal diagonal
+//   (k0 <= q + 63 < k0 + kBlockN for some row q of the warpgroup: with
+//   Sq != Sk that is not the tile of the same index) and the ragged
+//   last key tile are masked element by element.
 // - O += P V: P converted to bf16 in registers is wgmma's A operand (the
 //   fp32 accumulator layout of S is the bf16 A-fragment layout of P);
 //   V is MN-major in shared memory (trans-b). The fp32 O accumulator
 //   stays in registers and the online-softmax rescale is register
 //   arithmetic.
 // - Epilogue: O / l stored as bf16 pairs straight from registers, lse
-//   by the first lane of each quad; rows past S are not written.
+//   by the first lane of each quad; rows past Sq are not written.
 // - No atomics and no split over keys: two launches on the same inputs
 //   give the same bits.
 //
@@ -64,9 +67,9 @@
 // holds 32 + 32 floats and not 128 + 128), each holding its share of q
 // and of the accumulator in registers; K/V tiles of 32 rows (16 at
 // D 256: 32 KB of static shared memory) sit in shared memory. Keys past
-// S score -inf (they do not exist, so they add
-// nothing), and no output is written past S; neither path demands that
-// S divide by a block size.
+// Sk score -inf (they do not exist, so they add
+// nothing), and no output is written past Sq; neither path demands that
+// Sq or Sk divide by a block size.
 //
 // Plain C interface for ctypes (no PyTorch headers, so nvcc takes
 // seconds): edl_flash_fwd launches on the given stream, does not
@@ -305,11 +308,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // key tiles of kBlockN keys a query tile visits: up to its last row's
-// diagonal under causal masking, all of them otherwise
+// diagonal under causal masking (and no further than the last key), all
+// of them otherwise
 template <int kBlockN>
-__device__ __forceinline__ int key_tiles(int q0, int seq, int causal) {
-  const int q_last = min(q0 + kBlockM, seq) - 1;
-  return causal ? q_last / kBlockN + 1 : (seq + kBlockN - 1) / kBlockN;
+__device__ __forceinline__ int key_tiles(int q0, int seq_q, int seq_k,
+                                         int causal) {
+  const int all = (seq_k + kBlockN - 1) / kBlockN;
+  const int q_last = min(q0 + kBlockM, seq_q) - 1;
+  return causal ? min(q_last / kBlockN + 1, all) : all;
 }
 
 // work tile t -> (head, first query row), longest first: every head's
@@ -328,7 +334,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                                 const __grid_constant__ CUtensorMap tm_v,
                                 __nv_bfloat16* __restrict__ o,
                                 float* __restrict__ lse, int bh_count,
-                                int seq, int causal, float scale_log2) {
+                                int seq_q, int seq_k, int causal,
+                                float scale_log2) {
   using L = FwdLayout<D>;
   constexpr int kStages = L::kStages;
   constexpr int kBlockN = L::kBlockN;
@@ -342,7 +349,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const uint32_t bar_full_k = bar_q_empty + 8;
   const uint32_t bar_full_v = bar_full_k + 8 * kStages;
   const uint32_t bar_empty = bar_full_v + 8 * kStages;
-  const int m_tiles = (seq + kBlockM - 1) / kBlockM;
+  const int m_tiles = (seq_q + kBlockM - 1) / kBlockM;
   const int n_work = bh_count * m_tiles;
 
   if (threadIdx.x == 0) {
@@ -377,7 +384,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           tma_load(q_s + a * kBlockM * kAtomBytes, &tm_q, bar_q_full, 64 * a,
                    q0, bh);
         }
-        const int n_tiles = key_tiles<kBlockN>(q0, seq, causal);
+        const int n_tiles = key_tiles<kBlockN>(q0, seq_q, seq_k, causal);
         for (int n = 0; n < n_tiles; ++n, ++kv) {
           const int stage = kv % kStages;
           // the first turn of the ring finds every stage empty
@@ -416,7 +423,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       int bh, q0;
       work_tile(t, bh_count, m_tiles, bh, q0);
       const int qw = q0 + wg * 64;
-      const int n_tiles = key_tiles<kBlockN>(q0, seq, causal);
+      const int n_tiles = key_tiles<kBlockN>(q0, seq_q, seq_k, causal);
       float acc_o[D / 2];
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) acc_o[j] = 0.f;
@@ -455,7 +462,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
         // online softmax in base 2, in the accumulator's layout
         const bool edge =
-            k0 + kBlockN > seq || (causal && k0 + kBlockN - 1 > qw);
+            k0 + kBlockN > seq_k || (causal && k0 + kBlockN - 1 > qw);
         float tile_max[2] = {m_run[0], m_run[1]};
 #pragma unroll
         for (int j = 0; j < kBlockN / 2; ++j) {
@@ -463,7 +470,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           if (edge) {
             const int k_pos = k0 + (j / 4) * 8 + c + (j & 1);
             const int q_pos = qw + r + ((j >> 1) & 1) * 8;
-            if (k_pos >= seq) {
+            if (k_pos >= seq_k) {
               s = -INFINITY;  // past the ragged edge: no key here
             } else if (causal && k_pos > q_pos) {
               s = kNegInf;
@@ -518,9 +525,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         l += __shfl_xor_sync(0xffffffffu, l, 1);
         l += __shfl_xor_sync(0xffffffffu, l, 2);
         const int q_pos = qw + r + 8 * h;
-        if (q_pos < seq) {
+        if (q_pos < seq_q) {
           const float inv = l > 0.f ? 1.f / l : 1.f;
-          __nv_bfloat16* out = o + ((size_t)bh * seq + q_pos) * D + c;
+          __nv_bfloat16* out = o + ((size_t)bh * seq_q + q_pos) * D + c;
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
@@ -528,7 +535,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
                                       acc_o[4 * j + 2 * h + 1] * inv);
           }
           if ((lane & 3) == 0) {
-            lse[(size_t)bh * seq + q_pos] =
+            lse[(size_t)bh * seq_q + q_pos] =
                 m_run[h] * kLn2 + logf(fmaxf(l, 1e-30f));
           }
         }
@@ -553,8 +560,8 @@ __global__ void __launch_bounds__(F32Layout<D>::kThreads)
     flash_fwd_f32_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int seq, int causal,
-                         float scale) {
+                         float* __restrict__ lse, int seq_q, int seq_k,
+                         int causal, float scale) {
   constexpr int kSplit = F32Layout<D>::kSplit;
   constexpr int kThreads = F32Layout<D>::kThreads;
   constexpr int kTileF = F32Layout<D>::kTileF;
@@ -569,29 +576,30 @@ __global__ void __launch_bounds__(F32Layout<D>::kThreads)
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBlockQ;
   const int q_pos = q0 + row;
-  const size_t base = (size_t)bh * seq * D;
+  const size_t base = (size_t)bh * seq_q * D;    // q and o
+  const size_t base_k = (size_t)bh * seq_k * D;  // k and v
 
   float qr[kPart];
   float acc[kPart];
 #pragma unroll
   for (int i = 0; i < kPart; ++i) {
-    qr[i] = q_pos < seq ? q[base + (size_t)q_pos * D + kSplit * i + half] : 0.f;
+    qr[i] = q_pos < seq_q ? q[base + (size_t)q_pos * D + kSplit * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf;
   float l = 0.f;
 
-  const int q_last = min(q0 + kBlockQ, seq) - 1;
-  const int n_tiles =
-      causal ? q_last / kTileF + 1 : (seq + kTileF - 1) / kTileF;
+  const int q_last = min(q0 + kBlockQ, seq_q) - 1;
+  const int all = (seq_k + kTileF - 1) / kTileF;
+  const int n_tiles = causal ? min(q_last / kTileF + 1, all) : all;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kTileF;
     __syncthreads();
     for (int i = threadIdx.x; i < kTileF * D; i += kThreads) {
       const int r = i / D;
       const int c = i % D;
-      const bool real = k0 + r < seq;
-      const size_t at = base + (size_t)(k0 + r) * D + c;
+      const bool real = k0 + r < seq_k;
+      const size_t at = base_k + (size_t)(k0 + r) * D + c;
       ks[r][c] = real ? k[at] : 0.f;
       vs[r][c] = real ? v[at] : 0.f;
     }
@@ -613,7 +621,7 @@ __global__ void __launch_bounds__(F32Layout<D>::kThreads)
       }
       const float s = part * scale;
       const int k_pos = k0 + j;
-      sv[j] = k_pos >= seq ? -INFINITY
+      sv[j] = k_pos >= seq_k ? -INFINITY
               : (causal && k_pos > q_pos) ? kNegInf
                                           : s;
       tile_max = fmaxf(tile_max, sv[j]);
@@ -636,13 +644,13 @@ __global__ void __launch_bounds__(F32Layout<D>::kThreads)
     m = m_new;
   }
 
-  if (q_pos < seq) {
+  if (q_pos < seq_q) {
     const float denom = l > 0.f ? l : 1.f;
     float* out = o + base + (size_t)q_pos * D;
 #pragma unroll
     for (int i = 0; i < kPart; ++i) out[kSplit * i + half] = acc[i] / denom;
     if (half == 0) {
-      lse[(size_t)bh * seq + q_pos] = m + logf(fmaxf(l, 1e-30f));
+      lse[(size_t)bh * seq_q + q_pos] = m + logf(fmaxf(l, 1e-30f));
     }
   }
 }
@@ -695,15 +703,15 @@ bool encode_bf16(CUtensorMap* map, const void* ptr, int bh, int seq, int d,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int bh, int seq, int causal, float scale,
-                        cudaStream_t stream) {
-  const int m_tiles = (seq + kBlockM - 1) / kBlockM;
+                        float* lse, int bh, int seq_q, int seq_k, int causal,
+                        float scale, cudaStream_t stream) {
+  const int m_tiles = (seq_q + kBlockM - 1) / kBlockM;
   if ((long long)bh * m_tiles > 0x7fffffff) return cudaErrorInvalidValue;
   const int n_work = bh * m_tiles;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_bf16(&tm_q, q, bh, seq, D, kBlockM) ||
-      !encode_bf16(&tm_k, k, bh, seq, D, FwdLayout<D>::kBlockN) ||
-      !encode_bf16(&tm_v, v, bh, seq, D, FwdLayout<D>::kBlockN)) {
+  if (!encode_bf16(&tm_q, q, bh, seq_q, D, kBlockM) ||
+      !encode_bf16(&tm_k, k, bh, seq_k, D, FwdLayout<D>::kBlockN) ||
+      !encode_bf16(&tm_v, v, bh, seq_k, D, FwdLayout<D>::kBlockN)) {
     return cudaErrorInvalidValue;
   }
   // above 48 KB: opt in, once per device (the attribute holds for the
@@ -728,53 +736,61 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   // one CTA per SM walks the work tiles
   const int grid = n_work < sms ? n_work : sms;
   flash_fwd_bf16_wgmma_kernel<D><<<grid, kFwdThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, bh, seq, causal,
-      scale * kLog2e);
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, bh, seq_q, seq_k,
+      causal, scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int seq, int causal, float scale,
-                       cudaStream_t stream) {
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, bh);
+                       float* lse, int bh, int seq_q, int seq_k, int causal,
+                       float scale, cudaStream_t stream) {
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_f32_kernel<D><<<grid, F32Layout<D>::kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, seq, causal,
-      scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, seq_q, seq_k,
+      causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, seq, head_dim) contiguous, bf16 (is_bf16 = 1) or fp32,
-// head_dim 64, 128 or 256, 16-byte aligned; lse: (bh, 1, seq) fp32.
-// Returns a cudaError_t (0 = launched).
+// q, o: (bh, seq_q, head_dim) and k, v: (bh, seq_k, head_dim) contiguous,
+// bf16 (is_bf16 = 1) or fp32, head_dim 64, 128 or 256, 16-byte aligned;
+// lse: (bh, 1, seq_q) fp32. Returns a cudaError_t (0 = launched).
 extern "C" int edl_flash_fwd(const void* q, const void* k, const void* v,
-                             void* o, void* lse, int bh, int seq,
-                             int head_dim, int is_bf16, int causal,
+                             void* o, void* lse, int bh, int seq_q,
+                             int seq_k, int head_dim, int is_bf16, int causal,
                              float scale, void* stream) {
-  if (bh <= 0 || seq <= 0 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || bh > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err;
   if (is_bf16) {
     if (head_dim == 64) {
-      err = launch_bf16<64>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_bf16<64>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                            scale, st);
     } else if (head_dim == 128) {
-      err = launch_bf16<128>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_bf16<128>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                             scale, st);
     } else if (head_dim == 256) {
-      err = launch_bf16<256>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_bf16<256>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                             scale, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }
   } else {
     if (head_dim == 64) {
-      err = launch_f32<64>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_f32<64>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                           scale, st);
     } else if (head_dim == 128) {
-      err = launch_f32<128>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_f32<128>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                            scale, st);
     } else if (head_dim == 256) {
-      err = launch_f32<256>(q, k, v, o, lse_f, bh, seq, causal, scale, st);
+      err = launch_f32<256>(q, k, v, o, lse_f, bh, seq_q, seq_k, causal,
+                            scale, st);
     } else {
       return (int)cudaErrorInvalidValue;
     }

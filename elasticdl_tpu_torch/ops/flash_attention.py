@@ -5,7 +5,10 @@ Function that joins them.
 Port of elasticdl_tpu/ops/flash_attention.py: ``_fwd`` (the Pallas
 ``_fwd_kernel``), ``_bwd`` (``_dq_kernel`` and ``_dkv_kernel``) and the
 ``_attach``/``_flash`` custom_vjp pair, over merged
-``(batch * heads, seq, head_dim)`` inputs. The kernel sources are
+``(batch * heads, seq, head_dim)`` inputs. q (and o, do, dq) hold
+``seq_q`` rows and k, v (and dk, dv) ``seq_k``, which may differ; under
+the causal mask query row i sees keys j <= i, both counted from 0 (the
+reference's ``_causal_mask``). The kernel sources are
 ``ops/csrc/flash_fwd.cu`` and ``ops/csrc/flash_bwd.cu``; their notes
 give the bounds at the serving and training shapes.
 
@@ -44,12 +47,18 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_shapes(*tensors):
-    shape = tensors[0].shape
-    if len(shape) != 3 or any(t.shape != shape for t in tensors):
+def _check_shapes(q, k, v, *like_q):
+    """Raise unless q (and every tensor of ``like_q``) is ``(bh, seq_q,
+    d)`` and k and v are ``(bh, seq_k, d)``."""
+    shape = q.shape
+    ok = (len(shape) == 3 and k.dim() == 3 and k.shape == v.shape
+          and k.shape[0] == shape[0] and k.shape[2] == shape[2]
+          and all(t.shape == shape for t in like_q))
+    if not ok:
         raise ValueError(
-            "inputs must share one (batch*heads, seq, head_dim) shape; "
-            "got %s" % ", ".join(str(tuple(t.shape)) for t in tensors)
+            "q must be (batch*heads, seq_q, head_dim) and k, v (batch*heads,"
+            " seq_k, head_dim); got %s" % ", ".join(
+                str(tuple(t.shape)) for t in (q, k, v, *like_q))
         )
 
 
@@ -108,8 +117,9 @@ def _causal_scores(q, k, causal, sm_scale):
     accumulation)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if causal:
-        pos = torch.arange(q.shape[1], device=q.device)
-        s = torch.where(pos[:, None] >= pos[None, :], s, NEG_INF)
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, NEG_INF)
     return s
 
 
@@ -122,7 +132,8 @@ def flash_attention_fwd_reference(q, k, v, causal=False, sm_scale=None):
     """Plain version: full scores, the same -1e30 mask and dtype casts.
 
     p is cast to the input dtype before the PV product, and lse =
-    logsumexp of the masked scores, ``(bh, 1, seq)`` fp32.
+    logsumexp of the masked scores, ``(bh, 1, seq_q)`` fp32. With no
+    keys (seq_k 0) o is zeros and lse -inf.
     """
     _check_shapes(q, k, v)
     s = _causal_scores(q, k, causal, _default_scale(q, sm_scale))
@@ -132,7 +143,7 @@ def flash_attention_fwd_reference(q, k, v, causal=False, sm_scale=None):
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, out=None):
-    """``(o, lse)``: o like q, lse ``(bh, 1, seq)`` fp32. ``out``, if
+    """``(o, lse)``: o like q, lse ``(bh, 1, seq_q)`` fp32. ``out``, if
     given, is a tensor like q that receives o (and is returned as o).
 
     CUDA tensors go to the kernel, which takes contiguous bf16 or fp32
@@ -163,14 +174,16 @@ def _launch_fwd(q, k, v, causal, sm_scale, out):
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load("flash_fwd")
-    bh, seq, head_dim = q.shape
-    lse = torch.empty((bh, 1, seq), dtype=torch.float32, device=q.device)
-    if seq == 0:
-        return o, lse
+    bh, seq_q, head_dim = q.shape
+    seq_k = k.shape[1]
+    lse = torch.empty((bh, 1, seq_q), dtype=torch.float32, device=q.device)
+    if seq_q == 0 or seq_k == 0:
+        # no keys: what the plain version gives (o zeros, lse -inf)
+        return o.zero_(), lse.fill_(-math.inf)
     with torch.cuda.device(q.device):
         err = lib.edl_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, seq, head_dim,
+            lse.data_ptr(), bh, seq_q, seq_k, head_dim,
             int(q.dtype == torch.bfloat16), int(bool(causal)),
             float(sm_scale), _stream(q.device),
         )
@@ -190,7 +203,7 @@ def _launch_fwd(q, k, v, causal, sm_scale, out):
 
 
 def _delta(o, do):
-    """rowsum(o * do) in fp32, ``(bh, 1, seq)``: computed outside the
+    """rowsum(o * do) in fp32, ``(bh, 1, seq_q)``: computed outside the
     kernels, as ``_bwd`` does (flash_attention.py:379-381)."""
     return (o.float() * do.float()).sum(-1).unsqueeze(1)
 
@@ -267,11 +280,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None):
 def _launch_bwd(q, k, v, o, lse, do, causal, sm_scale):
     global DQ_LAUNCHES, DKV_LAUNCHES
     _kernel_inputs("flash_attention_bwd", q, k, v, o, do)
-    bh, seq, head_dim = q.shape
-    if (lse.shape != (bh, 1, seq) or lse.dtype != torch.float32
+    bh, seq_q, head_dim = q.shape
+    seq_k = k.shape[1]
+    if (lse.shape != (bh, 1, seq_q) or lse.dtype != torch.float32
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
-                         "(bh, 1, seq) fp32 tensor on q's device")
+                         "(bh, 1, seq_q) fp32 tensor on q's device")
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load("flash_bwd")
@@ -279,9 +293,10 @@ def _launch_bwd(q, k, v, o, lse, do, causal, sm_scale):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    if seq == 0:
-        return dq, dk, dv
-    common = (bh, seq, head_dim, int(q.dtype == torch.bfloat16),
+    if seq_q == 0 or seq_k == 0:
+        # no (query, key) pair: every gradient is zero
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    common = (bh, seq_q, seq_k, head_dim, int(q.dtype == torch.bfloat16),
               int(bool(causal)), float(sm_scale))
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
@@ -313,7 +328,7 @@ def _merge(t):
     """(batch, heads, seq, head_dim) -> contiguous 16-byte-aligned
     (batch * heads, seq, head_dim), as the kernels take it (the model
     hands over transposed views, and autograd a transposed gradient)."""
-    t = t.reshape(-1, t.shape[-2], t.shape[-1])
+    t = t.flatten(0, -3)
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
@@ -374,6 +389,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.save_for_backward(*merged, out, lse)
         ctx.causal = causal
         ctx.sm_scale = sm_scale
+        ctx.shapes = (q.shape, k.shape, v.shape)
         return out
 
     @staticmethod
@@ -383,7 +399,8 @@ class FlashAttention(torch.autograd.Function):
             q, k, v, out.view(q.shape), lse, _merge(do), causal=ctx.causal,
             sm_scale=ctx.sm_scale,
         )
-        return (*(g.view(do.shape) for g in grads), None, None)
+        return (*(g.view(shape) for g, shape in zip(grads, ctx.shapes)),
+                None, None)
 
 
 def flash_attention(q, k, v, causal=False, sm_scale=None):

@@ -48,9 +48,12 @@ def _top_k(probs, k):
     return values[..., :k], indices[..., :k]
 
 
-def _router_probs(router_logits, k):
+def _router_probs(router_logits, k, batch_mean=None):
     """Softmax in fp32, the kept gates renormalized, and the Switch
-    load-balance aux loss over first choices (eq. 4): E * sum_e f_e p_e."""
+    load-balance aux loss over first choices (eq. 4): E * sum_e f_e p_e.
+    ``batch_mean`` turns f_e and p_e, means over this rank's rows, into
+    the means over the whole batch (a data-parallel rank; the reference
+    takes them over its global arrays)."""
     num_experts = router_logits.shape[-1]
     probs = torch.softmax(router_logits.float(), dim=-1)
     gates, indices = _top_k(probs, k)  # (G, S, k)
@@ -58,11 +61,14 @@ def _router_probs(router_logits, k):
     first_choice = F.one_hot(indices[..., 0], num_experts).float()
     tokens_per_expert = first_choice.mean(dim=(0, 1))  # f_e
     prob_per_expert = probs.mean(dim=(0, 1))  # p_e
+    if batch_mean is not None:
+        tokens_per_expert = batch_mean(tokens_per_expert)
+        prob_per_expert = batch_mean(prob_per_expert)
     aux_loss = num_experts * torch.sum(tokens_per_expert * prob_per_expert)
     return gates, indices, aux_loss
 
 
-def top_k_routing(router_logits, k, capacity):
+def top_k_routing(router_logits, k, capacity, batch_mean=None):
     """Dispatch/combine tensors for top-k token -> expert routing.
 
     router_logits: (G, S, E). Returns ``(combine, dispatch, aux_loss)``:
@@ -70,10 +76,10 @@ def top_k_routing(router_logits, k, capacity):
     dispatch (G, S, E, C) bool one-hot token -> (expert, slot), and the
     scalar aux loss. Slots are assigned choice-rank-major: every rank-0
     choice before any rank-1 choice, and within a rank earlier tokens
-    win (cumsum order)."""
+    win (cumsum order). ``batch_mean``: ``_router_probs``'s."""
     num_groups, _, num_experts = router_logits.shape
     device = router_logits.device
-    gates, indices, aux_loss = _router_probs(router_logits, k)
+    gates, indices, aux_loss = _router_probs(router_logits, k, batch_mean)
     shape = tuple(router_logits.shape) + (capacity,)
     combine = torch.zeros(shape, dtype=torch.float32, device=device)
     dispatch = torch.zeros(shape, dtype=torch.bool, device=device)
@@ -94,7 +100,7 @@ def top_k_routing(router_logits, k, capacity):
     return combine, dispatch, aux_loss
 
 
-def top_k_routing_compact(router_logits, k, capacity):
+def top_k_routing_compact(router_logits, k, capacity, batch_mean=None):
     """Slot-index routing: ``top_k_routing``'s policy without the
     (G, S, E, C) one-hots.
 
@@ -104,9 +110,10 @@ def top_k_routing_compact(router_logits, k, capacity):
     capacity + position`` per (rank, token), rank-major, dropped tokens
     at the out-of-range ``E * capacity`` (the zero-pad row). A token's
     position counts every prior assignment to its expert in rank-major
-    order, dropped ones too: a prior overflow forces >= C either way."""
+    order, dropped ones too: a prior overflow forces >= C either way.
+    ``batch_mean``: ``_router_probs``'s."""
     num_groups, seq, num_experts = router_logits.shape
-    gates, indices, aux_loss = _router_probs(router_logits, k)
+    gates, indices, aux_loss = _router_probs(router_logits, k, batch_mean)
     e_flat = indices.transpose(1, 2).reshape(num_groups, k * seq)  # (G, kS)
     onehot = F.one_hot(e_flat, num_experts)
     prior = torch.cumsum(onehot, dim=1) - onehot  # (G, kS, E)

@@ -32,8 +32,10 @@ reference rebinds donated arrays), so every host read of device rows
 thread, which ``.cpu()`` also synchronises, before the next launch can
 touch the rows; the writeback thread only ever sees numpy copies. The
 steady-state gather-only combine runs K1, the function the reference
-computed there with an XLA gather. One device only: the reference's
-``ep`` mesh sharding is not ported yet. The tallies feed ``stats()``
+computed there with an XLA gather. One device only: the port has the
+mesh (parallel/mesh.py), but the tier's ``ep`` sharding comes with the
+sparse SPMD trainer that builds its mesh, which is not ported yet
+(ROADMAP Queue 1 item 2). The tallies feed ``stats()``
 and the reference's per-table ``edl_device_tier_*`` series (no-ops
 when metrics collection is off).
 """

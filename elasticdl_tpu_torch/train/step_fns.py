@@ -29,6 +29,16 @@ Dropout: each step's masks come from ``layers.dropout_key(step)``
 (``(step, microbatch)`` under grad accumulation), set on the model's
 ``Dropout`` modules for the forward and the backward, so a block
 recomputed under remat draws the masks it drew in the forward.
+
+A ``plane`` (parallel/spmd_trainer.py's dense data plane over a mesh)
+turns the one-card step into a rank's share of a data-parallel one:
+``plane.gather`` rebuilds the fsdp-sharded parameters for the forward
+(their backward reduce-scatters), the masked mean divides by the mask
+weight of the GLOBAL batch (``plane.global_weight``), ``plane.rows``
+draws each dropout mask over the global batch and keeps this rank's
+rows, and ``plane.reduce_grads`` / ``plane.global_loss`` /
+``plane.grad_norm`` reduce the gradients, the loss and the health norm
+over the mesh. Without a plane nothing of this runs.
 """
 
 import dataclasses
@@ -129,9 +139,11 @@ def _commit_model_state(state, new_model_state):
             old.copy_(new)
 
 
-def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps):
+def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps,
+                           plane=None):
     """(state, batch) -> (loss, fp32 grads, new model state): the train
-    step's forward and backward in training mode."""
+    step's forward and backward in training mode (with a ``plane``, this
+    rank's share: the module docstring)."""
     if grad_accum_steps < 1:
         raise ValueError(
             "grad_accum_steps must be >= 1, got %r" % (grad_accum_steps,)
@@ -142,8 +154,10 @@ def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps):
         """(masked loss SUM, mask weight) -- summed so microbatch
         gradients add linearly."""
         compute_params, compute_features = leaves, features
+        if plane is not None:
+            compute_params = plane.gather(leaves)
         if compute_dtype is not None:
-            compute_params = cast_floating(leaves, compute_dtype)
+            compute_params = cast_floating(compute_params, compute_dtype)
             compute_features = cast_floating(features, compute_dtype)
         outputs = apply_model(model, compute_params, model_state,
                               compute_features)
@@ -151,6 +165,11 @@ def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps):
         # multi-dim per-sample losses average over their trailing dims
         per_sample = per_sample.reshape(mask.shape[0], -1).mean(dim=1)
         return torch.sum(per_sample * mask), torch.sum(mask)
+
+    def global_weight(weight):
+        if plane is not None:
+            weight = plane.global_weight(weight)
+        return torch.clamp(weight, min=1.0)
 
     def run(state, batch):
         features, labels, mask = (
@@ -164,10 +183,11 @@ def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps):
         if k == 1:
             # the seed stays set through the backward: a remat block's
             # recompute redraws the forward's masks
-            with dropout_seed(model, dropout_key(state.step)):
+            rows = None if plane is None else plane.rows
+            with dropout_seed(model, dropout_key(state.step), rows=rows):
                 total, weight = loss_sum(leaves, model_state, features,
                                          labels, mask)
-                loss = total / torch.clamp(weight, min=1.0)
+                loss = total / global_weight(weight)
                 grads = torch.autograd.grad(loss, inputs)
             return loss.detach(), {
                 n: g.float() for n, g in zip(names, grads)
@@ -198,7 +218,7 @@ def _make_loss_grads_state(model, loss_fn, compute_dtype, grad_accum_steps):
                 acc.add_(g.float())
             loss_total = loss_total + total.detach()
             weight_total = weight_total + weight
-        weight = torch.clamp(weight_total, min=1.0)
+        weight = global_weight(weight_total)
         return loss_total / weight, {
             n: g / weight for n, g in zip(names, grads_sum)
         }, model_state
@@ -241,16 +261,17 @@ def apply_update(tx, state, grads):
 
 def make_train_step(model, loss_fn, tx, compute_dtype=None,
                     grad_accum_steps=1, health=False,
-                    guard_nonfinite=False):
+                    guard_nonfinite=False, plane=None):
     """Returns train_step(state, batch) -> (new_state, loss).
 
     ``health=True`` additionally returns a third output, the health
     scalars dict (global grad norm and nonfinite flag); with
     ``guard_nonfinite`` a nonfinite batch keeps the previous state
     entire (the update is skipped, so the batch contributes nothing).
-    ``health=False`` returns exactly ``(new_state, loss)``."""
+    ``health=False`` returns exactly ``(new_state, loss)``. With a
+    ``plane`` the loss, the gradients and the norm are the mesh's."""
     run = _make_loss_grads_state(model, loss_fn, compute_dtype,
-                                 grad_accum_steps)
+                                 grad_accum_steps, plane)
 
     def update(state, grads, model_state):
         _commit_model_state(state, model_state)
@@ -258,9 +279,14 @@ def make_train_step(model, loss_fn, tx, compute_dtype=None,
 
     def train_step(state, batch):
         loss, grads, model_state = run(state, batch)
+        if plane is not None:
+            grads = plane.reduce_grads(grads)
+            loss = plane.global_loss(loss)
         if not health:
             return update(state, grads, model_state), loss
-        scalars = health_scalars(loss, global_grad_norm(grads))
+        norm = (global_grad_norm(grads) if plane is None
+                else plane.grad_norm(grads))
+        scalars = health_scalars(loss, norm)
         if guard_nonfinite and bool(scalars["nonfinite"]):
             # params, slots, step AND model state stay as they were
             return state, loss, scalars
@@ -269,12 +295,16 @@ def make_train_step(model, loss_fn, tx, compute_dtype=None,
     return train_step
 
 
-def make_eval_step(model, compute_dtype=None):
-    """Returns eval_step(state, features) -> outputs."""
+def make_eval_step(model, compute_dtype=None, plane=None):
+    """Returns eval_step(state, features) -> outputs (with a ``plane``,
+    the fsdp-sharded parameters gathered first)."""
 
     def eval_step(state, features):
         model.eval()  # BatchNorm on the running averages, no dropout
         params = state.params
+        if plane is not None:
+            with torch.no_grad():
+                params = plane.gather(params)
         if compute_dtype is not None:
             params = cast_floating(params, compute_dtype)
             features = cast_floating(features, compute_dtype)

@@ -45,6 +45,7 @@ from elasticdl_tpu_torch.observability import (
     profiler,
     trace,
 )
+from elasticdl_tpu_torch.parallel.mesh import parse_mesh_spec
 from elasticdl_tpu_torch.testing import faults
 from elasticdl_tpu_torch.train.health import HealthSentinelError
 from elasticdl_tpu_torch.worker.drain import install_sigterm_drain
@@ -119,6 +120,7 @@ def main(argv=None):
         symbol_overrides=symbol_overrides_from_args(args),
         log_loss_steps=args.log_loss_steps,
         device=args.device,
+        mesh_config=parse_mesh_spec(args.mesh),
     )
     # SIGTERM now runs the graceful drain instead of a bare exit
     drain_hook.bind(worker)

@@ -9,9 +9,11 @@ master's liveness table fresh through long steps. A model with sparse
 embedding specs (DeepFM) trains through ``train.sparse.SparseTrainer``
 over the PS processes (``PSClient``, stamped with the master-assigned
 incarnation), sequentially or through the pipelined ``train_stream``;
-any other model through ``worker.trainer.TorchTrainer``. Both run on
-``device`` (``cuda`` unless the caller asks for the CPU; no card
-raises).
+any other model through ``worker.trainer.TorchTrainer``, or, given a
+mesh (``--mesh`` or the model's ``mesh_config``), through
+``parallel.spmd_trainer.SpmdTrainer`` over the ranks of the default
+process group. They run on ``device`` (``cuda`` unless the caller asks
+for the CPU; no card raises).
 
 The job's artifact: the worker saves dense checkpoints every
 ``checkpoint_steps`` versions (``train/checkpoint.py``), after the
@@ -33,8 +35,9 @@ it: past the deadline the process exits 1 and the master's
 requeue-on-death fallback takes over.
 
 Telemetry: a compact ``TelemetryBlob`` (step-time EWMA, examples/s,
-the device tier's tallies, the health tracker's fields and
-``observability/device.py``'s memory view) rides the master RPCs the
+the device tier's tallies, the health tracker's fields,
+``observability/device.py``'s memory view and the mesh's shape and
+collective bytes a step) rides the master RPCs the
 worker already makes; ``EDL_TELEMETRY=0`` opts out. With
 ``EDL_TRACE_DIR`` each sequential train step is the root span of a
 trace (``train_batch``, carrying the task id) that covers the step and
@@ -57,6 +60,7 @@ Not ported (ROADMAP): the lockstep multi-host loop.
 """
 
 import contextlib
+import inspect
 import os
 import threading
 import time
@@ -145,11 +149,19 @@ class Worker:
         symbol_overrides=None,
         log_loss_steps=100,
         device="cuda",
+        mesh_config=None,
     ):
         """``trainer_factory(**kwargs)`` replaces the trainer class (a
         test injects one); it gets the keyword arguments of
-        ``SparseTrainer`` for a sparse model and of ``TorchTrainer``
-        otherwise."""
+        ``SparseTrainer`` for a sparse model, of ``SpmdTrainer`` on a
+        mesh and of ``TorchTrainer`` otherwise.
+
+        ``mesh_config`` (``--mesh``), or else the model's
+        ``mesh_config(num_devices)``, trains a dense model through
+        ``parallel.spmd_trainer.SpmdTrainer`` over the ranks of the
+        default process group (one rank started here when none is), as
+        the reference's worker picks its SpmdTrainer; the model is built
+        over the mesh when its ``custom_model`` takes one."""
         self.device = resolve_device(device)
         self._mc = master_client
         self.spec = get_model_spec(
@@ -167,11 +179,35 @@ class Worker:
         self.tds = TaskDataService(
             master_client, data_reader, wait_sleep_secs=wait_sleep_secs
         )
+        mesh = None
+        if mesh_config is None and self.spec.mesh_config:
+            mesh_config = self.spec.mesh_config(
+                torch.distributed.get_world_size()
+                if torch.distributed.is_initialized() else 1)
+        if mesh_config is not None:
+            if self.spec.sparse_embedding_specs:
+                raise NotImplementedError(
+                    "Model %s declares sparse_embedding_specs: training it "
+                    "over a mesh needs the sparse SPMD trainer "
+                    "(train/sparse_spmd.py), which is not ported; drop "
+                    "--mesh to train it through SparseTrainer"
+                    % model_zoo_module)
+            from elasticdl_tpu_torch.parallel.mesh import (
+                build_mesh,
+                init_local_group,
+            )
+
+            init_local_group(self.device.type)
+            mesh = build_mesh(mesh_config)
         # the weights come from ``seed`` without touching the caller's
         # global RNG stream
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            model = self.spec.custom_model()
+            if mesh is not None and "mesh" in inspect.signature(
+                    self.spec.custom_model).parameters:
+                model = self.spec.custom_model(mesh=mesh)
+            else:
+                model = self.spec.custom_model()
         trainer_kwargs = dict(
             model=model,
             loss_fn=self.spec.loss,
@@ -203,6 +239,16 @@ class Worker:
             )
             trainer_kwargs["seed"] = seed
             trainer_kwargs["cache_staleness"] = sparse_cache_staleness
+        elif mesh is not None:
+            from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+
+            factory = trainer_factory or SpmdTrainer
+            trainer_kwargs.update(grad_accum_steps=grad_accum_steps,
+                                  seed=seed, mesh=mesh)
+            if self.spec.sharding_rules:
+                trainer_kwargs["sharding_rules"] = self.spec.sharding_rules()
+            if self.spec.batch_spec:
+                trainer_kwargs["batch_spec"] = self.spec.batch_spec()
         else:
             from elasticdl_tpu_torch.worker.trainer import TorchTrainer
 
@@ -372,6 +418,13 @@ class Worker:
         blob.brownout_skipped_pushes = getattr(
             self.trainer, "brownout_skipped_pushes", 0
         )
+        # the dense data plane: the mesh this worker trains over and its
+        # collectives' bytes a step (parallel/dense_plane.py), empty and
+        # 0 off a mesh
+        blob.mesh_shape = str(
+            getattr(self.trainer, "mesh_shape_str", "") or "")
+        blob.collective_bytes_per_step = float(
+            getattr(self.trainer, "collective_bytes_per_step", 0.0) or 0.0)
         return blob
 
     def _update_step_telemetry(self, real_count):

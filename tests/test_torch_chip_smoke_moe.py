@@ -1,11 +1,14 @@
 """chip_smoke.py's phase 19 (MoE on one card), rehearsed on the CPU at
 small sizes: bench.py's MoE cut to 2 layers of 2 heads (d 256), 4
 experts, S 64, batch 2, its matched dense arm, the compact dispatch
-against the one-hot, and the zoo's MoE LM (cut to 2 layers) as a
-LocalExecutor job served once, with K4-K6 counted by wrapping their
-plain versions (the CPU path counts no launch). Each check passes, and
-the phase refuses two planted faults: K4 launched twice a layer, and a
-compact combine 1% off. The formulas and bounds the phase prints are
+against the one-hot, the MoE through SpmdTrainer on a one-rank mesh (a
+gloo group of one rank here, NCCL on the card) beside TorchTrainer's
+steps, and the zoo's MoE LM (cut to 2 layers) as a LocalExecutor job
+served once, with K4-K6 counted by wrapping their plain versions (the
+CPU path counts no launch). Each check passes, and the phase refuses
+four planted faults: K4 launched twice a layer, a compact combine 1%
+off, a dense plan that reports an fsdp leaf where the mesh has none,
+and a mesh step whose loss differs from the plain trainer's. The formulas and bounds the phase prints are
 held to the numbers PERF.md states. What only the card can give (times,
 peak memory, the profile) reads "not measured" here.
 """
@@ -53,6 +56,58 @@ def test_moe_phase_rehearses(tmp_path):
     assert zoo["serve_k4_launches"] == 2
     assert zoo["served_shape"] == [1, 64, 256] and zoo["served_step"] == 3
     assert out["summary"]["moe_step_overhead_vs_dense"] > 0
+    mesh = out["mesh"]
+    assert mesh["ok"] and mesh["mesh"] == "dp=1"
+    assert mesh["backend"] == "gloo" and mesh["world"] == 1
+    assert mesh["mesh_losses"] == mesh["plain_losses"]
+    assert mesh["params_bit_equal"] and mesh["adam_slots_bit_equal"]
+    assert mesh["launches_per_step"] == [{"fwd": 2, "dq": 2, "dkv": 2}] * 3
+    assert mesh["plan"]["local_params"] == sum(
+        1 for _ in chip_smoke_model_params())
+    assert mesh["collective_bytes_per_step"] == 0.0
+    assert mesh["recorded_collective_bytes"] == 0
+    # the arm destroyed the group it started
+    assert not torch.distributed.is_initialized()
+
+
+def chip_smoke_model_params():
+    from elasticdl_tpu_torch.models.moe_transformer import MoeTransformerLM
+
+    with torch.device("meta"):
+        model = MoeTransformerLM(mlp_ratio=chip_smoke.MOE_MLP_RATIO,
+                                 **SMALL["widths"], **SMALL["routing"])
+    return model.parameters()
+
+
+def test_moe_phase_fails_on_an_fsdp_leaf_the_mesh_lacks(tmp_path,
+                                                         monkeypatch):
+    from elasticdl_tpu_torch.parallel import spmd_trainer
+
+    plan = spmd_trainer.plan_dense_plane
+
+    def planted(*args, **kwargs):
+        out = plan(*args, **kwargs)
+        out.params[0].mode = "reduce_scatter"
+        return out
+
+    monkeypatch.setattr(spmd_trainer, "plan_dense_plane", planted)
+    with _counting(1) as flash, pytest.raises(
+            SystemExit, match="mesh plan all local"):
+        chip_smoke.moe_phase(torch, np, flash, str(tmp_path), device="cpu",
+                             **SMALL)
+    assert not torch.distributed.is_initialized()
+
+
+def test_moe_phase_fails_on_a_mesh_loss_off(tmp_path, monkeypatch):
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+
+    loss = SpmdTrainer.global_loss
+    monkeypatch.setattr(SpmdTrainer, "global_loss",
+                        lambda self, x: loss(self, x) * (1 + 1e-6))
+    with _counting(1) as flash, pytest.raises(
+            SystemExit, match="mesh losses bit-equal"):
+        chip_smoke.moe_phase(torch, np, flash, str(tmp_path), device="cpu",
+                             **SMALL)
 
 
 def test_moe_phase_fails_on_a_wrong_launch_count(tmp_path):

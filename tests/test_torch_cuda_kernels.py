@@ -204,6 +204,63 @@ def test_flash_bwd_rejects_what_the_kernel_does_not_take(card):
         flash.flash_attention_bwd(*strided[:4], lse, strided[4])
 
 
+def _unequal_inputs(card, bh, seq_q, seq_k, dim, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(bh, rows, dim, device=card, generator=gen).to(dtype)
+            for rows in (seq_q, seq_k, seq_k, seq_q)]
+
+
+# chip_smoke.py's unequal-length cases: fewer queries than keys (causal:
+# key tiles past seq_q seen by no query), more queries than keys (rows
+# past seq_k see every key), fp32, and a padded head_dim
+@pytest.mark.parametrize("case", chip_smoke.UNEQUAL_CASES,
+                         ids=lambda case: case[0])
+def test_flash_unequal_lengths_match_plain_version(card, case):
+    _, bh, seq_q, seq_k, dim, dtype_name, causal = case
+    dtype = getattr(torch, dtype_name)
+    q, k, v, do = _unequal_inputs(card, bh, seq_q, seq_k, dim, dtype, 11)
+    before = (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=causal)
+    grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    ro, rlse = flash.flash_attention_fwd_reference(q, k, v, causal=causal)
+    refs = flash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    assert (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKV_LAUNCHES) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+    tol = O_TOL[dtype]
+    assert o.shape == q.shape and lse.shape == (bh, 1, seq_q)
+    torch.testing.assert_close(o.float(), ro.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, rlse, atol=LSE_TOL, rtol=0)
+    for name, got, ref, like, second in zip(("dq", "dk", "dv"), grads, refs,
+                                            (q, k, v), again):
+        assert got.dtype == dtype and got.shape == like.shape, name
+        err, _ = chip_smoke.worst_row_error(got, ref, dim)
+        assert err <= chip_smoke.GRAD_ROW_RTOL[dtype_name], (name, err)
+        assert torch.equal(got, second), name
+
+
+@pytest.mark.parametrize("dim", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_keys_no_query_sees_are_zero(card, dtype, dim):
+    """Causal, seq_q 200 < seq_k 1000: K6's key tiles past the queries
+    walk no query tile and store dk and dv rows of exact zeros (the
+    outputs are not zero-filled before the launch: the block the
+    allocator hands them was NaN-filled)."""
+    bh, seq_q, seq_k = 8, 200, 1000
+    stale = torch.full((4, bh, seq_k, dim), float("nan"), dtype=dtype,
+                       device=card)
+    del stale
+    q, k, v, do = _unequal_inputs(card, bh, seq_q, seq_k, dim, dtype, 12)
+    o, lse = flash.flash_attention_fwd(q, k, v, causal=True)
+    _, dk, dv = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert not bool(dk[:, seq_q:].any() | dv[:, seq_q:].any())
+    assert bool(torch.isfinite(dk).all() & torch.isfinite(dv).all())
+    assert dk[:, :seq_q].abs().max().item() > 0
+
+
 def test_flash_attention_grads_match_plain_attention(card):
     """FlashAttention's gradient (K5, K6) against autograd through the
     plain attention, both in fp32 on the card, with a non-contiguous

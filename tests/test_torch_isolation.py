@@ -591,3 +591,69 @@ print("trained")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "trained"
+
+
+def test_mesh_slice_modules_isolated_and_the_worker_trains_on_a_mesh():
+    """The mesh slice's modules (parallel/) are among those imported
+    with JAX blocked above; with JAX blocked the worker given a mesh
+    starts its own one-rank gloo group, trains the MoE LM through
+    SpmdTrainer on the CPU and reports the mesh in its telemetry, and a
+    sparse model given a mesh raises, naming the sparse SPMD trainer."""
+    modules = _port_modules()
+    for name in ("parallel", "parallel.mesh", "parallel.sharding",
+                 "parallel.collectives", "parallel.dense_plane",
+                 "parallel.spmd_trainer"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+import sys
+import numpy as np
+import torch
+from elasticdl_tpu_torch.common.args import parse_worker_args
+from elasticdl_tpu_torch.data.readers import RecordIODataReader
+from elasticdl_tpu_torch.parallel.mesh import parse_mesh_spec
+from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+from elasticdl_tpu_torch.worker.worker import Worker
+class Master:
+    worker_id = 0
+    telemetry_provider = None
+    def get_comm_info(self):
+        return pb.CommInfo(rank=0, world_size=1, mesh_epoch=0)
+args = parse_worker_args(["--model_zoo", "m", "--master_addr", "a:1",
+                          "--worker_id", "0", "--mesh", "dp=1"])
+worker = Worker(Master(), "elasticdl_tpu_torch.models.moe_transformer",
+                RecordIODataReader(data_dir="/nonexistent"),
+                minibatch_size=4, device="cpu",
+                model_params="vocab_size=64;num_layers=2;num_heads=2;"
+                             "embed_dim=32;num_experts=2",
+                mesh_config=parse_mesh_spec(args.mesh))
+assert isinstance(worker.trainer, SpmdTrainer), type(worker.trainer)
+assert torch.distributed.is_initialized()
+assert worker.trainer.model.mesh is worker.trainer.mesh
+tokens = np.random.RandomState(0).randint(0, 64, (4, 16)).astype(np.int32)
+batch = {"features": tokens, "labels": tokens,
+         "_mask": np.ones(4, np.float32)}
+state, loss = worker.trainer.train_step(None, batch)
+assert np.isfinite(float(loss))
+blob = worker._telemetry_blob()
+assert blob.mesh_shape == "dp=1" and blob.collective_bytes_per_step == 0.0
+try:
+    Worker(Master(), "elasticdl_tpu_torch.models.deepfm",
+           RecordIODataReader(data_dir="/nonexistent"), device="cpu",
+           mesh_config=parse_mesh_spec("dp=1"))
+except NotImplementedError as e:
+    assert "sparse SPMD trainer" in str(e), e
+else:
+    raise AssertionError("a sparse model on a mesh did not raise")
+torch.distributed.destroy_process_group()
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("trained")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained"
