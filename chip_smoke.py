@@ -428,9 +428,13 @@ fail there, then times K4's schedules (``K4_SCHEDULES``) and K3's handling
 of misses (``K3_VARIANTS``) in turns. ``--sparse-ab PARENT`` runs phase
 7's main run for the checkout at PARENT and this one in turns;
 ``--job-ab PARENT [OTHER ...]`` runs phase 9's job the same way.
-``--against-parent PARENT`` builds K4-K6 from the checkout at PARENT
-and from this one and requires both builds' raw launches to give the
-same bits at every head_dim both take (``AGAINST_PARENT_CASES``).
+``--against-parent PARENT`` builds K4-K6 from the checkout at PARENT,
+from this one and from copies of this one under each candidate of
+``K6_D256_VARIANTS``, requires this checkout's raw launches to give the
+parent's bits at every ``AGAINST_PARENT_CASES`` entry (the variants'
+bits are logged), and times K6 of each build in turns at bench.py's
+transformer and s16k_flash shapes. ``--lm-ab PARENT`` runs phase 16's
+transformer and s16k_flash steps for both checkouts in turns.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -6492,18 +6496,39 @@ BWD_MUTATIONS = (
         ("const uint32_t q_src = q_s + stage * L::kTileBytes;",
          "const uint32_t q_src = q_s + ((stage + 1) % kStages) "
          "* L::kTileBytes;"),)),
-    # K6 at D 256 (the split kernel): the query mask past S, and each
-    # warpgroup reading P^T and dS^T from its own buffer (the other
-    # warpgroup's half stale)
+    # K6 at D 256 (flash_bwd_dkv_bf16_wgmma_d256_kernel): the query mask
+    # past S; a tile's product reading the next stage over (behind the
+    # right barrier); the work tile's last query tile never reaching dV
+    # and dK (its B skipped; the handover's barriers are in the exchange,
+    # which still runs); warpgroup 1 reading another thread's P^T in the
+    # handover. None can hang the kernel
     ("k6_d256_no_query_mask_past_s", (
         ("const bool masked = q_pos >= seq_q || (causal && k_pos > q_pos);",
          "const bool masked = causal && k_pos > q_pos;"),)),
-    ("k6_d256_buffers_per_warpgroup", (
-        ("const uint32_t p_buf = p_s + (kv & 1) * L::kPBytes;",
-         "const uint32_t p_buf = p_s + ((kv + wg) & 1) * L::kPBytes;"),
-        ("const uint32_t ds_buf = ds_s + (kv & 1) * L::kPBytes;",
-         "const uint32_t ds_buf = ds_s + ((kv + wg) & 1) * L::kPBytes;"))),
+    ("k6_d256_a_wrong_stage", (
+        ("const uint64_t b_desc = sw128_desc(ring + stage * L::kTileBytes, 16);",
+         "const uint64_t b_desc =\n"
+         "      sw128_desc(ring + ((stage + 1) % L::kStages) * L::kTileBytes, "
+         "16);"),)),
+    ("k6_d256_last_tile_not_accumulated", (
+        ("  d256_issue_b(acc_g, frag, at, full_other, other_ring);\n",
+         "  if (!kLast) d256_issue_b(acc_g, frag, at, full_other, other_ring);\n"),
+    )),
+    ("k6_d256_p_handover_wrong_thread", (
+        ("      const float4 x = x_tile[i * 128 + tid];",
+         "      const float4 x = x_tile[i * 128 + (tid ^ 4)];"),)),
 )
+# K6 at D 256 as built against candidate redesigns of it, each a copy
+# with these edits, raw-launched on the same inputs by --against-parent
+# (bits against the parent's, and times in turns): the work tiles always
+# longest first over all heads, and always head by head (the kernel picks
+# head by head when a head has few key tiles)
+K6_D256_HEAD_MAJOR = "  const bool head_major = 4 * k_tiles <= (int)gridDim.x;\n"
+K6_D256_VARIANTS = {
+    "longest_first": ((K6_D256_HEAD_MAJOR,
+                       "  const bool head_major = false;\n"),),
+    "head_major": ((K6_D256_HEAD_MAJOR, "  const bool head_major = true;\n"),),
+}
 TIER_SOURCE = "elasticdl_tpu_torch/ops/csrc/embedding_tier.cu"
 K3_HIT = "const bool hit = s >= 0 && s < table_rows - 1;"
 K1_IN_TABLE = "  const bool in_table = s >= 0 && s < table_rows;\n"
@@ -6777,25 +6802,50 @@ def job_ab(others):
 
 
 # K4-K6 of two checkouts on the same inputs (python3 chip_smoke.py
-# --against-parent <parent>): every CASES entry at a head_dim the parent
-# took (64, 128) at its own shape, and the tile edges of each (one row,
-# one row past a tile) in both dtypes, causal and not
+# --against-parent <parent>), as (name, bh, seq_q, seq_k, dim, dtype,
+# causal): every CASES entry at head_dim 64 or 128 at its own shape, the
+# bf16 head_dim 256 shapes K6's D-256 kernel runs on the main path and
+# at its edges (bench.py's transformer and s16k_flash, the ragged S
+# 1000, q 200 / k 1000 under the causal mask), and the tile edges of
+# each head_dim (one row, one row past a tile) in both dtypes at 64 and
+# 128 and in bf16 at 256, causal and not
+AGAINST_PARENT_D256 = ("bench_bf16_d256_causal", "s16k_bf16_d256_causal",
+                       "bf16_d256_ragged_s1000_causal",
+                       "uneq_bf16_d256_q200_k1000_causal")
 AGAINST_PARENT_CASES = tuple(
-    case for case in CASES if case[3] in (64, 128)) + tuple(
+    case_lengths(case) for case in CASES + UNEQUAL_CASES
+    if case[-3] in (64, 128) and len(case) == 6
+    or case[0] in AGAINST_PARENT_D256) + tuple(
     ("edge_%s_d%d_s%d_%s" % (dtype, dim, seq,
                              "causal" if causal else "full"),
-     6, seq, dim, dtype, causal)
-    for dim in (64, 128) for dtype in ("bfloat16", "float32")
+     6, seq, seq, dim, dtype, causal)
+    for dim in (64, 128, 256) for dtype in ("bfloat16", "float32")
+    if dim < 256 or dtype == "bfloat16"
     for seq in (1, 129) for causal in (False, True))
-# a child in the parent's checkout builds its K4-K6 and prints where
+# K6's raw launches timed in turns (parent, change, each variant, the
+# variants again in reverse, change, parent, K6_TURN_ROUNDS times) at the
+# two D-256 shapes of the main path: bench.py's transformer and s16k_flash
+AGAINST_PARENT_TIMED = ("bench_bf16_d256_causal", "s16k_bf16_d256_causal")
+# each round times every build twice, in mirrored order: the card's
+# clocks drift by a few percent over seconds at the s16k shape
+K6_TURN_ROUNDS = 3
+# a child in a checkout builds its K4-K6 and prints where
 AGAINST_PARENT_CHILD = (
     "import json, sys\n"
     "sys.path.insert(0, '.')\n"
     "from elasticdl_tpu_torch.ops import _build\n"
     "_build.build(['flash_fwd', 'flash_bwd'])\n"
+    "for text in _build.build_logs.values():\n"
+    "    for line in text.splitlines():\n"
+    "        print('ptxas', line.strip())\n"
     "print(json.dumps({n: _build.library_path(n) "
     "for n in ('flash_fwd', 'flash_bwd')}))\n"
 )
+# the lines of ptxas's report worth keeping: each entry, its registers and
+# shared memory, spills, and any wgmma serialization, injected wait or
+# other warning
+PTXAS_KEYS = ("Compiling entry", "Used", "spill", "wgmma", "warpgroup",
+              "arning")
 
 
 def flash_raw_outputs(torch, libs, q, k, v, do, causal):
@@ -6821,47 +6871,165 @@ def flash_raw_outputs(torch, libs, q, k, v, do, causal):
     return o, lse, dq, dk, dv
 
 
+def build_libraries(root):
+    """Start building K4-K6 in the checkout at ``root`` (a child
+    process); returns the process, whose last line of output names the
+    libraries."""
+    return subprocess.Popen([sys.executable, "-c", AGAINST_PARENT_CHILD],
+                            cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def built_libraries(label, child):
+    """The libraries ``child`` (``build_libraries``) built, bound."""
+    from elasticdl_tpu_torch.ops import _build
+
+    out, _ = child.communicate(timeout=900)
+    if child.returncode:
+        raise SystemExit("the %s kernels did not build:\n%s"
+                         % (label, out[-3000:]))
+    for line in out.splitlines():
+        if line.startswith("ptxas") and any(k in line for k in PTXAS_KEYS):
+            log("%s %s" % (label, line))
+    paths = json.loads(out.strip().splitlines()[-1])
+    return paths, {n: _build.bind(path, n) for n, path in paths.items()}
+
+
 def against_parent(torch, parent):
-    """K4-K6 built from the checkout at ``parent`` and from this one,
-    raw-launched on the same inputs at every AGAINST_PARENT_CASES entry:
-    raises unless o, lse, dq, dk and dv are the same bits."""
+    """K4-K6 built from the checkout at ``parent``, from this one and
+    from copies of this one under each of K6_D256_VARIANTS, raw-launched
+    on the same inputs at every AGAINST_PARENT_CASES entry (the variants
+    at head_dim 256 only): raises unless this checkout's o, lse, dq, dk
+    and dv are the parent's bits (each variant's bits are logged). Then
+    K6's raw launches at AGAINST_PARENT_TIMED, in turns."""
     from elasticdl_tpu_torch.ops import _build
 
     parent = os.path.abspath(parent)
     if not os.path.exists(os.path.join(parent, BWD_SOURCE)):
         raise SystemExit("no %s in %s" % (BWD_SOURCE, parent))
-    child = subprocess.Popen([sys.executable, "-c", AGAINST_PARENT_CHILD],
-                             cwd=parent, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
+    children = {"parent": build_libraries(parent)}
+    children.update({
+        name: build_libraries(kernel_copy("k6_" + name, BWD_SOURCE, edits))
+        for name, edits in K6_D256_VARIANTS.items()})
     _build.build(["flash_fwd", "flash_bwd"])
-    out, _ = child.communicate(timeout=900)
-    if child.returncode:
-        raise SystemExit("the parent's kernels did not build:\n%s"
-                         % out[-3000:])
-    paths = json.loads(out.strip().splitlines()[-1])
-    libs = {"parent": {n: _build.bind(path, n) for n, path in paths.items()},
-            "change": {n: _build.load(n) for n in paths}}
+    paths, libs = {}, {}
+    for label, child in children.items():
+        paths[label], libs[label] = built_libraries(label, child)
+    libs["change"] = {n: _build.load(n) for n in paths["parent"]}
+    for name, text in _build.build_logs.items():
+        for line in text.splitlines():
+            if any(key in line for key in PTXAS_KEYS):
+                log("change ptxas %s: %s" % (name, line.strip()))
+    variants = list(K6_D256_VARIANTS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    differ = []
-    for name, bh, seq, dim, dtype_name, causal in AGAINST_PARENT_CASES:
+    differ, variant_differ, timed = [], {v: [] for v in variants}, {}
+    for name, bh, seq, seq_k, dim, dtype_name, causal in AGAINST_PARENT_CASES:
         q, k, v, do = (
-            torch.randn(bh, seq, dim, device="cuda", generator=gen).to(
-                getattr(torch, dtype_name)) for _ in range(4))
-        got = {label: flash_raw_outputs(torch, lib, q, k, v, do, causal)
-               for label, lib in libs.items()}
-        equal = {out_name: torch.equal(a, b) for out_name, a, b in zip(
-            ("o", "lse", "dq", "dk", "dv"), got["parent"], got["change"])}
+            torch.randn(bh, rows, dim, device="cuda", generator=gen).to(
+                getattr(torch, dtype_name))
+            for rows in (seq, seq_k, seq_k, seq))
+        labels = ["parent", "change"] + (variants if dim == 256 else [])
+        got = {label: flash_raw_outputs(torch, libs[label], q, k, v, do,
+                                        causal) for label in labels}
+        equal = {}
+        for label in labels[1:]:
+            equal[label] = {out_name: torch.equal(a, b) for out_name, a, b
+                            in zip(("o", "lse", "dq", "dk", "dv"),
+                                   got["parent"], got[label])}
         log(json.dumps({"against_parent": name, "shape": [bh, seq, dim],
-                        "dtype": dtype_name, "causal": causal,
-                        "bit_equal": equal}))
-        if not all(equal.values()):
+                        "seq_k": seq_k, "dtype": dtype_name,
+                        "causal": causal, "bit_equal": equal["change"],
+                        "variants_bit_equal": {
+                            label: all(equal[label].values())
+                            for label in labels[2:]}}))
+        if not all(equal["change"].values()):
             differ.append(name)
+        for label in labels[2:]:
+            if not all(equal[label].values()):
+                variant_differ[label].append(name)
+        if name in AGAINST_PARENT_TIMED:
+            timed[name] = k6_turns(torch, libs, labels, q, k, v, do,
+                                   got["parent"], causal)
+            log(json.dumps({"k6_turns_ms": timed[name], "case": name,
+                            "shape": [bh, seq, dim]}))
         del q, k, v, do, got
     log(json.dumps({"against_parent": "summary", "parent": parent,
                     "libraries": paths, "cases": len(AGAINST_PARENT_CASES),
-                    "differ": differ}))
+                    "differ": differ, "variants_differ": variant_differ,
+                    "k6_turns_ms": timed}))
     if differ:
         raise SystemExit("K4-K6 differ from the parent's at %s" % differ)
+
+
+def k6_turns(torch, libs, labels, q, k, v, do, outs, causal):
+    """K6's raw launch of each library set in ``labels`` on the same
+    inputs (lse and delta from the parent's K4, ``outs``), timed in
+    turns: the labels in order, then in reverse, K6_TURN_ROUNDS times; ms
+    by label."""
+    bh, seq, dim = q.shape
+    delta = (outs[0].float() * do.float()).sum(-1).unsqueeze(1)
+    common = (bh, seq, k.shape[1], dim, int(q.dtype == torch.bfloat16),
+              int(causal), 1.0 / dim ** 0.5)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
+    times = {label: [] for label in labels}
+    for label in (labels + labels[::-1]) * K6_TURN_ROUNDS:
+        launch = raw_launch(
+            torch, libs[label]["flash_bwd"].edl_flash_bwd_dkv, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), outs[1].data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *common)
+        times[label].append(time_ms(torch, launch, flush))
+    return times
+
+
+# phase 16's step times (bench.py's transformer and s16k_flash) across
+# checkouts, each child in its own checkout, parent, change, change,
+# parent: python3 chip_smoke.py --lm-ab <parent>
+LM_AB_CHILD = (
+    "import json, sys\n"
+    "import numpy as np\n"
+    "import torch\n"
+    "sys.path.insert(0, '.')\n"
+    "import chip_smoke as cs\n"
+    "from elasticdl_tpu_torch.ops import _build\n"
+    "from elasticdl_tpu_torch.ops import flash_attention as flash\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "_build.build(['flash_fwd', 'flash_bwd'])\n"
+    "bench = cs.bench_lm_phase(torch, np, flash)\n"
+    "s16k = cs.s16k_phase(torch, np, flash, bench.pop('flat'), "
+    "bench['widths'])\n"
+    "print(json.dumps({'lm_ab': 'result', "
+    "'transformer_step_ms': bench['record']['step_ms'], "
+    "'s16k_step_ms': s16k['step_ms'], "
+    "'s16k_step_ms_after_first': s16k['step_ms_after_first']}))\n"
+)
+
+
+def lm_ab(parent):
+    """Phase 16's transformer step (the best window) and s16k_flash steps
+    for the checkout at ``parent`` and this one, in turns; logs each run
+    and the runs by checkout."""
+    parent = os.path.abspath(parent)
+    if not os.path.exists(os.path.join(parent, "chip_smoke.py")):
+        raise SystemExit("no chip_smoke.py in %s" % parent)
+    runs = []
+    for label, root in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        out = subprocess.run([sys.executable, "-c", LM_AB_CHILD], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise SystemExit("the %s run failed:\n%s" % (
+                label, (out.stdout + out.stderr)[-3000:]))
+        result = [json.loads(line) for line in out.stdout.splitlines()
+                  if line.startswith('{"lm_ab"')][-1]
+        run = dict(result, lm_ab=label, root=root)
+        log(json.dumps(run))
+        runs.append(run)
+    keys = ("transformer_step_ms", "s16k_step_ms_after_first")
+    log(json.dumps({"lm_ab": "summary", **{
+        label: {key: [r[key] for r in runs if r["lm_ab"] == label]
+                for key in keys} for label in ("parent", "change")}}))
 
 
 def mutation_phase():
@@ -10238,10 +10406,14 @@ def main(argv):
         against_parent(torch, argv[1])
         log(nvidia_smi_line())
         return 0
+    if len(argv) == 2 and argv[0] == "--lm-ab":
+        lm_ab(argv[1])
+        log(nvidia_smi_line())
+        return 0
     if argv:
         print("usage: chip_smoke.py [--mutations | --sparse-ab PARENT | "
-              "--job-ab PARENT [OTHER ...] | --against-parent PARENT]",
-              file=sys.stderr)
+              "--job-ab PARENT [OTHER ...] | --against-parent PARENT | "
+              "--lm-ab PARENT]", file=sys.stderr)
         return 2
 
     # phase 9's data is written by a child process during the build
@@ -10279,7 +10451,7 @@ def run_phases(torch, np, job_dir, data_proc):
     # ptxas's report per kernel entry: registers, shared memory, spills
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if any(key in line for key in ("Compiling entry", "Used", "spill")):
+            if any(key in line for key in PTXAS_KEYS):
                 log("ptxas %s: %s" % (name, line.strip()))
     done("1_build")
 

@@ -89,26 +89,50 @@
 //   tiles are 32 rows (16 KB each): 3 stages make 230,488 bytes, under
 //   the 232,448 a block may have. A thread holds 16 + 16 + 128 fp32 (S,
 //   dP, dQ; S and dP as m64n32 products, dQ += dS K as m64n256).
-// - D 256, K6 (flash_bwd_dkv_bf16_wgmma_split_kernel): dK and dV of 64
+// - D 256, K6 (flash_bwd_dkv_bf16_wgmma_d256_kernel): dK and dV of 64
 //   keys x 256 columns are 128 + 128 fp32 a thread in one warpgroup,
 //   more than setmaxnreg's 232. Both consumer warpgroups own the same 64
-//   keys instead. Each computes S^T and dP^T for half of a 64-query tile
-//   (16 + 16 fp32), writes its P^T and dS^T as bf16 into 128B-swizzled
-//   shared tiles, and after a named barrier accumulates dK and dV for
-//   half of the head's columns over all 64 queries (64 + 64 fp32), with
-//   P^T or dS^T as wgmma's A from shared memory. Chosen over dK/dV in
-//   shared memory (64 KB more, and a read-modify-write of it per query
-//   tile) and over one warpgroup computing S^T and the other dP^T (the
-//   exchange would pass fp32 values, or give ds a bf16 p where the
-//   reference has an fp32 one). 2 ring stages of 64-row q and do tiles,
-//   two P^T and two dS^T buffers: 231,488 bytes.
+//   keys and split the work by kind: warpgroup 0 computes S^T, P^T and
+//   dV, warpgroup 1 dP^T, dS^T and dK, each over all 256 head columns.
+//   Query tiles are 32 rows, in a ring of 4 stages (16 KB of q and 16 KB
+//   of do a stage). S^T and dP^T are m64n32 products with both operands
+//   in shared memory (K or V as A), the first D-256 design's
+//   instructions; dV += P^T dO and dK += dS^T Q are m64n256 with P^T or
+//   dS^T as bf16 A fragments in registers (the fp32 accumulator layout
+//   is the A-fragment layout), so neither goes through shared memory and
+//   no proxy fence is needed. Warpgroup 0 hands P^T over in fp32 through
+//   two 8 KB exchange tiles under mbarriers, so it runs up to two query
+//   tiles ahead of warpgroup 1, whose dS^T arithmetic is the longer. Two
+//   fragment sets let a tile's B run while the next tile's exchange
+//   does, and the next tile's product is issued beside that B. Work
+//   tiles go head by head when a head has few key tiles (q and do stay
+//   in L2), else longest first over all heads. Each wgmma group's wait
+//   is unconditional, nothing is copied between register sets and no
+//   register array is indexed at run time: each of those made ptxas
+//   serialize every wgmma of the kernel (infos C7514, C7515) or spill.
+//   Every fp32 sum keeps the first design's order (S^T and dP^T over D
+//   in 16-column steps; dK and dV over queries in 16-query steps, tiles
+//   in order), so dk and dv are its bits. 215,184 bytes of shared
+//   memory; ptxas: 168 registers at launch, 0 spills.
 // - Not kept: the first design (nvcuda::wmma, 64-row blocks launched in
 //   index order, every tile copied through registers, two
 //   __syncthreads() per tile, s and dp written to shared memory as fp32
 //   and p, ds back as bf16: 0.41 and 0.48 ms at the training shape);
 //   lse and delta through 1-D fp32 tensor maps over B*H*S values (an
 //   illegal instruction at S = 1, where the map's one dimension, 6
-//   values, was shorter than its 128-value box). A fused kernel
+//   values, was shorter than its 128-value box); the first D-256 K6
+//   (flash_bwd_dkv_bf16_wgmma_split_kernel): 64-query tiles in a ring of
+//   2, each warpgroup computing S^T and dP^T for half of a tile's
+//   queries, then P^T and dS^T through shared memory, one named barrier
+//   and dK, dV for half of the columns, every tile a serial chain with
+//   the tensor cores idle through its softmax, stores and barrier (0.350
+//   ms at B*H 96, S 1024 and 4.755 ms at B*H 8, S 16384, causal; H100
+//   80GB HBM3, 700 W); the intermediate designs between the two (PERF.md
+//   lists each with its times): warpgroup 0 S^T and warpgroup 1 dP^T with
+//   dK and dV split by columns and P^T, dS^T through shared memory, under
+//   several schedules, none faster than the split kernel at S 16384; a
+//   ring of 3 stages; two accumulator sets (spills); groups of 8 heads
+//   longest first (unbalanced). A fused kernel
 //   accumulating dq with atomics is left out: it would drop determinism.
 //
 // fp32 path: the tensor cores take no full-precision fp32, so products
@@ -150,7 +174,7 @@ constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // rows of the streamed tile: keys (K5) or queries (K6; D 256 has its
-// own layout, DkvSplitLayout)
+// own layout, DkvD256Layout)
 template <int D>
 struct Stream {
   static constexpr int kN = D == 64 ? 128 : D == 128 ? 64 : 32;
@@ -189,28 +213,30 @@ struct DkvLayout {
   static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;
 };
 
-// K6 at D 256: k and v of a 64-key work tile, the q ring, the do ring
-// (kStages 64-row tiles), two P^T and two dS^T buffers (bf16, 64 keys x
-// 64 queries, 128B-swizzled), the lse and delta rings, then the barriers
-struct DkvSplitLayout {
+// K6 at D 256: k and v of a 64-key work tile, the q ring and the do
+// ring (kStages 32-row tiles), two exchange tiles of P^T in fp32 (64 x
+// 32 each, in the accumulators' fragment order), the lse and delta
+// rings, then the barriers (the ring's, then x_full[2] and x_empty[2] of
+// the exchange tiles): 215,184 bytes
+struct DkvD256Layout {
   static constexpr int D = 256;
   static constexpr int kOwnRows = 64;
-  static constexpr int kN = 64;
-  static constexpr int kStages = 2;
+  static constexpr int kN = 32;
+  static constexpr int kStages = 4;
   static constexpr int kOwnBytes = kOwnRows * D * 2;  // k or v
   static constexpr int kTileBytes = kN * D * 2;       // one q or do tile
-  static constexpr int kPBytes = kOwnRows * kN * 2;   // one P^T or dS^T
+  static constexpr int kXBytes = kOwnRows * kN * 4;   // P^T in fp32
   static constexpr int kStatBytes = kN * 4;
   static constexpr int kK = 0;
   static constexpr int kV = kK + kOwnBytes;
   static constexpr int kQ = kV + kOwnBytes;
   static constexpr int kDo = kQ + kStages * kTileBytes;
-  static constexpr int kP = kDo + kStages * kTileBytes;
-  static constexpr int kDs = kP + 2 * kPBytes;
-  static constexpr int kLse = kDs + 2 * kPBytes;
+  static constexpr int kX = kDo + kStages * kTileBytes;
+  static constexpr int kLse = kX + 2 * kXBytes;
   static constexpr int kDelta = kLse + kStages * kStatBytes;
   static constexpr int kBar = kDelta + kStages * kStatBytes;
-  static constexpr int kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;
+  static constexpr int kXBar = kBar + 8 * (2 + 3 * kStages);
+  static constexpr int kBytes = kXBar + 8 * 4 + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -286,6 +312,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// every committed group but the newest one complete
+__device__ __forceinline__ void wgmma_wait_all_but_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // keeps the compiler from moving accumulator reads or writes across an
@@ -386,26 +416,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x 128 fp32) += A (64 x 16, K-major in shared memory) * B (16 x
-// 128, MN-major in shared memory, two 64-column atoms)
-__device__ __forceinline__ void wgmma_ss_tb(float (&d)[64], uint64_t a,
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // d (64 x 256 fp32) += A (64 x 16 bf16, registers) * B (16 x 256,
 // MN-major in shared memory, four 64-column atoms)
 __device__ __forceinline__ void wgmma_rs(float (&d)[128],
@@ -436,15 +446,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 }
 
 #undef F8
-
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// the two consumer warpgroups (256 threads) meet at named barrier 1
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -903,42 +904,250 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// the bf16 pair (x, y) at row `row`, columns col, col + 1 of a 64 x 64
-// K-major tile at the 1024-aligned `tile`, 128B-swizzled as TMA lays out
-// a tile (the 16-byte chunk index XOR row % 8), so that wgmma reads it
-// as an A operand through sw128_desc
-__device__ __forceinline__ void store_swizzled(uint32_t tile, int row, int col,
-                                               uint32_t pair) {
-  const uint32_t at = tile + row * kAtomBytes +
-                      ((((col * 2) >> 4) ^ (row & 7)) << 4) + ((col * 2) & 15);
-  asm volatile("st.shared.b32 [%0], %1;" ::"r"(at), "r"(pair) : "memory");
-}
-
 // K6 at D 256: dk and dv of a persistent CTA's 64-key work tiles. dK and
 // dV of 64 keys x 256 columns would be 256 fp32 registers a thread in
-// one warpgroup, so both consumer warpgroups own the same 64 keys and
-// split the work twice over: warpgroup w computes S^T and dP^T for query
-// columns [32w, 32w + 32) of each streamed tile (m64n32, the whole D
-// contracted), writes its P^T and dS^T as bf16 into shared tiles that
-// hold all 64 query columns, and, past a named barrier, accumulates dV
-// and dK for head columns [128w, 128w + 128) over all 64 queries
-// (m64n128, A = P^T or dS^T from shared memory, B = dO or Q MN-major).
-// The P^T and dS^T tiles are double-buffered by the ring count, so one
-// barrier per query tile orders both the writes before the reads and the
-// reads before the next writes to the same buffer.
+// one warpgroup, so the two consumer warpgroups own the same 64 keys and
+// split the work by kind: warpgroup 0 computes S^T, P^T and dV,
+// warpgroup 1 dP^T, dS^T and dK, each over all 256 head columns. Query
+// tiles of 32 rows stream through a ring of kStages. Per query tile:
+// - A: S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1), 64 keys x 32 queries,
+//   m64n32 with both operands in shared memory, the whole D contracted;
+// - the exchange: warpgroup 0 turns S^T into P^T and hands it over in
+//   fp32 through one of two 8 KB tiles; warpgroup 1 forms dS^T = P^T
+//   (dP^T - delta) scale. Each keeps its own as bf16 A fragments in
+//   registers;
+// - B: dV += P^T dO (wg 0) or dK += dS^T Q (wg 1), m64n256, A from the
+//   fragments, B MN-major from the stage.
+// B of a tile runs while the next tile's exchange does (two fragment
+// sets), and A of the next tile is issued with it. Every fp32 sum runs
+// in the first D-256 kernel's order: S^T and dP^T over D in 16-column
+// steps, dK and dV over the queries in 16-query steps, query tiles in
+// order.
+
+// K6 at D 256: P^T in fp32 into `p` from S^T in `s` (64 keys from kw, 32
+// queries from q0, in the accumulator layout: rows r, r + 8, columns c,
+// c + 1 of each 8-column chunk): s * scale_log2 - lse rounded twice (no
+// FMA on either path), as the first D-256 kernel computed it; only the
+// tiles that cross the causal diagonal or the end of the queries
+// evaluate the mask
+__device__ __forceinline__ void d256_p(float (&p)[16], const float (&s)[16],
+                                       const float* lse_t, int r, int c,
+                                       int q0, int kw, int seq_q, int causal,
+                                       float scale_log2) {
+  constexpr int kN = DkvD256Layout::kN;
+  const bool edge = q0 + kN > seq_q ||
+                    (causal && kw + DkvD256Layout::kOwnRows - 1 > q0);
+  float2 lse2[kN / 8];  // lse (base 2) of this thread's columns
+#pragma unroll
+  for (int q = 0; q < kN / 8; ++q) {
+    lse2[q] = *reinterpret_cast<const float2*>(lse_t + q * 8 + c);
+  }
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) {
+      const int q_pos = q0 + (j / 4) * 8 + c + (j & 1);
+      const int k_pos = kw + r + 8 * ((j >> 1) & 1);
+      float x = __fmul_rn(s[j], scale_log2);
+      // a query past Sq holds the next head's row here
+      const bool masked = q_pos >= seq_q || (causal && k_pos > q_pos);
+      if (masked) x = kNegInf;
+      p[j] = fast_exp2(__fsub_rn(x, (j & 1) ? lse2[j / 4].y : lse2[j / 4].x));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN / 2; ++j) {
+      p[j] = fast_exp2(__fsub_rn(__fmul_rn(s[j], scale_log2),
+                                 (j & 1) ? lse2[j / 4].y : lse2[j / 4].x));
+    }
+  }
+}
+
+// A of the query tile at ring count `at`: this warpgroup's S^T (wg 0:
+// K from `own`, Q from the `ring` stage) or dP^T (wg 1: V, dO) into
+// `acc`, once the stage's `full` barrier says the tile is in
+__device__ __forceinline__ void d256_issue_a(float (&acc)[16], uint32_t own,
+                                             uint32_t ring, uint32_t full,
+                                             int at) {
+  using L = DkvD256Layout;
+  const int stage = at % L::kStages;
+  mbar_wait(full + 8 * stage, (at / L::kStages) & 1);
+  __syncwarp();
+  // the descriptors of the k-steps differ from the first ones by
+  // constants (16-byte units of the start address)
+  const uint64_t a_desc = sw128_desc(own, 16);
+  const uint64_t b_desc = sw128_desc(ring + stage * L::kTileBytes, 16);
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::D / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;  // 16 bf16 inside a 128-byte atom
+    wgmma_ss(acc, a_desc + (((kk / 4) * L::kOwnRows * kAtomBytes + col) >> 4),
+             b_desc + (((kk / 4) * L::kN * kAtomBytes + col) >> 4), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// the exchange of the query tile at ring count `at` (the work tile's
+// query tile n), its A complete: P^T (wg 0) or dS^T = P^T (dP^T - delta)
+// scale (wg 1) of the tile as bf16 A fragments in `frag` (the fp32
+// accumulator layout is the bf16 A-fragment layout). Warpgroup 0 turns
+// S^T into P^T and hands it over in fp32 through exchange tile at % 2
+// (its 128 threads arrive on x_full once their stores are done,
+// warpgroup 1's on x_empty once its loads are). Two tiles and
+// mbarriers, not named barriers: warpgroup 0 runs up to two query tiles
+// ahead, and its products fill the tensor cores while warpgroup 1
+// computes
+__device__ __forceinline__ void d256_exchange(
+    uint32_t (&frag)[2][4], const float (&acc)[16], int wg, int at, int n,
+    const float* lse_ring, const float* delta_ring, float4* x_tiles,
+    uint32_t x_full, uint32_t x_empty, int tid, int r, int c, int kw,
+    int seq_q, int causal, float scale, float scale_log2) {
+  using L = DkvD256Layout;
+  constexpr int kN = L::kN;
+  const int stage = at % L::kStages;
+  const int b = at & 1;
+  const uint32_t parity = (at >> 1) & 1;
+  float4* x_tile = x_tiles + b * (L::kXBytes / 16);
+  float p[kN / 2];
+  if (wg == 0) {
+    d256_p(p, acc, lse_ring + stage * kN, r, c, n * kN, kw, seq_q, causal,
+           scale_log2);
+    // warpgroup 1 has read what this tile held two query tiles ago
+    mbar_wait(x_empty + 8 * b, parity ^ 1);
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      x_tile[i * 128 + tid] =
+          make_float4(p[4 * i], p[4 * i + 1], p[4 * i + 2], p[4 * i + 3]);
+    }
+    // each thread's stores are released by its own arrival
+    mbar_arrive(x_full + 8 * b);
+#pragma unroll
+    for (int j = 0; j < kN / 2; j += 2) {
+      frag[j / 8][(j % 8) / 2] = pack_bf16(p[j], p[j + 1]);
+    }
+  } else {
+    const float* delta_t = delta_ring + stage * kN;
+    float2 delta2[kN / 8];
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      delta2[i] = *reinterpret_cast<const float2*>(delta_t + i * 8 + c);
+    }
+    mbar_wait(x_full + 8 * b, parity);
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      const float4 x = x_tile[i * 128 + tid];
+      p[4 * i] = x.x;
+      p[4 * i + 1] = x.y;
+      p[4 * i + 2] = x.z;
+      p[4 * i + 3] = x.w;
+    }
+    mbar_arrive(x_empty + 8 * b);
+#pragma unroll
+    for (int j = 0; j < kN / 2; j += 2) {
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float delta_c = e ? delta2[j / 4].y : delta2[j / 4].x;
+        ds[e] = p[j + e] * (acc[j + e] - delta_c) * scale;
+      }
+      frag[j / 8][(j % 8) / 2] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// B of the query tile at ring count `at`: dV += P^T dO (wg 0) or dK +=
+// dS^T Q (wg 1) over its 32 queries, all 256 head columns (m64n256, A
+// from `frag`, B MN-major from the other side's stage tile, once its
+// `full_other` barrier says it is in)
+__device__ __forceinline__ void d256_issue_b(float (&acc_g)[128],
+                                             const uint32_t (&frag)[2][4],
+                                             int at, uint32_t full_other,
+                                             uint32_t other_ring) {
+  using L = DkvD256Layout;
+  constexpr int kN = L::kN;
+  const int stage = at % L::kStages;
+  mbar_wait(full_other + 8 * stage, (at / L::kStages) & 1);
+  __syncwarp();
+  const uint64_t b_desc =
+      sw128_desc(other_ring + stage * L::kTileBytes, kN * kAtomBytes);
+  fence_regs(acc_g);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+    // 16 rows on in the MN-major dO or Q tile
+    wgmma_rs(acc_g, frag[kk], b_desc + ((kk * 16 * kAtomBytes) >> 4));
+  }
+  wgmma_commit();
+}
+
+// the consumer warpgroups' step at query tile i of a work tile (ring
+// count kv + i), A(i) complete and B(i - 1) maybe still running: the
+// exchange of tile i into `frag` (B(i - 1) reads the other set), then,
+// unless kLast, A(i + 1) into `acc`; B(i); a wait for all but B(i) (all,
+// if kLast); the stage of tile i - 1 (and i, if kLast) released
+template <bool kLast>
+__device__ __forceinline__ void d256_step(
+    uint32_t (&frag)[2][4], float (&acc)[16], float (&acc_g)[128], int wg,
+    int i, int kv, int first, int n_tiles, uint32_t own, uint32_t ring,
+    uint32_t other_ring, uint32_t full, uint32_t full_other,
+    uint32_t bar_own_empty, uint32_t bar_empty, const float* lse_ring,
+    const float* delta_ring, float4* x_tiles, uint32_t x_full,
+    uint32_t x_empty, int tid, int lane, int r, int c, int kw, int seq_q,
+    int causal, float scale, float scale_log2) {
+  constexpr int kRing = DkvD256Layout::kStages;
+  const int at = kv + i;
+  d256_exchange(frag, acc, wg, at, first + i, lse_ring, delta_ring, x_tiles,
+                x_full, x_empty, tid, r, c, kw, seq_q, causal, scale,
+                scale_log2);
+  if (!kLast) d256_issue_a(acc, own, ring, full, at + 1);
+  d256_issue_b(acc_g, frag, at, full_other, other_ring);
+  if (kLast) {
+    wgmma_wait_all();
+  } else {
+    wgmma_wait_all_but_one();
+    fence_regs(acc);
+  }
+  if (lane == 0) {
+    // the work tile's last A is in: k and v may be reloaded
+    if (!kLast && i + 2 == n_tiles) mbar_arrive(bar_own_empty);
+    if (i > 0) mbar_arrive(bar_empty + 8 * ((at - 1) % kRing));
+    if (kLast) mbar_arrive(bar_empty + 8 * (at % kRing));
+  }
+}
+
+// work tile t -> (head, first key). Head by head (each head's key tiles
+// in order, so longest first within the head) when a head has few key
+// tiles (at least four heads' tiles spread over the grid): a head's q
+// and do stay in L2 while its tiles are walked, and the grid still mixes
+// long and short tiles. Otherwise longest first over all heads: every
+// head's first 64-key tile (seen by every query under causal masking),
+// then every head's next one, and so on, which balances long causal
+// walks (s16k_flash: 256 key tiles a head). The order changes no sum
+__device__ __forceinline__ void d256_work_tile(int t, int bh_count, int k_tiles,
+                                               bool head_major, int& bh,
+                                               int& k0) {
+  if (head_major) {
+    bh = t / k_tiles;
+    k0 = (t % k_tiles) * DkvD256Layout::kOwnRows;
+  } else {
+    bh = t % bh_count;
+    k0 = (t / bh_count) * DkvD256Layout::kOwnRows;
+  }
+}
+
 __global__ void __launch_bounds__(kBwdThreads, 1)
-    flash_bwd_dkv_bf16_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_k,
-                                          const __grid_constant__ CUtensorMap tm_v,
-                                          const __grid_constant__ CUtensorMap tm_q,
-                                          const __grid_constant__ CUtensorMap tm_do,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ delta,
-                                          __nv_bfloat16* __restrict__ dk,
-                                          __nv_bfloat16* __restrict__ dv,
-                                          int bh_count, int seq_q, int seq_k,
-                                          int causal, float scale,
-                                          float scale_log2) {
-  using L = DkvSplitLayout;
+    flash_bwd_dkv_bf16_wgmma_d256_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                         const __grid_constant__ CUtensorMap tm_v,
+                                         const __grid_constant__ CUtensorMap tm_q,
+                                         const __grid_constant__ CUtensorMap tm_do,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv,
+                                         int bh_count, int seq_q, int seq_k,
+                                         int causal, float scale,
+                                         float scale_log2) {
+  using L = DkvD256Layout;
   constexpr int D = L::D;
   constexpr int kN = L::kN;
   constexpr int kOwnRows = L::kOwnRows;
@@ -950,8 +1159,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const uint32_t v_s = base + L::kV;
   const uint32_t q_s = base + L::kQ;
   const uint32_t do_s = base + L::kDo;
-  const uint32_t p_s = base + L::kP;
-  const uint32_t ds_s = base + L::kDs;
+  float4* x_tiles = reinterpret_cast<float4*>(smem_raw + (base - raw) + L::kX);
   float* lse_ring = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kLse);
   float* delta_ring =
       reinterpret_cast<float*>(smem_raw + (base - raw) + L::kDelta);
@@ -963,9 +1171,19 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int k_tiles = (seq_k + kOwnRows - 1) / kOwnRows;
   const int q_tiles = (seq_q + kN - 1) / kN;
   const int n_work = bh_count * k_tiles;
+  const bool head_major = 4 * k_tiles <= (int)gridDim.x;
+  // the exchange tiles' barriers: each consumer warpgroup's 128 threads
+  // arrive
+  const uint32_t x_full = base + L::kXBar;
+  const uint32_t x_empty = x_full + 16;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(x_full + 8 * b, 128);
+      mbar_init(x_empty + 8 * b, 128);
+    }
+  }
   init_barriers<kRing>(bar_own_full, 1 + 32);
 
-  // work tiles longest first, as the D 64/128 kernel's
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -973,19 +1191,16 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (ptid / 32 == 1) {
       int kv = 0;
       for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
-        const int bh = t % bh_count;
-        const int k0 = (t / bh_count) * kOwnRows;
+        int bh, k0;
+        d256_work_tile(t, bh_count, k_tiles, head_major, bh, k0);
         for (int n = causal ? k0 / kN : 0; n < q_tiles; ++n, ++kv) {
           const int stage = kv % kRing;
           mbar_wait(bar_empty + 8 * stage, ((kv / kRing) & 1) ^ 1);
-#pragma unroll
-          for (int i = 0; i < kN / 32; ++i) {
-            const int col = 32 * i + ptid % 32;
-            const int q_pos = n * kN + col;
-            const size_t at = (size_t)bh * seq_q + q_pos;
-            lse_ring[stage * kN + col] = q_pos < seq_q ? lse[at] * kLog2e : 0.f;
-            delta_ring[stage * kN + col] = q_pos < seq_q ? delta[at] : 0.f;
-          }
+          const int q_pos = n * kN + ptid % 32;
+          const size_t at = (size_t)bh * seq_q + q_pos;
+          lse_ring[stage * kN + ptid % 32] =
+              q_pos < seq_q ? lse[at] * kLog2e : 0.f;
+          delta_ring[stage * kN + ptid % 32] = q_pos < seq_q ? delta[at] : 0.f;
           mbar_arrive(bar_full_q + 8 * stage);
           mbar_arrive(bar_full_do + 8 * stage);
         }
@@ -993,8 +1208,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     } else if (ptid == 0) {
       int kv = 0;
       for (int t = blockIdx.x, w = 0; t < n_work; t += gridDim.x, ++w) {
-        const int bh = t % bh_count;
-        const int k0 = (t / bh_count) * kOwnRows;
+        int bh, k0;
+        d256_work_tile(t, bh_count, k_tiles, head_major, bh, k0);
         mbar_wait(bar_own_empty, (w & 1) ^ 1);
         mbar_expect_tx(bar_own_full, 2 * L::kOwnBytes);
 #pragma unroll
@@ -1026,112 +1241,90 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       }
     }
   } else {
-    // consumer warpgroup `wg`: all 64 keys of the work tile; query
-    // columns [32 wg, 32 wg + 32) of S^T and dP^T, head columns
-    // [128 wg, 128 wg + 128) of dK and dV
+    // consumer warpgroup `wg`: all 64 keys of the work tile; S^T, P^T and
+    // dV (wg 0) or dP^T, dS^T and dK (wg 1), all 256 head columns
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int tid = threadIdx.x % 128;
     const int lane = tid % 32;
     const int r = (tid / 32) * 16 + lane / 4;
     const int c = (lane % 4) * 2;
-    const int q_half = wg * (kN / 2);
-    const uint32_t d_half = wg * 2 * kN * kAtomBytes;  // two atoms of a tile
+    // warpgroup 0 multiplies K by each q tile and P^T by its do tile,
+    // warpgroup 1 V by each do tile and dS^T by its q tile
+    const uint32_t own_wg = wg == 0 ? k_s : v_s;
+    const uint32_t ring_wg = wg == 0 ? q_s : do_s;
+    const uint32_t other_ring = wg == 0 ? do_s : q_s;
+    const uint32_t full_wg = wg == 0 ? bar_full_q : bar_full_do;
+    const uint32_t full_other = wg == 0 ? bar_full_do : bar_full_q;
     int kv = 0;
     for (int t = blockIdx.x, w = 0; t < n_work; t += gridDim.x, ++w) {
-      const int bh = t % bh_count;
-      const int kw = (t / bh_count) * kOwnRows;
+      int bh, kw;
+      d256_work_tile(t, bh_count, k_tiles, head_major, bh, kw);
       const int first = causal ? kw / kN : 0;
-      float acc_dk[D / 4];
-      float acc_dv[D / 4];
+      const int n_tiles = q_tiles - first;
+      float acc_g[D / 2];  // dV (wg 0) or dK (wg 1): 64 keys x 256 columns
 #pragma unroll
-      for (int j = 0; j < D / 4; ++j) acc_dk[j] = acc_dv[j] = 0.f;
+      for (int j = 0; j < D / 2; ++j) acc_g[j] = 0.f;
+      float acc[kN / 2];  // S^T (wg 0) or dP^T (wg 1) of one query tile
+      // P^T (wg 0) or dS^T (wg 1) as bf16 A fragments, two sets: B of
+      // one tile reads one while the next tile's exchange writes the other
+      uint32_t frag0[kN / 16][4];
+      uint32_t frag1[kN / 16][4];
 
       mbar_wait(bar_own_full, w & 1);
       __syncwarp();
-      for (int n = first; n < q_tiles; ++n, ++kv) {
-        const int stage = kv % kRing;
-        const uint32_t parity = (kv / kRing) & 1;
-        const int q0 = n * kN;
-        const uint32_t q_stage = q_s + stage * L::kTileBytes;
-        const uint32_t do_stage = do_s + stage * L::kTileBytes;
-        const uint32_t p_buf = p_s + (kv & 1) * L::kPBytes;
-        const uint32_t ds_buf = ds_s + (kv & 1) * L::kPBytes;
-        const float* lse_t = lse_ring + stage * kN;
-        const float* delta_t = delta_ring + stage * kN;
-
-        // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 32 queries
-        float acc_s[kN / 4];
-        float acc_dp[kN / 4];
-        mbar_wait(bar_full_q + 8 * stage, parity);
-        __syncwarp();
-        scores<D, kN / 2, kN>(acc_s, k_s, kOwnRows,
-                              q_stage + q_half * kAtomBytes);
-        mbar_wait(bar_full_do + 8 * stage, parity);
-        __syncwarp();
-        scores<D, kN / 2, kN>(acc_dp, v_s, kOwnRows,
-                              do_stage + q_half * kAtomBytes);
+      // query tile i of the work tile has ring count kv + i; A(i) is this
+      // warpgroup's S^T or dP^T of it, B(i) its dV or dK over it. A(0),
+      // then per tile (d256_step): its exchange while B(i - 1) runs,
+      // A(i + 1) and B(i), a wait for all but B(i). The fragment sets
+      // alternate by tile, so the loop takes two tiles a turn; every
+      // wait is unconditional and nothing is copied between the sets:
+      // where ptxas cannot tell which registers a wgmma in flight uses,
+      // it serializes every wgmma of the kernel
+      if (n_tiles > 0) {
+        d256_issue_a(acc, own_wg, ring_wg, full_wg, kv);
         wgmma_wait_all();
-        fence_regs(acc_s);
-        fence_regs(acc_dp);
-        if (n == q_tiles - 1 && lane == 0) mbar_arrive(bar_own_empty);
-
-        // P^T and dS^T in fp32, stored as bf16 into the shared tiles
-        const bool edge = q0 + kN > seq_q || (causal && kw + kOwnRows - 1 > q0);
-#pragma unroll
-        for (int j = 0; j < kN / 4; j += 2) {
-          const int h = (j >> 1) & 1;
-          const int col = q_half + (j / 4) * 8 + c;  // query in the tile
-          const float2 lse2 = *reinterpret_cast<const float2*>(lse_t + col);
-          const float2 delta2 = *reinterpret_cast<const float2*>(delta_t + col);
-          const float lse_c[2] = {lse2.x, lse2.y};
-          const float delta_c[2] = {delta2.x, delta2.y};
-          float p[2], ds[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float s = acc_s[j + e] * scale_log2;
-            if (edge) {
-              const int q_pos = q0 + col + e;
-              const int k_pos = kw + r + 8 * h;
-              // a query past Sq holds the next head's row here
-              const bool masked = q_pos >= seq_q || (causal && k_pos > q_pos);
-              if (masked) s = kNegInf;
-            }
-            p[e] = fast_exp2(s - lse_c[e]);
-            ds[e] = p[e] * (acc_dp[j + e] - delta_c[e]) * scale;
-          }
-          store_swizzled(p_buf, r + 8 * h, col, pack_bf16(p[0], p[1]));
-          store_swizzled(ds_buf, r + 8 * h, col, pack_bf16(ds[0], ds[1]));
+        fence_regs(acc);
+        if (n_tiles == 1 && lane == 0) mbar_arrive(bar_own_empty);
+        int i = 0;
+        for (; i + 2 < n_tiles; i += 2) {
+          d256_step<false>(frag0, acc, acc_g, wg, i, kv, first, n_tiles,
+                           own_wg, ring_wg, other_ring, full_wg, full_other,
+                           bar_own_empty, bar_empty, lse_ring, delta_ring,
+                           x_tiles, x_full, x_empty, tid, lane, r, c, kw,
+                           seq_q, causal, scale, scale_log2);
+          d256_step<false>(frag1, acc, acc_g, wg, i + 1, kv, first, n_tiles,
+                           own_wg, ring_wg, other_ring, full_wg, full_other,
+                           bar_own_empty, bar_empty, lse_ring, delta_ring,
+                           x_tiles, x_full, x_empty, tid, lane, r, c, kw,
+                           seq_q, causal, scale, scale_log2);
         }
-        // the stores are read by wgmma (the async proxy), after the
-        // other warpgroup's stores too
-        fence_async_shared();
-        consumers_sync();
-
-        // dV += P^T dO and dK += dS^T Q for this warpgroup's 128 columns
-        fence_regs(acc_dv);
-        fence_regs(acc_dk);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kN / 16; ++kk) {
-          const uint32_t col = kk * 32;  // 16 bf16 inside the 128-byte row
-          wgmma_ss_tb(acc_dv, sw128_desc(p_buf + col, 16),
-                      sw128_desc(do_stage + d_half + kk * 16 * kAtomBytes,
-                                 kN * kAtomBytes));
-          wgmma_ss_tb(acc_dk, sw128_desc(ds_buf + col, 16),
-                      sw128_desc(q_stage + d_half + kk * 16 * kAtomBytes,
-                                 kN * kAtomBytes));
+        if (i + 2 == n_tiles) {
+          d256_step<false>(frag0, acc, acc_g, wg, i, kv, first, n_tiles,
+                           own_wg, ring_wg, other_ring, full_wg, full_other,
+                           bar_own_empty, bar_empty, lse_ring, delta_ring,
+                           x_tiles, x_full, x_empty, tid, lane, r, c, kw,
+                           seq_q, causal, scale, scale_log2);
+          d256_step<true>(frag1, acc, acc_g, wg, i + 1, kv, first, n_tiles,
+                          own_wg, ring_wg, other_ring, full_wg, full_other,
+                          bar_own_empty, bar_empty, lse_ring, delta_ring,
+                          x_tiles, x_full, x_empty, tid, lane, r, c, kw,
+                          seq_q, causal, scale, scale_log2);
+        } else {
+          d256_step<true>(frag0, acc, acc_g, wg, i, kv, first, n_tiles,
+                          own_wg, ring_wg, other_ring, full_wg, full_other,
+                          bar_own_empty, bar_empty, lse_ring, delta_ring,
+                          x_tiles, x_full, x_empty, tid, lane, r, c, kw,
+                          seq_q, causal, scale, scale_log2);
         }
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(acc_dv);
-        fence_regs(acc_dk);
-        if (lane == 0) mbar_arrive(bar_empty + 8 * stage);
+        kv += n_tiles;
+      } else if (lane == 0) {
+        // a key tile no query sees: k and v may be reloaded, and its dk
+        // and dv rows are zeros, as the D 64/128 kernel's
+        mbar_arrive(bar_own_empty);
       }
-      // a key tile no query sees: zeros, as the D 64/128 kernel's
-      if (first >= q_tiles && lane == 0) mbar_arrive(bar_own_empty);
-      const size_t head = (size_t)bh * seq_k * D + wg * (D / 2);
-      store_rows<D, D / 2>(acc_dk, dk + head, kw, r, c, seq_k);
-      store_rows<D, D / 2>(acc_dv, dv + head, kw, r, c, seq_k);
+      fence_regs(acc_g);
+      store_rows<D>(acc_g, (wg == 0 ? dv : dk) + (size_t)bh * seq_k * D, kw,
+                    r, c, seq_k);
     }
   }
 }
@@ -1489,8 +1682,8 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
 }
 
 // K6 at D 256: 64-key work tiles, both consumer warpgroups on each
-cudaError_t launch_dkv_bf16_split(const Args& a, void* dk, void* dv) {
-  using L = DkvSplitLayout;
+cudaError_t launch_dkv_bf16_d256(const Args& a, void* dk, void* dv) {
+  using L = DkvD256Layout;
   if ((long long)a.bh * a.seq_q + L::kN > 0x7fffffff) return cudaErrorInvalidValue;
   const int n_work = a.bh * ((a.seq_k + L::kOwnRows - 1) / L::kOwnRows);
   CUtensorMap tm_k, tm_v, tm_q, tm_do;
@@ -1504,10 +1697,10 @@ cudaError_t launch_dkv_bf16_split(const Args& a, void* dk, void* dv) {
   const int smem = L::kBytes;
   int sms = 0;
   const cudaError_t err =
-      prepare(flash_bwd_dkv_bf16_wgmma_split_kernel, smem, sm_count, sms);
+      prepare(flash_bwd_dkv_bf16_wgmma_d256_kernel, smem, sm_count, sms);
   if (err != cudaSuccess) return err;
   const int grid = n_work < sms ? n_work : sms;
-  flash_bwd_dkv_bf16_wgmma_split_kernel<<<grid, kBwdThreads, smem, a.stream>>>(
+  flash_bwd_dkv_bf16_wgmma_d256_kernel<<<grid, kBwdThreads, smem, a.stream>>>(
       tm_k, tm_v, tm_q, tm_do, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), a.bh, a.seq_q, a.seq_k, a.causal,
       a.scale, a.scale * kLog2e);
@@ -1584,7 +1777,7 @@ extern "C" int edl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (is_bf16) {
     err = head_dim == 64    ? launch_dkv_bf16<64>(a, dk, dv)
           : head_dim == 128 ? launch_dkv_bf16<128>(a, dk, dv)
-                            : launch_dkv_bf16_split(a, dk, dv);
+                            : launch_dkv_bf16_d256(a, dk, dv);
   } else {
     err = head_dim == 64    ? launch_dkv_f32<64>(a, dk, dv)
           : head_dim == 128 ? launch_dkv_f32<128>(a, dk, dv)

@@ -20,6 +20,8 @@ TABLES = (
        for name, edits in chip_smoke.K4_SCHEDULES.items() if edits]
     + [("BWD_MUTATIONS", name, chip_smoke.BWD_SOURCE, edits)
        for name, edits in chip_smoke.BWD_MUTATIONS]
+    + [("K6_D256_VARIANTS", name, chip_smoke.BWD_SOURCE, edits)
+       for name, edits in chip_smoke.K6_D256_VARIANTS.items()]
     + [("TIER_MUTATIONS", name, chip_smoke.TIER_SOURCE, edits)
        for name, edits in chip_smoke.TIER_MUTATIONS]
     + [("K3_VARIANTS", name, chip_smoke.TIER_SOURCE, edits)

@@ -113,9 +113,9 @@ def test_flash_fwd_rejects_what_the_kernel_does_not_take(card):
 
 
 # S across the bf16 kernels' tiles (128 owned rows, 64 in K6 at d 256;
-# streamed tiles of 128 rows at d 64, 64 at d 128 and K6 d 256, 32 in K5
-# at d 256: 63, 127, 128, 129) and several turns of their rings (640,
-# 1000, 2048), ragged and not
+# streamed tiles of 128 rows at d 64, 64 at d 128, 32 at d 256: 63, 127,
+# 128, 129) and several turns of their rings (640, 1000, 2048), ragged
+# and not
 @pytest.mark.parametrize("seq", [1, 63, 127, 128, 129, 200, 256, 640, 1000,
                                  2048])
 @pytest.mark.parametrize("dim", [64, 128, 256])
@@ -160,6 +160,47 @@ def test_flash_bwd_bf16_launches_are_bit_equal(card, causal, dim):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+# K6 at d 256 walks 64-key work tiles over 32-query tiles in a ring of
+# 4 stages, each tile's S^T / dP^T issued before the previous tile's dV
+# and dK. (seq_q, seq_k) at the schedule's edges: work tiles walking one
+# query tile (32 queries; 96 causal: the last key tile sees only its
+# diagonal tile; 33: one real query in the second tile), two (64: the
+# overlap's first tile is its last), exactly the ring's depth plus one
+# (160), the ring across many turns (1000, 2048), fewer queries than
+# keys with a key tile half seen under the causal mask (100 / 300: the
+# keys from 100 on seen by no query, their rows exactly zero), and a
+# ragged seq_q with every key seen (1000 / 384)
+D256_K6_LENGTHS = [(32, 32), (96, 96), (33, 33), (64, 64), (160, 160),
+                   (1000, 1000), (2048, 2048), (100, 300), (1000, 384)]
+
+
+@pytest.mark.parametrize("seq_q,seq_k", D256_K6_LENGTHS,
+                         ids=["q%d_k%d" % pair for pair in D256_K6_LENGTHS])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_d256_schedule_edges(card, causal, seq_q, seq_k):
+    """K5 and K6 at d 256 in bf16 against the plain backward, row by row,
+    and a second launch bit-equal to the first."""
+    q, k, v, do = _unequal_inputs(card, 6, seq_q, seq_k, 256,
+                                  torch.bfloat16, 21)
+    o, lse = flash.flash_attention_fwd_reference(q, k, v, causal=causal)
+    before = flash.DKV_LAUNCHES
+    grads = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    refs = flash.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                               causal=causal)
+    torch.cuda.synchronize()
+    assert flash.DKV_LAUNCHES == before + 2
+    for name, got, ref, like, second in zip(("dq", "dk", "dv"), grads, refs,
+                                            (q, k, v), again):
+        assert got.shape == like.shape and got.dtype == torch.bfloat16, name
+        err, _ = chip_smoke.worst_row_error(got, ref, 256)
+        assert err <= chip_smoke.GRAD_ROW_RTOL["bfloat16"], (name, err)
+        assert torch.equal(got, second), name
+    if causal and seq_q < seq_k:
+        _, dk, dv = grads
+        assert not bool(dk[:, seq_q:].any() | dv[:, seq_q:].any())
 
 
 @pytest.mark.parametrize("dim", [32, 96, 200])
