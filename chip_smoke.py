@@ -110,9 +110,10 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    launches of a staging chunk's chain);
 9. job -- DeepFM as an elastic job through the port's own control
    plane: RecordIO files made with numpy from seeds (196,608 training
-   records in 4 shards, 24 tasks of 8192 records = 16 steps of 512;
+   records in 4 shards of 6 tasks of 8192 records = 16 steps of 512;
    16,384 validation records; phase 7's 39 fields and Zipf(1.2) ids,
-   the label a planted linear signal); the port's ``Master`` in this
+   the label a planted linear signal), the job over the first two
+   shards (12 tasks); the port's ``Master`` in this
    process (liveness timeout 10 s, evaluation every 160 worker
    versions); two ``python -m elasticdl_tpu_torch.ps.server`` with
    phase 8's flags, async (two tier workers push concurrently) and
@@ -127,7 +128,28 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    formula in every step; the final evaluation's AUC is at least 0.70;
    both PS exit 0 on their own within 30 s of the master's stop. It
    prints the job's wall time, examples/s, the time from the kill to
-   the requeue and worker 0's steps/s;
+   the requeue and worker 0's steps/s. Its lockstep arm, on the same
+   files: (a) DeepFM at phase 7's configuration through
+   ``SparseSpmdTrainer`` on the one-rank mesh (this process's default
+   group, NCCL), 20 steps, each loss, the dense parameters, the tier's
+   rows and tallies and the PS rows bit-equal to ``SparseTrainer``'s
+   over the same batches, K1-K3 by phase 7's formula in every step,
+   steps/s beside phase 7's; (b) a job over one of the files (48
+   rounds of 2 x 512) with the master in this process (its rendezvous
+   given both workers' hosts), two PS processes, sync with
+   ``--grads_to_wait 2``, and two ``python -m
+   elasticdl_tpu_torch.worker.main --multihost 1 --device cuda``
+   workers on the one card (their group is gloo: NCCL takes one rank a
+   device), a dense checkpoint every round; (c) in that job worker 1 is
+   SIGKILLed once it has reported a task and its host leaves the
+   rendezvous (a pod manager reports the death), the survivor exits 3
+   within 20 s, and both are relaunched (as a pod manager would) and
+   rejoin at the new epoch from the checkpoint.
+   Checks: the final workers and both PS exit 0; every record done
+   once; equal dense digests at exit; no push version-rejected; the
+   final AUC at least 0.70. It prints rounds/s, the consensus and
+   all-reduce ms a round, and the seconds from the kill to the first
+   step after the restore;
 10. PS restart -- phase 9's job over two of its four training files
    (98,304 records, 12 tasks, 192 steps) with worker 0 alone, in this
    process, its K1-K3 launches counted; two PS processes with phase
@@ -232,11 +254,11 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    every training task done once, the AUC floor, phase 7's formula.
    Then the serve phase's TransformerLM ``ServeRole`` with a metrics
    port: ``/readyz`` 503 before the load and 200 after; one warm-up
-   batch of 8 requests, then 64 concurrent requests (8 batches); the
+   batch of 8 requests, then 8 concurrent requests (1 batch); the
    served-request counter equal to the requests sent, K4 once a layer
    a batch, the batcher's and servicer's spans, whose split of each
    measured request's time (queue wait, batch assembly, forward,
-   reply; medians over the 64) is printed beside worker 0's steps/s against phase 9's, the bytes of
+   reply; medians over the 8) is printed beside worker 0's steps/s against phase 9's, the bytes of
    each role's trace and journal and the phase's seconds;
 14. the serving fleet -- ``python -m elasticdl_tpu_torch.serve.router_main``
    a process of its own (``--min_replicas 2 --max_replicas 3``, a
@@ -1480,13 +1502,14 @@ def ctr_batches(np, n, batch=SPARSE_BATCH, fields=SPARSE_FIELDS,
 
 
 def sparse_trainer(device, batch, fields, tier=None, eps=None,
-                   numpy_store=False):
+                   numpy_store=False, trainer_cls=None, **extra):
     """DeepFM's SparseTrainer over an in-process store (adam lr 0.001,
     as bench.py's PS), seed 0: the store ``LocalPSClient`` picks (the
     native one, through ``create_store``) or, with ``numpy_store``, a
     ``NumpyEmbeddingStore``; ``tier`` a dict of DeviceTierConfig knobs
     or None; ``eps`` overrides adam's epsilon on the dense params, the
-    PS and the tier."""
+    PS and the tier. ``trainer_cls`` (SparseTrainer by default) takes
+    ``extra`` beside (a ``SparseSpmdTrainer``'s mesh)."""
     from elasticdl_tpu_torch.models import deepfm
     from elasticdl_tpu_torch.ps.embedding_store import NumpyEmbeddingStore
     from elasticdl_tpu_torch.ps.local_client import LocalPSClient
@@ -1507,7 +1530,7 @@ def sparse_trainer(device, batch, fields, tier=None, eps=None,
     else:
         client = LocalPSClient(seed=SEED, opt_type="adam", lr=0.001,
                                **eps_args)
-    return SparseTrainer(
+    return (trainer_cls or SparseTrainer)(
         model=deepfm.custom_model(),
         loss_fn=deepfm.loss,
         optimizer=create_optimizer("Adam", learning_rate=0.001, **eps_args),
@@ -1518,6 +1541,7 @@ def sparse_trainer(device, batch, fields, tier=None, eps=None,
         seed=SEED,
         device_tier=config,
         device=device,
+        **extra,
     )
 
 
@@ -2474,13 +2498,16 @@ def stream_phase(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
 # (16 steps of 512), one epoch, and one worker killed mid-job
 JOB_FILES = 4
 JOB_RECORDS = 196_608          # 24 tasks of JOB_PER_TASK
+# phase 9's own job trains over the first two of the four files (12
+# tasks, 192 steps); phases 10-13 and the lockstep arm take other subsets
+JOB_TRAIN_FILES = 2
 JOB_VALID = 16_384
 JOB_PER_TASK = 8192
 JOB_TASK_TIMEOUT_S = 10.0      # the master's liveness timeout
 JOB_REPORT_VERSION_STEPS = 16
 # the step-based evaluation trigger: worker 0 reports its version every
-# 16 steps and takes about 360 of the 384 steps, so passes run at its
-# versions 160 and 320; the last is the job's final evaluation
+# 16 steps and takes about 176 of phase 9's 192 steps, so a pass runs at
+# its version 160, the job's final evaluation
 JOB_EVAL_STEPS = 160
 JOB_AUC_FLOOR = 0.70
 # the planted signal's weights, fixed and independent of every file's
@@ -2611,11 +2638,11 @@ def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
               fields=SPARSE_FIELDS, eval_steps=JOB_EVAL_STEPS,
               report_version_steps=JOB_REPORT_VERSION_STEPS,
               task_timeout_s=JOB_TASK_TIMEOUT_S, worker_env=None,
-              data_written=False):
-    """Phase 9: DeepFM as an elastic job over the files ``job_data``
-    writes under ``workdir`` (already there with ``data_written``: the
-    script writes them in a child process during the build). The
-    port's master in this
+              data_written=False, files=JOB_TRAIN_FILES):
+    """Phase 9: DeepFM as an elastic job over the first ``files`` of the
+    files ``job_data`` writes under ``workdir`` (already there with
+    ``data_written``: the script writes them in a child process during
+    the build). The port's master in this
     process (``Master``, ``prepare``, ``run`` on a thread); two PS
     processes (``python -m elasticdl_tpu_torch.ps.server``, phase 8's
     flags, async, ``--master_addr``); worker 1 as ``python -m
@@ -2639,12 +2666,17 @@ def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
     zoo = "elasticdl_tpu_torch.models.deepfm"
     device = torch.device(device)
     worker_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env)
-    if data_written:
-        train_dir, valid_dir = (os.path.join(workdir, "train"),
-                                os.path.join(workdir, "valid"))
-    else:
-        train_dir, valid_dir = job_data(np, workdir, records, valid,
-                                        fields=fields)
+    if not data_written:
+        job_data(np, workdir, records, valid, fields=fields)
+    valid_dir = os.path.join(workdir, "valid")
+    train_dir = os.path.join(workdir, "job_train")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    records = sum(n for _, n in RecordIODataReader(
+        data_dir=train_dir).create_shards().values())
     master = Master(zoo, training_data=train_dir, validation_data=valid_dir,
                     records_per_task=per_task, num_epochs=1,
                     port=find_free_port(), eval_steps=eval_steps,
@@ -2890,6 +2922,455 @@ def job_phase(torch, np, tier, workdir, device="cuda", records=JOB_RECORDS,
     if failures:
         raise SystemExit("job phase: " + "; ".join(failures))
     record.pop("tier_stats")
+    return record
+
+
+# phase 9's lockstep arm: (a) SparseSpmdTrainer on the one-rank mesh
+# against SparseTrainer, (b) two lockstep DeepFM workers (both on the one
+# card, so their group is gloo) over a sync PS pair, (c) worker 1
+# SIGKILLed in that job, the survivor's exit 3, both relaunched
+LOCKSTEP_STEPS = 20
+LOCKSTEP_WARMUP = 5            # (a)'s steps/s over the steps after these
+LOCKSTEP_FILES = 1             # phase 9's first file: 6 tasks
+LOCKSTEP_REPORT_VERSION_STEPS = 8
+# the step-based evaluation: worker 0 reports every 8 rounds; 48 rounds
+# of 2 x 512 records, so passes at 24 and 48, the last the job's final
+LOCKSTEP_EVAL_STEPS = 24
+LOCKSTEP_TASK_TIMEOUT_S = 8.0  # the master's liveness timeout
+# TaskMonitor's mesh_rejoin_timeout_secs: each epoch bump forward-dates
+# the members' liveness by it less the timeout, which covers a
+# relaunched worker's start (about 8 s on the card) to its first report
+LOCKSTEP_REJOIN_S = 20.0
+LOCKSTEP_GRACE_S = 4.0         # TaskMonitor's mesh_restart_grace_secs
+# the survivor's exit 3 after the kill: its next collective with the
+# dead peer fails at once (gloo sees the peer's sockets close), and the
+# heartbeat (3 s) sees the epoch the kill's report moved
+LOCKSTEP_EXIT_BOUND_S = 20.0
+LOCKSTEP_WAIT_S = 240
+LOCKSTEP_MAX_RELAUNCHES = 3
+_LOG_TIME_RE = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ")
+_FORMED_RE = re.compile(r"process group formed: rank (\d+)/(\d+) "
+                        r"\(epoch (\d+), coordinator \S+, (\w+)\)")
+_BACKEND_RE = re.compile(r"process group backend (\w+): (.*)$", re.M)
+_DIGEST_RE = re.compile(r"Worker (\d+) dense digest at exit: (\{.*\})")
+_FIRST_STEP_RE = re.compile(r"first lockstep step at version (\d+)")
+
+
+def log_time(line):
+    """The wall clock of a log line (log_utils' asctime), or None."""
+    found = _LOG_TIME_RE.match(line)
+    if found is None:
+        return None
+    return datetime.datetime.strptime(found.group(1),
+                                      "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+
+def lockstep_sparse_spmd(torch, np, tier, device="cuda", batch=SPARSE_BATCH,
+                         fields=SPARSE_FIELDS, steps=LOCKSTEP_STEPS,
+                         tier_knobs=None, phase7_steps_per_s=None):
+    """(a): DeepFM through ``SparseSpmdTrainer`` on the one-rank mesh of
+    this process's default group (NCCL on the card), the tier on, beside
+    ``SparseTrainer`` over the same batches and a store of the same
+    seed. Each step's loss and, at the end, the dense parameters, the
+    tier's resident rows and its tallies, and the PS rows of every id
+    touched are bit-equal; K1-K3 follow phase 7's per-step formula in
+    every step of the mesh trainer. The group is this process's one-rank
+    default group (started here and destroyed after, when none was
+    there)."""
+    from elasticdl_tpu_torch.parallel.mesh import init_local_group
+
+    device = torch.device(device)
+    knobs = dict(SPARSE_TIER if tier_knobs is None else tier_knobs)
+    started = init_local_group(device.type)
+    try:
+        return _lockstep_sparse_spmd(torch, np, tier, device, batch, fields,
+                                     steps, knobs, phase7_steps_per_s)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _lockstep_sparse_spmd(torch, np, tier, device, batch, fields, steps,
+                          knobs, phase7_steps_per_s):
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.train.sparse_spmd import SparseSpmdTrainer
+
+    mesh = build_mesh(MeshConfig(dp=1))
+    batches = ctr_batches(np, steps, batch, fields)
+    spmd = sparse_trainer(device, batch, fields, tier=knobs,
+                          trainer_cls=SparseSpmdTrainer, mesh=mesh)
+    counts = count_worker_steps(tier, spmd)
+    m_state, m_losses = None, []
+    reset_tier_launches(tier)  # the mesh trainer's count starts here
+    for b in batches:
+        m_state, m_loss = spmd.train_step(m_state, b)
+        m_losses.append(float(m_loss))
+    sync(torch, device)
+    total = dict(zip(("gather", "insert_rows", "scatter_apply"),
+                     tier_counts(tier)))
+    launches = counts["launches"]
+    single = sparse_trainer(device, batch, fields, tier=knobs)
+    s_state, loss_pairs = None, []
+    for b, m_loss in zip(batches, m_losses):
+        s_state, s_loss = single.train_step(s_state, b)
+        loss_pairs.append((float(s_loss), m_loss))
+    tables = ("deepfm_emb", "deepfm_linear")
+    touched = np.unique(np.concatenate([b["features"]["ids"].ravel()
+                                        for b in batches]))
+    dense_equal = (s_state.params.keys() == m_state.params.keys() and all(
+        torch.equal(s_state.params[n], m_state.params[n])
+        for n in s_state.params))
+    tier_equal = single.device_tier.stats() == spmd.device_tier.stats()
+    ps_equal = True
+    for t in tables:
+        (s_ids, s_rows), (m_ids, m_rows) = (single.device_tier.table_rows(t),
+                                            spmd.device_tier.table_rows(t))
+        tier_equal = tier_equal and np.array_equal(s_ids, m_ids) and (
+            np.array_equal(s_rows, m_rows))
+        ps_equal = ps_equal and np.array_equal(
+            single.preparer._ps.store.lookup(t, touched),
+            spmd.preparer._ps.store.lookup(t, touched))
+    warm = [s[0] for s in counts["steps"][LOCKSTEP_WARMUP:]]
+    record = {
+        "lockstep": "sparse_spmd", "mesh": dict(mesh.shape),
+        "backend": torch.distributed.get_backend(), "steps": steps,
+        "losses_first_last": [loss_pairs[0][1], loss_pairs[-1][1]],
+        "losses_bit_equal": all(a == b for a, b in loss_pairs),
+        "dense_bit_equal": dense_equal, "tier_bit_equal": tier_equal,
+        "ps_rows_bit_equal": ps_equal,
+        "launches": total,
+        "launches_per_step": {k: v / steps for k, v in total.items()},
+        "launch_formula_mismatches": counts["bad_steps"][:5],
+        "steps_per_s": len(warm) / sum(warm) if warm else None,
+        "phase7_steps_per_s": phase7_steps_per_s,
+    }
+    log(json.dumps(record))
+    single.close()
+    spmd.close()
+    failures = [k for k in ("losses_bit_equal", "dense_bit_equal",
+                            "tier_bit_equal", "ps_rows_bit_equal")
+                if not record[k]]
+    if (counts["bad_steps"] or len(launches) != steps
+            or min(total.values()) <= 0
+            or total != dict(zip(total, np.sum(launches, axis=0).tolist()))):
+        failures.append("K1-K3 off phase 7's formula: %s, %s"
+                        % (counts["bad_steps"][:5], total))
+    if failures:
+        raise SystemExit("lockstep arm (a): %s" % "; ".join(failures))
+    return record
+
+
+def lockstep_arm(torch, np, tier, workdir, device="cuda",
+                 phase7_steps_per_s=None, spmd=None, job=None):
+    """Phase 9's lockstep arm: (b) + (c) ``lockstep_job`` over phase
+    9's files under ``workdir``, and (a) ``lockstep_sparse_spmd`` in
+    this process while the job's processes start (``spmd`` and
+    ``job``: their keyword arguments). Returns both records."""
+    t0 = time.monotonic()
+    record = {}
+
+    def sparse_spmd():
+        record["sparse_spmd"] = lockstep_sparse_spmd(
+            torch, np, tier, device=device,
+            phase7_steps_per_s=phase7_steps_per_s, **(spmd or {}))
+
+    record["job"] = lockstep_job(torch, np, workdir, device=device,
+                                 while_starting=sparse_spmd, **(job or {}))
+    record["seconds"] = time.monotonic() - t0
+    log(json.dumps({"lockstep": "arm", "seconds": record["seconds"]}))
+    return record
+
+
+def start_lockstep_worker(worker_id, incarnation, logdir, args, env):
+    """One ``python -m elasticdl_tpu_torch.worker.main --multihost 1``
+    (``args`` beside), logging to ``worker-<id>-<incarnation>.log``."""
+    path = os.path.join(logdir, "worker-%d-%d.log" % (worker_id,
+                                                      incarnation))
+    with open(path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+             "--worker_id", str(worker_id), *args[worker_id]],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, path
+
+
+def lockstep_job(torch, np, workdir, device="cuda", files=LOCKSTEP_FILES,
+                 per_task=JOB_PER_TASK, batch=SPARSE_BATCH,
+                 eval_steps=LOCKSTEP_EVAL_STEPS,
+                 report_version_steps=LOCKSTEP_REPORT_VERSION_STEPS,
+                 task_timeout_s=LOCKSTEP_TASK_TIMEOUT_S,
+                 rejoin_s=LOCKSTEP_REJOIN_S, grace_s=LOCKSTEP_GRACE_S,
+                 exit_bound_s=LOCKSTEP_EXIT_BOUND_S, kill=True,
+                 use_async=False, out_dir=None, while_starting=None):
+    """(b) and (c): a DeepFM job over ``files`` of phase 9's training
+    files. The master in this process (its ``MeshRendezvous`` given the
+    two workers' hosts, as a pod manager registers its pods); two PS
+    processes, sync with ``--grads_to_wait 2`` (phase 8's flags
+    otherwise); two worker processes with ``--multihost 1``, their own
+    ``--worker_host`` and one ``--checkpoint_dir`` (a dense checkpoint
+    every round), both on ``device``: on one card their group is gloo.
+    Once worker 1 has reported a task it is SIGKILLed and, as the pod
+    manager reports a pod's death, its host leaves the rendezvous (the
+    epoch moves); the survivor must exit 3 within ``exit_bound_s``; the
+    script then registers both hosts again and relaunches both, as the
+    pod manager would, and relaunches any worker that exits 3 again. Checks (each printed; a failure raises SystemExit):
+    the final workers and both PS exit 0; the done training records add
+    up to the files' records; both workers' dense digests at exit are
+    equal; no push was version-rejected (the PS journals); the
+    relaunched workers formed their group at a later epoch than the
+    kill's and resumed from a checkpoint; the final evaluation's AUC is
+    at least JOB_AUC_FLOOR. ``kill=False`` runs the job without the
+    kill; ``use_async`` runs the PS async (grads_to_wait 1). Logs,
+    journals and checkpoints go to ``out_dir`` (by default
+    build/chip_smoke_lockstep/). ``while_starting()`` runs in this
+    process once the job's processes are launched, while they start."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    device = torch.device(device)
+    logdir = out_dir or os.path.join(HERE, "build", "chip_smoke_lockstep")
+    shutil.rmtree(logdir, ignore_errors=True)
+    train_dir = os.path.join(logdir, "train")
+    events_dir = os.path.join(logdir, "events")
+    ckpt_dir = os.path.join(logdir, "ckpt")
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    records = sum(n for _, n in RecordIODataReader(
+        data_dir=train_dir).create_shards().values())
+    master = Master(zoo, training_data=train_dir,
+                    validation_data=os.path.join(workdir, "valid"),
+                    records_per_task=per_task, num_epochs=1,
+                    port=find_free_port(), eval_steps=eval_steps,
+                    task_timeout_secs=task_timeout_s, seed=SEED,
+                    mesh_restart_grace_secs=grace_s,
+                    mesh_rejoin_timeout_secs=rejoin_s)
+    dispatcher, rendezvous = master.task_dispatcher, master.rendezvous
+    addr = "localhost:%d" % master._port
+    hosts = ["localhost:%d" % (62000 + i) for i in (0, 1)]
+    rendezvous.set_worker_hosts(hosts)
+    done = []
+    report = dispatcher.report
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        doing = dispatcher.doing_tasks().get(task_id)
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if (success and task is not None and doing is not None
+                and doing[0] == worker_id and task.type == pb.TRAINING):
+            done.append((worker_id, task.start, task.end, time.time()))
+        return ok, task
+
+    dispatcher.report = on_report
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("EDL_DEVICE_TIER")}
+    env.update(PYTHONPATH=HERE, EDL_PS_MASTER_GONE_SECS="2")
+    started, result, ps_codes = [], {}, []
+    workers, logs, incarnations, exits = {}, {0: [], 1: []}, {0: 0, 1: 0}, []
+    failures = []
+    epoch_at_kill = kill_t = exit_s = relaunch_s = None
+    try:
+        job_t0 = time.monotonic()
+        master.prepare()
+        master_thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.5)),
+            daemon=True)
+        master_thread.start()
+        mode = (("--use_async", "1", "--grads_to_wait", "1") if use_async
+                else ("--grads_to_wait", "2"))
+        (procs, ps_addrs, ps_logs), = start_ps_pairs(
+            1, logdir, started, extra=mode + ("--master_addr", addr),
+            env=dict(env, EDL_EVENTS_DIR=events_dir))
+        coordinator_port = find_free_port()
+        common = ["--model_zoo", zoo, "--training_data", train_dir,
+                  "--minibatch_size", str(batch), "--master_addr", addr,
+                  "--ps_addrs", ",".join(ps_addrs),
+                  "--report_version_steps", str(report_version_steps),
+                  "--device", device.type, "--multihost", "1",
+                  "--coordinator_port", str(coordinator_port),
+                  "--checkpoint_dir", ckpt_dir, "--checkpoint_steps", "1"]
+        args = {i: common + ["--worker_host", hosts[i]] for i in (0, 1)}
+
+        def launch(i):
+            workers[i], path = start_lockstep_worker(
+                i, incarnations[i], logdir, args, env)
+            logs[i].append(path)
+            incarnations[i] += 1
+
+        for i in (0, 1):
+            launch(i)
+        if while_starting is not None:
+            while_starting()
+        lines = wait_ps_ready([(procs, ps_addrs, ps_logs)])
+        want = "async)" if use_async else "sync, grads_to_wait 2)"
+        if not all(want in ln for ln in lines):
+            raise SystemExit("a lockstep PS does not serve %s: %s"
+                             % (want, lines))
+        deadline = time.monotonic() + LOCKSTEP_WAIT_S
+        relaunched = not kill  # without the kill: supervise from the start
+        while True:
+            if time.monotonic() > deadline:
+                raise SystemExit("the lockstep job did not finish in %d s"
+                                 % LOCKSTEP_WAIT_S)
+            if kill and kill_t is None and any(d[0] == 1 for d in done):
+                epoch_at_kill = rendezvous.mesh_epoch
+                workers[1].kill()
+                kill_t = time.time()
+                exits.append((1, workers[1].wait(), 0.0))
+                # the pod manager saw the pod die: its host leaves the
+                # mesh now, not after the liveness timeout
+                rendezvous.remove_worker_host(hosts[1],
+                                              reason="worker_death")
+            if kill_t is not None and not relaunched:
+                if exit_s is None:
+                    rc = workers[0].poll()
+                    if rc is not None:
+                        exit_s = time.time() - kill_t
+                        exits.append((0, rc, exit_s))
+                        if rc != 3 or exit_s > exit_bound_s:
+                            failures.append(
+                                "the survivor exited %s %.1f s after the "
+                                "kill, not 3 within %.0f s"
+                                % (rc, exit_s, exit_bound_s))
+                    elif time.time() - kill_t > exit_bound_s + 30:
+                        raise SystemExit("the survivor did not exit after "
+                                         "the kill")
+                else:
+                    # the pod manager registers both pods again and
+                    # relaunches both (the bumps forward-dated the
+                    # survivor's liveness past its relaunch's report)
+                    relaunch_s = time.time() - kill_t
+                    rendezvous.set_worker_hosts(hosts)
+                    for i in (0, 1):
+                        launch(i)
+                    relaunched = True
+            elif relaunched:
+                for i in (0, 1):
+                    rc = workers[i].poll()
+                    if rc == 3 and incarnations[i] <= LOCKSTEP_MAX_RELAUNCHES:
+                        exits.append((i, rc, time.time() - (kill_t or 0)))
+                        launch(i)
+                if (not master_thread.is_alive()
+                        and all(w.poll() is not None
+                                for w in workers.values())):
+                    break
+            elif not master_thread.is_alive():
+                raise SystemExit("the job ended before the kill")
+            for i, proc in workers.items():
+                rc = proc.poll()
+                if rc not in (None, 0, 3) and not (i == 1 and kill_t
+                                                   and not relaunched):
+                    with open(logs[i][-1]) as f:
+                        raise SystemExit("lockstep worker %d exited %s:\n%s"
+                                         % (i, rc, f.read()[-3000:]))
+            time.sleep(0.05)
+        master_thread.join(timeout=30)
+        job_s = time.monotonic() - job_t0
+        ps_codes = stop_ps([(procs, ps_addrs, ps_logs)])
+    finally:
+        for proc in workers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for procs_, _, _ in started:
+            for proc in procs_:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        master.stop()
+    final = {}
+    for i in (0, 1):
+        with open(logs[i][-1]) as f:
+            text = f.read()
+        found = _DIGEST_RE.search(text)
+        final[i] = {"rc": workers[i].returncode, "log": text,
+                    "exit": json.loads(found.group(2)) if found else None}
+    relaunch_logs = {i: [open(p).read() for p in logs[i][1:]] for i in (0, 1)}
+    formed = [(int(m.group(1)), int(m.group(2)), int(m.group(3)), m.group(4))
+              for i in (0, 1) for text in relaunch_logs[i]
+              for m in _FORMED_RE.finditer(text)]
+    first_steps = [log_time(line) for i in (0, 1)
+                   for text in relaunch_logs[i]
+                   for line in text.splitlines()
+                   if _FIRST_STEP_RE.search(line)]
+    backends = sorted({m.group(1) + ": " + m.group(2)
+                       for i in (0, 1) for p in logs[i]
+                       for m in _BACKEND_RE.finditer(open(p).read())})
+    rejected = sum(1 for path in (os.listdir(events_dir)
+                                  if os.path.isdir(events_dir) else [])
+                   if path.endswith(".ndjson")
+                   for event in read_journal(os.path.join(events_dir, path))
+                   if event.get("event") == "stale_push_rejected")
+    summaries = master.evaluation_service.completed_summaries
+    final_eval = summaries[-1] if summaries else (None, {})
+    done_records = sum(end - start for _, start, end, _ in done)
+    exits0 = final[0]["exit"] or {}
+    stats = exits0.get("lockstep") or {}
+    record = {
+        "lockstep": "job", "master_rc": result.get("rc"),
+        "job_failed": dispatcher.job_failed(), "job_wall_s": job_s,
+        "done_training_records": done_records, "dataset_records": records,
+        "backends": backends,
+        "final_rcs": [final[i]["rc"] for i in (0, 1)],
+        "ps_exit_codes": ps_codes,
+        "digests": [(final[i]["exit"] or {}).get("digest") for i in (0, 1)],
+        "versions": [(final[i]["exit"] or {}).get("version")
+                     for i in (0, 1)],
+        "push_rejections_final": [(final[i]["exit"] or {}).get(
+            "push_rejections") for i in (0, 1)],
+        "ps_stale_push_rejected": rejected,
+        "kill": {"epoch_at_kill": epoch_at_kill, "exits": exits,
+                 "survivor_exit_s": exit_s, "exit_bound_s": exit_bound_s,
+                 "relaunch_s": relaunch_s, "relaunches": incarnations,
+                 "groups_formed_after": formed,
+                 "resumed": [sum(len(_RESUMED_RE.findall(t))
+                                 for t in relaunch_logs[i])
+                             for i in (0, 1)],
+                 "kill_to_first_step_s": (min(first_steps) - kill_t
+                                          if first_steps and kill_t
+                                          else None)},
+        "rounds_per_s": (exits0["rounds"] / exits0["span_s"]
+                         if exits0.get("span_s") else None),
+        "consensus_ms_per_round": (stats["consensus_s"] * 1e3
+                                   / stats["consensus_calls"]
+                                   if stats.get("consensus_calls") else None),
+        "allreduce_ms_per_round": (stats["allreduce_s"] * 1e3
+                                   / stats["allreduce_calls"]
+                                   if stats.get("allreduce_calls") else None),
+        "evaluations": [[v, s] for v, s in summaries],
+        "final_auc": final_eval[1].get("auc"), "auc_floor": JOB_AUC_FLOOR,
+    }
+    log(json.dumps(record))
+    if result.get("rc") != 0 or dispatcher.job_failed():
+        failures.append("master rc %s, job failed %s"
+                        % (result.get("rc"), dispatcher.job_failed()))
+    if record["final_rcs"] != [0, 0] or ps_codes != [0, 0]:
+        failures.append("exit codes: workers %s, PS %s"
+                        % (record["final_rcs"], ps_codes))
+    if done_records != records:
+        failures.append("done training records %d != %d"
+                        % (done_records, records))
+    digests = record["digests"]
+    if None in digests or digests[0] != digests[1]:
+        failures.append("dense digests differ: %s" % digests)
+    if rejected or any(record["push_rejections_final"]):
+        failures.append("pushes were version-rejected: PS %d, workers %s"
+                        % (rejected, record["push_rejections_final"]))
+    if kill and (not formed
+                 or min(f[2] for f in formed) <= (epoch_at_kill or 0)
+                 or not all(record["kill"]["resumed"])):
+        failures.append("the relaunched workers did not rejoin at a new "
+                        "epoch and resume: %s" % (record["kill"],))
+    if final_eval[1].get("auc") is None or not (
+            final_eval[1]["auc"] >= JOB_AUC_FLOOR):
+        failures.append("final AUC %s < %s" % (final_eval[1].get("auc"),
+                                                JOB_AUC_FLOOR))
+    if failures:
+        raise SystemExit("lockstep arm: " + "; ".join(failures))
     return record
 
 
@@ -4483,7 +4964,7 @@ TELEMETRY_TASK_TIMEOUT_S = 20.0  # the master's liveness timeout
 TELEMETRY_PS_GONE_S = 5.0        # EDL_PS_MASTER_GONE_SECS: a poll each 2.5 s
 TELEMETRY_MARGIN_S = 3.0
 TELEMETRY_SCRAPE_S = 0.1         # the script's scrape of /alerts
-TELEMETRY_SERVE_REQUESTS = 64     # after one warm-up batch, not recorded
+TELEMETRY_SERVE_REQUESTS = 8      # after one warm-up batch, not recorded
 TELEMETRY_SERVE_BATCH = 8
 _TIER_EXIT_RE = re.compile(r"Worker (\d+) tier stats at exit: (\{.*\})")
 
@@ -5362,7 +5843,7 @@ FLEET_MAX_BATCH = 8
 FLEET_CALLERS = 8              # concurrent closed-loop callers
 FLEET_KEYS = 64                # affinity keys 1-64; every 8th request key 0
 FLEET_KEY0_EVERY = 8
-FLEET_BURST = 64               # requests of each timed burst
+FLEET_BURST = 8                # requests of each timed burst
 FLEET_WAIT_S = 300
 # the replica heartbeat's period, and the deadline of one heartbeat RPC
 # (serve/main.py's heartbeat loop). A replica whose heartbeat RPC hangs
@@ -10496,6 +10977,10 @@ def run_phases(torch, np, job_dir, data_proc):
                              % data_proc.returncode)
         job = job_phase(torch, np, tier, job_dir, data_written=True)
         done("9_job")
+        lockstep = lockstep_arm(
+            torch, np, tier, job_dir,
+            phase7_steps_per_s=sparse["main"]["steps_per_s"])
+        done("9_lockstep")
         restart = ps_restart_phase(torch, np, tier, job_dir)
         done("10_restart")
         artifact = artifact_phase(torch, np, tier, job_dir)
@@ -10612,6 +11097,11 @@ def run_phases(torch, np, job_dir, data_proc):
     promoted = features["promoted"]
     for entry, kind in zip(tier_entries, ("gather", "insert_rows",
                                           "scatter_apply")):
+        # phase 9's lockstep arm (a): SparseSpmdTrainer on the one-rank
+        # mesh (its lockstep job runs without the tier)
+        entry["launches_lockstep"] = lockstep["sparse_spmd"]["launches"][kind]
+        entry["launches_per_step_lockstep"] = lockstep["sparse_spmd"][
+            "launches_per_step"][kind]
         entry["launches_features"] = promoted["launches"][kind]
         entry["launches_per_step_features"] = promoted[
             "launches_per_step"][kind]

@@ -121,8 +121,24 @@ def parse_worker_args(argv=None):
     parser.add_argument("--keep_checkpoint_max", type=int, default=3)
     parser.add_argument("--checkpoint_dir_for_init", default="")
     # write each dense checkpoint's file on a background thread (the
-    # next save or the exit joins it)
+    # next save or the exit joins it; lockstep saves stay synchronous)
     parser.add_argument("--async_checkpoint", type=int, default=0)
+    # several worker processes train one model in lockstep: join the
+    # master's mesh rendezvous and form the torch.distributed group
+    # there (parallel/multihost.py); a new mesh epoch exits 3 for the
+    # pod manager's relaunch
+    from elasticdl_tpu_torch.parallel.multihost import COORDINATOR_PORT
+
+    parser.add_argument("--multihost", type=int, default=0)
+    parser.add_argument(
+        "--coordinator_port", type=int, default=COORDINATOR_PORT
+    )
+    # identity in the master's mesh rendezvous; defaults to the hostname
+    # (override for several workers on one machine)
+    parser.add_argument("--worker_host", default="")
+    # lockstep consensus every k rounds (worker.py
+    # _train_batches_lockstep)
+    parser.add_argument("--consensus_interval", type=int, default=1)
     # observability: /metrics + /healthz + /readyz on this port
     # (0/unset = disabled; falls back to EDL_METRICS_PORT)
     parser.add_argument("--metrics_port", type=int, default=0)

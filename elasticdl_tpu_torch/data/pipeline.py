@@ -8,9 +8,9 @@
   metrics weigh the padded rows out.
 - Prefetching overlaps host-side parsing with device compute via a
   background thread.
-
-``pad_batch`` and ``zero_batch_like`` (the multi-host lockstep loop's)
-wait for the multi-host slice.
+- ``pad_batch`` and ``zero_batch_like`` feed the multi-process lockstep
+  loop (worker/worker.py), where every process steps on batches of one
+  shape.
 """
 
 import queue
@@ -219,3 +219,41 @@ def normalize_outputs(outputs, real):
     if isinstance(outputs, dict):
         return {k: np.asarray(v)[:real] for k, v in outputs.items()}
     return {"output": np.asarray(outputs)[:real]}
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over every array leaf of a batch (dicts, tuples and named
+    tuples such as ``PaddedSparse``; None stays None)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def pad_batch(batch, size):
+    """Zero-pad every leaf's leading dim to ``size``; padded rows carry
+    mask 0 so the loss/metrics machinery weighs them out. Used by the
+    multi-process lockstep loop, where every process must feed
+    identically-shaped shards every step."""
+    n = int(np.asarray(batch[MASK_KEY]).shape[0])
+    if n == size:
+        return batch
+    if n > size:
+        raise ValueError("batch of %d rows exceeds pad size %d" % (n, size))
+
+    def pad(leaf):
+        leaf = np.asarray(leaf)
+        fill = np.zeros((size - n,) + leaf.shape[1:], leaf.dtype)
+        return np.concatenate([leaf, fill], axis=0)
+
+    return _map_leaves(pad, batch)
+
+
+def zero_batch_like(batch):
+    """An all-padding batch (mask 0 everywhere): a lockstep process
+    whose task stream ran dry feeds these until the consensus says
+    every process is done."""
+    return _map_leaves(lambda leaf: np.zeros_like(np.asarray(leaf)), batch)

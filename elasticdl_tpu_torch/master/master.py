@@ -87,6 +87,8 @@ class Master:
         symbol_overrides=None,
         metrics_port=0,
         tensorboard_log_dir=None,
+        mesh_restart_grace_secs=30.0,
+        mesh_rejoin_timeout_secs=90.0,
     ):
         if metrics_port:
             # programmatic construction (no CLI entry ran): publish the
@@ -199,6 +201,8 @@ class Master:
             self.servicer,
             self.rendezvous,
             liveness_timeout_secs=task_timeout_secs,
+            mesh_restart_grace_secs=mesh_restart_grace_secs,
+            mesh_rejoin_timeout_secs=mesh_rejoin_timeout_secs,
             fleet_monitor=self.fleet_monitor,
             drain_manager=self.drain_manager,
         )

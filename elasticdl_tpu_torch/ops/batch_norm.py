@@ -30,10 +30,24 @@ in eval mode it normalizes with the running averages.
 ``dtype`` pins the output dtype: flax's stock ``nn.BatchNorm(dtype=
 float32)`` (the cifar10 model's) normalizes and outputs in float32.
 ``None`` outputs the input's dtype, as ``TpuBatchNorm`` does.
+
+Under data parallelism (an ambient mesh, parallel/mesh.py, whose data
+axes hold more than one rank) each rank holds its share of the batch's
+rows, where the reference's one SPMD program takes ``jnp.mean`` over the
+whole sharded batch. So each rank's ``E[x]`` and ``E[x^2]`` are weighted
+by its share of the batch's rows (of the first ``stats_samples`` rows
+when set) and summed over the data ranks in one all-reduce, whose
+backward all-reduces the ranks' gradients of the global moments
+(``collectives.mesh_replicate``): every rank normalizes with the whole
+batch's statistics and writes the same running averages. On one rank,
+or without a mesh, nothing of this runs.
 """
 
 import torch
 from torch import nn
+
+from elasticdl_tpu_torch.parallel import collectives
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXES, current_mesh
 
 
 class _Moments(torch.autograd.Function):
@@ -86,13 +100,40 @@ class BatchNorm(nn.Module):
             self.scale.fill_(self.scale_init)
             self.bias.zero_()
 
+    def _mesh_moments(self, x, dims, mesh, axes):
+        """The whole batch's ``(E[x], E[x^2])`` from this rank's rows
+        ``x`` (the module docstring): the batch splits evenly over the
+        data ranks, this rank's rows start at its data index times
+        its row count."""
+        rows, ranks = x.shape[0], mesh.size(axes)
+        total = rows * ranks
+        take = rows
+        if self.stats_samples:
+            total = min(self.stats_samples, total)
+            take = min(max(self.stats_samples - mesh.index(axes) * rows, 0),
+                       rows)
+        if take:
+            mean, mean_sq = _Moments.apply(x[:take], dims, self.stats_dtype)
+            local = torch.stack([mean, mean_sq]) * (take / total)
+        else:
+            local = x.new_zeros((2, x.shape[1]), dtype=self.stats_dtype)
+        moments = collectives.mesh_psum(
+            collectives.mesh_replicate(local, axes, mesh=mesh), axes,
+            mesh=mesh)
+        return moments[0], moments[1]
+
     def forward(self, x):
         """``x``: [B, C, ...], channels on axis 1 (the zoo's NCHW
         stream)."""
         if self.training:
-            xs = x[:self.stats_samples] if self.stats_samples else x
             dims = (0,) + tuple(range(2, x.dim()))
-            mean, mean_sq = _Moments.apply(xs, dims, self.stats_dtype)
+            mesh = current_mesh()
+            axes = mesh.live_axes(DATA_AXES) if mesh is not None else ()
+            if axes:
+                mean, mean_sq = self._mesh_moments(x, dims, mesh, axes)
+            else:
+                xs = x[:self.stats_samples] if self.stats_samples else x
+                mean, mean_sq = _Moments.apply(xs, dims, self.stats_dtype)
             var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum

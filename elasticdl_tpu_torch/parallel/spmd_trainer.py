@@ -34,8 +34,7 @@ model's weights are drawn on the host (its constructor, or the seeded
 generator for a layer sized by the first batch), each rank slices its
 block there and moves only that, so the weights are ``TorchTrainer``'s
 for the same seed. ``pp`` and ``sp`` (the pipeline, ring attention) are
-not ported and must be 1. A model with BatchNorm normalises each rank's
-rows with their own statistics (no cross-rank sync).
+not ported and must be 1.
 """
 
 import numpy as np

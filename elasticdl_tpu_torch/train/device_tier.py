@@ -32,10 +32,12 @@ reference rebinds donated arrays), so every host read of device rows
 thread, which ``.cpu()`` also synchronises, before the next launch can
 touch the rows; the writeback thread only ever sees numpy copies. The
 steady-state gather-only combine runs K1, the function the reference
-computed there with an XLA gather. One device only: the port has the
-mesh (parallel/mesh.py), but the tier's ``ep`` sharding comes with the
-sparse SPMD trainer that builds its mesh, which is not ported yet
-(ROADMAP Queue 1 item 2). The tallies feed ``stats()``
+computed there with an XLA gather. One device a tier: the sparse SPMD
+trainer (train/sparse_spmd.py) replicates it at ep 1, one tier a rank
+on the same values, as the reference's ``P()`` layout; sharding it over
+the ep ranks has no launch path in the port yet (a worker is one
+process a card) and raises (ROADMAP Queue 1 item 2). The tallies feed
+``stats()``
 and the reference's per-table ``edl_device_tier_*`` series (no-ops
 when metrics collection is off).
 """

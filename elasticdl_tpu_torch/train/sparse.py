@@ -34,10 +34,14 @@ The step's host-blocking row-gradient fetch is a ``transfer`` span
 context (``trace.bind_context``), and brownout skips and recoveries are
 journaled.
 
-Not ported yet: the serving tier's read-only preparer, the SPMD and
-multi-host hooks (the tier's mesh, the per-process row-gradient
-shard), the fault injector's poisoned batch and the device-obs cost
-counters.
+The class options the lockstep trainers of train/sparse_spmd.py set
+(``FORCE_EMPTY_PUSH``, ``ROUND_SCOPED_PUSH``, ``RETRY_RECOMPUTES``,
+``SUPPORTS_DEVICE_TIER``) keep the reference's defaults here. A
+``plane`` (train/sparse_spmd.py's dense data plane over a mesh) turns
+the step into a rank's share of a data-parallel one, as in
+train/step_fns.py; without one nothing of it runs.
+
+Not ported yet: the device-obs cost counters.
 """
 
 import concurrent.futures
@@ -383,10 +387,14 @@ class SparseBatchPreparer:
         return out, pull_info
 
     def push_gradients(self, row_grads, pull_info, model_version=0,
-                       only_shards=None):
+                       only_shards=None, force_empty=False,
+                       round_scoped=False):
         """Push each table's first n row gradients (host arrays) under
         its pull_info ids; returns ``(accepted, version,
-        rejected_shards)``."""
+        rejected_shards)``. ``force_empty``: every shard gets this push
+        even with no rows for it (a lockstep round counts pushes toward
+        the sync PS's grads_to_wait); ``round_scoped``: the sync PS pairs
+        pushes by their version tag, an exact global round counter."""
         if self._read_only:
             raise RuntimeError("a read-only preparer never pushes")
         grads_by_table = {}
@@ -397,6 +405,10 @@ class SparseBatchPreparer:
         kwargs = {"model_version": model_version}
         if only_shards is not None:
             kwargs["only_shards"] = only_shards
+        if force_empty:
+            kwargs["force_empty"] = True
+        if round_scoped:
+            kwargs["round_scoped"] = True
         return _normalize_push_result(
             self._ps.push_gradients(grads_by_table, **kwargs),
             model_version,
@@ -450,19 +462,27 @@ def _to_device(tree, device):
 
 
 def _forward_loss(model, loss_fn, compute_dtype, params, model_state, rows,
-                  features, labels, mask):
+                  features, labels, mask, plane=None):
     """The masked mean loss of the model at ``params`` on ``features``
-    merged with the pulled ``rows``."""
+    merged with the pulled ``rows`` (with a ``plane``, this rank's rows'
+    share of the global batch's mean)."""
+    if plane is not None:
+        params = plane.gather(params)
     if compute_dtype is not None:
         params = cast_floating(params, compute_dtype)
         rows = cast_floating(rows, compute_dtype)
         features = cast_floating(features, compute_dtype)
     outputs = apply_model(model, params, model_state, {**features, **rows})
-    return masked_mean(loss_fn(labels, outputs).float(), mask)
+    per_sample = loss_fn(labels, outputs).float()
+    if plane is None:
+        return masked_mean(per_sample, mask)
+    per_sample = per_sample.reshape(mask.shape[0], -1).mean(dim=1)
+    return (per_sample * mask).sum() / torch.clamp(
+        plane.global_weight(mask.sum()), min=1.0)
 
 
 def make_sparse_train_step(model, loss_fn, tx, specs, compute_dtype=None,
-                           health=False, guard_nonfinite=False):
+                           health=False, guard_nonfinite=False, plane=None):
     """Returns train_step(state, batch) -> (state, loss, row_grads) where
     row_grads = {table: d(loss)/d(rows) fp32 [capacity, dim]} and the
     dense params were updated in place.
@@ -471,7 +491,11 @@ def make_sparse_train_step(model, loss_fn, tx, specs, compute_dtype=None,
     global grad norm over dense AND row gradients, and the nonfinite
     flag); ``guard_nonfinite`` keeps the previous dense state on a
     nonfinite batch (the caller then drops the row-gradient push and
-    the tier apply, so the batch contributes nothing anywhere)."""
+    the tier apply, so the batch contributes nothing anywhere).
+
+    With a ``plane`` the dense gradients, the row gradients, the loss
+    and the norm are reduced over its mesh (``plane.reduce_grads``,
+    ``reduce_row_grads``, ``global_loss``, ``grad_norm``)."""
     row_keys = [spec.name + ROWS_SUFFIX for spec in specs]
 
     def train_step(state, batch):
@@ -483,7 +507,7 @@ def make_sparse_train_step(model, loss_fn, tx, specs, compute_dtype=None,
                   for n, p in state.params.items()}
         loss = _forward_loss(model, loss_fn, compute_dtype, params,
                              state.model_state, rows, features, labels,
-                             mask)
+                             mask, plane)
         leaves = list(params.values()) + list(rows.values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g.float()
@@ -493,11 +517,15 @@ def make_sparse_train_step(model, loss_fn, tx, specs, compute_dtype=None,
         row_grads = {key[: -len(ROWS_SUFFIX)]: g
                      for key, g in zip(rows, grads[len(params):])}
         loss = loss.detach()
+        if plane is not None:
+            param_grads = plane.reduce_grads(param_grads)
+            row_grads = plane.reduce_row_grads(row_grads)
+            loss = plane.global_loss(loss)
         if not health:
             return apply_update(tx, state, param_grads), loss, row_grads
-        scalars = health_scalars(
-            loss, global_grad_norm(param_grads, row_grads)
-        )
+        norm = (global_grad_norm(param_grads, row_grads) if plane is None
+                else plane.grad_norm(param_grads, row_grads))
+        scalars = health_scalars(loss, norm)
         if guard_nonfinite and bool(scalars["nonfinite"]):
             return state, loss, row_grads, scalars
         return apply_update(tx, state, param_grads), loss, row_grads, scalars
@@ -505,7 +533,8 @@ def make_sparse_train_step(model, loss_fn, tx, specs, compute_dtype=None,
     return train_step
 
 
-def make_row_grads_fn(model, loss_fn, specs, compute_dtype=None):
+def make_row_grads_fn(model, loss_fn, specs, compute_dtype=None,
+                      plane=None):
     """d(loss)/d(rows) at FIXED params: the sync-PS retry path. When a
     push is rejected as stale, fresh rows are pulled and only the row
     gradients are recomputed (the dense params were already updated on
@@ -520,14 +549,15 @@ def make_row_grads_fn(model, loss_fn, specs, compute_dtype=None):
         params = {n: p.detach() for n, p in state.params.items()}
         loss = _forward_loss(model, loss_fn, compute_dtype, params,
                              state.model_state, rows, features, labels,
-                             mask)
+                             mask, plane)
         leaves = list(rows.values())
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return {
+        out = {
             key[: -len(ROWS_SUFFIX)]: (torch.zeros_like(x) if g is None
                                        else g.float())
             for key, x, g in zip(rows, leaves, grads)
         }
+        return out if plane is None else plane.reduce_row_grads(out)
 
     return row_grads
 
@@ -597,6 +627,26 @@ class SparseTrainer:
     # the reference retried a rejected minibatch up to 64 times against
     # the sync PS
     MAX_PUSH_RETRIES = 64
+    # lockstep trainers set True: a batch with no rows for a shard (a
+    # zero batch) still pushes to it (the sync PS counts pushes, not
+    # gradients, toward grads_to_wait)
+    FORCE_EMPTY_PUSH = False
+    # lockstep trainers set True: their version tags are exact global
+    # round counters, so the sync PS pairs their pushes BY TAG instead of
+    # by arrival (a worker whose pushes lag its rounds must never have
+    # its round-r and round-r+1 pushes paired with each other)
+    ROUND_SCOPED_PUSH = False
+    # False (lockstep trainers): a version-rejected push is RESENT as-is
+    # with the corrected version instead of re-pulling rows and
+    # recomputing row gradients. Every lockstep round pulls fresh rows,
+    # so a rejection means the version TAG was stale (a relaunched
+    # worker's counter), and the recompute would be a collective that
+    # one process must not run alone.
+    RETRY_RECOMPUTES = True
+    # the device tier applies hit gradients on the card outside the PS's
+    # rounds: the lockstep trainer turns it off (EDL_DEVICE_TIER is then
+    # ignored with a warning)
+    SUPPORTS_DEVICE_TIER = True
 
     def __init__(self, model, loss_fn, optimizer, specs, ps_client,
                  compute_dtype=None, seed=0, cache_staleness=0,
@@ -625,6 +675,13 @@ class SparseTrainer:
                  if cache_staleness > 0 else None)
         tier_config = resolve_tier_config(device_tier)
         self.device_tier = None
+        if tier_config is not None and not self.SUPPORTS_DEVICE_TIER:
+            logger.warning(
+                "%s does not support the device embedding tier (each "
+                "worker's rows are its own shard of a lockstep round); "
+                "EDL_DEVICE_TIER ignored", type(self).__name__,
+            )
+            tier_config = None
         if tier_config is not None:
             self.device_tier = DeviceEmbeddingTier(
                 self._specs, ps_client, tier_config, device=self.device
@@ -634,15 +691,19 @@ class SparseTrainer:
             device_tier=self.device_tier,
         )
         compute_dtype = resolve_dtype(compute_dtype)
+        plane = self._step_plane()
         self._train_step = make_sparse_train_step(
             self._model, loss_fn, optimizer, self._specs, compute_dtype,
             health=self._health_on,
             guard_nonfinite=(self._health_on
                              and self.health.action == "skip"),
+            plane=plane,
         )
         self._row_grads = make_row_grads_fn(self._model, loss_fn,
-                                            self._specs, compute_dtype)
-        self._eval_step = make_eval_step(self._model, compute_dtype)
+                                            self._specs, compute_dtype,
+                                            plane)
+        self._eval_step = make_eval_step(self._model, compute_dtype,
+                                         plane=self._eval_plane())
         self._fetch = _HostFetch(self.device)
         self._version = 0
         # sync-PS version rejections retried through so far
@@ -669,6 +730,24 @@ class SparseTrainer:
         # batch_process
         self.timing = Timing()
 
+    # hooks of the mesh trainers (train/sparse_spmd.py) ---------------
+    def _step_plane(self):
+        """The dense data plane of the train step; None: one card."""
+        return None
+
+    def _eval_plane(self):
+        return None
+
+    def _device_batch(self, prepared):
+        """The prepared host batch as the step consumes it: on the
+        device (a mesh trainer takes its rank's rows)."""
+        return _to_device(prepared, self.device)
+
+    def _sized(self, batch):
+        """The raw batch as it is prepared (a mesh trainer pads it to a
+        multiple of its data-parallel size)."""
+        return batch
+
     @property
     def model(self):
         """The module being trained (its parameters are the state's)."""
@@ -681,6 +760,10 @@ class SparseTrainer:
         initialised from the trainer's seed through its
         ``reset_parameters(generator)``; a model whose weights exist
         (built or loaded) keeps them."""
+        self._size_lazy_layers(sample_features)
+        return create_train_state(self._model, self._tx)
+
+    def _size_lazy_layers(self, sample_features):
         if has_uninitialized_params(self._model):
             features = _to_device(sample_features, self.device)
             devices = [self.device] if self.device.type == "cuda" else []
@@ -690,13 +773,12 @@ class SparseTrainer:
             reset = getattr(self._model, "reset_parameters", None)
             if reset is not None:
                 reset(torch.Generator().manual_seed(self._seed))
-        return create_train_state(self._model, self._tx)
 
     def _prepare_once(self, batch):
         if self._prep_memo is not None and self._prep_memo[0] is batch:
             return self._prep_memo[1], self._prep_memo[2]
         with self.timing.timeit("sparse_pull"):
-            prepared, pull_info = self.preparer.prepare(batch)
+            prepared, pull_info = self.preparer.prepare(self._sized(batch))
         self._prep_memo = (batch, prepared, pull_info)
         return prepared, pull_info
 
@@ -717,7 +799,7 @@ class SparseTrainer:
         if tier is None or not ctx:
             return prepared, pull_info
         if pull_info.tier_epoch != tier.epoch:
-            prepared, pull_info = self.preparer.prepare(batch)
+            prepared, pull_info = self.preparer.prepare(self._sized(batch))
             ctx = getattr(pull_info, "tier_ctx", None) or {}
         features = dict(prepared["features"])
         for name, step_ctx in ctx.items():
@@ -734,7 +816,7 @@ class SparseTrainer:
         the in-flight step)."""
         # EDL_FAULT_SPEC's data-plane kinds (nan-batch, shape-churn)
         prepared = faults.maybe_poison_batch(prepared)
-        outputs = self._train_step(state, _to_device(prepared, self.device))
+        outputs = self._train_step(state, self._device_batch(prepared))
         state, loss, row_grads = outputs[:3]
         tensors = {"loss": loss}
         if self._health_on:
@@ -927,11 +1009,15 @@ class SparseTrainer:
             # RPC spans children of the step that made the gradients
             self._push_future = self._async_pool.submit(
                 trace.bind_context(self._push_with_brownout), row_grads,
-                pull_info, model_version=self._version)
+                pull_info, model_version=self._version,
+                force_empty=self.FORCE_EMPTY_PUSH,
+                round_scoped=self.ROUND_SCOPED_PUSH)
             return state, loss
         with self.timing.timeit("sparse_push"):
             accepted, version, rejected = self._push_with_brownout(
-                row_grads, pull_info, model_version=self._version)
+                row_grads, pull_info, model_version=self._version,
+                force_empty=self.FORCE_EMPTY_PUSH,
+                round_scoped=self.ROUND_SCOPED_PUSH)
         if not accepted and self.device_tier is not None:
             # the retry recomputes FULL row grads against fresh pulls,
             # with the hit grads already applied on the card
@@ -950,17 +1036,23 @@ class SparseTrainer:
                     "reporting rejected_shards; cannot retry safely"
                 )
             self._version = version
-            # fresh rows, row grads recomputed at the updated params
-            with self.timing.timeit("sparse_pull"):
-                prepared, pull_info = self.preparer.prepare(batch)
-            row_grads = {
-                name: _host(grads) for name, grads in self._row_grads(
-                    state, _to_device(prepared, self.device)).items()
-            }
+            if self.RETRY_RECOMPUTES:
+                # fresh rows, row grads recomputed at the updated params
+                with self.timing.timeit("sparse_pull"):
+                    prepared, pull_info = self.preparer.prepare(
+                        self._sized(batch))
+                row_grads = {
+                    name: _host(grads) for name, grads in self._row_grads(
+                        state, self._device_batch(prepared)).items()
+                }
+            # else: the SAME gradients again under the corrected version
+            # (RETRY_RECOMPUTES)
             with self.timing.timeit("sparse_push"):
                 accepted, version, rejected = self.preparer.push_gradients(
                     row_grads, pull_info, model_version=self._version,
-                    only_shards=rejected)
+                    only_shards=rejected,
+                    force_empty=self.FORCE_EMPTY_PUSH,
+                    round_scoped=self.ROUND_SCOPED_PUSH)
             retries += 1
             self.push_rejections += 1
         if not accepted:

@@ -56,12 +56,22 @@ barriers and the export's re-assert every tier-resident row, clean ones
 too: the PS's embedding lifecycle may have evicted a clean row the tier
 holds, and the checkpoint or export must carry it.
 
-Not ported (ROADMAP): the lockstep multi-host loop.
+Lockstep (several worker processes train one model): with a trainer
+that has a ``consensus`` (parallel/multihost_trainer.py,
+train/sparse_spmd.py) the worker runs ``_train_batches_lockstep``:
+every process runs the same sequence of collectives, pads a partial
+batch to the minibatch size, steps on zero batches while its stream is
+dry, and leaves only when every process's stream has ended. A moved
+mesh epoch (read from the heartbeat) or a failed collective hands the
+held tasks back and raises ``MeshEpochChanged``; worker/main.py exits
+with ``EPOCH_RESTART_EXIT_CODE`` for the pod manager's relaunch, which
+rejoins at the new epoch and resumes from the checkpoint.
 """
 
 import contextlib
 import inspect
 import os
+import queue
 import threading
 import time
 
@@ -80,6 +90,8 @@ from elasticdl_tpu_torch.data.pipeline import (
     Dataset,
     batch_real_count,
     normalize_outputs,
+    pad_batch,
+    zero_batch_like,
 )
 from elasticdl_tpu_torch.models.registry import get_model_spec
 from elasticdl_tpu_torch.observability import device as device_obs
@@ -97,6 +109,61 @@ logger = _logger_factory("elasticdl_tpu_torch.worker.worker")
 
 class CheckpointRestoreError(RuntimeError):
     """Fatal: --checkpoint_dir_for_init was given but restore failed."""
+
+
+class MeshEpochChanged(RuntimeError):
+    """The alive worker set changed: this process must restart, rejoin
+    the mesh at the new epoch and resume from the latest checkpoint.
+    Raised out of the training loop; worker/main.py exits with
+    EPOCH_RESTART_EXIT_CODE so the pod manager relaunches it."""
+
+
+EPOCH_RESTART_EXIT_CODE = 3
+
+
+class _BatchPoller:
+    """Non-blocking view over a (possibly blocking) batch iterator.
+
+    The lockstep loop must never block inside ``next()``: the iterator
+    chain ends in the master's get_task, which answers WAIT while a peer
+    holds the last task, and the peer is meanwhile waiting in the
+    consensus for us. A pump thread absorbs the blocking; ``poll``
+    returns (batch or None, ended) within the timeout. The iterator's
+    exceptions surface on the consuming thread."""
+
+    _END = object()
+
+    def __init__(self, batches):
+        self._queue = queue.Queue(maxsize=1)
+        self._ended = False
+        self._thread = threading.Thread(
+            target=self._pump, args=(batches,), name="lockstep-batch-pump",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def _pump(self, batches):
+        try:
+            for batch in batches:
+                self._queue.put(batch)
+            self._queue.put(self._END)
+        except BaseException as e:  # re-raised by poll() on the consumer
+            self._queue.put(e)
+
+    def poll(self, timeout):
+        if self._ended:
+            return None, True
+        try:
+            item = self._queue.get(timeout=timeout)
+        except queue.Empty:
+            return None, False
+        if item is self._END:
+            self._ended = True
+            return None, True
+        if isinstance(item, BaseException):
+            self._ended = True
+            raise item
+        return item, False
 
 
 # the device tier's tallies a drain's flush moves (stats() keys)
@@ -150,6 +217,8 @@ class Worker:
         log_loss_steps=100,
         device="cuda",
         mesh_config=None,
+        multihost_runtime=None,
+        consensus_interval=1,
     ):
         """``trainer_factory(**kwargs)`` replaces the trainer class (a
         test injects one); it gets the keyword arguments of
@@ -158,10 +227,17 @@ class Worker:
 
         ``mesh_config`` (``--mesh``), or else the model's
         ``mesh_config(num_devices)``, trains a dense model through
-        ``parallel.spmd_trainer.SpmdTrainer`` over the ranks of the
+        ``parallel.spmd_trainer.SpmdTrainer`` and a sparse one through
+        ``train.sparse_spmd.SparseSpmdTrainer`` over the ranks of the
         default process group (one rank started here when none is), as
         the reference's worker picks its SpmdTrainer; the model is built
-        over the mesh when its ``custom_model`` takes one."""
+        over the mesh when its ``custom_model`` takes one. A mesh
+        trainer class given as ``trainer_factory`` (worker/main.py gives
+        the lockstep ``MultiHostSpmdTrainer`` under a multi-process
+        ``multihost_runtime``) builds its mesh over the group that is
+        there; a sparse model maps it onto its sparse composition
+        (``sparse_trainer_for``). ``consensus_interval``: the lockstep
+        loop's consensus every that many rounds."""
         self.device = resolve_device(device)
         self._mc = master_client
         self.spec = get_model_spec(
@@ -179,24 +255,22 @@ class Worker:
         self.tds = TaskDataService(
             master_client, data_reader, wait_sleep_secs=wait_sleep_secs
         )
+        from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+
         mesh = None
         if mesh_config is None and self.spec.mesh_config:
             mesh_config = self.spec.mesh_config(
                 torch.distributed.get_world_size()
                 if torch.distributed.is_initialized() else 1)
-        if mesh_config is not None:
-            if self.spec.sparse_embedding_specs:
-                raise NotImplementedError(
-                    "Model %s declares sparse_embedding_specs: training it "
-                    "over a mesh needs the sparse SPMD trainer "
-                    "(train/sparse_spmd.py), which is not ported; drop "
-                    "--mesh to train it through SparseTrainer"
-                    % model_zoo_module)
+        if mesh_config is not None or (
+                isinstance(trainer_factory, type)
+                and issubclass(trainer_factory, SpmdTrainer)):
             from elasticdl_tpu_torch.parallel.mesh import (
                 build_mesh,
                 init_local_group,
             )
 
+            # a multi-process runtime formed the group already
             init_local_group(self.device.type)
             mesh = build_mesh(mesh_config)
         # the weights come from ``seed`` without touching the caller's
@@ -223,10 +297,22 @@ class Worker:
                     "needs --ps_addrs pointing at parameter servers"
                     % model_zoo_module
                 )
-            from elasticdl_tpu_torch.train.sparse import SparseTrainer
+            from elasticdl_tpu_torch.train.sparse_spmd import (
+                SparseSpmdTrainer,
+                sparse_trainer_for,
+            )
             from elasticdl_tpu_torch.worker.ps_client import PSClient
 
-            factory = trainer_factory or SparseTrainer
+            if trainer_factory is None and mesh is not None:
+                factory = SparseSpmdTrainer
+            else:
+                factory = sparse_trainer_for(trainer_factory)
+            if mesh is not None and "mesh" in inspect.signature(
+                    factory).parameters:
+                trainer_kwargs["mesh"] = mesh
+                if self.spec.sharding_rules:
+                    trainer_kwargs["sharding_rules"] = (
+                        self.spec.sharding_rules())
             trainer_kwargs["specs"] = self.spec.sparse_embedding_specs(
                 batch_size=minibatch_size
             )
@@ -240,8 +326,6 @@ class Worker:
             trainer_kwargs["seed"] = seed
             trainer_kwargs["cache_staleness"] = sparse_cache_staleness
         elif mesh is not None:
-            from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
-
             factory = trainer_factory or SpmdTrainer
             trainer_kwargs.update(grad_accum_steps=grad_accum_steps,
                                   seed=seed, mesh=mesh)
@@ -256,6 +340,21 @@ class Worker:
             trainer_kwargs["grad_accum_steps"] = grad_accum_steps
             trainer_kwargs["seed"] = seed
         self.trainer = factory(**trainer_kwargs)
+        # lockstep over processes: the trainer's mesh spans the worker
+        # processes and it has the consensus collective
+        self._lockstep = hasattr(self.trainer, "consensus")
+        self._multihost = multihost_runtime
+        # the batch poll's wait paces the consensus rounds while a worker
+        # is between tasks (_train_batches_lockstep)
+        self._lockstep_poll_secs = min(0.25, wait_sleep_secs)
+        self._consensus_interval = max(1, int(consensus_interval))
+        # the last mesh epoch the heartbeat saw; the loops read it, no
+        # RPC on the step path
+        self._seen_mesh_epoch = None
+        # lockstep rounds this process stepped (zero batches included)
+        # and the host clock of its first and last
+        self.lockstep_rounds = 0
+        self.lockstep_span = None
         # the pipelined sparse stream only where it exists and the model
         # is sparse (train/sparse.py train_stream)
         self._sparse_pipeline = bool(
@@ -283,9 +382,12 @@ class Worker:
                 DenseCheckpointManager,
             )
 
+            if async_checkpoint and self._lockstep:
+                logger.warning("--async_checkpoint ignored under lockstep "
+                               "(every rank gathers at the save; sync saves)")
             self._checkpoint_mgr = DenseCheckpointManager(
                 checkpoint_dir, keep_max=keep_checkpoint_max,
-                async_save=async_checkpoint,
+                async_save=async_checkpoint and not self._lockstep,
             )
         if checkpoint_dir and not checkpoint_steps:
             logger.warning(
@@ -354,6 +456,16 @@ class Worker:
     def _note_comm_info(self, info):
         if info.mesh_epoch >= 0:
             self._seen_stream_watermark = info.stream_watermark
+            self._seen_mesh_epoch = info.mesh_epoch
+
+    def _check_mesh_epoch(self):
+        """The elastic membership probe of the loops: reads the
+        heartbeat's epoch, no RPC on the step path."""
+        if self._multihost is not None and self._multihost.epoch_moved(
+                self._seen_mesh_epoch):
+            raise MeshEpochChanged(
+                "mesh epoch moved to %s at version %d"
+                % (self._seen_mesh_epoch, self._version))
 
     def _start_heartbeat(self):
         def beat():
@@ -486,7 +598,12 @@ class Worker:
         self._drain_reason = reason
         # the record stream ends AFTER the current task's records, so
         # the task completes (reported done, never requeued); the loops
-        # must not see stop_training, which breaks mid-task
+        # must not see stop_training, which breaks mid-task. Lockstep is
+        # the exception: a member cannot leave a collective mid-round,
+        # so the stop becomes its end-of-stream vote (tasks handed back
+        # uncounted) and the drain deadline bounds the wait for peers
+        if self._lockstep:
+            self.stop_training = True
         self.tds.draining = True
         logger.warning(
             "Worker %s draining (%s): finishing current task, then "
@@ -627,7 +744,14 @@ class Worker:
         # and tier rows reaching the PS
         self._join_trainer_pushes()
         self._flush_device_tier()
-        self._checkpoint_mgr.save(self._version, self.state)
+        state = self.state
+        if self._lockstep:
+            # every rank gathers the whole state at the same version (a
+            # collective the lockstep loop aligns); rank 0 writes it
+            state = self.trainer.checkpoint_state(state)
+            if not self.trainer.checkpoint_writer:
+                return
+        self._checkpoint_mgr.save(self._version, state)
         events.emit("checkpoint_saved", version=self._version,
                     kind="dense")
 
@@ -707,6 +831,7 @@ class Worker:
             and self._version % self._report_version_steps == 0
         ):
             self._mc.report_version(self._version)
+        self._check_mesh_epoch()
         if (
             self._log_loss_steps
             and self._version % self._log_loss_steps == 0
@@ -769,6 +894,118 @@ class Worker:
             if self.stop_training:
                 break
 
+    def _train_batches_lockstep(self, batches):
+        """Several processes in lockstep: every process runs the same
+        collective sequence (parallel/multihost_trainer.py). A consensus
+        counts the processes that hold a real batch; a partial batch is
+        padded to the minibatch size and a dried-up process steps on
+        zero-masked batches until the count reaches zero, so no process
+        leaves a peer waiting inside a collective.
+
+        Batch acquisition is a NON-BLOCKING poll (_BatchPoller): the
+        master answers WAIT while the queue is empty for now (a peer
+        holds the epoch's last task, evaluation tasks are out), and a
+        worker blocked in ``next()`` on that WAIT would leave its peer
+        blocked in the consensus. An empty poll is an "I have nothing
+        this round" vote; the worker keeps the cadence with zero batches
+        and takes real work back when the master has some.
+
+        Two invariants keep the processes' collectives identical: (1)
+        parked evaluation and prediction tasks are drained INLINE
+        between consensus rounds (local work only) with the stream
+        reopened in place, never by leaving the loop, which would pit
+        one process's consensus against a peer's step; (2) the only
+        exit is the round whose consensus reports every process's
+        stream ended, so everyone leaves together.
+
+        The consensus runs every ``consensus_interval`` rounds: its
+        host read waits for the collectives before it, so a consensus
+        every round forbids dispatching ahead. Within a window every
+        process steps (a dried-up one on zero batches) and the exit and
+        idle decisions happen only at the boundaries."""
+        poller = _BatchPoller(batches)
+        template = None
+        exhausted = False
+        stopping = False
+        window = self._consensus_interval
+        round_in_window = 0
+        while True:
+            boundary = round_in_window == 0
+            if self.stop_training and not stopping:
+                # a host-side stop (the step limit, a drain) must not
+                # break out of the loop alone: a peer would run its
+                # next collective against a departed process. It becomes
+                # a stream-end vote: fetched tasks go back, zero batches
+                # until every process's stream ended
+                stopping = True
+                exhausted = True
+                self.tds.report_pending_failed(
+                    "requeue: stopped at max steps")
+            if exhausted and not stopping and self.tds.out_of_band_tasks:
+                # the stream ended because evaluation or prediction tasks
+                # were parked: drain them here, between consensus rounds,
+                # and reopen the stream (peers' next consensus waits a
+                # few seconds)
+                self._drain_out_of_band()
+                if self.tds.train_end_task is None:
+                    poller = _BatchPoller(self._batches(
+                        self.tds.training_record_stream(), Mode.TRAINING))
+                    exhausted = False
+            batch = None
+            if not exhausted:
+                batch, exhausted = poller.poll(self._lockstep_poll_secs)
+            have = batch is not None
+            if have:
+                batch = pad_batch(batch, self._minibatch_size)
+                template = batch
+            if boundary:
+                alive, ended = self.trainer.consensus(have, exhausted)
+                if ended == self.trainer.process_count:
+                    # every process's stream is over: the loop's only
+                    # exit, taken by everyone in this round
+                    break
+                if alive == 0:
+                    # everyone is between tasks: poll again (the poll's
+                    # wait paces the rounds; an exhausted worker has no
+                    # poll, so it sleeps). No polled batch is dropped:
+                    # ``have`` is False on every process here
+                    if exhausted:
+                        time.sleep(self._lockstep_poll_secs)
+                    continue
+            if not have:
+                if template is None:
+                    # a live round before this worker ever saw a batch:
+                    # the shapes come from the reader
+                    template = self._fabricate_template_batch()
+                batch = zero_batch_like(template)
+            round_in_window = (round_in_window + 1) % window
+            if not self._restore_attempted:
+                self._restore_from_checkpoint(batch)
+            with self._step_trace():
+                loss = self._timed_train_step(batch)
+                self._note_lockstep_round()
+                if stopping:
+                    # a zero-batch round while peers finish: no version,
+                    # checkpoint or record bookkeeping
+                    continue
+                self._after_train_batch(batch, loss)
+
+    def _note_lockstep_round(self):
+        now = time.time()
+        if self.lockstep_span is None:
+            self.lockstep_span = [now, now]
+            logger.info("Worker %s first lockstep step at version %d",
+                        self._mc.worker_id, self._version)
+        self.lockstep_span[1] = now
+        self.lockstep_rounds += 1
+
+    def _fabricate_template_batch(self):
+        """A zero batch of the minibatch's shape: the lockstep
+        collectives need shapes even from a worker that never got a
+        task."""
+        return zero_batch_like(pad_batch(self._read_template_batch(),
+                                         self._minibatch_size))
+
     def _read_template_batch(self):
         """One batch read straight from the reader's first shard (no
         master round trip): the restore's template."""
@@ -790,7 +1027,9 @@ class Worker:
             batches = self._batches(
                 self.tds.training_record_stream(), Mode.TRAINING
             )
-            if self._sparse_pipeline:
+            if self._lockstep:
+                self._train_batches_lockstep(batches)
+            elif self._sparse_pipeline:
                 self._train_batches_pipelined(batches)
             else:
                 self._train_batches_sequential(batches)
@@ -812,8 +1051,26 @@ class Worker:
             self.tds.report_pending_failed("health halt: %s" % (e,))
             self.tds.report_parked_failed("requeue: health halt")
             raise
+        except MeshEpochChanged:
+            # hand the tasks back NOW: the relaunch reuses this worker id
+            # and heartbeats at once, so the master's liveness scan would
+            # never see this "death"; parked tasks go back too
+            self.tds.report_pending_failed("requeue: mesh epoch changed")
+            self.tds.report_parked_failed("requeue: mesh epoch changed")
+            raise
         except Exception as e:  # report so tasks get retried elsewhere
             logger.exception("Training stream failed")
+            if self._lockstep:
+                # a failed lockstep step is a MESH event (a peer died or
+                # restarted mid-collective; the group cannot recover in
+                # the process), not evidence against the task: the tasks
+                # go back uncounted and the process restarts to rejoin
+                self.tds.report_pending_failed(
+                    "requeue: lockstep peer failure (%s)" % (e,))
+                self.tds.report_parked_failed(
+                    "requeue: lockstep peer failure")
+                raise MeshEpochChanged(
+                    "lockstep collective failed: %s" % (e,)) from e
             self.tds.report_pending_failed(str(e))
         finally:
             self._timing.report("training stream")
@@ -851,7 +1108,13 @@ class Worker:
             mgr = DenseCheckpointManager(
                 self._init_checkpoint_dir, keep_max=0, create=False
             )
-            restored = mgr.restore(template=self.state)
+            template = self.state
+            if self._lockstep:
+                # the whole state's shapes (every rank calls this first
+                # batch hook in the same round); adopt_restored below
+                # keeps this rank's blocks of the current mesh
+                template = self.trainer.checkpoint_state(self.state)
+            restored = mgr.restore(template=template)
         except Exception as e:
             raise CheckpointRestoreError(
                 "restore from --checkpoint_dir_for_init=%r failed: %s"
@@ -871,6 +1134,8 @@ class Worker:
                 "checkpoint" % self._init_checkpoint_dir
             )
         self._restore_attempted = True
+        if hasattr(self.trainer, "adopt_restored"):
+            restored = self.trainer.adopt_restored(restored)
         self.state = restored
         self._version = int(restored.step)
         logger.info("Resumed from checkpoint at version %d (%.3f s)",
@@ -1082,6 +1347,9 @@ class Worker:
                 return
 
     def _run_task_mode(self, task_type, process_fn):
+        # no mesh-epoch probe here (the reference has one): evaluation
+        # and prediction tasks run no collective, so a moved epoch
+        # leaves them nothing to restart for
         while True:
             if self._draining:
                 self._finish_drain()

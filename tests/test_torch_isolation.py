@@ -598,11 +598,14 @@ def test_mesh_slice_modules_isolated_and_the_worker_trains_on_a_mesh():
     with JAX blocked above; with JAX blocked the worker given a mesh
     starts its own one-rank gloo group, trains the MoE LM through
     SpmdTrainer on the CPU and reports the mesh in its telemetry, and a
-    sparse model given a mesh raises, naming the sparse SPMD trainer."""
+    sparse model given a mesh trains through the sparse SPMD trainer
+    (train/sparse_spmd.py, among the modules imported with JAX blocked,
+    as are the multi-process runtime and the lockstep trainer)."""
     modules = _port_modules()
     for name in ("parallel", "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.dense_plane",
-                 "parallel.spmd_trainer"):
+                 "parallel.spmd_trainer", "parallel.multihost",
+                 "parallel.multihost_trainer", "train.sparse_spmd"):
         assert "elasticdl_tpu_torch." + name in modules, name
     code = _BLOCK + r'''
 import sys
@@ -637,14 +640,13 @@ state, loss = worker.trainer.train_step(None, batch)
 assert np.isfinite(float(loss))
 blob = worker._telemetry_blob()
 assert blob.mesh_shape == "dp=1" and blob.collective_bytes_per_step == 0.0
-try:
-    Worker(Master(), "elasticdl_tpu_torch.models.deepfm",
-           RecordIODataReader(data_dir="/nonexistent"), device="cpu",
-           mesh_config=parse_mesh_spec("dp=1"))
-except NotImplementedError as e:
-    assert "sparse SPMD trainer" in str(e), e
-else:
-    raise AssertionError("a sparse model on a mesh did not raise")
+from elasticdl_tpu_torch.train.sparse_spmd import SparseSpmdTrainer
+sparse = Worker(Master(), "elasticdl_tpu_torch.models.deepfm",
+                RecordIODataReader(data_dir="/nonexistent"), device="cpu",
+                ps_addrs=["localhost:1", "localhost:2"],
+                mesh_config=parse_mesh_spec("dp=1"))
+assert isinstance(sparse.trainer, SparseSpmdTrainer), type(sparse.trainer)
+assert sparse.trainer.mesh_shape_str == ""
 torch.distributed.destroy_process_group()
 leaked = sorted(m for m in sys.modules if _blocked(m))
 assert not leaked, leaked

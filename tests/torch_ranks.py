@@ -505,5 +505,388 @@ def moe_mesh_scenario(rank, world, flat, batch, compact_batch):
     return out
 
 
+def cifar10_bn_scenario(rank, world, flat, batch, steps, lr):
+    """tests/test_torch_batch_norm_mesh.py: cifar10 (flax-style
+    BatchNorm in fp32) at dp=``world`` over gloo ranks, dropout at rate
+    0, ``steps`` SGD steps at ``lr`` on the same global batch from the
+    reference's weights: the losses, the full parameters and the running
+    averages of every rank."""
+    from elasticdl_tpu_torch.models import cifar10
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+
+    model = cifar10.custom_model()
+    model.load_state_dict(cifar10.params_from_flax(flat), strict=False)
+    model.conv_dropout.rate = model.dense_dropout.rate = 0.0
+    trainer = SpmdTrainer(model=model, loss_fn=cifar10.loss,
+                          optimizer=create_optimizer("SGD", learning_rate=lr),
+                          mesh=build_mesh(MeshConfig(dp=world)), seed=0,
+                          health=False, device="cpu")
+    state, losses = None, []
+    for _ in range(steps):
+        state, loss = trainer.train_step(state, dict(batch))
+        losses.append(float(loss))
+    return {"losses": losses,
+            "params": {k: _np(v) for k, v in
+                       trainer.full_params(state.params).items()},
+            "batch_stats": {k: _np(v) for k, v in
+                            state.model_state["batch_stats"].items()}}
+
+
+
+# ---------------------------------------------------------------------------
+# the sparse SPMD and lockstep trainers (tests/test_torch_sparse_spmd.py,
+# tests/test_torch_lockstep.py)
+# ---------------------------------------------------------------------------
+
+# adam's eps on the dense params and the PS in the multi-step parity
+# runs (tests/test_torch_sparse.py ADAM_EPS)
+SPARSE_ADAM_EPS = 1e-3
+
+
+def numpy_ps_client(seed=0):
+    """The port's in-process client over a numpy store (adam lr 0.01)."""
+    from elasticdl_tpu_torch.ps.embedding_store import NumpyEmbeddingStore
+    from elasticdl_tpu_torch.ps.local_client import LocalPSClient
+
+    store = NumpyEmbeddingStore(seed=seed)
+    store.set_optimizer("adam", lr=0.01, epsilon=SPARSE_ADAM_EPS)
+    return LocalPSClient(store=store)
+
+
+def constant_specs(specs):
+    """Every table's rows start at 0.01: rows created in another order
+    (two processes pulling apart) start equal."""
+    for spec in specs:
+        spec.initializer, spec.init_scale = "constant", 0.01
+    return specs
+
+
+def deepfm_trainer(cls, flat, ps_client, fields, batch, **kwargs):
+    """DeepFM through ``cls`` (a sparse trainer class) on the CPU from
+    the reference's weights ``flat`` (None: the trainer's seed), adam
+    lr 0.001 at SPARSE_ADAM_EPS, constant-initialised tables."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.train.optimizers import create_optimizer
+
+    model = deepfm.custom_model()
+    if flat is not None:
+        model.load_state_dict(deepfm.params_from_flax(flat))
+    return cls(model=model, loss_fn=deepfm.loss,
+               optimizer=create_optimizer("Adam", learning_rate=0.001,
+                                          epsilon=SPARSE_ADAM_EPS),
+               specs=constant_specs(deepfm.sparse_embedding_specs(
+                   num_features=fields, batch_size=batch)),
+               ps_client=ps_client, seed=0, health=False, device="cpu",
+               **kwargs)
+
+
+def _store_tables(client, tables=("deepfm_emb", "deepfm_linear")):
+    """Each table's (ids, rows and slots, steps), sorted by id."""
+    import numpy as np
+
+    out = {}
+    for table in tables:
+        ids, rows, steps = client.store.export_table_full(table)
+        order = np.argsort(ids, kind="stable")
+        out[table] = (ids[order], rows[order], steps[order])
+    return out
+
+
+def sparse_spmd_scenario(rank, world, flat, batches, fields, batch):
+    """tests/test_torch_sparse_spmd.py: SparseSpmdTrainer at dp=world
+    over ``batches`` (the first one ragged) from the reference's
+    weights: every rank's losses and full dense params, and rank 0's
+    PS tables (the ranks share its pulls and pushes); then the tier at
+    ep=2 refused."""
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
+    from elasticdl_tpu_torch.train.sparse_spmd import SparseSpmdTrainer
+
+    client = numpy_ps_client()
+    trainer = deepfm_trainer(SparseSpmdTrainer, flat, client, fields, batch,
+                             mesh=build_mesh(MeshConfig(dp=world)),
+                             device_tier=False)
+    state, losses = None, []
+    for b in batches:
+        state, loss = trainer.train_step(state, b)
+        losses.append(float(loss))
+    out = {"losses": losses,
+           "params": {k: _np(v) for k, v in
+                      trainer.full_params(state.params).items()},
+           "tables": _store_tables(client) if rank == 0 else None,
+           # rank 0 alone talks to the PS: no table on another's store
+           "pulls": (len(client.store.export_table_full("deepfm_emb")[0])
+                     if rank == 0 else len(client.store.table_names()))}
+    if world % 2 == 0:
+        try:
+            deepfm_trainer(SparseSpmdTrainer, flat, numpy_ps_client(),
+                           fields, batch,
+                           mesh=build_mesh(MeshConfig(dp=world // 2, ep=2)),
+                           device_tier=DeviceTierConfig(capacity=64))
+        except ValueError as e:
+            out["ep_error"] = str(e)
+    return out
+
+
+def sparse_one_rank_scenario(rank, world, batches, fields, batch,
+                             tier_knobs):
+    """tests/test_torch_sparse_spmd.py: SparseSpmdTrainer on a one-rank
+    mesh beside SparseTrainer, the tier on, over the same batches."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.train.device_tier import DeviceTierConfig
+    from elasticdl_tpu_torch.train.sparse import SparseTrainer
+    from elasticdl_tpu_torch.train.sparse_spmd import SparseSpmdTrainer
+
+    runs = {}
+    for name, cls, extra in (
+            ("single", SparseTrainer, {}),
+            ("spmd", SparseSpmdTrainer,
+             {"mesh": build_mesh(MeshConfig(dp=1))})):
+        client = numpy_ps_client()
+        trainer = deepfm_trainer(cls, None, client, fields, batch,
+                                 device_tier=DeviceTierConfig(**tier_knobs),
+                                 **extra)
+        state, losses = None, []
+        for b in batches:
+            state, loss = trainer.train_step(state, b)
+            losses.append(float(loss))
+        runs[name] = {
+            "losses": losses,
+            "params": {k: v.detach().clone() for k, v in
+                       state.params.items()},
+            "tier": {t: trainer.device_tier.table_rows(t)
+                     for t in ("deepfm_emb", "deepfm_linear")},
+            "stats": trainer.device_tier.stats(),
+            "tables": _store_tables(client)}
+        trainer.close()
+    single, spmd = runs["single"], runs["spmd"]
+    return {
+        "losses": spmd["losses"],
+        "losses_equal": single["losses"] == spmd["losses"],
+        "params_equal": all(torch.equal(single["params"][k],
+                                        spmd["params"][k])
+                            for k in single["params"]),
+        "tier_equal": single["stats"] == spmd["stats"] and all(
+            np.array_equal(a, b) for t in single["tier"]
+            for a, b in zip(single["tier"][t], spmd["tier"][t])),
+        "tables_equal": all(
+            np.array_equal(a, b) for t in single["tables"]
+            for a, b in zip(single["tables"][t], spmd["tables"][t])),
+        "hits": spmd["stats"]["hits"]}
+
+
+def lockstep_sparse_scenario(rank, world, flat, local_batches, ps_addrs,
+                             fields, batch):
+    """tests/test_torch_lockstep.py: MultiHostSparseSpmdTrainer, one dp
+    slot a rank, each rank its own batches and its own client of the
+    shared sync PS (grads_to_wait = world): the global losses, the dense
+    params (equal on every rank) and the class options it pushes with."""
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.train.sparse_spmd import (
+        MultiHostSparseSpmdTrainer,
+    )
+    from elasticdl_tpu_torch.worker.ps_client import PSClient
+
+    client = PSClient(ps_addrs, worker_id=rank)
+    trainer = deepfm_trainer(MultiHostSparseSpmdTrainer, flat, client,
+                             fields, batch,
+                             mesh=build_mesh(MeshConfig(dp=world)),
+                             device_tier=False)
+    state, losses = None, []
+    for b in local_batches[rank]:
+        state, loss = trainer.train_step(state, b)
+        losses.append(float(loss))
+    out = {"losses": losses,
+           "params": {k: _np(v) for k, v in state.params.items()},
+           "rejections": trainer.push_rejections,
+           "version": trainer._version, "step": int(state.step),
+           "stats": dict(trainer.lockstep_stats)}
+    trainer.close()
+    return out
+
+
+def _mnist_lockstep(flat, config, seed=0):
+    from elasticdl_tpu_torch.models import mnist
+    from elasticdl_tpu_torch.parallel.mesh import build_mesh
+    from elasticdl_tpu_torch.parallel.multihost_trainer import (
+        MultiHostSpmdTrainer,
+    )
+
+    model = _mnist(flat)
+    model.dropout.rate = 0.0
+    return MultiHostSpmdTrainer(model=model, loss_fn=mnist.loss,
+                                optimizer=mnist.optimizer(),
+                                mesh=build_mesh(config), seed=seed,
+                                health=False, device="cpu")
+
+
+def lockstep_dense_scenario(rank, world, flat, local_batches):
+    """tests/test_torch_lockstep.py: MultiHostSpmdTrainer on mnist at
+    dp=world (dropout at rate 0), each rank its own batch: the global
+    losses and this rank's params."""
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig
+
+    trainer = _mnist_lockstep(flat, MeshConfig(dp=world))
+    state, losses = None, []
+    for b in local_batches[rank]:
+        state, loss = trainer.train_step(state, dict(b))
+        losses.append(float(loss))
+    features = local_batches[rank][0]["features"]
+    return {"losses": losses,
+            "params": {k: _np(v) for k, v in state.params.items()},
+            "eval": trainer.eval_step(state, {"features": features})}
+
+
+def lockstep_checkpoint_scenario(rank, world, flat, batch, ckpt_dir, mode,
+                                 mesh_spec):
+    """tests/test_torch_lockstep.py: ``mode`` "save": 2 steps at
+    ``mesh_spec`` then the whole state gathered (every rank) and written
+    (rank 0); "restore": a fresh state at ``mesh_spec`` loaded from the
+    newest checkpoint and adopted onto this mesh. Returns the whole
+    params and optimizer slots either way, and this rank's block
+    shapes."""
+    from elasticdl_tpu_torch.parallel.mesh import parse_mesh_spec
+    from elasticdl_tpu_torch.train.checkpoint import DenseCheckpointManager
+
+    trainer = _mnist_lockstep(flat, parse_mesh_spec(mesh_spec))
+    state = trainer.create_state(batch["features"])
+    if mode == "save":
+        for _ in range(2):
+            state, _ = trainer.train_step(state, dict(batch))
+        whole = trainer.checkpoint_state(state)
+        if trainer.checkpoint_writer:
+            DenseCheckpointManager(ckpt_dir).save(int(state.step), whole)
+    else:
+        template = trainer.checkpoint_state(state)
+        restored = DenseCheckpointManager(
+            ckpt_dir, create=False).restore(template=template)
+        state = trainer.adopt_restored(restored)
+        whole = trainer.checkpoint_state(state)
+        # the restored blocks train on
+        state, loss = trainer.train_step(state, dict(batch))
+        whole_loss = float(loss)
+    return {"step": int(whole.step),
+            "params": {k: _np(v) for k, v in whole.params.items()},
+            "mu": {k: _np(v) for k, v in whole.opt_state["mu"].items()},
+            "blocks": {k: tuple(v.shape) for k, v in state.params.items()},
+            "loss_after": None if mode == "save" else whole_loss}
+
+
+def lockstep_loop_scenario(rank, world, flat, local_batches, interval,
+                           minibatch):
+    """tests/test_torch_lockstep.py: the worker's lockstep loop
+    (``Worker._train_batches_lockstep`` on a worker stub) over each
+    rank's own batches, rank 1's stream drying up first: the rounds
+    each rank stepped, its real batches and its params."""
+    import contextlib
+    import types
+
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    trainer = _mnist_lockstep(flat, MeshConfig(dp=world))
+    worker = Worker.__new__(Worker)
+    real, rounds = [], []
+    handed_back = []
+    worker.__dict__.update(
+        trainer=trainer, stop_training=False, _restore_attempted=True,
+        _lockstep_poll_secs=0.05, _minibatch_size=minibatch,
+        _consensus_interval=interval, state=None,
+        tds=types.SimpleNamespace(out_of_band_tasks=[],
+                                  train_end_task=None,
+                                  report_pending_failed=handed_back.append),
+        _step_trace=contextlib.nullcontext)
+
+    def step(batch):
+        worker.state, loss = trainer.train_step(worker.state, batch)
+        rounds.append(float(batch["_mask"].sum()))
+        return loss
+
+    worker._timed_train_step = step
+    worker._note_lockstep_round = lambda: None
+    worker._after_train_batch = lambda batch, loss: real.append(
+        float(batch["_mask"].sum()))
+    worker._train_batches_lockstep(iter(local_batches[rank]))
+    return {"rounds": rounds, "real": real,
+            "params": {k: _np(v) for k, v in worker.state.params.items()},
+            "consensus_calls": trainer.lockstep_stats["consensus_calls"]}
+
+
+
+def sparse_worker_mesh_scenario(rank, world, workdir):
+    """tests/test_torch_sparse_spmd.py: a DeepFM job (the port's master
+    and two PS servicers in this process, phase 9's kind of data at a
+    small size) drained by a Worker given a one-rank mesh: the trainer
+    it built, the job's end and the last evaluation's AUC."""
+    import threading
+
+    import numpy as np
+
+    import chip_smoke
+    from elasticdl_tpu_torch.common.grpc_utils import (
+        build_server,
+        find_free_port,
+    )
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig
+    from elasticdl_tpu_torch.proto.services import (
+        add_pserver_servicer_to_server,
+    )
+    from elasticdl_tpu_torch.ps.embedding_store import create_store
+    from elasticdl_tpu_torch.ps.servicer import PserverServicer
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    zoo = "elasticdl_tpu_torch.models.deepfm"
+    train, valid = chip_smoke.job_data(np, workdir, records=2048, valid=512,
+                                       files=1)
+    master = Master(zoo, training_data=train, validation_data=valid,
+                    records_per_task=256, num_epochs=1,
+                    port=find_free_port(), eval_steps=16, seed=0)
+    servers, ps_addrs = [], []
+    for ps_id in range(2):
+        store = create_store(seed=ps_id)
+        store.set_optimizer("adam", lr=0.01)
+        server = build_server()
+        add_pserver_servicer_to_server(
+            PserverServicer(store, ps_id=ps_id), server)
+        port = find_free_port()
+        server.add_insecure_port("localhost:%d" % port)
+        server.start()
+        servers.append(server)
+        ps_addrs.append("localhost:%d" % port)
+    result = {}
+    try:
+        master.prepare()
+        thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(poll_secs=0.2)),
+            daemon=True)
+        thread.start()
+        worker = Worker(MasterClient("localhost:%d" % master._port, 0), zoo,
+                        RecordIODataReader(data_dir=train),
+                        minibatch_size=64, report_version_steps=4,
+                        wait_sleep_secs=0.1, ps_addrs=ps_addrs,
+                        device="cpu", mesh_config=MeshConfig(dp=1))
+        worker.run()
+        thread.join(timeout=60)
+    finally:
+        master.stop()
+        for server in servers:
+            server.stop(0)
+    dispatcher = master.task_dispatcher
+    summaries = master.evaluation_service.completed_summaries
+    return {"trainer": type(worker.trainer).__name__,
+            "mesh": dict(worker.trainer.mesh.shape),
+            "finished": dispatcher.finished(),
+            "failed": dispatcher.job_failed(),
+            "auc": summaries[-1][1]["auc"] if summaries else None}
+
+
 if __name__ == "__main__":
     _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
