@@ -437,7 +437,35 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    ``LocalExecutor`` over RecordIO token records (K4-K6 12 a step), its
    export answered once by an in-process ``ServingEngine``: bare
    logits, K4 12 times in that forward, within the serve tolerances of
-   ``eval_step``.
+   ``eval_step``;
+20. long context and layer pipelining over two ranks of the one card
+   (``longctx_arm``; the ranks are ``chip_smoke.py --longctx-rank``
+   processes in one gloo group, since NCCL takes one rank a device, and
+   gloo moves no CUDA tensor point to point, so every hop is copied
+   through host buffers, counted and timed). (a) sp 2 at bench.py's
+   s16k_flash widths (d 2048, 8 heads of 256, vocab 32000, S 16384,
+   batch 1; the depth cut from 10 layers to 2): each rank's block of
+   the causal ring (the flash fold: K4 forward, K5/K6 backward per
+   block against the global (o, lse, do)) and of Ulysses, output and
+   gradients within ``LONGCTX_ATTN_TOL`` of one-process
+   ``flash_attention`` at the full S on the same inputs, rank r
+   launching r + 1 K4, K5 and K6 in a ring call; then
+   ``TransformerLM(attention_impl="ring")`` through SpmdTrainer (bf16,
+   AdamW) for ``LONGCTX_SP_STEPS`` steps, layers x (r + 1) launches of
+   each kernel a step, the first loss within ``TRAIN_LOSS_TOL`` of
+   TorchTrainer's first step of the same weights on one rank. (b) pp 2
+   with the zoo pipeline_transformer at its full configuration (vocab
+   32000, 12 layers, 12 heads of 64): 1F1B, GPipe and interleaved (V 2)
+   steps through SpmdTrainer from one seed's weights, each step's
+   losses within ``TRAIN_LOSS_TOL`` of the mesh-less model's and of
+   each other's, K4 2 x 6 x M a step (the scheduled backward
+   recomputes each stage) and K5/K6 6 x M; 1F1B's state gathered over
+   pp and held by one mesh-less model gives the pipeline's logits;
+   and, while the ranks run, the model as a job (``pp_job``): two
+   ``--multihost 1 --mesh pp=2`` workers under this process's master,
+   every record once, their first loss equal and equal to one rank's.
+   Step ms, hop ms, bytes a step (collective and host-staged) and the
+   launches per rank are printed with the card's line.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -463,6 +491,7 @@ Imports nothing of JAX or of the JAX package.
 import datetime
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -10760,6 +10789,674 @@ def moe_phase(torch, np, flash, workdir, device="cuda", widths=None,
             "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: long context and layer pipelining across two ranks
+# ---------------------------------------------------------------------------
+
+# (a) sp 2 at bench.py's s16k_flash widths (bench.py:299-313: d 2048, 8
+# heads of 256, S 16384, batch 1, vocab 32000), depth cut from 10
+# layers to 2 to fit the phase's time
+LONGCTX_SP_WIDTHS = dict(vocab_size=32000, num_layers=2, num_heads=8,
+                         embed_dim=2048)
+LONGCTX_SEQ = 16384
+LONGCTX_BATCH = 1
+LONGCTX_SP_STEPS = 2
+# (b) pp 2, the zoo pipeline_transformer at its full configuration
+# (elasticdl_tpu/models/pipeline_transformer.py:266-291: vocab 32000,
+# 12 layers, 12 heads of 64), 4 microbatches (the zoo's), batch 8 of
+# S 256; the interleaved schedule (V 2) takes M <= pp = 2
+LONGCTX_PP_WIDTHS = dict(ZOO_WIDTHS)
+LONGCTX_PP_SEQ = 256
+LONGCTX_PP_BATCH = 8
+LONGCTX_PP_MICRO = 4
+LONGCTX_PP_STEPS = 2
+LONGCTX_PP_SCHEDULES = (("1f1b", {}), ("gpipe", {"schedule": "gpipe"}),
+                        ("interleaved", {"num_chunks": 2,
+                                         "num_microbatches": 2}))
+# the job: two --multihost workers, --mesh pp=2, each polling tasks of
+# LONGCTX_JOB_PER_TASK identical records (so the first step's rows, a
+# race between the workers' first polls, give one loss whatever rows)
+LONGCTX_JOB_RECORDS = 128
+LONGCTX_JOB_PER_TASK = 32
+LONGCTX_JOB_WAIT_S = 150
+# ring and Ulysses (bf16) against one-process flash attention at the
+# full S: the relative L2 error of the output and of each gradient
+# block. Both sides run K4-K6; the ring's merge of two blocks' (o, lse)
+# in fp32 and o's one bf16 rounding read about 0.004 (one bf16 ulp is
+# 0.0039 relative)
+LONGCTX_ATTN_TOL = 1e-2
+# the pipeline's eval logits against the mesh-less model holding the
+# gathered weights (bf16 compute: differing cuBLAS shapes per microbatch
+# move a logit by an ulp or two of ~4, 0.03)
+LONGCTX_LOGIT_TOL = 0.0625
+LONGCTX_RANK_WAIT_S = 300
+_STEP1_LOSS_RE = re.compile(r"step 1 loss ([0-9.]+)")
+
+
+def _rel_l2(torch, got, ref):
+    got, ref = got.detach().float(), ref.detach().float()
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+
+
+def _count_plain(flash):
+    """CPU rehearsal only: the plain versions count no launch, so the
+    rank counts K4-K6 where the CUDA wrappers would (each call), and the
+    ring's "auto" takes the flash fold, as it does for CUDA tensors."""
+    from elasticdl_tpu_torch.ops import ring_attention
+
+    resolve = ring_attention._resolve
+    ring_attention._resolve = lambda impl, q: (
+        "flash" if impl == "auto" else resolve(impl, q))
+    fwd, bwd = flash.flash_attention_fwd, flash.flash_attention_bwd
+
+    def counted_fwd(*a, **kw):
+        flash.LAUNCHES += 1
+        return fwd(*a, **kw)
+
+    def counted_bwd(*a, **kw):
+        flash.DQ_LAUNCHES += 1
+        flash.DKV_LAUNCHES += 1
+        return bwd(*a, **kw)
+
+    flash.flash_attention_fwd = counted_fwd
+    flash.flash_attention_bwd = counted_bwd
+
+
+def _hop_record(acc):
+    return {"ppermute_bytes": acc.ppermute, "all_to_all_bytes": acc.all_to_all,
+            "all_reduce_bytes": acc.all_reduce, "hops": acc.hops,
+            "hop_ms": acc.hop_s * 1e3, "host_staged_bytes": acc.host_staged,
+            "host_staged_ms": acc.host_staged_s * 1e3}
+
+
+def _synced(torch, device):
+    """The host clock after the card's queued work ended."""
+    sync(torch, device)
+    return time.perf_counter()
+
+
+def longctx_attention(torch, flash, mesh, device, widths, seq, batch):
+    """(a) at the attention's shape: this rank's block of the causal ring
+    (flash fold) and of Ulysses, forward and backward, against
+    one-process ``flash_attention`` at the full S on the same inputs;
+    K4-K6 counted per rank; the hops' bytes and milliseconds."""
+    from elasticdl_tpu_torch.ops.ring_attention import (
+        ring_attention,
+        ulysses_attention,
+    )
+    from elasticdl_tpu_torch.parallel.collectives import (
+        track_collective_bytes,
+    )
+
+    heads = widths["num_heads"]
+    dim = widths["embed_dim"] // heads
+    r, sp = mesh.index("sp"), mesh.shape["sp"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    q, k, v, do = (
+        (torch.randn((batch, heads, seq, dim), generator=gen, device=device)
+         * 0.5).to(torch.bfloat16) for _ in range(4))
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = flash.flash_attention(*full, causal=True)
+    ref.backward(do)
+    block = slice(r * seq // sp, (r + 1) * seq // sp)
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        record = {}
+        for turn in ("check", "timed"):
+            local = [t[:, :, block].contiguous().requires_grad_()
+                     for t in (q, k, v)]
+            reset_launches(flash)
+            with track_collective_bytes() as acc:
+                t0 = _synced(torch, device)
+                o = fn(*local, mesh, causal=True)
+                t1 = _synced(torch, device)
+                o.backward(do[:, :, block])
+                t2 = _synced(torch, device)
+            record[turn] = {"launches": read_launches(flash),
+                            "fwd_ms": (t1 - t0) * 1e3,
+                            "bwd_ms": (t2 - t1) * 1e3, **_hop_record(acc)}
+        record["errors"] = {
+            "o": _rel_l2(torch, o, ref[:, :, block]),
+            **{"d" + n: _rel_l2(torch, t.grad, f.grad[:, :, block])
+               for n, t, f in zip("qkv", local, full)}}
+        out[name] = record
+    out["tol"] = LONGCTX_ATTN_TOL
+    out["shape"] = [batch, heads, seq, dim]
+    return out
+
+
+def _holding(torch, build, state):
+    """``build()`` made on the meta device (no weights drawn) holding
+    copies of ``state``'s tensors."""
+    with torch.device("meta"):
+        model = build()
+    model.load_state_dict({k: v.detach().clone() for k, v in state.items()},
+                          strict=True, assign=True)
+    return model
+
+
+def _lm_batch(np, vocab, batch, seq, seed):
+    tokens = np.random.default_rng(seed).integers(
+        0, vocab, size=(batch, seq), dtype=np.int32)
+    return {"features": tokens, "labels": tokens,
+            "_mask": np.ones((batch,), np.float32)}
+
+
+def _steps(torch, flash, trainer, state, batch, steps, device):
+    """``steps`` train steps: the losses, each step's K4-K6 launches
+    (counted from 0 just before it), ms and collective record."""
+    from elasticdl_tpu_torch.parallel.collectives import (
+        track_collective_bytes,
+    )
+
+    rows = []
+    for _ in range(steps):
+        reset_launches(flash)
+        with track_collective_bytes() as acc:
+            t0 = _synced(torch, device)
+            state, loss = trainer.train_step(state, dict(batch))
+            loss = float(loss)
+            t1 = _synced(torch, device)
+        rows.append({"loss": loss, "launches": read_launches(flash),
+                     "step_ms": (t1 - t0) * 1e3, **_hop_record(acc)})
+    return state, rows
+
+
+def longctx_sp_lm(torch, np, flash, mesh, device, widths, seq, batch, steps):
+    """(a) the LM: ``TransformerLM(attention_impl="ring")`` through
+    SpmdTrainer at sp 2 (bf16, AdamW), ``steps`` steps; rank 0 then runs
+    the first step of the same weights through TorchTrainer on one rank
+    at the full S."""
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.models import transformer
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    torch.manual_seed(SEED)
+    model = transformer.TransformerLM(**widths, attention_impl="ring",
+                                      mesh=mesh)
+    data = _lm_batch(np, widths["vocab_size"], batch, seq, SEED + 21)
+    trainer = SpmdTrainer(
+        model=model, loss_fn=transformer.loss,
+        optimizer=transformer.optimizer(), compute_dtype="bfloat16",
+        mesh=mesh, seed=SEED, sharding_rules=transformer.sharding_rules(),
+        batch_spec=transformer.batch_spec(), health=False, device=device)
+    state = trainer.create_state(data["features"])
+    state, rows = _steps(torch, flash, trainer, state, data, steps, device)
+    del trainer, state
+    gc.collect()
+    out = {"steps": rows, "layers": widths["num_layers"]}
+    dist.barrier()
+    if mesh.index("sp") == 0:
+        one = _holding(torch, lambda: transformer.TransformerLM(**widths),
+                       model.state_dict())
+        single = TorchTrainer(one, transformer.loss, transformer.optimizer(),
+                              compute_dtype="bfloat16", health=False,
+                              device=device)
+        _, first = _steps(torch, flash, single, None, data, 1, device)
+        out["one_rank"] = first[0]
+        del single, one
+        gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def longctx_pp(torch, np, flash, mesh, device, widths, seq, batch, micro,
+               steps, schedules=LONGCTX_PP_SCHEDULES):
+    """(b) the zoo ``PipelinedTransformerLM`` over pp 2 from one seed's
+    weights: ``steps`` SpmdTrainer steps under each schedule (bf16,
+    AdamW); after 1F1B's the whole parameters gathered over pp, held by
+    a mesh-less model on rank 0, whose logits are the pipeline's
+    ``eval_step``'s (a pp state restores onto pp 1); and rank 0's
+    mesh-less sequential model's steps from the same weights."""
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.models import pipeline_transformer as ptm
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    pp = mesh.shape["pp"]
+    data = _lm_batch(np, widths["vocab_size"], batch, seq, SEED + 22)
+    torch.manual_seed(SEED)
+    base = ptm.PipelinedTransformerLM(
+        **widths, num_stages=1, num_microbatches=micro).state_dict()
+    out = {"layers_per_rank": widths["num_layers"] // pp}
+    for name, kwargs in schedules:
+        kwargs = dict({"num_microbatches": micro}, **kwargs)
+        model = _holding(torch, lambda: ptm.PipelinedTransformerLM(
+            **widths, num_stages=pp, mesh=mesh, **kwargs), base)
+        trainer = SpmdTrainer(
+            model=model, loss_fn=ptm.loss, optimizer=ptm.optimizer(),
+            compute_dtype="bfloat16", mesh=mesh, seed=SEED,
+            sharding_rules=ptm.sharding_rules(), health=False,
+            device=device)
+        state = trainer.create_state(data["features"])
+        state, rows = _steps(torch, flash, trainer, state, data, steps,
+                             device)
+        out[name] = {"steps": rows, "microbatches": kwargs[
+            "num_microbatches"], "chunks": kwargs.get("num_chunks", 1),
+            "block_shape": list(state.params[
+                "blocks.attn.query.weight"].shape)}
+        if name == "1f1b":
+            logits = trainer.eval_step(state, data)
+            whole = trainer.full_params(state.params)
+            if mesh.index("pp") == 0:
+                one = _holding(torch, lambda: ptm.PipelinedTransformerLM(
+                    **widths, num_stages=1), {k: v.cpu() for k, v in
+                                              whole.items()})
+                single = TorchTrainer(one, ptm.loss, ptm.optimizer(),
+                                      compute_dtype="bfloat16",
+                                      health=False, device=device)
+                again = single.eval_step(single.create_state(), data)
+                diff = np.abs(np.asarray(again, np.float32)
+                              - np.asarray(logits, np.float32))
+                out["restored_pp1"] = {"max_abs": float(diff.max()),
+                                       "mean_abs": float(diff.mean()),
+                                       "tol": LONGCTX_LOGIT_TOL}
+                del one, single
+            del whole
+        del trainer, state, model
+        gc.collect()
+    dist.barrier()
+    if mesh.index("pp") == 0:
+        one = _holding(torch, lambda: ptm.PipelinedTransformerLM(
+            **widths, num_stages=1, num_microbatches=micro), base)
+        single = TorchTrainer(one, ptm.loss, ptm.optimizer(),
+                              compute_dtype="bfloat16", health=False,
+                              device=device)
+        _, out["sequential"] = _steps(torch, flash, single, None, data,
+                                      steps, device)
+        del single, one
+        gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def longctx_rank(rank, world, workdir, port, device, sizes):
+    """One rank of the arm's spawn (``chip_smoke.py --longctx-rank``):
+    joins the gloo group of ``world`` ranks (both on the one card: NCCL
+    takes one rank a device) and runs (a) and (b)'s schedules, writing
+    its record to ``workdir/rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.ops import flash_attention as flash
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", device.index or 0)
+        torch.cuda.set_device(device)
+    else:
+        _count_plain(flash)
+    dist.init_process_group(
+        "gloo", init_method="tcp://localhost:%d" % port, world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=LONGCTX_RANK_WAIT_S))
+    t0 = time.monotonic()
+    out = {"rank": rank, "backend": dist.get_backend()}
+    mesh = build_mesh(MeshConfig(sp=world))
+    out["attention"] = longctx_attention(
+        torch, flash, mesh, device, sizes["sp_widths"], sizes["seq"],
+        sizes["batch"])
+    out["sp_lm"] = longctx_sp_lm(
+        torch, np, flash, mesh, device, sizes["sp_widths"], sizes["seq"],
+        sizes["batch"], sizes["sp_steps"])
+    out["sp_s"] = time.monotonic() - t0
+    mesh = build_mesh(MeshConfig(pp=world))
+    out["pp"] = longctx_pp(
+        torch, np, flash, mesh, device, sizes["pp_widths"], sizes["pp_seq"],
+        sizes["pp_batch"], sizes["pp_micro"], sizes["pp_steps"])
+    out["seconds"] = time.monotonic() - t0
+    with open(os.path.join(workdir, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def start_longctx_ranks(workdir, device, sizes, world=2):
+    """The arm's two rank processes (one gloo group on ``device``)."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+
+    with open(os.path.join(workdir, "sizes.json"), "w") as f:
+        json.dump(sizes, f)
+    port = find_free_port()
+    procs = []
+    for rank in range(world):
+        log_path = os.path.join(workdir, "rank%d.log" % rank)
+        with open(log_path, "w") as log_file:
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--longctx-rank", str(rank), str(world), workdir,
+                 str(port), str(device)],
+                cwd=HERE, stdout=log_file, stderr=subprocess.STDOUT),
+                log_path))
+    return procs
+
+
+def wait_longctx_ranks(procs, workdir, deadline):
+    """The ranks' records; SystemExit when a rank fails or the deadline
+    passes (every rank killed then): the arm never carries on at one
+    rank."""
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [(rank, proc.returncode, path)
+              for rank, (proc, path) in enumerate(procs)
+              if proc.returncode != 0]
+    if failed:
+        tails = []
+        for rank, rc, path in failed:
+            with open(path) as f:
+                tails.append("rank %d exited %s:\n%s"
+                             % (rank, rc, f.read()[-3000:]))
+        raise SystemExit("longctx arm: " + "\n".join(tails))
+    records = []
+    for rank in range(len(procs)):
+        with open(os.path.join(workdir, "rank%d.json" % rank)) as f:
+            records.append(json.load(f))
+    return records
+
+
+def pp_job(torch, np, flash, workdir, device="cuda", widths=None,
+           seq=LONGCTX_PP_SEQ, batch=LONGCTX_PP_BATCH,
+           records=LONGCTX_JOB_RECORDS, per_task=LONGCTX_JOB_PER_TASK,
+           while_running=None):
+    """(b) the job: the zoo pipeline_transformer (``widths`` through
+    ``--model_params``) trained by two ``python -m
+    elasticdl_tpu_torch.worker.main --multihost 1 --mesh pp=2`` workers
+    (bf16, ``--log_loss_steps 1``) under this process's ``Master``, both
+    on ``device`` (one card: a gloo group); ``records`` identical token
+    records in tasks of ``per_task``. ``while_running()`` runs here once
+    the workers are launched. Checks: master and workers exit 0, every
+    record trains once, both workers log one first-step loss, and it is
+    the mesh-less model's first step on the same rows from the same
+    seed's weights (TorchTrainer, bf16)."""
+    from elasticdl_tpu_torch.common.grpc_utils import find_free_port
+    from elasticdl_tpu_torch.data import recordio
+    from elasticdl_tpu_torch.data.example import encode_example
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.models import pipeline_transformer as ptm
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+    from elasticdl_tpu_torch.worker.trainer import TorchTrainer
+
+    zoo = "elasticdl_tpu_torch.models.pipeline_transformer"
+    widths = dict(LONGCTX_PP_WIDTHS if widths is None else widths)
+    params = ";".join("%s=%d" % kv for kv in sorted(widths.items()))
+    device = torch.device(device)
+    logdir = os.path.join(workdir, "pp_job")
+    data_dir = os.path.join(logdir, "train")
+    os.makedirs(data_dir)
+    row = np.random.default_rng(SEED + 23).integers(
+        0, widths["vocab_size"], size=seq, dtype=np.int32)
+    recordio.write_records(os.path.join(data_dir, "part-0.rec"),
+                           [encode_example({"tokens": row})] * records)
+    master = Master(zoo, training_data=data_dir, records_per_task=per_task,
+                    num_epochs=1, port=find_free_port(),
+                    task_timeout_secs=60.0, seed=SEED, model_params=params,
+                    mesh_restart_grace_secs=LOCKSTEP_GRACE_S,
+                    mesh_rejoin_timeout_secs=LOCKSTEP_REJOIN_S)
+    dispatcher, rendezvous = master.task_dispatcher, master.rendezvous
+    hosts = ["localhost:%d" % (62100 + i) for i in (0, 1)]
+    rendezvous.set_worker_hosts(hosts)
+    done, report = [], dispatcher.report
+
+    def on_report(task_id, success, worker_id=None, count_failure=True):
+        doing = dispatcher.doing_tasks().get(task_id)
+        ok, task = report(task_id, success, worker_id=worker_id,
+                          count_failure=count_failure)
+        if (success and task is not None and doing is not None
+                and task.type == pb.TRAINING):
+            done.append((worker_id, task.start, task.end))
+        return ok, task
+
+    dispatcher.report = on_report
+    addr = "localhost:%d" % master._port
+    env = dict(os.environ, PYTHONPATH=HERE)
+    common = ["--model_zoo", zoo, "--model_params", params,
+              "--training_data", data_dir, "--minibatch_size", str(batch),
+              "--master_addr", addr, "--device", device.type,
+              "--compute_dtype", "bfloat16", "--multihost", "1",
+              "--mesh", "pp=2", "--log_loss_steps", "1",
+              "--coordinator_port", str(find_free_port())]
+    result, workers, logs = {}, [], []
+    t0 = time.monotonic()
+    try:
+        master.prepare()
+        thread = threading.Thread(
+            target=lambda: result.setdefault("rc", master.run(
+                poll_secs=0.5)), daemon=True)
+        thread.start()
+        for i in (0, 1):
+            path = os.path.join(logdir, "worker-%d.log" % i)
+            logs.append(path)
+            with open(path, "w") as out:
+                workers.append(subprocess.Popen(
+                    [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+                     "--worker_id", str(i), "--worker_host", hosts[i],
+                     *common], cwd=HERE, env=env, stdout=out,
+                    stderr=subprocess.STDOUT))
+        # the one-rank counterpart, while the workers start: the
+        # worker's weights (custom_model under the worker's seed, 0) on
+        # the job's rows, mesh-less
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            one = ptm.custom_model(**widths)
+        single = TorchTrainer(one, ptm.loss, ptm.optimizer(),
+                              compute_dtype="bfloat16", health=False,
+                              device=device)
+        rows = np.stack([row] * batch)
+        _, want = _steps(torch, flash, single, None,
+                         {"features": rows, "labels": rows,
+                          "_mask": np.ones((batch,), np.float32)}, 1,
+                         device)
+        del single, one
+        if while_running is not None:
+            while_running()
+        deadline = time.monotonic() + LONGCTX_JOB_WAIT_S
+        while thread.is_alive() or any(w.poll() is None for w in workers):
+            for i, proc in enumerate(workers):
+                if proc.poll() not in (None, 0):
+                    with open(logs[i]) as f:
+                        raise SystemExit("pp job: worker %d exited %s:\n%s"
+                                         % (i, proc.returncode,
+                                            f.read()[-3000:]))
+            if time.monotonic() > deadline:
+                raise SystemExit("pp job: not done in %d s"
+                                 % LONGCTX_JOB_WAIT_S)
+            time.sleep(0.1)
+        thread.join(timeout=30)
+    finally:
+        for proc in workers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        master.stop()
+    job_s = time.monotonic() - t0
+    texts = [open(p).read() for p in logs]
+    first = [float(m.group(1)) if m else None
+             for m in (_STEP1_LOSS_RE.search(t) for t in texts)]
+    done_records = sum(end - start for _, start, end in done)
+    record = {"phase": "20_longctx", "part": "pp_job", "job_s": job_s,
+              "master_rc": result.get("rc"),
+              "worker_rcs": [w.returncode for w in workers],
+              "done_training_records": done_records,
+              "dataset_records": records, "first_step_losses": first,
+              "one_rank_first_loss": want[0]["loss"],
+              "tol": TRAIN_LOSS_TOL, "card": card_line(device)}
+    log(json.dumps(record))
+    failures = [what for what, bad in (
+        ("exit codes", result.get("rc") != 0 or record["worker_rcs"] != [0, 0]
+         or dispatcher.job_failed()),
+        ("every record once", done_records != records),
+        ("first-step losses logged and equal", None in first
+         or first[0] != first[1]),
+        ("first step against one rank", None in first or abs(
+            first[0] - want[0]["loss"]) > TRAIN_LOSS_TOL)) if bad]
+    if failures:
+        raise SystemExit("pp job: %s" % failures)
+    return record
+
+
+def longctx_checks(records, tol_loss=TRAIN_LOSS_TOL):
+    """The arm's checks over the ranks' records: a list of failures.
+
+    (a) ring and Ulysses within LONGCTX_ATTN_TOL of one-process flash
+    attention; the causal ring's K4/K5/K6 launches per rank r + 1 a call
+    each way (rank 0 one block, rank 1 two), Ulysses' one; the hops a
+    call, the backward's included (autograd runs it on its device
+    thread): the ring's sp - 1 forward and sp backward, Ulysses' four
+    all-to-alls each way; the sp LM's
+    losses finite, its launches per step layers x (r + 1) each way, its
+    first loss within ``tol_loss`` of the one-rank first step. (b) every
+    schedule's losses within ``tol_loss`` of the mesh-less sequential
+    model's and of each other's, K4 2 x layers-per-rank x M a step (the
+    recompute of the scheduled backward), K5/K6 layers-per-rank x M;
+    the gathered pp state's logits on one rank within
+    LONGCTX_LOGIT_TOL of the pipeline's."""
+    failures = []
+    one_rank = next((r["sp_lm"]["one_rank"] for r in records
+                     if "one_rank" in r["sp_lm"]), None)
+    sequential = next((r["pp"]["sequential"] for r in records
+                       if "sequential" in r["pp"]), None)
+    if one_rank is None or sequential is None:
+        return ["rank 0's one-rank runs are missing"]
+    sp = len(records)
+    for rec in records:
+        r = rec["rank"]
+        att = rec["attention"]
+        for name, want, hops in (("ring", r + 1, 2 * sp - 1),
+                                 ("ulysses", 1, 8)):
+            for turn in ("check", "timed"):
+                got = att[name][turn]["launches"]
+                if got != {"fwd": want, "dq": want, "dkv": want}:
+                    failures.append("rank %d %s launches %s, want %d each"
+                                    % (r, name, got, want))
+                if att[name][turn]["hops"] != hops:
+                    failures.append("rank %d %s hops %s, want %d"
+                                    % (r, name, att[name][turn]["hops"],
+                                       hops))
+            bad = {k: e for k, e in att[name]["errors"].items()
+                   if not e <= LONGCTX_ATTN_TOL}
+            if bad:
+                failures.append("rank %d %s errors %s > %s"
+                                % (r, name, bad, LONGCTX_ATTN_TOL))
+        lm = rec["sp_lm"]
+        per = lm["layers"] * (r + 1)
+        for i, step in enumerate(lm["steps"]):
+            if step["launches"] != {"fwd": per, "dq": per, "dkv": per}:
+                failures.append("rank %d sp step %d launches %s, want %d"
+                                % (r, i, step["launches"], per))
+            if not math.isfinite(step["loss"]):
+                failures.append("rank %d sp step %d loss %s"
+                                % (r, i, step["loss"]))
+        if abs(lm["steps"][0]["loss"] - one_rank["loss"]) > tol_loss:
+            failures.append("rank %d sp first loss %.5f vs one rank %.5f"
+                            % (r, lm["steps"][0]["loss"], one_rank["loss"]))
+        pp = rec["pp"]
+        layers = pp["layers_per_rank"]
+        for name, _ in LONGCTX_PP_SCHEDULES:
+            sched = pp[name]
+            m = sched["microbatches"]
+            want = {"fwd": 2 * layers * m, "dq": layers * m,
+                    "dkv": layers * m}
+            for i, step in enumerate(sched["steps"]):
+                if step["launches"] != want:
+                    failures.append("rank %d %s step %d launches %s, want %s"
+                                    % (r, name, i, step["launches"], want))
+                if abs(step["loss"] - sequential[i]["loss"]) > tol_loss:
+                    failures.append(
+                        "rank %d %s step %d loss %.5f vs sequential %.5f"
+                        % (r, name, i, step["loss"], sequential[i]["loss"]))
+                other = pp["1f1b"]["steps"][i]["loss"]
+                if abs(step["loss"] - other) > tol_loss:
+                    failures.append("rank %d %s step %d loss %.5f vs 1f1b "
+                                    "%.5f" % (r, name, i, step["loss"],
+                                              other))
+        restored = pp.get("restored_pp1")
+        if restored is not None and not restored["max_abs"] <= (
+                LONGCTX_LOGIT_TOL):
+            failures.append("rank %d pp state on one rank: logits off by %s"
+                            % (r, restored["max_abs"]))
+    if not any("restored_pp1" in rec["pp"] for rec in records):
+        failures.append("the gathered pp state was not run on one rank")
+    return failures
+
+
+def longctx_launches(records, kind):
+    """Phase 20's launches of K4 ("fwd"), K5 ("dq") or K6 ("dkv") per
+    rank: the ring's and Ulysses' call at the attention's shape, a step
+    of the sp LM, and a step of each pipeline schedule."""
+    return {"rank%d" % rec["rank"]: {
+        "ring_call": rec["attention"]["ring"]["timed"]["launches"][kind],
+        "ulysses_call": rec["attention"]["ulysses"]["timed"]["launches"][
+            kind],
+        "sp_lm_step": rec["sp_lm"]["steps"][0]["launches"][kind],
+        **{"pp_%s_step" % name: rec["pp"][name]["steps"][0]["launches"][
+            kind] for name, _ in LONGCTX_PP_SCHEDULES}}
+        for rec in records}
+
+
+def longctx_arm(torch, np, flash, workdir, device="cuda", sizes=None,
+                job=None):
+    """Phase 20: long context and layer pipelining over two ranks on the
+    one card. The ranks (``longctx_rank``: (a) sp 2 and (b)'s schedules)
+    run while (b)'s job runs under this process's master; then the
+    checks (``longctx_checks``, ``pp_job``'s). Every number is printed
+    beside the card's line; a failed rank fails the phase."""
+    t0 = time.monotonic()
+    sizes = dict(dict(sp_widths=LONGCTX_SP_WIDTHS, seq=LONGCTX_SEQ,
+                      batch=LONGCTX_BATCH, sp_steps=LONGCTX_SP_STEPS,
+                      pp_widths=LONGCTX_PP_WIDTHS, pp_seq=LONGCTX_PP_SEQ,
+                      pp_batch=LONGCTX_PP_BATCH, pp_micro=LONGCTX_PP_MICRO,
+                      pp_steps=LONGCTX_PP_STEPS), **(sizes or {}))
+    arm_dir = os.path.join(workdir, "longctx")
+    os.makedirs(arm_dir)
+    procs = start_longctx_ranks(arm_dir, device, sizes)
+    ranks = {}
+    try:
+        record = {"job": pp_job(
+            torch, np, flash, arm_dir, device=device,
+            while_running=lambda: ranks.setdefault("records", wait_longctx_ranks(
+                procs, arm_dir, time.monotonic() + LONGCTX_RANK_WAIT_S)),
+            **(job or {}))}
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    records = ranks["records"]
+    card = card_line(device)
+    for rec in records:
+        log(json.dumps({"phase": "20_longctx", "rank": rec["rank"],
+                        "backend": rec["backend"],
+                        "attention": rec["attention"],
+                        "sp_lm": rec["sp_lm"], "pp": rec["pp"],
+                        "seconds": rec["seconds"], "card": card}))
+    failures = longctx_checks(records)
+    record.update(ranks=records, seconds=time.monotonic() - t0)
+    log(json.dumps({"phase": "20_longctx", "seconds": record["seconds"],
+                    "failures": failures, "card": card}))
+    if failures:
+        raise SystemExit("longctx arm: %s" % failures)
+    return record
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -10857,6 +11554,14 @@ def tier_kernel_entry(name, replaces, kind, tier_cases, sparse, stream,
 
 
 def main(argv):
+    if argv[:1] == ["--longctx-rank"] and len(argv) == 6:
+        # one rank of phase 20's spawn (started by longctx_arm)
+        rank, world, workdir, port, device = argv[1:]
+        with open(os.path.join(workdir, "sizes.json")) as f:
+            sizes = json.load(f)
+        longctx_rank(int(rank), int(world), workdir, int(port), device,
+                     sizes)
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -10912,7 +11617,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-19 and the last lines (see the module docstring)."""
+    """Phases 1-20 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -11019,6 +11724,10 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         moe = moe_phase(torch, np, flash, workdir)
         done("19_moe")
+        gc.collect()
+        torch.cuda.empty_cache()
+        longctx = longctx_arm(torch, np, flash, workdir)
+        done("20_longctx")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -11079,6 +11788,9 @@ def run_phases(torch, np, job_dir, data_proc):
             "moe": moe["moe"]["launches_per_step"][0][kind],
             "dense_matched": moe["dense"]["launches_per_step"][0][kind],
             "moe_mesh": moe["mesh"]["launches_per_step"][0][kind]}
+        # phase 20: per rank of two (sp 2, then pp 2), each counted from
+        # 0 just before the path it drove
+        entry["launches_longctx"] = longctx_launches(longctx["ranks"], kind)
     tier_entries = [
         tier_kernel_entry("embedding_tier_gather",
                           "elasticdl_tpu/ops/embedding_tier.py:163",

@@ -31,6 +31,18 @@ out_proj and mlp_down the matching inputs, whose partial sums one
 rank's rows of the vocabulary: the lookup masks the other ranks' ids
 and sums over tp, and the logits gather over tp. Without a mesh (or at
 tp 1) none of it runs.
+
+Sequence parallelism (``mesh`` with sp > 1, ``attention_impl`` "ring"
+or "ulysses", as the reference dispatches them): each rank holds its
+block of every sequence (the batch's dim 1 over sp, ``batch_spec``).
+The reference runs the model on global arrays; here three places need
+the rank's place in the sequence. Rotary positions start at the
+block's first global position (``rotary_embedding``'s ``offset``);
+attention runs ops/ring_attention.py over the sp ring; and ``loss``
+shifts the labels across the block boundary (the next rank's first
+label arrives by a ``mesh_ppermute``) and divides each sample's token
+sum by the global S - 1, so the sp ranks' partial losses add up to the
+reference's per-sample mean (the trainer sums them over sp).
 """
 
 import functools
@@ -45,12 +57,17 @@ from torch.func import functional_call
 from elasticdl_tpu_torch.data.example import decode_example
 from elasticdl_tpu_torch.models.layers import Dropout
 from elasticdl_tpu_torch.ops.attention import dot_product_attention
+from elasticdl_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    ulysses_attention,
+)
 from elasticdl_tpu_torch.parallel.collectives import (
     mesh_gather_replicated,
+    mesh_ppermute,
     mesh_psum,
     mesh_replicate,
 )
-from elasticdl_tpu_torch.parallel.mesh import DATA_AXES
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXES, current_mesh
 from elasticdl_tpu_torch.parallel.sharding import PartitionSpec as P
 from elasticdl_tpu_torch.parallel.sharding import ShardingRules
 from elasticdl_tpu_torch.train import metrics
@@ -60,15 +77,21 @@ from elasticdl_tpu_torch.train.optimizers import create_optimizer
 LAYER_NORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
-def rotary_embedding(x, base=10000.0, seq_axis=2):
-    """Apply RoPE; seq_axis=2 for (B, H, S, d), 1 for (B, S, H, d)."""
+SEQ_PARALLEL_IMPLS = ("ring", "ulysses")
+
+
+def rotary_embedding(x, base=10000.0, seq_axis=2, offset=0):
+    """Apply RoPE; seq_axis=2 for (B, H, S, d), 1 for (B, S, H, d).
+    ``offset``: the global position of the block's first row (a rank's
+    block of a sequence split over sp)."""
     seq, dim = x.shape[seq_axis], x.shape[-1]
     half = dim // 2
     freqs = base ** (
         -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
     )
     angles = (
-        torch.arange(seq, dtype=torch.float32, device=x.device)[:, None]
+        torch.arange(offset, offset + seq, dtype=torch.float32,
+                     device=x.device)[:, None]
         * freqs[None, :]
     )
     shape = [1] * x.dim()
@@ -84,6 +107,11 @@ def rotary_embedding(x, base=10000.0, seq_axis=2):
 def tp_live(mesh):
     """Whether ``mesh`` splits the model over tp."""
     return mesh is not None and mesh.shape["tp"] > 1
+
+
+def sp_live(mesh):
+    """Whether ``mesh`` splits the sequence over sp."""
+    return mesh is not None and mesh.shape["sp"] > 1
 
 
 def tp_enter(x, mesh):
@@ -140,12 +168,19 @@ class Attention(nn.Module):
         heads = q.shape[-1] // head_dim
         # (B, S, H*d) -> (B, H, S, d)
         to_bhsd = lambda t: t.view(batch, seq, heads, head_dim).transpose(1, 2)
-        q = rotary_embedding(to_bhsd(q))
-        k = rotary_embedding(to_bhsd(self.key(x)))
+        # the block's first global position under sp (0 otherwise)
+        offset = self.mesh.index("sp") * seq if sp_live(self.mesh) else 0
+        q = rotary_embedding(to_bhsd(q), offset=offset)
+        k = rotary_embedding(to_bhsd(self.key(x)), offset=offset)
         v = to_bhsd(self.value(x))
-        out = dot_product_attention(
-            q, k, v, causal=True, impl=self.attention_impl
-        )
+        if self.attention_impl == "ring":
+            out = ring_attention(q, k, v, self.mesh, causal=True)
+        elif self.attention_impl == "ulysses":
+            out = ulysses_attention(q, k, v, self.mesh, causal=True)
+        else:
+            out = dot_product_attention(
+                q, k, v, causal=True, impl=self.attention_impl
+            )
         out = out.transpose(1, 2).reshape(batch, seq, heads * head_dim)
         return self.dropout(tp_leave(self.out_proj(out), self.mesh))
 
@@ -219,8 +254,9 @@ class TransformerLM(nn.Module):
                     "remat_policy must be 'full', 'dots' or 'flash', "
                     "got %r" % (remat_policy,))
             # only the flash kernel's op is what "flash" saves: under
-            # another attention impl the policy would match nothing and
-            # silently run as "full"
+            # another attention impl (ring and ulysses too, as in the
+            # reference) the policy would match nothing and silently
+            # run as "full"
             if remat_policy == "flash" and attention_impl not in (
                     "auto", "flash", "pallas"):
                 raise ValueError(
@@ -228,6 +264,11 @@ class TransformerLM(nn.Module):
                     "outputs; attention_impl=%r never produces them (the "
                     "policy would match nothing and degrade to \"full\")"
                     % (attention_impl,))
+        if sp_live(mesh) and attention_impl not in SEQ_PARALLEL_IMPLS:
+            raise ValueError(
+                "mesh %s splits the sequence over sp: attention_impl must "
+                "be 'ring' or 'ulysses' (each rank holds a block of the "
+                "sequence), got %r" % (mesh, attention_impl))
         self.num_heads = num_heads
         self.mesh = mesh
         self.remat = bool(remat)
@@ -427,11 +468,30 @@ def custom_model(vocab_size=32000, num_layers=12, num_heads=12,
 
 def loss(labels, predictions):
     """Next-token prediction: logits at t predict the token at t+1.
-    Returns a per-sample vector (the trainer applies the batch mask)."""
-    logits = predictions[:, :-1]
-    targets = labels[:, 1:]
-    per_token = sparse_softmax_cross_entropy(targets, logits)
-    return per_token.mean(dim=-1)
+    Returns a per-sample vector (the trainer applies the batch mask).
+
+    Under an ambient mesh with sp > 1 (the SPMD trainer's step) labels
+    and predictions are this rank's block of each sequence: the target
+    of the block's last position is the next rank's first label, the
+    last rank's last position has none, and the result is this rank's
+    share of the per-sample mean over the global S - 1 targets."""
+    mesh = current_mesh()
+    if not sp_live(mesh):
+        logits = predictions[:, :-1]
+        targets = labels[:, 1:]
+        per_token = sparse_softmax_cross_entropy(targets, logits)
+        return per_token.mean(dim=-1)
+    sp, index = mesh.shape["sp"], mesh.index("sp")
+    seq = labels.shape[1]
+    # rank j + 1's first label to rank j (the last rank's is not used)
+    following = mesh_ppermute(labels[:, :1].contiguous(), "sp",
+                              [(j + 1, j) for j in range(sp - 1)],
+                              mesh=mesh)
+    targets = torch.cat([labels[:, 1:], following], dim=1)
+    per_token = sparse_softmax_cross_entropy(targets, predictions)
+    if index == sp - 1:
+        per_token = per_token[:, :-1]
+    return per_token.sum(dim=-1) / (seq * sp - 1)
 
 
 def optimizer():

@@ -21,8 +21,10 @@ the op model code calls:
                   JAX package); taken only when asked for by name
 - ``"auto"``   -- ``"flash"``
 
-The reference's ``"ring"`` and ``"ulysses"`` (sequence parallelism over
-a mesh) are not ported yet and raise, as any other name does.
+Any other name raises. The reference's ``"ring"`` and ``"ulysses"``
+(sequence parallelism over the ``sp`` axis) are not names of this op in
+either package: the model dispatches them to ops/ring_attention.py
+(models/transformer.py's ``Attention``).
 """
 
 import math
@@ -49,8 +51,14 @@ def xla_attention(q, k, v, causal=False, sm_scale=None):
 
 
 def dot_product_attention(q, k, v, causal=False, sm_scale=None,
-                          impl="auto"):
-    """Attention on (batch, heads, seq, dim) tensors."""
+                          impl="auto", block_q=None, block_k=None,
+                          interpret=False):
+    """Attention on (batch, heads, seq, dim) tensors. ``block_q``,
+    ``block_k`` and ``interpret`` are the reference's Pallas tiles and
+    interpret mode: the Hopper kernels fix their own tiles and are
+    compiled, so the three are accepted (the ring of one passes them, as
+    the reference's does) and not read."""
+    del block_q, block_k, interpret
     if impl in ("auto", "flash", "pallas"):
         return _flash.flash_attention(q, k, v, causal=causal,
                                       sm_scale=sm_scale)

@@ -25,6 +25,11 @@ mesh epoch and resume from the checkpoint.
 
 Layout: one data slot a process (a process drives one card), so the
 model axes tp and ep stay 1 here; dp and fsdp may span the processes.
+Pipeline and sequence parallelism (pp, sp) put several processes in one
+data slot: their local batches are gathered over those axes (in rank
+order) into the slot's batch, which every rank of the slot trains on
+(the pipeline's stages, or each rank its block of every sequence), so
+every record still trains once.
 Checkpoints hold the whole state: ``checkpoint_state`` gathers every
 block (a collective every rank calls at the same version, which the
 lockstep loop guarantees) and only rank 0 writes it; ``adopt_restored``
@@ -50,12 +55,27 @@ from elasticdl_tpu_torch.parallel.mesh import (
 from elasticdl_tpu_torch.parallel.spmd_trainer import (
     SpmdTrainer,
     _leaves,
+    _map,
 )
 from elasticdl_tpu_torch.train.step_fns import make_eval_step
 from elasticdl_tpu_torch.train.train_state import resolve_dtype
 from elasticdl_tpu_torch.worker.trainer import _to_device, _to_numpy
 
 logger = _logger_factory("elasticdl_tpu_torch.parallel.multihost_trainer")
+
+# the axes whose processes share one data slot
+SLOT_AXES = ("pp", "sp")
+
+
+def _join(fn, trees):
+    """``fn`` over the leaves of ``trees`` (one structure) position by
+    position."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _join(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_join(fn, list(vs)) for vs in zip(*trees))
+    return fn(*trees)
 
 
 def _param_keyed(tree, params):
@@ -170,6 +190,10 @@ class LockstepMixin:
         sharded over a data axis, which spans the processes here: a
         process then does not hold it, and evaluation (per worker, not
         collective) must not gather."""
+        if self.mesh.live_axes(SLOT_AXES):
+            raise ValueError(
+                "mesh %s runs the model across processes (pp or sp): "
+                "per-worker evaluation needs pp = sp = 1" % (self.mesh,))
         specs = self._spmd._specs or {}
         for name, spec in specs.items():
             if set(spec.axes()) & set(self.mesh.live_axes(DATA_AXES)):
@@ -250,16 +274,39 @@ class MultiHostSpmdTrainer(LockstepMixin, SpmdTrainer):
     def reduce_grads(self, grads):
         return self._time_allreduce(super().reduce_grads, grads)
 
+    def _slot_batch(self, local_batch):
+        """The data slot's batch: the local batches of the processes
+        that share this slot (over pp and sp), in rank order (a
+        collective of the slot's ranks)."""
+        import torch.distributed as dist
+
+        slot = self.mesh.live_axes(SLOT_AXES)
+        if not slot:
+            return local_batch
+        group = self.mesh.group(slot)
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, local_batch, group=group)
+
+        def join(*leaves):
+            return np.concatenate([np.asarray(x) for x in leaves])
+
+        return _join(join, parts)
+
     def shard_batch(self, local_batch):
         """This process's batch is its shard of the global batch (the
-        global batch is the processes' batches in rank order)."""
+        global batch is the processes' batches in rank order; processes
+        sharing a data slot over pp or sp train on their batches
+        together)."""
+        local_batch = self._slot_batch(local_batch)
         leaves = list(_leaves(local_batch))
         local = leaves[0].shape[0] if leaves else 0
         dp = data_parallel_size(self.mesh)
         offset = self.mesh.index(self._data) * local
         self.rows = None if dp == 1 else (offset, dp * local)
+        if self._seq:
+            local_batch = _map(self.seq_block, local_batch)
         device_obs.record_transfer(
-            "h2d", sum(np.asarray(x).nbytes for x in leaves))
+            "h2d", sum(np.asarray(x).nbytes for x in _leaves(local_batch)))
         return _to_device(local_batch, self.device)
 
     def eval_step(self, state, batch):

@@ -29,12 +29,27 @@ whether it drives one card or a mesh. On a one-rank mesh every block
 is the whole tensor and nothing is reduced: the step is
 ``TorchTrainer``'s, bit for bit.
 
+Sequence parallelism: when the model's ``batch_spec`` splits dim 1
+over sp (``P(DATA_AXES, "sp")``, the TransformerLM's), each rank also
+takes its block of every sequence, and the sp ranks of a data slot are
+parts of one computation: the model's loss is each rank's share of the
+per-sample mean (models/transformer.py), so the loss and the gradients
+of the parameters replicated over sp are summed over sp as over the
+data axes. The mask weight is summed over the data axes only (every sp
+rank holds the same samples).
+
+Pipeline parallelism: leaves the rules put under ``P("pp")`` (a
+pipeline model's block stack) stay on their stage, as tp blocks do;
+the model computes its stages on them (parallel/pipeline.py), and its
+output is the same on every pp rank, so the pieces every stage holds
+(embedding, final norm, head) get the same whole gradient on each and
+are reduced over the data axes only: counted once, not pp times.
+
 The sharded init never puts a sharded leaf whole on the device: the
 model's weights are drawn on the host (its constructor, or the seeded
 generator for a layer sized by the first batch), each rank slices its
 block there and moves only that, so the weights are ``TorchTrainer``'s
-for the same seed. ``pp`` and ``sp`` (the pipeline, ring attention) are
-not ported and must be 1.
+for the same seed.
 """
 
 import numpy as np
@@ -69,7 +84,9 @@ from elasticdl_tpu_torch.worker.trainer import _to_device, _to_numpy
 
 logger = default_logger("elasticdl_tpu_torch.parallel.spmd_trainer")
 
-NOT_PORTED_AXES = ("pp", "sp")
+# the axes on which the model computes on its own blocks: it must be
+# built over the trainer's mesh when any of them is split
+MODEL_COMPUTE_AXES = ("pp",) + MODEL_AXES
 
 
 class SpmdTrainer:
@@ -94,25 +111,28 @@ class SpmdTrainer:
         computes on its own blocks. ``device`` is this rank's card
         (``cuda`` unless the caller asks for the CPU). ``batch_spec``
         (the model's, e.g. ``P(DATA_AXES, "sp")``) is checked: the batch
-        splits over the data axes on dim 0, and sp is 1."""
+        splits over the data axes on dim 0 and may split dim 1 over sp,
+        applied per leaf up to its number of dims."""
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else build_mesh(mesh_config)
-        for axis in NOT_PORTED_AXES:
-            if self.mesh.shape[axis] > 1:
-                raise NotImplementedError(
-                    "mesh axis %s=%d: the pipeline (pp) and ring attention "
-                    "(sp) are not ported; only dp, fsdp, tp and ep run"
-                    % (axis, self.mesh.shape[axis]))
-        if (any(self.mesh.shape[a] > 1 for a in MODEL_AXES)
-                and getattr(model, "mesh", None) is not self.mesh):
-            raise ValueError(
-                "mesh %s shards the model over tp/ep: build the model "
-                "over the same mesh (custom_model(mesh=mesh)), it computes "
-                "on its own shards" % (self.mesh,))
-        if batch_spec is not None and set(
-                entry_axes(tuple(batch_spec)[0])) - set(DATA_AXES):
+        batch_spec = tuple(batch_spec or ()) + (None, None)
+        if set(entry_axes(batch_spec[0])) - set(DATA_AXES):
             raise ValueError("the batch's dim 0 splits over the data axes "
                              "only, got %r" % (batch_spec,))
+        if (set(entry_axes(batch_spec[1])) - {"sp"}
+                or any(entry_axes(e) for e in batch_spec[2:])):
+            raise ValueError("the batch's dim 1 may split over sp only and "
+                             "no later dim splits, got %r" % (batch_spec,))
+        # the sequence axis the batch's dim 1 splits over, if live
+        self._seq = tuple(a for a in entry_axes(batch_spec[1])
+                          if self.mesh.shape[a] > 1)
+        computes = [a for a in MODEL_COMPUTE_AXES + self._seq
+                    if self.mesh.shape[a] > 1]
+        if computes and getattr(model, "mesh", None) is not self.mesh:
+            raise ValueError(
+                "mesh %s splits the model over %s: build the model over "
+                "the same mesh (custom_model(mesh=mesh)), it computes on "
+                "its own shards" % (self.mesh, "/".join(computes)))
         self._model = model
         self._seed = seed
         self._tx = optimizer
@@ -135,6 +155,9 @@ class SpmdTrainer:
         )
         self._eval_step = make_eval_step(model, compute_dtype, plane=self)
         self._data = self.mesh.live_axes(DATA_AXES)
+        # the loss and the gradients add up over the data axes and the
+        # sequence's
+        self._summed = self._data + self._seq
         self._specs = None
         self._shardings = None
         self._state_shardings = None
@@ -224,16 +247,18 @@ class SpmdTrainer:
 
     def global_loss(self, loss):
         """The batch's loss from each rank's share (each already divided
-        by the global weight)."""
+        by the global weight): summed over the data axes and, under
+        sequence parallelism, over sp."""
         with torch.no_grad():
-            return collectives.mesh_psum(loss, self._data, mesh=self.mesh)
+            return collectives.mesh_psum(loss, self._summed, mesh=self.mesh)
 
     def reduce_grads(self, grads):
-        """Each gradient reduced by its plan: over the data axes its
-        block is not sharded on, one flat all-reduce per group."""
+        """Each gradient reduced by its plan: over the data axes (and
+        the sequence's) its block is not sharded on, one flat all-reduce
+        per group."""
         buckets = {}
         for name, g in grads.items():
-            axes = tuple(a for a in self._data
+            axes = tuple(a for a in self._summed
                          if a not in self._specs[name].axes())
             if axes:
                 buckets.setdefault(axes, []).append(name)
@@ -305,6 +330,8 @@ class SpmdTrainer:
         self.rows = None if dp == 1 else (offset, global_rows)
         part = _map(lambda leaf: np.asarray(leaf)[offset:offset + local]
                     if dp > 1 else leaf, batch)
+        if self._seq:
+            part = _map(self.seq_block, part)
         device_obs.record_transfer(
             "h2d", sum(np.asarray(x).nbytes for x in _leaves(part)))
         return _to_device(part, self.device)
@@ -329,12 +356,35 @@ class SpmdTrainer:
                             bool(scalars["nonfinite"]))
         return state, loss
 
+    def seq_block(self, leaf):
+        """This rank's block of dim 1 of a host array under sequence
+        parallelism (a leaf of fewer dims as it is)."""
+        leaf = np.asarray(leaf)
+        if leaf.ndim < 2:
+            return leaf
+        sp = self.mesh.shape["sp"]
+        if leaf.shape[1] % sp:
+            raise ValueError("sequence %d not divisible by sp=%d"
+                             % (leaf.shape[1], sp))
+        n = leaf.shape[1] // sp
+        start = self.mesh.index("sp") * n
+        return leaf[:, start:start + n]
+
     def eval_step(self, state, batch):
         """Outputs of the whole batch on every rank (each rank evaluates
-        it whole)."""
-        features = _to_device(batch["features"], self.device)
+        it whole; under sequence parallelism each rank its block of the
+        sequence, and the outputs gather over sp: a collective)."""
+        features = batch["features"]
+        if self._seq:
+            features = _map(self.seq_block, features)
+        features = _to_device(features, self.device)
         with self.mesh:
-            return _to_numpy(self._eval_step(state, features))
+            out = self._eval_step(state, features)
+            if self._seq:
+                with torch.no_grad():
+                    out = collectives.mesh_all_gather(
+                        out, self._seq, gather_dimension=1, mesh=self.mesh)
+            return _to_numpy(out)
 
 
 def _leaves(tree):

@@ -659,3 +659,58 @@ print("trained")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "trained"
+
+
+def test_long_context_slice_modules_isolated_and_train_with_jax_blocked():
+    """The long-context slice's modules (ring and Ulysses attention, the
+    pipeline and its two zoo models) are among those imported with JAX
+    blocked above; with JAX blocked the worker given a mesh builds the
+    zoo pipeline_transformer over it and trains it through SpmdTrainer
+    on the CPU, and the TransformerLM's ring attention runs."""
+    modules = _port_modules()
+    for name in ("ops.ring_attention", "parallel.pipeline",
+                 "models.pipeline_transformer", "models.pipeline_mlp"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+import sys
+import numpy as np
+import torch
+from elasticdl_tpu_torch.data.readers import RecordIODataReader
+from elasticdl_tpu_torch.models import transformer
+from elasticdl_tpu_torch.parallel.mesh import parse_mesh_spec
+from elasticdl_tpu_torch.parallel.spmd_trainer import SpmdTrainer
+from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+from elasticdl_tpu_torch.worker.worker import Worker
+class Master:
+    worker_id = 0
+    telemetry_provider = None
+    def get_comm_info(self):
+        return pb.CommInfo(rank=0, world_size=1, mesh_epoch=0)
+worker = Worker(Master(), "elasticdl_tpu_torch.models.pipeline_transformer",
+                RecordIODataReader(data_dir="/nonexistent"),
+                minibatch_size=4, device="cpu",
+                model_params="vocab_size=64;num_layers=2;num_heads=2;"
+                             "embed_dim=32;num_microbatches=2",
+                mesh_config=parse_mesh_spec("dp=1"))
+assert isinstance(worker.trainer, SpmdTrainer), type(worker.trainer)
+assert worker.trainer.model.mesh is worker.trainer.mesh
+tokens = np.random.RandomState(0).randint(0, 64, (4, 16)).astype(np.int32)
+batch = {"features": tokens, "labels": tokens,
+         "_mask": np.ones(4, np.float32)}
+state, loss = worker.trainer.train_step(None, batch)
+assert np.isfinite(float(loss))
+model = transformer.TransformerLM(vocab_size=64, num_layers=1, num_heads=2,
+                                  embed_dim=32, attention_impl="ring")
+assert model(torch.from_numpy(tokens)).shape == (4, 16, 64)
+torch.distributed.destroy_process_group()
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("trained")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "trained"

@@ -112,13 +112,24 @@ def test_pallas_name_runs_the_flash_path(jax_lm, monkeypatch):
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses", "triton"])
 def test_unknown_attention_impl_raises(impl):
-    """The reference's sequence-parallel names are not ported yet, and
-    a name neither package knows is refused: each raises, never falls
-    back to another path."""
+    """A name neither package knows is refused: it raises, never falls
+    back to another path. The reference's sequence-parallel names are
+    known (ops/ring_attention.py): without a mesh, sp is 1, and each is
+    the default attention, bit for bit (their runs over sp are
+    tests/test_torch_ring_attention.py's)."""
     model = port.TransformerLM(vocab_size=64, num_layers=1, num_heads=2,
                                embed_dim=64, attention_impl=impl)
-    with pytest.raises(ValueError, match="attention impl"):
-        model(torch.zeros((1, 8), dtype=torch.int64))
+    tokens = torch.zeros((1, 8), dtype=torch.int64)
+    if impl == "triton":
+        with pytest.raises(ValueError, match="attention impl"):
+            model(tokens)
+        return
+    default = port.TransformerLM(vocab_size=64, num_layers=1, num_heads=2,
+                                 embed_dim=64)
+    default.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(model(tokens), default(tokens), rtol=0,
+                                   atol=0)
 
 
 @pytest.mark.parametrize("seq_axis", [1, 2])

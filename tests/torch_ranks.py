@@ -4,7 +4,8 @@
 processes that join one gloo process group (rendezvous through a
 ``FileStore`` under ``tmp_path``, so test files that run side by side
 never share a port), each runs ``scenario(rank, world, **kwargs)`` (a
-function of this module) with one intra-op thread, and the list of
+function of this module, or ``"module:function"`` of another) with one
+intra-op thread, and the list of
 their pickled results comes back. Every wait has a deadline that fails
 the test instead of hanging. This module imports no jax: the ranks run
 the port alone, and the tests hold their results against the reference
@@ -26,7 +27,8 @@ def run_ranks(world, scenario, tmp_path, timeout=120, **kwargs):
     """Run ``scenario`` in ``world`` gloo ranks; returns their results
     (rank order). Raises AssertionError, with each rank's log tail, when
     a rank fails or the deadline passes (every rank is then killed)."""
-    work = os.path.join(str(tmp_path), "ranks_%s" % scenario)
+    work = os.path.join(str(tmp_path),
+                        "ranks_%s" % scenario.replace(":", "_"))
     os.makedirs(work, exist_ok=True)
     with open(os.path.join(work, "spec.pkl"), "wb") as f:
         pickle.dump((scenario, kwargs), f)
@@ -83,7 +85,15 @@ def _main(work, rank, world):
                             timeout=datetime.timedelta(seconds=60))
     with open(os.path.join(work, "spec.pkl"), "rb") as f:
         scenario, kwargs = pickle.load(f)
-    result = globals()[scenario](rank, world, **kwargs)
+    if ":" in scenario:
+        # "module:function": a scenario kept in another test module
+        import importlib
+
+        module, name = scenario.split(":")
+        fn = getattr(importlib.import_module(module), name)
+    else:
+        fn = globals()[scenario]
+    result = fn(rank, world, **kwargs)
     with open(os.path.join(work, "result%d.pkl" % rank), "wb") as f:
         pickle.dump(result, f)
     dist.barrier()
