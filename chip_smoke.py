@@ -466,6 +466,31 @@ Phases (any failure exits non-zero without the final ``"ok"`` line):
    every record once, their first loss equal and equal to one rank's.
    Step ms, hop ms, bytes a step (collective and host-staged) and the
    launches per rank are printed with the card's line.
+21. the cluster and the CLI (``cluster_phase``): neither machine has a
+   Kubernetes cluster, so ``ClusterDouble`` stands in for one namespace
+   of it, with the k8s API's surface, its pods local processes on the
+   card's host (each (pod, port) pair of a ``--port=N`` or a
+   ``<pod>.<namespace>.svc:N`` in a command mapped to one local port).
+   The port's ``edl-torch train`` submits the master pod of a DeepFM job
+   at bench.py's configuration (39 fields, batch 512, Zipf(1.2) ids % 1M,
+   dim 8, the tier on with phase 7's knobs through ``--envs``) over
+   phase 9's four files (196,608 records, 24 tasks); the master runs in
+   this process, built by ``master.main.build_master`` from that pod's
+   command and env, and its ``K8sPodManager`` starts 2 async PS pods and
+   one worker pod. Under ``EDL_AUTOSCALE`` (max 2 workers, step 1) the
+   ``ElasticController`` grows the fleet on the backlog; the grown
+   worker is SIGKILLed once it holds a task, and the instance manager
+   recovers its tasks and starts a replacement under a new id; once the
+   replacement has reported a task the limit falls to 1 and the
+   controller shrinks the fleet through a graceful drain; the other
+   worker finishes the job. ``cluster_checks``: the manifest names the
+   port's master and its args parse back to the flags given, rc 0, every
+   record once, a task recovered from the killed worker, new ids, one
+   grow and one shrink in ``edl_master_scale_decisions_total`` and in
+   the ``scale_decision`` events, the drain acked with nothing handed
+   back and no pod after it, both PS pods exit 0, the master pod's label
+   ``Finished``, each worker pod that trained K3 = 2 x steps, K1 >= that
+   and K2 > 0 by its exit line (the killed one prints none), AUC >= 0.70.
 
 The last lines are the kernels JSON line, the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
@@ -11457,6 +11482,727 @@ def longctx_arm(torch, np, flash, workdir, device="cuda", sizes=None,
     return record
 
 
+# phase 21: the cluster and the CLI. The port's ``edl train`` submits the
+# master pod of a DeepFM job to a double of a Kubernetes cluster whose pods
+# are local processes; the master (in this process, built from that pod's
+# command) provisions, grows, heals and shrinks its workers through the k8s
+# pod manager and the elastic controller
+CLUSTER_JOB = "smoke21"
+# all four of phase 9's files (24 tasks, 384 steps): with two, worker 0
+# finishes the job alone before a replacement, started after the SIGKILL,
+# is up to take a task (a worker process takes seconds to reach the card,
+# a task of 16 steps under a second)
+CLUSTER_FILES = JOB_FILES
+CLUSTER_WAIT_S = 240
+CLUSTER_PS_GONE_S = 30
+CLUSTER_TABLES = 2                # deepfm_emb and deepfm_linear: K3 a step
+# the controller's knobs, through --envs as a user sets them: grow on the
+# backlog to 2 workers, one a decision; the floor of 2 keeps the job's
+# tail from shrinking the fleet by itself, so the one shrink is the
+# budget's (the phase's set_limits(min 1, max 1))
+CLUSTER_JOB_ENV = {
+    "EDL_AUTOSCALE": "1", "EDL_MIN_WORKERS": "2", "EDL_MAX_WORKERS": "2",
+    "EDL_AUTOSCALE_STEP": "1", "EDL_AUTOSCALE_HOLD_SECS": "1",
+    "EDL_AUTOSCALE_COOLDOWN_SECS": "2",
+    "EDL_AUTOSCALE_GAIN_SETTLE_SECS": "5",
+    # the PS pods leave 2 s after the master stops answering
+    "EDL_PS_MASTER_GONE_SECS": "2",
+}
+# the kubelet's floor of a pod's termination grace, and the grace a pod
+# has when its spec names none (terminationGracePeriodSeconds)
+KUBELET_MIN_GRACE_S = 2
+POD_GRACE_S = 30
+_TIER_LAUNCH_RE = re.compile(r"Worker (\d+) tier launches at exit: (\{.*\})")
+# counts K1-K3 inside each worker pod on the CPU, where the tier's plain
+# versions count nothing: a launch wherever the CUDA wrappers would launch
+# (a non-empty slot array), as tests/test_torch_chip_smoke.py's
+# counting_tier does in process
+CLUSTER_TIER_HOOK = '''\
+import os, sys
+
+if (os.environ.get("EDL_SMOKE_TIER_CPU") == "1"
+        and "elasticdl_tpu_torch.worker.main" in sys.orig_argv):
+    from elasticdl_tpu_torch.ops import embedding_tier as _tier
+
+    _gather, _insert, _scatter = (_tier._gather_merge, _tier._insert_rows,
+                                  _tier.scatter_apply)
+
+    def _counted_gather(table, slots, miss_rows, pdl):
+        out, _ = _gather(table, slots, miss_rows, pdl)
+        _tier.GATHER_LAUNCHES += bool(slots.shape[0])
+        return out, bool(slots.shape[0])
+
+    def _counted_insert(state, slots, rows, pdl):
+        _insert(state, slots, rows, pdl)
+        _tier.SET_ROWS_LAUNCHES += bool(slots.shape[0])
+        return bool(slots.shape[0])
+
+    def _counted_scatter(state, slots, *args, **kwargs):
+        out = _scatter(state, slots, *args, **kwargs)
+        _tier.SCATTER_APPLY_LAUNCHES += bool(slots.shape[0])
+        return out
+
+    _tier._gather_merge = _counted_gather
+    _tier._insert_rows = _counted_insert
+    _tier.scatter_apply = _counted_scatter
+'''
+
+
+class ClusterDouble:
+    """A double of one namespace of a Kubernetes cluster, with the k8s
+    API's surface (``elasticdl_tpu_torch/k8s/api.py``: pods, Services,
+    the label patch, the pod watch), as the reference tests' FakeApi
+    has it, but whose pods run.
+
+    A pod is a local process: the container's command and args with the
+    manifest's env over ``env``, ``python`` as this interpreter, the
+    repo (and ``pythonpath``) on PYTHONPATH, output to
+    ``logdir/<pod>.log``. The watch sees what a kubelet reports: ADDED
+    Pending, MODIFIED Running with a ``startTime``, MODIFIED Succeeded
+    or Failed with the container's ``exitCode`` (128 + the signal for a
+    signal) when the process ends, and DELETED after ``delete_pod``:
+    SIGTERM, the grace (the pod's own when the delete names none, at
+    least the kubelet's 2 s), then SIGKILL; a delete with grace 0 is a
+    force delete, gone from the API at once. The master pod, whose
+    process is the caller, runs nothing.
+
+    Pods share this host, where on a cluster each has its own IP, so
+    each (pod, port) pair the double is told of maps to one free local
+    port: a ``--port=N`` in the pod's own command, and each
+    ``<pod>.<namespace>.svc:N`` in any command, which becomes
+    ``127.0.0.1:<that port>``. It adds no flag a command lacks: a
+    process that listens elsewhere than its Service is not reached,
+    here as on a cluster."""
+
+    def __init__(self, logdir, pythonpath=(), env=None, namespace="default"):
+        from queue import Queue
+
+        self.namespace = namespace
+        self._logdir = logdir
+        self._env = dict(os.environ if env is None else env)
+        self._pythonpath = os.pathsep.join(list(pythonpath) + [HERE])
+        self._svc = re.compile(r"([a-z0-9][-a-z0-9]*)\.%s\.svc:(\d+)"
+                               % re.escape(namespace))
+        self._lock = threading.Lock()
+        self._pods, self._procs, self._deleting = {}, {}, set()
+        self._ports = {}
+        self.services = {}
+        self._events = Queue()
+        self._closed = False
+        self.t0 = time.monotonic()
+        # every pod ever created: name, kind, id, created / running /
+        # exited / deleted seconds since t0, exit code
+        self.created = []
+
+    # -- the addresses -----------------------------------------------------
+    def local_port(self, pod, port):
+        """The local port of ``pod``'s ``port``, made on first sight and
+        held (``reserve_port``) until ``close``, so a relaunched pod
+        binds it again and no other process takes it meanwhile."""
+        from elasticdl_tpu_torch.common.grpc_utils import reserve_port
+
+        with self._lock:
+            if (pod, port) not in self._ports:
+                self._ports[(pod, port)] = reserve_port()
+            return self._ports[(pod, port)][1]
+
+    def _localize(self, arg, pod):
+        own = re.fullmatch(r"--port=(\d+)", arg)
+        if own:
+            return "--port=%d" % self.local_port(pod, int(own.group(1)))
+        return self._svc.sub(lambda m: "127.0.0.1:%d" % self.local_port(
+            m.group(1), int(m.group(2))), arg)
+
+    # -- events ------------------------------------------------------------
+    def _emit(self, kind, pod):
+        self._events.put((kind, json.loads(json.dumps(pod))))
+
+    def _info(self, name):
+        return next(c for c in reversed(self.created) if c["name"] == name)
+
+    def _stamp(self, name, key):
+        self._info(name)[key] = time.monotonic() - self.t0
+
+    # -- the API -----------------------------------------------------------
+    def create_pod(self, manifest):
+        manifest = json.loads(json.dumps(manifest))
+        meta = manifest["metadata"]
+        name, labels = meta["name"], meta.get("labels", {})
+        with self._lock:
+            if name in self._pods:
+                raise RuntimeError("pod %s exists (409 Conflict)" % name)
+            manifest["status"] = {"phase": "Pending"}
+            self._pods[name] = manifest
+            self.created.append({
+                "name": name,
+                "kind": labels.get("elasticdl-tpu-replica-type", ""),
+                "index": int(labels.get("elasticdl-tpu-replica-index", -1)),
+                "created_s": time.monotonic() - self.t0,
+                "running_s": None, "exited_s": None, "deleted_s": None,
+                "exit_code": None})
+            pending = json.loads(json.dumps(manifest))
+        self._emit("ADDED", pending)
+        if labels.get("elasticdl-tpu-replica-type") != "master":
+            container = manifest["spec"]["containers"][0]
+            argv = [self._localize(str(a), name) for a in
+                    container["command"] + container.get("args", [])]
+            if argv[0] == "python":
+                argv[0] = sys.executable
+            env = dict(self._env)
+            env.update({e["name"]: e["value"]
+                        for e in container.get("env", [])})
+            env["PYTHONPATH"] = self._pythonpath
+            with open(os.path.join(self._logdir, name + ".log"), "a") as out:
+                proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=out,
+                                        stderr=subprocess.STDOUT)
+            with self._lock:
+                self._procs[name] = proc
+            threading.Thread(target=self._reap, args=(name, proc),
+                             daemon=True).start()
+        with self._lock:
+            pod = self._pods.get(name)
+            if pod is not None and pod["status"]["phase"] == "Pending":
+                pod["status"] = {"phase": "Running", "startTime":
+                                 datetime.datetime.now(datetime.timezone.utc)
+                                 .strftime("%Y-%m-%dT%H:%M:%S.%fZ")}
+                self._stamp(name, "running_s")
+                self._emit("MODIFIED", pod)
+        return pending
+
+    def _reap(self, name, proc):
+        rc = proc.wait()
+        code = rc if rc >= 0 else 128 - rc
+        with self._lock:
+            self._stamp(name, "exited_s")
+            self._info(name)["exit_code"] = code
+            pod = self._pods.get(name)
+            if pod is None:  # force-deleted: the API forgot it already
+                return
+            pod["status"] = {
+                "phase": "Succeeded" if code == 0 else "Failed",
+                "startTime": pod["status"].get("startTime"),
+                "containerStatuses": [{"name": "main", "state": {
+                    "terminated": {"exitCode": code, "reason": (
+                        "Completed" if code == 0 else "Error")}}}]}
+            if name in self._deleting:
+                del self._pods[name]
+                self._stamp(name, "deleted_s")
+                self._emit("DELETED", pod)
+            else:
+                self._emit("MODIFIED", pod)
+
+    def delete_pod(self, name, grace_period_seconds=0):
+        with self._lock:
+            pod = self._pods.get(name)
+            if pod is None:
+                raise RuntimeError("pod %s not found (404)" % name)
+            proc = self._procs.get(name)
+            alive = proc is not None and proc.poll() is None
+            grace = (pod["spec"].get("terminationGracePeriodSeconds",
+                                     POD_GRACE_S)
+                     if grace_period_seconds is None
+                     else grace_period_seconds)
+            if alive:
+                proc.send_signal(signal.SIGTERM)
+                threading.Thread(
+                    target=self._kill_after,
+                    args=(proc, max(grace, KUBELET_MIN_GRACE_S)),
+                    daemon=True).start()
+            if alive and grace > 0:
+                self._deleting.add(name)  # DELETED once the process ends
+            else:
+                del self._pods[name]
+                self._stamp(name, "deleted_s")
+                self._emit("DELETED", pod)
+        return {"kind": "Status", "status": "Success"}
+
+    @staticmethod
+    def _kill_after(proc, grace):
+        try:
+            proc.wait(timeout=grace)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+
+    def get_pod(self, name):
+        with self._lock:
+            if name not in self._pods:
+                raise RuntimeError("pod %s not found (404)" % name)
+            return json.loads(json.dumps(self._pods[name]))
+
+    def patch_pod_labels(self, name, labels):
+        with self._lock:
+            if name not in self._pods:
+                raise RuntimeError("pod %s not found (404)" % name)
+            pod = self._pods[name]
+            pod["metadata"].setdefault("labels", {}).update(labels)
+            self._emit("MODIFIED", pod)
+            return json.loads(json.dumps(pod))
+
+    def create_service(self, manifest):
+        with self._lock:
+            self.services[manifest["metadata"]["name"]] = manifest
+        return manifest
+
+    def delete_service(self, name):
+        with self._lock:
+            return self.services.pop(name, {})
+
+    def watch_pods(self, label_selector=None, timeout_seconds=None):
+        """The watch stream: one reader at a time (the pod manager's
+        watch thread), ended by ``close`` or after ``timeout_seconds``."""
+        from queue import Empty
+
+        key, _, value = (label_selector or "").partition("=")
+        deadline = (time.monotonic() + timeout_seconds
+                    if timeout_seconds else None)
+        while not self._closed:
+            try:
+                kind, pod = self._events.get(timeout=0.1)
+            except Empty:
+                if deadline is not None and time.monotonic() > deadline:
+                    return
+                continue
+            if kind is None:
+                return
+            if key and pod["metadata"].get("labels", {}).get(key) != value:
+                continue
+            yield kind, pod
+
+    # -- outside the API ---------------------------------------------------
+    def sigkill(self, name):
+        """A node failure: the pod's process dies by SIGKILL."""
+        with self._lock:
+            self._procs[name].kill()
+
+    def process(self, name):
+        with self._lock:
+            return self._procs.get(name)
+
+    def log(self, name):
+        with open(os.path.join(self._logdir, name + ".log")) as f:
+            return f.read()
+
+    def close(self):
+        """SIGKILL every process still running and end the watch."""
+        self._closed = True
+        self._events.put((None, None))
+        with self._lock:
+            procs = list(self._procs.values())
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for sock, _ in self._ports.values():
+            sock.close()
+
+
+def cluster_checks(record, dataset):
+    """Phase 21's verdicts over its ``record``: a list of failures (empty
+    when every check holds). ``dataset``: {shard: records}."""
+    failures = []
+    args = record["manifest"]
+    if args["command_head"] != ["python", "-m",
+                                "elasticdl_tpu_torch.master.main"]:
+        failures.append("the master pod runs %s" % args["command_head"])
+    if args["roundtrip_mismatches"]:
+        failures.append("the master's args do not parse back to the flags "
+                        "given: %s" % args["roundtrip_mismatches"])
+    if record["master_rc"] != 0 or record["job_failed"]:
+        failures.append("master rc %s, job failed %s" % (
+            record["master_rc"], record["job_failed"]))
+    # every training record done exactly once: each shard tiled by the
+    # done ranges, none twice
+    done = sorted((s, a, b) for _, s, a, b in record["done"])
+    if len(set(done)) != len(done):
+        failures.append("a record range was done twice")
+    covered = {}
+    for shard, start, end in done:
+        if start != covered.get(shard, 0):
+            failures.append("shard %s: a gap or an overlap at %d"
+                            % (shard, start))
+            break
+        covered[shard] = end
+    if covered != dataset:
+        failures.append("done ranges cover %s, the data %s"
+                        % (covered, dataset))
+    ids = record["ids"]
+    workers = [p for p in record["pods"] if p["kind"] == "worker"]
+    created = [p["index"] for p in workers]
+    if len(set(created)) != len(created):
+        failures.append("a worker id was used twice: %s" % created)
+    if not any(r[0] == ids["killed"] for r in record["recovered"]):
+        failures.append("no task was recovered from the killed worker %s"
+                        % ids["killed"])
+    if ids["grown"] in (None, 0) or ids["replacement"] in (
+            None, 0, ids["grown"]) or ids["killed"] != ids["grown"]:
+        failures.append("grown %s, killed %s, replacement %s: not new ids"
+                        % (ids["grown"], ids["killed"], ids["replacement"]))
+    decisions = record["scale_decisions"]
+    if (decisions["counter"] != {"grow": 1, "shrink": 1}
+            or decisions["events"] != ["grow", "shrink"]):
+        failures.append("scale decisions %s, not one grow and one shrink"
+                        % decisions)
+    drain = record["drain"]
+    victim = ids["victim"]
+    if (drain["acks"] != [victim] or drain["handed_back"]
+            or any(r[0] == victim for r in record["recovered"])):
+        failures.append("the shrunk worker %s: acks %s, handed back %s, "
+                        "recovered %s" % (victim, drain["acks"],
+                                          drain["handed_back"],
+                                          record["recovered"]))
+    late = [p["name"] for p in workers
+            if p["created_s"] > record["shrink_s"]]
+    if late:
+        failures.append("pods created after the shrink: %s" % late)
+    victim_pod = [p for p in workers if p["index"] == victim]
+    if not victim_pod or victim_pod[0]["exit_code"] != 0:
+        failures.append("the drained worker's pod: %s" % victim_pod)
+    ps_pods = [p for p in record["pods"] if p["kind"] == "ps"]
+    if (record["ps_exit_codes"] != [0, 0]
+            or sorted(p["index"] for p in ps_pods) != [0, 1]
+            or any(p["exited_s"] is None
+                   or p["exited_s"] < record["master_stopped_s"]
+                   for p in ps_pods)):
+        failures.append("PS pods %s: exit codes %s, not once each and on "
+                        "their own after the master's stop at %s s" % (
+                            [(p["name"], p["exited_s"]) for p in ps_pods],
+                            record["ps_exit_codes"],
+                            record["master_stopped_s"]))
+    if record["master_label"] != "Finished":
+        failures.append("the master pod's status label reads %r"
+                        % record["master_label"])
+    # K1-K3 in each worker pod that trained (the killed one prints none)
+    launches = record["launches"]
+    trained = {w for w, *_ in record["done"]} - {ids["killed"]}
+    if str(ids["killed"]) in launches:
+        failures.append("the killed worker printed an exit line")
+    for wid in sorted((trained | {victim, ids["survivor"]}) - {None}):
+        got = launches.get(str(wid))
+        if (got is None or got["steps"] <= 0
+                or got["k3"] != CLUSTER_TABLES * got["steps"]
+                or got["k1"] < CLUSTER_TABLES * got["steps"]
+                or got["k2"] <= 0):
+            failures.append("worker %s's K1-K3 launches: %s" % (wid, got))
+    auc = record["final_auc"]
+    if auc is None or not auc >= JOB_AUC_FLOOR:
+        failures.append("final AUC %s < %s" % (auc, JOB_AUC_FLOOR))
+    return failures
+
+
+def cluster_phase(workdir, device="cuda",
+                  files=CLUSTER_FILES, batch=SPARSE_BATCH,
+                  per_task=JOB_PER_TASK, eval_steps=JOB_EVAL_STEPS,
+                  task_timeout_s=JOB_TASK_TIMEOUT_S, worker_env=None,
+                  wait_s=CLUSTER_WAIT_S, out_dir=None):
+    """Phase 21 over the files ``job_data`` wrote under ``workdir``: the
+    port's CLI, k8s layer and elastic controller drive a DeepFM job at
+    bench.py's configuration (the tier on, phase 7's knobs through
+    ``--envs``) on a ``ClusterDouble``. ``edl-torch train`` (the client's
+    ``train`` with the double as its api) submits the master pod; the
+    master, built in this process by ``master.main.build_master`` from
+    that pod's command and env, starts 2 PS pods and one worker pod
+    through ``K8sPodManager``. The controller grows the fleet to 2 on the
+    backlog; the grown worker's process is SIGKILLed once it holds a
+    task; the instance manager recovers its tasks and starts a
+    replacement under a new id; once the replacement has reported a
+    task, ``set_limits(min_workers=1, max_workers=1)`` makes the
+    controller shrink the fleet through a graceful drain (the pod's
+    delete: SIGTERM, the drain, the ack); the other worker finishes the
+    job. ``cluster_checks`` holds the record to every check; a failure
+    raises SystemExit. Returns the record, with each worker's K1-K3
+    launches from its exit line (``launches``, ``launches_per_step``)."""
+    from elasticdl_tpu_torch.client import api as client_api
+    from elasticdl_tpu_torch.client import main as client_main
+    from elasticdl_tpu_torch.client.args import _CLIENT_ONLY
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.data.readers import RecordIODataReader
+    from elasticdl_tpu_torch.k8s.client import MASTER_PORT
+    from elasticdl_tpu_torch.master.main import build_master
+    from elasticdl_tpu_torch.observability import events, metrics
+    from elasticdl_tpu_torch.proto import elasticdl_tpu_pb2 as pb
+
+    split, stage = stage_clock()
+    out = out_dir or os.path.join(HERE, "build", "chip_smoke_cluster")
+    shutil.rmtree(out, ignore_errors=True)
+    logdir, events_dir, hook_dir = (os.path.join(out, d)
+                                    for d in ("pods", "events", "hook"))
+    for d in (logdir, events_dir, hook_dir):
+        os.makedirs(d)
+    train_dir = os.path.join(workdir, "cluster_train")
+    shutil.rmtree(train_dir, ignore_errors=True)
+    os.makedirs(train_dir)
+    for path in sorted(os.listdir(os.path.join(workdir, "train")))[:files]:
+        os.symlink(os.path.join(workdir, "train", path),
+                   os.path.join(train_dir, path))
+    dataset = {shard: count for shard, (_, count) in RecordIODataReader(
+        data_dir=train_dir).create_shards().items()}
+    job_env = dict(JOB_WORKER_ENV if worker_env is None else worker_env,
+                   **CLUSTER_JOB_ENV)
+    pod_env, pythonpath = dict(os.environ), []
+    if device == "cpu":
+        # the workers' device through the job's env, as a user picks it
+        job_env["EDL_DEVICE"] = "cpu"
+        with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+            f.write(CLUSTER_TIER_HOOK)
+        pod_env["EDL_SMOKE_TIER_CPU"] = "1"
+        pythonpath = [hook_dir]
+    argv = ["train", "--job_name=%s" % CLUSTER_JOB,
+            "--image_name=elasticdl-tpu-torch:smoke",
+            "--model_zoo=elasticdl_tpu_torch.models.deepfm",
+            "--training_data=%s" % train_dir,
+            "--validation_data=%s" % os.path.join(workdir, "valid"),
+            "--minibatch_size=%d" % batch,
+            "--records_per_task=%d" % per_task, "--num_epochs=1",
+            "--evaluation_steps=%d" % eval_steps,
+            "--task_timeout_secs=%g" % task_timeout_s,
+            "--num_workers=1", "--num_ps_pods=2", "--use_async=1",
+            "--compute_dtype=float32",
+            "--envs=%s" % ",".join("%s=%s" % kv
+                                   for kv in sorted(job_env.items()))]
+
+    double = ClusterDouble(logdir, pythonpath=pythonpath, env=pod_env)
+    t = {}  # the scenario's moments, seconds since the submission
+    ids = {"grown": None, "killed": None, "replacement": None,
+           "victim": None, "survivor": None}
+    done, recovered, first_get, acks, handed_back = [], [], {}, [], []
+    master, result, master_thread = None, {}, None
+
+    def now():
+        return time.monotonic() - double.t0
+
+    # -- edl-torch train ----------------------------------------------------
+    parsed = client_main.build_parser().parse_args(argv)
+    manifest = client_api.train(parsed, api=double)
+    t["submitted"] = now()
+    container = manifest["spec"]["containers"][0]
+    command = container["command"]
+    args = parse_master_args(command[3:])
+    mismatches = {
+        key: [value, getattr(args, key, None)]
+        for key, value in vars(parsed).items()
+        if key not in _CLIENT_ONLY and key not in ("command", "func")
+        and getattr(args, key, None) != value}
+    master_name = manifest["metadata"]["name"]
+    # the master pod's address: its port on this host
+    args.port = double.local_port(master_name, MASTER_PORT)
+    master_env = {e["name"]: e["value"] for e in container.get("env", [])}
+    master_env.update({"EDL_METRICS": "1", "EDL_EVENTS_DIR": events_dir})
+    stage("submit")
+    try:
+        with patched_env(master_env):
+            metrics.reset_default_registry()
+            master = build_master(args, api=double)
+            pm = master.pod_manager
+            dispatcher = master.task_dispatcher
+            report, recover, get = (dispatcher.report,
+                                    dispatcher.recover_tasks, dispatcher.get)
+
+            def on_report(task_id, success, worker_id=None,
+                          count_failure=True):
+                doing = dispatcher.doing_tasks().get(task_id)
+                ok, task = report(task_id, success, worker_id=worker_id,
+                                  count_failure=count_failure)
+                if (success and task is not None and doing is not None
+                        and doing[0] == worker_id
+                        and task.type == pb.TRAINING):
+                    done.append((worker_id, task.shard_name, task.start,
+                                 task.end, now()))
+                return ok, task
+
+            def on_recover(worker_id):
+                held = [tid for tid, (w, _) in
+                        dispatcher.doing_tasks().items() if w == worker_id]
+                if held:
+                    recovered.append((worker_id, held, now()))
+                recover(worker_id)
+
+            def on_get(worker_id, task_type=None):
+                task = get(worker_id, task_type)
+                if task is not None and task.type == pb.TRAINING:
+                    first_get.setdefault(worker_id, now())
+                return task
+
+            dispatcher.report, dispatcher.recover_tasks = on_report, on_recover
+            dispatcher.get = on_get
+            deregister = master.drain_manager.deregister
+
+            def on_deregister(request):
+                acks.append(request.worker_id)
+                handed_back.append(request.tasks_reported)
+                t.setdefault("drain_ack", now())
+                return deregister(request)
+
+            master.drain_manager.deregister = on_deregister
+            scale_up, remove = pm.scale_up, pm.remove_worker
+
+            def on_scale_up(count):
+                started = scale_up(count)
+                t.setdefault("grow", now())
+                if started and ids["grown"] is None:
+                    ids["grown"] = started[0]
+                return started
+
+            def on_remove(worker_id):
+                t.setdefault("shrink", now())
+                ids["victim"] = worker_id
+                return remove(worker_id)
+
+            pm.scale_up, pm.remove_worker = on_scale_up, on_remove
+            master.prepare()
+            if master.autoscaler is None:
+                raise SystemExit("cluster phase: no elastic controller "
+                                 "(EDL_AUTOSCALE through --envs)")
+            t["backlog"] = now()
+            master_thread = threading.Thread(
+                target=lambda: result.setdefault(
+                    "rc", master.run(poll_secs=0.2)), daemon=True)
+            master_thread.start()
+            stage("master_up")
+
+            def holds(worker_id):
+                return any(w == worker_id
+                           for w, _ in dispatcher.doing_tasks().values())
+
+            deadline = time.monotonic() + wait_s
+
+            def wait_for(what, cond):
+                while not cond():
+                    if (time.monotonic() > deadline
+                            or not master_thread.is_alive()):
+                        raise SystemExit(
+                            "cluster phase: %s did not happen (master rc "
+                            "%s)\n%s" % (what, result.get("rc"), "\n".join(
+                                "%s: %s" % (p["name"], double.log(
+                                    p["name"])[-1500:])
+                                for p in double.created
+                                if p["kind"] != "master")))
+                    time.sleep(0.02)
+
+            wait_for("the grow", lambda: ids["grown"] is not None)
+            grown = ids["grown"]
+            grown_pod = "elasticdl-%s-worker-%d" % (CLUSTER_JOB, grown)
+            wait_for("the grown worker's task", lambda: holds(grown))
+            double.sigkill(grown_pod)
+            ids["killed"], t["kill"] = grown, now()
+            stage("grow_and_kill")
+
+            def replacement():
+                live = [w for w in pm.worker_ids() if w not in (0, grown)]
+                return live[0] if live else None
+
+            wait_for("the replacement", lambda: replacement() is not None)
+            ids["replacement"] = replacement()
+            wait_for("the replacement's report",
+                     lambda: any(d[0] == ids["replacement"] for d in done))
+            t["replacement_report"] = now()
+            master.autoscaler.set_limits(min_workers=1, max_workers=1)
+            t["budget"] = now()
+            stage("replace")
+            wait_for("the drain ack", lambda: bool(acks))
+            ids["survivor"] = ({0, ids["replacement"]}
+                               - {ids["victim"]}).pop()
+            master_thread.join(timeout=max(deadline - time.monotonic(), 1))
+            if master_thread.is_alive():
+                raise SystemExit("cluster phase: the job did not finish in "
+                                 "%d s" % wait_s)
+            t["job_end"] = now()
+            stage("shrink_and_finish")
+        # the pods end on their own: the workers on "job over", the PS
+        # once the master stops answering
+        ps_codes = []
+        for index in range(2):
+            proc = double.process("elasticdl-%s-ps-%d" % (CLUSTER_JOB, index))
+            try:
+                ps_codes.append(proc.wait(timeout=max(
+                    0.1, double.t0 + t["job_end"] + CLUSTER_PS_GONE_S
+                    - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                ps_codes.append(None)
+        t["ps_gone"] = now()
+        for p in double.created:
+            proc = double.process(p["name"])
+            if p["kind"] == "worker" and proc is not None:
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+        stage("pods_exit")
+        registry = metrics.default_registry()
+        counter = registry.get("edl_master_scale_decisions_total")
+        decision_counts = ({d: int(counter.get(d)) for d in ("grow",
+                                                             "shrink")}
+                           if counter is not None else None)
+        master_label = double.get_pod(master_name)["metadata"][
+            "labels"].get("status")
+    finally:
+        if master_thread is not None and master_thread.is_alive():
+            master.stop()
+        double.close()
+        # the process's journal off again, the registry the environment's
+        events.configure("chip_smoke")
+        metrics.reset_default_registry()
+    scale_events = []
+    for name in sorted(os.listdir(events_dir)):
+        with open(os.path.join(events_dir, name)) as f:
+            for line in filter(str.strip, f):
+                event = json.loads(line)
+                if event.get("event") == "scale_decision":
+                    scale_events.append(event["direction"])
+    launches = {}
+    for p in double.created:
+        if p["kind"] == "worker":
+            for wid, line in _TIER_LAUNCH_RE.findall(double.log(p["name"])):
+                launches[wid] = json.loads(line)
+    summaries = master.evaluation_service.completed_summaries
+    final = summaries[-1] if summaries else (None, {})
+    steps_per_s = {}
+    for wid in sorted({d[0] for d in done}):
+        mine = [d for d in done if d[0] == wid]
+        span = max(d[4] for d in mine) - first_get[wid]
+        steps = sum(d[3] - d[2] for d in mine) / batch
+        steps_per_s[str(wid)] = steps / span if span > 0 else None
+    running = {p["name"]: p["running_s"] - t["submitted"]
+               for p in double.created if p["running_s"] is not None}
+    record = {
+        "cluster": "result", "card": card_line(device),
+        "manifest": {"command_head": command[:3],
+                     "roundtrip_mismatches": mismatches},
+        "master_rc": result.get("rc"), "job_failed": dispatcher.job_failed(),
+        "done": [list(d[:4]) for d in done],
+        "recovered": [[w, held] for w, held, _ in recovered],
+        "pods": double.created, "ids": ids,
+        "scale_decisions": {"counter": decision_counts,
+                            "events": scale_events},
+        "drain": {"acks": acks, "handed_back": sum(handed_back)},
+        "shrink_s": t.get("shrink"), "master_stopped_s": t["job_end"],
+        "ps_exit_codes": ps_codes, "master_label": master_label,
+        "launches": launches,
+        "launches_per_step": {
+            wid: {k: c[k] / c["steps"] for k in ("k1", "k2", "k3")}
+            for wid, c in launches.items() if c["steps"]},
+        "evaluations": [[v, s] for v, s in summaries],
+        "final_auc": final[1].get("auc"), "auc_floor": JOB_AUC_FLOOR,
+        "job_wall_s": t["job_end"] - t["submitted"],
+        "submit_to_running_s": running,
+        "backlog_to_grow_s": t["grow"] - t["backlog"],
+        "kill_to_replacement_first_task_s": (
+            first_get[ids["replacement"]] - t["kill"]),
+        "shrink_to_drain_ack_s": t["drain_ack"] - t["shrink"],
+        "budget_to_shrink_s": t["shrink"] - t["budget"],
+        "ps_gone_after_job_s": t["ps_gone"] - t["job_end"],
+        "steps_per_s": steps_per_s,
+        "tasks_done_by_worker": {str(w): sum(1 for d in done if d[0] == w)
+                                 for w in sorted({d[0] for d in done})},
+        "dataset_records": sum(dataset.values()),
+        "phase_split_s": split,
+    }
+    log(json.dumps(record))
+    failures = cluster_checks(record, dataset)
+    if failures:
+        raise SystemExit("cluster phase: " + "; ".join(failures))
+    return record
+
+
 def kernel_entry(name, source, replaces, launches, case, kind):
     """One kernel's record of the kernels line, at the main shape. K5
     and K6 have no library call of their own (library_ms null); the
@@ -11617,7 +12363,7 @@ def main(argv):
 
 
 def run_phases(torch, np, job_dir, data_proc):
-    """Phases 1-20 and the last lines (see the module docstring)."""
+    """Phases 1-21 and the last lines (see the module docstring)."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import embedding_tier as tier
     from elasticdl_tpu_torch.ops import flash_attention as flash
@@ -11728,6 +12474,8 @@ def run_phases(torch, np, job_dir, data_proc):
         torch.cuda.empty_cache()
         longctx = longctx_arm(torch, np, flash, workdir)
         done("20_longctx")
+        cluster = cluster_phase(job_dir)
+        done("21_cluster")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(json.dumps({"phase_seconds": seconds}))
@@ -11821,6 +12569,13 @@ def run_phases(torch, np, job_dir, data_proc):
         entry["launches_continual"] = continual["launches"][kind]
         entry["launches_per_step_continual"] = continual[
             "launches_per_step"][kind]
+        # phase 21: each worker pod that trained, from its exit line
+        key = {"gather": "k1", "insert_rows": "k2", "scatter_apply": "k3"}[
+            kind]
+        entry["launches_cluster"] = {
+            wid: c[key] for wid, c in cluster["launches"].items()}
+        entry["launches_per_step_cluster"] = {
+            wid: c[key] for wid, c in cluster["launches_per_step"].items()}
     log(json.dumps({"kernels": [fwd, dq, dkv, *tier_entries]}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,25 @@
 """Command-line flags of the master and the worker, and the boolean
 flag helpers (port of elasticdl_tpu/common/args.py).
 
-The flags are the JAX package's, trimmed to the features the port has:
-the multi-host and pod-spec flags wait with their features (ROADMAP).
-The worker's ``--mesh`` gives the SPMD trainer's axis sizes (e.g.
+The master takes the JAX package's flags, the pod-spec and PS-mode ones
+included: the client CLI (client/) forwards them to the master, and the
+k8s pod manager (k8s/pod_manager.py) builds the worker and PS pods from
+them. The worker's ``--mesh`` gives the SPMD trainer's axis sizes (e.g.
 ``dp=4,fsdp=2``; dp=-1 absorbs the ranks left over) over the ranks of
 the default process group. The worker adds ``--device``
-(``cuda`` unless the caller asks for the CPU). The PS server's own
+(``cuda`` unless the caller asks for the CPU, by the flag or by
+``EDL_DEVICE``). The PS server's own
 flags live in ``ps/server.py:parse_ps_args``.
 """
 
 import argparse
+import os
 
 LOG_LOSS_STEPS_DEFAULT = 100
+
+# the worker's --device default when the flag is absent: the pods the
+# master launches get no --device, so a job's --envs picks their device
+DEVICE_ENV = "EDL_DEVICE"
 
 
 def _add_common(parser):
@@ -43,6 +50,7 @@ def _add_common(parser):
     parser.add_argument("--model_params", default="")
     # the contract's symbol names (--loss my_loss, ...)
     add_symbol_override_arguments(parser)
+    add_logging_arguments(parser)
 
 
 def parse_master_args(argv=None):
@@ -55,6 +63,11 @@ def parse_master_args(argv=None):
     parser.add_argument(
         "--num_minibatches_per_task", type=int, default=0
     )
+    # accepted so the client can forward it; the workers the master
+    # launches consume it
+    parser.add_argument(
+        "--log_loss_steps", type=int, default=LOG_LOSS_STEPS_DEFAULT
+    )
     parser.add_argument("--num_epochs", type=int, default=1)
     parser.add_argument("--evaluation_steps", type=int, default=0)
     parser.add_argument("--evaluation_throttle_secs", type=int, default=0)
@@ -65,6 +78,50 @@ def parse_master_args(argv=None):
     parser.add_argument(
         "--output", default="", help="saved-model export path"
     )
+    parser.add_argument("--num_workers", type=int, default=1)
+    # forwarded to the worker pods (k8s/pod_manager.py)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=int, default=0)
+    parser.add_argument("--async_checkpoint", type=int, default=0)
+    parser.add_argument("--grad_accum_steps", type=int, default=1)
+    parser.add_argument("--keep_checkpoint_max", type=int, default=3)
+    parser.add_argument("--checkpoint_dir_for_init", default="")
+    parser.add_argument("--consensus_interval", type=int, default=1)
+    # sparse host-PS mode, marshalled into the PS pods' command lines
+    add_bool_argument(parser, "--use_async", default=0)
+    parser.add_argument("--grads_to_wait", type=int, default=1)
+    parser.add_argument("--sync_version_tolerance", type=int, default=0)
+    add_bool_argument(parser, "--lr_staleness_modulation", default=0)
+    # the job's name: with it, in a cluster, the master provisions and
+    # heals its worker and PS pods (master/main.py)
+    parser.add_argument("--job_name", default="")
+    # pod-spec flags of the worker and PS pods the master creates
+    # (client/args.py's resource, volume and env string formats)
+    parser.add_argument("--image_name", default="")
+    parser.add_argument("--image_pull_policy", default="")
+    parser.add_argument("--restart_policy", default="Never")
+    parser.add_argument("--worker_resource_request", default="")
+    parser.add_argument("--worker_resource_limit", default="")
+    parser.add_argument("--ps_resource_request", default="")
+    parser.add_argument("--ps_resource_limit", default="")
+    parser.add_argument("--worker_pod_priority", default="")
+    parser.add_argument("--ps_pod_priority", default="")
+    parser.add_argument("--volume", default="")
+    parser.add_argument(
+        "--tpu_resource",
+        default="",
+        help='accelerator resource per worker pod, e.g. '
+        '"nvidia.com/gpu=1" (the flag keeps the JAX package\'s name)',
+    )
+    parser.add_argument("--cluster_spec", default="")
+    parser.add_argument(
+        "--distribution_strategy", default="AllreduceStrategy"
+    )
+    parser.add_argument("--num_ps_pods", type=int, default=0)
+    parser.add_argument(
+        "--mesh", default="", help='axis sizes, e.g. "dp=4,fsdp=2"'
+    )
+    parser.add_argument("--envs", default="")
     # evaluation metrics as TensorBoard scalars under this directory
     parser.add_argument("--tensorboard_log_dir", default="")
     # observability: /metrics + /healthz + /readyz on this port
@@ -89,9 +146,9 @@ def parse_worker_args(argv=None):
         choices=["training", "evaluation", "prediction"],
     )
     parser.add_argument(
-        "--device", default="cuda",
-        help="torch device to train on (cuda, cuda:N or cpu); cuda "
-        "without a card raises",
+        "--device", default=os.environ.get(DEVICE_ENV) or "cuda",
+        help="torch device to train on (cuda, cuda:N or cpu; default "
+        "$%s, else cuda); cuda without a card raises" % DEVICE_ENV,
     )
     parser.add_argument("--report_version_steps", type=int, default=10)
     # log the training loss every N batches
@@ -160,6 +217,14 @@ SYMBOL_OVERRIDE_KEYS = (
 def add_symbol_override_arguments(parser):
     for key in SYMBOL_OVERRIDE_KEYS:
         parser.add_argument("--%s" % key, default="")
+
+
+def add_logging_arguments(parser):
+    """--log_level / --log_file_path, shared by every parser that takes
+    them (the client's train, evaluate and predict, the master, the
+    worker); common/log_utils.py ``configure`` applies them."""
+    parser.add_argument("--log_level", default="")
+    parser.add_argument("--log_file_path", default="")
 
 
 def symbol_overrides_from_args(args):

@@ -1,16 +1,37 @@
-"""Graceful drain and autoscaler hysteresis (port of the
-``DrainManager`` and ``DecisionGate`` of
+"""Elasticity control loop: the ``ElasticController``, the graceful
+drain and the autoscaler hysteresis (port of
 elasticdl_tpu/master/autoscaler.py).
 
+``ElasticController`` reads the dispatcher's queue and the fleet
+monitor's telemetry on the task monitor's 1 Hz scan and makes bounded,
+hysteresis-damped grow and shrink decisions through a *scaler* (the
+k8s pod manager, k8s/pod_manager.py, or any object with
+``worker_ids``, ``scale_up`` and ``remove_worker``):
+
+- **grow** when the backlog exceeds
+  ``EDL_AUTOSCALE_BACKLOG_PER_WORKER`` tasks a live worker for
+  ``EDL_AUTOSCALE_HOLD_SECS``, up to ``EDL_MAX_WORKERS`` pods in all,
+  damped by the marginal-gain guard: a grow that bought less than
+  ``EDL_AUTOSCALE_GAIN_FLOOR`` of the per-worker throughput, measured
+  ``EDL_AUTOSCALE_GAIN_SETTLE_SECS`` after it, sets a ceiling the
+  controller does not grow past.
+- **shrink** at the job's tail (nothing queued, no epochs left, fewer
+  tasks in flight than workers), or at once when the limit
+  (``set_limits``) falls under the live count. Victims: workers without
+  telemetry first, newest first, then the slowest step-time EWMA.
+
+Each decision counts in ``edl_master_scale_decisions_total{direction}``
+and journals a ``scale_decision`` event with the signals that fired.
+
 Spot preemptions, evictions and scale-downs reach a worker as SIGTERM.
-``begin_drain`` marks a worker the control plane removes on purpose, so
-the servicer's ``get_task`` gate answers ``WAIT(draining=true)`` (no new
-task); the worker finishes its current task, joins its in-flight async
-push, flushes its dirty device-tier rows to the PS and sends
-``deregister_worker``, the drain ack, after which the master forgets it
-with no requeue. A worker SIGTERMed directly drains the same way and
-acks without a ``begin_drain``. A drain that outlives
-``EDL_DRAIN_DEADLINE_SECS`` (60 s on the master) falls back to
+``DrainManager.begin_drain`` marks a worker the control plane removes on
+purpose, so the servicer's ``get_task`` gate answers
+``WAIT(draining=true)`` (no new task); the worker finishes its current
+task, joins its in-flight async push, flushes its dirty device-tier rows
+to the PS and sends ``deregister_worker``, the drain ack, after which
+the master forgets it with no requeue. A worker SIGTERMed directly
+drains the same way and acks without a ``begin_drain``. A drain that
+outlives ``EDL_DRAIN_DEADLINE_SECS`` (60 s on the master) falls back to
 requeue-on-death: ``take_expired`` hands the worker to the task
 monitor's ``mark_worker_dead``, so a wedged worker never strands its
 tasks.
@@ -24,14 +45,21 @@ forgets a drained one; each outcome counts in
 shares; the serving fleet's ``ReplicaAutoscaler`` (serve/fleet.py) runs
 on it.
 
-Not ported (ROADMAP): the ``ElasticController``, which needs a scaler
-(the k8s pod manager).
+Knobs (the environment; constructor arguments override):
+``EDL_AUTOSCALE`` ("1", "true" or "on" enables the controller),
+``EDL_MIN_WORKERS`` (1), ``EDL_MAX_WORKERS`` (64),
+``EDL_AUTOSCALE_STEP`` (2 workers a decision at most),
+``EDL_AUTOSCALE_COOLDOWN_SECS`` (15), ``EDL_AUTOSCALE_HOLD_SECS`` (5),
+``EDL_AUTOSCALE_BACKLOG_PER_WORKER`` (2), ``EDL_AUTOSCALE_GAIN_FLOOR``
+(0.1), ``EDL_AUTOSCALE_GAIN_SETTLE_SECS`` (max(3 x hold, 90): a new pod
+starts and warms up before it adds throughput),
+``EDL_DRAIN_DEADLINE_SECS`` (60).
 """
 
 import threading
 import time
 
-from elasticdl_tpu_torch.common.env_utils import env_float, env_int
+from elasticdl_tpu_torch.common.env_utils import env_float, env_int, env_str
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -40,6 +68,15 @@ from elasticdl_tpu_torch.observability import metrics as obs_metrics
 
 logger = _logger_factory("elasticdl_tpu_torch.master.autoscaler")
 
+AUTOSCALE_ENV = "EDL_AUTOSCALE"
+MIN_WORKERS_ENV = "EDL_MIN_WORKERS"
+MAX_WORKERS_ENV = "EDL_MAX_WORKERS"
+STEP_ENV = "EDL_AUTOSCALE_STEP"
+COOLDOWN_ENV = "EDL_AUTOSCALE_COOLDOWN_SECS"
+HOLD_ENV = "EDL_AUTOSCALE_HOLD_SECS"
+BACKLOG_ENV = "EDL_AUTOSCALE_BACKLOG_PER_WORKER"
+GAIN_FLOOR_ENV = "EDL_AUTOSCALE_GAIN_FLOOR"
+GAIN_SETTLE_ENV = "EDL_AUTOSCALE_GAIN_SETTLE_SECS"
 DRAIN_DEADLINE_ENV = "EDL_DRAIN_DEADLINE_SECS"
 
 # ids that acked their drain but whose pods the scaler may still report
@@ -171,6 +208,10 @@ class DrainManager:
         with self._lock:
             return worker_id in self._draining
 
+    def draining_ids(self):
+        with self._lock:
+            return set(self._draining)
+
     def _note_departed_locked(self, worker_id):
         self._departed[worker_id] = None
         while len(self._departed) > DEPARTED_CAP:
@@ -276,3 +317,336 @@ class DrainManager:
                 }
                 for wid, entry in self._draining.items()
             }
+
+
+class ElasticController:
+    """Bounded, hysteresis-damped grow and shrink decisions off the
+    fleet's telemetry. ``tick()`` rides the task monitor's 1 Hz scan."""
+
+    def __init__(
+        self,
+        dispatcher,
+        scaler,
+        drain_manager,
+        fleet=None,
+        min_workers=None,
+        max_workers=None,
+        step=None,
+        cooldown_secs=None,
+        hold_secs=None,
+        backlog_per_worker=None,
+        gain_floor=None,
+        gain_settle_secs=None,
+        tag="",
+    ):
+        self._dispatcher = dispatcher
+        self._scaler = scaler
+        self._drain = drain_manager
+        self._fleet = fleet
+        self._min = int(
+            min_workers
+            if min_workers is not None
+            else _env_num(MIN_WORKERS_ENV, 1, int)
+        )
+        self._max = int(
+            max_workers
+            if max_workers is not None
+            else _env_num(MAX_WORKERS_ENV, 64, int)
+        )
+        self._step = max(1, int(
+            step if step is not None else _env_num(STEP_ENV, 2, int)
+        ))
+        self._cooldown = (
+            cooldown_secs
+            if cooldown_secs is not None
+            else _env_num(COOLDOWN_ENV, 15.0)
+        )
+        self._hold = (
+            hold_secs
+            if hold_secs is not None
+            else _env_num(HOLD_ENV, 5.0)
+        )
+        self._backlog = max(0.1, (
+            backlog_per_worker
+            if backlog_per_worker is not None
+            else _env_num(BACKLOG_ENV, 2.0)
+        ))
+        self._gain_floor = (
+            gain_floor
+            if gain_floor is not None
+            else _env_num(GAIN_FLOOR_ENV, 0.1)
+        )
+        # a fresh pod starts and warms up before it adds a single
+        # example/s: measured too early, the first grow reads as
+        # worthless and freezes the ceiling at the pre-grow size
+        self._gain_settle = (
+            gain_settle_secs
+            if gain_settle_secs is not None
+            else _env_num(GAIN_SETTLE_ENV, max(3.0 * self._hold, 90.0))
+        )
+        self._tag = tag
+        self._lock = threading.Lock()
+        self._gate = DecisionGate(self._hold, self._cooldown)
+        # after a grow: the throughput measured once the fleet settles;
+        # a grow that bought < gain_floor of the pre-grow per-worker
+        # throughput sets the ceiling
+        self._pending_gain = None  # {measure_at, before, workers_before}
+        self._gain_ceiling = None
+        self._last_decision = {}
+        self._m_decisions = obs_metrics.counter(
+            "edl_master_scale_decisions_total",
+            "Autoscaler resize decisions", ("direction",),
+        )
+        for direction in ("grow", "shrink"):
+            self._m_decisions.labels(direction=direction)
+
+    @classmethod
+    def maybe_create(cls, dispatcher, scaler, drain_manager, fleet=None,
+                     **kwargs):
+        """The controller when ``EDL_AUTOSCALE`` is on and the scaler
+        speaks the protocol; else None (a static fleet)."""
+        if env_str(AUTOSCALE_ENV, "") not in ("1", "true", "on"):
+            return None
+        if scaler is None or not hasattr(scaler, "scale_up"):
+            logger.warning(
+                "%s set but no scaler available (no pod manager?); "
+                "autoscaling disabled", AUTOSCALE_ENV,
+            )
+            return None
+        return cls(dispatcher, scaler, drain_manager, fleet=fleet,
+                   **kwargs)
+
+    # ------------------------------------------------------------------
+    def set_limits(self, min_workers=None, max_workers=None):
+        """Move the operator's or the budget's envelope at run time; the
+        next tick enforces the new ceiling."""
+        with self._lock:
+            if min_workers is not None:
+                self._min = int(min_workers)
+            if max_workers is not None:
+                self._max = int(max_workers)
+
+    def state(self):
+        """JSON-ready /statusz section."""
+        with self._lock:
+            return {
+                "min_workers": self._min,
+                "max_workers": self._max,
+                "step": self._step,
+                "gain_ceiling": self._gain_ceiling,
+                "last_decision": dict(self._last_decision),
+            }
+
+    # ------------------------------------------------------------------
+    def tick(self, now=None):
+        """One decision pass, from the task monitor's scan. Never raises
+        (a scan tick must survive the scaler's hiccups)."""
+        try:
+            self._tick(time.time() if now is None else now)
+        except Exception:
+            logger.exception("autoscaler tick failed")
+
+    def _tick(self, now):
+        counts = self._dispatcher.queue_counts()
+        # pending work of every type: a deep evaluation backlog at the
+        # epoch's end is work too, and must not be left to a shrunken
+        # fleet
+        queue = sum(counts["queue_depth"].values())
+        epochs_left = counts["epochs_left"]
+        doing = counts["doing"]
+        ids = list(self._scaler.worker_ids())
+        not_live = (
+            self._drain.draining_ids() | self._drain.departed_ids(ids)
+        )
+        live = [wid for wid in ids if wid not in not_live]
+        effective = len(live)
+        throughput = (
+            self._fleet.fleet_examples_per_sec()
+            if self._fleet is not None
+            else 0.0
+        )
+        self._settle_gain(now, effective, throughput)
+
+        with self._lock:
+            min_w, max_w = self._min, self._max
+
+        # budget: a lowered ceiling shrinks at once (no hold, no
+        # cooldown: the budget is an order). Victims count as draining
+        # from the next tick and as departed from their ack until the
+        # scaler forgets their pods, so this cannot fire again against
+        # capacity that is already leaving. The floor still binds: a
+        # ceiling under min_workers must not drain the whole fleet,
+        # which could then never grow again
+        budget_floor = max(min_w, max_w)
+        if effective > budget_floor:
+            self._shrink(
+                now, effective - budget_floor, live, queue,
+                reasons=["over_budget: %d live > max_workers %d"
+                         % (effective, max_w)],
+            )
+            return
+
+        # grow: a backlog a worker above the watermark, held. The
+        # ceiling binds on all pods (live, draining and departed): a
+        # drain victim still holds a real pod
+        total = len(ids)
+        backlog = queue / max(1, effective)
+        want_grow = (
+            queue > 0
+            and backlog > self._backlog
+            and total < max_w
+        )
+        if want_grow and self._gain_ceiling is not None and (
+            effective >= self._gain_ceiling
+        ):
+            want_grow = False  # adding workers stopped paying
+        if self._gate.observe("grow", want_grow, now):
+            delta = min(
+                self._step,
+                max_w - total,
+                max(1, int(queue / self._backlog) - effective),
+            )
+            if self._gain_ceiling is not None:
+                # never past the size already proven unprofitable
+                delta = min(delta, self._gain_ceiling - effective)
+            self._grow(
+                now, delta, effective, throughput, queue,
+                reasons=[
+                    "backlog: %d queued / %d workers > %.1f per-worker "
+                    "watermark" % (queue, effective, self._backlog),
+                ],
+            )
+            return
+
+        # shrink: the job's tail, nothing queued, nothing coming, fewer
+        # tasks in flight than workers
+        want_shrink = (
+            queue == 0
+            and epochs_left == 0
+            and effective > min_w
+            and doing < effective
+        )
+        if self._gate.observe("shrink", want_shrink, now):
+            target = max(min_w, doing)
+            delta = min(self._step, effective - target)
+            if delta > 0:
+                self._shrink(
+                    now, delta, live, queue,
+                    reasons=[
+                        "idle_tail: 0 queued, 0 epochs left, %d doing "
+                        "< %d workers" % (doing, effective),
+                    ],
+                )
+
+    # ------------------------------------------------------------------
+    def _settle_gain(self, now, effective, throughput):
+        with self._lock:
+            pending = self._pending_gain
+            if pending is None or now < pending["measure_at"]:
+                return
+            self._pending_gain = None
+        added = effective - pending["workers_before"]
+        if added <= 0:
+            return  # the grow evaporated (deaths): nothing to learn
+        gain_per_worker = (throughput - pending["before"]) / added
+        per_worker_before = (
+            pending["before"] / max(1, pending["workers_before"])
+        )
+        if per_worker_before > 0 and gain_per_worker < (
+            self._gain_floor * per_worker_before
+        ):
+            with self._lock:
+                self._gain_ceiling = effective
+            logger.info(
+                "autoscaler: marginal gain %.1f ex/s per added worker "
+                "< %.0f%% of per-worker throughput %.1f; ceiling at %d "
+                "workers",
+                gain_per_worker, self._gain_floor * 100,
+                per_worker_before, effective,
+            )
+        elif self._gain_ceiling is not None and effective < (
+            self._gain_ceiling
+        ):
+            with self._lock:
+                self._gain_ceiling = None  # the fleet shrank: re-probe
+
+    def _grow(self, now, delta, effective, throughput, queue, reasons):
+        started = self._scaler.scale_up(delta)
+        added = len(started) if started is not None else delta
+        if added <= 0:
+            return  # the scaler placed none (pool exhausted)
+        self._gate.fired("grow", now)
+        with self._lock:
+            if throughput > 0:
+                self._pending_gain = {
+                    "measure_at": now + self._gain_settle,
+                    "before": throughput,
+                    "workers_before": effective,
+                }
+            self._last_decision = {
+                "direction": "grow", "delta": added,
+                "workers": effective, "queue_depth": queue,
+                "at": now, "reasons": reasons,
+            }
+        self._m_decisions.labels(direction="grow").inc()
+        logger.info(
+            "autoscaler grow +%d (workers %d, queue %d): %s",
+            added, effective, queue, "; ".join(reasons),
+        )
+        events.emit(
+            "scale_decision", direction="grow", delta=added,
+            workers=effective, queue_depth=queue, reasons=reasons,
+            tag=self._tag,
+        )
+
+    def _shrink(self, now, delta, live, queue, reasons):
+        victims = self._pick_victims(delta, live)
+        if not victims:
+            return
+        self._gate.fired("shrink", now)
+        with self._lock:
+            self._last_decision = {
+                "direction": "shrink", "delta": len(victims),
+                "workers": len(live), "queue_depth": queue,
+                "victims": victims, "at": now, "reasons": reasons,
+            }
+        self._m_decisions.labels(direction="shrink").inc()
+        logger.info(
+            "autoscaler shrink -%d (victims %s, workers %d): %s",
+            len(victims), victims, len(live), "; ".join(reasons),
+        )
+        events.emit(
+            "scale_decision", direction="shrink", delta=len(victims),
+            workers=len(live), queue_depth=queue, victims=victims,
+            reasons=reasons, tag=self._tag,
+        )
+        for wid in victims:
+            # draining first (the dispatch gate, the quiet detectors),
+            # then the scaler's eviction: pod delete -> SIGTERM -> the
+            # worker's graceful drain
+            self._drain.begin_drain(wid, reason="scale_down")
+            remove = getattr(self._scaler, "remove_worker", None)
+            if remove is not None:
+                try:
+                    remove(wid)
+                except Exception:
+                    logger.exception(
+                        "scaler.remove_worker(%s) failed", wid
+                    )
+
+    def _pick_victims(self, count, live):
+        """Ids without telemetry first (never trained: the least
+        warmth), newest first; then the slowest step-time EWMA."""
+        ewmas = (
+            self._fleet.worker_step_ewmas()
+            if self._fleet is not None
+            else {}
+        )
+        silent = sorted(
+            (wid for wid in live if wid not in ewmas), reverse=True
+        )
+        reporting = sorted(
+            (wid for wid in live if wid in ewmas),
+            key=lambda wid: ewmas[wid], reverse=True,
+        )
+        return (silent + reporting)[: max(0, count)]

@@ -19,6 +19,13 @@ state under DIR. A master that died (SIGKILL, a lost node) is relaunched
 with the same flags and the same ``EDL_STATE_DIR``: it replays the
 journal, its workers re-register when they see its new
 ``master_epoch``, and the job finishes with every task done once.
+
+In a cluster (``KUBERNETES_SERVICE_HOST`` set) a master with
+``--job_name`` attaches the k8s pod manager (k8s/pod_manager.py): it
+starts ``--num_ps_pods`` PS pods and ``--num_workers`` worker pods from
+the pod-spec flags and heals them; ``EDL_AUTOSCALE`` lets the elastic
+controller resize the fleet. ``build_master(args, api=...)`` attaches it
+over any object with the k8s API's surface (k8s/api.py).
 """
 
 import os
@@ -28,12 +35,14 @@ from elasticdl_tpu_torch.common.args import (
     parse_master_args,
     symbol_overrides_from_args,
 )
+from elasticdl_tpu_torch.common.log_utils import configure as configure_logging
 from elasticdl_tpu_torch.master.master import Master
 from elasticdl_tpu_torch.models.registry import parse_params_string
 
 
 def main(argv=None):
     args = parse_master_args(argv)
+    configure_logging(args.log_level, args.log_file_path)
     # a SIGTERMed master leaves a complete flight record: SIGTERM dumps
     # the event ring and flushes the journal and trace buffer, then
     # exits so Master.run's finally runs stop(); uncaught exceptions
@@ -51,6 +60,26 @@ def main(argv=None):
         from elasticdl_tpu_torch.observability.http_server import PORT_ENV
 
         os.environ[PORT_ENV] = str(args.metrics_port)
+    master = build_master(args)
+    master.prepare()
+    return master.run()
+
+
+class _PodDeaths:
+    """The pod manager's hook into the master: a worker pod that failed
+    or was deleted is a death notice. Through the task monitor its
+    tasks requeue and the worker leaves the liveness table, the
+    rendezvous and the roll of workers a finished job still tells "job
+    over", which it would otherwise wait out for the liveness timeout."""
+
+    def __init__(self, task_monitor):
+        self.recover_tasks = task_monitor.mark_worker_dead
+
+
+def build_master(args, api=None):
+    """The ``Master`` of the parsed master ``args``; with ``--job_name``
+    and a cluster (``api``, or ``KUBERNETES_SERVICE_HOST`` for the
+    in-cluster ``K8sApi``) it gets the k8s pod manager."""
     records_per_task = args.records_per_task
     if args.num_minibatches_per_task > 0:
         records_per_task = (
@@ -76,8 +105,21 @@ def main(argv=None):
         metrics_port=args.metrics_port,
         tensorboard_log_dir=args.tensorboard_log_dir or None,
     )
-    master.prepare()
-    return master.run()
+    if args.job_name and (
+        api is not None or os.environ.get("KUBERNETES_SERVICE_HOST")
+    ):
+        # provision and heal the worker and PS pods
+        from elasticdl_tpu_torch.client.args import parse_envs_string
+        from elasticdl_tpu_torch.k8s.pod_manager import K8sPodManager
+
+        master.pod_manager = K8sPodManager(
+            args,
+            _PodDeaths(master.task_monitor),
+            master.rendezvous,
+            api=api,
+            envs=parse_envs_string(args.envs),
+        )
+    return master
 
 
 if __name__ == "__main__":

@@ -15,6 +15,15 @@ directory replays it and finishes the job, every task done once. The
 ``DrainManager`` (master/autoscaler.py) serves workers that drain on
 SIGTERM.
 
+A ``pod_manager`` (k8s/pod_manager.py ``K8sPodManager``, attached by
+master/main.py in a cluster) starts the PS and worker pods at the end of
+``prepare``, relaunches the ones that die, deletes a worker the task
+monitor presumes dead, and patches the master pod's status label at
+``stop``; the job fails when every worker pod failed. With
+``EDL_AUTOSCALE`` and a pod manager, ``prepare`` also makes the
+``ElasticController``, which grows and shrinks the fleet on the task
+monitor's scan (master/autoscaler.py).
+
 The master builds one ``FleetMonitor`` (master/fleet.py), fed by the
 telemetry its workers and PS piggyback on their RPCs and evaluated on
 the task monitor's scan. With ``metrics_port`` (``--metrics_port`` or
@@ -30,8 +39,6 @@ replayed origin), and the feeder mints export tasks on the watermark's
 ``EDL_STREAM_EXPORT_EVERY`` cadence. ``tensorboard_log_dir``
 (``--tensorboard_log_dir``) writes each evaluation's metrics as
 TensorBoard scalars (master/tensorboard_service.py).
-
-Not ported (ROADMAP): the pod manager and the elastic controller.
 """
 
 import os
@@ -43,7 +50,10 @@ from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
 from elasticdl_tpu_torch.data.readers import create_data_reader
-from elasticdl_tpu_torch.master.autoscaler import DrainManager
+from elasticdl_tpu_torch.master.autoscaler import (
+    DrainManager,
+    ElasticController,
+)
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.fleet import FleetMonitor
 from elasticdl_tpu_torch.master.rendezvous import MeshRendezvous
@@ -81,6 +91,7 @@ class Master:
         saved_model_path=None,
         data_reader_params=None,
         task_timeout_secs=30.0,
+        pod_manager=None,
         seed=None,
         model_def="",
         model_params="",
@@ -188,7 +199,10 @@ class Master:
             self.state_journal.register_section(
                 "workers", self.servicer.export_worker_state
             )
-        # the deregister RPC and SIGTERM drains need it on any fleet
+        self.pod_manager = pod_manager
+        # the deregister RPC and SIGTERM drains need it on any fleet; the
+        # autoscaler only under EDL_AUTOSCALE with a pod manager that can
+        # scale, made in prepare() (main() may attach one after this)
         self.drain_manager = DrainManager(
             self.task_dispatcher,
             servicer=self.servicer,
@@ -196,10 +210,12 @@ class Master:
             rendezvous=self.rendezvous,
         )
         self.servicer.drain_manager = self.drain_manager
+        self.autoscaler = None
         self.task_monitor = TaskMonitor(
             self.task_dispatcher,
             self.servicer,
             self.rendezvous,
+            on_worker_dead=self._on_worker_dead,
             liveness_timeout_secs=task_timeout_secs,
             mesh_restart_grace_secs=mesh_restart_grace_secs,
             mesh_rejoin_timeout_secs=mesh_rejoin_timeout_secs,
@@ -282,8 +298,25 @@ class Master:
             return JobType.EVALUATION_ONLY
         return JobType.TRAINING_ONLY
 
+    def _on_worker_dead(self, worker_id):
+        if self.pod_manager is not None:
+            self.pod_manager.on_worker_presumed_dead(worker_id)
+
     # ------------------------------------------------------------------
     def prepare(self):
+        if self.autoscaler is None and self.pod_manager is not None:
+            # None on a static fleet, or when the pod manager cannot
+            # scale (maybe_create checks both)
+            self.autoscaler = ElasticController.maybe_create(
+                self.task_dispatcher,
+                self.pod_manager,
+                self.drain_manager,
+                fleet=self.fleet_monitor,
+            )
+            if self.autoscaler is not None:
+                self.task_monitor.set_autoscaler(self.autoscaler)
+                logger.info("Autoscaler enabled: %s",
+                            self.autoscaler.state())
         if self.evaluation_service is not None:
             self.evaluation_service.start()
         if self.job_type == JobType.EVALUATION_ONLY:
@@ -336,7 +369,11 @@ class Master:
                     extra={
                         "tasks": self.task_dispatcher.stats(),
                         "draining": self.drain_manager.state(),
-                        "autoscaler": None,
+                        "autoscaler": (
+                            self.autoscaler.state()
+                            if self.autoscaler is not None
+                            else None
+                        ),
                         "stream": (
                             self.stream_feeder.state()
                             if self.stream_feeder is not None
@@ -355,12 +392,15 @@ class Master:
             # feeder seeks the source to the journaled position
             self.stream_feeder.start()
         self.task_monitor.start()
+        if self.pod_manager is not None:
+            self.pod_manager.start()
         logger.info("Master serving on :%d", self._port)
         return self
 
     def run(self, poll_secs=1.0, timeout_secs=None):
         """Block until the job finishes; returns 0 on success, 1 on
-        failure (task retries exhausted, or ``timeout_secs`` passed).
+        failure (task retries exhausted, every worker pod failed, or
+        ``timeout_secs`` passed).
 
         A finished job keeps serving until every live worker has been
         answered "job over" (at most the liveness timeout): a worker
@@ -378,6 +418,12 @@ class Master:
                 if self.task_dispatcher.job_failed():
                     logger.error("Job failed (task retries exhausted)")
                     self._wait_for_workers_told()
+                    return 1
+                if (
+                    self.pod_manager is not None
+                    and self.pod_manager.all_workers_failed()
+                ):
+                    logger.error("All workers failed; aborting job")
                     return 1
                 if timeout_secs and time.time() - start > timeout_secs:
                     logger.error("Job timed out")
@@ -411,6 +457,8 @@ class Master:
             self.evaluation_service.stop()
         if self.tensorboard_service is not None:
             self.tensorboard_service.stop()
+        if self.pod_manager is not None:
+            self.pod_manager.stop()
         if self._server is not None:
             self._server.stop(grace=1.0).wait()
             self._server = None

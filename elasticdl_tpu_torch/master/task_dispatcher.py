@@ -753,3 +753,17 @@ class TaskDispatcher:
                 },
                 "epochs_left": self._epochs_left,
             }
+
+    def queue_counts(self):
+        """The four numbers the 1 Hz elasticity tick reads, without
+        ``stats()``'s per-task type names under the lock every
+        get_task and report contends on."""
+        with self._lock:
+            return {
+                "queue_depth": {
+                    "training": len(self._todo),
+                    "evaluation": len(self._eval_todo),
+                },
+                "doing": len(self._doing),
+                "epochs_left": self._epochs_left,
+            }

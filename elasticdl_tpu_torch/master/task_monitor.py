@@ -9,9 +9,9 @@ liveness timeout); its tasks go back to the queue through
 (master/autoscaler.py ``DrainManager.take_expired``) joins the dead.
 
 The fleet monitor's detectors (master/fleet.py) ride the same scan: one
-``evaluate()`` a tick, and ``mark_dead`` on a worker presumed dead.
-
-Not ported (ROADMAP): the autoscaler tick.
+``evaluate()`` a tick, and ``mark_dead`` on a worker presumed dead. So
+does the elastic controller (master/autoscaler.py): one ``tick`` a scan,
+once ``set_autoscaler`` attached it.
 """
 
 import threading
@@ -39,6 +39,7 @@ class TaskMonitor:
         mesh_rejoin_timeout_secs=90.0,
         fleet_monitor=None,
         drain_manager=None,
+        autoscaler=None,
     ):
         self._dispatcher = task_dispatcher
         self._servicer = servicer
@@ -49,8 +50,10 @@ class TaskMonitor:
         # journal current without a second timer thread
         self._fleet = fleet_monitor
         # drain deadlines are enforced on this scan: an expired drain
-        # falls back to mark_worker_dead (requeue-on-death)
+        # falls back to mark_worker_dead (requeue-on-death); the
+        # autoscaler gets its decision tick here too
         self._drain_manager = drain_manager
+        self._autoscaler = autoscaler
         self._liveness_timeout = liveness_timeout_secs
         # after a membership change every mesh member restarts, and its
         # liveness lapses for the restart: mesh eviction pauses this
@@ -65,6 +68,12 @@ class TaskMonitor:
         self._scan_interval = scan_interval_secs
         self._stopping = threading.Event()
         self._thread = None
+
+    def set_autoscaler(self, autoscaler):
+        """Late binding: the pod manager, the autoscaler's scaler, is
+        attached to the master after construction, so the controller is
+        made in ``Master.prepare`` and hooked here."""
+        self._autoscaler = autoscaler
 
     def start(self):
         self._thread = threading.Thread(
@@ -92,6 +101,8 @@ class TaskMonitor:
             self._fleet.evaluate()
         if self._drain_manager is not None:
             dead.update(self._drain_manager.take_expired(now))
+        if self._autoscaler is not None:
+            self._autoscaler.tick(now)
         # liveness: a worker silent for too long while holding tasks OR
         # while a registered mesh member (an idle member that dies must
         # still leave the rendezvous)

@@ -38,7 +38,8 @@ model) and its collectives' seconds.
 ``/healthz`` and ``/readyz`` (ready once the master channel carried an
 RPC); ``EDL_EVENTS_DIR`` and ``EDL_TRACE_DIR`` turn on the worker's
 events journal and trace (role ``worker-<id>``). At exit the worker logs
-its device tier's tallies (``tier stats at exit``).
+its device tier's tallies (``tier stats at exit``) and its train steps
+beside the process's K1-K3 launches (``tier launches at exit``).
 """
 
 import hashlib
@@ -53,6 +54,7 @@ from elasticdl_tpu_torch.common.args import (
     parse_worker_args,
     symbol_overrides_from_args,
 )
+from elasticdl_tpu_torch.common.log_utils import configure as configure_logging
 from elasticdl_tpu_torch.common.log_utils import (
     default_logger as _logger_factory,
 )
@@ -74,6 +76,7 @@ from elasticdl_tpu_torch.worker.worker import (
     CheckpointRestoreError,
     MeshEpochChanged,
     Worker,
+    tier_launches,
 )
 
 logger = _logger_factory("elasticdl_tpu_torch.worker.main")
@@ -84,6 +87,7 @@ def main(argv=None):
     # exists, exits 0)
     drain_hook = install_sigterm_drain()
     args = parse_worker_args(argv)
+    configure_logging(args.log_level, args.log_file_path)
     role = "worker-%d" % args.worker_id
     if args.metrics_port:
         # publish the knob before any instrument (or instrumented
@@ -224,6 +228,8 @@ def main(argv=None):
     if tier is not None:
         logger.info("Worker %d tier stats at exit: %s", args.worker_id,
                     json.dumps(tier.stats(), sort_keys=True))
+        logger.info("Worker %d tier launches at exit: %s", args.worker_id,
+                    json.dumps(tier_launches(worker), sort_keys=True))
     if multihost_runtime is not None:
         logger.info("Worker %d dense digest at exit: %s", args.worker_id,
                     json.dumps(exit_record(worker), sort_keys=True))

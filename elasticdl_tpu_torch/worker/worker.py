@@ -183,6 +183,17 @@ def _flush_tallies(trainer):
     return tallies
 
 
+def tier_launches(worker):
+    """The exit line's record: the worker's train steps and the
+    process's K1-K3 launches; None without a device tier."""
+    if getattr(worker.trainer, "device_tier", None) is None:
+        return None
+    return {"steps": worker.train_steps,
+            "k1": tier_ops.GATHER_LAUNCHES,
+            "k2": tier_ops.SET_ROWS_LAUNCHES,
+            "k3": tier_ops.SCATTER_APPLY_LAUNCHES}
+
+
 class Worker:
     # the heartbeat's get_comm_info cadence: well inside the master's
     # liveness timeout (--task_timeout_secs)
@@ -366,6 +377,9 @@ class Worker:
         self.state = None
         self.stop_training = False
         self._version = 0
+        # the batches this process trained (the version counts restored
+        # steps too)
+        self.train_steps = 0
         # dense checkpoints (params, model state, optimizer slots, step);
         # the restore runs on the first batch, when the state's shapes
         # are known
@@ -810,6 +824,7 @@ class Worker:
         checkpoint, record accounting, version reports, the loss log,
         callbacks."""
         self._version += 1
+        self.train_steps += 1
         if (
             self._checkpoint_mgr is not None
             and self._version % self._checkpoint_steps == 0

@@ -714,3 +714,71 @@ print("trained")
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "trained"
+
+
+def test_cluster_slice_modules_isolated_and_the_cli_submits_with_jax_blocked():
+    """The cluster and CLI slice's eight modules are among those imported
+    with JAX blocked above; with JAX and the JAX package blocked,
+    ``edl-torch train --dry_run`` prints the master pod naming the port's
+    master, a submission through an api object creates that pod without
+    importing yaml, and the pod manager that master builds starts its PS
+    and worker pods, running the port's mains."""
+    modules = _port_modules()
+    for name in ("k8s.api", "k8s.client", "k8s.instance_manager",
+                 "k8s.job_monitor", "k8s.pod_manager", "client.args",
+                 "client.api", "client.main"):
+        assert "elasticdl_tpu_torch." + name in modules, name
+    code = _BLOCK + r'''
+import contextlib, io, sys
+from elasticdl_tpu_torch.client import api, main
+from elasticdl_tpu_torch.common.args import parse_master_args
+from elasticdl_tpu_torch.master.main import build_master
+argv = ["train", "--job_name=iso", "--image_name=img",
+        "--model_zoo=elasticdl_tpu_torch.models.deepfm",
+        "--num_ps_pods=1", "--num_workers=1", "--envs=EDL_DEVICE=cpu"]
+class Api:
+    namespace = "default"
+    def __init__(self):
+        self.pods, self.services = {}, {}
+    def create_pod(self, manifest):
+        self.pods[manifest["metadata"]["name"]] = manifest
+        return manifest
+    def create_service(self, manifest):
+        self.services[manifest["metadata"]["name"]] = manifest
+        return manifest
+    def watch_pods(self, label_selector=None, timeout_seconds=None):
+        return iter(())
+    def patch_pod_labels(self, name, labels):
+        pass
+fake = Api()
+manifest = api.train(main.build_parser().parse_args(argv), api=fake)
+assert "yaml" not in sys.modules
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    main.main(argv + ["--dry_run"])
+assert "elasticdl_tpu_torch.master.main" in out.getvalue()
+command = manifest["spec"]["containers"][0]["command"]
+assert command[:3] == ["python", "-m", "elasticdl_tpu_torch.master.main"]
+args = parse_master_args(command[3:] + ["--port=0"])
+master = build_master(args, api=fake)
+master.prepare()
+try:
+    commands = {n: p["spec"]["containers"][0]["command"][2]
+                for n, p in fake.pods.items()}
+finally:
+    master.stop()
+assert commands == {
+    "elasticdl-iso-master": "elasticdl_tpu_torch.master.main",
+    "elasticdl-iso-ps-0": "elasticdl_tpu_torch.ps.server",
+    "elasticdl-iso-worker-0": "elasticdl_tpu_torch.worker.main"}, commands
+leaked = sorted(m for m in sys.modules if _blocked(m))
+assert not leaked, leaked
+print("submitted")
+'''
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"), cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "submitted"
